@@ -1,0 +1,48 @@
+"""mpi4torch_tpu_torch — the PyTorch/CUDA port of mpi4torch_tpu.
+
+The JAX package ``mpi4torch_tpu`` is the reference; this package is its
+port to PyTorch on an NVIDIA H100, slice by slice (ROADMAP.md).  This
+slice carries the serving path: the collective facade (``COMM_WORLD``,
+``Allreduce``) on the rank-thread runtime (``run_ranks``), the flagship
+transformer, and the continuous-batching engine (``serve.Engine``), whose
+prefill attention runs through a hand-written CUDA kernel
+(``ops/csrc/flash_fwd.cu``).
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``; with
+no CUDA device and no such request they raise.  The package imports
+neither JAX nor anything of ``mpi4torch_tpu``.
+"""
+
+from .constants import (
+    MPI_BAND,
+    MPI_BOR,
+    MPI_BXOR,
+    MPI_LAND,
+    MPI_LOR,
+    MPI_LXOR,
+    MPI_MAX,
+    MPI_MAXLOC,
+    MPI_MIN,
+    MPI_MINLOC,
+    MPI_PROD,
+    MPI_SUM,
+)
+from .comm import COMM_WORLD, MPI_Communicator
+from .runtime import (
+    CollectiveMismatchError,
+    CommError,
+    DeadlockError,
+    RankFailedError,
+    resolve_device,
+    run_ranks,
+)
+from . import config
+
+__all__ = [
+    "MPI_MAX", "MPI_MIN", "MPI_SUM", "MPI_PROD", "MPI_LAND", "MPI_BAND",
+    "MPI_LOR", "MPI_BOR", "MPI_LXOR", "MPI_BXOR", "MPI_MINLOC",
+    "MPI_MAXLOC",
+    "COMM_WORLD", "MPI_Communicator",
+    "CommError", "CollectiveMismatchError", "DeadlockError",
+    "RankFailedError", "resolve_device", "run_ranks", "config",
+]
