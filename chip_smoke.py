@@ -9,10 +9,11 @@ unavailable, when the package cannot be imported, or when any phase's
 check fails.  Phases, in order:
 
 1. device: the card's name and power limit;
-2. build: ``nvcc`` compiles the port's kernels from ``ops/csrc``;
-3. the block-attention kernel (``flash_fwd``) against its plain PyTorch
-   version on the card, on the cases listed in ``KERNEL_CASES``, each
-   within the stated tolerance;
+2. build: ``nvcc`` compiles the port's kernel sources from ``ops/csrc``,
+   one compiler per source, all at once;
+3. the block-attention forward kernel (``flash_fwd``) against its plain
+   PyTorch version on the card, on the cases listed in ``KERNEL_CASES``,
+   each within the stated tolerance;
 4. serving at the full width of the flagship transformer (vocab 32768,
    d_model 2048, 16 heads, 8 layers, d_ff 8192, max_seq 2048; bf16,
    random weights from a seed) on a tensor-parallel world of one: eight
@@ -22,11 +23,32 @@ check fails.  Phases, in order:
 5. the same model on a two-rank world (``run_ranks``, both rank threads on
    the one card): four requests, both ranks bitwise identical, the
    first prefill's logits within tolerance of the one-rank logits;
-6. numbers: the kernel's time at the flagship prefill shape beside its
-   bound, its plain version and ``scaled_dot_product_attention`` (timed
-   only; the port never calls it), then prefill, TTFT, decode rate and
-   peak memory;
-7. one JSON line describing each ported kernel.
+6. serving numbers: the forward kernel's time at the flagship prefill
+   shape beside its bound, its plain version and
+   ``scaled_dot_product_attention`` (timed only; the port never calls
+   it), then prefill, TTFT, decode rate and peak memory;
+7. the backward kernels (``flash_bwd_dq``, ``flash_bwd_dkv``) against the
+   plain backward on the card: ``torch.autograd.grad`` through
+   ``flash_block_attention`` with ``impl="cuda"`` and ``impl="torch"`` on
+   the cases of ``BWD_CASES``;
+8. training the same model on one rank, the bench recipe: ``lm_loss``
+   with ``vocab_chunk=4096`` on 8 x 2048 tokens, ``torch.autograd.grad``,
+   ``p - 1e-3 g``, three steps; exactly ``n_layers`` launches of each
+   kernel per step, bitwise-repeatable gradients, kernel gradients
+   against plain-attention gradients at batch 1, chunked against dense
+   loss;
+9. data-parallel training on two rank threads of the one card
+   (``train_step`` with ``comm_dp=COMM_WORLD``): both ranks bitwise
+   identical, the update exactly ``p - lr g`` of the DP gradient, and
+   that gradient within tolerance of the one-rank gradient at batch 8;
+10. training numbers: step time, tokens/s, the device's busy and idle
+    share and top ops, the attention kernels' share of device time, peak
+    memory, the DP=2 step; then each attention kernel at the training
+    shape (8, 2048, 16, 128) bf16 causal, held against its plain version,
+    and its time beside its bound, its plain version and, for the
+    backward pair, the backward of ``scaled_dot_product_attention``
+    (timed only);
+11. one JSON line describing each ported kernel.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 TF32 is switched off for matmuls and cuDNN here, so float32 work on the
@@ -84,6 +106,59 @@ TIE_TOL = 0.1
 TP_LOGIT_TOL = 0.1
 N_REQUESTS, MAX_NEW, SLOTS = 8, 32, 4
 TP2_REQUESTS, TP2_MAX_NEW = 4, 8
+
+# Backward kernels vs the plain backward.  f32: both sides sum in f32 in
+# other orders; rtol 1e-3 / atol 1e-4 is the JAX package's own
+# kernel-vs-oracle bound (test_pallas_bwd_interpret_grads_match).  bf16:
+# each gradient rounds once to bf16 from an f32 sum over up to 2048 keys
+# or queries, so max |err| <= 2e-2 max |ref|, a few bf16 ulps (2^-8).
+BWD_F32_TOL = (1e-3, 1e-4)           # (rtol, atol)
+BWD_BF16_REL = 2e-2
+# (name, dtype, b, sq, sk, h, h_kv, d, q_off, kv_off, window, causal,
+#  the loss also reads lse)
+BWD_CASES = [
+    ("seq_2048_b2", torch.bfloat16, 2, 2048, 2048, 16, 16, 128, 0, 0, 0,
+     True, False),
+    ("ragged_1000", torch.bfloat16, 1, 1000, 1000, 16, 16, 128, 0, 0, 0,
+     True, False),
+    ("gqa_16_4", torch.bfloat16, 1, 1024, 1024, 16, 4, 128, 0, 0, 0, True,
+     False),
+    ("window_256", torch.bfloat16, 1, 1024, 1024, 16, 16, 128, 0, 0, 256,
+     True, False),
+    ("q_off_256_sq_lt_sk", torch.bfloat16, 1, 256, 512, 16, 16, 128, 256,
+     0, 0, True, False),
+    ("fully_masked_rows", torch.float32, 1, 128, 128, 4, 4, 64, 0, 100, 0,
+     True, False),
+    ("f32", torch.float32, 2, 300, 300, 8, 4, 128, 0, 0, 0, True, False),
+    ("f32_noncausal_ragged", torch.float32, 2, 130, 70, 4, 2, 128, 0, 0, 0,
+     False, False),
+    ("d64", torch.bfloat16, 2, 512, 512, 8, 8, 64, 0, 0, 0, True, False),
+    ("lse_in_loss", torch.bfloat16, 1, 1024, 1024, 16, 16, 128, 0, 0, 0,
+     True, True),
+]
+
+# Training: the bench recipe (bench.py _bench_train_step) at full width.
+TRAIN_BATCH, TRAIN_SEQ, VOCAB_CHUNK, LR, TRAIN_STEPS = 8, 2048, 4096, 1e-3, 3
+# At init the logits are about N(0, 1) over 32768 classes, so the loss is
+# near ln(32768) = 10.40 (ln V + 1/2 for unit-variance logits).
+INIT_LOSS_TOL = 1.0
+# Whole-model gradients at batch 1, kernel vs plain attention: every
+# activation rounds to bf16 on both sides, and the two attention paths
+# round at other places; bound on the norm-relative error of each leaf.
+GRAD_REL_TOL = 5e-2
+# Chunked (f32 logsumexp) vs dense loss (bf16 log_softmax and a bf16 sum,
+# as in the JAX package): the dense loss is a bf16 number near 10.4,
+# where one ulp is 0.0625; two ulps.  The same bound holds the DP=2 loss
+# (a bf16 mean of two bf16 rank losses) against the one-rank loss.
+LOSS_TOL = 0.125
+# DP=2 vs one rank: the mean of the two ranks' gradients against the
+# full-batch gradient, norm-relative per leaf.  The update lr * g is far
+# below a bf16 ulp of most weights, so the updated parameters cannot show
+# a wrong gradient; the gradient is compared instead, at the bound of the
+# kernel-vs-plain comparison above (bf16 activations and bf16 gradient
+# sums in another grouping), and train_step's update must be exactly
+# p - lr * g of that DP gradient.
+DP_GRAD_REL = GRAD_REL_TOL
 
 
 class SmokeFailure(RuntimeError):
@@ -295,6 +370,7 @@ def profile_top(fn, label, n_top=6):
     for e in top[:n_top]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms  "
               f"x{e.count:<5d} {e.key[:90]}")
+    return wall_ms, busy_ms, ev
 
 
 def serve_tp2(P, T, serve, kv, kernels, cfg, params, prompts):
@@ -320,6 +396,312 @@ def serve_tp2(P, T, serve, kv, kernels, cfg, params, prompts):
     return out, kernels.launch_counts["flash_fwd"], ms
 
 
+def bound(flops, nbytes, dtype):
+    """The least time (ms) the card could take: operations over the peak
+    rate for the type, or bytes over the memory rate, whichever is
+    larger; and which of the two it is."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def attention_grads(flash, q, k, v, wo, wl, impl, kw):
+    """dq, dk, dv of sum(out * wo) (+ sum(lse * wl) when wl is given)."""
+    x = [t.detach().requires_grad_() for t in (q, k, v)]
+    o, l = flash.flash_block_attention(*x, impl=impl, **kw)
+    loss = (o.float() * wo.float()).sum()
+    if wl is not None:
+        loss = loss + (l.float() * wl).sum()
+    return torch.autograd.grad(loss, x)
+
+
+def backward_phase(flash, kernels):
+    """Each case: the kernels' gradients against the plain backward's, and
+    one launch of each backward kernel.  Returns max |err| per case."""
+    names = ("flash_bwd_dq", "flash_bwd_dkv")
+    results = {}
+    for i, (name, dt, b, sq, sk, h, h_kv, d, q_off, kv_off, window,
+            causal, uses_lse) in enumerate(BWD_CASES):
+        q, k, v = attention_inputs(dt, b, sq, sk, h, h_kv, d, seed=100 + i)
+        g = torch.Generator(device="cuda").manual_seed(200 + i)
+        wo = torch.randn(q.shape, generator=g, device="cuda", dtype=dt)
+        wl = torch.randn(q.shape[:3], generator=g, device="cuda") \
+            if uses_lse else None
+        kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off,
+                  window=window)
+        before = [kernels.launch_counts[n] for n in names]
+        got = attention_grads(flash, q, k, v, wo, wl, "cuda", kw)
+        rose = [kernels.launch_counts[n] - c for n, c in zip(names, before)]
+        want = attention_grads(flash, q, k, v, wo, wl, "torch", kw)
+        torch.cuda.synchronize()
+        ok, err = rose == [1, 1], 0.0
+        for a, r in zip(got, want):
+            ok = ok and a.dtype == r.dtype and bool(torch.isfinite(a).all())
+            a, r = a.float(), r.float()
+            e = (a - r).abs()
+            err = max(err, e.max().item())
+            if dt == torch.float32:
+                rtol, atol = BWD_F32_TOL
+                ok = ok and bool((e <= atol + rtol * r.abs()).all())
+            else:
+                ok = ok and e.max().item() <= \
+                    BWD_BF16_REL * r.abs().max().item()
+        if name == "fully_masked_rows":
+            # Queries before the first key, and keys after the last query,
+            # get exactly zero gradients.
+            n_masked, n_seen = kv_off - q_off, q_off + sq - kv_off
+            ok = ok and bool((got[0][:, :n_masked] == 0).all()) and all(
+                bool((t[:, n_seen:] == 0).all()) for t in got[1:])
+        tol = (f"rtol {BWD_F32_TOL[0]:g} atol {BWD_F32_TOL[1]:g}"
+               if dt == torch.float32 else f"{BWD_BF16_REL:g} max|ref|")
+        print(f"  {name:24s} {str(dt):15s} dq/dk/dv max err {err:.3e} "
+              f"(tol {tol}){'  dlse live' if uses_lse else ''}  launches "
+              f"+{rose[0]}/+{rose[1]}  {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"backward case {name} disagrees with the plain backward "
+              "or did not launch each kernel once")
+        results[name] = err
+    return results
+
+
+def recipe_step(T, tree, cfg, params, tokens, vocab_chunk=VOCAB_CHUNK):
+    """The bench recipe's step: lm_loss, torch.autograd.grad, p - lr g."""
+    loss, grads = tree.value_and_grad(
+        lambda p: T.lm_loss(cfg, p, tokens, vocab_chunk=vocab_chunk),
+        params)
+    with torch.no_grad():
+        new = tree.tree_map(lambda p, g: p - LR * g, params, grads)
+    return loss, grads, new
+
+
+def leaves_equal(tree, a, b):
+    return all(torch.equal(x, y) for x, y in
+               zip(tree.tree_leaves(a), tree.tree_leaves(b)))
+
+
+def train_tp1(T, tree, flash, kernels, cfg, params, tokens):
+    n = cfg.n_layers
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    p, losses, step_ms, per_step = params, [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = [kernels.launch_counts[k] for k in names]
+        ms, (loss, grads, p) = sync_ms(
+            lambda p=p: recipe_step(T, tree, cfg, p, tokens))
+        per_step.append([kernels.launch_counts[k] - c
+                         for k, c in zip(names, before)])
+        losses.append(loss.item())
+        step_ms.append(ms)
+        if len(per_step) == 1:
+            loss0, grads0 = loss, grads
+        del grads
+    launches = dict(kernels.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {TRAIN_STEPS} steps at batch {TRAIN_BATCH} x {TRAIN_SEQ}: "
+          f"losses {[round(x, 4) for x in losses]} (ln V = "
+          f"{np.log(cfg.vocab):.3f}); step wall {[round(x) for x in step_ms]}"
+          f" ms; launches per step (fwd, dq, dkv) {per_step}")
+    check(all(np.isfinite(losses)), "a training loss is not finite")
+    check(abs(losses[0] - np.log(cfg.vocab)) <= INIT_LOSS_TOL,
+          f"initial loss {losses[0]:.4f} is not near ln V")
+    check(all(c == [n, n, n] for c in per_step),
+          f"expected exactly n_layers = {n} launches of each kernel per "
+          "step")
+
+    loss_r, grads_r, _ = recipe_step(T, tree, cfg, params, tokens)
+    same = torch.equal(loss_r, loss0) and leaves_equal(tree, grads_r,
+                                                       grads0)
+    print(f"  the first step again from the same parameters: loss and "
+          f"gradients bitwise equal: {same}")
+    check(same, "two runs of the same step differ")
+    del grads0, grads_r
+
+    # Whole-model gradients at batch 1: kernels against plain attention.
+    one = tokens[:1]
+    _, g_k = tree.value_and_grad(
+        lambda q: T.lm_loss(cfg, q, one, vocab_chunk=VOCAB_CHUNK), params)
+    kernel_attention = T.flash_attention
+    T.flash_attention = lambda *a, **kw: flash.flash_attention(
+        *a, **dict(kw, impl="torch"))
+    try:
+        before = dict(kernels.launch_counts)
+        _, g_p = tree.value_and_grad(
+            lambda q: T.lm_loss(cfg, q, one, vocab_chunk=VOCAB_CHUNK),
+            params)
+        check(dict(kernels.launch_counts) == before,
+              "the plain-attention run launched a kernel")
+    finally:
+        T.flash_attention = kernel_attention
+    worst = max(((a.float() - b.float()).norm()
+                 / b.float().norm().clamp_min(1e-30)).item()
+                for a, b in zip(tree.tree_leaves(g_k), tree.tree_leaves(g_p)))
+    print(f"  batch 1, kernel vs plain attention: worst leaf's "
+          f"norm-relative gradient error {worst:.3e} (tol {GRAD_REL_TOL:g})")
+    check(worst <= GRAD_REL_TOL, "kernel gradients disagree with the "
+          "plain-attention gradients")
+    del g_k, g_p
+
+    with torch.no_grad():
+        dense = T.lm_loss(cfg, params, tokens, vocab_chunk=0).item()
+        chunked = T.lm_loss(cfg, params, tokens,
+                            vocab_chunk=VOCAB_CHUNK).item()
+    print(f"  loss dense {dense:.4f} vs vocab_chunk={VOCAB_CHUNK} "
+          f"{chunked:.4f} (tol {LOSS_TOL})")
+    check(abs(dense - chunked) <= LOSS_TOL, "chunked and dense losses "
+          "disagree")
+    return step_ms, launches, peak_gb
+
+
+def norm_rel(tree, a, b):
+    """The worst leaf's ||a - b|| / ||b||."""
+    return max(((x.float() - y.float()).norm()
+                / y.float().norm().clamp_min(1e-30)).item()
+               for x, y in zip(tree.tree_leaves(a), tree.tree_leaves(b)))
+
+
+def train_dp2(P, T, tree, dp, kernels, cfg, params, tokens):
+    rows = TRAIN_BATCH // 2
+
+    def shard(rank):
+        return tokens[rank * rows:(rank + 1) * rows]
+
+    def body(rank):
+        return T.train_step(cfg, params, shard(rank), comm_dp=P.COMM_WORLD,
+                            lr=LR)
+
+    kernels.reset_launch_counts()
+    dp_ms, ((l0, p0), (l1, p1)) = sync_ms(
+        lambda: P.run_ranks(body, 2, device="cuda"))
+    launches = dict(kernels.launch_counts)
+    same = torch.equal(l0, l1) and leaves_equal(tree, p0, p1)
+    del p1
+    # The DP gradient itself, from the same recipe (parameters averaged
+    # over the world, loss Allreduced) through dp_value_and_grad.
+    vg = dp.dp_value_and_grad(P.COMM_WORLD,
+                              lambda p, x: T.lm_loss(cfg, p, x))
+    (gl0, g0), (gl1, g1) = P.run_ranks(lambda rank: vg(params, shard(rank)),
+                                       2, device="cuda")
+    same_g = torch.equal(gl0, gl1) and leaves_equal(tree, g0, g1)
+    del g1
+    with torch.no_grad():
+        applied = leaves_equal(tree, p0, tree.tree_map(
+            lambda p, g: p - LR * g, params, g0))
+    del p0
+    ref_loss, ref_g = tree.value_and_grad(
+        lambda p: T.lm_loss(cfg, p, tokens), params)
+    worst = norm_rel(tree, g0, ref_g)
+    del g0, ref_g
+    want = 2 * cfg.n_layers
+    print(f"  2 ranks x batch {rows}: step {dp_ms:.0f} ms; ranks bitwise "
+          f"identical: parameters {same}, gradients {same_g}; update is "
+          f"p - {LR:g} g of the DP gradient bitwise: {applied}; loss "
+          f"{l0.item():.4f} vs one rank at batch {TRAIN_BATCH} "
+          f"{ref_loss.item():.4f} (tol {LOSS_TOL}); DP vs one-rank "
+          f"gradient, worst leaf's norm-relative error {worst:.3e} (tol "
+          f"{DP_GRAD_REL:g}); launches {launches} (expected {want} each)")
+    check(same and same_g, "the two DP ranks disagree")
+    check(applied and torch.equal(gl0, l0),
+          "train_step's update is not p - lr g of the DP gradient")
+    check(abs(l0.item() - ref_loss.item()) <= LOSS_TOL,
+          "DP=2 loss too far from the one-rank loss")
+    check(worst <= DP_GRAD_REL, "DP=2 gradient too far from one rank's")
+    check(all(launches[k] == want for k in launches),
+          "DP=2 did not run every attention on the kernels")
+    return dp_ms
+
+
+def backward_numbers(flash, kernels):
+    """K2, K3 and K4 at the shape the training step gives them, (8, 2048,
+    16, 128) bf16 causal: each held against its plain version on the same
+    inputs (the backward from the kernel forward's out and lse), then
+    kernel ms, bound, plain ms and the library yardsticks.  Returns
+    (kernel ms, bounds, plain ms, library ms, max |err|), keyed by kernel;
+    "pair" is the whole backward (dq, dk and dv together)."""
+    dt, b, s, h, d = torch.bfloat16, TRAIN_BATCH, TRAIN_SEQ, 16, 128
+    q, k, v = attention_inputs(dt, b, s, s, h, h, d, seed=7)
+    do = attention_inputs(dt, b, s, s, h, h, d, seed=8)[0]
+    zero = torch.tensor(0, dtype=torch.int32, device="cuda")
+    out, lse = kernels.flash_fwd(q, k, v, 0, 0, True)
+    dd = (do.float() * out.float()).sum(-1)
+    got = [kernels.flash_bwd_dq(q, k, v, do, lse, dd, 0, 0, True),
+           *kernels.flash_bwd_dkv(q, k, v, do, lse, dd, 0, 0, True)]
+    p_out, p_lse = flash._torch_block(q, k, v, zero, zero, True)
+    want = flash._torch_block_bwd(q, k, v, out, lse, do, None, zero, zero,
+                                  True)
+    torch.cuda.synchronize()
+    err_o = (out.float() - p_out.float()).abs().max().item()
+    err_l = (lse - p_lse.float()).abs().max().item()
+    ok = (err_o <= TOL[dt]["out"] and err_l <= TOL[dt]["lse"]
+          and bool(torch.isfinite(out).all()))
+    errs, rel = [], []
+    for a, r in zip(got, want):
+        ok = ok and bool(torch.isfinite(a).all())
+        errs.append((a.float() - r.float()).abs().max().item())
+        rel.append(errs[-1] / r.float().abs().max().item())
+        ok = ok and rel[-1] <= BWD_BF16_REL
+    print(f"  at ({b}, {s}, {h}, {d}) bf16 causal against the plain "
+          f"versions: out err {err_o:.3e} (tol {TOL[dt]['out']:g}), lse err "
+          f"{err_l:.3e} (tol {TOL[dt]['lse']:g}); dq/dk/dv max err "
+          + "/".join(f"{e:.3e}" for e in errs) + " = "
+          + "/".join(f"{x:.2e}" for x in rel)
+          + f" max|ref| (tol {BWD_BF16_REL:g})  {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, "a kernel disagrees with its plain version at the training "
+          "shape")
+    err = {"flash_fwd": err_o, "flash_bwd_dq": errs[0],
+           "flash_bwd_dkv": max(errs[1:])}
+    del got, want, p_out, p_lse
+
+    pairs = b * h * live_pairs(s, s, 0, 0, 0, True)
+    qbytes, stats = b * s * h * d * 2, b * s * h * 4
+    res = {}
+    res["flash_fwd"] = event_ms(
+        lambda: kernels.flash_fwd(q, k, v, 0, 0, True), iters=10)
+    res["flash_bwd_dq"] = event_ms(
+        lambda: kernels.flash_bwd_dq(q, k, v, do, lse, dd, 0, 0, True),
+        iters=10)
+    res["flash_bwd_dkv"] = event_ms(
+        lambda: kernels.flash_bwd_dkv(q, k, v, do, lse, dd, 0, 0, True),
+        iters=10)
+    bounds = {"flash_fwd": bound(4.0 * d * pairs, 4 * qbytes + stats, dt),
+              "flash_bwd_dq": bound(6.0 * d * pairs,
+                                    5 * qbytes + 2 * stats, dt),
+              "flash_bwd_dkv": bound(8.0 * d * pairs,
+                                     6 * qbytes + 2 * stats, dt)}
+
+    def plain_bwd(parts):
+        return event_ms(lambda: flash._torch_block_bwd(
+            q, k, v, out, lse, do, None, zero, zero, True, parts=parts),
+            iters=3, warmup=1)
+
+    plain = {"flash_fwd": event_ms(lambda: flash._torch_block(
+        q, k, v, zero, zero, True), iters=3, warmup=1),
+        "flash_bwd_dq": plain_bwd(("dq",)),
+        "flash_bwd_dkv": plain_bwd(("dkv",)),
+        "pair": plain_bwd(("dq", "dkv"))}
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = event_ms(lambda: sdpa(qt, kt, vt, is_causal=True), iters=10)
+    lib_fb = event_ms(lambda: torch.autograd.grad(
+        sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot), iters=10)
+    lib = {"flash_fwd": lib_fwd, "pair": lib_fb - lib_fwd}
+    for name in res:
+        b_ms, b_by = bounds[name]
+        print(f"  {name} at ({b}, {s}, {h}, {d}) bf16 causal: kernel "
+              f"{res[name]:.4f} ms, plain {plain[name]:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / res[name]:.2f}% of "
+              "bound")
+    print(f"  backward pair (dq, dk, dv): kernels "
+          f"{res['flash_bwd_dq'] + res['flash_bwd_dkv']:.4f} ms, plain "
+          f"backward {plain['pair']:.4f} ms; scaled_dot_product_attention "
+          f"forward {lib_fwd:.4f} ms, backward (grad minus forward) "
+          f"{lib['pair']:.4f} ms")
+    return res, bounds, plain, lib, err
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU",
@@ -330,7 +712,9 @@ def main():
     from mpi4torch_tpu_torch.models import transformer as T
     from mpi4torch_tpu_torch.ops import _kernels as kernels
     from mpi4torch_tpu_torch.ops import flash
+    from mpi4torch_tpu_torch.parallel import dp
     from mpi4torch_tpu_torch.serve import kv
+    from mpi4torch_tpu_torch.utils import tree
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -350,9 +734,11 @@ def main():
     t0 = time.perf_counter()
     log = kernels.build_all()
     print(f"  built {sorted(log)} in {time.perf_counter() - t0:.2f} s")
-    for line in log["flash_fwd"]["output"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
+    for lib in sorted(log):
+        print(f"  {lib}: nvcc {log[lib]['seconds']:.2f} s")
+        for line in log[lib]["output"].splitlines():
+            if "registers" in line or "spill" in line:
+                print("    " + line.strip())
 
     phase(3, "kernel vs plain version on the card")
     errs = kernel_phase(flash)
@@ -432,7 +818,7 @@ def main():
     check(tp_diff <= TP_LOGIT_TOL, "TP=2 prefill logits too far from TP=1")
     check(launches2 == want2, "TP=2 prefill did not run on the kernel")
 
-    phase(6, "numbers")
+    phase(6, "serving numbers")
     dt = torch.bfloat16
     _, _, b, sq, sk, h, h_kv, d, q_off, kv_off, window, causal = \
         KERNEL_CASES[0]
@@ -450,9 +836,7 @@ def main():
     flops = 4.0 * b * h * d * pairs
     nbytes = (2 * b * sq * h * d + 2 * b * sk * h_kv * d) * 2 \
         + b * sq * h * 4
-    t_ops, t_bytes = flops / PEAK_FLOPS[dt] * 1e3, nbytes / PEAK_BYTES_S * 1e3
-    bound_ms, bound_by = max(t_ops, t_bytes), \
-        ("operations" if t_ops >= t_bytes else "bytes")
+    bound_ms, bound_by = bound(flops, nbytes, dt)
     print(f"  flash_fwd at (1, 1024, 16, 128) bf16 causal: kernel "
           f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
@@ -466,15 +850,68 @@ def main():
           f"{decode_tok / (decode_ms / 1e3):.1f} tokens/s over "
           f"decode-only steps; peak memory {peak_gb:.2f} GiB")
 
-    phase(7, "kernels")
+    del eng, shards, cache, engine_rows
+    torch.cuda.empty_cache()
+
+    phase(7, "backward kernels vs the plain backward on the card")
+    backward_phase(flash, kernels)
+
+    phase(8, "train the flagship transformer, TP=1 (the bench recipe)")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ))).to("cuda")
+    step_ms, train_launches, train_peak_gb = train_tp1(
+        T, tree, flash, kernels, cfg, params, tokens)
+
+    phase(9, "train the flagship transformer, DP=2 on rank threads")
+    dp_ms = train_dp2(P, T, tree, dp, kernels, cfg, params, tokens)
+
+    phase(10, "training numbers")
+    mean_ms = float(np.mean(step_ms[1:]))
+    print(f"  TP=1 step {mean_ms:.1f} ms (mean of steps 2-{TRAIN_STEPS}), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / (mean_ms / 1e3):.0f} tokens/s; peak "
+          f"memory {train_peak_gb:.2f} GiB; DP=2 step {dp_ms:.1f} ms")
+    wall, busy, ev = profile_top(
+        lambda: recipe_step(T, tree, cfg, params, tokens),
+        f"one training step, batch {TRAIN_BATCH} x {TRAIN_SEQ}", n_top=8)
+    attn = {n: sum(e.self_device_time_total for e in ev
+                   if f"{n}_kernel" in e.key) / 1e3
+            for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    print("  attention kernels' share of device time: " + ", ".join(
+        f"{n} {t:.1f} ms ({100 * t / busy:.1f}%)" for n, t in attn.items())
+        + f"; together {100 * sum(attn.values()) / busy:.1f}%")
+    check(sum(attn.values()) > 0, "the profile shows no attention kernel")
+    k_ms, bounds, plain, lib, train_err = backward_numbers(flash,
+                                                         kernels)
+
+    phase(11, "kernels")
+    # flash_fwd: launches on the serving path (phase 4), times at the
+    # flagship prefill shape, its error the worst of the serving and the
+    # training shape.  flash_bwd_*: launches in the TP=1 training run
+    # (phase 8), everything else at the training shape.  No single
+    # library call computes dq alone or dk/dv alone, so their library_ms
+    # is null; pair_plain_ms and pair_library_ms are the whole backward's
+    # (dq, dk and dv together), the plain one and that of
+    # scaled_dot_product_attention.
+    bwd_src = "mpi4torch_tpu_torch/ops/csrc/flash_bwd.cu"
     line = {"kernels": [{
         "name": "flash_fwd", "route": "cuda",
         "source": "mpi4torch_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "mpi4torch_tpu/ops/flash.py:243",
-        "launches": launches, "max_abs_err": errs["flagship_prefill"],
+        "launches": launches,
+        "max_abs_err": max(errs["flagship_prefill"], train_err["flash_fwd"]),
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}]}
+        "library_ms": library_ms}] + [{
+            "name": kname, "route": "cuda", "source": bwd_src,
+            "replaces": f"mpi4torch_tpu/ops/flash.py:{line_no}",
+            "launches": train_launches[kname],
+            "max_abs_err": train_err[kname],
+            "ms": k_ms[kname], "kernel_ms": k_ms[kname],
+            "plain_ms": plain[kname], "bound_ms": bounds[kname][0],
+            "bound_by": bounds[kname][1], "library_ms": None,
+            "pair_plain_ms": plain["pair"], "pair_library_ms": lib["pair"]}
+            for kname, line_no in (("flash_bwd_dq", 444),
+                                  ("flash_bwd_dkv", 485))]}
     print(json.dumps(line))
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,12 +1,14 @@
 """mpi4torch_tpu_torch — the PyTorch/CUDA port of mpi4torch_tpu.
 
 The JAX package ``mpi4torch_tpu`` is the reference; this package is its
-port to PyTorch on an NVIDIA H100, slice by slice (ROADMAP.md).  This
-slice carries the serving path: the collective facade (``COMM_WORLD``,
-``Allreduce``) on the rank-thread runtime (``run_ranks``), the flagship
-transformer, and the continuous-batching engine (``serve.Engine``), whose
-prefill attention runs through a hand-written CUDA kernel
-(``ops/csrc/flash_fwd.cu``).
+port to PyTorch on an NVIDIA H100, slice by slice (ROADMAP.md).  It
+carries the serving path and the data-parallel training path: the
+differentiable collective facade (``COMM_WORLD``, ``Allreduce``,
+``Allreduce_tree``) on the rank-thread runtime (``run_ranks``), the
+flagship transformer with its continuous-batching engine
+(``serve.Engine``) and its SGD ``train_step``, and ``parallel.dp``.  Its
+attention runs through hand-written CUDA kernels: the forward
+(``ops/csrc/flash_fwd.cu``) and the backward (``ops/csrc/flash_bwd.cu``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device and no such request they raise.  The package imports

@@ -1,18 +1,24 @@
-"""Flagship model: decoder-only transformer, inference path.
+"""Flagship model: decoder-only transformer, inference and training.
 
-Port of ``mpi4torch_tpu/models/transformer.py`` as far as serving needs
-it: the configuration, parameter initialisation, the JAX-to-torch weight
-conversion, prefill, incremental decode and greedy generation.  The
-parameters are a plain dictionary in the JAX package's layout —
-``(in, out)`` matrices used as ``x @ W``, the fused ``wqkv`` q|k|v
-head-block projection, swiglu's fused gate|up ``w1`` — so one parameter
-tree means the same model in both packages, and the tensor-parallel
-slicing rules of ``serve/kv.py`` carry over unchanged.
+Port of ``mpi4torch_tpu/models/transformer.py`` for serving and for
+data-parallel training: the configuration, parameter initialisation, the
+JAX-to-torch weight conversion (both ways), prefill, incremental decode,
+greedy generation, the training forward, the chunked-vocabulary loss and
+the SGD train step.  The parameters are a plain dictionary in the JAX
+package's layout — ``(in, out)`` matrices used as ``x @ W``, the fused
+``wqkv`` q|k|v head-block projection, swiglu's fused gate|up ``w1`` — so
+one parameter tree means the same model in both packages, and the
+tensor-parallel slicing rules of ``serve/kv.py`` carry over unchanged.
 
 Unlike the JAX package, the KV-cache functions update the cache tensors
 in place (JAX arrays are immutable; here a copy of the whole cache per
 token would double decode memory traffic).  They still return the cache,
 so the call shapes match.
+
+Training runs attention on one device (``comm_sp`` of size 1): the
+sequence-parallel strategies, the expert-parallel MoE FFN and the ZeRO
+steps raise ``NotImplementedError`` naming the ROADMAP.md item that
+brings them.
 """
 
 from __future__ import annotations
@@ -24,9 +30,13 @@ from typing import Any, Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..constants import MPI_SUM
 from ..ops.flash import flash_attention, flash_block_attention
+from ..parallel.dp import all_average_tree
 from ..runtime import resolve_device
+from ..utils.tree import tree_map, value_and_grad
 
 
 @dataclass(frozen=True)
@@ -149,6 +159,16 @@ def params_from_jax(tree, device, dtype=None):
         return [params_from_jax(v, device, dtype) for v in tree]
     t = torch.from_numpy(np.array(tree, copy=True))
     return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def params_to_numpy(tree):
+    """The inverse of :func:`params_from_jax`: the same nested layout with
+    each leaf a numpy array on the host (bfloat16, which numpy lacks,
+    widens to float32)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tree_map(leaf, tree)
 
 
 def _layer_norm(x, p):
@@ -345,3 +365,167 @@ def generate(cfg: TransformerConfig, params, prompt, n_new: int,
         tok = select_token(logits).to(prompt.dtype)
         out.append(tok)
     return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+
+
+# --------------------------------------------------------------- training
+
+_ATTNS = ("dense", "ring", "ulysses", "zigzag")
+
+
+def _check_parallel(comm_sp, attn: str, comm_ep=None) -> None:
+    """The training functions run attention on one device: a size>1
+    sequence-parallel or expert-parallel communicator raises."""
+    if attn not in _ATTNS:
+        raise ValueError(f"unknown attention strategy {attn!r}")
+    if comm_sp is not None and comm_sp.size > 1:
+        raise NotImplementedError(
+            f"comm_sp of size {comm_sp.size} (attn={attn!r}): "
+            "sequence-parallel attention (ring, ulysses, zigzag) is not "
+            "ported yet (ROADMAP.md, Queue 1 item 5); pass comm_sp=None "
+            "with the full sequence")
+    if comm_ep is not None and comm_ep.size > 1:
+        raise NotImplementedError(
+            f"comm_ep of size {comm_ep.size}: the expert-parallel MoE FFN "
+            "is not ported yet (ROADMAP.md, Queue 1 item 5)")
+
+
+def forward(cfg: TransformerConfig, params, tokens, comm_sp=None,
+            attn: str = "ring", comm_ep=None, return_hidden: bool = False):
+    """Logits ``(batch, seq, vocab)`` for ``(batch, seq)`` token ids, the
+    training forward.  Attention is causal single-device flash attention
+    (the CUDA kernels on a CUDA device), whatever ``attn`` names, as in
+    the JAX package when ``comm_sp`` is None or of size 1.
+    ``return_hidden`` returns the post-``ln_f`` hidden states ``(batch,
+    seq, d_model)`` instead of logits (what :func:`lm_loss`'s chunked
+    vocabulary consumes).  With ``cfg.remat`` each
+    block is recomputed in the backward (``torch.utils.checkpoint``, the
+    counterpart of ``jax.checkpoint``)."""
+    _check_parallel(comm_sp, attn, comm_ep)
+    b, s = tokens.shape
+    if not cfg.rope and s > cfg.max_seq:
+        raise ValueError(f"sequence {s} exceeds cfg.max_seq {cfg.max_seq}")
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
+    x = F.embedding(tokens, params["embed"])
+    if not cfg.rope:
+        x = x + params["pos"][None, :s]
+    d = x.shape[-1]
+
+    def block_fn(x, blk):
+        y = _norm(cfg, x, blk["ln1"])
+        q, k, v = _split_qkv(cfg, blk, y, positions)
+        o = flash_attention(q, k, v, causal=True, window=cfg.attn_window)
+        x = x + o.reshape(b, s, d) @ blk["wo"]
+        return _ffn_residual(cfg, blk, x)
+
+    for blk in params["blocks"]:
+        if cfg.remat:
+            x = checkpoint(block_fn, x, blk, use_reentrant=False)
+        else:
+            x = block_fn(x, blk)
+    x = _norm(cfg, x, params["ln_f"])
+    return x if return_hidden else x @ params["unembed"]
+
+
+def _ce_chunk(x, w, labels, m, se, zt, lo: int):
+    """One vocabulary chunk of :func:`_chunked_ce`: fold the ``(b, s,
+    chunk)`` logits slab ``x @ w`` into the running logsumexp ``(m, se)``
+    and pick the label logit ``zt`` if it falls in the chunk."""
+    chunk = w.shape[1]
+    z = (x @ w).to(m.dtype)
+    m_new = torch.maximum(m, z.amax(dim=-1))
+    se = se * torch.exp(m - m_new) + \
+        torch.exp(z - m_new[..., None]).sum(dim=-1)
+    in_chunk = (labels >= lo) & (labels < lo + chunk)
+    idx = (labels - lo).clamp(0, chunk - 1)
+    zsel = z.gather(-1, idx[..., None])[..., 0]
+    return m_new, se, torch.where(in_chunk, zsel, zt)
+
+
+def _chunked_ce(x, unembed, labels, vocab_chunk: int):
+    """Per-token cross entropy ``logsumexp(z) - z[label]`` over vocabulary
+    chunks: the full ``(batch, seq, vocab)`` logits never exist.  The
+    online logsumexp runs in at least f32, and each chunk is recomputed in
+    the backward (``torch.utils.checkpoint``), so only one ``(batch, seq,
+    chunk)`` slab is alive at a time either way — the port of the JAX
+    package's checkpointed ``lax.scan``."""
+    n_chunks = unembed.shape[1] // vocab_chunk
+    ct = torch.promote_types(x.dtype, torch.float32)
+    m = torch.full(labels.shape, -1e30, dtype=ct, device=x.device)
+    se = torch.zeros(labels.shape, dtype=ct, device=x.device)
+    zt = torch.zeros(labels.shape, dtype=ct, device=x.device)
+    for c in range(n_chunks):
+        lo = c * vocab_chunk
+        m, se, zt = checkpoint(_ce_chunk, x,
+                               unembed[:, lo:lo + vocab_chunk], labels, m,
+                               se, zt, lo, use_reentrant=False)
+    return m + torch.log(se) - zt
+
+
+def lm_loss(cfg: TransformerConfig, params, tokens, comm_sp=None,
+            attn: str = "ring", seq_global=None, comm_ep=None,
+            vocab_chunk: int = 0):
+    """Mean next-token cross-entropy over the sequence.  The last position
+    has no successor and is masked out; the sum is normalised by
+    ``batch * (seq_global - 1)``.  ``vocab_chunk`` (a divisor of the
+    vocabulary, smaller than it) computes the loss through
+    :func:`_chunked_ce` without materialising the logits."""
+    _check_parallel(comm_sp, attn, comm_ep)
+    b, s = tokens.shape
+    s_global = seq_global or s
+    if vocab_chunk and (vocab_chunk <= 0
+                        or cfg.vocab % vocab_chunk != 0):
+        raise ValueError(
+            f"vocab_chunk={vocab_chunk} must divide vocab={cfg.vocab}")
+    want_hidden = bool(vocab_chunk) and vocab_chunk < cfg.vocab
+    out = forward(cfg, params, tokens, return_hidden=want_hidden)
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    global_pos = torch.arange(s, device=tokens.device)
+    mask = (global_pos < s_global - 1).to(out.dtype)
+    if want_hidden:
+        ce = _chunked_ce(out, params["unembed"], labels, vocab_chunk)
+    else:
+        logp = F.log_softmax(out, dim=-1)
+        ce = -logp.gather(-1, labels[..., None])[..., 0]
+    return torch.sum(ce * mask[None, :]) / (b * (s_global - 1))
+
+
+def train_step(cfg: TransformerConfig, params, tokens, comm_sp=None,
+               comm_dp=None, attn: str = "ring", lr: float = 1e-2,
+               comm_ep=None):
+    """One SGD step; returns ``(loss, new_params)``.
+
+    Data parallelism follows the reference recipe exactly: the
+    parameters are averaged over ``comm_dp`` (an Allreduce whose adjoint
+    makes each rank's gradient the rank mean) and the loss is Allreduced
+    over ``comm_dp``, so replicas stay in lock-step.  The gradient comes
+    from :func:`torch.autograd.grad`; the update is ``p - lr * g``."""
+    _check_parallel(comm_sp, attn, comm_ep)
+    dp = comm_dp is not None and comm_dp.size > 1
+
+    def global_loss(p):
+        if dp:
+            p = all_average_tree(comm_dp, p)
+        loss = lm_loss(cfg, p, tokens, comm_sp, attn, comm_ep=comm_ep)
+        if dp:
+            loss = comm_dp.Allreduce(loss, MPI_SUM,
+                                     compression=False) / comm_dp.size
+        return loss
+
+    loss, grads = value_and_grad(global_loss, params)
+    with torch.no_grad():
+        new_params = tree_map(lambda p, g: p - lr * g, params, grads)
+    return loss, new_params
+
+
+def zero_train_step(*args, **kwargs):
+    """ZeRO-1 training step (sharded optimizer state): not ported yet."""
+    raise NotImplementedError(
+        "zero_train_step: ZeRO-1 (parallel/zero.py) is not ported yet "
+        "(ROADMAP.md, Queue 1 item 4)")
+
+
+def zero3_train_step(*args, **kwargs):
+    """ZeRO-3 training step (sharded parameters): not ported yet."""
+    raise NotImplementedError(
+        "zero3_train_step: ZeRO-3 (parallel/zero.py) is not ported yet "
+        "(ROADMAP.md, Queue 1 item 4)")

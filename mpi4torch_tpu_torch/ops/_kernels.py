@@ -12,6 +12,12 @@ Each launcher checks what its kernel takes and raises on anything else;
 it never falls back to a plain version.  It adds one to its entry of
 :data:`launch_counts` where it launches the kernel, and nowhere else, so
 a run can prove that its main path went through the kernel.
+
+Kernels and the sources that hold them:
+
+* ``flash_fwd`` — ``csrc/flash_fwd.cu``, block attention forward;
+* ``flash_bwd_dq``, ``flash_bwd_dkv`` — ``csrc/flash_bwd.cu``, its
+  backward (dq; dk and dv).
 """
 
 from __future__ import annotations
@@ -29,12 +35,24 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")
-_SOURCES = {"flash_fwd": "flash_fwd.cu"}
+# Library name -> source file.
+_SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu"}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# Library name -> {exported C function: argument types}.
+_SIGNATURES = {
+    "flash_fwd": {"mpi4torch_flash_fwd":
+                  [_P] * 5 + [_I] * 7 + [_P] + [_I] * 4 + [_P]},
+    "flash_bwd": {"mpi4torch_flash_bwd_dq":
+                  [_P] * 7 + [_I] * 7 + [_P] + [_I] * 4 + [_P],
+                  "mpi4torch_flash_bwd_dkv":
+                  [_P] * 8 + [_I] * 7 + [_P] + [_I] * 4 + [_P]},
+}
 
 _lock = threading.Lock()
 _libs = {}
-build_log = {}      # kernel name -> {"seconds": float, "output": str}
-launch_counts = {name: 0 for name in _SOURCES}
+build_log = {}      # library name -> {"seconds": float, "output": str}
+launch_counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 def reset_launch_counts() -> None:
@@ -66,58 +84,143 @@ def _nvcc() -> str:
         "CUDA kernels are built from ops/csrc at first use")
 
 
-def _compile(name: str) -> str:
-    src = os.path.join(_CSRC, _SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    lib = os.path.join(_BUILD_DIR, f"lib{name}_{digest}.so")
-    if os.path.exists(lib):
-        build_log[name] = {"seconds": 0.0, "output": "cached"}
-        return lib
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp, src]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed to build {src} (exit {res.returncode}):\n"
-            f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, lib)
-    build_log[name] = {"seconds": seconds,
-                       "output": (res.stdout + res.stderr).strip()}
-    return lib
+def _compile(names) -> dict:
+    """Compile every library of ``names`` that is not built yet, one
+    ``nvcc`` per source, all started together; returns name -> path of
+    its shared library."""
+    paths, procs = {}, {}
+    for name in names:
+        src = os.path.join(_CSRC, _SOURCES[name])
+        with open(src, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()[:12]
+        paths[name] = os.path.join(_BUILD_DIR, f"lib{name}_{digest}.so")
+        if os.path.exists(paths[name]):
+            build_log[name] = {"seconds": 0.0, "output": "cached"}
+            continue
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        tmp = f"{paths[name]}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", tmp, src]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, src, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, src, t0) in procs.items():
+        output = proc.communicate()[0].strip()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {src} (exit "
+                          f"{proc.returncode}):\n{output}")
+            continue
+        os.replace(tmp, paths[name])
+        build_log[name] = {"seconds": time.perf_counter() - t0,
+                           "output": output}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def _load_locked(names) -> None:
+    missing = [name for name in names if name not in _libs]
+    for name, path in _compile(missing).items():
+        lib = ctypes.CDLL(path)
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _libs[name] = lib
 
 
 def load(name: str) -> ctypes.CDLL:
     """Build (at first use) and load kernel library ``name``."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(_compile(name))
-            if name == "flash_fwd":
-                fn = lib.mpi4torch_flash_fwd
-                fn.argtypes = ([ctypes.c_void_p] * 5
-                               + [ctypes.c_int] * 7
-                               + [ctypes.c_void_p]
-                               + [ctypes.c_int] * 4
-                               + [ctypes.c_void_p])
-                fn.restype = ctypes.c_int
-            _libs[name] = lib
-        return lib
+        _load_locked([name])
+        return _libs[name]
 
 
 def build_all() -> dict:
-    """Build every kernel library; returns :data:`build_log`."""
-    for name in _SOURCES:
-        load(name)
+    """Build every kernel library, one ``nvcc`` per source, all started
+    together; returns :data:`build_log`."""
+    with _lock:
+        _load_locked(list(_SOURCES))
     return dict(build_log)
 
 
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_attention(fn: str, q, k, v, causal: bool, window: int,
+                     more=()) -> None:
+    """What every flash launcher takes: q ``(b, sq, h, d)`` and k/v
+    ``(b, sk, h_kv, d)`` on one CUDA device, float32 or bfloat16 (one
+    dtype), last dimension contiguous, ``d`` a multiple of 8 in [8, 256],
+    ``h`` a multiple of ``h_kv``.  ``more`` holds further ``(name,
+    tensor)`` operands shaped and typed like q."""
+    for name, t in (("q", q), ("k", k), ("v", v)) + tuple(more):
+        if not t.is_cuda:
+            raise ValueError(f"{fn}: {name} must be a CUDA tensor, "
+                             f"got device {t.device}")
+        if t.dim() != 4:
+            raise ValueError(f"{fn}: {name} must be 4-d, got "
+                             f"shape {tuple(t.shape)}")
+        if t.dtype not in _FLASH_DTYPES or t.dtype != q.dtype:
+            raise ValueError(
+                f"{fn}: q/k/v must share one dtype of float32 or "
+                f"bfloat16; got {name} {t.dtype} with q {q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{fn}: every operand must be on one device")
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{fn}: {name}'s last dimension must be "
+                             "contiguous")
+    for name, t in more:
+        if tuple(t.shape) != tuple(q.shape):
+            raise ValueError(f"{fn}: {name}{tuple(t.shape)} must be "
+                             f"shaped like q{tuple(q.shape)}")
+    b, sq, h, d = q.shape
+    h_kv = k.shape[2]
+    if tuple(v.shape) != tuple(k.shape) or k.shape[0] != b \
+            or k.shape[3] != d:
+        raise ValueError(f"{fn}: q{tuple(q.shape)} and "
+                         f"k{tuple(k.shape)}/v{tuple(v.shape)} must agree "
+                         "on batch and head_dim, and k/v must match")
+    if h_kv < 1 or h % h_kv != 0:
+        raise ValueError(f"{fn}: query heads ({h}) must be a multiple "
+                         f"of KV heads ({h_kv})")
+    if d % 8 != 0 or not 8 <= d <= 256:
+        raise ValueError(f"{fn}: head_dim must be a multiple of 8 in "
+                         f"[8, 256], got {d}")
+    if b * h > 65535:
+        raise ValueError(f"{fn}: batch x heads = {b * h} exceeds the "
+                         "grid limit 65535")
+    if window < 0 or (window and not causal):
+        raise ValueError(f"{fn}: window must be >= 0 and needs causal")
+
+
+def _check_row_stats(fn: str, q, stats) -> None:
+    """Row statistics (lse, dd): float32 ``(b, sq, h)`` on q's device."""
+    for name, t in stats:
+        if t.dtype != torch.float32 or tuple(t.shape) != tuple(q.shape[:3]) \
+                or t.device != q.device:
+            raise ValueError(
+                f"{fn}: {name} must be float32 {tuple(q.shape[:3])} on "
+                f"{q.device}; got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _strides(*tensors):
+    """The (batch, seq, head) element strides of each tensor, in order."""
+    flat = [t.stride(i) for t in tensors for i in range(3)]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _launch(kernel: str, lib: str, fn_name: str, device, *args) -> None:
+    fn = getattr(load(lib), fn_name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed with CUDA error "
+                           f"{err}")
+    _count(kernel)
 
 
 def flash_fwd(q, k, v, q_off: int, kv_off: int, causal: bool,
@@ -129,57 +232,69 @@ def flash_fwd(q, k, v, q_off: int, kv_off: int, causal: bool,
     ``d`` a multiple of 8 up to 256; ``h`` a multiple of ``h_kv``;
     offsets are scalar ints.  Returns ``(out, lse)``: ``out`` like ``q``
     (contiguous), ``lse`` float32 ``(b, sq, h)``."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda:
-            raise ValueError(f"flash_fwd: {name} must be a CUDA tensor, "
-                             f"got device {t.device}")
-        if t.dim() != 4:
-            raise ValueError(f"flash_fwd: {name} must be 4-d, got "
-                             f"shape {tuple(t.shape)}")
-        if t.dtype not in _FLASH_DTYPES or t.dtype != q.dtype:
-            raise ValueError(
-                f"flash_fwd: q/k/v must share one dtype of float32 or "
-                f"bfloat16; got {q.dtype}/{k.dtype}/{v.dtype}")
-        if t.device != q.device:
-            raise ValueError("flash_fwd: q, k and v must be on one device")
-        if t.shape[-1] > 1 and t.stride(-1) != 1:
-            raise ValueError(f"flash_fwd: {name}'s last dimension must be "
-                             "contiguous")
+    _check_attention("flash_fwd", q, k, v, causal, window)
     b, sq, h, d = q.shape
-    sk, h_kv = k.shape[1], k.shape[2]
-    if tuple(v.shape) != tuple(k.shape) or k.shape[0] != b \
-            or k.shape[3] != d:
-        raise ValueError(f"flash_fwd: q{tuple(q.shape)} and "
-                         f"k{tuple(k.shape)}/v{tuple(v.shape)} must agree "
-                         "on batch and head_dim, and k/v must match")
-    if h_kv < 1 or h % h_kv != 0:
-        raise ValueError(f"flash_fwd: query heads ({h}) must be a multiple "
-                         f"of KV heads ({h_kv})")
-    if d % 8 != 0 or not 8 <= d <= 256:
-        raise ValueError(f"flash_fwd: head_dim must be a multiple of 8 in "
-                         f"[8, 256], got {d}")
-    if b * h > 65535:
-        raise ValueError(f"flash_fwd: batch x heads = {b * h} exceeds the "
-                         "grid limit 65535")
-    if window < 0 or (window and not causal):
-        raise ValueError("flash_fwd: window must be >= 0 and needs causal")
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
     if b == 0 or sq == 0 or h == 0:
         return out, lse
-    strides = (ctypes.c_longlong * 9)(
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2))
-    fn = load("flash_fwd").mpi4torch_flash_fwd
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), _FLASH_DTYPES[q.dtype], b, h, h_kv, sq, sk,
-                 d, strides, int(q_off), int(kv_off), int(bool(causal)),
-                 int(window), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed with CUDA error "
-                           f"{err}")
-    _count("flash_fwd")
+    _launch("flash_fwd", "flash_fwd", "mpi4torch_flash_fwd", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), _FLASH_DTYPES[q.dtype], b, h, k.shape[2], sq,
+            k.shape[1], d, _strides(q, k, v), int(q_off), int(kv_off),
+            int(bool(causal)), int(window))
     return out, lse
+
+
+def _check_bwd(fn, q, k, v, do, lse, dd, causal, window) -> None:
+    _check_attention(fn, q, k, v, causal, window, more=(("do", do),))
+    _check_row_stats(fn, q, (("lse", lse), ("dd", dd)))
+
+
+def _bwd_launch(kernel, fn_name, q, k, v, do, lse, dd, outs, q_off, kv_off,
+                causal, window) -> None:
+    """Launch a backward kernel: operands, then the outputs ``outs``,
+    then the shape, strides and mask arguments of its C signature."""
+    b, sq, h, d = q.shape
+    _launch(kernel, "flash_bwd", fn_name, q.device,
+            *(t.data_ptr() for t in (q, k, v, do, lse, dd) + outs),
+            _FLASH_DTYPES[q.dtype], b, h, k.shape[2], sq, k.shape[1], d,
+            _strides(q, k, v, do, lse, dd), int(q_off), int(kv_off),
+            int(bool(causal)), int(window))
+
+
+def flash_bwd_dq(q, k, v, do, lse, dd, q_off: int, kv_off: int,
+                 causal: bool, window: int = 0):
+    """Launch the CUDA block-attention backward's dq kernel
+    (``csrc/flash_bwd.cu``).  ``q``/``k``/``v`` as for :func:`flash_fwd`,
+    ``do`` shaped and typed like ``q``; ``lse`` (the forward's) and ``dd``
+    (``sum(do * out, -1) - dlse``) float32 ``(b, sq, h)``.  Returns ``dq``
+    like ``q`` (contiguous)."""
+    _check_bwd("flash_bwd_dq", q, k, v, do, lse, dd, causal, window)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    if k.shape[1] == 0:
+        return dq.zero_()
+    _bwd_launch("flash_bwd_dq", "mpi4torch_flash_bwd_dq", q, k, v, do, lse,
+                dd, (dq,), q_off, kv_off, causal, window)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, dd, q_off: int, kv_off: int,
+                  causal: bool, window: int = 0):
+    """Launch the CUDA block-attention backward's dk/dv kernel
+    (``csrc/flash_bwd.cu``); arguments as for :func:`flash_bwd_dq`.
+    Under grouped-query attention each KV head's gradient sums its group
+    of q heads inside one block, in a fixed order.  Returns ``(dk, dv)``
+    like ``k`` (contiguous)."""
+    _check_bwd("flash_bwd_dkv", q, k, v, do, lse, dd, causal, window)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    if dk.numel() == 0:
+        return dk, dv
+    if q.shape[1] == 0 or q.shape[2] == 0:
+        return dk.zero_(), dv.zero_()
+    _bwd_launch("flash_bwd_dkv", "mpi4torch_flash_bwd_dkv", q, k, v, do,
+                lse, dd, (dk, dv), q_off, kv_off, causal, window)
+    return dk, dv

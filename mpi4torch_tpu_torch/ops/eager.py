@@ -1,6 +1,7 @@
 """Differentiable collectives on the rank-thread runtime.
 
-Port of ``mpi4torch_tpu/ops/eager.py`` as far as serving needs it: the
+Port of ``mpi4torch_tpu/ops/eager.py`` as far as serving and
+data-parallel training need it: the
 Allreduce, whose backward is itself the Allreduce of the gradient
 (``MPI_SUM`` only; other ops raise in backward, like the mpi4torch
 reference's unimplemented node).  The reduction is the ascending-rank
@@ -71,8 +72,9 @@ class _Allreduce(torch.autograd.Function):
 def allreduce(ctx: RankContext, x, op: int):
     """Differentiable Allreduce over ``ctx``'s world.  The backward is the
     Allreduce of the gradient, so every rank's backward must run (it is a
-    collective).  Autograd runs a CUDA backward on one worker thread per
-    device, which would serialise the ranks' backward collectives and
-    deadlock: differentiate through it on CPU tensors only (the serving
-    slice is inference)."""
+    collective).  Rank threads of :func:`~mpi4torch_tpu_torch.run_ranks`
+    run their backward passes on their own thread, CPU or CUDA, so each
+    blocking backward collective waits only on its own rank; a rank that
+    never arrives still ends as a ``DeadlockError`` at the world
+    timeout."""
     return _Allreduce.apply(x, ctx, op)

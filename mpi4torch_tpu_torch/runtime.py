@@ -352,6 +352,8 @@ def run_ranks(fn: Callable, nranks: int, timeout: Optional[float] = None,
     its current device, and collective payloads must live on it.
     ``timeout`` is the deadlock-detection wall clock (``None``: the
     ``MPI4TORCH_TPU_WORLD_TIMEOUT`` environment variable, else 60 s).
+    Every backward pass inside ``fn`` runs on its rank's thread (CUDA
+    included), so differentiating through collectives works on one card.
     The first per-rank exception is re-raised after every thread has
     been joined, with the other ranks' failures attached as a note."""
     if backend not in (None, "thread"):
@@ -366,7 +368,13 @@ def run_ranks(fn: Callable, nranks: int, timeout: Optional[float] = None,
     nparams = _fn_nparams(fn)
 
     def worker(rank: int):
-        with _bind_rank(RankContext(world, rank)):
+        # Backward passes run on this rank's own thread.  By default
+        # autograd runs a CUDA backward on one worker thread per device,
+        # where the ranks' blocking backward collectives would queue
+        # behind each other and deadlock; the flag is thread-local, so
+        # nothing outside the rank threads changes.
+        with _bind_rank(RankContext(world, rank)), \
+                torch.autograd.set_multithreading_enabled(False):
             try:
                 if dev.type == "cuda":
                     torch.cuda.set_device(dev)

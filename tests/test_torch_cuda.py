@@ -15,6 +15,7 @@ from mpi4torch_tpu_torch import serve
 from mpi4torch_tpu_torch.models import transformer as T
 from mpi4torch_tpu_torch.ops import _kernels
 from mpi4torch_tpu_torch.ops import flash
+from mpi4torch_tpu_torch.utils.tree import tree_leaves
 
 
 @pytest.fixture
@@ -51,6 +52,99 @@ def test_kernel_matches_plain(cuda, dtype, atol):
         torch.cuda.synchronize()
         assert (o.float() - po.float()).abs().max().item() <= atol
         assert (l - pl.float()).abs().max().item() <= 1e-4
+
+
+def _grads(q, k, v, impl, kw, gen):
+    """dq, dk, dv of a loss that reads both outputs (so dlse != 0)."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    o, l = flash.flash_block_attention(q, k, v, impl=impl, **kw)
+    wo = torch.randn(o.shape, generator=gen, device=o.device).to(o.dtype)
+    wl = torch.randn(l.shape, generator=gen, device=o.device)
+    live = l > flash.NEG_BIG / 2
+    loss = (o.float() * wo.float()).sum() \
+        + torch.where(live, l.float(), 0.0).mul(wl).sum()
+    return torch.autograd.grad(loss, (q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_match_plain(cuda, dtype):
+    # f32: both sides sum in f32 in other orders (rtol 1e-3, atol 1e-4,
+    # the JAX package's own kernel-vs-oracle bound).  bf16: the gradients
+    # round once to bf16 from f32 sums over up to 300 keys, so a few bf16
+    # ulps of the largest gradient (2e-2 of max |ref|).
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for b, sq, sk, h, h_kv, d, q_off, kv_off, window, causal in SHAPES:
+        q = torch.randn((b, sq, h, d), generator=g, device=cuda, dtype=dtype)
+        k = torch.randn((b, sk, h_kv, d), generator=g, device=cuda,
+                        dtype=dtype)
+        v = torch.randn((b, sk, h_kv, d), generator=g, device=cuda,
+                        dtype=dtype)
+        kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off,
+                  window=window)
+        _kernels.reset_launch_counts()
+        got = _grads(q, k, v, "cuda", kw, torch.Generator(
+            device=cuda).manual_seed(2))
+        assert _kernels.launch_counts["flash_bwd_dq"] == 1
+        assert _kernels.launch_counts["flash_bwd_dkv"] == 1
+        # No atomics: the same inputs give the same bits.
+        again = _grads(q, k, v, "cuda", kw, torch.Generator(
+            device=cuda).manual_seed(2))
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        want = _grads(q, k, v, "torch", kw, torch.Generator(
+            device=cuda).manual_seed(2))
+        torch.cuda.synchronize()
+        for a, r in zip(got, want):
+            assert a.dtype == r.dtype and a.shape == r.shape
+            a, r = a.float(), r.float()
+            if dtype == torch.float32:
+                torch.testing.assert_close(a, r, rtol=1e-3, atol=1e-4)
+            else:
+                assert (a - r).abs().max() <= 2e-2 * r.abs().max()
+
+
+@pytest.mark.cuda
+def test_backward_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros((1, 8, 2, 16), device=cuda)
+    lse = torch.zeros((1, 8, 2), device=cuda)
+    with pytest.raises(ValueError, match="lse must be float32"):
+        _kernels.flash_bwd_dq(q, q, q, q, lse.double(), lse, 0, 0, True)
+    with pytest.raises(ValueError, match="dd must be float32"):
+        _kernels.flash_bwd_dkv(q, q, q, q, lse, lse[:, :4], 0, 0, True)
+    with pytest.raises(ValueError, match="do"):
+        _kernels.flash_bwd_dq(q, q, q, q[:, :4], lse, lse, 0, 0, True)
+    bad = torch.zeros((1, 8, 2, 12), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        _kernels.flash_bwd_dkv(bad, bad, bad, bad, lse, lse, 0, 0, True)
+
+
+@pytest.mark.cuda
+def test_dp2_training_step_on_rank_threads(cuda):
+    # Two rank threads differentiate through blocking Allreduces on one
+    # card: each backward runs on its own rank thread, so the step ends
+    # well inside a short world timeout instead of deadlocking.
+    import mpi4torch_tpu_torch as P
+
+    cfg = T.TransformerConfig(vocab=97, d_model=128, n_heads=4, n_layers=2,
+                              d_ff=256, max_seq=64)
+    params = T.init_transformer(0, cfg, torch.float32, device=cuda)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (4, 64))).to(cuda)
+
+    def body(r):
+        return T.train_step(cfg, params, tokens[2 * r:2 * r + 2],
+                            comm_dp=P.COMM_WORLD, lr=1e-2)
+
+    _kernels.reset_launch_counts()
+    (l0, p0), (l1, p1) = P.run_ranks(body, 2, timeout=20.0, device=cuda)
+    assert _kernels.launch_counts["flash_bwd_dq"] == 2 * cfg.n_layers
+    assert torch.equal(l0, l1)
+    for a, b in zip(tree_leaves(p0), tree_leaves(p1)):
+        assert torch.equal(a, b)
+    loss1, new1 = T.train_step(cfg, params, tokens, lr=1e-2)
+    assert abs(l0.item() - loss1.item()) <= 1e-5
+    for a, b in zip(tree_leaves(p0), tree_leaves(new1)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda

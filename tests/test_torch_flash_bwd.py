@@ -1,0 +1,167 @@
+"""The port's block-attention backward against the JAX package.
+
+The port's plain backward (the CPU path of ``impl="auto"``, reached
+through ``torch.autograd.grad``) is held to ``jax.grad`` through the JAX
+package's ``flash_block_attention(impl="jnp")`` in float64 at 1e-12, and
+to its Pallas backward kernels run interpreted (``impl="pallas"`` off
+TPU, as tests/test_flash.py runs them) in float32 at rtol 1e-3 / atol
+1e-4, the JAX package's own kernel-vs-oracle bound.  Every loss reads
+both outputs, so ``dlse`` is live.  Inputs come from numpy and feed both
+packages.  The CUDA kernels run only on the card
+(tests/test_torch_cuda.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mpi4torch_tpu.ops import flash as jflash
+from mpi4torch_tpu_torch.ops import _kernels
+from mpi4torch_tpu_torch.ops import flash as pflash
+
+# (name, b, sq, sk, h, h_kv, d, causal, q_off, kv_off, window)
+CASES = [
+    ("causal", 2, 9, 9, 4, 4, 16, True, 0, 0, 0),
+    ("noncausal", 2, 9, 13, 4, 4, 16, False, 0, 0, 0),
+    ("window", 1, 12, 12, 2, 2, 8, True, 0, 0, 4),
+    ("gqa_4_2", 2, 10, 10, 4, 2, 16, True, 0, 0, 0),
+    ("q_off_sq_lt_sk", 1, 5, 12, 2, 2, 8, True, 7, 0, 0),
+    ("q_off_window", 1, 5, 12, 2, 1, 8, True, 7, 0, 3),
+    ("fully_masked_rows", 1, 6, 8, 2, 2, 8, True, 0, 3, 0),
+    # sk > 512 and a multiple of 128: the KV-tiled recompute.
+    ("tiled_gqa_q_off", 1, 16, 640, 4, 2, 8, True, 624, 0, 0),
+    ("tiled_window_q_off", 1, 8, 768, 2, 2, 8, True, 700, 0, 100),
+    ("tiled_noncausal", 1, 6, 640, 2, 1, 8, False, 0, 0, 0),
+]
+
+
+def _inputs(b, sq, sk, h, h_kv, d, dtype=np.float64, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(dtype) for s in
+            ((b, sq, h, d), (b, sk, h_kv, d), (b, sk, h_kv, d),
+             (b, sq, h, d), (b, sq, h))]
+
+
+def _jax_grads(q, k, v, wo, wl, use_lse=True, **kw):
+    def loss(q, k, v):
+        o, l = jflash.flash_block_attention(q, k, v, **kw)
+        r = jnp.sum(o * wo)
+        if use_lse:
+            # Fully masked rows hold lse = -1e30: leave them out of the
+            # loss, as a merge of partials would.
+            r = r + jnp.sum(jnp.where(l > -1e29, l, 0.0) * wl)
+        return r
+
+    g = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v))
+    return [np.asarray(x) for x in g]
+
+
+def _torch_grads(q, k, v, wo, wl, use_lse=True, **kw):
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o, l = pflash.flash_block_attention(tq, tk, tv, **kw)
+    r = (o * torch.from_numpy(wo)).sum()
+    if use_lse:
+        r = r + (torch.where(l > -1e29, l, 0.0)
+                 * torch.from_numpy(wl)).sum()
+    return [g.numpy() for g in torch.autograd.grad(r, (tq, tk, tv))]
+
+
+@pytest.mark.parametrize("use_lse", [False, True], ids=["out", "out_lse"])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_plain_backward_matches_jax_grad_f64(case, use_lse):
+    _, b, sq, sk, h, h_kv, d, causal, q_off, kv_off, window = case
+    q, k, v, wo, wl = _inputs(b, sq, sk, h, h_kv, d)
+    kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off,
+              window=window)
+    want = _jax_grads(q, k, v, wo, wl, use_lse, impl="jnp", **kw)
+    _kernels.reset_launch_counts()
+    got = _torch_grads(q, k, v, wo, wl, use_lse, **kw)
+    assert _kernels.launch_counts == {n: 0 for n in _kernels.launch_counts}
+    for name, a, r in zip("qkv", got, want):
+        assert a.dtype == np.float64 and a.shape == r.shape, name
+        np.testing.assert_allclose(a, r, atol=1e-12, rtol=0, err_msg=name)
+
+
+def test_fully_masked_rows_get_zero_gradients():
+    q, k, v, wo, wl = _inputs(1, 6, 8, 2, 2, 8)
+    dq, _, _ = _torch_grads(q, k, v, wo, wl, causal=True, kv_offset=3)
+    # Rows 0..2 precede every key.
+    assert np.all(dq[:, :3] == 0)
+    assert np.any(dq[:, 3:] != 0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backward_matches_interpreted_pallas_f32(causal):
+    q, k, v, wo, wl = _inputs(1, 256, 256, 4, 2, 128, dtype=np.float32,
+                              seed=5)
+    want = _jax_grads(q, k, v, wo, wl, impl="pallas", causal=causal)
+    got = _torch_grads(q, k, v, wo, wl, causal=causal)
+    for name, a, r in zip("qkv", got, want):
+        assert a.dtype == np.float32, name
+        np.testing.assert_allclose(a, r, rtol=1e-3, atol=1e-4,
+                                   err_msg=name)
+
+
+def test_recomputing_backward_matches_autograd_through_plain_forward():
+    # The recomputing backward agrees with autograd through the plain
+    # forward's own operations, up to the reassociation of sums.
+    q, k, v, wo, wl = _inputs(1, 7, 7, 2, 1, 8, seed=3)
+    got = _torch_grads(q, k, v, wo, wl, causal=True)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    zero = torch.tensor(0, dtype=torch.int32)
+    o, l = pflash._torch_block(tq, tk, tv, zero, zero, True)
+    r = (o * torch.from_numpy(wo)).sum() + (l * torch.from_numpy(wl)).sum()
+    want = torch.autograd.grad(r, (tq, tk, tv))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b.numpy(), atol=1e-12, rtol=0)
+
+
+@pytest.mark.parametrize("case", [CASES[3], CASES[7]],
+                         ids=["untiled_gqa", "tiled_gqa"])
+def test_plain_backward_parts_equal_the_whole(case):
+    # The dq-only and dk/dv-only plain backwards (the two kernels' plain
+    # counterparts) give the same bits as the whole backward.
+    _, b, sq, sk, h, h_kv, d, causal, q_off, kv_off, window = case
+    q, k, v, do, dlse = (torch.from_numpy(x) for x in
+                         _inputs(b, sq, sk, h, h_kv, d, seed=6))
+    qo, ko = torch.tensor(q_off, dtype=torch.int32), \
+        torch.tensor(kv_off, dtype=torch.int32)
+    out, lse = pflash._torch_block(q, k, v, qo, ko, causal, window)
+    args = (q, k, v, out, lse, do, dlse, qo, ko, causal, window)
+    whole = pflash._torch_block_bwd(*args)
+    dq, none_k, none_v = pflash._torch_block_bwd(*args, parts=("dq",))
+    none_q, dk, dv = pflash._torch_block_bwd(*args, parts=("dkv",))
+    assert none_k is None and none_v is None and none_q is None
+    for a, r in zip((dq, dk, dv), whole):
+        assert torch.equal(a, r)
+
+
+def test_cuda_backward_on_cpu_tensors_raises():
+    q, k, v, _, lse = _inputs(1, 8, 8, 2, 2, 8, dtype=np.float32)
+    q, k, v, lse = (torch.from_numpy(x) for x in (q, k, v, lse))
+    with pytest.raises(ValueError, match="CUDA"):
+        pflash.flash_block_attention(q.requires_grad_(), k, v, causal=True,
+                                     impl="cuda")
+    for fn in (_kernels.flash_bwd_dq, _kernels.flash_bwd_dkv):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(q, k, v, q, lse, lse, 0, 0, True)
+    assert _kernels.launch_counts["flash_bwd_dq"] == 0
+    assert _kernels.launch_counts["flash_bwd_dkv"] == 0
+
+
+def test_per_row_offsets_stay_on_the_plain_forward():
+    q, k, v, _, _ = _inputs(3, 1, 10, 4, 2, 8, seed=4)
+    q, k, v = (torch.from_numpy(x) for x in (q, k, v))
+    pos = torch.tensor([2, 9, 5])
+    o, _ = pflash.flash_block_attention(q.requires_grad_(), k, v,
+                                        causal=True, q_offset=pos)
+    assert o.grad_fn is not None
+    assert "BlockAttention" not in type(o.grad_fn).__name__
+
+
+def test_bwd_tiling_constants_match_jax():
+    assert pflash._BWD_TILE_ABOVE == jflash._BWD_TILE_ABOVE
+    assert pflash._KV_TILE == jflash._KV_TILE

@@ -32,11 +32,12 @@ def test_port_has_modules():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for rel in ("constants.py", "config.py", "runtime.py", "comm.py",
                 "ops/eager.py", "ops/flash.py", "ops/ragged.py",
-                "ops/_kernels.py", "parallel/tp.py",
+                "ops/_kernels.py", "parallel/tp.py", "parallel/dp.py",
                 "models/transformer.py", "serve/kv.py", "serve/engine.py",
-                "utils/profiling.py"):
+                "utils/profiling.py", "utils/tree.py"):
         assert f"mpi4torch_tpu_torch/{rel}" in names
-    assert (ROOT / "mpi4torch_tpu_torch/ops/csrc/flash_fwd.cu").exists()
+    for src in ("flash_fwd.cu", "flash_bwd.cu"):
+        assert (ROOT / "mpi4torch_tpu_torch/ops/csrc" / src).exists()
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
