@@ -48,13 +48,43 @@ check fails.  Phases, in order:
     and its time beside its bound, its plain version and, for the
     backward pair, the backward of ``scaled_dot_product_attention``
     (timed only);
-11. one JSON line describing each ported kernel.
+11. the quantized ring hop kernel (``q8_hop``, ``csrc/quant_hop.cu``)
+    against its plain version on the card, bitwise: every combination of
+    residual, stochastic rounding and hop 0, blocks of 128, 256 and 384,
+    ragged row counts, zero, subnormal and non-finite blocks, and the
+    kernel's element-by-element path (a block of 130; operands one
+    element into their storage); the threefry noise made on the card
+    against the same noise made on the CPU; and the compressed Allreduce
+    on ``bidir`` at an odd split (2 ranks x 1025 float32, where the
+    second channel's hops take the element-by-element path), value and
+    gradient bitwise equal to the run on the plain hop;
+12. the compressed Allreduce at the JAX package's bench size
+    (``bench.py:249``, ``1 << 24`` float32 per rank) on a world of four
+    rank threads, differentiated through ``vdot(y, y)``, for each of
+    ``q8``/``q8_ef``/``q8_ef_hop`` on ``ring``/``bidir``/``torus``: ranks
+    bitwise identical, value and gradient bitwise equal to the same run
+    on the plain hop, the kernel's launch counts equal to the schedule's,
+    and the error against the exact Allreduce within the codec's bound;
+13. compressed-gradient data-parallel training of the flagship
+    transformer on two rank threads, two steps of ``lm_loss`` →
+    ``torch.autograd.grad`` → ``ef_allreduce(..., compression="q8")`` →
+    ``/ 2`` → ``p - 1e-3 g``: ranks bitwise identical, each step's
+    residual exactly ``corrected - roundtrip(corrected)``, two hop
+    launches per leaf per step, and the first step's synced gradient
+    within a bound derived from the block scales of the exact DP
+    gradient;
+14. compressed numbers: the hop kernel's time at the two shapes the paths
+    give it beside its bound and its plain version, each compressed
+    Allreduce's step beside the exact one, and the compressed DP=2 step
+    beside the exact DP=2 step, with a profile of one compressed step;
+15. one JSON line describing each ported kernel.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 TF32 is switched off for matmuls and cuDNN here, so float32 work on the
 card stays float32-exact like the JAX reference.
 """
 
+import itertools
 import json
 import subprocess
 import sys
@@ -159,6 +189,35 @@ LOSS_TOL = 0.125
 # sums in another grouping), and train_step's update must be exactly
 # p - lr * g of that DP gradient.
 DP_GRAD_REL = GRAD_REL_TOL
+
+# Quantized hop kernel vs plain: (name, nb, block, storage offset in
+# elements).  Rows 0, 1 and 2 of every case are a zero block, a subnormal
+# block and a block near 1e30.  The last two cases take the kernel's
+# element-by-element path (kernels.hop_vec == 1): a block that is not a
+# multiple of 4, and operands that start one element into their storage
+# (as the second channel of bidir/torus does at an odd split).
+HOP_CASES = [("block_128_ragged", 1000, 128, 0), ("block_256", 4096, 256, 0),
+             ("block_384_ragged", 77, 384, 0),
+             ("block_130_scalar", 50, 130, 0),
+             ("block_256_offset_1", 64, 256, 1)]
+# bidir on 2 ranks x 1025 float32: channel 1 starts at float 513 and fills
+# its chunks exactly, so its hops read views that are only 4-byte aligned.
+ODD_RANKS, ODD_NUMEL = 2, 1025
+# The compressed Allreduce at the JAX package's chip size (bench.py:249):
+# 1 << 24 float32 per rank on four rank threads; torus's inner group is 2.
+BENCH_RANKS, BENCH_NUMEL = 4, 1 << 24
+Q8_CODECS = ("q8", "q8_ef", "q8_ef_hop")
+Q8_ALGOS = ("ring", "bidir", "torus")
+EF_ROUNDS = {"q8": 1, "q8_ef": 2, "q8_ef_hop": 1}
+# Norm-relative error against the exact Allreduce: the JAX package's own
+# bounds for q8 and q8_ef (tests/test_compress.py: q8 2.5e-2 at lines 154,
+# 263 and 833; q8_ef 1e-3 at line 268).  The JAX tests state none for
+# q8_ef_hop: its stochastic rounding errs by f(1 - f) s^2 in variance (f
+# the fractional part), up to s^2 / 4, three times round-to-nearest's
+# s^2 / 12 at worst, so it is held to sqrt(3) times q8's bound.
+CODEC_REL = {"q8": 2.5e-2, "q8_ef": 1e-3, "q8_ef_hop": 2.5e-2 * 3 ** 0.5}
+# bf16 unit roundoff: each rounding of the synced and exact gradients.
+BF16_U = 2.0 ** -8
 
 
 class SmokeFailure(RuntimeError):
@@ -606,7 +665,8 @@ def train_dp2(P, T, tree, dp, kernels, cfg, params, tokens):
     check(abs(l0.item() - ref_loss.item()) <= LOSS_TOL,
           "DP=2 loss too far from the one-rank loss")
     check(worst <= DP_GRAD_REL, "DP=2 gradient too far from one rank's")
-    check(all(launches[k] == want for k in launches),
+    check(all(launches[k] == want for k in ("flash_fwd", "flash_bwd_dq",
+                                            "flash_bwd_dkv")),
           "DP=2 did not run every attention on the kernels")
     return dp_ms
 
@@ -702,6 +762,422 @@ def backward_numbers(flash, kernels):
     return res, bounds, plain, lib, err
 
 
+def bits_differ(a, b):
+    """Count of elements whose bits differ; NaN matches NaN."""
+    if a.dtype == torch.float32:
+        both_nan = torch.isnan(a) & torch.isnan(b)
+        return int(((a.view(torch.int32) != b.view(torch.int32))
+                    & ~both_nan).sum())
+    return int((a != b).sum())
+
+
+def offset_view(t, offset):
+    """``t``'s values in a view that starts ``offset`` elements into its
+    storage."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def hop_operands(nb, block, seed, offset=0):
+    """q, scale, mine, noise of one hop on the card, from a seed: an int8
+    payload, power-of-two scales, contributions with a zero block (row 0),
+    a subnormal block (row 1) and a block near 1e30 (row 2); each starting
+    ``offset`` elements into its storage."""
+    from mpi4torch_tpu_torch.ops import quant_kernels as qk
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randint(-127, 128, (nb, block), generator=g, device="cuda",
+                      dtype=torch.int8)
+    q[:2] = 0
+    scale = qk.po2_scale(torch.rand(nb, generator=g, device="cuda") * 0.1
+                         + 1e-3)
+    mine = torch.randn((nb, block), generator=g, device="cuda") * 3.0
+    mine[0] = 0.0
+    mine[1] = torch.linspace(-1.1e-38, 1.1e-38, block, device="cuda")
+    mine[2] *= 1e30
+    noise = torch.rand((nb, block), generator=g, device="cuda")
+    return [offset_view(t, offset) for t in (q, scale, mine, noise)]
+
+
+def max_abs_diff(a, b):
+    """max |a - b| over the elements where both are finite (0.0 when
+    none)."""
+    a, b = a.double(), b.double()
+    both = torch.isfinite(a) & torch.isfinite(b)
+    return (a - b)[both].abs().max().item() if bool(both.any()) else 0.0
+
+
+def hop_compare(qk, args, mine, noise, want_resid, finite_rows=None):
+    """One hop on the kernel and on the plain version, same inputs;
+    returns the mismatched element counts of (q, scale, resid), the
+    largest |kernel - plain| over the compared finite values, and the
+    kernel's outputs.  Rows outside ``finite_rows`` hold a non-finite
+    input: there only the scale is compared (the int8 value of a NaN is
+    not specified)."""
+    got = qk.dequant_accum_requant(*args, mine, noise=noise,
+                                   want_resid=want_resid, impl="cuda")
+    want = qk.dequant_accum_requant(*args, mine, noise=noise,
+                                    want_resid=want_resid, impl="torch")
+    torch.cuda.synchronize()
+    rows = slice(None) if finite_rows is None else finite_rows
+    out = [bits_differ(got[0][rows], want[0][rows]),
+           bits_differ(got[1], want[1])]
+    out.append(bits_differ(got[2][rows], want[2][rows]) if want_resid
+               else 0)
+    err = max([max_abs_diff(got[0][rows], want[0][rows]),
+               max_abs_diff(got[1], want[1])]
+              + ([max_abs_diff(got[2][rows], want[2][rows])]
+                 if want_resid else []))
+    return out, err, got
+
+
+def hop_kernel_phase(qk, kernels):
+    """K1 against its plain version on every case; prints the mismatched
+    element counts, which must all be 0.  Returns the largest |kernel -
+    plain| over the compared finite values."""
+    total, max_err = 0, 0.0
+    for i, (name, nb, block, offset) in enumerate(HOP_CASES):
+        q, scale, mine, noise = hop_operands(nb, block, seed=300 + i,
+                                             offset=offset)
+        vec = kernels.hop_vec(block, [mine, noise], [q])
+        want_vec = 1 if block % 4 or offset else 4
+        check(vec == want_vec, f"hop case {name} takes vec {vec}, expected "
+              f"{want_vec}")
+        counts = []
+        for hop0 in (False, True):
+            for stochastic in (False, True):
+                for want_resid in (False, True):
+                    args = (None, None) if hop0 else (q, scale)
+                    key = "q8_requant" if hop0 else "q8_hop"
+                    before = kernels.launch_counts[key]
+                    c, err, got = hop_compare(qk, args, mine,
+                                              noise if stochastic else None,
+                                              want_resid)
+                    max_err = max(max_err, err)
+                    check(kernels.launch_counts[key] == before + 1,
+                          f"hop case {name} did not launch the kernel")
+                    check(got[1][0].item() == got[1][1].item() == 2.0**-126,
+                          f"hop case {name}: zero/subnormal block scale "
+                          "is not 2^-126")
+                    counts.append(sum(c))
+        total += sum(counts)
+        print(f"  {name:18s} ({nb}, {block}), vec {vec}: 8 flag "
+              f"combinations (hop 0 x stochastic x residual), mismatched "
+              f"elements "
+              f"{counts}  {'ok' if not sum(counts) else 'FAIL'}",
+              flush=True)
+    q, scale, mine, noise = hop_operands(64, 256, seed=399)
+    mine[5, 17] = float("nan")
+    mine[6, 100] = float("inf")
+    finite = [r for r in range(64) if r not in (5, 6)]
+    c, err, got = hop_compare(qk, (q, scale), mine, noise, True, finite)
+    max_err = max(max_err, err)
+    bad_scale = bool(torch.isfinite(got[1][5:7]).any())
+    print(f"  non_finite (64, 256): scales of the NaN and inf blocks "
+          f"{got[1][5].item()}, {got[1][6].item()}; mismatched elements "
+          f"{c} (q and residual over finite rows)  "
+          f"{'ok' if not sum(c) and not bad_scale else 'FAIL'}", flush=True)
+    total += sum(c)
+    check(total == 0, "the hop kernel disagrees with its plain version")
+    check(not bad_scale, "a non-finite block got a finite scale")
+    mism = 0
+    for salt, hop, rank, shape in [(0, 0, 0, (1024, 256)),
+                                   (3, 2, 1, (333, 384)),
+                                   (5, 7, 3, (1, 1))]:
+        key = qk.schedule_key(salt, hop, rank)
+        mism += bits_differ(qk.hop_noise(key, *shape, device="cuda").cpu(),
+                            qk.hop_noise(key, *shape))
+    print(f"  threefry noise made on the card vs on the CPU, 3 keys: "
+          f"mismatched elements {mism}  {'ok' if not mism else 'FAIL'}")
+    check(mism == 0, "threefry noise differs between the card and the CPU")
+    return max_err
+
+
+def odd_split_phase(P, C, kernels, config):
+    """bidir at an odd split: every block-q8 codec on ODD_RANKS rank
+    threads x ODD_NUMEL float32, value and gradient, on the kernel and on
+    the plain hop, bitwise.  Channel 1's hops read views that start at an
+    odd float offset, so the kernel goes element by element there.
+    Returns the largest |kernel - plain| over the outputs."""
+    m = C.multipath_split(ODD_NUMEL)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    xs = [torch.randn(ODD_NUMEL, generator=g, device="cuda")
+          for _ in range(ODD_RANKS)]
+    vec = kernels.hop_vec(256, [xs[0][m:]], [])
+    pad = (ODD_NUMEL - m) % (ODD_RANKS * 256)
+    check(vec == 1 and pad == 0, "the odd-split case does not reach the "
+          "element-by-element path")
+    max_err = 0.0
+    for codec in Q8_CODECS:
+        kernels.reset_launch_counts()
+        got = q8_value_and_grad(P, xs, codec, "bidir")
+        hops = kernels.launch_counts["q8_hop"]
+        config.set_quant_hop_impl("torch")
+        try:
+            want = q8_value_and_grad(P, xs, codec, "bidir")
+        finally:
+            config.set_quant_hop_impl("auto")
+        same = all(torch.equal(y, got[0][0]) and torch.equal(gr, got[0][1])
+                   for y, gr in got)
+        pairs = [(a, b) for (y, gr), (yw, gw) in zip(got, want)
+                 for a, b in ((y, yw), (gr, gw))]
+        mism = sum(bits_differ(a, b) for a, b in pairs)
+        max_err = max([max_err] + [max_abs_diff(a, b) for a, b in pairs])
+        ok = same and mism == 0 and hops > 0
+        print(f"  {codec:9s} bidir, {ODD_RANKS} x {ODD_NUMEL} (channel 1 "
+              f"from float {m}, vec {vec}): ranks identical {same}; vs "
+              f"plain hop mismatched {mism}; hop launches {hops}  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"odd-split {codec}/bidir disagrees with the plain hop")
+    return max_err
+
+
+def bench_inputs():
+    g = torch.Generator(device="cuda").manual_seed(5)
+    return [torch.randn(BENCH_NUMEL, generator=g, device="cuda")
+            for _ in range(BENCH_RANKS)]
+
+
+def q8_value_and_grad(P, xs, compression, algo):
+    """Each rank's (y, dL/dx) for L = vdot(y, y), y = Allreduce(x)."""
+    def body(rank):
+        x = xs[rank].clone().requires_grad_()
+        y = P.COMM_WORLD.Allreduce(x, P.MPI_SUM, compression=compression,
+                                   algorithm=algo)
+        (g,) = torch.autograd.grad(torch.vdot(y, y), x)
+        return y.detach(), g
+
+    return P.run_ranks(body, len(xs), device="cuda")
+
+
+def norm_rel1(a, b):
+    return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+
+def path1_phase(P, kernels, config):
+    """The compressed Allreduce at the bench size for every codec x
+    algorithm.  Returns per pair (kernel run ms, plain run ms, launches),
+    and the exact Allreduce's ms on the same world."""
+    n = BENCH_RANKS
+    xs = bench_inputs()
+    exact = xs[0].clone()
+    for x in xs[1:]:
+        exact += x
+    q8_value_and_grad(P, xs, False, None)          # warm-up
+    exact_ms = min(sync_ms(lambda: q8_value_and_grad(P, xs, False, None))[0]
+                   for _ in range(2))
+    res = {}
+    for codec in Q8_CODECS:
+        for algo in Q8_ALGOS:
+            kernels.reset_launch_counts()
+            ms, got = sync_ms(lambda: q8_value_and_grad(P, xs, codec, algo))
+            hops = kernels.launch_counts["q8_hop"]
+            requants = kernels.launch_counts["q8_requant"]
+            config.set_quant_hop_impl("torch")
+            try:
+                plain_ms, want = sync_ms(
+                    lambda: q8_value_and_grad(P, xs, codec, algo))
+            finally:
+                config.set_quant_hop_impl("auto")
+            same_ranks = all(torch.equal(y, got[0][0])
+                             and torch.equal(g, got[0][1]) for y, g in got)
+            mism = sum(bits_differ(a, b) for (y, g), (yw, gw)
+                       in zip(got, want) for a, b in ((y, yw), (g, gw)))
+            chans = 1 if algo == "ring" else 2
+            rounds = EF_ROUNDS[codec]
+            want_hops = 2 * chans * rounds * n * (n - 1)
+            want_req = 2 * chans * rounds * n
+            y, g = got[0]
+            rel = norm_rel1(y, exact)
+            # Every rank's cotangent is 2y, so the exact backward is 2n y.
+            rel_g = norm_rel1(g, 2 * n * y)
+            bound_rel = CODEC_REL[codec]
+            ok = (same_ranks and mism == 0 and hops == want_hops
+                  and requants == want_req and rel <= bound_rel
+                  and rel_g <= bound_rel)
+            print(f"  {codec:9s} {algo:5s}: fwd+bwd {ms:8.2f} ms (plain hop "
+                  f"{plain_ms:8.2f} ms); ranks identical {same_ranks}; vs "
+                  f"plain hop mismatched {mism}; launches hop {hops}/"
+                  f"{want_hops} requant {requants}/{want_req} "
+                  f"(2 x {chans} ch x {rounds} rd x n(n-1) / n); err vs "
+                  f"exact {rel:.3e}, grad {rel_g:.3e} (bound "
+                  f"{bound_rel:g})  {'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"compressed Allreduce {codec}/{algo} failed a check")
+            res[(codec, algo)] = (ms, plain_ms, hops, requants)
+            del got, want, y, g
+    print(f"  exact Allreduce, same world and size: fwd+bwd {exact_ms:.2f} "
+          "ms")
+    return res, exact_ms
+
+
+def block_scales(qk, flat, n, block=256):
+    """The power-of-two scale of each block of ``flat`` in the chunk
+    layout of an n-rank ring."""
+    xcb, _ = qk.chunk_blocks(flat, n, block)
+    return qk.po2_scale(xcb.reshape(-1, block).abs().amax(1))
+
+
+def path2_phase(P, T, tree, ef, qk, kernels, cfg, params, tokens):
+    """Two compressed-gradient DP=2 steps with all checks.  Returns the
+    launch counts of the run."""
+    rows = TRAIN_BATCH // 2
+    leaves = tree.tree_leaves(params)
+    codec = P.compress.get_codec("q8")
+
+    def body(rank):
+        comm = P.COMM_WORLD
+        x = tokens[rank * rows:(rank + 1) * rows]
+        p, resid, out = params, None, []
+        for step in range(2):
+            _, g = tree.value_and_grad(lambda q: T.lm_loss(cfg, q, x), p)
+            if resid is None:
+                resid = ef.ef_init(g)
+            corrected = tree.tree_map(lambda a, r: a + r.to(a.dtype), g,
+                                      resid)
+            hops0 = kernels.launch_counts["q8_hop"]
+            synced, resid = ef.ef_allreduce(comm, g, resid,
+                                            compression="q8")
+            hops = kernels.launch_counts["q8_hop"] - hops0
+            exact_res = all(torch.equal(r, c - codec.roundtrip(c))
+                            for r, c in zip(tree.tree_leaves(resid),
+                                            tree.tree_leaves(corrected)))
+            mean = tree.tree_map(lambda s: s / comm.size, synced)
+            errs = None
+            if step == 0:
+                # The exact DP=2 gradient sum, and the rigorous bound on
+                # the q8 ring's error: hop 0 errs by at most s0/2 (s0 the
+                # largest hop-0 scale of the block over the ranks), hop 1
+                # by s1/2 with s1 <= po2(amax(sum)(1 + u) + s0/2); then
+                # one bf16 rounding each of the synced and exact sums.
+                errs = []
+                for sy, gl in zip(tree.tree_leaves(synced),
+                                  tree.tree_leaves(g)):
+                    ex = comm.Allreduce(gl, P.MPI_SUM, compression=False)
+                    s0 = comm.Allreduce(
+                        block_scales(qk, gl.float().reshape(-1), comm.size),
+                        P.MPI_MAX, compression=False)
+                    _, nb = qk.chunk_blocks(gl.reshape(-1), comm.size, 256)
+                    amax = qk.chunk_blocks(ex.float().reshape(-1),
+                                           comm.size, 256)[0] \
+                        .reshape(-1, 256).abs().amax(1)
+                    s1 = qk.po2_scale(amax * (1 + BF16_U) + s0 / 2)
+                    e_q = (256 * ((s0.double() + s1.double()) / 2)
+                           .square().sum()).sqrt()
+                    e_ref = ex.double().norm()
+                    e_out = sy.double().norm()
+                    err = (sy.double() - ex.double()).norm()
+                    if e_ref > 0:
+                        errs.append(((err / e_ref).item(),
+                                     ((e_q + BF16_U * (e_ref + e_out))
+                                      / e_ref).item()))
+                    del ex, s0, s1, amax
+            out.append((mean, hops, exact_res, errs))
+            with torch.no_grad():
+                p = tree.tree_map(lambda a, b: a - LR * b, p, mean)
+        return out
+
+    kernels.reset_launch_counts()
+    ms, (r0, r1) = sync_ms(lambda: P.run_ranks(body, 2, device="cuda"))
+    launches = dict(kernels.launch_counts)
+    same = all(leaves_equal(tree, a[0], b[0]) for a, b in zip(r0, r1))
+    hops = [s[1] for s in r0]
+    exact_res = all(s[2] for s in r0 + r1)
+    errs = r0[0][3]
+    worst = max(errs, key=lambda e: e[0])
+    tight = max(e[0] / e[1] for e in errs)
+    finite = all(bool(torch.isfinite(m).all())
+                 for s in r0 for m in tree.tree_leaves(s[0]))
+    print(f"  2 ranks x batch {rows}, {len(leaves)} gradient leaves, 2 "
+          f"steps in {ms:.0f} ms (with the checks); ranks bitwise "
+          f"identical: {same}; q8_hop launches per step {hops} (expected "
+          f"2 x {len(leaves)} = {2 * len(leaves)}); residual == corrected - "
+          f"roundtrip(corrected) bitwise on both ranks and steps: "
+          f"{exact_res}; synced gradients finite: {finite}")
+    print(f"  step 1 vs the exact DP=2 gradient, norm-relative per leaf: "
+          f"worst {worst[0]:.3e} (its bound {worst[1]:.3e}); largest "
+          f"error / bound {tight:.3f}; bounds {min(e[1] for e in errs):.3e}"
+          f"-{max(e[1] for e in errs):.3e}")
+    check(same, "the two compressed DP ranks disagree")
+    check(all(h == 2 * len(leaves) for h in hops),
+          "q8_hop did not launch twice per leaf per step")
+    check(exact_res, "a carried residual is not corrected - roundtrip")
+    check(finite, "a synced gradient is not finite")
+    check(tight <= 1.0, "a leaf's compressed gradient is outside its bound")
+    return launches
+
+
+def dp_step(P, T, tree, ef, cfg, params, tokens, compression):
+    rows = TRAIN_BATCH // 2
+
+    def body(rank):
+        x = tokens[rank * rows:(rank + 1) * rows]
+        _, g = tree.value_and_grad(lambda q: T.lm_loss(cfg, q, x), params)
+        synced, _ = ef.ef_allreduce(P.COMM_WORLD, g, ef.ef_init(g),
+                                    compression=compression)
+        with torch.no_grad():
+            return tree.tree_map(lambda a, s: a - LR * (s / 2), params,
+                                 synced)
+
+    P.run_ranks(body, 2, device="cuda")
+
+
+def hop_bytes(nb, block, stochastic, resid):
+    """Bytes one hop with an arriving payload moves: q (1 B), mine (4 B)
+    and q' (1 B) per element, noise and residual (4 B each) when asked,
+    and the scale in and out (4 B each) per row."""
+    return nb * block * (6 + 4 * stochastic + 4 * resid) + nb * 8
+
+
+def hop_numbers(qk):
+    """K1 at the two shapes of the paths: the bench ring chunk (16384,
+    256) for each codec's hop, and the DP=2 embed leaf's chunk (131072,
+    256) for q8; each held against the plain version (bitwise), then
+    kernel ms, bound and plain ms.  The bench chunk's operands (25-59 MB)
+    would sit in the 50 MB L2 across launches, so the kernel cycles over
+    four copies of them."""
+    res = {}
+    for label, nb, stochastic, resid in (
+            ("bench_q8", 16384, False, False),
+            ("bench_q8_ef", 16384, False, True),
+            ("bench_q8_ef_hop", 16384, True, True),
+            ("dp2_embed_q8", 131072, False, False)):
+        copies = [hop_operands(nb, 256, seed=500 + i)
+                  for i in range(4 if nb < 65536 else 1)]
+        q, scale, mine, noise = copies[0]
+        nz = noise if stochastic else None
+        c, err, _ = hop_compare(qk, (q, scale), mine, nz, resid)
+        check(sum(c) == 0, f"hop kernel disagrees at {label}")
+        cycle = itertools.cycle(copies)
+
+        def kern():
+            q, scale, mine, noise = next(cycle)
+            qk.dequant_accum_requant(q, scale, mine,
+                                     noise=noise if stochastic else None,
+                                     want_resid=resid, impl="cuda")
+
+        k_ms = event_ms(kern, iters=40, warmup=4)
+        p_ms = event_ms(lambda: qk.dequant_accum_requant(
+            q, scale, mine, noise=nz, want_resid=resid, impl="torch"),
+            iters=5, warmup=1)
+        nbytes = hop_bytes(nb, 256, stochastic, resid)
+        b_ms, b_by = bound(12.0 * nb * 256, nbytes, torch.float32)
+        res[label] = (k_ms, p_ms, b_ms, b_by, nbytes, err)
+        print(f"  q8_hop {label:16s} ({nb}, 256)"
+              f"{' noise' if stochastic else ''}{' resid' if resid else ''}:"
+              f" kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB), "
+              f"{100 * b_ms / k_ms:.1f}% of bound; kernel vs plain "
+              f"mismatched elements 0", flush=True)
+        del copies, q, scale, mine, noise
+    print("  library_ms is null: no single PyTorch call computes the fused "
+          "dequantize-accumulate-requantize hop")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU",
@@ -715,6 +1191,10 @@ def main():
     from mpi4torch_tpu_torch.parallel import dp
     from mpi4torch_tpu_torch.serve import kv
     from mpi4torch_tpu_torch.utils import tree
+    from mpi4torch_tpu_torch import config
+    from mpi4torch_tpu_torch.compress import ef
+    from mpi4torch_tpu_torch.ops import quant_kernels as qk
+    from mpi4torch_tpu_torch import constants as C
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -883,7 +1363,41 @@ def main():
     k_ms, bounds, plain, lib, train_err = backward_numbers(flash,
                                                          kernels)
 
-    phase(11, "kernels")
+    phase(11, "quantized hop kernel vs plain version on the card")
+    hop_err = hop_kernel_phase(qk, kernels)
+    hop_err = max(hop_err, odd_split_phase(P, C, kernels, config))
+
+    phase(12, f"compressed Allreduce, {BENCH_RANKS} rank threads x "
+          f"{BENCH_NUMEL} float32 (the bench size)")
+    p1, p1_exact_ms = path1_phase(P, kernels, config)
+
+    phase(13, "compressed-gradient DP=2 training of the flagship "
+          "transformer")
+    p2_launches = path2_phase(P, T, tree, ef, qk, kernels, cfg, params,
+                              tokens)
+
+    phase(14, "compressed numbers")
+    print(smi)
+    hop = hop_numbers(qk)
+    print(f"  compressed Allreduce fwd+bwd at {BENCH_RANKS} x {BENCH_NUMEL} "
+          f"float32, kernel hop (plain hop), exact Allreduce "
+          f"{p1_exact_ms:.2f} ms:")
+    for (codec, algo), (run_ms, run_plain_ms, _, _) in p1.items():
+        print(f"    {codec:9s} {algo:5s} {run_ms:8.2f} ms "
+              f"({run_plain_ms:8.2f} ms), {run_ms / p1_exact_ms:.2f}x exact")
+    steps = {}
+    for comp in (None, "q8", "q8", None):
+        t_ms, _ = sync_ms(lambda: dp_step(P, T, tree, ef, cfg, params,
+                                          tokens, comp))
+        steps.setdefault(comp, []).append(t_ms)
+    print(f"  DP=2 step (lm_loss, grad, ef_allreduce, update) at batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: compressed q8 "
+          f"{[round(x, 1) for x in steps['q8']]} ms, exact "
+          f"{[round(x, 1) for x in steps[None]]} ms")
+    profile_top(lambda: dp_step(P, T, tree, ef, cfg, params, tokens, "q8"),
+                "one compressed DP=2 step", n_top=8)
+
+    phase(15, "kernels")
     # flash_fwd: launches on the serving path (phase 4), times at the
     # flagship prefill shape, its error the worst of the serving and the
     # training shape.  flash_bwd_*: launches in the TP=1 training run
@@ -891,8 +1405,15 @@ def main():
     # library call computes dq alone or dk/dv alone, so their library_ms
     # is null; pair_plain_ms and pair_library_ms are the whole backward's
     # (dq, dk and dv together), the plain one and that of
-    # scaled_dot_product_attention.
+    # scaled_dot_product_attention.  q8_hop: launches in the compressed
+    # DP=2 run (phase 13), times at the DP=2 embed leaf's chunk; the
+    # bench-size Allreduce's launches and times beside them; max_abs_err
+    # is the largest |kernel - plain| of every comparison of phases 11
+    # and 14 (0.0 when bitwise); no single library call computes the
+    # fused hop, so library_ms is null.
     bwd_src = "mpi4torch_tpu_torch/ops/csrc/flash_bwd.cu"
+    k_ms_hop, p_ms_hop, b_ms_hop, b_by_hop, _, _ = hop["dp2_embed_q8"]
+    hop_err = max([hop_err] + [v[5] for v in hop.values()])
     line = {"kernels": [{
         "name": "flash_fwd", "route": "cuda",
         "source": "mpi4torch_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -911,7 +1432,21 @@ def main():
             "bound_by": bounds[kname][1], "library_ms": None,
             "pair_plain_ms": plain["pair"], "pair_library_ms": lib["pair"]}
             for kname, line_no in (("flash_bwd_dq", 444),
-                                  ("flash_bwd_dkv", 485))]}
+                                  ("flash_bwd_dkv", 485))] + [{
+        "name": "q8_hop", "route": "cuda",
+        "source": "mpi4torch_tpu_torch/ops/csrc/quant_hop.cu",
+        "replaces": "mpi4torch_tpu/ops/quant_kernels.py:196",
+        "launches": p2_launches["q8_hop"],
+        "requant_launches": p2_launches["q8_requant"],
+        "bench_launches": sum(v[2] for v in p1.values()),
+        "max_abs_err": hop_err,
+        "ms": k_ms_hop, "plain_ms": p_ms_hop, "bound_ms": b_ms_hop,
+        "bound_by": b_by_hop, "library_ms": None,
+        "bench_ms": {k: v[0] for k, v in hop.items()},
+        "bench_plain_ms": {k: v[1] for k, v in hop.items()},
+        "bench_bound_ms": {k: v[2] for k, v in hop.items()}}]}
+    check(p2_launches["q8_hop"] > 0 and p2_launches["q8_requant"] > 0,
+          "the compressed DP=2 run launched no hop kernel")
     print(json.dumps(line))
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)

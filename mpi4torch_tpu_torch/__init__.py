@@ -2,13 +2,16 @@
 
 The JAX package ``mpi4torch_tpu`` is the reference; this package is its
 port to PyTorch on an NVIDIA H100, slice by slice (ROADMAP.md).  It
-carries the serving path and the data-parallel training path: the
-differentiable collective facade (``COMM_WORLD``, ``Allreduce``,
-``Allreduce_tree``) on the rank-thread runtime (``run_ranks``), the
-flagship transformer with its continuous-batching engine
-(``serve.Engine``) and its SGD ``train_step``, and ``parallel.dp``.  Its
-attention runs through hand-written CUDA kernels: the forward
-(``ops/csrc/flash_fwd.cu``) and the backward (``ops/csrc/flash_bwd.cu``).
+carries the serving path, the data-parallel training path and the
+compressed gradient Allreduce: the differentiable collective facade
+(``COMM_WORLD``, ``Allreduce``, ``Allreduce_tree``) on the rank-thread
+runtime (``run_ranks``), the block-q8 codecs on ``ring``/``bidir``/
+``torus`` with cross-step error feedback (``compress``), the flagship
+transformer with its continuous-batching engine (``serve.Engine``) and its
+SGD ``train_step``, and ``parallel.dp``.  Its attention runs through
+hand-written CUDA kernels, the forward (``ops/csrc/flash_fwd.cu``) and the
+backward (``ops/csrc/flash_bwd.cu``), and every hop of a quantized ring
+through a third (``ops/csrc/quant_hop.cu``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device and no such request they raise.  The package imports
@@ -38,7 +41,7 @@ from .runtime import (
     resolve_device,
     run_ranks,
 )
-from . import config
+from . import compress, config
 
 __all__ = [
     "MPI_MAX", "MPI_MIN", "MPI_SUM", "MPI_PROD", "MPI_LAND", "MPI_BAND",
@@ -46,5 +49,5 @@ __all__ = [
     "MPI_MAXLOC",
     "COMM_WORLD", "MPI_Communicator",
     "CommError", "CollectiveMismatchError", "DeadlockError",
-    "RankFailedError", "resolve_device", "run_ranks", "config",
+    "RankFailedError", "resolve_device", "run_ranks", "compress", "config",
 ]

@@ -6,6 +6,9 @@ the fixed ascending-rank fold that makes every eager reduction
 deterministic and bit-reproducible.  The JAX package folds large
 CPU-resident operands in a host C++ kernel; here the fold is torch ops on
 the tensors' own device, in the identical association.
+
+It also holds the quantized fold oracle of the block-q8 codecs
+(:func:`reduce_q8_hop`) with its multipath schedule rules.
 """
 
 from __future__ import annotations
@@ -108,3 +111,152 @@ def reduce_ordered(op: int, values):
     for v in values[1:]:
         out = combine2(op, out, v)
     return out
+
+
+def multipath_split(total: int) -> int:
+    """The split point of a multipath payload: the first
+    ``multipath_split(total)`` flat elements ride channel 0, the rest
+    channel 1."""
+    return -(-int(total) // 2)
+
+
+def multipath_ring_orders(n: int, algorithm, *, inner=None,
+                          reverse: bool = False):
+    """The channel schedules of the quantized multipath collectives: a
+    tuple of ``(sigma, direction)`` ring channels.  ``sigma`` maps ring
+    position to rank (``None``: position ``p`` is rank ``p``) and
+    ``direction`` is the ring step (+1/-1).
+
+    * ``ring`` — one identity channel.
+    * ``bidir`` — two counter-rotating identity channels; ``reverse``
+      swaps the directions, which is how the backward pass runs (the
+      adjoint of a ring segment is the reverse ring).
+    * ``torus`` — two same-direction channels on transposed walks of the
+      ``(outer, inner)`` rank grid: row-major, then column-major."""
+    if algorithm in (None, "ring"):
+        return ((None, 1),)
+    if algorithm == "bidir":
+        return ((None, -1), (None, 1)) if reverse else ((None, 1),
+                                                        (None, -1))
+    if algorithm == "torus":
+        if inner is None or inner < 1 or n % inner:
+            raise ValueError(
+                f"the torus multipath schedule needs an inner group size "
+                f"dividing the rank count; got inner={inner} for {n} "
+                "ranks")
+        outer = n // inner
+        sigma = tuple((p % outer) * inner + p // outer for p in range(n))
+        return ((None, 1), (sigma, 1))
+    raise ValueError(
+        f"no multipath ring decomposition for algorithm {algorithm!r} "
+        "(the quantized in-schedule pipeline serves ring-shaped "
+        "schedules: ring, bidir, torus)")
+
+
+def _sim_quant_ring(flats, block, sigma, d, salt, stochastic, hop_ef,
+                    track):
+    """Simulate one quantized ring channel over the per-rank contribution
+    list, hop for hop: the same chunk layout, requantization and
+    schedule-keyed noise as the JAX package's oracle.  Every hop runs
+    through ``ops/quant_kernels.dequant_accum_requant`` on the
+    contributions' device (the CUDA kernel K1 on a card).  Returns
+    ``(reduced_flat, per_rank_residual_flats or None)``."""
+    from .ops import quant_kernels as qk
+
+    n = len(flats)
+    total = flats[0].numel()
+    device = flats[0].device
+    xcbs = [qk.chunk_blocks(f, n, block)[0] for f in flats]
+    nb = xcbs[0].shape[1]
+    sig = list(sigma) if sigma is not None else list(range(n))
+    want = hop_ef or track
+
+    def noise(t, rank):
+        if not stochastic:
+            return None
+        return qk.hop_noise(qk.schedule_key(salt, t, rank), nb, block,
+                            device=device)
+
+    state = [None] * n                      # per position: (q, scale)
+    carry = [None] * n                      # per position: hop residual
+    err = ([torch.zeros_like(xcbs[0]) for _ in range(n)]  # per rank
+           if track else None)
+    for p in range(n):
+        r = sig[p]
+        c0 = (p - d) % n
+        q, s, res = qk.dequant_accum_requant(None, None, xcbs[r][c0],
+                                             noise=noise(0, r),
+                                             want_resid=want)
+        state[p] = (q, s)
+        if hop_ef:
+            carry[p] = res
+        if track:
+            err[r][c0] = res
+    for t in range(1, n):
+        new = [None] * n
+        for p in range(n):
+            r = sig[p]
+            q, s = state[(p - d) % n]       # payload moved one step
+            c = (p - d * (t + 1)) % n
+            mine = xcbs[r][c]
+            if hop_ef:
+                mine = mine + carry[p]
+            q2, s2, res = qk.dequant_accum_requant(
+                q, s, mine, noise=noise(t, r), want_resid=want)
+            new[p] = (q2, s2)
+            if hop_ef:
+                carry[p] = res
+            if track:
+                err[r][c] = res
+        state = new
+    pieces = [(state[c][0].to(torch.float32)
+               * state[c][1][:, None]).reshape(-1) for c in range(n)]
+    out = torch.cat(pieces)[:total]
+    if not track:
+        return out, None
+    return out, [e.reshape(-1)[:total] for e in err]
+
+
+def reduce_q8_hop(values, *, block: int = 256, algorithm="ring",
+                  inner=None, reverse: bool = False,
+                  stochastic: bool = False, hop_ef: bool = False,
+                  ef_rounds: int = 1):
+    """The quantized fold oracle: reduce per-rank tensors through a
+    bit-exact simulation of the in-schedule quantized collective —
+    chunked block-q8 ring reduce-scatter with a fresh-block-scale
+    dequantize→accumulate→requantize at every hop, composed over the
+    multipath channels of ``algorithm`` (:func:`multipath_ring_orders`)
+    and the codec's error-feedback rounds.  ``reverse`` mirrors the
+    backward pass's swapped ``bidir`` directions.  Bitwise equal to the
+    JAX package's ``constants.reduce_q8_hop`` on the same inputs."""
+    vals = list(values)
+    if not vals:
+        raise ValueError("reduce_q8_hop needs at least one value")
+    n = len(vals)
+    if n == 1:
+        return vals[0]
+    shape, dtype = vals[0].shape, vals[0].dtype
+    flats = [v.to(torch.float32).reshape(-1) for v in vals]
+    total = flats[0].numel()
+    orders = multipath_ring_orders(n, algorithm, inner=inner,
+                                   reverse=reverse)
+    m = multipath_split(total) if len(orders) > 1 else total
+    from .ops import quant_kernels as qk
+
+    outs = []
+    for k, (sigma, d) in enumerate(orders):
+        if k > 0 and m >= total:
+            break
+        chan = [f[:m] if k == 0 else f[m:] for f in flats]
+        out, resids = _sim_quant_ring(chan, block, sigma, d,
+                                      qk.ring_salt(0, k), stochastic,
+                                      hop_ef, track=ef_rounds > 1)
+        for r in range(1, ef_rounds):
+            last = r == ef_rounds - 1
+            more, resids = _sim_quant_ring(resids, block, sigma, d,
+                                           qk.ring_salt(r, k), stochastic,
+                                           hop_ef, track=not last)
+            out = out + more
+        outs.append(out)
+    flat_out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return flat_out.reshape(shape).to(dtype)

@@ -17,7 +17,10 @@ Kernels and the sources that hold them:
 
 * ``flash_fwd`` — ``csrc/flash_fwd.cu``, block attention forward;
 * ``flash_bwd_dq``, ``flash_bwd_dkv`` — ``csrc/flash_bwd.cu``, its
-  backward (dq; dk and dv).
+  backward (dq; dk and dv);
+* ``q8_hop``, ``q8_requant`` — ``csrc/quant_hop.cu``, one quantized ring
+  hop: ``q8_hop`` counts launches with an arriving payload, ``q8_requant``
+  those of hop 0 and the codec encode (no payload yet).
 """
 
 from __future__ import annotations
@@ -36,9 +39,10 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")
 # Library name -> source file.
-_SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu"}
+_SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
+            "quant_hop": "quant_hop.cu"}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # Library name -> {exported C function: argument types}.
 _SIGNATURES = {
     "flash_fwd": {"mpi4torch_flash_fwd":
@@ -47,12 +51,14 @@ _SIGNATURES = {
                   [_P] * 7 + [_I] * 7 + [_P] + [_I] * 4 + [_P],
                   "mpi4torch_flash_bwd_dkv":
                   [_P] * 8 + [_I] * 7 + [_P] + [_I] * 4 + [_P]},
+    "quant_hop": {"mpi4torch_quant_hop": [_P] * 7 + [_L, _I, _I, _P]},
 }
 
 _lock = threading.Lock()
 _libs = {}
 build_log = {}      # library name -> {"seconds": float, "output": str}
-launch_counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+launch_counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                 "q8_hop": 0, "q8_requant": 0}
 
 
 def reset_launch_counts() -> None:
@@ -298,3 +304,62 @@ def flash_bwd_dkv(q, k, v, do, lse, dd, q_off: int, kv_off: int,
     _bwd_launch("flash_bwd_dkv", "mpi4torch_flash_bwd_dkv", q, k, v, do,
                 lse, dd, (dk, dv), q_off, kv_off, causal, window)
     return dk, dv
+
+
+def hop_vec(block: int, floats, int8s) -> int:
+    """The width of the quantized hop kernel's accesses for these operands
+    (``None`` entries ignored): 4 (char4 / float4) when the block is whole
+    4-element groups, the float32 operands are 16-byte aligned and the
+    int8 ones 4-byte aligned; otherwise 1, element by element."""
+    aligned = (all(t.data_ptr() % 16 == 0 for t in floats if t is not None)
+               and all(t.data_ptr() % 4 == 0 for t in int8s
+                       if t is not None))
+    return 4 if block % 4 == 0 and aligned else 1
+
+
+def quant_hop(q, scale, mine, noise=None, want_resid: bool = False):
+    """Launch the CUDA quantized ring hop (``csrc/quant_hop.cu``).
+
+    ``mine`` is float32 ``(nb, block)`` on a CUDA device; ``q`` int8 of
+    the same shape with ``scale`` float32 ``(nb,)``, or both ``None`` for
+    hop 0; ``noise`` float32 like ``mine`` or ``None``.  All contiguous,
+    on one device.  Returns ``(q', scale', resid)`` (``resid`` float32
+    like ``mine`` when ``want_resid``, else ``None``)."""
+    fn = "quant_hop"
+    if not isinstance(mine, torch.Tensor) or not mine.is_cuda:
+        raise ValueError(f"{fn}: mine must be a CUDA tensor")
+    if mine.dtype != torch.float32 or mine.dim() != 2:
+        raise ValueError(f"{fn}: mine must be float32 (nb, block), got "
+                         f"{mine.dtype} {tuple(mine.shape)}")
+    nb, block = mine.shape
+    if (q is None) != (scale is None):
+        raise ValueError(f"{fn}: q and scale come together (both None for "
+                         "hop 0)")
+    ops = [("mine", mine, torch.float32, (nb, block))]
+    if q is not None:
+        ops += [("q", q, torch.int8, (nb, block)),
+                ("scale", scale, torch.float32, (nb,))]
+    if noise is not None:
+        ops.append(("noise", noise, torch.float32, (nb, block)))
+    for name, t, dtype, shape in ops:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{fn}: {name} must be {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != mine.device:
+            raise ValueError(f"{fn}: every operand must be on one device")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
+    q_out = torch.empty((nb, block), dtype=torch.int8, device=mine.device)
+    s_out = torch.empty((nb,), dtype=torch.float32, device=mine.device)
+    resid = torch.empty_like(mine) if want_resid else None
+    if nb == 0 or block == 0:
+        return q_out, s_out, resid
+    if nb > 2**31 - 1:
+        raise ValueError(f"{fn}: {nb} blocks exceed the grid limit 2^31 - 1")
+    vec = hop_vec(block, [mine, noise, resid], [q, q_out])
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    _launch("q8_requant" if q is None else "q8_hop", "quant_hop",
+            "mpi4torch_quant_hop", mine.device, ptr(q), ptr(scale),
+            mine.data_ptr(), ptr(noise), q_out.data_ptr(), s_out.data_ptr(),
+            ptr(resid), nb, block, vec)
+    return q_out, s_out, resid

@@ -217,7 +217,7 @@ def test_bitwise_op_on_floats_raises_on_every_rank(numel):
     assert all(isinstance(e, TypeError) for e in errs)
 
 
-@pytest.mark.parametrize("kw", [{"compression": "q8"},
+@pytest.mark.parametrize("kw", [{"compression": "bf16"},
                                 {"algorithm": "rhd"}])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

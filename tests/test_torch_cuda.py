@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and its serving path on the card.
+"""The port's CUDA kernels and their paths on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one.
 The file imports nothing of JAX, so on a GPU machine without JAX it runs
@@ -177,3 +177,168 @@ def test_engine_prefill_runs_on_the_kernel(cuda):
             want = T.generate(cfg, params,
                               torch.as_tensor(p, device=cuda)[None], 6)
             assert res[i].tolist() == want[0].tolist()
+
+
+# --- K1: the quantized ring hop (csrc/quant_hop.cu) -------------------------
+
+
+def _offset_view(t, offset):
+    """``t``'s values in a view ``offset`` elements into its storage."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _hop_operands(nb, block, seed, device, offset=0):
+    """q, scale, mine, noise for one hop: int8 payload, power-of-two
+    scales, and mine with a zero block, a subnormal block and a block
+    whose values are large; each ``offset`` elements into its storage."""
+    from mpi4torch_tpu_torch.ops import quant_kernels as qk
+
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.integers(-127, 128, (nb, block),
+                                      dtype=np.int8))
+    scale = qk.po2_scale(torch.from_numpy(
+        np.abs(rng.standard_normal(nb)).astype(np.float32) * 0.1 + 1e-3))
+    mine = torch.from_numpy(rng.standard_normal((nb, block))
+                            .astype(np.float32) * 3.0)
+    mine[0] = 0.0
+    if nb > 1:
+        mine[1] = torch.from_numpy(rng.standard_normal(block)
+                                   .astype(np.float32) * 1e-39)
+    if nb > 2:
+        mine[2] *= 1e30
+    noise = torch.from_numpy(rng.random((nb, block), dtype=np.float32))
+    return [_offset_view(t.to(device), offset)
+            for t in (q, scale, mine, noise)]
+
+
+def _bits_differ(a, b):
+    """Elements whose bits differ (NaN matches NaN)."""
+    if a.dtype == torch.float32:
+        both_nan = torch.isnan(a) & torch.isnan(b)
+        return int(((a.view(torch.int32) != b.view(torch.int32))
+                    & ~both_nan).sum())
+    return int((a != b).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block, nb, offset", [(128, 37, 0), (256, 300, 0),
+                                               (384, 5, 0), (130, 9, 0),
+                                               (256, 12, 1)])
+def test_quant_hop_bitwise_equal_to_plain(cuda, block, nb, offset):
+    from mpi4torch_tpu_torch.ops import quant_kernels as qk
+
+    q, scale, mine, noise = _hop_operands(nb, block, block + nb, cuda,
+                                          offset)
+    # a block that is not whole 4-element groups, or operands off their
+    # storage's alignment, take the element-by-element path
+    assert _kernels.hop_vec(block, [mine, noise], [q]) == \
+        (1 if block % 4 or offset else 4)
+    for hop0 in (False, True):
+        for stochastic in (False, True):
+            for want_resid in (False, True):
+                args = (None, None) if hop0 else (q, scale)
+                nz = noise if stochastic else None
+                name = "q8_requant" if hop0 else "q8_hop"
+                before = _kernels.launch_counts[name]
+                got = qk.dequant_accum_requant(*args, mine, noise=nz,
+                                               want_resid=want_resid,
+                                               impl="cuda")
+                assert _kernels.launch_counts[name] == before + 1
+                want = qk.dequant_accum_requant(*args, mine, noise=nz,
+                                                want_resid=want_resid,
+                                                impl="torch")
+                torch.cuda.synchronize()
+                for a, b in zip(got, want):
+                    assert (a is None) == (b is None)
+                    if a is not None:
+                        assert a.dtype == b.dtype and a.shape == b.shape
+                        assert _bits_differ(a, b) == 0, \
+                            (hop0, stochastic, want_resid)
+
+
+@pytest.mark.cuda
+def test_quant_hop_non_finite_block_gets_non_finite_scale(cuda):
+    from mpi4torch_tpu_torch.ops import quant_kernels as qk
+
+    q, scale, mine, _ = _hop_operands(6, 256, 3, cuda)
+    mine[3, 17] = float("nan")
+    mine[4, 200] = float("inf")
+    got = qk.dequant_accum_requant(q, scale, mine, want_resid=True,
+                                   impl="cuda")
+    want = qk.dequant_accum_requant(q, scale, mine, want_resid=True,
+                                    impl="torch")
+    torch.cuda.synchronize()
+    assert not torch.isfinite(got[1][3:5]).any()
+    assert _bits_differ(got[1], want[1]) == 0
+    finite = [0, 1, 2, 5]
+    assert _bits_differ(got[0][finite], want[0][finite]) == 0
+    assert _bits_differ(got[2][finite], want[2][finite]) == 0
+
+
+@pytest.mark.cuda
+def test_quant_hop_refuses_what_it_does_not_take(cuda):
+    m = torch.zeros((4, 256), device=cuda)
+    q = torch.zeros((4, 256), dtype=torch.int8, device=cuda)
+    s = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="together"):
+        _kernels.quant_hop(q, None, m)
+    with pytest.raises(ValueError, match="float32"):
+        _kernels.quant_hop(None, None, m.double())
+    with pytest.raises(ValueError, match="noise"):
+        _kernels.quant_hop(q, s, m, noise=m[:, :128])
+    with pytest.raises(ValueError, match="contiguous"):
+        _kernels.quant_hop(q, s, m.t().contiguous().t())
+
+
+@pytest.mark.cuda
+def test_threefry_noise_on_the_card_equals_the_cpu(cuda):
+    from mpi4torch_tpu_torch.ops import quant_kernels as qk
+
+    for salt, hop, rank, shape in [(0, 0, 0, (7, 256)), (3, 2, 1, (33, 5)),
+                                   (5, 7, 3, (1, 1))]:
+        key = qk.schedule_key(salt, hop, rank)
+        a = qk.hop_noise(key, *shape, device=cuda).cpu()
+        b = qk.hop_noise(key, *shape)
+        assert _bits_differ(a, b) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["q8", "q8_ef", "q8_ef_hop"])
+@pytest.mark.parametrize("n, numel", [(3, 5000), (2, 1025)])
+def test_compressed_allreduce_on_the_kernel_equals_plain(cuda, codec, n,
+                                                         numel):
+    # At 2 x 1025, bidir's channel 1 starts at float 513 and fills its
+    # chunks exactly: its hops read views that are only 4-byte aligned.
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch import config
+
+    xs = [torch.from_numpy(np.random.default_rng(r).standard_normal(numel)
+                           .astype(np.float32)).to(cuda) for r in range(n)]
+
+    def run():
+        def body(r):
+            x = xs[r].clone().requires_grad_()
+            y = P.COMM_WORLD.Allreduce(x, P.MPI_SUM, compression=codec,
+                                       algorithm="bidir")
+            (g,) = torch.autograd.grad((y * y).sum(), x)
+            return y.detach(), g
+        return P.run_ranks(body, n, timeout=30.0, device=cuda)
+
+    _kernels.reset_launch_counts()
+    got = run()
+    assert _kernels.launch_counts["q8_hop"] > 0
+    config.set_quant_hop_impl("torch")
+    try:
+        _kernels.reset_launch_counts()
+        want = run()
+        assert _kernels.launch_counts["q8_hop"] == 0
+    finally:
+        config.set_quant_hop_impl("auto")
+    for (y, g), (yw, gw) in zip(got, want):
+        assert torch.equal(y, got[0][0]) and torch.equal(g, got[0][1])
+        assert _bits_differ(y, yw) == 0 and _bits_differ(g, gw) == 0

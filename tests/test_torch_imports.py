@@ -34,9 +34,12 @@ def test_port_has_modules():
                 "ops/eager.py", "ops/flash.py", "ops/ragged.py",
                 "ops/_kernels.py", "parallel/tp.py", "parallel/dp.py",
                 "models/transformer.py", "serve/kv.py", "serve/engine.py",
-                "utils/profiling.py", "utils/tree.py"):
+                "utils/profiling.py", "utils/tree.py", "utils/threefry.py",
+                "ops/quant_kernels.py", "compress/__init__.py",
+                "compress/codecs.py", "compress/eager.py", "compress/ef.py",
+                "tune/__init__.py", "tune/registry.py"):
         assert f"mpi4torch_tpu_torch/{rel}" in names
-    for src in ("flash_fwd.cu", "flash_bwd.cu"):
+    for src in ("flash_fwd.cu", "flash_bwd.cu", "quant_hop.cu"):
         assert (ROOT / "mpi4torch_tpu_torch/ops/csrc" / src).exists()
 
 
