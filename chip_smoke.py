@@ -10,7 +10,9 @@ check fails.  Phases, in order:
 
 1. device: the card's name and power limit;
 2. build: ``nvcc`` compiles the port's kernel sources from ``ops/csrc``,
-   one compiler per source, all at once;
+   one compiler per source, all at once; the tensor-core backward
+   kernels' registers, shared memory, spill bytes and blocks per SM
+   (none may spill, two blocks must fit an SM);
 3. the block-attention forward kernel (``flash_fwd``) against its plain
    PyTorch version on the card, on the cases listed in ``KERNEL_CASES``,
    each within the stated tolerance;
@@ -30,15 +32,20 @@ check fails.  Phases, in order:
 7. the backward kernels (``flash_bwd_dq``, ``flash_bwd_dkv``) against the
    plain backward on the card: ``torch.autograd.grad`` through
    ``flash_block_attention`` with ``impl="cuda"`` and ``impl="torch"`` on
-   the cases of ``BWD_CASES``;
+   the cases of ``BWD_CASES``, each printed with the variant that
+   ``_kernels.bwd_variant`` picks (``tc`` on the tensor cores, ``simt``
+   on the CUDA cores) and counted under it; every ``tc`` case runs twice
+   and must repeat its bits;
 8. training the same model on one rank, the bench recipe: ``lm_loss``
    with ``vocab_chunk=4096`` on 8 x 2048 tokens, ``torch.autograd.grad``,
    ``p - 1e-3 g``, three steps; exactly ``n_layers`` launches of each
-   kernel per step, bitwise-repeatable gradients, kernel gradients
+   kernel per step, every backward launch the ``tc`` variant,
+   bitwise-repeatable gradients, kernel gradients
    against plain-attention gradients at batch 1, chunked against dense
    loss;
 9. data-parallel training on two rank threads of the one card
-   (``train_step`` with ``comm_dp=COMM_WORLD``): both ranks bitwise
+   (``train_step`` with ``comm_dp=COMM_WORLD``): every backward launch
+   the ``tc`` variant, both ranks bitwise
    identical, the update exactly ``p - lr g`` of the DP gradient, and
    that gradient within tolerance of the one-rank gradient at batch 8;
 10. training numbers: step time, tokens/s, the device's busy and idle
@@ -46,8 +53,10 @@ check fails.  Phases, in order:
     memory, the DP=2 step; then each attention kernel at the training
     shape (8, 2048, 16, 128) bf16 causal, held against its plain version,
     and its time beside its bound, its plain version and, for the
-    backward pair, the backward of ``scaled_dot_product_attention``
-    (timed only);
+    backward pair, the backward of ``scaled_dot_product_attention`` and
+    the ``simt`` kernels on the same inputs (both timed only: the port
+    never calls SDPA, and the main path never takes ``simt`` for bf16
+    with head dim <= 128);
 11. the quantized ring hop kernel (``q8_hop``, ``csrc/quant_hop.cu``)
     against its plain version on the card, bitwise: every combination of
     residual, stochastic rounding and hop 0, blocks of 128, 256 and 384,
@@ -77,7 +86,8 @@ check fails.  Phases, in order:
     give it beside its bound and its plain version, each compressed
     Allreduce's step beside the exact one, and the compressed DP=2 step
     beside the exact DP=2 step, with a profile of one compressed step;
-15. one JSON line describing each ported kernel.
+15. one JSON line describing each ported kernel (K3/K4 with the
+    variant the main path ran).
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 TF32 is switched off for matmuls and cuDNN here, so float32 work on the
@@ -141,11 +151,18 @@ TP2_REQUESTS, TP2_MAX_NEW = 4, 8
 # other orders; rtol 1e-3 / atol 1e-4 is the JAX package's own
 # kernel-vs-oracle bound (test_pallas_bwd_interpret_grads_match).  bf16:
 # each gradient rounds once to bf16 from an f32 sum over up to 2048 keys
-# or queries, so max |err| <= 2e-2 max |ref|, a few bf16 ulps (2^-8).
+# or queries, and the tc kernels round p and ds to bf16 where they enter
+# a product, as the TPU kernel does; max |err| <= 2e-2 max |ref|, a few
+# bf16 ulps (2^-8).  The JAX package's interpreted Pallas backward in bf16
+# meets the same bound against the plain backward on the CPU
+# (tests/test_torch_flash_bwd.py).
 BWD_F32_TOL = (1e-3, 1e-4)           # (rtol, atol)
 BWD_BF16_REL = 2e-2
 # (name, dtype, b, sq, sk, h, h_kv, d, q_off, kv_off, window, causal,
-#  the loss also reads lse)
+#  the loss also reads lse).  The tc tiles are 64 rows (K3's q tiles and
+# K4's KV tiles) and 32 rows (K4's q tiles): "ragged_133_37" has neither
+# edge on a tile and fewer keys than one tile; "d72_window_64" is
+# zero-padded to 128 in shared memory; "d256_simt" takes the simt route.
 BWD_CASES = [
     ("seq_2048_b2", torch.bfloat16, 2, 2048, 2048, 16, 16, 128, 0, 0, 0,
      True, False),
@@ -165,6 +182,14 @@ BWD_CASES = [
     ("d64", torch.bfloat16, 2, 512, 512, 8, 8, 64, 0, 0, 0, True, False),
     ("lse_in_loss", torch.bfloat16, 1, 1024, 1024, 16, 16, 128, 0, 0, 0,
      True, True),
+    ("d72_window_64", torch.bfloat16, 1, 300, 300, 4, 2, 72, 0, 0, 64, True,
+     True),
+    ("ragged_133_37", torch.bfloat16, 2, 133, 37, 4, 2, 128, 0, 0, 0, True,
+     False),
+    ("fully_masked_rows_bf16", torch.bfloat16, 1, 128, 128, 4, 4, 64, 0,
+     100, 0, True, False),
+    ("d256_simt", torch.bfloat16, 1, 512, 512, 4, 4, 256, 0, 0, 0, True,
+     False),
 ]
 
 # Training: the bench recipe (bench.py _bench_train_step) at full width.
@@ -476,9 +501,10 @@ def attention_grads(flash, q, k, v, wo, wl, impl, kw):
 
 
 def backward_phase(flash, kernels):
-    """Each case: the kernels' gradients against the plain backward's, and
-    one launch of each backward kernel.  Returns max |err| per case."""
-    names = ("flash_bwd_dq", "flash_bwd_dkv")
+    """Each case: the kernels' gradients against the plain backward's, one
+    launch of each backward kernel, counted under the variant
+    ``bwd_variant`` picks; a tc case runs twice and must repeat its bits.
+    Returns max |err| per case."""
     results = {}
     for i, (name, dt, b, sq, sk, h, h_kv, d, q_off, kv_off, window,
             causal, uses_lse) in enumerate(BWD_CASES):
@@ -489,24 +515,32 @@ def backward_phase(flash, kernels):
             if uses_lse else None
         kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off,
                   window=window)
+        variant = kernels.bwd_variant(dt, d)
+        names = [f"flash_bwd_{p}{s}" for s in ("", f".{variant}")
+                 for p in ("dq", "dkv")]
         before = [kernels.launch_counts[n] for n in names]
         got = attention_grads(flash, q, k, v, wo, wl, "cuda", kw)
         rose = [kernels.launch_counts[n] - c for n, c in zip(names, before)]
+        repeat = "-"
+        if variant == "tc":
+            again = attention_grads(flash, q, k, v, wo, wl, "cuda", kw)
+            repeat = all(torch.equal(a, r) for a, r in zip(got, again))
+            del again
         want = attention_grads(flash, q, k, v, wo, wl, "torch", kw)
         torch.cuda.synchronize()
-        ok, err = rose == [1, 1], 0.0
+        ok, err, rel = rose == [1, 1, 1, 1] and repeat is not False, 0.0, 0.0
         for a, r in zip(got, want):
             ok = ok and a.dtype == r.dtype and bool(torch.isfinite(a).all())
             a, r = a.float(), r.float()
             e = (a - r).abs()
             err = max(err, e.max().item())
+            rel = max(rel, e.max().item() / r.abs().max().item())
             if dt == torch.float32:
                 rtol, atol = BWD_F32_TOL
                 ok = ok and bool((e <= atol + rtol * r.abs()).all())
             else:
-                ok = ok and e.max().item() <= \
-                    BWD_BF16_REL * r.abs().max().item()
-        if name == "fully_masked_rows":
+                ok = ok and rel <= BWD_BF16_REL
+        if name.startswith("fully_masked_rows"):
             # Queries before the first key, and keys after the last query,
             # get exactly zero gradients.
             n_masked, n_seen = kv_off - q_off, q_off + sq - kv_off
@@ -514,11 +548,15 @@ def backward_phase(flash, kernels):
                 bool((t[:, n_seen:] == 0).all()) for t in got[1:])
         tol = (f"rtol {BWD_F32_TOL[0]:g} atol {BWD_F32_TOL[1]:g}"
                if dt == torch.float32 else f"{BWD_BF16_REL:g} max|ref|")
-        print(f"  {name:24s} {str(dt):15s} dq/dk/dv max err {err:.3e} "
-              f"(tol {tol}){'  dlse live' if uses_lse else ''}  launches "
-              f"+{rose[0]}/+{rose[1]}  {'ok' if ok else 'FAIL'}", flush=True)
-        check(ok, f"backward case {name} disagrees with the plain backward "
-              "or did not launch each kernel once")
+        print(f"  {name:24s} {str(dt):15s} d {d:3d} {variant:4s} dq/dk/dv "
+              f"max err {err:.3e} = {rel:.2e} max|ref| (tol {tol})"
+              f"{'  dlse live' if uses_lse else ''}"
+              f"  launches +{rose[0]}/+{rose[1]} ({variant} +{rose[2]}/"
+              f"+{rose[3]}); repeat bitwise {repeat}  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"backward case {name} disagrees with the plain backward, "
+              f"did not launch each {variant} kernel once, or did not "
+              "repeat its bits")
         results[name] = err
     return results
 
@@ -540,7 +578,8 @@ def leaves_equal(tree, a, b):
 
 def train_tp1(T, tree, flash, kernels, cfg, params, tokens):
     n = cfg.n_layers
-    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq.tc",
+             "flash_bwd_dkv.tc")
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     p, losses, step_ms, per_step = params, [], [], []
@@ -560,13 +599,13 @@ def train_tp1(T, tree, flash, kernels, cfg, params, tokens):
     print(f"  {TRAIN_STEPS} steps at batch {TRAIN_BATCH} x {TRAIN_SEQ}: "
           f"losses {[round(x, 4) for x in losses]} (ln V = "
           f"{np.log(cfg.vocab):.3f}); step wall {[round(x) for x in step_ms]}"
-          f" ms; launches per step (fwd, dq, dkv) {per_step}")
+          f" ms; launches per step (fwd, dq, dkv, dq.tc, dkv.tc) {per_step}")
     check(all(np.isfinite(losses)), "a training loss is not finite")
     check(abs(losses[0] - np.log(cfg.vocab)) <= INIT_LOSS_TOL,
           f"initial loss {losses[0]:.4f} is not near ln V")
-    check(all(c == [n, n, n] for c in per_step),
+    check(all(c == [n] * len(names) for c in per_step),
           f"expected exactly n_layers = {n} launches of each kernel per "
-          "step")
+          "step, every backward launch on the tc variant")
 
     loss_r, grads_r, _ = recipe_step(T, tree, cfg, params, tokens)
     same = torch.equal(loss_r, loss0) and leaves_equal(tree, grads_r,
@@ -658,7 +697,8 @@ def train_dp2(P, T, tree, dp, kernels, cfg, params, tokens):
           f"{l0.item():.4f} vs one rank at batch {TRAIN_BATCH} "
           f"{ref_loss.item():.4f} (tol {LOSS_TOL}); DP vs one-rank "
           f"gradient, worst leaf's norm-relative error {worst:.3e} (tol "
-          f"{DP_GRAD_REL:g}); launches {launches} (expected {want} each)")
+          f"{DP_GRAD_REL:g}); launches {launches} (expected {want} each of "
+          "flash_fwd, flash_bwd_dq, flash_bwd_dkv and their .tc)")
     check(same and same_g, "the two DP ranks disagree")
     check(applied and torch.equal(gl0, l0),
           "train_step's update is not p - lr g of the DP gradient")
@@ -666,8 +706,11 @@ def train_dp2(P, T, tree, dp, kernels, cfg, params, tokens):
           "DP=2 loss too far from the one-rank loss")
     check(worst <= DP_GRAD_REL, "DP=2 gradient too far from one rank's")
     check(all(launches[k] == want for k in ("flash_fwd", "flash_bwd_dq",
-                                            "flash_bwd_dkv")),
-          "DP=2 did not run every attention on the kernels")
+                                            "flash_bwd_dkv",
+                                            "flash_bwd_dq.tc",
+                                            "flash_bwd_dkv.tc")),
+          "DP=2 did not run every attention on the kernels, every backward "
+          "on the tc variant")
     return dp_ms
 
 
@@ -718,12 +761,23 @@ def backward_numbers(flash, kernels):
     res = {}
     res["flash_fwd"] = event_ms(
         lambda: kernels.flash_fwd(q, k, v, 0, 0, True), iters=10)
-    res["flash_bwd_dq"] = event_ms(
-        lambda: kernels.flash_bwd_dq(q, k, v, do, lse, dd, 0, 0, True),
-        iters=10)
-    res["flash_bwd_dkv"] = event_ms(
-        lambda: kernels.flash_bwd_dkv(q, k, v, do, lse, dd, 0, 0, True),
-        iters=10)
+    bwd = {"flash_bwd_dq": kernels.flash_bwd_dq,
+           "flash_bwd_dkv": kernels.flash_bwd_dkv}
+
+    def time_bwd(variant, iters):
+        return {n: event_ms(lambda fn=fn: fn(q, k, v, do, lse, dd, 0, 0, True,
+                                             variant=variant), iters=iters)
+                for n, fn in bwd.items()}
+
+    # The main path's variant (tc), then the simt kernels on the same
+    # inputs, called by name and timed only, then tc again: in turns, so
+    # that a drift of the card's clock shows as a spread of the two tc
+    # readings.
+    tc_runs = [time_bwd("tc", 10)]
+    simt = time_bwd("simt", 5)
+    tc_runs.append(time_bwd("tc", 10))
+    for n in bwd:
+        res[n] = sum(r[n] for r in tc_runs) / len(tc_runs)
     bounds = {"flash_fwd": bound(4.0 * d * pairs, 4 * qbytes + stats, dt),
               "flash_bwd_dq": bound(6.0 * d * pairs,
                                     5 * qbytes + 2 * stats, dt),
@@ -750,16 +804,25 @@ def backward_numbers(flash, kernels):
     lib = {"flash_fwd": lib_fwd, "pair": lib_fb - lib_fwd}
     for name in res:
         b_ms, b_by = bounds[name]
+        more = ""
+        if name in bwd:
+            more = ("; tc runs " + "/".join(f"{r[name]:.4f}" for r in tc_runs)
+                    + f" ms; simt {simt[name]:.4f} ms "
+                    f"({simt[name] / res[name]:.1f}x the tc time)")
         print(f"  {name} at ({b}, {s}, {h}, {d}) bf16 causal: kernel "
               f"{res[name]:.4f} ms, plain {plain[name]:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / res[name]:.2f}% of "
-              "bound")
-    print(f"  backward pair (dq, dk, dv): kernels "
-          f"{res['flash_bwd_dq'] + res['flash_bwd_dkv']:.4f} ms, plain "
+              f"bound{more}")
+    pair = res["flash_bwd_dq"] + res["flash_bwd_dkv"]
+    pair_bound = bounds["flash_bwd_dq"][0] + bounds["flash_bwd_dkv"][0]
+    print(f"  backward pair (dq, dk, dv), tc: kernels {pair:.4f} ms, "
+          f"{100 * pair_bound / pair:.2f}% of the pair's bound "
+          f"{pair_bound:.4f} ms; simt "
+          f"{simt['flash_bwd_dq'] + simt['flash_bwd_dkv']:.4f} ms; plain "
           f"backward {plain['pair']:.4f} ms; scaled_dot_product_attention "
           f"forward {lib_fwd:.4f} ms, backward (grad minus forward) "
-          f"{lib['pair']:.4f} ms")
-    return res, bounds, plain, lib, err
+          f"{lib['pair']:.4f} ms ({pair / lib['pair']:.2f}x)")
+    return res, bounds, plain, lib, err, simt
 
 
 def bits_differ(a, b):
@@ -1219,6 +1282,23 @@ def main():
         for line in log[lib]["output"].splitlines():
             if "registers" in line or "spill" in line:
                 print("    " + line.strip())
+    # The tensor-core backward kernels, as the card reports them: no
+    # local memory (no spills) and two blocks (eight MMA warps) per SM.
+    spills = [line for line in log["flash_bwd_tc"]["output"].splitlines()
+              if "spill" in line
+              and " 0 bytes spill stores, 0 bytes spill loads" not in line]
+    for part in ("dq", "dkv"):
+        for d in (64, 128):
+            pr = kernels.bwd_tc_props(part, d)
+            print(f"  flash_bwd_{part} tc at head dim <= {d}: "
+                  f"{pr['registers']} registers a thread, "
+                  f"{pr['dynamic_smem']} B dynamic + {pr['static_smem']} B "
+                  f"static shared memory, {pr['local_bytes']} B local "
+                  f"(spill) memory, {pr['blocks_per_sm']} blocks per SM")
+            check(pr["local_bytes"] == 0 and pr["blocks_per_sm"] >= 2,
+                  f"flash_bwd_{part} tc spills or fits fewer than two "
+                  "blocks per SM")
+    check(not spills, f"ptxas reports spills in flash_bwd_tc.cu: {spills}")
 
     phase(3, "kernel vs plain version on the card")
     errs = kernel_phase(flash)
@@ -1354,14 +1434,14 @@ def main():
         lambda: recipe_step(T, tree, cfg, params, tokens),
         f"one training step, batch {TRAIN_BATCH} x {TRAIN_SEQ}", n_top=8)
     attn = {n: sum(e.self_device_time_total for e in ev
-                   if f"{n}_kernel" in e.key) / 1e3
-            for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+                   if f"{n}_kernel" in e.key or f"{n}_tc_kernel" in e.key)
+            / 1e3 for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     print("  attention kernels' share of device time: " + ", ".join(
         f"{n} {t:.1f} ms ({100 * t / busy:.1f}%)" for n, t in attn.items())
         + f"; together {100 * sum(attn.values()) / busy:.1f}%")
     check(sum(attn.values()) > 0, "the profile shows no attention kernel")
-    k_ms, bounds, plain, lib, train_err = backward_numbers(flash,
-                                                         kernels)
+    k_ms, bounds, plain, lib, train_err, simt_ms = backward_numbers(
+        flash, kernels)
 
     phase(11, "quantized hop kernel vs plain version on the card")
     hop_err = hop_kernel_phase(qk, kernels)
@@ -1410,8 +1490,15 @@ def main():
     # bench-size Allreduce's launches and times beside them; max_abs_err
     # is the largest |kernel - plain| of every comparison of phases 11
     # and 14 (0.0 when bitwise); no single library call computes the
-    # fused hop, so library_ms is null.
-    bwd_src = "mpi4torch_tpu_torch/ops/csrc/flash_bwd.cu"
+    # fused hop, so library_ms is null.  K3/K4's "variant" is the one
+    # every launch of the training run took (phase 8 checks that it is
+    # tc), "source" that variant's file; "simt_ms" is the CUDA-core
+    # kernel (simt_source) on the same inputs, called by name.
+    bwd_src = {"tc": "mpi4torch_tpu_torch/ops/csrc/flash_bwd_tc.cu",
+               "simt": "mpi4torch_tpu_torch/ops/csrc/flash_bwd.cu"}
+    train_variant = {
+        kname: "tc" if train_launches[f"{kname}.tc"] == train_launches[kname]
+        else "simt" for kname in ("flash_bwd_dq", "flash_bwd_dkv")}
     k_ms_hop, p_ms_hop, b_ms_hop, b_by_hop, _, _ = hop["dp2_embed_q8"]
     hop_err = max([hop_err] + [v[5] for v in hop.values()])
     line = {"kernels": [{
@@ -1423,14 +1510,17 @@ def main():
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms}] + [{
-            "name": kname, "route": "cuda", "source": bwd_src,
+            "name": kname, "route": "cuda",
+            "variant": train_variant[kname],
+            "source": bwd_src[train_variant[kname]],
             "replaces": f"mpi4torch_tpu/ops/flash.py:{line_no}",
             "launches": train_launches[kname],
             "max_abs_err": train_err[kname],
             "ms": k_ms[kname], "kernel_ms": k_ms[kname],
             "plain_ms": plain[kname], "bound_ms": bounds[kname][0],
             "bound_by": bounds[kname][1], "library_ms": None,
-            "pair_plain_ms": plain["pair"], "pair_library_ms": lib["pair"]}
+            "pair_plain_ms": plain["pair"], "pair_library_ms": lib["pair"],
+            "simt_ms": simt_ms[kname], "simt_source": bwd_src["simt"]}
             for kname, line_no in (("flash_bwd_dq", 444),
                                   ("flash_bwd_dkv", 485))] + [{
         "name": "q8_hop", "route": "cuda",

@@ -16,8 +16,12 @@ a run can prove that its main path went through the kernel.
 Kernels and the sources that hold them:
 
 * ``flash_fwd`` — ``csrc/flash_fwd.cu``, block attention forward;
-* ``flash_bwd_dq``, ``flash_bwd_dkv`` — ``csrc/flash_bwd.cu``, its
-  backward (dq; dk and dv);
+* ``flash_bwd_dq``, ``flash_bwd_dkv`` — its backward (dq; dk and dv), in
+  two variants that :func:`bwd_variant` picks from the dtype and head
+  dim: ``"tc"`` (``csrc/flash_bwd_tc.cu``, bf16 on the tensor cores,
+  d <= 128) and ``"simt"`` (``csrc/flash_bwd.cu``, f32 FMA on the CUDA
+  cores: float32, and bf16 with d > 128).  Each launch counts under the
+  kernel's name and under ``"<name>.<variant>"``;
 * ``q8_hop``, ``q8_requant`` — ``csrc/quant_hop.cu``, one quantized ring
   hop: ``q8_hop`` counts launches with an arriving payload, ``q8_requant``
   those of hop 0 and the codec encode (no payload yet).
@@ -40,7 +44,7 @@ _CSRC = os.path.join(_HERE, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")
 # Library name -> source file.
 _SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
-            "quant_hop": "quant_hop.cu"}
+            "flash_bwd_tc": "flash_bwd_tc.cu", "quant_hop": "quant_hop.cu"}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # Library name -> {exported C function: argument types}.
@@ -51,13 +55,21 @@ _SIGNATURES = {
                   [_P] * 7 + [_I] * 7 + [_P] + [_I] * 4 + [_P],
                   "mpi4torch_flash_bwd_dkv":
                   [_P] * 8 + [_I] * 7 + [_P] + [_I] * 4 + [_P]},
+    "flash_bwd_tc": {"mpi4torch_flash_bwd_tc_dq":
+                     [_P] * 7 + [_I] * 6 + [_P] + [_I] * 4 + [_P],
+                     "mpi4torch_flash_bwd_tc_dkv":
+                     [_P] * 8 + [_I] * 6 + [_P] + [_I] * 4 + [_P],
+                     "mpi4torch_flash_bwd_tc_props": [_I, _I, _P]},
     "quant_hop": {"mpi4torch_quant_hop": [_P] * 7 + [_L, _I, _I, _P]},
 }
 
 _lock = threading.Lock()
 _libs = {}
 build_log = {}      # library name -> {"seconds": float, "output": str}
+BWD_VARIANTS = ("tc", "simt")
 launch_counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                 **{f"flash_bwd_{part}.{variant}": 0
+                    for part in ("dq", "dkv") for variant in BWD_VARIANTS},
                  "q8_hop": 0, "q8_requant": 0}
 
 
@@ -67,9 +79,10 @@ def reset_launch_counts() -> None:
             launch_counts[name] = 0
 
 
-def _count(name: str) -> None:
+def _count(*names: str) -> None:
     with _lock:
-        launch_counts[name] += 1
+        for name in names:
+            launch_counts[name] += 1
 
 
 def _nvcc() -> str:
@@ -218,7 +231,11 @@ def _strides(*tensors):
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def _launch(kernel: str, lib: str, fn_name: str, device, *args) -> None:
+def _launch(kernel: str, lib: str, fn_name: str, device, *args,
+            variant: str = None) -> None:
+    """Call ``fn_name`` of library ``lib`` with ``args`` and the current
+    stream; raise on a CUDA error, else count the launch under ``kernel``
+    (and ``kernel.variant`` when given)."""
     fn = getattr(load(lib), fn_name)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
@@ -226,7 +243,7 @@ def _launch(kernel: str, lib: str, fn_name: str, device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed with CUDA error "
                            f"{err}")
-    _count(kernel)
+    _count(kernel, *([f"{kernel}.{variant}"] if variant else []))
 
 
 def flash_fwd(q, k, v, q_off: int, kv_off: int, causal: bool,
@@ -257,53 +274,113 @@ def _check_bwd(fn, q, k, v, do, lse, dd, causal, window) -> None:
     _check_row_stats(fn, q, (("lse", lse), ("dd", dd)))
 
 
-def _bwd_launch(kernel, fn_name, q, k, v, do, lse, dd, outs, q_off, kv_off,
-                causal, window) -> None:
-    """Launch a backward kernel: operands, then the outputs ``outs``,
+def bwd_variant(dtype, d: int) -> str:
+    """The backward kernels' variant for operands of ``dtype`` with head
+    dim ``d``: ``"tc"`` (tensor cores, ``csrc/flash_bwd_tc.cu``) for
+    bfloat16 with ``d <= 128``, else ``"simt"`` (``csrc/flash_bwd.cu``).
+    float32 stays on the CUDA cores: the port does f32 work without
+    TF32."""
+    return "tc" if dtype == torch.bfloat16 and d <= 128 else "simt"
+
+
+def _resolve_variant(fn: str, q, variant) -> str:
+    """``variant`` if the operands allow it, else raise; None picks
+    :func:`bwd_variant`.  ``"simt"`` takes every dtype and width that
+    :func:`_check_attention` lets through."""
+    want = bwd_variant(q.dtype, q.shape[3])
+    if variant is None:
+        return want
+    if variant not in BWD_VARIANTS:
+        raise ValueError(f"{fn}: unknown variant {variant!r}; expected one "
+                         f"of {BWD_VARIANTS}")
+    if variant == "tc" and want != "tc":
+        raise ValueError(f"{fn}: variant 'tc' takes bfloat16 with head_dim "
+                         f"<= 128; got {q.dtype} with head_dim "
+                         f"{q.shape[3]}")
+    return variant
+
+
+def _rows_aligned(t) -> torch.Tensor:
+    """``t`` itself if every (batch, seq, head) row starts on a 16-byte
+    boundary (the tc kernels copy rows 16 bytes at a time), else a
+    contiguous copy, whose rows do (head_dim is a multiple of 8)."""
+    step = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(
+            t.stride(i) % step == 0 for i in range(3) if t.shape[i] > 1):
+        return t
+    return torch.empty(t.shape, dtype=t.dtype,
+                       device=t.device).copy_(t)
+
+
+def _bwd_launch(kernel, part, variant, q, k, v, do, lse, dd, outs, q_off,
+                kv_off, causal, window) -> None:
+    """Launch backward kernel ``part`` ("dq" or "dkv") of ``variant``:
+    operands, then the outputs ``outs``, then (simt only) the dtype code,
     then the shape, strides and mask arguments of its C signature."""
     b, sq, h, d = q.shape
-    _launch(kernel, "flash_bwd", fn_name, q.device,
+    lib = "flash_bwd_tc" if variant == "tc" else "flash_bwd"
+    if variant == "tc":
+        q, k, v, do = (_rows_aligned(t) for t in (q, k, v, do))
+    dtype = [] if variant == "tc" else [_FLASH_DTYPES[q.dtype]]
+    _launch(kernel, lib, f"mpi4torch_{lib}_{part}", q.device,
             *(t.data_ptr() for t in (q, k, v, do, lse, dd) + outs),
-            _FLASH_DTYPES[q.dtype], b, h, k.shape[2], sq, k.shape[1], d,
+            *dtype, b, h, k.shape[2], sq, k.shape[1], d,
             _strides(q, k, v, do, lse, dd), int(q_off), int(kv_off),
-            int(bool(causal)), int(window))
+            int(bool(causal)), int(window), variant=variant)
 
 
 def flash_bwd_dq(q, k, v, do, lse, dd, q_off: int, kv_off: int,
-                 causal: bool, window: int = 0):
-    """Launch the CUDA block-attention backward's dq kernel
-    (``csrc/flash_bwd.cu``).  ``q``/``k``/``v`` as for :func:`flash_fwd`,
-    ``do`` shaped and typed like ``q``; ``lse`` (the forward's) and ``dd``
-    (``sum(do * out, -1) - dlse``) float32 ``(b, sq, h)``.  Returns ``dq``
-    like ``q`` (contiguous)."""
+                 causal: bool, window: int = 0, variant: str = None):
+    """Launch the CUDA block-attention backward's dq kernel.
+    ``q``/``k``/``v`` as for :func:`flash_fwd`, ``do`` shaped and typed
+    like ``q``; ``lse`` (the forward's) and ``dd`` (``sum(do * out, -1) -
+    dlse``) float32 ``(b, sq, h)``.  ``variant`` None takes
+    :func:`bwd_variant`'s; ``"tc"`` or ``"simt"`` asks for one by name
+    (``"tc"`` raises on what it does not take).  Returns ``dq`` like
+    ``q`` (contiguous)."""
     _check_bwd("flash_bwd_dq", q, k, v, do, lse, dd, causal, window)
+    variant = _resolve_variant("flash_bwd_dq", q, variant)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq
     if k.shape[1] == 0:
         return dq.zero_()
-    _bwd_launch("flash_bwd_dq", "mpi4torch_flash_bwd_dq", q, k, v, do, lse,
-                dd, (dq,), q_off, kv_off, causal, window)
+    _bwd_launch("flash_bwd_dq", "dq", variant, q, k, v, do, lse, dd, (dq,),
+                q_off, kv_off, causal, window)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, dd, q_off: int, kv_off: int,
-                  causal: bool, window: int = 0):
-    """Launch the CUDA block-attention backward's dk/dv kernel
-    (``csrc/flash_bwd.cu``); arguments as for :func:`flash_bwd_dq`.
-    Under grouped-query attention each KV head's gradient sums its group
-    of q heads inside one block, in a fixed order.  Returns ``(dk, dv)``
-    like ``k`` (contiguous)."""
+                  causal: bool, window: int = 0, variant: str = None):
+    """Launch the CUDA block-attention backward's dk/dv kernel; arguments
+    as for :func:`flash_bwd_dq`.  Under grouped-query attention each KV
+    head's gradient sums its group of q heads inside one block, in a
+    fixed order.  Returns ``(dk, dv)`` like ``k`` (contiguous)."""
     _check_bwd("flash_bwd_dkv", q, k, v, do, lse, dd, causal, window)
+    variant = _resolve_variant("flash_bwd_dkv", q, variant)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     if dk.numel() == 0:
         return dk, dv
     if q.shape[1] == 0 or q.shape[2] == 0:
         return dk.zero_(), dv.zero_()
-    _bwd_launch("flash_bwd_dkv", "mpi4torch_flash_bwd_dkv", q, k, v, do,
-                lse, dd, (dk, dv), q_off, kv_off, causal, window)
+    _bwd_launch("flash_bwd_dkv", "dkv", variant, q, k, v, do, lse, dd,
+                (dk, dv), q_off, kv_off, causal, window)
     return dk, dv
+
+
+def bwd_tc_props(part: str, d: int) -> dict:
+    """What the compiler and the card made of tc kernel ``part`` ("dq" or
+    "dkv") at head dim ``d``: registers per thread, local-memory (spill)
+    bytes per thread, static and dynamic shared memory per block, and the
+    blocks that fit on one SM.  Needs the card."""
+    out = (ctypes.c_int * 5)()
+    err = load("flash_bwd_tc").mpi4torch_flash_bwd_tc_props(
+        {"dq": 0, "dkv": 1}[part], int(d), out)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_tc props failed with CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "static_smem",
+                     "dynamic_smem", "blocks_per_sm"), out))
 
 
 def hop_vec(block: int, floats, int8s) -> int:

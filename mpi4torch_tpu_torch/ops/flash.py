@@ -20,9 +20,11 @@ scores from the residuals ``q, k, v, out, lse`` and never stores them.
   JAX package asks for ``impl="jnp"``, and per-row ``(batch,)`` offsets
   force it (the kernels skip tiles off one scalar frontier).
 * ``"auto"`` — on a CUDA tensor, the hand-written kernels
-  (``ops/csrc/flash_fwd.cu`` forward, ``ops/csrc/flash_bwd.cu``
-  backward); shapes they do not take raise, they never fall back.  On a
-  CPU tensor, the plain versions.
+  (``ops/csrc/flash_fwd.cu`` forward; the backward on
+  ``ops/csrc/flash_bwd_tc.cu``'s tensor-core kernels for bf16 with head
+  dim <= 128, on ``ops/csrc/flash_bwd.cu`` otherwise, as
+  ``_kernels.bwd_variant`` picks); shapes they do not take raise, they
+  never fall back.  On a CPU tensor, the plain versions.
 * ``"cuda"`` — the kernels, forced (raises on a CPU tensor).
 
 The JAX package's KV chunking (``_KV_VMEM_BUDGET``, ``_kv_chunk_for``)

@@ -66,15 +66,27 @@ def _grads(q, k, v, impl, kw, gen):
     return torch.autograd.grad(loss, (q, k, v))
 
 
+# The forward's shapes, then the tensor-core backward's edges: GQA 16/4,
+# sq and sk off the 64- and 32-row tiles with fewer keys than one tile,
+# a window with a q offset, and fully masked rows at d = 64.  In bf16,
+# d = 64, 72 and 128 (and 32) take the tc variant, d = 256 the simt one.
+BWD_SHAPES = SHAPES + [(1, 256, 256, 16, 4, 128, 0, 0, 0, True),
+                       (2, 133, 37, 4, 2, 128, 0, 0, 0, True),
+                       (1, 200, 300, 4, 4, 128, 100, 0, 48, True),
+                       (1, 128, 128, 4, 4, 64, 0, 100, 0, True)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_kernels_match_plain(cuda, dtype):
     # f32: both sides sum in f32 in other orders (rtol 1e-3, atol 1e-4,
     # the JAX package's own kernel-vs-oracle bound).  bf16: the gradients
-    # round once to bf16 from f32 sums over up to 300 keys, so a few bf16
-    # ulps of the largest gradient (2e-2 of max |ref|).
+    # round once to bf16 from f32 sums over up to 300 keys, and the tc
+    # kernels round p and ds to bf16 where they enter a product (as the
+    # TPU kernel does), so a few bf16 ulps of the largest gradient (2e-2
+    # of max |ref|).
     g = torch.Generator(device=cuda).manual_seed(1)
-    for b, sq, sk, h, h_kv, d, q_off, kv_off, window, causal in SHAPES:
+    for b, sq, sk, h, h_kv, d, q_off, kv_off, window, causal in BWD_SHAPES:
         q = torch.randn((b, sq, h, d), generator=g, device=cuda, dtype=dtype)
         k = torch.randn((b, sk, h_kv, d), generator=g, device=cuda,
                         dtype=dtype)
@@ -82,11 +94,15 @@ def test_backward_kernels_match_plain(cuda, dtype):
                         dtype=dtype)
         kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off,
                   window=window)
+        variant = _kernels.bwd_variant(dtype, d)
+        other = "simt" if variant == "tc" else "tc"
         _kernels.reset_launch_counts()
         got = _grads(q, k, v, "cuda", kw, torch.Generator(
             device=cuda).manual_seed(2))
-        assert _kernels.launch_counts["flash_bwd_dq"] == 1
-        assert _kernels.launch_counts["flash_bwd_dkv"] == 1
+        for part in ("dq", "dkv"):
+            assert _kernels.launch_counts[f"flash_bwd_{part}"] == 1
+            assert _kernels.launch_counts[f"flash_bwd_{part}.{variant}"] == 1
+            assert _kernels.launch_counts[f"flash_bwd_{part}.{other}"] == 0
         # No atomics: the same inputs give the same bits.
         again = _grads(q, k, v, "cuda", kw, torch.Generator(
             device=cuda).manual_seed(2))
@@ -94,6 +110,12 @@ def test_backward_kernels_match_plain(cuda, dtype):
         want = _grads(q, k, v, "torch", kw, torch.Generator(
             device=cuda).manual_seed(2))
         torch.cuda.synchronize()
+        if causal and kv_off > q_off:
+            # Queries before the first key and keys after the last query
+            # get exactly zero gradients.
+            assert bool((got[0][:, :kv_off - q_off] == 0).all())
+            for t in got[1:]:
+                assert bool((t[:, q_off + sq - kv_off:] == 0).all())
         for a, r in zip(got, want):
             assert a.dtype == r.dtype and a.shape == r.shape
             a, r = a.float(), r.float()
@@ -101,6 +123,58 @@ def test_backward_kernels_match_plain(cuda, dtype):
                 torch.testing.assert_close(a, r, rtol=1e-3, atol=1e-4)
             else:
                 assert (a - r).abs().max() <= 2e-2 * r.abs().max()
+
+
+@pytest.mark.cuda
+def test_simt_by_name_agrees_with_tc(cuda):
+    # The CUDA-core kernels still take bf16 at d <= 128 when asked by
+    # name (the smoke times them there); both variants hold the plain
+    # backward's tolerance, so they agree within twice it.
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do = (torch.randn((1, 160, 4, 128), generator=g, device=cuda,
+                               dtype=torch.bfloat16) for _ in range(4))
+    out, lse = _kernels.flash_fwd(q, k, v, 0, 0, True)
+    dd = (do.float() * out.float()).sum(-1)
+    _kernels.reset_launch_counts()
+    grads = {}
+    for variant in (None, "simt"):
+        args = (q, k, v, do, lse, dd, 0, 0, True)
+        grads[variant] = [
+            _kernels.flash_bwd_dq(*args, variant=variant),
+            *_kernels.flash_bwd_dkv(*args, variant=variant)]
+    for a, r in zip(grads[None], grads["simt"]):
+        a, r = a.float(), r.float()
+        assert (a - r).abs().max() <= 4e-2 * r.abs().max()
+    assert _kernels.launch_counts["flash_bwd_dq.tc"] == 1
+    assert _kernels.launch_counts["flash_bwd_dq.simt"] == 1
+    assert _kernels.launch_counts["flash_bwd_dkv.tc"] == 1
+    assert _kernels.launch_counts["flash_bwd_dkv.simt"] == 1
+
+
+@pytest.mark.cuda
+def test_tc_variant_refuses_what_it_does_not_take(cuda):
+    lse = torch.zeros((1, 8, 2), device=cuda)
+    _kernels.reset_launch_counts()
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 256)):
+        q = torch.zeros((1, 8, 2, d), device=cuda, dtype=dtype)
+        for fn in (_kernels.flash_bwd_dq, _kernels.flash_bwd_dkv):
+            with pytest.raises(ValueError, match="'tc' takes bfloat16"):
+                fn(q, q, q, q, lse, lse, 0, 0, True, variant="tc")
+    q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="unknown variant"):
+        _kernels.flash_bwd_dq(q, q, q, q, lse, lse, 0, 0, True,
+                              variant="wgmma")
+    assert all(c == 0 for c in _kernels.launch_counts.values())
+
+
+@pytest.mark.cuda
+def test_tc_kernels_do_not_spill_and_fit_two_blocks(cuda):
+    _kernels.load("flash_bwd_tc")
+    for part in ("dq", "dkv"):
+        for d in (64, 128):
+            props = _kernels.bwd_tc_props(part, d)
+            assert props["local_bytes"] == 0, (part, d, props)
+            assert props["blocks_per_sm"] >= 2, (part, d, props)
 
 
 @pytest.mark.cuda

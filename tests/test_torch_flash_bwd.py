@@ -140,16 +140,98 @@ def test_plain_backward_parts_equal_the_whole(case):
 
 
 def test_cuda_backward_on_cpu_tensors_raises():
-    q, k, v, _, lse = _inputs(1, 8, 8, 2, 2, 8, dtype=np.float32)
+    # Raises before any launch, whatever variant is asked for, and leaves
+    # every count (the per-variant ones too) at 0.
+    q, k, v, _, lse = _inputs(1, 8, 8, 2, 2, 16, dtype=np.float32)
     q, k, v, lse = (torch.from_numpy(x) for x in (q, k, v, lse))
+    _kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
         pflash.flash_block_attention(q.requires_grad_(), k, v, causal=True,
                                      impl="cuda")
-    for fn in (_kernels.flash_bwd_dq, _kernels.flash_bwd_dkv):
-        with pytest.raises(ValueError, match="CUDA tensor"):
-            fn(q, k, v, q, lse, lse, 0, 0, True)
-    assert _kernels.launch_counts["flash_bwd_dq"] == 0
-    assert _kernels.launch_counts["flash_bwd_dkv"] == 0
+    q = q.detach()
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        for variant in (None, "tc", "simt"):
+            for fn in (_kernels.flash_bwd_dq, _kernels.flash_bwd_dkv):
+                with pytest.raises(ValueError, match="CUDA tensor"):
+                    fn(q, k, v, q, lse, lse, 0, 0, True, variant=variant)
+    assert all(c == 0 for c in _kernels.launch_counts.values())
+    assert {f"flash_bwd_{p}.{v}" for p in ("dq", "dkv")
+            for v in ("tc", "simt")} <= set(_kernels.launch_counts)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backward_bf16_within_card_tolerance_of_interpreted_pallas(
+        causal):
+    # The JAX package's Pallas backward in bf16 rounds p and ds to bf16
+    # where they enter a product, as the tensor-core kernels do; the
+    # port's plain backward keeps them f32.  They agree within the bound
+    # the card holds the kernels to (2e-2 of max |ref|), so that bound
+    # covers the TPU kernel's own rounding.
+    q, k, v, wo, wl = _inputs(1, 256, 256, 4, 2, 64, dtype=np.float32,
+                              seed=5)
+
+    def jax_loss(q, k, v):
+        o, l = jflash.flash_block_attention(q, k, v, impl="pallas",
+                                            causal=causal)
+        return jnp.sum(o.astype(jnp.float32) * wo) \
+            + jnp.sum(jnp.where(l > -1e29, l, 0.0) * wl)
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+                  for x in (q, k, v))
+    o, l = pflash.flash_block_attention(tq, tk, tv, causal=causal)
+    r = (o.float() * torch.from_numpy(wo)).sum() \
+        + (torch.where(l > -1e29, l, 0.0) * torch.from_numpy(wl)).sum()
+    got = torch.autograd.grad(r, (tq, tk, tv))
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16, name
+        a = a.float().numpy()
+        w = np.asarray(w.astype(jnp.float32))
+        assert np.abs(a - w).max() <= 2e-2 * np.abs(w).max(), name
+
+
+@pytest.mark.parametrize("d", range(8, 129, 8))
+def test_bwd_variant_takes_tensor_cores_for_bf16_up_to_128(d):
+    assert _kernels.bwd_variant(torch.bfloat16, d) == "tc"
+
+
+@pytest.mark.parametrize("dtype, d", [
+    (torch.float32, 8), (torch.float32, 64), (torch.float32, 128),
+    (torch.float32, 256), (torch.bfloat16, 136), (torch.bfloat16, 192),
+    (torch.bfloat16, 256)])
+def test_bwd_variant_keeps_simt_for_f32_and_wide_heads(dtype, d):
+    assert _kernels.bwd_variant(dtype, d) == "simt"
+
+
+def test_variant_by_name_is_checked_against_the_operands():
+    bf, f32 = torch.bfloat16, torch.float32
+    resolve = _kernels._resolve_variant
+    assert resolve("k", torch.zeros((1, 8, 2, 64), dtype=bf), None) == "tc"
+    assert resolve("k", torch.zeros((1, 8, 2, 64), dtype=bf),
+                   "simt") == "simt"
+    assert resolve("k", torch.zeros((1, 8, 2, 64)), None) == "simt"
+    for dtype, d in ((f32, 64), (bf, 256)):
+        with pytest.raises(ValueError, match="'tc' takes bfloat16"):
+            resolve("k", torch.zeros((1, 8, 2, d), dtype=dtype), "tc")
+    with pytest.raises(ValueError, match="unknown variant"):
+        resolve("k", torch.zeros((1, 8, 2, 64), dtype=bf), "wgmma")
+
+
+def test_tc_operands_get_16_byte_rows():
+    bf = torch.bfloat16
+    # q of a fused (b, s, 3, h, d) projection: rows start every 16 bytes.
+    qkv = torch.randn((1, 8, 3, 2, 8)).to(bf)
+    q = qkv[:, :, 1]
+    assert _kernels._rows_aligned(q) is q
+    # A head stride of 12 elements, or storage one element off: copied.
+    wide = torch.randn((1, 8, 2, 12)).to(bf)[..., :8]
+    flat = torch.randn(1 * 8 * 2 * 8 + 1).to(bf)[1:].view(1, 8, 2, 8)
+    for t in (wide, flat):
+        c = _kernels._rows_aligned(t)
+        assert c is not t and torch.equal(c, t) and c.is_contiguous()
+        assert c.data_ptr() % 16 == 0
 
 
 def test_per_row_offsets_stay_on_the_plain_forward():

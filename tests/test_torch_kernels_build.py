@@ -7,13 +7,18 @@ The real compiler and the kernels run only on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import ctypes
 import os
+import pathlib
+import re
 import stat
 import time
 
 import pytest
 
 from mpi4torch_tpu_torch.ops import _kernels
+
+CSRC = pathlib.Path(_kernels._CSRC)
 
 FAKE_NVCC = """#!/bin/sh
 out=""; src=""
@@ -76,6 +81,60 @@ def test_an_edited_source_gets_a_new_library(fake_toolkit):
     (fake_toolkit / "a.cu").write_text("// kernel a, edited\n")
     second = _kernels._compile(["a"])["a"]
     assert second != first and os.path.exists(second)
+
+
+def _extern_c_functions(path):
+    """name -> parameter kinds ("pointer", "int", "long long") of every
+    ``extern "C"`` function defined in a CUDA source."""
+    text = re.sub(r"//[^\n]*", "", path.read_text())
+    found = {}
+    for m in re.finditer(r'extern\s+"C"\s+\w+\s+(\w+)\s*\(([^)]*)\)', text):
+        kinds = []
+        for param in m.group(2).split(","):
+            param = " ".join(param.split())
+            if "*" in param:
+                kinds.append("pointer")
+            elif re.match(r"(const )?long long \w+$", param):
+                kinds.append("long long")
+            elif re.match(r"(const )?int \w+$", param):
+                kinds.append("int")
+            else:
+                kinds.append(f"unknown: {param}")
+        found[m.group(1)] = kinds
+    return found
+
+
+_CTYPE_KINDS = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
+                ctypes.c_longlong: "long long"}
+_SOURCE_FUNCTIONS = [
+    (lib, fn) for lib, src in sorted(_kernels._SOURCES.items())
+    for fn in sorted(_extern_c_functions(CSRC / src))]
+
+
+def test_every_library_exports_what_its_signatures_name():
+    assert sorted(_kernels._SOURCES) == sorted(_kernels._SIGNATURES)
+    for lib, src in _kernels._SOURCES.items():
+        assert sorted(_extern_c_functions(CSRC / src)) == \
+            sorted(_kernels._SIGNATURES[lib]), lib
+
+
+@pytest.mark.parametrize("lib, fn", _SOURCE_FUNCTIONS,
+                         ids=[fn for _, fn in _SOURCE_FUNCTIONS])
+def test_ctypes_signature_matches_the_c_parameters(lib, fn):
+    # A wrong count or kind would pass garbage to the kernel on the card
+    # (a pointer cut to 32 bits, arguments shifted by one).
+    want = _extern_c_functions(CSRC / _kernels._SOURCES[lib])[fn]
+    got = [_CTYPE_KINDS[t] for t in _kernels._SIGNATURES[lib][fn]]
+    assert got == want
+
+
+def test_parameter_parser_reads_each_kind():
+    src = CSRC / "flash_bwd_tc.cu"
+    kinds = _extern_c_functions(src)["mpi4torch_flash_bwd_tc_dq"]
+    assert kinds == ["pointer"] * 7 + ["int"] * 6 + ["pointer"] \
+        + ["int"] * 4 + ["pointer"]
+    assert _extern_c_functions(CSRC / "quant_hop.cu")[
+        "mpi4torch_quant_hop"][7] == "long long"
 
 
 def test_a_failed_source_raises_after_every_compiler_ends(fake_toolkit):
