@@ -10,25 +10,32 @@ check fails.  Phases, in order:
 
 1. device: the card's name and power limit;
 2. build: ``nvcc`` compiles the port's kernel sources from ``ops/csrc``,
-   one compiler per source, all at once; the tensor-core backward
-   kernels' registers, shared memory, spill bytes and blocks per SM
-   (none may spill, two blocks must fit an SM);
+   one compiler per source, all at once; the tensor-core attention
+   kernels' (forward, dq, dk/dv) registers, shared memory, spill bytes
+   and blocks per SM (none may spill, two blocks must fit an SM);
 3. the block-attention forward kernel (``flash_fwd``) against its plain
    PyTorch version on the card, on the cases listed in ``KERNEL_CASES``,
-   each within the stated tolerance;
+   each within the stated tolerance, printed with the variant that
+   ``_kernels.fwd_variant`` picks (``tc`` on the tensor cores, ``simt``
+   on the CUDA cores) and counted under it; every ``tc`` case runs twice
+   and must repeat its bits;
 4. serving at the full width of the flagship transformer (vocab 32768,
    d_model 2048, 16 heads, 8 layers, d_ff 8192, max_seq 2048; bf16,
    random weights from a seed) on a tensor-parallel world of one: eight
    greedy requests through ``serve.Engine`` with four slots, checked
    against the port's own ``generate()``, with the kernel's launch count
-   proving that every prefill ran through it;
+   proving that every prefill ran through it, on the ``tc`` variant;
 5. the same model on a two-rank world (``run_ranks``, both rank threads on
    the one card): four requests, both ranks bitwise identical, the
-   first prefill's logits within tolerance of the one-rank logits;
+   first prefill's logits within tolerance of the one-rank logits, every
+   forward launch ``tc``;
 6. serving numbers: the forward kernel's time at the flagship prefill
-   shape beside its bound, its plain version and
+   shape (the ``tc`` readings before and after the ``simt`` kernel called
+   by name) beside its bound, its plain version and
    ``scaled_dot_product_attention`` (timed only; the port never calls
-   it), then prefill, TTFT, decode rate and peak memory;
+   it), then prefill, TTFT, decode rate and peak memory.  Kernel times
+   are device times: CUDA events around calls queued behind a GPU sleep,
+   so that the host's launch overhead is not counted;
 7. the backward kernels (``flash_bwd_dq``, ``flash_bwd_dkv``) against the
    plain backward on the card: ``torch.autograd.grad`` through
    ``flash_block_attention`` with ``impl="cuda"`` and ``impl="torch"`` on
@@ -39,12 +46,12 @@ check fails.  Phases, in order:
 8. training the same model on one rank, the bench recipe: ``lm_loss``
    with ``vocab_chunk=4096`` on 8 x 2048 tokens, ``torch.autograd.grad``,
    ``p - 1e-3 g``, three steps; exactly ``n_layers`` launches of each
-   kernel per step, every backward launch the ``tc`` variant,
+   kernel per step, every attention launch the ``tc`` variant,
    bitwise-repeatable gradients, kernel gradients
    against plain-attention gradients at batch 1, chunked against dense
    loss;
 9. data-parallel training on two rank threads of the one card
-   (``train_step`` with ``comm_dp=COMM_WORLD``): every backward launch
+   (``train_step`` with ``comm_dp=COMM_WORLD``): every attention launch
    the ``tc`` variant, both ranks bitwise
    identical, the update exactly ``p - lr g`` of the DP gradient, and
    that gradient within tolerance of the one-rank gradient at batch 8;
@@ -52,11 +59,11 @@ check fails.  Phases, in order:
     share and top ops, the attention kernels' share of device time, peak
     memory, the DP=2 step; then each attention kernel at the training
     shape (8, 2048, 16, 128) bf16 causal, held against its plain version,
-    and its time beside its bound, its plain version and, for the
-    backward pair, the backward of ``scaled_dot_product_attention`` and
-    the ``simt`` kernels on the same inputs (both timed only: the port
-    never calls SDPA, and the main path never takes ``simt`` for bf16
-    with head dim <= 128);
+    and its time beside its bound, its plain version,
+    ``scaled_dot_product_attention``'s forward or backward and the
+    ``simt`` kernels on the same inputs (both timed only: the port never
+    calls SDPA, and the main path never takes ``simt`` for bf16 with head
+    dim <= 128);
 11. the quantized ring hop kernel (``q8_hop``, ``csrc/quant_hop.cu``)
     against its plain version on the card, bitwise: every combination of
     residual, stochastic rounding and hop 0, blocks of 128, 256 and 384,
@@ -79,15 +86,15 @@ check fails.  Phases, in order:
     ``torch.autograd.grad`` → ``ef_allreduce(..., compression="q8")`` →
     ``/ 2`` → ``p - 1e-3 g``: ranks bitwise identical, each step's
     residual exactly ``corrected - roundtrip(corrected)``, two hop
-    launches per leaf per step, and the first step's synced gradient
-    within a bound derived from the block scales of the exact DP
-    gradient;
+    launches per leaf per step, every attention launch ``tc``, and the
+    first step's synced gradient within a bound derived from the block
+    scales of the exact DP gradient;
 14. compressed numbers: the hop kernel's time at the two shapes the paths
     give it beside its bound and its plain version, each compressed
     Allreduce's step beside the exact one, and the compressed DP=2 step
     beside the exact DP=2 step, with a profile of one compressed step;
-15. one JSON line describing each ported kernel (K3/K4 with the
-    variant the main path ran).
+15. one JSON line describing each ported kernel (K2, K3 and K4 with
+    the variant the main path ran).
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 TF32 is switched off for matmuls and cuDNN here, so float32 work on the
@@ -109,8 +116,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_S = 3.35e12
 
 # Kernel vs plain tolerances: the kernel and the plain version both
-# accumulate in f32 and round once at the end, so bf16 outputs differ by
-# about one bf16 ulp (2^-8 relative); lse is f32 on both sides.
+# accumulate in f32 and round once at the end; lse is f32 on both sides.
+# A bf16 out may land one bf16 ulp (2^-7 of its power of two) from the
+# plain value: the tc kernel rounds p to bf16 where it enters the PV
+# product, as the TPU kernel does, and the plain version keeps p in f32,
+# so the two f32 sums differ by up to 2^-9 of the largest weights and can
+# straddle a rounding boundary.  Where one ulp is above 1e-2 (|out| >= 2,
+# the first rows of a causal mask, which average a handful of values)
+# the bound is that ulp (bf16_out_bound).
 TOL = {torch.bfloat16: {"out": 1e-2, "lse": 1e-4},
        torch.float32: {"out": 1e-5, "lse": 1e-5}}
 
@@ -131,6 +144,18 @@ KERNEL_CASES = [
     ("f32_noncausal_ragged", torch.float32, 2, 130, 70, 4, 2, 128, 0, 0, 0,
      False),
     ("d64", torch.bfloat16, 2, 512, 512, 8, 8, 64, 0, 0, 0, True),
+    # The tc tiles are 64 rows: "ragged_133_37" has neither edge on a tile
+    # and fewer keys than one tile; "d72_window_64" is zero-padded to 128
+    # in shared memory; "bf16_noncausal_ragged" masks the zero-filled keys
+    # past sk without a causal mask; "d256_simt" takes the simt route.
+    ("d72_window_64", torch.bfloat16, 1, 300, 300, 4, 2, 72, 0, 0, 64,
+     True),
+    ("ragged_133_37", torch.bfloat16, 2, 133, 37, 4, 2, 128, 0, 0, 0, True),
+    ("bf16_noncausal_ragged", torch.bfloat16, 2, 130, 70, 4, 2, 128, 0, 0,
+     0, False),
+    ("fully_masked_rows_bf16", torch.bfloat16, 1, 128, 128, 4, 4, 64, 0,
+     100, 0, True),
+    ("d256_simt", torch.bfloat16, 1, 512, 512, 4, 4, 256, 0, 0, 0, True),
 ]
 
 # Serving checks.  Engine (batch of slots) and generate() (batch of one)
@@ -263,10 +288,23 @@ def sync_ms(fn):
 
 
 def event_ms(fn, iters=20, warmup=3):
+    """Device ms per call of ``fn``: CUDA events around ``iters`` calls.
+    The calls queue behind a GPU sleep longer than the host takes to
+    issue them, so the interval holds the device's work and not the host's
+    launch overhead (a call whose device work is shorter than its Python
+    wrapper would otherwise time the wrapper)."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # Cycles at up to 2 GHz: three times the issue time of the timed calls
+    # plus a millisecond.
+    torch.cuda._sleep(int(2e9 * min(1e-3 + 3 * iters * host_s, 2.0)))
     start.record()
     for _ in range(iters):
         fn()
@@ -298,30 +336,64 @@ def live_pairs(sq, sk, q_off, kv_off, window, causal):
     return int(mask.sum().item())
 
 
-def kernel_phase(flash):
+def bf16_out_bound(ref):
+    """Per-element bound on |kernel - plain| for a bf16 out: TOL's 1e-2,
+    or one bf16 ulp of the plain value where that is larger (see TOL)."""
+    ulp = torch.pow(2.0, torch.floor(torch.log2(
+        ref.float().abs().clamp_min(2.0 ** -126))) - 7)
+    return torch.clamp_min(ulp, TOL[torch.bfloat16]["out"])
+
+
+def forward_errors(o, l, po, pl, dt):
+    """(max |out err|, elements of out beyond TOL's absolute bound, max
+    |lse err|, within the tolerance)."""
+    e = (o.float() - po.float()).abs()
+    err_l = (l - pl.float()).abs().max().item()
+    bound = bf16_out_bound(po) if dt == torch.bfloat16 else TOL[dt]["out"]
+    ok = (bool((e <= bound).all()) and err_l <= TOL[dt]["lse"]
+          and bool(torch.isfinite(o).all()))
+    return (e.max().item(), int((e > TOL[dt]["out"]).sum()), err_l, ok)
+
+
+def kernel_phase(flash, kernels):
+    """Each case: the forward kernel against the plain version, one
+    launch counted under the variant ``fwd_variant`` picks; a tc case runs
+    twice and must repeat its bits.  Returns max |out err| per case."""
     results = {}
     for i, (name, dt, b, sq, sk, h, h_kv, d, q_off, kv_off, window,
             causal) in enumerate(KERNEL_CASES):
         q, k, v = attention_inputs(dt, b, sq, sk, h, h_kv, d, seed=i)
         kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off,
                   window=window)
+        variant = kernels.fwd_variant(dt, d)
+        names = ("flash_fwd", f"flash_fwd.{variant}")
+        before = [kernels.launch_counts[n] for n in names]
         o, l = flash.flash_block_attention(q, k, v, impl="cuda", **kw)
+        rose = [kernels.launch_counts[n] - c for n, c in zip(names, before)]
+        repeat = "-"
+        if variant == "tc":
+            o2, l2 = flash.flash_block_attention(q, k, v, impl="cuda", **kw)
+            repeat = torch.equal(o, o2) and torch.equal(l, l2)
+            del o2, l2
         po, pl = flash.flash_block_attention(q, k, v, impl="torch", **kw)
         torch.cuda.synchronize()
-        err_o = (o.float() - po.float()).abs().max().item()
-        err_l = (l - pl.float()).abs().max().item()
-        tol = TOL[dt]
-        ok = (err_o <= tol["out"] and err_l <= tol["lse"]
-              and bool(torch.isfinite(o).all()))
-        if name == "fully_masked_rows":
+        err_o, n_over, err_l, ok = forward_errors(o, l, po, pl, dt)
+        ok = ok and rose == [1, 1] and repeat is not False
+        if name.startswith("fully_masked_rows"):
             n_masked = kv_off - q_off
             ok = ok and bool((o[:, :n_masked] == 0).all()) and bool(
                 (l[:, :n_masked] == flash.NEG_BIG).all())
-        print(f"  {name:24s} {str(dt):15s} out err {err_o:.3e} "
-              f"(tol {tol['out']:g})  lse err {err_l:.3e} "
-              f"(tol {tol['lse']:g})  {'ok' if ok else 'FAIL'}",
-              flush=True)
-        check(ok, f"kernel case {name} disagrees with the plain version")
+        tol = TOL[dt]
+        print(f"  {name:24s} {str(dt):15s} d {d:3d} {variant:4s} out err "
+              f"{err_o:.3e} (tol {tol['out']:g}"
+              f"{' or 1 ulp' if dt == torch.bfloat16 else ''}; "
+              f"{n_over} beyond {tol['out']:g})  lse err {err_l:.3e} "
+              f"(tol {tol['lse']:g})  launches +{rose[0]} ({variant} "
+              f"+{rose[1]}); repeat bitwise {repeat}  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"kernel case {name} disagrees with the plain version, "
+              f"did not launch the {variant} kernel once, or did not "
+              "repeat its bits")
         results[name] = err_o
     return results
 
@@ -386,7 +458,8 @@ def serve_tp1(T, serve, kernels, cfg, params, prompts):
             decode_ms += dt
             decode_tok += n_dec
     run_s = time.perf_counter() - t_run
-    launches = kernels.launch_counts["flash_fwd"]
+    launches = (kernels.launch_counts["flash_fwd"],
+                kernels.launch_counts["flash_fwd.tc"])
     return eng, launches, engine_rows, decode_ms, decode_tok, run_s
 
 
@@ -477,7 +550,8 @@ def serve_tp2(P, T, serve, kv, kernels, cfg, params, prompts):
 
     kernels.reset_launch_counts()
     ms, out = sync_ms(lambda: P.run_ranks(rank_body, 2, device="cuda"))
-    return out, kernels.launch_counts["flash_fwd"], ms
+    return out, (kernels.launch_counts["flash_fwd"],
+                 kernels.launch_counts["flash_fwd.tc"]), ms
 
 
 def bound(flops, nbytes, dtype):
@@ -578,8 +652,8 @@ def leaves_equal(tree, a, b):
 
 def train_tp1(T, tree, flash, kernels, cfg, params, tokens):
     n = cfg.n_layers
-    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq.tc",
-             "flash_bwd_dkv.tc")
+    names = kernels.ATTENTION_KERNELS + tuple(
+        f"{k}.tc" for k in kernels.ATTENTION_KERNELS)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     p, losses, step_ms, per_step = params, [], [], []
@@ -599,13 +673,14 @@ def train_tp1(T, tree, flash, kernels, cfg, params, tokens):
     print(f"  {TRAIN_STEPS} steps at batch {TRAIN_BATCH} x {TRAIN_SEQ}: "
           f"losses {[round(x, 4) for x in losses]} (ln V = "
           f"{np.log(cfg.vocab):.3f}); step wall {[round(x) for x in step_ms]}"
-          f" ms; launches per step (fwd, dq, dkv, dq.tc, dkv.tc) {per_step}")
+          f" ms; launches per step (fwd, dq, dkv, fwd.tc, dq.tc, dkv.tc) "
+          f"{per_step}")
     check(all(np.isfinite(losses)), "a training loss is not finite")
     check(abs(losses[0] - np.log(cfg.vocab)) <= INIT_LOSS_TOL,
           f"initial loss {losses[0]:.4f} is not near ln V")
     check(all(c == [n] * len(names) for c in per_step),
           f"expected exactly n_layers = {n} launches of each kernel per "
-          "step, every backward launch on the tc variant")
+          "step, every attention launch on the tc variant")
 
     loss_r, grads_r, _ = recipe_step(T, tree, cfg, params, tokens)
     same = torch.equal(loss_r, loss0) and leaves_equal(tree, grads_r,
@@ -705,12 +780,9 @@ def train_dp2(P, T, tree, dp, kernels, cfg, params, tokens):
     check(abs(l0.item() - ref_loss.item()) <= LOSS_TOL,
           "DP=2 loss too far from the one-rank loss")
     check(worst <= DP_GRAD_REL, "DP=2 gradient too far from one rank's")
-    check(all(launches[k] == want for k in ("flash_fwd", "flash_bwd_dq",
-                                            "flash_bwd_dkv",
-                                            "flash_bwd_dq.tc",
-                                            "flash_bwd_dkv.tc")),
-          "DP=2 did not run every attention on the kernels, every backward "
-          "on the tc variant")
+    check(all(launches[k] == launches[f"{k}.tc"] == want
+              for k in kernels.ATTENTION_KERNELS),
+          "DP=2 did not run every attention on the tc kernels")
     return dp_ms
 
 
@@ -719,8 +791,8 @@ def backward_numbers(flash, kernels):
     16, 128) bf16 causal: each held against its plain version on the same
     inputs (the backward from the kernel forward's out and lse), then
     kernel ms, bound, plain ms and the library yardsticks.  Returns
-    (kernel ms, bounds, plain ms, library ms, max |err|), keyed by kernel;
-    "pair" is the whole backward (dq, dk and dv together)."""
+    (kernel ms, bounds, plain ms, library ms, max |err|, simt ms), keyed
+    by kernel; "pair" is the whole backward (dq, dk and dv together)."""
     dt, b, s, h, d = torch.bfloat16, TRAIN_BATCH, TRAIN_SEQ, 16, 128
     q, k, v = attention_inputs(dt, b, s, s, h, h, d, seed=7)
     do = attention_inputs(dt, b, s, s, h, h, d, seed=8)[0]
@@ -733,10 +805,7 @@ def backward_numbers(flash, kernels):
     want = flash._torch_block_bwd(q, k, v, out, lse, do, None, zero, zero,
                                   True)
     torch.cuda.synchronize()
-    err_o = (out.float() - p_out.float()).abs().max().item()
-    err_l = (lse - p_lse.float()).abs().max().item()
-    ok = (err_o <= TOL[dt]["out"] and err_l <= TOL[dt]["lse"]
-          and bool(torch.isfinite(out).all()))
+    err_o, n_over, err_l, ok = forward_errors(out, lse, p_out, p_lse, dt)
     errs, rel = [], []
     for a, r in zip(got, want):
         ok = ok and bool(torch.isfinite(a).all())
@@ -744,8 +813,9 @@ def backward_numbers(flash, kernels):
         rel.append(errs[-1] / r.float().abs().max().item())
         ok = ok and rel[-1] <= BWD_BF16_REL
     print(f"  at ({b}, {s}, {h}, {d}) bf16 causal against the plain "
-          f"versions: out err {err_o:.3e} (tol {TOL[dt]['out']:g}), lse err "
-          f"{err_l:.3e} (tol {TOL[dt]['lse']:g}); dq/dk/dv max err "
+          f"versions: out err {err_o:.3e} (tol {TOL[dt]['out']:g} or 1 ulp;"
+          f" {n_over} beyond {TOL[dt]['out']:g}), lse err {err_l:.3e} (tol "
+          f"{TOL[dt]['lse']:g}); dq/dk/dv max err "
           + "/".join(f"{e:.3e}" for e in errs) + " = "
           + "/".join(f"{x:.2e}" for x in rel)
           + f" max|ref| (tol {BWD_BF16_REL:g})  {'ok' if ok else 'FAIL'}",
@@ -759,24 +829,25 @@ def backward_numbers(flash, kernels):
     pairs = b * h * live_pairs(s, s, 0, 0, 0, True)
     qbytes, stats = b * s * h * d * 2, b * s * h * 4
     res = {}
-    res["flash_fwd"] = event_ms(
-        lambda: kernels.flash_fwd(q, k, v, 0, 0, True), iters=10)
     bwd = {"flash_bwd_dq": kernels.flash_bwd_dq,
            "flash_bwd_dkv": kernels.flash_bwd_dkv}
 
-    def time_bwd(variant, iters):
-        return {n: event_ms(lambda fn=fn: fn(q, k, v, do, lse, dd, 0, 0, True,
-                                             variant=variant), iters=iters)
-                for n, fn in bwd.items()}
+    def time_all(variant, iters):
+        t = {"flash_fwd": event_ms(lambda: kernels.flash_fwd(
+            q, k, v, 0, 0, True, variant=variant), iters=iters)}
+        t.update({n: event_ms(lambda fn=fn: fn(q, k, v, do, lse, dd, 0, 0,
+                                               True, variant=variant),
+                              iters=iters) for n, fn in bwd.items()})
+        return t
 
     # The main path's variant (tc), then the simt kernels on the same
     # inputs, called by name and timed only, then tc again: in turns, so
     # that a drift of the card's clock shows as a spread of the two tc
     # readings.
-    tc_runs = [time_bwd("tc", 10)]
-    simt = time_bwd("simt", 5)
-    tc_runs.append(time_bwd("tc", 10))
-    for n in bwd:
+    tc_runs = [time_all("tc", 10)]
+    simt = time_all("simt", 5)
+    tc_runs.append(time_all("tc", 10))
+    for n in tc_runs[0]:
         res[n] = sum(r[n] for r in tc_runs) / len(tc_runs)
     bounds = {"flash_fwd": bound(4.0 * d * pairs, 4 * qbytes + stats, dt),
               "flash_bwd_dq": bound(6.0 * d * pairs,
@@ -805,12 +876,16 @@ def backward_numbers(flash, kernels):
     for name in res:
         b_ms, b_by = bounds[name]
         more = ""
-        if name in bwd:
-            more = ("; tc runs " + "/".join(f"{r[name]:.4f}" for r in tc_runs)
-                    + f" ms; simt {simt[name]:.4f} ms "
-                    f"({simt[name] / res[name]:.1f}x the tc time)")
-        print(f"  {name} at ({b}, {s}, {h}, {d}) bf16 causal: kernel "
-              f"{res[name]:.4f} ms, plain {plain[name]:.4f} ms, bound "
+        if name == "flash_fwd":
+            more = (f"; scaled_dot_product_attention forward {lib_fwd:.4f} "
+                    f"ms (tc {res[name] / lib_fwd:.2f}x it); "
+                    f"{4.0 * d * pairs / res[name] / 1e9:.1f} TFLOP/s of live "
+                    "pairs")
+        print(f"  {name} at ({b}, {s}, {h}, {d}) bf16 causal: kernel tc "
+              f"{res[name]:.4f} ms (runs "
+              + "/".join(f"{r[name]:.4f}" for r in tc_runs)
+              + f"), simt {simt[name]:.4f} ms ({simt[name] / res[name]:.1f}x"
+              f" the tc time), plain {plain[name]:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / res[name]:.2f}% of "
               f"bound{more}")
     pair = res["flash_bwd_dq"] + res["flash_bwd_dkv"]
@@ -1160,6 +1235,14 @@ def path2_phase(P, T, tree, ef, qk, kernels, cfg, params, tokens):
           f"2 x {len(leaves)} = {2 * len(leaves)}); residual == corrected - "
           f"roundtrip(corrected) bitwise on both ranks and steps: "
           f"{exact_res}; synced gradients finite: {finite}")
+    attn = {k: (launches[k], launches[f"{k}.tc"])
+            for k in kernels.ATTENTION_KERNELS}
+    want = 2 * 2 * cfg.n_layers
+    print(f"  attention launches (all, tc): {attn} (expected {want} each, "
+          "all tc)")
+    check(all(a == (want, want) for a in attn.values()),
+          "the compressed DP=2 run did not run every attention on the tc "
+          "kernels")
     print(f"  step 1 vs the exact DP=2 gradient, norm-relative per leaf: "
           f"worst {worst[0]:.3e} (its bound {worst[1]:.3e}); largest "
           f"error / bound {tight:.3f}; bounds {min(e[1] for e in errs):.3e}"
@@ -1282,26 +1365,26 @@ def main():
         for line in log[lib]["output"].splitlines():
             if "registers" in line or "spill" in line:
                 print("    " + line.strip())
-    # The tensor-core backward kernels, as the card reports them: no
+    # The tensor-core attention kernels, as the card reports them: no
     # local memory (no spills) and two blocks (eight MMA warps) per SM.
-    spills = [line for line in log["flash_bwd_tc"]["output"].splitlines()
+    spills = [line for lib in ("flash_fwd_tc", "flash_bwd_tc")
+              for line in log[lib]["output"].splitlines()
               if "spill" in line
               and " 0 bytes spill stores, 0 bytes spill loads" not in line]
-    for part in ("dq", "dkv"):
+    for kname in kernels.ATTENTION_KERNELS:
         for d in (64, 128):
-            pr = kernels.bwd_tc_props(part, d)
-            print(f"  flash_bwd_{part} tc at head dim <= {d}: "
+            pr = kernels.tc_props(kname, d)
+            print(f"  {kname} tc at head dim <= {d}: "
                   f"{pr['registers']} registers a thread, "
                   f"{pr['dynamic_smem']} B dynamic + {pr['static_smem']} B "
                   f"static shared memory, {pr['local_bytes']} B local "
                   f"(spill) memory, {pr['blocks_per_sm']} blocks per SM")
             check(pr["local_bytes"] == 0 and pr["blocks_per_sm"] >= 2,
-                  f"flash_bwd_{part} tc spills or fits fewer than two "
-                  "blocks per SM")
-    check(not spills, f"ptxas reports spills in flash_bwd_tc.cu: {spills}")
+                  f"{kname} tc spills or fits fewer than two blocks per SM")
+    check(not spills, f"ptxas reports spills in the tc kernels: {spills}")
 
     phase(3, "kernel vs plain version on the card")
-    errs = kernel_phase(flash)
+    errs = kernel_phase(flash, kernels)
 
     phase(4, "serve the flagship transformer, TP=1")
     cfg = flagship_config(T)
@@ -1326,9 +1409,11 @@ def main():
         want = cfg.n_layers * N_REQUESTS
         print(f"  engine: {N_REQUESTS} requests in {run_s:.2f} s, "
               f"{snap['steps']} decode steps, flash_fwd launches "
-              f"{launches} (expected n_layers x prefills = {want})")
-        check(launches == want, f"flash_fwd launched {launches} times, "
-              f"expected {want}: prefill did not run on the kernel")
+              f"{launches[0]}, of them tc {launches[1]} (expected n_layers "
+              f"x prefills = {want}, all tc)")
+        check(launches == (want, want), f"flash_fwd launched {launches} "
+              f"times (all, tc), expected {want} tc: prefill did not run "
+              "on the tc kernel")
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         divergences, tie_steps, max_diff = compare_with_oracle(
             T, cfg, params, prompts, results, engine_rows)
@@ -1374,9 +1459,11 @@ def main():
           f"{tp2_ms / 1e3:.2f} s; ranks bitwise identical; first prefill "
           f"max |logit diff| vs TP=1 {tp_diff:.4f} (tol {TP_LOGIT_TOL}); "
           f"{same}/{TP2_REQUESTS} token streams equal to TP=1's prefix; "
-          f"flash_fwd launches {launches2} (expected {want2})")
+          f"flash_fwd launches {launches2[0]}, of them tc {launches2[1]} "
+          f"(expected {want2}, all tc)")
     check(tp_diff <= TP_LOGIT_TOL, "TP=2 prefill logits too far from TP=1")
-    check(launches2 == want2, "TP=2 prefill did not run on the kernel")
+    check(launches2 == (want2, want2),
+          "TP=2 prefill did not run on the tc kernel")
 
     phase(6, "serving numbers")
     dt = torch.bfloat16
@@ -1386,8 +1473,17 @@ def main():
     kw = dict(causal=True, q_offset=q_off, kv_offset=kv_off, window=window)
     plain_ms = event_ms(lambda: flash.flash_block_attention(
         q, k, v, impl="torch", **kw))
-    kernel_ms = event_ms(lambda: flash.flash_block_attention(
-        q, k, v, impl="cuda", **kw))
+    # The main path's variant (tc, through flash_block_attention), the simt
+    # kernel called by name on the same inputs, then tc again, so that a
+    # drift of the card's clock shows as a spread of the two tc readings.
+    serve_variant = kernels.fwd_variant(dt, d)
+    tc_ms = [event_ms(lambda: flash.flash_block_attention(
+        q, k, v, impl="cuda", **kw))]
+    simt_ms_prefill = event_ms(lambda: kernels.flash_fwd(
+        q, k, v, q_off, kv_off, True, window, variant="simt"), iters=10)
+    tc_ms.append(event_ms(lambda: flash.flash_block_attention(
+        q, k, v, impl="cuda", **kw)))
+    kernel_ms = sum(tc_ms) / len(tc_ms)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = event_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -1398,10 +1494,15 @@ def main():
         + b * sq * h * 4
     bound_ms, bound_by = bound(flops, nbytes, dt)
     print(f"  flash_fwd at (1, 1024, 16, 128) bf16 causal: kernel "
-          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
-          f"{nbytes / 1e6:.2f} MB)")
+          f"{serve_variant} {kernel_ms:.4f} ms (runs "
+          + "/".join(f"{x:.4f}" for x in tc_ms)
+          + f"), simt {simt_ms_prefill:.4f} ms "
+          f"({simt_ms_prefill / kernel_ms:.1f}x the {serve_variant} time), "
+          f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+          f"{library_ms:.4f} ms ({serve_variant} {kernel_ms / library_ms:.2f}x"
+          f" it), bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} "
+          f"GFLOP, {nbytes / 1e6:.2f} MB), {100 * bound_ms / kernel_ms:.2f}% "
+          "of bound")
     ttft = snap.get("ttft_s", {})
     print(f"  prefill per request {np.mean(prefill_ms):.2f} ms mean "
           f"(prompts {min(map(len, prompts))}-{max(map(len, prompts))} "
@@ -1480,7 +1581,10 @@ def main():
     phase(15, "kernels")
     # flash_fwd: launches on the serving path (phase 4), times at the
     # flagship prefill shape, its error the worst of the serving and the
-    # training shape.  flash_bwd_*: launches in the TP=1 training run
+    # training shape; "variant" is the one every serving launch took
+    # (phase 4 checks that it is tc), "simt_ms" the CUDA-core kernel on
+    # the same inputs, called by name, and "train_*" its numbers at the
+    # training shape (phase 10).  flash_bwd_*: launches in the TP=1 training run
     # (phase 8), everything else at the training shape.  No single
     # library call computes dq alone or dk/dv alone, so their library_ms
     # is null; pair_plain_ms and pair_library_ms are the whole backward's
@@ -1494,25 +1598,35 @@ def main():
     # every launch of the training run took (phase 8 checks that it is
     # tc), "source" that variant's file; "simt_ms" is the CUDA-core
     # kernel (simt_source) on the same inputs, called by name.
-    bwd_src = {"tc": "mpi4torch_tpu_torch/ops/csrc/flash_bwd_tc.cu",
-               "simt": "mpi4torch_tpu_torch/ops/csrc/flash_bwd.cu"}
+    csrc = "mpi4torch_tpu_torch/ops/csrc/"
+    src = {kname: {"tc": f"{csrc}{stem}_tc.cu", "simt": f"{csrc}{stem}.cu"}
+           for kname, stem in (("flash_fwd", "flash_fwd"),
+                               ("flash_bwd_dq", "flash_bwd"),
+                               ("flash_bwd_dkv", "flash_bwd"))}
     train_variant = {
         kname: "tc" if train_launches[f"{kname}.tc"] == train_launches[kname]
         else "simt" for kname in ("flash_bwd_dq", "flash_bwd_dkv")}
+    serve_variant = "tc" if launches[1] == launches[0] else "simt"
     k_ms_hop, p_ms_hop, b_ms_hop, b_by_hop, _, _ = hop["dp2_embed_q8"]
     hop_err = max([hop_err] + [v[5] for v in hop.values()])
     line = {"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "mpi4torch_tpu_torch/ops/csrc/flash_fwd.cu",
+        "name": "flash_fwd", "route": "cuda", "variant": serve_variant,
+        "source": src["flash_fwd"][serve_variant],
         "replaces": "mpi4torch_tpu/ops/flash.py:243",
-        "launches": launches,
+        "launches": launches[0],
         "max_abs_err": max(errs["flagship_prefill"], train_err["flash_fwd"]),
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}] + [{
+        "library_ms": library_ms, "simt_ms": simt_ms_prefill,
+        "simt_source": src["flash_fwd"]["simt"],
+        "train_launches": train_launches["flash_fwd"],
+        "train_ms": k_ms["flash_fwd"], "train_simt_ms": simt_ms["flash_fwd"],
+        "train_plain_ms": plain["flash_fwd"],
+        "train_bound_ms": bounds["flash_fwd"][0],
+        "train_library_ms": lib["flash_fwd"]}] + [{
             "name": kname, "route": "cuda",
             "variant": train_variant[kname],
-            "source": bwd_src[train_variant[kname]],
+            "source": src[kname][train_variant[kname]],
             "replaces": f"mpi4torch_tpu/ops/flash.py:{line_no}",
             "launches": train_launches[kname],
             "max_abs_err": train_err[kname],
@@ -1520,7 +1634,7 @@ def main():
             "plain_ms": plain[kname], "bound_ms": bounds[kname][0],
             "bound_by": bounds[kname][1], "library_ms": None,
             "pair_plain_ms": plain["pair"], "pair_library_ms": lib["pair"],
-            "simt_ms": simt_ms[kname], "simt_source": bwd_src["simt"]}
+            "simt_ms": simt_ms[kname], "simt_source": src[kname]["simt"]}
             for kname, line_no in (("flash_bwd_dq", 444),
                                   ("flash_bwd_dkv", 485))] + [{
         "name": "q8_hop", "route": "cuda",

@@ -9,10 +9,11 @@ runtime (``run_ranks``), the block-q8 codecs on ``ring``/``bidir``/
 ``torus`` with cross-step error feedback (``compress``), the flagship
 transformer with its continuous-batching engine (``serve.Engine``) and its
 SGD ``train_step``, and ``parallel.dp``.  Its attention runs through
-hand-written CUDA kernels, the forward (``ops/csrc/flash_fwd.cu``) and the
-backward (``ops/csrc/flash_bwd_tc.cu`` on the tensor cores for bf16 with
-head dim <= 128, ``ops/csrc/flash_bwd.cu`` otherwise), and every hop of a
-quantized ring through another (``ops/csrc/quant_hop.cu``).
+hand-written CUDA kernels, forward and backward: on the tensor cores for
+bf16 with head dim <= 128 (``ops/csrc/flash_fwd_tc.cu``,
+``ops/csrc/flash_bwd_tc.cu``), on the CUDA cores otherwise
+(``ops/csrc/flash_fwd.cu``, ``ops/csrc/flash_bwd.cu``), and every hop of
+a quantized ring through another (``ops/csrc/quant_hop.cu``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device and no such request they raise.  The package imports

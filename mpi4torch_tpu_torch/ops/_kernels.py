@@ -15,13 +15,14 @@ a run can prove that its main path went through the kernel.
 
 Kernels and the sources that hold them:
 
-* ``flash_fwd`` — ``csrc/flash_fwd.cu``, block attention forward;
-* ``flash_bwd_dq``, ``flash_bwd_dkv`` — its backward (dq; dk and dv), in
-  two variants that :func:`bwd_variant` picks from the dtype and head
-  dim: ``"tc"`` (``csrc/flash_bwd_tc.cu``, bf16 on the tensor cores,
-  d <= 128) and ``"simt"`` (``csrc/flash_bwd.cu``, f32 FMA on the CUDA
-  cores: float32, and bf16 with d > 128).  Each launch counts under the
-  kernel's name and under ``"<name>.<variant>"``;
+* ``flash_fwd`` — block attention forward, and ``flash_bwd_dq``,
+  ``flash_bwd_dkv`` — its backward (dq; dk and dv).  Each comes in two
+  variants that :func:`fwd_variant` (alias :func:`bwd_variant`) picks
+  from the dtype and head dim: ``"tc"`` (``csrc/flash_fwd_tc.cu``,
+  ``csrc/flash_bwd_tc.cu``: bf16 on the tensor cores, d <= 128) and
+  ``"simt"`` (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``: f32 FMA on
+  the CUDA cores; float32, and bf16 with d > 128).  Each launch counts
+  under the kernel's name and under ``"<name>.<variant>"``;
 * ``q8_hop``, ``q8_requant`` — ``csrc/quant_hop.cu``, one quantized ring
   hop: ``q8_hop`` counts launches with an arriving payload, ``q8_requant``
   those of hop 0 and the codec encode (no payload yet).
@@ -43,14 +44,18 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")
 # Library name -> source file.
-_SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
-            "flash_bwd_tc": "flash_bwd_tc.cu", "quant_hop": "quant_hop.cu"}
+_SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_fwd_tc": "flash_fwd_tc.cu",
+            "flash_bwd": "flash_bwd.cu", "flash_bwd_tc": "flash_bwd_tc.cu",
+            "quant_hop": "quant_hop.cu"}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # Library name -> {exported C function: argument types}.
 _SIGNATURES = {
     "flash_fwd": {"mpi4torch_flash_fwd":
                   [_P] * 5 + [_I] * 7 + [_P] + [_I] * 4 + [_P]},
+    "flash_fwd_tc": {"mpi4torch_flash_fwd_tc":
+                     [_P] * 5 + [_I] * 6 + [_P] + [_I] * 4 + [_P],
+                     "mpi4torch_flash_fwd_tc_props": [_I, _P]},
     "flash_bwd": {"mpi4torch_flash_bwd_dq":
                   [_P] * 7 + [_I] * 7 + [_P] + [_I] * 4 + [_P],
                   "mpi4torch_flash_bwd_dkv":
@@ -66,10 +71,11 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _libs = {}
 build_log = {}      # library name -> {"seconds": float, "output": str}
-BWD_VARIANTS = ("tc", "simt")
-launch_counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                 **{f"flash_bwd_{part}.{variant}": 0
-                    for part in ("dq", "dkv") for variant in BWD_VARIANTS},
+VARIANTS = ("tc", "simt")
+ATTENTION_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+launch_counts = {**{name: 0 for name in ATTENTION_KERNELS},
+                 **{f"{name}.{variant}": 0 for name in ATTENTION_KERNELS
+                    for variant in VARIANTS},
                  "q8_hop": 0, "q8_requant": 0}
 
 
@@ -246,53 +252,29 @@ def _launch(kernel: str, lib: str, fn_name: str, device, *args,
     _count(kernel, *([f"{kernel}.{variant}"] if variant else []))
 
 
-def flash_fwd(q, k, v, q_off: int, kv_off: int, causal: bool,
-              window: int = 0):
-    """Launch the CUDA block-attention forward (``csrc/flash_fwd.cu``).
-
-    ``q`` is ``(b, sq, h, d)``, ``k``/``v`` ``(b, sk, h_kv, d)``, all on
-    one CUDA device, float32 or bfloat16, last dimension contiguous;
-    ``d`` a multiple of 8 up to 256; ``h`` a multiple of ``h_kv``;
-    offsets are scalar ints.  Returns ``(out, lse)``: ``out`` like ``q``
-    (contiguous), ``lse`` float32 ``(b, sq, h)``."""
-    _check_attention("flash_fwd", q, k, v, causal, window)
-    b, sq, h, d = q.shape
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
-    if b == 0 or sq == 0 or h == 0:
-        return out, lse
-    _launch("flash_fwd", "flash_fwd", "mpi4torch_flash_fwd", q.device,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), _FLASH_DTYPES[q.dtype], b, h, k.shape[2], sq,
-            k.shape[1], d, _strides(q, k, v), int(q_off), int(kv_off),
-            int(bool(causal)), int(window))
-    return out, lse
-
-
-def _check_bwd(fn, q, k, v, do, lse, dd, causal, window) -> None:
-    _check_attention(fn, q, k, v, causal, window, more=(("do", do),))
-    _check_row_stats(fn, q, (("lse", lse), ("dd", dd)))
-
-
-def bwd_variant(dtype, d: int) -> str:
-    """The backward kernels' variant for operands of ``dtype`` with head
-    dim ``d``: ``"tc"`` (tensor cores, ``csrc/flash_bwd_tc.cu``) for
-    bfloat16 with ``d <= 128``, else ``"simt"`` (``csrc/flash_bwd.cu``).
-    float32 stays on the CUDA cores: the port does f32 work without
-    TF32."""
+def fwd_variant(dtype, d: int) -> str:
+    """The attention kernels' variant, forward and backward alike, for
+    operands of ``dtype`` with head dim ``d``: ``"tc"`` (tensor cores,
+    ``csrc/flash_fwd_tc.cu`` and ``csrc/flash_bwd_tc.cu``) for bfloat16
+    with ``d <= 128``, else ``"simt"`` (``csrc/flash_fwd.cu`` and
+    ``csrc/flash_bwd.cu``).  float32 stays on the CUDA cores: the port
+    does f32 work without TF32."""
     return "tc" if dtype == torch.bfloat16 and d <= 128 else "simt"
+
+
+bwd_variant = fwd_variant
 
 
 def _resolve_variant(fn: str, q, variant) -> str:
     """``variant`` if the operands allow it, else raise; None picks
-    :func:`bwd_variant`.  ``"simt"`` takes every dtype and width that
+    :func:`fwd_variant`.  ``"simt"`` takes every dtype and width that
     :func:`_check_attention` lets through."""
-    want = bwd_variant(q.dtype, q.shape[3])
+    want = fwd_variant(q.dtype, q.shape[3])
     if variant is None:
         return want
-    if variant not in BWD_VARIANTS:
+    if variant not in VARIANTS:
         raise ValueError(f"{fn}: unknown variant {variant!r}; expected one "
-                         f"of {BWD_VARIANTS}")
+                         f"of {VARIANTS}")
     if variant == "tc" and want != "tc":
         raise ValueError(f"{fn}: variant 'tc' takes bfloat16 with head_dim "
                          f"<= 128; got {q.dtype} with head_dim "
@@ -312,21 +294,57 @@ def _rows_aligned(t) -> torch.Tensor:
                        device=t.device).copy_(t)
 
 
-def _bwd_launch(kernel, part, variant, q, k, v, do, lse, dd, outs, q_off,
-                kv_off, causal, window) -> None:
-    """Launch backward kernel ``part`` ("dq" or "dkv") of ``variant``:
-    operands, then the outputs ``outs``, then (simt only) the dtype code,
-    then the shape, strides and mask arguments of its C signature."""
-    b, sq, h, d = q.shape
-    lib = "flash_bwd_tc" if variant == "tc" else "flash_bwd"
+# Attention kernel -> (library stem, suffix of its C function).
+_ATTENTION_LIBS = {"flash_fwd": ("flash_fwd", ""),
+                   "flash_bwd_dq": ("flash_bwd", "_dq"),
+                   "flash_bwd_dkv": ("flash_bwd", "_dkv")}
+
+
+def _attention_launch(kernel, variant, ins, outs, q_off, kv_off, causal,
+                      window) -> None:
+    """Launch attention kernel ``kernel`` of ``variant`` on the operands
+    ``ins`` (q, k, v, and for the backward do, lse, dd), writing ``outs``:
+    the pointers, then (simt only) the dtype code, then the shape, strides
+    and mask arguments of its C signature."""
+    stem, suffix = _ATTENTION_LIBS[kernel]
+    lib = f"{stem}_tc" if variant == "tc" else stem
     if variant == "tc":
-        q, k, v, do = (_rows_aligned(t) for t in (q, k, v, do))
+        ins = tuple(_rows_aligned(t) if t.dim() == 4 else t for t in ins)
+    q, k = ins[0], ins[1]
+    b, sq, h, d = q.shape
     dtype = [] if variant == "tc" else [_FLASH_DTYPES[q.dtype]]
-    _launch(kernel, lib, f"mpi4torch_{lib}_{part}", q.device,
-            *(t.data_ptr() for t in (q, k, v, do, lse, dd) + outs),
-            *dtype, b, h, k.shape[2], sq, k.shape[1], d,
-            _strides(q, k, v, do, lse, dd), int(q_off), int(kv_off),
+    _launch(kernel, lib, f"mpi4torch_{lib}{suffix}", q.device,
+            *(t.data_ptr() for t in ins + outs), *dtype, b, h, k.shape[2],
+            sq, k.shape[1], d, _strides(*ins), int(q_off), int(kv_off),
             int(bool(causal)), int(window), variant=variant)
+
+
+def flash_fwd(q, k, v, q_off: int, kv_off: int, causal: bool,
+              window: int = 0, variant: str = None):
+    """Launch the CUDA block-attention forward.
+
+    ``q`` is ``(b, sq, h, d)``, ``k``/``v`` ``(b, sk, h_kv, d)``, all on
+    one CUDA device, float32 or bfloat16, last dimension contiguous;
+    ``d`` a multiple of 8 up to 256; ``h`` a multiple of ``h_kv``;
+    offsets are scalar ints.  ``variant`` None takes
+    :func:`fwd_variant`'s; ``"tc"`` or ``"simt"`` asks for one by name
+    (``"tc"`` raises on what it does not take).  Returns ``(out, lse)``:
+    ``out`` like ``q`` (contiguous), ``lse`` float32 ``(b, sq, h)``."""
+    _check_attention("flash_fwd", q, k, v, causal, window)
+    variant = _resolve_variant("flash_fwd", q, variant)
+    b, sq, h, d = q.shape
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
+    if b == 0 or sq == 0 or h == 0:
+        return out, lse
+    _attention_launch("flash_fwd", variant, (q, k, v), (out, lse), q_off,
+                      kv_off, causal, window)
+    return out, lse
+
+
+def _check_bwd(fn, q, k, v, do, lse, dd, causal, window) -> None:
+    _check_attention(fn, q, k, v, causal, window, more=(("do", do),))
+    _check_row_stats(fn, q, (("lse", lse), ("dd", dd)))
 
 
 def flash_bwd_dq(q, k, v, do, lse, dd, q_off: int, kv_off: int,
@@ -345,8 +363,8 @@ def flash_bwd_dq(q, k, v, do, lse, dd, q_off: int, kv_off: int,
         return dq
     if k.shape[1] == 0:
         return dq.zero_()
-    _bwd_launch("flash_bwd_dq", "dq", variant, q, k, v, do, lse, dd, (dq,),
-                q_off, kv_off, causal, window)
+    _attention_launch("flash_bwd_dq", variant, (q, k, v, do, lse, dd),
+                      (dq,), q_off, kv_off, causal, window)
     return dq
 
 
@@ -364,21 +382,30 @@ def flash_bwd_dkv(q, k, v, do, lse, dd, q_off: int, kv_off: int,
         return dk, dv
     if q.shape[1] == 0 or q.shape[2] == 0:
         return dk.zero_(), dv.zero_()
-    _bwd_launch("flash_bwd_dkv", "dkv", variant, q, k, v, do, lse, dd,
-                (dk, dv), q_off, kv_off, causal, window)
+    _attention_launch("flash_bwd_dkv", variant, (q, k, v, do, lse, dd),
+                      (dk, dv), q_off, kv_off, causal, window)
     return dk, dv
 
 
-def bwd_tc_props(part: str, d: int) -> dict:
-    """What the compiler and the card made of tc kernel ``part`` ("dq" or
-    "dkv") at head dim ``d``: registers per thread, local-memory (spill)
-    bytes per thread, static and dynamic shared memory per block, and the
-    blocks that fit on one SM.  Needs the card."""
+# Attention kernel -> (tc library, its props function, leading arguments).
+_TC_PROPS = {
+    "flash_fwd": ("flash_fwd_tc", "mpi4torch_flash_fwd_tc_props", ()),
+    "flash_bwd_dq": ("flash_bwd_tc", "mpi4torch_flash_bwd_tc_props", (0,)),
+    "flash_bwd_dkv": ("flash_bwd_tc", "mpi4torch_flash_bwd_tc_props", (1,))}
+
+
+def tc_props(kernel: str, d: int) -> dict:
+    """What the compiler and the card made of the tc variant of attention
+    kernel ``kernel`` (``"flash_fwd"``, ``"flash_bwd_dq"`` or
+    ``"flash_bwd_dkv"``) at head dim ``d``: registers per thread,
+    local-memory (spill) bytes per thread, static and dynamic shared
+    memory per block, and the blocks that fit on one SM.  Needs the
+    card."""
+    lib, fn, lead = _TC_PROPS[kernel]
     out = (ctypes.c_int * 5)()
-    err = load("flash_bwd_tc").mpi4torch_flash_bwd_tc_props(
-        {"dq": 0, "dkv": 1}[part], int(d), out)
+    err = getattr(load(lib), fn)(*lead, int(d), out)
     if err != 0:
-        raise RuntimeError(f"flash_bwd_tc props failed with CUDA error {err}")
+        raise RuntimeError(f"{lib} props failed with CUDA error {err}")
     return dict(zip(("registers", "local_bytes", "static_smem",
                      "dynamic_smem", "blocks_per_sm"), out))
 

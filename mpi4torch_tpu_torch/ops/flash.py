@@ -19,11 +19,11 @@ scores from the residuals ``q, k, v, out, lse`` and never stores them.
   path of ``_block_bwd``).  Serving asks for it by name in decode, as the
   JAX package asks for ``impl="jnp"``, and per-row ``(batch,)`` offsets
   force it (the kernels skip tiles off one scalar frontier).
-* ``"auto"`` — on a CUDA tensor, the hand-written kernels
-  (``ops/csrc/flash_fwd.cu`` forward; the backward on
-  ``ops/csrc/flash_bwd_tc.cu``'s tensor-core kernels for bf16 with head
-  dim <= 128, on ``ops/csrc/flash_bwd.cu`` otherwise, as
-  ``_kernels.bwd_variant`` picks); shapes they do not take raise, they
+* ``"auto"`` — on a CUDA tensor, the hand-written kernels: for bf16 with
+  head dim <= 128 the tensor-core ones (``ops/csrc/flash_fwd_tc.cu``
+  forward, ``ops/csrc/flash_bwd_tc.cu`` backward), otherwise the CUDA-core
+  ones (``ops/csrc/flash_fwd.cu``, ``ops/csrc/flash_bwd.cu``), as
+  ``_kernels.fwd_variant`` picks; shapes they do not take raise, they
   never fall back.  On a CPU tensor, the plain versions.
 * ``"cuda"`` — the kernels, forced (raises on a CPU tensor).
 
@@ -274,6 +274,12 @@ def flash_block_attention(q, k, v, *, causal: bool = False, q_offset=0,
         raise ValueError(
             "window > 0 requires causal=True (sliding-window attention "
             "is defined over the causal mask)")
+    if impl != "torch" and q.is_cuda and all(
+            isinstance(o, int) for o in (q_offset, kv_offset)):
+        # The kernels take Python ints: build no offset tensor, whose
+        # host-to-device copy would wait for the stream on every call.
+        return _BlockAttention.apply(q, k, v, q_offset, kv_offset, causal,
+                                     window, "cuda")
     q_off = _offset(q_offset, q.device)
     kv_off = _offset(kv_offset, q.device)
     if q_off.dim() > 0 or kv_off.dim() > 0:

@@ -54,6 +54,147 @@ def test_kernel_matches_plain(cuda, dtype, atol):
         assert (l - pl.float()).abs().max().item() <= 1e-4
 
 
+def bf16_out_bound(ref):
+    """Per-element bound on |tc kernel - plain| for a bf16 out: 1e-2, or
+    one bf16 ulp of the plain value where that is larger.  Both round
+    once to bf16, from f32 sums that differ by the kernel's rounding of p
+    to bf16 (as the TPU kernel rounds it), so an element can land one ulp
+    apart; at |out| >= 2 one ulp is 2^-6."""
+    ulp = torch.pow(2.0, torch.floor(torch.log2(
+        ref.float().abs().clamp_min(2.0 ** -126))) - 7)
+    return torch.maximum(ulp, torch.full_like(ulp, 1e-2))
+
+
+# The tensor-core forward's edges: GQA, sq and sk off the 64-row tiles with
+# fewer keys than one tile, a window with d = 72 (zero-padded to 128), a
+# q offset, non-causal ragged keys (zero-filled keys must be masked),
+# fully masked rows, d = 32.
+FWD_TC_SHAPES = [(1, 200, 200, 4, 2, 64, 0, 0, 0, True),
+                 (2, 77, 150, 4, 4, 128, 73, 0, 0, True),
+                 (1, 300, 300, 4, 2, 72, 0, 0, 64, True),
+                 (2, 133, 37, 4, 2, 128, 0, 0, 0, True),
+                 (2, 130, 70, 4, 2, 128, 0, 0, 0, False),
+                 (1, 128, 128, 4, 4, 64, 0, 100, 0, True),
+                 (2, 90, 33, 2, 2, 32, 0, 0, 0, False),
+                 (1, 256, 256, 16, 4, 128, 0, 0, 0, True)]
+
+
+@pytest.mark.cuda
+def test_tc_forward_matches_plain_and_repeats_its_bits(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for b, sq, sk, h, h_kv, d, q_off, kv_off, window, causal in \
+            FWD_TC_SHAPES:
+        q = torch.randn((b, sq, h, d), generator=g, device=cuda,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn((b, sk, h_kv, d), generator=g, device=cuda,
+                            dtype=torch.bfloat16) for _ in range(2))
+        kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off,
+                  window=window)
+        _kernels.reset_launch_counts()
+        o, l = flash.flash_block_attention(q, k, v, impl="cuda", **kw)
+        o2, l2 = flash.flash_block_attention(q, k, v, impl="cuda", **kw)
+        assert _kernels.launch_counts["flash_fwd.tc"] == 2
+        assert _kernels.launch_counts["flash_fwd.simt"] == 0
+        po, pl = flash.flash_block_attention(q, k, v, impl="torch", **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o2) and torch.equal(l, l2)
+        assert bool(((o.float() - po.float()).abs()
+                     <= bf16_out_bound(po)).all())
+        assert (l - pl.float()).abs().max().item() <= 1e-4
+        if causal and kv_off > q_off:
+            n = kv_off - q_off
+            assert bool((o[:, :n] == 0).all())
+            assert bool((l[:, :n] == flash.NEG_BIG).all())
+
+
+@pytest.mark.cuda
+def test_tc_forward_takes_rows_off_16_bytes(cuda):
+    # q one element into its storage, k/v views of a fused projection:
+    # the wrapper copies what is not 16-byte aligned, the result is the
+    # same bits as on contiguous operands.
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn((2, 96, 3, 4, 64), generator=g, device=cuda,
+                      dtype=torch.bfloat16)
+    q = torch.empty(qkv[:, :, 0].numel() + 1, device=cuda,
+                    dtype=torch.bfloat16)[1:].view(2, 96, 4, 64)
+    q.copy_(qkv[:, :, 0])
+    k, v = qkv[:, :, 1], qkv[:, :, 2]
+    got = _kernels.flash_fwd(q, k, v, 0, 0, True)
+    want = _kernels.flash_fwd(*(t.contiguous() for t in (q, k, v)), 0, 0,
+                              True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_kernel_path_never_waits_for_the_device(cuda):
+    # Forward and backward through flash_attention with its int offsets
+    # queue their work without a host-device synchronisation (an offset
+    # tensor's copy to the card would be one, on every layer).
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((2, 160, 4, 64), generator=g, device=cuda,
+                           dtype=torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        o = flash.flash_attention(q, k, v, causal=True)
+        grads = torch.autograd.grad(o.float().square().sum(), (q, k, v))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in grads)
+    for name in _kernels.ATTENTION_KERNELS:
+        assert _kernels.launch_counts[f"{name}.tc"] == 1, name
+
+
+@pytest.mark.cuda
+def test_forward_simt_by_name_agrees_with_tc(cuda):
+    # The CUDA-core forward still takes bf16 at d <= 128 when asked by
+    # name (the smoke times it there); both hold the plain version's
+    # bound, so they agree within twice it.
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn((1, 160, 4, 128), generator=g, device=cuda,
+                           dtype=torch.bfloat16) for _ in range(3))
+    _kernels.reset_launch_counts()
+    o_tc, l_tc = _kernels.flash_fwd(q, k, v, 0, 0, True)
+    o_s, l_s = _kernels.flash_fwd(q, k, v, 0, 0, True, variant="simt")
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["flash_fwd.tc"] == 1
+    assert _kernels.launch_counts["flash_fwd.simt"] == 1
+    assert bool(((o_tc.float() - o_s.float()).abs()
+                 <= 2 * bf16_out_bound(o_s)).all())
+    assert (l_tc - l_s).abs().max().item() <= 2e-4
+
+
+@pytest.mark.cuda
+def test_bf16_prefill_and_training_step_run_only_the_tc_kernels(cuda):
+    cfg = T.TransformerConfig(vocab=97, d_model=128, n_heads=4, n_layers=2,
+                              d_ff=256, max_seq=64)
+    params = T.init_transformer(0, cfg, torch.bfloat16, device=cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in (5, 17, 30)]
+    with torch.inference_mode():
+        eng = serve.Engine(cfg, params, serve.ServeConfig(slots=2,
+                                                          max_new=4))
+        for p in prompts:
+            eng.submit(p)
+        _kernels.reset_launch_counts()
+        eng.run()
+    want = cfg.n_layers * len(prompts)
+    assert _kernels.launch_counts["flash_fwd"] == want
+    assert _kernels.launch_counts["flash_fwd.tc"] == want
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))).to(cuda)
+    _kernels.reset_launch_counts()
+    loss, _ = T.train_step(cfg, params, tokens, lr=1e-2)
+    assert bool(torch.isfinite(loss))
+    for name in _kernels.ATTENTION_KERNELS:
+        assert _kernels.launch_counts[name] == cfg.n_layers, name
+        assert _kernels.launch_counts[f"{name}.tc"] == cfg.n_layers, name
+        assert _kernels.launch_counts[f"{name}.simt"] == 0, name
+
+
 def _grads(q, k, v, impl, kw, gen):
     """dq, dk, dv of a loss that reads both outputs (so dlse != 0)."""
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
@@ -160,21 +301,24 @@ def test_tc_variant_refuses_what_it_does_not_take(cuda):
         for fn in (_kernels.flash_bwd_dq, _kernels.flash_bwd_dkv):
             with pytest.raises(ValueError, match="'tc' takes bfloat16"):
                 fn(q, q, q, q, lse, lse, 0, 0, True, variant="tc")
+        with pytest.raises(ValueError, match="'tc' takes bfloat16"):
+            _kernels.flash_fwd(q, q, q, 0, 0, True, variant="tc")
     q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="unknown variant"):
         _kernels.flash_bwd_dq(q, q, q, q, lse, lse, 0, 0, True,
                               variant="wgmma")
+    with pytest.raises(ValueError, match="unknown variant"):
+        _kernels.flash_fwd(q, q, q, 0, 0, True, variant="wgmma")
     assert all(c == 0 for c in _kernels.launch_counts.values())
 
 
 @pytest.mark.cuda
 def test_tc_kernels_do_not_spill_and_fit_two_blocks(cuda):
-    _kernels.load("flash_bwd_tc")
-    for part in ("dq", "dkv"):
+    for kernel in _kernels.ATTENTION_KERNELS:
         for d in (64, 128):
-            props = _kernels.bwd_tc_props(part, d)
-            assert props["local_bytes"] == 0, (part, d, props)
-            assert props["blocks_per_sm"] >= 2, (part, d, props)
+            props = _kernels.tc_props(kernel, d)
+            assert props["local_bytes"] == 0, (kernel, d, props)
+            assert props["blocks_per_sm"] >= 2, (kernel, d, props)
 
 
 @pytest.mark.cuda

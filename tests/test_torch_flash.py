@@ -4,8 +4,10 @@ The plain version (the CPU path of ``impl="auto"``) is held to the JAX
 package's ``_jnp_block`` in float64 at 1e-12, and to its Pallas forward
 kernel run interpreted (``_pallas_block(..., interpret=True)``, as
 tests/test_flash.py runs it off TPU) in float32 at 1e-5 on a tile-shaped
-input.  Inputs come from numpy and feed both packages.  The CUDA kernel
-itself runs only on the card (tests/test_torch_cuda.py).
+input, and in bfloat16 within the tolerance the card holds the
+tensor-core kernel to.  Inputs come from numpy and feed both packages.
+The CUDA kernels themselves run only on the card
+(tests/test_torch_cuda.py).
 """
 
 import jax.numpy as jnp
@@ -118,12 +120,19 @@ def test_auto_on_cpu_tensors_takes_the_plain_version():
 
 
 def test_cuda_impl_on_cpu_tensors_raises():
+    # Raises before any launch, whatever variant is asked for, and leaves
+    # every count (the per-variant ones too) at 0.
+    _kernels.reset_launch_counts()
     q, k, v = _torch(*_qkv(1, 8, 8, 2, 2, 8))
     with pytest.raises(ValueError, match="CUDA"):
         pflash.flash_block_attention(q, k, v, causal=True, impl="cuda")
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        _kernels.flash_fwd(q, k, v, 0, 0, True)
-    assert _kernels.launch_counts["flash_fwd"] == 0
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        for variant in (None, "tc", "simt"):
+            with pytest.raises(ValueError, match="CUDA tensor"):
+                _kernels.flash_fwd(q, k, v, 0, 0, True, variant=variant)
+    assert all(c == 0 for c in _kernels.launch_counts.values())
+    assert {"flash_fwd.tc", "flash_fwd.simt"} <= set(_kernels.launch_counts)
 
 
 @pytest.mark.parametrize("kw, match", [
@@ -180,3 +189,83 @@ def test_build_without_nvcc_raises_clearly(monkeypatch):
     monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _kernels._nvcc()
+
+
+# The card's tolerance for the forward kernels against the plain version
+# in bf16 (chip_smoke.py TOL): out is bf16 (one ulp is 2^-8 relative),
+# lse is f32 on both sides.
+BF16_TOL = {"out": 1e-2, "lse": 1e-4}
+
+# (name, b, sq, sk, h, h_kv, d, causal, q_off, kv_off, window); sq and sk
+# are whole tiles of the interpreted kernel (min(128, s)).
+BF16_CASES = [
+    ("causal", 1, 128, 128, 2, 2, 64, True, 0, 0, 0),
+    ("window", 1, 128, 128, 2, 2, 64, True, 0, 0, 24),
+    ("gqa_4_2", 1, 128, 128, 4, 2, 64, True, 0, 0, 0),
+    ("q_off_sq_lt_sk", 1, 64, 128, 2, 2, 64, True, 64, 0, 0),
+    ("fully_masked_rows", 1, 64, 64, 2, 2, 64, True, 0, 40, 0),
+    ("ragged_noncausal_d72", 2, 100, 72, 2, 1, 72, False, 0, 0, 0),
+]
+
+
+@pytest.mark.parametrize("case", BF16_CASES, ids=[c[0] for c in BF16_CASES])
+def test_plain_bf16_within_card_tolerance_of_interpreted_pallas(case):
+    # The JAX package's Pallas forward in bf16 rounds p to bf16 where it
+    # enters the PV product, as the tensor-core kernel does; the port's
+    # plain forward keeps p in f32.  They agree within the tolerance the
+    # card holds the kernel to, so that tolerance covers the TPU kernel's
+    # own rounding.
+    _, b, sq, sk, h, h_kv, d, causal, q_off, kv_off, window = case
+    q, k, v = _qkv(b, sq, sk, h, h_kv, d, dtype=np.float32, seed=11)
+    ro, rl = jflash._pallas_block(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+        jnp.int32(q_off), jnp.int32(kv_off), causal, interpret=True,
+        window=window)
+    o, l = pflash.flash_block_attention(
+        *(t.to(torch.bfloat16) for t in _torch(q, k, v)), causal=causal,
+        q_offset=q_off, kv_offset=kv_off, window=window)
+    assert o.dtype == torch.bfloat16 and ro.dtype == jnp.bfloat16
+    err_o = np.abs(o.float().numpy()
+                   - np.asarray(ro.astype(jnp.float32))).max()
+    err_l = np.abs(l.numpy() - np.asarray(rl)).max()
+    assert err_o <= BF16_TOL["out"] and err_l <= BF16_TOL["lse"]
+    if kv_off > q_off:
+        # Rows before the first key: out exactly 0, lse -1e30, both sides.
+        n = kv_off - q_off
+        assert torch.all(o[:, :n] == 0) and torch.all(l[:, :n] == -1e30)
+        assert np.all(np.asarray(rl)[:, :n] == -1e30)
+
+
+@pytest.mark.parametrize("d", [8, 64, 72, 128])
+def test_fwd_variant_takes_tensor_cores_for_bf16_up_to_128(d):
+    assert _kernels.fwd_variant(torch.bfloat16, d) == "tc"
+
+
+@pytest.mark.parametrize("dtype, d", [
+    (torch.float32, 8), (torch.float32, 64), (torch.float32, 128),
+    (torch.float32, 256), (torch.bfloat16, 136), (torch.bfloat16, 256)])
+def test_fwd_variant_keeps_simt_for_f32_and_wide_heads(dtype, d):
+    assert _kernels.fwd_variant(dtype, d) == "simt"
+
+
+def test_forward_and_backward_share_the_variant_rule():
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in range(8, 257, 8):
+            assert _kernels.fwd_variant(dtype, d) == \
+                _kernels.bwd_variant(dtype, d)
+
+
+def test_forward_variant_by_name_is_checked_against_the_operands():
+    bf, f32 = torch.bfloat16, torch.float32
+    resolve = _kernels._resolve_variant
+    assert resolve("flash_fwd", torch.zeros((1, 8, 2, 72), dtype=bf),
+                   None) == "tc"
+    assert resolve("flash_fwd", torch.zeros((1, 8, 2, 128), dtype=bf),
+                   "simt") == "simt"
+    for dtype, d in ((f32, 64), (bf, 256)):
+        with pytest.raises(ValueError, match="flash_fwd: variant 'tc' "
+                                             "takes bfloat16"):
+            resolve("flash_fwd", torch.zeros((1, 8, 2, d), dtype=dtype),
+                    "tc")
+    with pytest.raises(ValueError, match="unknown variant"):
+        resolve("flash_fwd", torch.zeros((1, 8, 2, 64), dtype=bf), "wgmma")

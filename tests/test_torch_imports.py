@@ -39,8 +39,8 @@ def test_port_has_modules():
                 "compress/codecs.py", "compress/eager.py", "compress/ef.py",
                 "tune/__init__.py", "tune/registry.py"):
         assert f"mpi4torch_tpu_torch/{rel}" in names
-    for src in ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_tc.cu",
-                "quant_hop.cu"):
+    for src in ("flash_fwd.cu", "flash_fwd_tc.cu", "flash_bwd.cu",
+                "flash_bwd_tc.cu", "quant_hop.cu"):
         assert (ROOT / "mpi4torch_tpu_torch/ops/csrc" / src).exists()
 
 

@@ -135,6 +135,10 @@ def test_parameter_parser_reads_each_kind():
         + ["int"] * 4 + ["pointer"]
     assert _extern_c_functions(CSRC / "quant_hop.cu")[
         "mpi4torch_quant_hop"][7] == "long long"
+    fwd = _extern_c_functions(CSRC / "flash_fwd_tc.cu")
+    assert fwd["mpi4torch_flash_fwd_tc"] == ["pointer"] * 5 + ["int"] * 6 \
+        + ["pointer"] + ["int"] * 4 + ["pointer"]
+    assert fwd["mpi4torch_flash_fwd_tc_props"] == ["int", "pointer"]
 
 
 def test_a_failed_source_raises_after_every_compiler_ends(fake_toolkit):
