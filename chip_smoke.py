@@ -12,9 +12,11 @@ check fails.  Phases, in order:
 2. build: ``nvcc`` compiles the port's kernel sources from ``ops/csrc``,
    one compiler per source, all at once; the tensor-core attention
    kernels' (forward, dq, dk/dv) registers, shared memory, spill bytes
-   and blocks per SM (none may spill, two blocks must fit an SM);
+   and blocks per SM (none may spill, two blocks must fit an SM), and the
+   same for the simt kernels at their widest instantiation (DMAX 512);
 3. the block-attention forward kernel (``flash_fwd``) against its plain
-   PyTorch version on the card, on the cases listed in ``KERNEL_CASES``,
+   PyTorch version on the card, on the cases listed in ``KERNEL_CASES``
+   (among them head dims 12 and 264, batch x heads 65540 and float16),
    each within the stated tolerance, printed with the variant that
    ``_kernels.fwd_variant`` picks (``tc`` on the tensor cores, ``simt``
    on the CUDA cores) and counted under it; every ``tc`` case runs twice
@@ -39,7 +41,8 @@ check fails.  Phases, in order:
 7. the backward kernels (``flash_bwd_dq``, ``flash_bwd_dkv``) against the
    plain backward on the card: ``torch.autograd.grad`` through
    ``flash_block_attention`` with ``impl="cuda"`` and ``impl="torch"`` on
-   the cases of ``BWD_CASES``, each printed with the variant that
+   the cases of ``BWD_CASES`` (the repaired shapes and float16 among
+   them), each printed with the variant that
    ``_kernels.bwd_variant`` picks (``tc`` on the tensor cores, ``simt``
    on the CUDA cores) and counted under it; every ``tc`` case runs twice
    and must repeat its bits;
@@ -93,7 +96,29 @@ check fails.  Phases, in order:
     give it beside its bound and its plain version, each compressed
     Allreduce's step beside the exact one, and the compressed DP=2 step
     beside the exact DP=2 step, with a profile of one compressed step;
-15. one JSON line describing each ported kernel (K2, K3 and K4 with
+15. the mpi4torch op table at the same size on four rank threads:
+    ``Bcast_`` and ``Reduce_`` (root 1, ``ring`` and ``tree``), ``Gather``
+    and ``Scatter`` (root 2, uneven counts), ``Allgather``,
+    ``Reduce_scatter``, ``Alltoall``, the exact ``Allreduce`` on ``ring``,
+    ``rhd``, ``tree``, ``hier``, ``bidir`` and ``torus``, and
+    ``ring_shift``: each value bitwise equal to its plain recomputation (a
+    concatenation, a slice or the schedule's ``constants.reduce_*`` fold),
+    each gradient of ``vdot(out, w_r)`` bitwise equal to the closed-form
+    adjoint, every rank's output a buffer of its own; per op the fwd+bwd
+    wall and device time, the bytes, the share of the copy bound, the
+    device's idle share and the peak memory;
+16. the halo-exchange stencil (BASELINE config 5) at 8192 x 8192 on four
+    rank threads: the distributed float32 loss and gradient against the
+    single-tensor computation at a seeded random field, then 20 L-BFGS
+    iterations (history 10) in float64, the example's dtype, from that
+    field made zero-mean (in float32, or from u = 0, L-BFGS takes no step
+    on this grid; see ``stencil_phase``), with every global line-search
+    scalar bitwise equal across ranks, a loss that never rises and a
+    field whose mean stays at 0; time per evaluation and per iteration,
+    idle share, peak memory;
+17. BASELINE configs 1 and 3 at their own sizes: the linear regression
+    under L-BFGS and the Isend/Irecv/Wait ring, with their own checks;
+18. one JSON line describing each ported kernel (K2, K3 and K4 with
     the variant the main path ran).
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -123,9 +148,16 @@ PEAK_BYTES_S = 3.35e12
 # so the two f32 sums differ by up to 2^-9 of the largest weights and can
 # straddle a rounding boundary.  Where one ulp is above 1e-2 (|out| >= 2,
 # the first rows of a causal mask, which average a handful of values)
-# the bound is that ulp (bf16_out_bound).
+# the bound is that ulp (ulp_out_bound).
 TOL = {torch.bfloat16: {"out": 1e-2, "lse": 1e-4},
-       torch.float32: {"out": 1e-5, "lse": 1e-5}}
+       torch.float32: {"out": 1e-5, "lse": 1e-5},
+       torch.float16: {"out": 2e-5, "lse": 1e-5}}
+# float16 runs the simt kernel in float32 and rounds out once to float16,
+# as the plain version does: the two f32 values differ in their last bits,
+# so an element may land one float16 ulp (2^-10 of its power of two)
+# apart; the bound is that ulp, or TOL's 2e-5 where that is larger.
+# Mantissa bits of the types whose out is bounded by one ulp.
+ULP_BITS = {torch.bfloat16: 7, torch.float16: 10}
 
 # (name, dtype, b, sq, sk, h, h_kv, d, q_off, kv_off, window, causal)
 KERNEL_CASES = [
@@ -156,6 +188,16 @@ KERNEL_CASES = [
     ("fully_masked_rows_bf16", torch.bfloat16, 1, 128, 128, 4, 4, 64, 0,
      100, 0, True),
     ("d256_simt", torch.bfloat16, 1, 512, 512, 4, 4, 256, 0, 0, 0, True),
+    # The shapes and dtypes the JAX package serves that the kernels once
+    # refused: head dims off the multiples of 8 (zero-padded to 16) and
+    # above 256 (264, the simt kernels at DMAX 512), batch x heads above
+    # 65535 (grid x), float16 (the simt kernel in float32).
+    ("d12_f32", torch.float32, 1, 512, 512, 8, 4, 12, 0, 0, 0, True),
+    ("d12_bf16", torch.bfloat16, 1, 512, 512, 8, 4, 12, 0, 0, 0, True),
+    ("d264_f32", torch.float32, 1, 512, 512, 4, 2, 264, 0, 0, 0, True),
+    ("d264_bf16", torch.bfloat16, 1, 512, 512, 4, 2, 264, 0, 0, 0, True),
+    ("bh_65540", torch.float32, 16385, 16, 16, 4, 4, 8, 0, 0, 0, True),
+    ("f16", torch.float16, 1, 1024, 1024, 16, 16, 64, 0, 0, 0, True),
 ]
 
 # Serving checks.  Engine (batch of slots) and generate() (batch of one)
@@ -215,6 +257,16 @@ BWD_CASES = [
      100, 0, True, False),
     ("d256_simt", torch.bfloat16, 1, 512, 512, 4, 4, 256, 0, 0, 0, True,
      False),
+    # The repaired shapes and dtypes (see KERNEL_CASES); float16 gradients
+    # round once to float16 from f32, within BWD_F32_TOL's rtol.
+    ("d12_f32", torch.float32, 1, 512, 512, 8, 4, 12, 0, 0, 0, True, True),
+    ("d12_bf16", torch.bfloat16, 1, 512, 512, 8, 4, 12, 0, 0, 0, True,
+     False),
+    ("d264_f32", torch.float32, 1, 512, 512, 4, 2, 264, 0, 0, 0, True,
+     False),
+    ("d264_bf16", torch.bfloat16, 1, 512, 512, 4, 2, 264, 0, 0, 0, True,
+     True),
+    ("f16", torch.float16, 1, 1024, 1024, 16, 16, 64, 0, 0, 0, True, False),
 ]
 
 # Training: the bench recipe (bench.py _bench_train_step) at full width.
@@ -268,6 +320,23 @@ EF_ROUNDS = {"q8": 1, "q8_ef": 2, "q8_ef_hop": 1}
 CODEC_REL = {"q8": 2.5e-2, "q8_ef": 1e-3, "q8_ef_hop": 2.5e-2 * 3 ** 0.5}
 # bf16 unit roundoff: each rounding of the synced and exact gradients.
 BF16_U = 2.0 ** -8
+
+# The op table at the same size (bench.py:249): 1 << 24 float32 per rank
+# on four rank threads.  Gather and Scatter deal uneven counts around it:
+# rank r holds OP_NUMEL + (2r - 3) * OP_SKEW elements (the four sum to
+# 4 * OP_NUMEL).  Alltoall takes (4096, 4096) per rank, gathered along
+# rows and scattered along columns, 1024 columns a rank.
+OP_RANKS, OP_NUMEL, OP_SKEW = BENCH_RANKS, BENCH_NUMEL, 4096
+A2A_SIDE = 4096
+
+# The halo-exchange stencil (BASELINE config 5) at 8192 x 8192,
+# row-partitioned over four rank threads (2048 rows each), halo 1: the
+# distributed float32 loss and gradient against the single-tensor
+# computation (torch.roll on the whole grid), which sums the same float32
+# terms in other groupings; then L-BFGS in float64 (see stencil_phase)
+# with history 10 for 20 iterations.
+STENCIL_N, STENCIL_RANKS, STENCIL_ITERS, STENCIL_HISTORY = 8192, 4, 20, 10
+STENCIL_REL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -336,12 +405,13 @@ def live_pairs(sq, sk, q_off, kv_off, window, causal):
     return int(mask.sum().item())
 
 
-def bf16_out_bound(ref):
-    """Per-element bound on |kernel - plain| for a bf16 out: TOL's 1e-2,
-    or one bf16 ulp of the plain value where that is larger (see TOL)."""
+def ulp_out_bound(ref, dt):
+    """Per-element bound on |kernel - plain| for a bf16 or float16 out:
+    TOL's absolute bound, or one ulp of the plain value in its type where
+    that is larger (see TOL)."""
     ulp = torch.pow(2.0, torch.floor(torch.log2(
-        ref.float().abs().clamp_min(2.0 ** -126))) - 7)
-    return torch.clamp_min(ulp, TOL[torch.bfloat16]["out"])
+        ref.float().abs().clamp_min(2.0 ** -126))) - ULP_BITS[dt])
+    return torch.clamp_min(ulp, TOL[dt]["out"])
 
 
 def forward_errors(o, l, po, pl, dt):
@@ -349,7 +419,7 @@ def forward_errors(o, l, po, pl, dt):
     |lse err|, within the tolerance)."""
     e = (o.float() - po.float()).abs()
     err_l = (l - pl.float()).abs().max().item()
-    bound = bf16_out_bound(po) if dt == torch.bfloat16 else TOL[dt]["out"]
+    bound = ulp_out_bound(po, dt) if dt in ULP_BITS else TOL[dt]["out"]
     ok = (bool((e <= bound).all()) and err_l <= TOL[dt]["lse"]
           and bool(torch.isfinite(o).all()))
     return (e.max().item(), int((e > TOL[dt]["out"]).sum()), err_l, ok)
@@ -386,7 +456,7 @@ def kernel_phase(flash, kernels):
         tol = TOL[dt]
         print(f"  {name:24s} {str(dt):15s} d {d:3d} {variant:4s} out err "
               f"{err_o:.3e} (tol {tol['out']:g}"
-              f"{' or 1 ulp' if dt == torch.bfloat16 else ''}; "
+              f"{' or 1 ulp' if dt in ULP_BITS else ''}; "
               f"{n_over} beyond {tol['out']:g})  lse err {err_l:.3e} "
               f"(tol {tol['lse']:g})  launches +{rose[0]} ({variant} "
               f"+{rose[1]}); repeat bitwise {repeat}  "
@@ -609,7 +679,7 @@ def backward_phase(flash, kernels):
             e = (a - r).abs()
             err = max(err, e.max().item())
             rel = max(rel, e.max().item() / r.abs().max().item())
-            if dt == torch.float32:
+            if dt != torch.bfloat16:
                 rtol, atol = BWD_F32_TOL
                 ok = ok and bool((e <= atol + rtol * r.abs()).all())
             else:
@@ -621,7 +691,7 @@ def backward_phase(flash, kernels):
             ok = ok and bool((got[0][:, :n_masked] == 0).all()) and all(
                 bool((t[:, n_seen:] == 0).all()) for t in got[1:])
         tol = (f"rtol {BWD_F32_TOL[0]:g} atol {BWD_F32_TOL[1]:g}"
-               if dt == torch.float32 else f"{BWD_BF16_REL:g} max|ref|")
+               if dt != torch.bfloat16 else f"{BWD_BF16_REL:g} max|ref|")
         print(f"  {name:24s} {str(dt):15s} d {d:3d} {variant:4s} dq/dk/dv "
               f"max err {err:.3e} = {rel:.2e} max|ref| (tol {tol})"
               f"{'  dlse live' if uses_lse else ''}"
@@ -1324,6 +1394,329 @@ def hop_numbers(qk):
     return res
 
 
+def device_busy_ms(fn):
+    """(wall ms, device busy ms, result) of one call of ``fn`` under
+    torch.profiler: busy time is the device time of kernels and copies,
+    without annotations (see profile_top)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation) / 1e3
+    return wall_ms, busy_ms, out
+
+
+def op_table(P, C, ring, tune):
+    """name -> (op(comm, x, rank), per-rank inputs(seed), per-rank
+    cotangents(seed), plain forward(xs), closed-form adjoint(xs, ws)).
+    Every tensor lives on the card; the plain forward and the adjoint are
+    concatenations, slices and the ``constants.reduce_*`` folds of the
+    schedule the op names."""
+    n, SUM = OP_RANKS, P.MPI_SUM
+    counts = [OP_NUMEL + (2 * r - 3) * OP_SKEW for r in range(n)]
+    offs = [sum(counts[:r]) for r in range(n)]
+    g = tune.resolve_hier_group(n)
+
+    def randn(seed, shapes):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return [torch.randn(sh, generator=gen, device="cuda")
+                for sh in shapes]
+
+    def even(seed, numel=OP_NUMEL):
+        return lambda s: randn(seed + s, [(numel,)] * n)
+
+    def zeros_but(r_keep, val, like):
+        return [val if r == r_keep else torch.zeros_like(t)
+                for r, t in enumerate(like)]
+
+    def ordered(vals):
+        return C.reduce_ordered(SUM, vals)
+
+    def rooted_tree(vals, root):
+        return C.reduce_tree(SUM, vals[root:] + vals[:root])
+
+    folds = {"ring": ordered, "bidir": ordered,
+             "rhd": lambda v: C.reduce_rhd(SUM, v),
+             "tree": lambda v: C.reduce_tree(SUM, v),
+             "hier": lambda v: C.reduce_grouped(SUM, v, g),
+             "torus": lambda v: C.reduce_torus(SUM, v, g)}
+    root_folds = {"ring": ordered, "tree": lambda v: rooted_tree(v, 1)}
+    ops = {}
+    for algo, fold in root_folds.items():
+        ops[f"Bcast_ {algo} root 1"] = (
+            lambda c, t, r, a=algo: c.Bcast_(t, 1, algorithm=a),
+            even(10), even(20),
+            lambda xs: [xs[1]] * n,
+            lambda xs, ws, f=fold: zeros_but(1, f(ws), xs))
+        ops[f"Reduce_ {algo} root 1"] = (
+            lambda c, t, r, a=algo: c.Reduce_(t, SUM, 1, algorithm=a),
+            even(30), even(40),
+            lambda xs, f=fold: zeros_but(1, f(xs), xs),
+            lambda xs, ws: [ws[1]] * n)
+    ops["Gather root 2 uneven"] = (
+        lambda c, t, r: c.Gather(t, 0, 2),
+        lambda s: randn(50 + s, [(m,) for m in counts]),
+        even(60, sum(counts)),
+        lambda xs: zeros_but(2, torch.cat(xs), [torch.empty(sum(counts),
+                                                             device="cuda")]
+                             * n),
+        lambda xs, ws: [ws[2][offs[r]:offs[r] + counts[r]]
+                        for r in range(n)])
+    ops["Scatter root 2 uneven"] = (
+        lambda c, t, r: c.Scatter(t, 0, counts[r], 2),
+        lambda s: randn(70 + s, [(sum(counts),) if r == 2 else (1,)
+                                 for r in range(n)]),
+        lambda s: randn(80 + s, [(m,) for m in counts]),
+        lambda xs: [xs[2][offs[r]:offs[r] + counts[r]] for r in range(n)],
+        lambda xs, ws: zeros_but(2, torch.cat(ws), xs))
+    ops["Allgather"] = (
+        lambda c, t, r: c.Allgather(t, 0),
+        even(90), even(100, n * OP_NUMEL),
+        lambda xs: [torch.cat(xs)] * n,
+        lambda xs, ws: [ordered([w[r * OP_NUMEL:(r + 1) * OP_NUMEL]
+                                 for w in ws]) for r in range(n)])
+    seg = OP_NUMEL // n
+    ops["Reduce_scatter"] = (
+        lambda c, t, r: c.Reduce_scatter(t, SUM, 0),
+        even(110), even(120, seg),
+        lambda xs: [ordered([x[r * seg:(r + 1) * seg] for x in xs])
+                    for r in range(n)],
+        lambda xs, ws: [torch.cat(ws)] * n)
+    cols = A2A_SIDE // n
+    ops["Alltoall"] = (
+        lambda c, t, r: c.Alltoall(t, 0, 1, cols),
+        lambda s: randn(130 + s, [(A2A_SIDE, A2A_SIDE)] * n),
+        lambda s: randn(140 + s, [(n * A2A_SIDE, cols)] * n),
+        lambda xs: [torch.cat(xs, 0)[:, r * cols:(r + 1) * cols]
+                    for r in range(n)],
+        lambda xs, ws: [torch.cat(ws, 1)[r * A2A_SIDE:(r + 1) * A2A_SIDE]
+                        for r in range(n)])
+    for algo, fold in folds.items():
+        ops[f"Allreduce {algo}"] = (
+            lambda c, t, r, a=algo: c.Allreduce(t, SUM, algorithm=a),
+            even(150), even(160),
+            lambda xs, f=fold: [f(xs)] * n,
+            lambda xs, ws, f=fold: [f(ws)] * n)
+    ops["ring_shift"] = (
+        lambda c, t, r: ring.ring_shift(c, t, 1),
+        even(170), even(180),
+        lambda xs: [xs[(r - 1) % n] for r in range(n)],
+        lambda xs, ws: [ws[(r + 1) % n] for r in range(n)])
+    return ops
+
+
+def op_value_and_grad(P, op, xs, ws):
+    """Each rank's (op output, d vdot(out, w_r) / dx_r)."""
+    def body(r):
+        t = xs[r].detach().requires_grad_()
+        y = op(P.COMM_WORLD, t, r)
+        (g,) = torch.autograd.grad(torch.vdot(y.reshape(-1),
+                                              ws[r].reshape(-1)), t)
+        return y.detach(), g
+
+    return P.run_ranks(body, OP_RANKS, device="cuda")
+
+
+def op_table_phase(P, C, ring, tune):
+    """Every op of the table on four rank threads at the bench size:
+    value and gradient bitwise equal to the plain recomputation and the
+    closed-form adjoint, a buffer of its own on every rank; fwd+bwd wall
+    and device ms, bytes, share of the copy bound, peak memory.  Returns
+    per op (wall ms, device ms, bound ms, peak GiB)."""
+    res = {}
+    for name, (op, make_x, make_w, fwd, adj) in op_table(P, C, ring,
+                                                          tune).items():
+        xs, ws = make_x(0), make_w(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = op_value_and_grad(P, op, xs, ws)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        want_y, want_g = fwd(xs), adj(xs, ws)
+        bad_y = [r for r in range(OP_RANKS)
+                 if not torch.equal(got[r][0], want_y[r])]
+        bad_g = [r for r in range(OP_RANKS)
+                 if not (got[r][1].shape == want_g[r].shape
+                         and torch.equal(got[r][1], want_g[r]))]
+        own = len({y.data_ptr() for y, _ in got}) == OP_RANKS
+        nbytes = 4 * sum(xs[r].numel() + got[r][0].numel() + ws[r].numel()
+                         + got[r][1].numel() for r in range(OP_RANKS))
+        del got, want_y, want_g
+        wall_ms = min(sync_ms(lambda: op_value_and_grad(P, op, xs, ws))[0]
+                      for _ in range(2))
+        prof_wall, busy_ms, _ = device_busy_ms(
+            lambda: op_value_and_grad(P, op, xs, ws))
+        bound_ms = nbytes / PEAK_BYTES_S * 1e3
+        ok = not bad_y and not bad_g and own
+        print(f"  {name:24s} fwd+bwd {wall_ms:8.2f} ms wall, device "
+              f"{busy_ms:7.3f} ms (idle {100 - 100 * busy_ms / prof_wall:.0f}%"
+              f" of {prof_wall:.2f} ms profiled); {nbytes / 1e9:.3f} GB, copy "
+              f"bound {bound_ms:.3f} ms = {100 * bound_ms / busy_ms:.1f}% of "
+              f"device; peak +{peak:.2f} GiB; value bitwise "
+              f"{not bad_y}, grad bitwise {not bad_g}, own buffers {own}  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"op {name}: ranks {bad_y} value / {bad_g} gradient differ "
+              "from the plain recomputation, or ranks share an output")
+        res[name] = (wall_ms, busy_ms, bound_ms, peak)
+        del xs, ws
+        torch.cuda.empty_cache()
+    return res
+
+
+class RecordingComm:
+    """A communicator that keeps every Allreduce result it hands out: the
+    global scalars L-BFGS branches on."""
+
+    def __init__(self, comm):
+        self._comm = comm
+        self.scalars = []
+
+    @property
+    def rank(self):
+        return self._comm.rank
+
+    @property
+    def size(self):
+        return self._comm.size
+
+    def Allreduce(self, tensor, op, **kw):
+        out = self._comm.Allreduce(tensor, op, **kw)
+        self.scalars.append(out.detach())
+        return out
+
+
+def stencil_phase(P, H, lbfgs):
+    """Config 5 at 8192 x 8192 on four rank threads: the distributed
+    float32 loss and gradient against the single-tensor computation at a
+    seeded random field, then 20 float64 L-BFGS iterations from that
+    field made zero-mean, with ranks in lock-step, a loss that never
+    rises and a
+    field whose mean stays at 0.  Returns the numbers it prints."""
+    n, nr = STENCIL_N, STENCIL_RANKS
+    rows = n // nr
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    u_full = torch.randn((n, n), generator=gen, device="cuda")
+    g_full = H.source_term(n, n, torch.float32, "cuda")
+
+    def dist_loss_grad(r):
+        u = u_full[r * rows:(r + 1) * rows].clone().requires_grad_()
+        loss = H.residual_loss(u, g_full[r * rows:(r + 1) * rows])
+        (g,) = torch.autograd.grad(loss, u)
+        return loss.detach(), g
+
+    got = P.run_ranks(dist_loss_grad, nr, device="cuda")
+    eval_ms = min(sync_ms(lambda: P.run_ranks(dist_loss_grad, nr,
+                                              device="cuda"))[0]
+                  for _ in range(3))
+    u = u_full.clone().requires_grad_()
+    lap = (torch.roll(u, 1, 0) + torch.roll(u, -1, 0) + torch.roll(u, 1, 1)
+           + torch.roll(u, -1, 1) - 4.0 * u)
+    loss1 = torch.sum((lap - g_full) ** 2)
+    (grad1,) = torch.autograd.grad(loss1, u)
+    loss_rel = abs(got[0][0].item() - loss1.item()) / abs(loss1.item())
+    # Every rank differentiates the same global loss, and the Allreduce's
+    # adjoint sums the ranks' unit cotangents: each rank's gradient is
+    # size times its block of the single-tensor one (a power of two here,
+    # so the division is exact).
+    grad_d = torch.cat([gr for _, gr in got]) / nr
+    grad_rel = ((grad_d.double() - grad1.double()).norm()
+                / grad1.double().norm()).item()
+    same_loss = all(torch.equal(l, got[0][0]) for l, _ in got)
+    print(f"  loss+grad at a seeded random u: distributed vs single tensor "
+          f"(torch.roll): loss rel {loss_rel:.3e}, gradient norm-rel "
+          f"{grad_rel:.3e} (bound {STENCIL_REL:g}); loss bitwise equal on "
+          f"every rank {same_loss}; one distributed evaluation {eval_ms:.2f}"
+          " ms wall")
+    check(loss_rel <= STENCIL_REL and grad_rel <= STENCIL_REL and same_loss,
+          "the distributed stencil loss or gradient disagrees with the "
+          "single-tensor computation")
+    del got, grad_d, u, lap, loss1, grad1
+    # L-BFGS runs in float64, the example's own dtype, from that field made
+    # zero-mean.  In float32 it takes no step on this grid: its first trial
+    # step (t = 1 / |g|_1) moves an element by ~1/N = 1.5e-8, under half an
+    # ulp of |u| ~ 1.  From the example's u = 0 the source is so smooth on
+    # an 8192 grid that even in float64 the line search fails after one
+    # iteration.  The gradient has zero mean on the periodic grid, so the
+    # field's mean stays at 0.
+    u_start = u_full.double()
+    u_start -= u_start.mean()
+    g64 = H.source_term(n, n, torch.float64, "cuda")
+
+    def solve():
+        rec = RecordingComm(P.COMM_WORLD)
+        r = P.COMM_WORLD.rank
+        g_local = g64[r * rows:(r + 1) * rows]
+        losses, evals = [], [0]
+
+        def loss_fn(v):
+            evals[0] += 1
+            return H.residual_loss(v, g_local)
+
+        u0 = u_start[r * rows:(r + 1) * rows]
+        loss0 = float(H.residual_loss(u0, g_local))
+        opt = lbfgs.LBFGS(max_iter=STENCIL_ITERS,
+                          history_size=STENCIL_HISTORY, comm=rec)
+        u_end, loss = opt.step(loss_fn, u0,
+                               callback=lambda it, f: losses.append(f))
+        return loss0, losses, evals[0], torch.stack(rec.scalars), u_end
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    solve_ms, res = sync_ms(lambda: P.run_ranks(solve, nr, device="cuda"))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    loss0, losses, evals, scalars, _ = res[0]
+    lockstep = all(torch.equal(sc, scalars) and ls == losses
+                   for _, ls, _, sc, _ in res)
+    monotone = all(b <= a for a, b in zip([loss0] + losses, losses))
+    u_end = torch.cat([ue for *_, ue in res])
+    mean, umax = abs(u_end.double().mean().item()), \
+        u_end.abs().max().item()
+    iters, last = len(losses), (losses or [loss0])[-1]
+    print(f"  L-BFGS (history {STENCIL_HISTORY}) on {n} x {n} float64, "
+          f"{nr} ranks x {rows} rows: loss {loss0:.6e} -> {last:.6e} "
+          f"in {iters} iterations, {evals} loss+grad evaluations; "
+          f"{scalars.numel()} global scalars bitwise equal on every rank "
+          f"{lockstep}; loss never rises {monotone}; |mean(u)| {mean:.3e} "
+          f"<= 1e-5 max|u| = {1e-5 * umax:.3e}")
+    check(iters == STENCIL_ITERS and lockstep and monotone
+          and last < loss0 and mean <= 1e-5 * umax,
+          "the stencil's L-BFGS run broke lock-step, raised its loss, "
+          "stopped early or drifted its mean")
+    prof_wall, busy_ms, _ = device_busy_ms(
+        lambda: P.run_ranks(solve, nr, device="cuda"))
+    print(f"  {solve_ms / evals:.2f} ms per loss+grad evaluation, "
+          f"{solve_ms / iters:.2f} ms per iteration ({solve_ms:.1f} ms for "
+          f"{iters}); device busy {busy_ms:.1f} of {prof_wall:.1f} ms "
+          f"profiled (idle {100 - 100 * busy_ms / prof_wall:.0f}%); peak "
+          f"memory {peak_gb:.2f} GiB", flush=True)
+    return {"eval_ms": solve_ms / evals, "iter_ms": solve_ms / iters,
+            "idle": 1 - busy_ms / prof_wall, "peak_gb": peak_gb,
+            "grad_rel": grad_rel}
+
+
+def examples_phase(linreg, ringex):
+    """BASELINE configs 1 and 3 at their own sizes on four rank threads of
+    the card: each example's own checks, values and gradients."""
+    ms, res = sync_ms(lambda: linreg.run(4, device="cuda"))
+    params, loss = res[0]
+    print(f"  config 1, linear regression + L-BFGS (10000 points, f64): "
+          f"ranks identical, params {np.round(params, 8).tolist()} (generated "
+          f"with [0.1, 1.0, -2.0]), loss {loss:.3e}, {ms:.1f} ms")
+    ms, res = sync_ms(lambda: ringex.run(4, device="cuda"))
+    print(f"  config 3, Isend/Irecv/Wait ring: res "
+          f"{[float(r[0]) for r, _ in res]}, a.grad "
+          f"{[float(g[0]) for _, g in res]} (all 2.0), {ms:.1f} ms",
+          flush=True)
+    check(all(float(g[0]) == 2.0 for _, g in res), "ring gradients wrong")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU",
@@ -1341,6 +1734,13 @@ def main():
     from mpi4torch_tpu_torch.compress import ef
     from mpi4torch_tpu_torch.ops import quant_kernels as qk
     from mpi4torch_tpu_torch import constants as C
+    from mpi4torch_tpu_torch import tune
+    from mpi4torch_tpu_torch.parallel import ring
+    from mpi4torch_tpu_torch.utils import lbfgs
+    from mpi4torch_tpu_torch.examples import halo_exchange_stencil as H
+    from mpi4torch_tpu_torch.examples import isend_recv_wait as ringex
+    from mpi4torch_tpu_torch.examples import simple_linear_regression \
+        as linreg
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1382,6 +1782,19 @@ def main():
             check(pr["local_bytes"] == 0 and pr["blocks_per_sm"] >= 2,
                   f"{kname} tc spills or fits fewer than two blocks per SM")
     check(not spills, f"ptxas reports spills in the tc kernels: {spills}")
+    # The simt kernels at their widest instantiation (DMAX 512: head dims
+    # above 256, 32-row tiles forward, 16/32-row tiles backward): what
+    # one block takes of an SM; one block must fit.
+    for kname in kernels.ATTENTION_KERNELS:
+        for sdt in (torch.float32, torch.bfloat16):
+            pr = kernels.simt_props(kname, sdt, 264)
+            print(f"  {kname} simt {str(sdt)[6:]} at head dim 264 (DMAX "
+                  f"512): {pr['registers']} registers a thread, "
+                  f"{pr['dynamic_smem']} B dynamic + {pr['static_smem']} B "
+                  f"static shared memory, {pr['local_bytes']} B local "
+                  f"(spill) memory, {pr['blocks_per_sm']} blocks per SM")
+            check(pr["blocks_per_sm"] >= 1,
+                  f"{kname} simt at DMAX 512 does not fit an SM")
 
     phase(3, "kernel vs plain version on the card")
     errs = kernel_phase(flash, kernels)
@@ -1578,7 +1991,20 @@ def main():
     profile_top(lambda: dp_step(P, T, tree, ef, cfg, params, tokens, "q8"),
                 "one compressed DP=2 step", n_top=8)
 
-    phase(15, "kernels")
+    phase(15, f"the op table, {OP_RANKS} rank threads x {OP_NUMEL} float32 "
+          "(the bench size)")
+    print(smi)
+    op_table_phase(P, C, ring, tune)
+
+    phase(16, f"halo-exchange stencil (config 5), {STENCIL_N} x {STENCIL_N} "
+          f"on {STENCIL_RANKS} rank threads, L-BFGS")
+    stencil_phase(P, H, lbfgs)
+
+    phase(17, "configs 1 and 3: linear regression with L-BFGS, the "
+          "Isend/Irecv/Wait ring")
+    examples_phase(linreg, ringex)
+
+    phase(18, "kernels")
     # flash_fwd: launches on the serving path (phase 4), times at the
     # flagship prefill shape, its error the worst of the serving and the
     # training shape; "variant" is the one every serving launch took

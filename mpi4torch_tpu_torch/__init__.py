@@ -2,10 +2,15 @@
 
 The JAX package ``mpi4torch_tpu`` is the reference; this package is its
 port to PyTorch on an NVIDIA H100, slice by slice (ROADMAP.md).  It
-carries the serving path, the data-parallel training path and the
-compressed gradient Allreduce: the differentiable collective facade
-(``COMM_WORLD``, ``Allreduce``, ``Allreduce_tree``) on the rank-thread
-runtime (``run_ranks``), the block-q8 codecs on ``ring``/``bidir``/
+carries the mpi4torch op table, the serving path, the data-parallel
+training path and the compressed gradient Allreduce: the differentiable
+collective facade (``COMM_WORLD`` with ``Allreduce``, ``Bcast_``,
+``Reduce_``, ``Gather``, ``Allgather``, ``Reduce_scatter``, ``Scatter``,
+``Alltoall``, ``Isend``/``Irecv``/``Wait``/``Send``/``Recv``,
+``Allreduce_tree``; ``JoinDummies``, ``JoinDummiesHandle``,
+``WaitHandle``) on the rank-thread runtime (``run_ranks``), the ring
+shift and halo exchange (``parallel.ring``), an eager L-BFGS
+(``utils.lbfgs``), the block-q8 codecs on ``ring``/``bidir``/
 ``torus`` with cross-step error feedback (``compress``), the flagship
 transformer with its continuous-batching engine (``serve.Engine``) and its
 SGD ``train_step``, and ``parallel.dp``.  Its attention runs through
@@ -34,11 +39,20 @@ from .constants import (
     MPI_PROD,
     MPI_SUM,
 )
-from .comm import COMM_WORLD, MPI_Communicator
+from .comm import (
+    COMM_WORLD,
+    JoinDummies,
+    JoinDummiesHandle,
+    MPI_Communicator,
+    WaitHandle,
+)
 from .runtime import (
+    BifurcationError,
     CollectiveMismatchError,
     CommError,
     DeadlockError,
+    HealthReport,
+    InPlaceReuseError,
     RankFailedError,
     resolve_device,
     run_ranks,
@@ -49,7 +63,9 @@ __all__ = [
     "MPI_MAX", "MPI_MIN", "MPI_SUM", "MPI_PROD", "MPI_LAND", "MPI_BAND",
     "MPI_LOR", "MPI_BOR", "MPI_LXOR", "MPI_BXOR", "MPI_MINLOC",
     "MPI_MAXLOC",
-    "COMM_WORLD", "MPI_Communicator",
+    "COMM_WORLD", "MPI_Communicator", "WaitHandle", "JoinDummies",
+    "JoinDummiesHandle",
     "CommError", "CollectiveMismatchError", "DeadlockError",
-    "RankFailedError", "resolve_device", "run_ranks", "compress", "config",
+    "RankFailedError", "InPlaceReuseError", "BifurcationError",
+    "HealthReport", "resolve_device", "run_ranks", "compress", "config",
 ]

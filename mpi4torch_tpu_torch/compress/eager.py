@@ -58,20 +58,26 @@ def _hop_oracle_value(ctx: RankContext, x, codec: Codec, algo: str,
     base = codec.base()
     sig = ("Allreduce.q8hop", codec.name, algo, bool(reverse),
            (tuple(x.shape), str(x.dtype)))
-    vals = world.exchange(rank, sig, x)
-    red = None
-    if rank == 0:
-        inner = None
-        if algo == "torus":
-            from ..tune import resolve_hier_group
+    inner = None
+    if algo == "torus":
+        from ..tune import resolve_hier_group
 
-            inner = resolve_hier_group(world.size)
-        red = C.reduce_q8_hop(
+        inner = resolve_hier_group(world.size)
+
+    def fold(vals):
+        if rank != 0:
+            return None
+        return C.reduce_q8_hop(
             vals, block=base.block, algorithm=algo, inner=inner,
             reverse=reverse, stochastic=base.stochastic, hop_ef=base.hop_ef,
             ef_rounds=codec.ef_rounds)
-    red = world.exchange(rank, sig + ("fold",), red)[0]
-    return red if rank == 0 else red.clone()
+
+    # Rank 0 folds and the others copy its result inside the rendezvous,
+    # before any owner can modify its payload in place.
+    red = world.exchange(rank, sig, x, read=fold)
+    return world.exchange(rank, sig + ("fold",), red,
+                          read=lambda vals: vals[0] if rank == 0
+                          else vals[0].clone())
 
 
 class _HopOracleAllreduce(torch.autograd.Function):

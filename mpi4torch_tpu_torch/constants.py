@@ -7,8 +7,12 @@ deterministic and bit-reproducible.  The JAX package folds large
 CPU-resident operands in a host C++ kernel; here the fold is torch ops on
 the tensors' own device, in the identical association.
 
-It also holds the quantized fold oracle of the block-q8 codecs
-(:func:`reduce_q8_hop`) with its multipath schedule rules.
+It also holds the folds of the other wire algorithms, each in the
+association its compiled schedule reduces in (:func:`reduce_rhd`,
+:func:`reduce_tree`, :func:`reduce_grouped`, :func:`reduce_torus`,
+bitwise equal to the JAX package's on the same inputs), and the quantized
+fold oracle of the block-q8 codecs (:func:`reduce_q8_hop`) with its
+multipath schedule rules.
 """
 
 from __future__ import annotations
@@ -111,6 +115,111 @@ def reduce_ordered(op: int, values):
     for v in values[1:]:
         out = combine2(op, out, v)
     return out
+
+
+def reduce_rhd(op: int, values):
+    """Reduce per-rank tensors in the recursive halving/doubling
+    association: a balanced binary tree pairing rank ``i`` with rank
+    ``i + h`` at ``h = n/2, n/4, ..., 1``.  Needs a power-of-two count."""
+    vals = list(values)
+    n = len(vals)
+    if n & (n - 1):
+        raise ValueError(
+            f"reduce_rhd needs a power-of-two rank count, got {n}")
+    while n > 1:
+        h = n // 2
+        vals = [combine2(op, vals[i], vals[i + h]) for i in range(h)]
+        n = h
+    return vals[0]
+
+
+def reduce_tree(op: int, values):
+    """Reduce per-rank tensors in the binomial-tree-toward-rank-0
+    association: at step ``s = 2^(k-1), ..., 2, 1`` every rank ``r < s``
+    with ``r + s < n`` absorbs rank ``r + s``'s partial.  Any count."""
+    vals = list(values)
+    n = len(vals)
+    step = 1
+    while step < n:
+        step *= 2
+    step //= 2
+    while step >= 1:
+        for r in range(step):
+            if r + step < n:
+                vals[r] = combine2(op, vals[r], vals[r + step])
+        step //= 2
+    return vals[0] if vals else None
+
+
+def _hier_groups(n: int, g: int):
+    """The 2-level grouping of ``n`` ranks with intra-group size ``g``:
+    the ``n // g`` blocks of consecutive ranks, and the ``g`` strided
+    groups ``{i, i + g, i + 2g, ...}`` across them."""
+    blocks = tuple(tuple(b * g + i for i in range(g)) for b in range(n // g))
+    strided = tuple(tuple(i + b * g for b in range(n // g))
+                    for i in range(g))
+    return blocks, strided
+
+
+def _level_fold(groups, op: int, vals):
+    """One tier of a grouped fold: every group folds its members' values
+    in ascending rank order and each member adopts the partial.  Groups
+    whose members hold the same value objects fold once."""
+    out = list(vals)
+    memo = {}
+    for group in groups:
+        key = tuple(id(vals[r]) for r in group)
+        p = memo.get(key)
+        if p is None:
+            p = reduce_ordered(op, [vals[r] for r in group])
+            memo[key] = p
+        for r in group:
+            out[r] = p
+    return out
+
+
+def reduce_grouped(op: int, values, group: int):
+    """Reduce per-rank tensors in the 2-level hierarchical association:
+    the ascending fold within each block of ``group`` consecutive ranks,
+    then the ascending fold of the block partials."""
+    vals = list(values)
+    n = len(vals)
+    if group < 1 or n % group:
+        raise ValueError(
+            f"reduce_grouped needs group ({group}) to divide the rank "
+            f"count ({n})")
+    blocks, strided = _hier_groups(n, group)
+    return _level_fold(strided, op, _level_fold(blocks, op, vals))[0]
+
+
+def reduce_torus(op: int, values, inner: int):
+    """Reduce per-rank tensors in the 2-axis torus multipath association:
+    ranks form a row-major ``(n // inner, inner)`` grid, the flat payload
+    splits at :func:`multipath_split`, and each half folds in the grouped
+    association of its own channel: half 0 as :func:`reduce_grouped`
+    (within blocks of ``inner``, then across), half 1 on the transposed
+    grid (within each strided group ``{i, i + inner, ...}``, then
+    across)."""
+    vals = list(values)
+    n = len(vals)
+    if inner < 1 or n % inner:
+        raise ValueError(
+            f"reduce_torus needs inner ({inner}) to divide the rank "
+            f"count ({n})")
+    if n == 1:
+        return vals[0]
+    blocks, strided = _hier_groups(n, inner)
+    shape = vals[0].shape
+    flats = [v.reshape(-1) for v in vals]
+    total = flats[0].numel()
+    m = multipath_split(total)
+    halves = [_level_fold(strided, op, _level_fold(
+        blocks, op, [f[:m] for f in flats]))[0]]
+    if m < total:
+        halves.append(_level_fold(blocks, op, _level_fold(
+            strided, op, [f[m:] for f in flats]))[0])
+    out = halves[0] if len(halves) == 1 else torch.cat(halves)
+    return out.reshape(shape)
 
 
 def multipath_split(total: int) -> int:

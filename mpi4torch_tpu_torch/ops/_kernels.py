@@ -21,8 +21,10 @@ Kernels and the sources that hold them:
   from the dtype and head dim: ``"tc"`` (``csrc/flash_fwd_tc.cu``,
   ``csrc/flash_bwd_tc.cu``: bf16 on the tensor cores, d <= 128) and
   ``"simt"`` (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``: f32 FMA on
-  the CUDA cores; float32, and bf16 with d > 128).  Each launch counts
-  under the kernel's name and under ``"<name>.<variant>"``;
+  the CUDA cores; float32, float16 cast to float32, and bf16 with d >
+  128, up to d = 512).  A head dim that is not a multiple of 8 runs
+  zero-padded to the next one.  Each launch counts under the kernel's
+  name and under ``"<name>.<variant>"``;
 * ``q8_hop``, ``q8_requant`` — ``csrc/quant_hop.cu``, one quantized ring
   hop: ``q8_hop`` counts launches with an arriving payload, ``q8_requant``
   those of hop 0 and the codec encode (no payload yet).
@@ -52,18 +54,20 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # Library name -> {exported C function: argument types}.
 _SIGNATURES = {
     "flash_fwd": {"mpi4torch_flash_fwd":
-                  [_P] * 5 + [_I] * 7 + [_P] + [_I] * 4 + [_P]},
+                  [_P] * 5 + [_I] * 7 + [_P] + [_I] * 5 + [_P],
+                  "mpi4torch_flash_fwd_props": [_I, _I, _P]},
     "flash_fwd_tc": {"mpi4torch_flash_fwd_tc":
-                     [_P] * 5 + [_I] * 6 + [_P] + [_I] * 4 + [_P],
+                     [_P] * 5 + [_I] * 6 + [_P] + [_I] * 5 + [_P],
                      "mpi4torch_flash_fwd_tc_props": [_I, _P]},
     "flash_bwd": {"mpi4torch_flash_bwd_dq":
-                  [_P] * 7 + [_I] * 7 + [_P] + [_I] * 4 + [_P],
+                  [_P] * 7 + [_I] * 7 + [_P] + [_I] * 5 + [_P],
                   "mpi4torch_flash_bwd_dkv":
-                  [_P] * 8 + [_I] * 7 + [_P] + [_I] * 4 + [_P]},
+                  [_P] * 8 + [_I] * 7 + [_P] + [_I] * 5 + [_P],
+                  "mpi4torch_flash_bwd_props": [_I, _I, _I, _P]},
     "flash_bwd_tc": {"mpi4torch_flash_bwd_tc_dq":
-                     [_P] * 7 + [_I] * 6 + [_P] + [_I] * 4 + [_P],
+                     [_P] * 7 + [_I] * 6 + [_P] + [_I] * 5 + [_P],
                      "mpi4torch_flash_bwd_tc_dkv":
-                     [_P] * 8 + [_I] * 6 + [_P] + [_I] * 4 + [_P],
+                     [_P] * 8 + [_I] * 6 + [_P] + [_I] * 5 + [_P],
                      "mpi4torch_flash_bwd_tc_props": [_I, _I, _P]},
     "quant_hop": {"mpi4torch_quant_hop": [_P] * 7 + [_L, _I, _I, _P]},
 }
@@ -172,15 +176,35 @@ def build_all() -> dict:
 
 
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Operand dtypes the attention launchers take: the kernels' own, and
+# float16, which runs the simt kernel in float32 (cast in, cast out).
+_ATTENTION_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# The widest head dim the kernels take (simt, DMAX 512).
+MAX_HEAD_DIM = 512
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernels run at: ``d`` rounded up to a multiple of
+    8 (the launchers zero-pad the operands; zero columns change no dot
+    product, and the softmax scale stays ``1 / sqrt(d)``)."""
+    return -(-int(d) // 8) * 8
 
 
 def _check_attention(fn: str, q, k, v, causal: bool, window: int,
                      more=()) -> None:
     """What every flash launcher takes: q ``(b, sq, h, d)`` and k/v
-    ``(b, sk, h_kv, d)`` on one CUDA device, float32 or bfloat16 (one
-    dtype), last dimension contiguous, ``d`` a multiple of 8 in [8, 256],
-    ``h`` a multiple of ``h_kv``.  ``more`` holds further ``(name,
-    tensor)`` operands shaped and typed like q."""
+    ``(b, sk, h_kv, d)`` on one CUDA device, in one dtype, last dimension
+    contiguous, ``1 <= d <= 512``, ``h`` a multiple of ``h_kv``.  ``more``
+    holds further ``(name, tensor)`` operands shaped and typed like q.
+
+    Dtypes: float32 and bfloat16 run in their own type; float16 runs the
+    simt kernel in float32 (the launcher casts the operands in and the
+    results out, ``lse`` stays float32), as the JAX package computes
+    attention in at least float32.  float64 raises a ``ValueError`` naming
+    the dtype: no kernel of the JAX package takes it, and a float64 kernel
+    is not on ROADMAP.md's queues; the plain version (``impl="torch"``)
+    serves it.  A head dim that is not a multiple of 8 is zero-padded to
+    the next one (:func:`padded_head_dim`)."""
     for name, t in (("q", q), ("k", k), ("v", v)) + tuple(more):
         if not t.is_cuda:
             raise ValueError(f"{fn}: {name} must be a CUDA tensor, "
@@ -188,10 +212,12 @@ def _check_attention(fn: str, q, k, v, causal: bool, window: int,
         if t.dim() != 4:
             raise ValueError(f"{fn}: {name} must be 4-d, got "
                              f"shape {tuple(t.shape)}")
-        if t.dtype not in _FLASH_DTYPES or t.dtype != q.dtype:
+        if t.dtype not in _ATTENTION_DTYPES or t.dtype != q.dtype:
             raise ValueError(
-                f"{fn}: q/k/v must share one dtype of float32 or "
-                f"bfloat16; got {name} {t.dtype} with q {q.dtype}")
+                f"{fn}: q/k/v must share one dtype of float32, bfloat16 or "
+                f"float16; got {name} {t.dtype} with q {q.dtype} (no CUDA "
+                "attention kernel takes float64 or other dtypes, and none is "
+                "queued in ROADMAP.md; use impl='torch')")
         if t.device != q.device:
             raise ValueError(f"{fn}: every operand must be on one device")
         if t.shape[-1] > 1 and t.stride(-1) != 1:
@@ -211,14 +237,34 @@ def _check_attention(fn: str, q, k, v, causal: bool, window: int,
     if h_kv < 1 or h % h_kv != 0:
         raise ValueError(f"{fn}: query heads ({h}) must be a multiple "
                          f"of KV heads ({h_kv})")
-    if d % 8 != 0 or not 8 <= d <= 256:
-        raise ValueError(f"{fn}: head_dim must be a multiple of 8 in "
-                         f"[8, 256], got {d}")
-    if b * h > 65535:
-        raise ValueError(f"{fn}: batch x heads = {b * h} exceeds the "
-                         "grid limit 65535")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{fn}: head_dim must be in [1, {MAX_HEAD_DIM}], "
+                         f"got {d}")
     if window < 0 or (window and not causal):
         raise ValueError(f"{fn}: window must be >= 0 and needs causal")
+
+
+def _kernel_operands(ts):
+    """The operands as the kernels take them: float16 cast to float32, and
+    a head dim that is not a multiple of 8 zero-padded to the next one.
+    Tensors that need neither come back as they are."""
+    out = []
+    for t in ts:
+        if t.dtype == torch.float16:
+            t = t.float()
+        pad = padded_head_dim(t.shape[-1]) - t.shape[-1]
+        if pad:
+            t = torch.nn.functional.pad(t, (0, pad))
+        out.append(t)
+    return out
+
+
+def _caller_result(t, d: int, dtype):
+    """A kernel output back in the caller's head dim and dtype
+    (contiguous)."""
+    if t.shape[-1] != d:
+        t = t[..., :d].contiguous()
+    return t if t.dtype == dtype else t.to(dtype)
 
 
 def _check_row_stats(fn: str, q, stats) -> None:
@@ -301,11 +347,12 @@ _ATTENTION_LIBS = {"flash_fwd": ("flash_fwd", ""),
 
 
 def _attention_launch(kernel, variant, ins, outs, q_off, kv_off, causal,
-                      window) -> None:
+                      window, dh) -> None:
     """Launch attention kernel ``kernel`` of ``variant`` on the operands
     ``ins`` (q, k, v, and for the backward do, lse, dd), writing ``outs``:
     the pointers, then (simt only) the dtype code, then the shape, strides
-    and mask arguments of its C signature."""
+    and mask arguments of its C signature, and last the true head dim
+    ``dh`` of the softmax scale."""
     stem, suffix = _ATTENTION_LIBS[kernel]
     lib = f"{stem}_tc" if variant == "tc" else stem
     if variant == "tc":
@@ -316,7 +363,7 @@ def _attention_launch(kernel, variant, ins, outs, q_off, kv_off, causal,
     _launch(kernel, lib, f"mpi4torch_{lib}{suffix}", q.device,
             *(t.data_ptr() for t in ins + outs), *dtype, b, h, k.shape[2],
             sq, k.shape[1], d, _strides(*ins), int(q_off), int(kv_off),
-            int(bool(causal)), int(window), variant=variant)
+            int(bool(causal)), int(window), int(dh), variant=variant)
 
 
 def flash_fwd(q, k, v, q_off: int, kv_off: int, causal: bool,
@@ -324,22 +371,24 @@ def flash_fwd(q, k, v, q_off: int, kv_off: int, causal: bool,
     """Launch the CUDA block-attention forward.
 
     ``q`` is ``(b, sq, h, d)``, ``k``/``v`` ``(b, sk, h_kv, d)``, all on
-    one CUDA device, float32 or bfloat16, last dimension contiguous;
-    ``d`` a multiple of 8 up to 256; ``h`` a multiple of ``h_kv``;
-    offsets are scalar ints.  ``variant`` None takes
-    :func:`fwd_variant`'s; ``"tc"`` or ``"simt"`` asks for one by name
-    (``"tc"`` raises on what it does not take).  Returns ``(out, lse)``:
-    ``out`` like ``q`` (contiguous), ``lse`` float32 ``(b, sq, h)``."""
+    one CUDA device, float32, bfloat16 or float16 (run in float32), last
+    dimension contiguous; ``1 <= d <= 512`` (zero-padded to a multiple of
+    8); ``h`` a multiple of ``h_kv``; offsets are scalar ints.  ``variant``
+    None takes :func:`fwd_variant`'s; ``"tc"`` or ``"simt"`` asks for one
+    by name (``"tc"`` raises on what it does not take).  Returns ``(out,
+    lse)``: ``out`` like ``q`` (contiguous), ``lse`` float32 ``(b, sq,
+    h)``."""
     _check_attention("flash_fwd", q, k, v, causal, window)
     variant = _resolve_variant("flash_fwd", q, variant)
     b, sq, h, d = q.shape
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
     if b == 0 or sq == 0 or h == 0:
-        return out, lse
-    _attention_launch("flash_fwd", variant, (q, k, v), (out, lse), q_off,
-                      kv_off, causal, window)
-    return out, lse
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device), lse
+    ins = _kernel_operands((q, k, v))
+    out = torch.empty(ins[0].shape, dtype=ins[0].dtype, device=q.device)
+    _attention_launch("flash_fwd", variant, tuple(ins), (out, lse), q_off,
+                      kv_off, causal, window, d)
+    return _caller_result(out, d, q.dtype), lse
 
 
 def _check_bwd(fn, q, k, v, do, lse, dd, causal, window) -> None:
@@ -358,14 +407,14 @@ def flash_bwd_dq(q, k, v, do, lse, dd, q_off: int, kv_off: int,
     ``q`` (contiguous)."""
     _check_bwd("flash_bwd_dq", q, k, v, do, lse, dd, causal, window)
     variant = _resolve_variant("flash_bwd_dq", q, variant)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if dq.numel() == 0:
-        return dq
-    if k.shape[1] == 0:
-        return dq.zero_()
-    _attention_launch("flash_bwd_dq", variant, (q, k, v, do, lse, dd),
-                      (dq,), q_off, kv_off, causal, window)
-    return dq
+    if q.numel() == 0 or k.shape[1] == 0:
+        return torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+    d = q.shape[3]
+    ins = _kernel_operands((q, k, v, do))
+    dq = torch.empty(ins[0].shape, dtype=ins[0].dtype, device=q.device)
+    _attention_launch("flash_bwd_dq", variant, (*ins, lse, dd), (dq,),
+                      q_off, kv_off, causal, window, d)
+    return _caller_result(dq, d, q.dtype)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, dd, q_off: int, kv_off: int,
@@ -376,15 +425,16 @@ def flash_bwd_dkv(q, k, v, do, lse, dd, q_off: int, kv_off: int,
     fixed order.  Returns ``(dk, dv)`` like ``k`` (contiguous)."""
     _check_bwd("flash_bwd_dkv", q, k, v, do, lse, dd, causal, window)
     variant = _resolve_variant("flash_bwd_dkv", q, variant)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    if dk.numel() == 0:
-        return dk, dv
-    if q.shape[1] == 0 or q.shape[2] == 0:
-        return dk.zero_(), dv.zero_()
-    _attention_launch("flash_bwd_dkv", variant, (q, k, v, do, lse, dd),
-                      (dk, dv), q_off, kv_off, causal, window)
-    return dk, dv
+    if k.numel() == 0 or q.shape[1] == 0 or q.shape[2] == 0:
+        return (torch.zeros(k.shape, dtype=k.dtype, device=k.device),
+                torch.zeros(k.shape, dtype=k.dtype, device=k.device))
+    d = k.shape[3]
+    ins = _kernel_operands((q, k, v, do))
+    dk = torch.empty(ins[1].shape, dtype=ins[1].dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    _attention_launch("flash_bwd_dkv", variant, (*ins, lse, dd), (dk, dv),
+                      q_off, kv_off, causal, window, d)
+    return _caller_result(dk, d, k.dtype), _caller_result(dv, d, k.dtype)
 
 
 # Attention kernel -> (tc library, its props function, leading arguments).
@@ -392,6 +442,20 @@ _TC_PROPS = {
     "flash_fwd": ("flash_fwd_tc", "mpi4torch_flash_fwd_tc_props", ()),
     "flash_bwd_dq": ("flash_bwd_tc", "mpi4torch_flash_bwd_tc_props", (0,)),
     "flash_bwd_dkv": ("flash_bwd_tc", "mpi4torch_flash_bwd_tc_props", (1,))}
+# The same for the simt variant; its props take the dtype code too.
+_SIMT_PROPS = {
+    "flash_fwd": ("flash_fwd", "mpi4torch_flash_fwd_props", ()),
+    "flash_bwd_dq": ("flash_bwd", "mpi4torch_flash_bwd_props", (0,)),
+    "flash_bwd_dkv": ("flash_bwd", "mpi4torch_flash_bwd_props", (1,))}
+
+
+def _props(lib, fn, args) -> dict:
+    out = (ctypes.c_int * 5)()
+    err = getattr(load(lib), fn)(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{lib} props failed with CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "static_smem",
+                     "dynamic_smem", "blocks_per_sm"), out))
 
 
 def tc_props(kernel: str, d: int) -> dict:
@@ -402,12 +466,15 @@ def tc_props(kernel: str, d: int) -> dict:
     memory per block, and the blocks that fit on one SM.  Needs the
     card."""
     lib, fn, lead = _TC_PROPS[kernel]
-    out = (ctypes.c_int * 5)()
-    err = getattr(load(lib), fn)(*lead, int(d), out)
-    if err != 0:
-        raise RuntimeError(f"{lib} props failed with CUDA error {err}")
-    return dict(zip(("registers", "local_bytes", "static_smem",
-                     "dynamic_smem", "blocks_per_sm"), out))
+    return _props(lib, fn, (*lead, int(d)))
+
+
+def simt_props(kernel: str, dtype, d: int) -> dict:
+    """:func:`tc_props` for the simt variant, whose instantiation depends
+    on the operand dtype (float32 or bfloat16) too."""
+    lib, fn, lead = _SIMT_PROPS[kernel]
+    return _props(lib, fn, (*lead, _FLASH_DTYPES[dtype],
+                            padded_head_dim(d)))
 
 
 def hop_vec(block: int, floats, int8s) -> int:

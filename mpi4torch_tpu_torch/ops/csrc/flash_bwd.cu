@@ -31,7 +31,8 @@
 // and 0.28 ms.
 //
 // What this first design does about it: it is the simple, exact version,
-// built like flash_fwd.cu.  256 threads per block as a 16 x 16 grid; every
+// built like flash_fwd.cu.  256 threads per block as a 16 x 16 grid; batch
+// x head on grid x (up to 2^31 - 1), the block's own tile on grid y; every
 // operand tile is staged through shared memory in f32 (bf16 is widened on
 // load; f32 gets no TF32), each thread owns a small block of the score
 // tile and of the f32 gradient accumulators in registers, and all products
@@ -45,10 +46,12 @@
 // (b, sq, h) f32.  The last dimension of q/k/v/do is contiguous; all other
 // strides are passed in (elements).  dq is written contiguous (b, sq, h, d)
 // in q's type, dk and dv contiguous (b, sk, h_kv, d) in k's type.  d is a
-// multiple of 8 up to 256, zero-padded in shared memory to the
-// instantiated width DMAX (64, 128 or 256); at DMAX = 256 the tiles are
-// narrower so that shared memory and the accumulators still fit.  Ragged
-// sq / sk edges are masked in the kernels.
+// multiple of 8 up to 512, zero-padded in shared memory to the
+// instantiated width DMAX (64, 128, 256 or 512); at DMAX = 256 and 512 the
+// tiles are narrower so that shared memory and the accumulators still fit.
+// The softmax scale is 1 / sqrt(dh) of the true head dim dh <= d: a head
+// dim that is not a multiple of 8 arrives zero-padded by the launcher.
+// Ragged sq / sk edges are masked in the kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -164,15 +167,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int row0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / h;
-  const int hh = blockIdx.y % h;
+  const int row0 = blockIdx.y * BQ;
+  const int b = blockIdx.x / h;
+  const int hh = blockIdx.x % h;
   const int hk = hh / (h / h_kv);
 
-  const T* qb = q + b * st.q_b + hh * st.q_h;
-  const T* dob = dout + b * st.o_b + hh * st.o_h;
-  const T* kb = k + b * st.k_b + hk * st.k_h;
-  const T* vb = v + b * st.v_b + hk * st.v_h;
+  const T* qb = q + (long long)b * st.q_b + hh * st.q_h;
+  const T* dob = dout + (long long)b * st.o_b + hh * st.o_h;
+  const T* kb = k + (long long)b * st.k_b + hk * st.k_h;
+  const T* vb = v + (long long)b * st.v_b + hk * st.v_h;
   stage<T, BQ, DMAX>(Qs, qb, st.q_s, row0, sq, d);
   stage<T, BQ, DMAX>(Ds, dob, st.o_s, row0, sq, d);
 
@@ -184,8 +187,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = row0 + ty + 16 * i;
     row_ok[i] = row < sq;
     qpos[i] = q_off + row;
-    lse_i[i] = row_ok[i] ? lse[b * st.l_b + row * st.l_s + hh * st.l_h] : 0.f;
-    dd_i[i] = row_ok[i] ? dd[b * st.d_b + row * st.d_s + hh * st.d_h] : 0.f;
+    lse_i[i] =
+        row_ok[i] ? lse[(long long)b * st.l_b + row * st.l_s + hh * st.l_h]
+                  : 0.f;
+    dd_i[i] =
+        row_ok[i] ? dd[(long long)b * st.d_b + row * st.d_s + hh * st.d_h]
+                  : 0.f;
   }
 
   // Live KV tiles for this q tile: [j_begin, j_end).
@@ -283,13 +290,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int col0 = blockIdx.x * BK;
-  const int b = blockIdx.y / h_kv;
-  const int hk = blockIdx.y % h_kv;
+  const int col0 = blockIdx.y * BK;
+  const int b = blockIdx.x / h_kv;
+  const int hk = blockIdx.x % h_kv;
   const int g = h / h_kv;
 
-  stage<T, BK, DMAX>(Ks, k + b * st.k_b + hk * st.k_h, st.k_s, col0, sk, d);
-  stage<T, BK, DMAX>(Vs, v + b * st.v_b + hk * st.v_h, st.v_s, col0, sk, d);
+  stage<T, BK, DMAX>(Ks, k + (long long)b * st.k_b + hk * st.k_h, st.k_s,
+                     col0, sk, d);
+  stage<T, BK, DMAX>(Vs, v + (long long)b * st.v_b + hk * st.v_h, st.v_s,
+                     col0, sk, d);
 
   int kpos[RI];
   bool key_ok[RI];
@@ -323,10 +332,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
   for (int hh = hk * g; hh < (hk + 1) * g; ++hh) {
-    const T* qb = q + b * st.q_b + hh * st.q_h;
-    const T* dob = dout + b * st.o_b + hh * st.o_h;
-    const float* lb = lse + b * st.l_b + hh * st.l_h;
-    const float* eb = dd + b * st.d_b + hh * st.d_h;
+    const T* qb = q + (long long)b * st.q_b + hh * st.q_h;
+    const T* dob = dout + (long long)b * st.o_b + hh * st.o_h;
+    const float* lb = lse + (long long)b * st.l_b + hh * st.l_h;
+    const float* eb = dd + (long long)b * st.d_b + hh * st.d_h;
     for (int it = i_begin; it < i_end; ++it) {
       const int r0 = it * BQ;
       __syncthreads();  // the previous tile's Qs / Ds / Ps / Gs reads are done
@@ -334,8 +343,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       stage<T, BQ, DMAX>(Ds, dob, st.o_s, r0, sq, d);
       for (int idx = tid; idx < BQ; idx += NT) {
         const int row = r0 + idx;
-        Ls[idx] = row < sq ? lb[row * st.l_s] : 0.f;
-        Es[idx] = row < sq ? eb[row * st.d_s] : 0.f;
+        Ls[idx] = row < sq ? lb[(long long)row * st.l_s] : 0.f;
+        Es[idx] = row < sq ? eb[(long long)row * st.d_s] : 0.f;
       }
       __syncthreads();
 
@@ -394,97 +403,51 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DMAX, int BQ, int BK>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* dd,
-                      void* dq, int b, int h, int h_kv, int sq, int sk, int d,
-                      const Strides& st, int q_off, int kv_off, int causal,
-                      int window, cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<DMAX, BQ, BK>();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, DMAX, BQ, BK>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((sq + BQ - 1) / BQ, b * h);
-  const float scale = 1.0f / sqrtf((float)d);
-  flash_bwd_dq_kernel<T, DMAX, BQ, BK><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dd),
-      static_cast<T*>(dq), h, h_kv, sq, sk, d, st, q_off, kv_off, causal,
-      window, scale);
-  return cudaGetLastError();
-}
-
-template <typename T, int DMAX, int BK, int BQ>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* dd,
-                       void* dk, void* dv, int b, int h, int h_kv, int sq,
-                       int sk, int d, const Strides& st, int q_off,
-                       int kv_off, int causal, int window,
-                       cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes<DMAX, BK, BQ>();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, DMAX, BK, BQ>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((sk + BK - 1) / BK, b * h_kv);
-  const float scale = 1.0f / sqrtf((float)d);
-  flash_bwd_dkv_kernel<T, DMAX, BK, BQ><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dd),
-      static_cast<T*>(dk), static_cast<T*>(dv), h, h_kv, sq, sk, d, st,
-      q_off, kv_off, causal, window, scale);
-  return cudaGetLastError();
-}
-
 // Tile shapes per head-dim width: (BQ, BK) = (64, 64) up to d = 128; at
 // d = 256 the looped-over tiles stay 64 rows and the block's own tile
 // drops to 32 rows (shared memory 206 / 215 KB, accumulators 32 / 64
-// registers a thread).
+// registers a thread); at d = 512 the looped-over tiles are 32 rows and the
+// block's own tile 16 (shared memory 194 / 197 KB, accumulators 32 / 64
+// registers a thread).  One entry per (part, width): the kernel for
+// element type T, its dynamic shared memory, and the rows of the block's
+// own tile (grid y).
 template <typename T>
-cudaError_t dispatch_dq(const void* q, const void* k, const void* v,
-                        const void* dout, const void* lse, const void* dd,
-                        void* dq, int b, int h, int h_kv, int sq, int sk,
-                        int d, const Strides& st, int q_off, int kv_off,
-                        int causal, int window, cudaStream_t s) {
+cudaError_t pick_t(int part, int d, const void** fn, size_t* smem,
+                   int* rows) {
+#define MPI4TORCH_PICK(DMAX, OWN, LOOP)                                    \
+  do {                                                                     \
+    if (part == 0) {                                                       \
+      *fn = (const void*)flash_bwd_dq_kernel<T, DMAX, OWN, LOOP>;          \
+      *smem = dq_smem_bytes<DMAX, OWN, LOOP>();                            \
+    } else {                                                               \
+      *fn = (const void*)flash_bwd_dkv_kernel<T, DMAX, OWN, LOOP>;         \
+      *smem = dkv_smem_bytes<DMAX, OWN, LOOP>();                           \
+    }                                                                      \
+    *rows = OWN;                                                           \
+  } while (0)
   if (d <= 64)
-    return launch_dq<T, 64, 64, 64>(q, k, v, dout, lse, dd, dq, b, h, h_kv,
-                                    sq, sk, d, st, q_off, kv_off, causal,
-                                    window, s);
-  if (d <= 128)
-    return launch_dq<T, 128, 64, 64>(q, k, v, dout, lse, dd, dq, b, h, h_kv,
-                                     sq, sk, d, st, q_off, kv_off, causal,
-                                     window, s);
-  return launch_dq<T, 256, 32, 64>(q, k, v, dout, lse, dd, dq, b, h, h_kv,
-                                   sq, sk, d, st, q_off, kv_off, causal,
-                                   window, s);
+    MPI4TORCH_PICK(64, 64, 64);
+  else if (d <= 128)
+    MPI4TORCH_PICK(128, 64, 64);
+  else if (d <= 256)
+    MPI4TORCH_PICK(256, 32, 64);
+  else
+    MPI4TORCH_PICK(512, 16, 32);
+#undef MPI4TORCH_PICK
+  return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*smem);
 }
 
-template <typename T>
-cudaError_t dispatch_dkv(const void* q, const void* k, const void* v,
-                         const void* dout, const void* lse, const void* dd,
-                         void* dk, void* dv, int b, int h, int h_kv, int sq,
-                         int sk, int d, const Strides& st, int q_off,
-                         int kv_off, int causal, int window,
-                         cudaStream_t s) {
-  if (d <= 64)
-    return launch_dkv<T, 64, 64, 64>(q, k, v, dout, lse, dd, dk, dv, b, h,
-                                     h_kv, sq, sk, d, st, q_off, kv_off,
-                                     causal, window, s);
-  if (d <= 128)
-    return launch_dkv<T, 128, 64, 64>(q, k, v, dout, lse, dd, dk, dv, b, h,
-                                      h_kv, sq, sk, d, st, q_off, kv_off,
-                                      causal, window, s);
-  return launch_dkv<T, 256, 32, 64>(q, k, v, dout, lse, dd, dk, dv, b, h,
-                                    h_kv, sq, sk, d, st, q_off, kv_off,
-                                    causal, window, s);
+cudaError_t pick(int part, int is_bf16, int d, const void** fn, size_t* smem,
+                 int* rows) {
+  return is_bf16 ? pick_t<__nv_bfloat16>(part, d, fn, smem, rows)
+                 : pick_t<float>(part, d, fn, smem, rows);
 }
 
-bool bad_shape(int b, int h, int h_kv, int sq, int sk, int d) {
+bool bad_shape(int b, int h, int h_kv, int sq, int sk, int d, int dh) {
   return b < 1 || h < 1 || h_kv < 1 || h % h_kv != 0 || sq < 1 || sk < 1 ||
-         d < 8 || d > 256 || d % 8 != 0 || (long long)b * h > 65535;
+         d < 8 || d > 512 || d % 8 != 0 || dh < 1 || dh > d ||
+         (long long)b * h > 0x7fffffffLL;
 }
 
 Strides unpack(const long long* p) {
@@ -498,7 +461,9 @@ Strides unpack(const long long* p) {
 // Both return a cudaError_t code (0 = launched).  `strides` holds the
 // element strides (batch, seq, head) of q, k, v, do, lse and dd, in that
 // order.  `is_bf16` selects the element type of q/k/v/do and of the
-// gradients (0 = float32, 1 = bfloat16); lse and dd are float32.
+// gradients (0 = float32, 1 = bfloat16); lse and dd are float32.  `d` is
+// the operands' head dim and `dh` <= d the true head dim, whose
+// 1 / sqrt(dh) is the softmax scale.
 extern "C" int mpi4torch_flash_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* dd,
@@ -506,16 +471,22 @@ extern "C" int mpi4torch_flash_bwd_dq(const void* q, const void* k,
                                       int h_kv, int sq, int sk, int d,
                                       const long long* strides, int q_off,
                                       int kv_off, int causal, int window,
-                                      void* stream) {
-  if (bad_shape(b, h, h_kv, sq, sk, d)) return (int)cudaErrorInvalidValue;
-  const Strides st = unpack(strides);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)dispatch_dq<__nv_bfloat16>(q, k, v, dout, lse, dd, dq, b, h,
-                                           h_kv, sq, sk, d, st, q_off,
-                                           kv_off, causal, window, s);
-  return (int)dispatch_dq<float>(q, k, v, dout, lse, dd, dq, b, h, h_kv, sq,
-                                 sk, d, st, q_off, kv_off, causal, window, s);
+                                      int dh, void* stream) {
+  if (bad_shape(b, h, h_kv, sq, sk, d, dh)) return (int)cudaErrorInvalidValue;
+  const void* fn;
+  size_t smem;
+  int rows;
+  cudaError_t e = pick(0, is_bf16, d, &fn, &smem, &rows);
+  if (e != cudaSuccess) return (int)e;
+  const int n_q = (sq + rows - 1) / rows;
+  if (n_q > 65535) return (int)cudaErrorInvalidValue;
+  Strides st = unpack(strides);
+  const float scale = 1.0f / sqrtf((float)dh);
+  void* args[] = {&q,  &k,  &v,    &dout,   &lse,    &dd,     &dq,
+                  &h,  &h_kv, &sq, &sk,     &d,      &st,     &q_off,
+                  &kv_off, &causal, &window, (void*)&scale};
+  return (int)cudaLaunchKernel(fn, dim3(b * h, n_q), dim3(NT), args, smem,
+                               static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mpi4torch_flash_bwd_dkv(const void* q, const void* k,
@@ -525,16 +496,45 @@ extern "C" int mpi4torch_flash_bwd_dkv(const void* q, const void* k,
                                        int h, int h_kv, int sq, int sk, int d,
                                        const long long* strides, int q_off,
                                        int kv_off, int causal, int window,
-                                       void* stream) {
-  if (bad_shape(b, h, h_kv, sq, sk, d) || (long long)b * h_kv > 65535)
-    return (int)cudaErrorInvalidValue;
-  const Strides st = unpack(strides);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)dispatch_dkv<__nv_bfloat16>(q, k, v, dout, lse, dd, dk, dv, b,
-                                            h, h_kv, sq, sk, d, st, q_off,
-                                            kv_off, causal, window, s);
-  return (int)dispatch_dkv<float>(q, k, v, dout, lse, dd, dk, dv, b, h, h_kv,
-                                  sq, sk, d, st, q_off, kv_off, causal,
-                                  window, s);
+                                       int dh, void* stream) {
+  if (bad_shape(b, h, h_kv, sq, sk, d, dh)) return (int)cudaErrorInvalidValue;
+  const void* fn;
+  size_t smem;
+  int rows;
+  cudaError_t e = pick(1, is_bf16, d, &fn, &smem, &rows);
+  if (e != cudaSuccess) return (int)e;
+  const int n_k = (sk + rows - 1) / rows;
+  if (n_k > 65535) return (int)cudaErrorInvalidValue;
+  Strides st = unpack(strides);
+  const float scale = 1.0f / sqrtf((float)dh);
+  void* args[] = {&q,  &k,  &v,    &dout,   &lse,   &dd,     &dk,
+                  &dv, &h,  &h_kv, &sq,     &sk,    &d,      &st,
+                  &q_off, &kv_off, &causal, &window, (void*)&scale};
+  return (int)cudaLaunchKernel(fn, dim3(b * h_kv, n_k), dim3(NT), args, smem,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// What the compiler and the card made of a kernel: part 0 = dq, 1 = dk/dv,
+// for element type `is_bf16` at head dim d.  Writes registers per thread,
+// local-memory bytes per thread (spills), static and dynamic shared memory
+// per block, and the blocks that fit on one SM, to out[0..4].
+extern "C" int mpi4torch_flash_bwd_props(int part, int is_bf16, int d,
+                                         int* out) {
+  const void* fn;
+  size_t smem;
+  int rows;
+  cudaError_t e = pick(part, is_bf16, d, &fn, &smem, &rows);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, NT, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = (int)smem;
+  out[4] = blocks;
+  return 0;
 }

@@ -618,7 +618,10 @@ Strides unpack(const long long* p) {
 
 // Both return a cudaError_t code (0 = launched).  Operands are bfloat16
 // (lse and dd float32); `strides` holds the element strides (batch, seq,
-// head) of q, k, v, do, lse and dd, in that order.
+// head) of q, k, v, do, lse and dd, in that order.  `d` is the operands'
+// head dim and `dh` <= d the true head dim, whose 1 / sqrt(dh) is the
+// softmax scale: a head dim that is not a multiple of 8 arrives zero-padded
+// to d by the launcher, and the zero columns change no dot product.
 extern "C" int mpi4torch_flash_bwd_tc_dq(const void* q, const void* k,
                                          const void* v, const void* dout,
                                          const void* lse, const void* dd,
@@ -626,16 +629,16 @@ extern "C" int mpi4torch_flash_bwd_tc_dq(const void* q, const void* k,
                                          int sq, int sk, int d,
                                          const long long* strides, int q_off,
                                          int kv_off, int causal, int window,
-                                         void* stream) {
+                                         int dh, void* stream) {
   const int n_q = (sq + DQ_BQ - 1) / DQ_BQ;
-  if (bad_shape(b, h, h_kv, sq, sk, d) || n_q > 65535)
+  if (bad_shape(b, h, h_kv, sq, sk, d) || dh < 1 || dh > d || n_q > 65535)
     return (int)cudaErrorInvalidValue;
   const void* fn;
   size_t smem;
   cudaError_t e = pick(0, d, &fn, &smem);
   if (e != cudaSuccess) return (int)e;
   Strides st = unpack(strides);
-  const float scale = 1.0f / sqrtf((float)d);
+  const float scale = 1.0f / sqrtf((float)dh);
   void* args[] = {&q,  &k,  &v,    &dout,   &lse,    &dd,     &dq,
                   &h,  &h_kv, &sq, &sk,     &d,      &st,     &q_off,
                   &kv_off, &causal, &window, (void*)&scale};
@@ -650,16 +653,16 @@ extern "C" int mpi4torch_flash_bwd_tc_dkv(const void* q, const void* k,
                                           int h_kv, int sq, int sk, int d,
                                           const long long* strides,
                                           int q_off, int kv_off, int causal,
-                                          int window, void* stream) {
+                                          int window, int dh, void* stream) {
   const int n_k = (sk + DKV_BK - 1) / DKV_BK;
-  if (bad_shape(b, h, h_kv, sq, sk, d) || n_k > 65535)
+  if (bad_shape(b, h, h_kv, sq, sk, d) || dh < 1 || dh > d || n_k > 65535)
     return (int)cudaErrorInvalidValue;
   const void* fn;
   size_t smem;
   cudaError_t e = pick(1, d, &fn, &smem);
   if (e != cudaSuccess) return (int)e;
   Strides st = unpack(strides);
-  const float scale = 1.0f / sqrtf((float)d);
+  const float scale = 1.0f / sqrtf((float)dh);
   void* args[] = {&q,  &k,  &v,    &dout,   &lse,   &dd,     &dk,
                   &dv, &h,  &h_kv, &sq,     &sk,    &d,      &st,
                   &q_off, &kv_off, &causal, &window, (void*)&scale};

@@ -432,16 +432,18 @@ cudaError_t pick(int d, const void** fn, size_t* smem) {
 
 // Returns a cudaError_t code (0 = launched).  Operands are bfloat16 (lse
 // float32); `strides` holds the element strides (batch, seq, head) of q,
-// then k, then v.
+// then k, then v.  `d` is the operands' head dim and `dh` <= d the true
+// head dim, whose 1 / sqrt(dh) is the softmax scale: a head dim that is not
+// a multiple of 8 arrives zero-padded to d by the launcher.
 extern "C" int mpi4torch_flash_fwd_tc(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       int b, int h, int h_kv, int sq, int sk,
                                       int d, const long long* strides,
                                       int q_off, int kv_off, int causal,
-                                      int window, void* stream) {
+                                      int window, int dh, void* stream) {
   const int n_q = (sq + BQ - 1) / BQ;
   if (b < 1 || h < 1 || h_kv < 1 || h % h_kv != 0 || sq < 1 || sk < 0 ||
-      d < 8 || d > 128 || d % 8 != 0 || n_q > 65535)
+      d < 8 || d > 128 || d % 8 != 0 || dh < 1 || dh > d || n_q > 65535)
     return (int)cudaErrorInvalidValue;
   const void* fn;
   size_t smem;
@@ -449,7 +451,7 @@ extern "C" int mpi4torch_flash_fwd_tc(const void* q, const void* k,
   if (e != cudaSuccess) return (int)e;
   const long long* p = strides;
   Strides st{p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8]};
-  const float sl2 = LOG2E / sqrtf((float)d);
+  const float sl2 = LOG2E / sqrtf((float)dh);
   void* args[] = {&q,  &k,  &v,  &out,     &lse,    &h,
                   &h_kv, &sq, &sk, &d,     &st,     &q_off,
                   &kv_off, &causal, &window, (void*)&sl2};

@@ -8,6 +8,12 @@ raise :class:`CollectiveMismatchError` on every rank, and a rank that
 never arrives raises :class:`DeadlockError` naming who arrived and who
 did not.
 
+Besides the collective rendezvous a world carries point-to-point
+mailboxes (buffered sends, blocking receives with the deadlock timeout),
+the request table of the non-blocking ops with its wait-handle guards, the
+per-rank in-place reuse guard of ``Reduce_``, and a resettable health
+probe.
+
 Payloads are torch tensors.  Rank threads of one world share one device;
 on a CUDA device they all issue on the same stream, which is what makes
 handing one thread's tensor to another safe without events.
@@ -16,10 +22,11 @@ handing one thread's tensor to another safe without events.
 from __future__ import annotations
 
 import inspect
+import queue
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, FrozenSet, List, Optional, Tuple
+from typing import (Any, Callable, Dict, FrozenSet, List, Optional, Tuple)
 
 import torch
 
@@ -59,6 +66,64 @@ class RankFailedError(CommError):
         self.ranks: FrozenSet[int] = frozenset(ranks)
 
 
+class InPlaceReuseError(CommError):
+    """A tensor consumed by an in-place collective (``Reduce_``) was
+    passed to a later communication op on the same rank."""
+
+
+class BifurcationError(CommError):
+    """A wait handle was waited on twice, or its parts were spliced
+    between handles."""
+
+
+# Request kinds of the non-blocking point-to-point ops.
+REQ_ISEND = 1
+REQ_IRECV = 2
+
+
+@dataclass
+class _PendingRequest:
+    req_id: int
+    kind: int                 # REQ_ISEND / REQ_IRECV
+    rank: int                 # owning rank
+    peer: int                 # dest (isend) or source (irecv)
+    tag: int
+    shape: Tuple[int, ...]
+    dtype: Any
+    fingerprint: int
+
+
+@dataclass(frozen=True)
+class HealthReport:
+    """Result of :meth:`World.health_check` (``comm.check_health()``): a
+    timeout-bounded attributed barrier probe.  ``ok`` says whether every
+    rank answered within the bound, ``arrived``/``missing`` name who did
+    and who did not, ``probe_duration_s`` is this caller's wall time in
+    the probe, and ``arrival_s`` maps each arrived rank to its arrival
+    time after the round's first arrival (a slow rank shows a large
+    offset; a dead one is missing)."""
+    ok: bool
+    size: int
+    arrived: FrozenSet[int]
+    missing: FrozenSet[int]
+    probe_duration_s: float = 0.0
+    arrival_s: Optional[Dict[int, float]] = None
+
+    def __bool__(self) -> bool:
+        return self.ok
+
+
+def _fnv1a(parts) -> int:
+    """31-bit FNV-1a hash of a request's description: the fingerprint a
+    wait-handle descriptor carries and :meth:`World.complete_request`
+    checks again."""
+    h = 0x811C9DC5
+    for ch in "|".join(str(p) for p in parts).encode():
+        h ^= ch
+        h = (h * 0x01000193) & 0xFFFFFFFF
+    return h & 0x7FFFFFFF
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
     another device (the tests pass ``"cpu"``).  Without CUDA and without
@@ -83,18 +148,21 @@ def resolve_device(device=None) -> torch.device:
 class _BarrierTimeout(Exception):
     """Internal: this thread's barrier wait expired."""
 
-    def __init__(self, arrived: FrozenSet[int]):
+    def __init__(self, arrived: FrozenSet[int], arrive_t=None):
         super().__init__("barrier timeout")
         self.arrived = arrived
+        self.arrive_t = dict(arrive_t or {})
 
 
 class _BarrierBroken(Exception):
     """Internal: another thread broke the barrier (a peer's timeout, or
     ``abort()`` after a rank failure)."""
 
-    def __init__(self, arrived: Optional[FrozenSet[int]] = None):
+    def __init__(self, arrived: Optional[FrozenSet[int]] = None,
+                 arrive_t=None):
         super().__init__("barrier broken")
         self.arrived = arrived
+        self.arrive_t = dict(arrive_t or {})
 
 
 class _AttributedBarrier:
@@ -103,31 +171,69 @@ class _AttributedBarrier:
     ``threading.Barrier`` only answers whether everyone arrived in time;
     attribution needs the arrival set of the generation that timed out.
     A timeout breaks the barrier for every waiter, permanently (the world
-    is torn), and ``abort()`` breaks it at once."""
+    is torn), and ``abort()`` breaks it at once.
 
-    def __init__(self, size: int):
+    ``resettable=True`` (the health probe's barrier) relaxes the
+    permanence: once every waiter of a broken round has left, the next
+    arrival starts a fresh round, so a failed probe does not fail every
+    later probe after the slow rank recovers."""
+
+    def __init__(self, size: int, resettable: bool = False):
         self.size = size
+        self.resettable = resettable
         self._cond = threading.Condition()
         self._gen = 0
         self._count = 0
         self._arrived: set = set()
+        # Arrival times of the current round, kept for the completed
+        # round in _last_arrivals and for a broken one in
+        # timeout_arrive_t.
+        self._arrive_t: Dict[int, float] = {}
+        self._last_arrivals: Dict[int, float] = {}
         self._broken = False
         # Arrival snapshot of the generation that broke: lets the other
         # waiters of that generation attribute the failure too.
         self.timeout_arrived: Optional[FrozenSet[int]] = None
+        self.timeout_arrive_t: Dict[int, float] = {}
 
-    def wait(self, rank: int, timeout: float) -> None:
+    def wait(self, rank: int, timeout: float,
+             collect_arrivals: Optional[list] = None) -> None:
+        """Arrive and wait for the generation to fill.  Raises
+        :class:`_BarrierTimeout` when ``timeout`` runs out and
+        :class:`_BarrierBroken` when another waiter broke the barrier.
+        ``collect_arrivals`` (a list) receives the completed round's
+        arrival times, appended under the lock."""
         with self._cond:
             if self._broken:
-                raise _BarrierBroken(self.timeout_arrived)
+                if not self.resettable:
+                    raise _BarrierBroken(self.timeout_arrived,
+                                         self.timeout_arrive_t)
+                # Let the broken round's waiters leave, then start fresh.
+                drain_deadline = time.monotonic() + timeout
+                while self._broken and self._count > 0:
+                    remaining = drain_deadline - time.monotonic()
+                    if remaining <= 0:
+                        raise _BarrierBroken(self.timeout_arrived,
+                                             self.timeout_arrive_t)
+                    self._cond.wait(remaining)
+                if self._broken:
+                    self._broken = False
+                    self.timeout_arrived = None
+                    self.timeout_arrive_t = {}
+                    self._gen += 1
             gen = self._gen
             self._arrived.add(rank)
+            self._arrive_t[rank] = time.monotonic()
             self._count += 1
             if self._count == self.size:
+                self._last_arrivals = dict(self._arrive_t)
                 self._count = 0
                 self._arrived = set()
+                self._arrive_t = {}
                 self._gen += 1
                 self._cond.notify_all()
+                if collect_arrivals is not None:
+                    collect_arrivals.append(dict(self._last_arrivals))
                 return
             deadline = time.monotonic() + timeout
             while True:
@@ -135,19 +241,35 @@ class _AttributedBarrier:
                 if remaining <= 0:
                     arrived = frozenset(self._arrived)
                     self.timeout_arrived = arrived
+                    self.timeout_arrive_t = dict(self._arrive_t)
                     self._broken = True
+                    self._leave(rank)
                     self._cond.notify_all()
-                    raise _BarrierTimeout(arrived)
+                    raise _BarrierTimeout(arrived, self.timeout_arrive_t)
                 self._cond.wait(remaining)
                 if self._gen != gen:
+                    if collect_arrivals is not None:
+                        collect_arrivals.append(dict(self._last_arrivals))
                     return
                 if self._broken:
-                    raise _BarrierBroken(self.timeout_arrived)
+                    self._leave(rank)
+                    raise _BarrierBroken(self.timeout_arrived,
+                                         self.timeout_arrive_t)
+
+    def _leave(self, rank: int) -> None:
+        """Leave a broken round (the caller holds the lock); the last one
+        out wakes an arrival waiting to start a fresh round."""
+        self._count -= 1
+        self._arrived.discard(rank)
+        self._arrive_t.pop(rank, None)
+        if self._count == 0:
+            self._cond.notify_all()
 
     def abort(self) -> None:
         with self._cond:
             if self.timeout_arrived is None:
                 self.timeout_arrived = frozenset(self._arrived)
+                self.timeout_arrive_t = dict(self._arrive_t)
             self._broken = True
             self._cond.notify_all()
 
@@ -157,7 +279,9 @@ class World:
 
     All collectives funnel through :meth:`exchange`: a barrier, an
     all-to-all of per-rank payloads, and a signature agreement check.
-    ``device`` (optional) is the device every payload must live on."""
+    Point-to-point messages go through per-``(src, dst, tag)`` FIFO
+    mailboxes (:meth:`p2p_send`, :meth:`p2p_recv`).  ``device``
+    (optional) is the device every payload must live on."""
 
     def __init__(self, size: int, timeout: Optional[float] = None,
                  device: Optional[torch.device] = None):
@@ -168,8 +292,17 @@ class World:
             else float(timeout)
         self.device = device
         self._barrier = _AttributedBarrier(size)
+        self._health = _AttributedBarrier(size, resettable=True)
         self._slots: List[Any] = [None] * size
         self._sigs: List[Any] = [None] * size
+        self._mailboxes: Dict[Tuple[int, int, int], queue.Queue] = {}
+        self._mb_lock = threading.Lock()
+        self._req_lock = threading.Lock()
+        self._req_counter = 0
+        self._pending: Dict[int, _PendingRequest] = {}
+        # (rank, id(x)) -> x: the per-rank in-place reuse guard; the
+        # strong reference pins the id while it is tracked.
+        self._consumed: Dict[Tuple[int, int], Any] = {}
         self._failed = threading.Event()
         self._first_error: Optional[BaseException] = None
         self._err_lock = threading.Lock()
@@ -184,6 +317,7 @@ class World:
                 self._first_error = exc
         self._failed.set()
         self._barrier.abort()
+        self._health.abort()
 
     def mark_dead(self, rank: int, exc: BaseException) -> None:
         """Record ``rank`` as permanently failed and tear the world down,
@@ -210,23 +344,34 @@ class World:
 
     # ----------------------------------------------------------- collectives
 
-    def exchange(self, rank: int, signature: Tuple, payload: Any
-                 ) -> List[Any]:
+    def exchange(self, rank: int, signature: Tuple, payload: Any,
+                 read: Optional[Callable[[List[Any]], Any]] = None) -> Any:
         """All ranks deposit ``(signature, payload)``; returns every
-        payload in rank order.  A signature mismatch raises on every
-        rank."""
-        self._check_failed()
-        return self._exchange_wire(rank, signature, payload)
+        payload in rank order, or ``read(payloads)`` when ``read`` is
+        given.  A signature mismatch raises on every rank.
 
-    def _exchange_wire(self, rank: int, signature: Tuple,
-                       payload: Any) -> List[Any]:
+        ``read`` runs before any rank leaves the rendezvous, so whatever
+        it takes from other ranks' payloads (a copy, a fold, a
+        concatenation) is taken (on the CPU) or queued on the shared
+        stream (on the card) before their owners can go on and modify
+        them in place."""
+        self._check_failed()
+        return self._exchange_wire(rank, signature, payload, read)
+
+    def _exchange_wire(self, rank: int, signature: Tuple, payload: Any,
+                       read=None) -> Any:
         self._sigs[rank] = signature
         self._slots[rank] = payload
         self._wait_barrier(rank)
-        self._check_sig_agreement(self._sigs)
-        out = list(self._slots)
-        # All readers are done before the slots are reused.
-        self._wait_barrier(rank)
+        try:
+            self._check_sig_agreement(self._sigs)
+            out = list(self._slots)
+            if read is not None:
+                out = read(out)
+        finally:
+            # All readers are done before the slots are reused, and
+            # before any owner may modify its payload.
+            self._wait_barrier(rank)
         return out
 
     @staticmethod
@@ -266,6 +411,146 @@ class World:
             "execute the same communication sequence).  Ranks "
             f"{sorted(arrived)} arrived; ranks {sorted(missing)} did not",
             arrived=arrived, missing=missing)
+
+    # ----------------------------------------------------------- health
+
+    def health_check(self, rank: int,
+                     timeout: Optional[float] = None) -> HealthReport:
+        """Timeout-bounded attributed barrier probe: ``ok`` iff every rank
+        answered within ``timeout`` (default: the world timeout).  It runs
+        on its own resettable barrier, so a failed probe reports who
+        arrived and who is missing without tearing the collective
+        rendezvous, and once its round has drained the next probe starts
+        fresh: a recovered rank reads ``ok`` again.  Every live rank must
+        call it, like any barrier."""
+        timeout = self.timeout if timeout is None else float(timeout)
+        everyone = frozenset(range(self.size))
+        t0 = time.monotonic()
+        arrivals: List[Dict[int, float]] = []
+        try:
+            self._health.wait(rank, timeout, collect_arrivals=arrivals)
+            ok, arrived = True, everyone
+            arrive_t = arrivals[0] if arrivals else {}
+        except (_BarrierTimeout, _BarrierBroken) as e:
+            ok = False
+            arrived = frozenset() if e.arrived is None else e.arrived
+            arrive_t = e.arrive_t
+        arrival_s: Dict[int, float] = {}
+        if arrive_t:
+            first = min(arrive_t.values())
+            arrival_s = {r: t - first for r, t in arrive_t.items()
+                         if r in arrived}
+        return HealthReport(ok, self.size, frozenset(arrived),
+                            everyone - frozenset(arrived),
+                            probe_duration_s=time.monotonic() - t0,
+                            arrival_s=arrival_s)
+
+    # -------------------------------------------------------------- p2p
+
+    def _mailbox(self, src: int, dst: int, tag: int) -> queue.Queue:
+        key = (src, dst, tag)
+        with self._mb_lock:
+            q = self._mailboxes.get(key)
+            if q is None:
+                q = queue.Queue()
+                self._mailboxes[key] = q
+            return q
+
+    def p2p_send(self, src: int, dst: int, tag: int, payload: Any) -> None:
+        """Buffered send: never blocks.  Messages of one ``(src, dst,
+        tag)`` arrive in the order they were sent."""
+        self._check_failed()
+        if not (0 <= dst < self.size):
+            raise CommError(f"invalid destination rank {dst} (size "
+                            f"{self.size})")
+        self._mailbox(src, dst, tag).put(payload)
+
+    def p2p_recv(self, src: int, dst: int, tag: int) -> Any:
+        """Blocking receive with the deadlock timeout.  A dead ``src``
+        raises a :class:`RankFailedError` naming it; no message within
+        the world timeout raises :class:`DeadlockError`."""
+        if not (0 <= src < self.size):
+            raise CommError(f"invalid source rank {src} (size {self.size})")
+        q = self._mailbox(src, dst, tag)
+        deadline = time.monotonic() + self.timeout
+        while True:
+            # The sender-specific check comes first: it says which peer
+            # this receive was waiting on.
+            if src in self._dead:
+                raise RankFailedError(
+                    f"receive (src={src}, dst={dst}, tag={tag}) cannot "
+                    f"complete: rank {src} failed", ranks=(src,)
+                ) from self._dead[src]
+            self._check_failed()
+            try:
+                return q.get(timeout=0.05)
+            except queue.Empty:
+                if time.monotonic() > deadline:
+                    raise DeadlockError(
+                        f"receive (src={src}, dst={dst}, tag={tag}) timed "
+                        f"out after {self.timeout}s — the matching send was "
+                        "never posted") from None
+
+    # --------------------------------------------------------- requests
+
+    def new_request(self, kind: int, rank: int, peer: int, tag: int,
+                    shape: Tuple[int, ...], dtype: Any) -> _PendingRequest:
+        """Post a non-blocking request and return it with its id and
+        fingerprint."""
+        with self._req_lock:
+            self._req_counter += 1
+            rid = self._req_counter
+        fp = _fnv1a((rid, kind, peer, tag, tuple(shape), str(dtype)))
+        req = _PendingRequest(rid, kind, rank, peer, tag, tuple(shape),
+                              dtype, fp)
+        with self._req_lock:
+            self._pending[rid] = req
+        return req
+
+    def complete_request(self, req_id: int, shape: Tuple[int, ...],
+                         dtype: Any) -> _PendingRequest:
+        """Pop a pending request; an unknown or already completed one, or
+        a handle whose buffer does not match the posted request, raises
+        :class:`BifurcationError`."""
+        with self._req_lock:
+            req = self._pending.pop(req_id, None)
+        if req is None:
+            raise BifurcationError(
+                f"Detected bifurcation in Wait handle usage: request "
+                f"{req_id} is unknown or was already waited on (a WaitHandle "
+                "must be waited on exactly once, and its parts must not be "
+                "swapped between handles)")
+        if tuple(shape) != req.shape or dtype != req.dtype:
+            with self._req_lock:
+                self._pending[req_id] = req
+            raise BifurcationError(
+                "Detected bifurcation in Wait handle usage: the buffer in the "
+                f"handle (shape {tuple(shape)}, dtype {dtype}) does not match "
+                f"the posted request (shape {req.shape}, dtype {req.dtype})")
+        return req
+
+    # ------------------------------------------------ in-place reuse guard
+
+    # Bound on the guard table: the oldest entries go first (dropping one
+    # only weakens detection for that old tensor).
+    _CONSUMED_CAP = 4096
+
+    def mark_consumed(self, rank: int, x: Any) -> None:
+        """Record ``x`` as consumed by an in-place collective on
+        ``rank``: later communication ops on that rank reject it.  Keyed
+        per rank, since rank threads share one process."""
+        with self._req_lock:
+            self._consumed[(rank, id(x))] = x
+            while len(self._consumed) > self._CONSUMED_CAP:
+                self._consumed.pop(next(iter(self._consumed)))
+
+    def check_not_consumed(self, rank: int, *tensors: Any) -> None:
+        for t in tensors:
+            if (rank, id(t)) in self._consumed:
+                raise InPlaceReuseError(
+                    "Reuse of variables passed to in-place MPI kernels is "
+                    "not supported: this tensor was consumed by Reduce_ — "
+                    "use its return value instead")
 
 
 @dataclass

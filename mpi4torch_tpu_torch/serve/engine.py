@@ -176,17 +176,17 @@ def _refuse_unported(serve_cfg: ServeConfig, spmd: bool) -> None:
     roadmap = "(ROADMAP.md, Queue 1 item {})"
     refusals = [
         (spmd, "spmd=True: the compiled SPMD engine needs the compiled "
-               "backend " + roadmap.format(2)),
+               "backend " + roadmap.format(6)),
         (serve_cfg.temperature > 0,
          "temperature > 0: sampled decoding needs the threefry key "
-         "discipline " + roadmap.format(7)),
+         "discipline " + roadmap.format(4)),
         (serve_cfg.block_size > 0,
-         "block_size > 0: the paged KV cache " + roadmap.format(7)),
+         "block_size > 0: the paged KV cache " + roadmap.format(4)),
         (bool(serve_cfg.overlap),
-         "overlap: split-phase decode collectives " + roadmap.format(4)),
+         "overlap: split-phase decode collectives " + roadmap.format(2)),
         (serve_cfg.algorithm not in (None, "ring"),
-         f"algorithm={serve_cfg.algorithm!r}: schedules other than the "
-         "ring fold " + roadmap.format(6)),
+         f"algorithm={serve_cfg.algorithm!r}: decode collectives on "
+         "schedules other than the ring fold " + roadmap.format(4)),
     ]
     for refused, what in refusals:
         if refused:

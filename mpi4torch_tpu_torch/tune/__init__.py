@@ -1,15 +1,17 @@
 """Size- and topology-aware collective algorithm selection.
 
-Port of ``mpi4torch_tpu/tune/__init__.py`` as far as the compressed
-Allreduce reads it: the request resolver (:func:`resolve_request`), the
-2-level group rule of ``torus`` (:func:`resolve_hier_group`) and the
+Port of ``mpi4torch_tpu/tune/__init__.py`` as far as the facade reads
+it: the request resolver (:func:`resolve_request`), the 2-level group
+rule of ``hier`` and ``torus`` (:func:`resolve_hier_group`) and the
 selector (:func:`select_auto`).
 
 The JAX package's selector first asks its persisted autotuner cache for
 a measured winner, and its latency tier picks ``rhd``/``tree`` for small
-payloads.  Neither the autotuner (ROADMAP.md, Queue 1 item 6) nor those
-schedules are ported, so here selection is the deterministic pin and the
-bandwidth tier.
+payloads.  The autotuner is not ported (ROADMAP.md, Queue 1 item 7) and
+no latency crossover is measured, so here selection is the deterministic
+pin and the bandwidth tier.  The port has no algorithm scope: an
+algorithm is named per call, explicitly, so a request that cannot serve
+the call raises (the JAX package's rule for explicit requests).
 """
 
 from __future__ import annotations
@@ -26,22 +28,26 @@ __all__ = [
 ]
 
 
-def resolve_request(requested, *, nranks: int = 1) -> Optional[str]:
-    """Resolve an ``algorithm=`` request to a concrete name, or ``None``
-    for selector-driven choice (``None``/``False``/``"auto"``).  Unknown
-    or unported names raise, and so does an algorithm that cannot serve
-    this world (:class:`CommError`)."""
+def resolve_request(requested, *, collective: str = "allreduce",
+                    nranks: int = 1) -> Optional[str]:
+    """Resolve an ``algorithm=`` request for ``collective``
+    (``"allreduce"``, ``"reduce"`` or ``"bcast"``) to a concrete name, or
+    ``None`` for selector-driven choice (``None``/``False``/``"auto"``).
+    Unknown names raise ``ValueError``, synthesized ones
+    ``NotImplementedError``, and an algorithm that cannot serve this
+    collective on this world :class:`CommError`."""
     if requested is None or requested is False or requested == "auto":
         return None
     spec = get_algorithm(requested)
-    reason = spec.why_not(nranks)
+    reason = spec.why_not(nranks, collective)
     if reason is not None:
         raise CommError(reason)
     return spec.name
 
 
 def resolve_hier_group(nranks: int) -> int:
-    """The intra-group size of the 2-level split of an ``nranks`` world:
+    """The intra-group size of the 2-level split of an ``nranks`` world
+    (the ``hier`` and ``torus`` schedules):
     ``config.hier_group_size()`` when set (validated against this world),
     else the divisor closest to the square root.  Raises
     :class:`CommError` when no valid split exists; an auto pick catches
@@ -57,9 +63,9 @@ def resolve_hier_group(nranks: int) -> int:
     g = best_group(nranks)
     if g is None:
         raise CommError(
-            f"the 'torus' schedule needs a 2-level group factorization "
-            f"of the world size; {nranks} has no nontrivial divisor — "
-            "use 'ring' or 'bidir'")
+            f"the 'hier' and 'torus' schedules need a 2-level group "
+            f"factorization of the world size; {nranks} has no nontrivial "
+            "divisor — use 'tree', 'ring' or 'bidir'")
     return g
 
 

@@ -218,7 +218,7 @@ def test_bitwise_op_on_floats_raises_on_every_rank(numel):
 
 
 @pytest.mark.parametrize("kw", [{"compression": "bf16"},
-                                {"algorithm": "rhd"}])
+                                {"algorithm": "synth:deadbeef00"}])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         P.COMM_WORLD.Allreduce(torch.ones(3), P.MPI_SUM, **kw)

@@ -280,12 +280,11 @@ def _ring_only_q8():
 
 def test_explicit_codec_with_explicit_non_ring_algorithm_raises():
     # The JAX facade's reconcile rule: q8 does not ride tree.  The port
-    # does not run tree at all, and holds the same rule for a codec that
-    # rides ring only.
+    # holds the same rule, and for a codec that rides ring only.
     with pytest.raises(ValueError, match="ring"):
         mpi.COMM_WORLD.Allreduce(jnp.ones(4), mpi.MPI_SUM, compression="q8",
                                  algorithm="tree")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="ring"):
         P.COMM_WORLD.Allreduce(torch.ones(4), P.MPI_SUM, compression="q8",
                                algorithm="tree")
     with pytest.raises(ValueError, match="ring"):
@@ -296,15 +295,19 @@ def test_explicit_codec_with_explicit_non_ring_algorithm_raises():
 
 def test_scope_codec_yields_to_explicit_exact_algorithm():
     # A scope codec that does not ride an explicit algorithm yields to the
-    # exact wire, which the port runs on ring only; tree is not ported.
-    with pconfig.compression_scope(_ring_only_q8()):
-        with pytest.raises(NotImplementedError, match="exact wire"):
-            P.COMM_WORLD.Allreduce(torch.ones(4), P.MPI_SUM,
-                                   algorithm="bidir")
-    with pconfig.compression_scope("q8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            P.COMM_WORLD.Allreduce(torch.ones(4), P.MPI_SUM,
-                                   algorithm="tree")
+    # exact wire in that algorithm's association.
+    xs = _inputs(3, numel=40, seed=6)
+
+    def fn(r, scope, algorithm):
+        x = torch.from_numpy(xs[r])
+        with pconfig.compression_scope(scope):
+            got = P.COMM_WORLD.Allreduce(x, P.MPI_SUM, algorithm=algorithm)
+        return got, P.COMM_WORLD.Allreduce(x, P.MPI_SUM, compression=False,
+                                           algorithm=algorithm)
+
+    for scope, algorithm in ((_ring_only_q8(), "bidir"), ("q8", "tree")):
+        got, exact = _on_world(3, lambda r: fn(r, scope, algorithm))[0]
+        assert torch.equal(got, exact)
 
 
 def test_default_algorithm_is_ring_and_bidir_past_bandwidth_crossover():
@@ -428,7 +431,8 @@ def test_knob_validation():
             pconfig.set_bandwidth_crossover_bytes(bad)
     assert pconfig.bandwidth_crossover_bytes() is None
     for name in ("rhd", "tree", "hier"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ptune.get_algorithm(name)
+        assert ptune.get_algorithm(name).name == name
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ptune.get_algorithm("synth:deadbeef00")
     with pytest.raises(ValueError, match="unknown collective algorithm"):
         ptune.get_algorithm("nope")

@@ -15,7 +15,7 @@ from mpi4torch_tpu_torch import serve
 from mpi4torch_tpu_torch.models import transformer as T
 from mpi4torch_tpu_torch.ops import _kernels
 from mpi4torch_tpu_torch.ops import flash
-from mpi4torch_tpu_torch.utils.tree import tree_leaves
+from mpi4torch_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
 @pytest.fixture
@@ -331,8 +331,10 @@ def test_backward_kernels_refuse_what_they_do_not_take(cuda):
         _kernels.flash_bwd_dkv(q, q, q, q, lse, lse[:, :4], 0, 0, True)
     with pytest.raises(ValueError, match="do"):
         _kernels.flash_bwd_dq(q, q, q, q[:, :4], lse, lse, 0, 0, True)
-    bad = torch.zeros((1, 8, 2, 12), device=cuda)
-    with pytest.raises(ValueError, match="multiple of 8"):
+    # Head dims up to 512 run (a dim off the multiples of 8 zero-padded);
+    # wider ones raise.
+    bad = torch.zeros((1, 8, 2, 520), device=cuda)
+    with pytest.raises(ValueError, match=r"head_dim must be in \[1, 512\]"):
         _kernels.flash_bwd_dkv(bad, bad, bad, bad, lse, lse, 0, 0, True)
 
 
@@ -367,12 +369,16 @@ def test_dp2_training_step_on_rank_threads(cuda):
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros((1, 8, 2, 12), device=cuda)
-    with pytest.raises(ValueError, match="multiple of 8"):
+    # float64 has no kernel: the refusal names the dtype and ROADMAP.md,
+    # and nothing falls back to the plain version.
+    _kernels.reset_launch_counts()
+    q = torch.zeros((1, 8, 2, 16), device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float64.*ROADMAP.md"):
         flash.flash_block_attention(q, q, q, impl="auto")
-    q = torch.zeros((1, 8, 2, 16), device=cuda, dtype=torch.float16)
-    with pytest.raises(ValueError, match="float32 or"):
+    q = torch.zeros((1, 8, 2, 520), device=cuda)
+    with pytest.raises(ValueError, match="head_dim must be in"):
         flash.flash_block_attention(q, q, q, impl="auto")
+    assert all(c == 0 for c in _kernels.launch_counts.values())
 
 
 @pytest.mark.cuda
@@ -560,3 +566,228 @@ def test_compressed_allreduce_on_the_kernel_equals_plain(cuda, codec, n,
     for (y, g), (yw, gw) in zip(got, want):
         assert torch.equal(y, got[0][0]) and torch.equal(g, got[0][1])
         assert _bits_differ(y, yw) == 0 and _bits_differ(g, gw) == 0
+
+
+# ---------------------------------------------------------------------------
+# The attention kernels take every shape and dtype the JAX package serves:
+# head dims off the multiples of 8 (zero-padded) and up to 512, more than
+# 65535 batch x heads, float16 (run in float32).  Nothing falls back to the
+# plain version: each case launches its variant's kernels once.
+
+def _ulp_bound(ref, mantissa_bits, floor):
+    """One ulp of the plain value in a type with ``mantissa_bits``, or
+    ``floor`` where that is larger: kernel and plain round once from f32
+    sums that differ in the last f32 bits, so an element may land one ulp
+    of its type apart."""
+    ulp = torch.pow(2.0, torch.floor(torch.log2(
+        ref.float().abs().clamp_min(2.0 ** -126))) - mantissa_bits)
+    return torch.clamp_min(ulp, floor)
+
+
+# (name, dtype, b, sq, sk, h, h_kv, d, variant)
+REPAIR_CASES = [
+    ("d12_f32", torch.float32, 1, 70, 70, 4, 2, 12, "simt"),
+    ("d12_bf16", torch.bfloat16, 1, 70, 70, 4, 2, 12, "tc"),
+    ("d4_f32", torch.float32, 2, 33, 40, 2, 2, 4, "simt"),
+    ("d264_f32", torch.float32, 1, 100, 100, 2, 1, 264, "simt"),
+    ("d264_bf16", torch.bfloat16, 1, 100, 100, 2, 1, 264, "simt"),
+    ("d260_f32", torch.float32, 1, 40, 40, 2, 2, 260, "simt"),
+    ("d512_f32", torch.float32, 1, 50, 50, 2, 2, 512, "simt"),
+    ("f16", torch.float16, 1, 90, 90, 4, 4, 64, "simt"),
+    ("f16_d12", torch.float16, 1, 40, 40, 2, 2, 12, "simt"),
+    ("bh_65540_f32", torch.float32, 16385, 8, 8, 4, 4, 8, "simt"),
+    ("bh_65540_bf16", torch.bfloat16, 16385, 8, 8, 4, 4, 8, "tc"),
+]
+
+
+def _out_bound(ref, dtype):
+    if dtype == torch.bfloat16:
+        return bf16_out_bound(ref)
+    if dtype == torch.float16:
+        return _ulp_bound(ref, 10, 2e-5)
+    return torch.full_like(ref.float(), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", REPAIR_CASES, ids=[c[0] for c in
+                                                    REPAIR_CASES])
+def test_repaired_shapes_and_dtypes_run_on_the_kernels(cuda, case):
+    name, dtype, b, sq, sk, h, h_kv, d, variant = case
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda, dtype=dtype)
+    k, v = (torch.randn((b, sk, h_kv, d), generator=g, device=cuda,
+                        dtype=dtype) for _ in range(2))
+    wo = torch.randn(q.shape, generator=g, device=cuda, dtype=dtype)
+    kw = dict(causal=True, q_offset=sk - sq, kv_offset=0, window=0)
+    assert _kernels.fwd_variant(dtype, d) == variant
+    x = [t.detach().requires_grad_() for t in (q, k, v)]
+    _kernels.reset_launch_counts()
+    o, l = flash.flash_block_attention(*x, impl="cuda", **kw)
+    got = torch.autograd.grad((o.float() * wo.float()).sum(), x)
+    for kname in _kernels.ATTENTION_KERNELS:
+        assert _kernels.launch_counts[kname] == 1, kname
+        assert _kernels.launch_counts[f"{kname}.{variant}"] == 1, kname
+    y = [t.detach().requires_grad_() for t in (q, k, v)]
+    po, pl = flash.flash_block_attention(*y, impl="torch", **kw)
+    want = torch.autograd.grad((po.float() * wo.float()).sum(), y)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == q.shape and l.dtype == torch.float32
+    assert bool(((o.float() - po.float()).abs()
+                 <= _out_bound(po, dtype)).all()), name
+    assert (l - pl.float()).abs().max().item() <= 1e-4, name
+    for a, r in zip(got, want):
+        assert a.dtype == r.dtype == dtype and a.shape == r.shape
+        a, r = a.float(), r.float()
+        if dtype == torch.bfloat16:
+            assert (a - r).abs().max().item() <= 2e-2 * r.abs().max().item()
+        else:
+            assert bool(((a - r).abs() <= 1e-4 + 1e-3 * r.abs()).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_model, n_heads", [(48, 4), (528, 2)],
+                         ids=["head_dim_12", "head_dim_264"])
+def test_transformer_with_off_grid_head_dims_trains_on_the_kernels(
+        cuda, d_model, n_heads):
+    cfg = T.TransformerConfig(vocab=97, d_model=d_model, n_heads=n_heads,
+                              n_layers=2, d_ff=2 * d_model, max_seq=64)
+    # The generators of the two devices draw different numbers: initialise
+    # on the CPU and copy to the card.
+    host = T.init_transformer(0, cfg, torch.float32, device="cpu")
+    params = tree_map(lambda t: t.to(cuda), host)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 64))).to(cuda)
+    _kernels.reset_launch_counts()
+    loss, new = T.train_step(cfg, params, tokens, lr=1e-2)
+    for kname in _kernels.ATTENTION_KERNELS:
+        assert _kernels.launch_counts[f"{kname}.simt"] == cfg.n_layers
+    loss_c, new_c = T.train_step(cfg, host, tokens.cpu(), lr=1e-2)
+    assert abs(loss.item() - loss_c.item()) <= 1e-5 * abs(loss_c.item())
+    for a, b in zip(tree_leaves(new), tree_leaves(new_c)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The op table on the card: every collective of COMM_WORLD, the exact
+# Allreduce on every algorithm, ring_shift and halo_exchange, value and
+# gradient of vdot(out, w_r) on four rank threads, bitwise equal to the
+# same program on the CPU (the folds are elementwise adds in one fixed
+# association, and the gradients are moves and such adds too).
+
+def _tri(n):
+    return n * (n + 1) // 2
+
+
+def _card_ops():
+    from mpi4torch_tpu_torch import MPI_SUM as SUM
+    from mpi4torch_tpu_torch.parallel.ring import halo_exchange, ring_shift
+
+    ops = {
+        "bcast_ring": (lambda c, t, r: c.Bcast_(t, 1), lambda r, n: (40,),
+                       lambda r, n: (40,)),
+        "bcast_tree": (lambda c, t, r: c.Bcast_(t, 1, algorithm="tree"),
+                       lambda r, n: (40,), lambda r, n: (40,)),
+        "reduce_ring": (lambda c, t, r: c.Reduce_(t, SUM, 1),
+                        lambda r, n: (40,), lambda r, n: (40,)),
+        "reduce_tree": (lambda c, t, r: c.Reduce_(t, SUM, 1, algorithm="tree"),
+                        lambda r, n: (40,), lambda r, n: (40,)),
+        "gather": (lambda c, t, r: c.Gather(t, 0, 2), lambda r, n: (r + 3, 5),
+                   lambda r, n: (_tri(n) + 2 * n, 5)),
+        "scatter": (lambda c, t, r: c.Scatter(t, 0, r + 1, 2),
+                    lambda r, n: (_tri(n), 5) if r == 2 else (1,),
+                    lambda r, n: (r + 1, 5)),
+        "allgather": (lambda c, t, r: c.Allgather(t, 1),
+                      lambda r, n: (3, r + 1), lambda r, n: (3, _tri(n))),
+        "reduce_scatter": (lambda c, t, r: c.Reduce_scatter(t, SUM, 0),
+                           lambda r, n: (4 * n, 3), lambda r, n: (4, 3)),
+        "alltoall": (lambda c, t, r: c.Alltoall(t, 0, 1, r + 1),
+                     lambda r, n: (r + 1, _tri(n)),
+                     lambda r, n: (_tri(n), r + 1)),
+        "ring_shift": (lambda c, t, r: ring_shift(c, t, 1),
+                       lambda r, n: (33,), lambda r, n: (33,)),
+        "halo_exchange": (lambda c, t, r: halo_exchange(c, t, 1, axis=0),
+                          lambda r, n: (6, 7), lambda r, n: (8, 7)),
+    }
+    for algo in ("ring", "rhd", "tree", "hier", "bidir", "torus"):
+        ops[f"allreduce_{algo}"] = (
+            lambda c, t, r, a=algo: c.Allreduce(t, SUM, algorithm=a),
+            lambda r, n: (1001,), lambda r, n: (1001,))
+    return ops
+
+
+CARD_RANKS = 4
+
+
+def _card_inputs(ops):
+    rng = np.random.default_rng(21)
+    return {name: ([rng.standard_normal(i(r, CARD_RANKS)).astype(np.float32)
+                    for r in range(CARD_RANKS)],
+                   [rng.standard_normal(o(r, CARD_RANKS)).astype(np.float32)
+                    for r in range(CARD_RANKS)])
+            for name, (_, i, o) in ops.items()}
+
+
+def _run_card_ops(device, ops, inputs):
+    """Per rank, per op: (value, gradient), left on ``device``."""
+    import mpi4torch_tpu_torch as P
+
+    def body(r):
+        out = {}
+        for name, (op, _, _) in ops.items():
+            xs, ws = inputs[name]
+            t = torch.from_numpy(xs[r]).to(device).requires_grad_()
+            w = torch.from_numpy(ws[r]).to(device)
+            y = op(P.COMM_WORLD, t, r)
+            (g,) = torch.autograd.grad(torch.vdot(y.reshape(-1),
+                                                  w.reshape(-1)), t)
+            out[name] = (y.detach(), g)
+        return out
+
+    return P.run_ranks(body, CARD_RANKS, timeout=60.0, device=device)
+
+
+@pytest.mark.cuda
+def test_op_table_on_the_card_is_bitwise_the_cpu_run(cuda):
+    ops = _card_ops()
+    inputs = _card_inputs(ops)
+    got = _run_card_ops(cuda, ops, inputs)
+    want = _run_card_ops(torch.device("cpu"), ops, inputs)
+    for name in ops:
+        for r in range(CARD_RANKS):
+            for a, b in zip(got[r][name], want[r][name]):
+                assert a.is_cuda and torch.equal(a.cpu(), b), (name, r)
+        # Each rank's value is its own buffer (Reduce_'s non-root zeros
+        # and Gather's included).
+        ptrs = [got[r][name][0].data_ptr() for r in range(CARD_RANKS)]
+        assert len(set(ptrs)) == CARD_RANKS, name
+
+
+@pytest.mark.cuda
+def test_op_table_never_waits_for_the_device(cuda):
+    ops = _card_ops()
+    inputs = {name: ([torch.from_numpy(x).to(cuda) for x in xs],
+                     [torch.from_numpy(w).to(cuda) for w in ws])
+              for name, (xs, ws) in _card_inputs(ops).items()}
+    import mpi4torch_tpu_torch as P
+
+    def body(r):
+        out = []
+        for name, (op, _, _) in ops.items():
+            xs, ws = inputs[name]
+            t = xs[r].detach().requires_grad_()
+            y = op(P.COMM_WORLD, t, r)
+            (g,) = torch.autograd.grad(torch.vdot(y.reshape(-1),
+                                                  ws[r].reshape(-1)), t)
+            out.append((name, y.detach(), g))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = P.run_ranks(body, CARD_RANKS, timeout=60.0, device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert [n for n, _, _ in res[0]] == list(ops)
+    assert all(bool(torch.isfinite(t).all()) for rr in res
+               for _, y, g in rr for t in (y, g))

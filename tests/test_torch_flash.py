@@ -269,3 +269,46 @@ def test_forward_variant_by_name_is_checked_against_the_operands():
                     "tc")
     with pytest.raises(ValueError, match="unknown variant"):
         resolve("flash_fwd", torch.zeros((1, 8, 2, 64), dtype=bf), "wgmma")
+
+
+@pytest.mark.parametrize("d, want", [(1, 8), (4, 8), (8, 8), (12, 16),
+                                     (128, 128), (260, 264), (264, 264),
+                                     (512, 512)])
+def test_padded_head_dim_is_the_next_multiple_of_8(d, want):
+    assert _kernels.padded_head_dim(d) == want
+
+
+def test_kernel_operands_pad_and_cast_and_results_come_back():
+    x16 = torch.randn(2, 3, 4, 12).to(torch.float16)
+    xb = torch.randn(2, 3, 4, 16).to(torch.bfloat16)
+    pad, same = _kernels._kernel_operands((x16, xb))
+    # float16 runs in float32, zero-padded to 16 columns; an operand that
+    # needs neither comes back as the very same tensor.
+    assert pad.dtype == torch.float32 and pad.shape == (2, 3, 4, 16)
+    assert torch.equal(pad[..., :12], x16.float())
+    assert torch.all(pad[..., 12:] == 0)
+    assert same is xb
+    back = _kernels._caller_result(pad, 12, torch.float16)
+    assert back.dtype == torch.float16 and back.shape == x16.shape
+    assert back.is_contiguous() and torch.equal(back, x16)
+    assert _kernels._caller_result(xb, 16, torch.bfloat16) is xb
+
+
+@pytest.mark.parametrize("d", [4, 12, 260])
+def test_zero_padded_head_dim_gives_the_true_attention(d):
+    # What the launchers do for a head dim that is not a multiple of 8:
+    # the kernel sees zero-padded operands and scales by 1 / sqrt(d) of
+    # the true d.  The plain version at the padded width, with q rescaled
+    # to that scale and the result sliced back, equals the JAX package's
+    # attention at the true width.
+    q, k, v = _qkv(2, 9, 11, 4, 2, d, seed=d)
+    kw = dict(causal=True, q_offset=2, kv_offset=0, window=0)
+    ro, rl = jflash.flash_block_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), impl="jnp", **kw)
+    qp, kp, vp = _kernels._kernel_operands(_torch(q, k, v))
+    dp = _kernels.padded_head_dim(d)
+    assert qp.shape[-1] == dp and torch.all(qp[..., d:] == 0)
+    o, l = pflash.flash_block_attention(qp * (dp / d) ** 0.5, kp, vp, **kw)
+    o = _kernels._caller_result(o, d, torch.float64)
+    np.testing.assert_allclose(o.numpy(), np.asarray(ro), atol=1e-12, rtol=0)
+    np.testing.assert_allclose(l.numpy(), np.asarray(rl), atol=1e-12, rtol=0)

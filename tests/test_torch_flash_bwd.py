@@ -247,3 +247,28 @@ def test_per_row_offsets_stay_on_the_plain_forward():
 def test_bwd_tiling_constants_match_jax():
     assert pflash._BWD_TILE_ABOVE == jflash._BWD_TILE_ABOVE
     assert pflash._KV_TILE == jflash._KV_TILE
+
+
+@pytest.mark.parametrize("d", [4, 12, 260])
+def test_zero_padded_head_dim_gives_the_true_gradients(d):
+    # The launchers' padding, backward: gradients taken through the
+    # zero-padded operands (q rescaled to the true width's softmax scale,
+    # as the kernels scale by 1 / sqrt(d) of the true d) and sliced back
+    # equal the JAX package's gradients at the true width.
+    q, k, v, wo, wl = _inputs(1, 7, 9, 2, 1, d, seed=d)
+    kw = dict(causal=True, q_offset=2, kv_offset=0, window=0)
+    want = _jax_grads(q, k, v, wo, wl, impl="jnp", **kw)
+    dp = _kernels.padded_head_dim(d)
+    x = [t.requires_grad_() for t in _kernels._kernel_operands(
+        [torch.from_numpy(a) for a in (q, k, v)])]
+    o, l = pflash.flash_block_attention(x[0] * (dp / d) ** 0.5, x[1], x[2],
+                                        **kw)
+    o = _kernels._caller_result(o, d, torch.float64)
+    r = (o * torch.from_numpy(wo)).sum() + (
+        torch.where(l > -1e29, l, 0.0) * torch.from_numpy(wl)).sum()
+    got = torch.autograd.grad(r, x)
+    for name, a, w in zip("qkv", got, want):
+        assert a.shape[-1] == dp and torch.all(a[..., d:] == 0), name
+        a = _kernels._caller_result(a, d, torch.float64)
+        np.testing.assert_allclose(a.numpy(), w, atol=1e-12, rtol=0,
+                                   err_msg=name)

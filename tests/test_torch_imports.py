@@ -37,7 +37,11 @@ def test_port_has_modules():
                 "utils/profiling.py", "utils/tree.py", "utils/threefry.py",
                 "ops/quant_kernels.py", "compress/__init__.py",
                 "compress/codecs.py", "compress/eager.py", "compress/ef.py",
-                "tune/__init__.py", "tune/registry.py"):
+                "tune/__init__.py", "tune/registry.py", "parallel/ring.py",
+                "utils/lbfgs.py", "examples/__init__.py",
+                "examples/simple_linear_regression.py",
+                "examples/isend_recv_wait.py",
+                "examples/halo_exchange_stencil.py"):
         assert f"mpi4torch_tpu_torch/{rel}" in names
     for src in ("flash_fwd.cu", "flash_fwd_tc.cu", "flash_bwd.cu",
                 "flash_bwd_tc.cu", "quant_hop.cu"):

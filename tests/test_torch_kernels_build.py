@@ -132,13 +132,15 @@ def test_parameter_parser_reads_each_kind():
     src = CSRC / "flash_bwd_tc.cu"
     kinds = _extern_c_functions(src)["mpi4torch_flash_bwd_tc_dq"]
     assert kinds == ["pointer"] * 7 + ["int"] * 6 + ["pointer"] \
-        + ["int"] * 4 + ["pointer"]
+        + ["int"] * 5 + ["pointer"]
     assert _extern_c_functions(CSRC / "quant_hop.cu")[
         "mpi4torch_quant_hop"][7] == "long long"
     fwd = _extern_c_functions(CSRC / "flash_fwd_tc.cu")
     assert fwd["mpi4torch_flash_fwd_tc"] == ["pointer"] * 5 + ["int"] * 6 \
-        + ["pointer"] + ["int"] * 4 + ["pointer"]
+        + ["pointer"] + ["int"] * 5 + ["pointer"]
     assert fwd["mpi4torch_flash_fwd_tc_props"] == ["int", "pointer"]
+    simt = _extern_c_functions(CSRC / "flash_bwd.cu")
+    assert simt["mpi4torch_flash_bwd_props"] == ["int"] * 3 + ["pointer"]
 
 
 def test_a_failed_source_raises_after_every_compiler_ends(fake_toolkit):

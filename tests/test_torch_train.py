@@ -256,7 +256,7 @@ def test_params_to_numpy_round_trips():
 @pytest.mark.parametrize("kw, err", [
     ({"overlap": True}, NotImplementedError),
     ({"compression": "q8"}, NotImplementedError),
-    ({"algorithm": "rhd"}, NotImplementedError),
+    ({"algorithm": "synth:deadbeef00"}, NotImplementedError),
     ({"bucket_bytes": -1}, ValueError),
 ])
 def test_allreduce_tree_unported_options_raise(kw, err):
