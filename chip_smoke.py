@@ -118,8 +118,34 @@ check fails.  Phases, in order:
     idle share, peak memory;
 17. BASELINE configs 1 and 3 at their own sizes: the linear regression
     under L-BFGS and the Isend/Irecv/Wait ring, with their own checks;
-18. one JSON line describing each ported kernel (K2, K3 and K4 with
-    the variant the main path ran).
+18. fused exact DP=2 training: ``train_step`` (``all_average_tree``) with
+    the default 4 MiB buckets, per leaf (``fusion_scope(0)``) and through
+    the Isend/Irecv pipeline (``overlap_scope(True)``): parameters
+    bitwise equal to the per-leaf run, ranks identical, every attention
+    launch ``tc``; bucket count, rendezvous per step, step ms and idle
+    share;
+19. fused compressed DP=2: ``comm.Allreduce_tree(grads, MPI_SUM,
+    mean=True, compression="q8", bucket_bytes=B)`` at 4 MiB and at one
+    bucket per dtype: the same step on the plain hop bitwise, ranks
+    identical, each bucket within phase 13's q8 ring bound, two
+    ``q8_hop`` launches per bucket; step ms and idle share beside phase
+    14's per-leaf and exact steps; K1 at the largest bucket chunk of each
+    against its bound;
+20. ZeRO-1 (``zero_train_step``) and ZeRO-3 (``zero3_train_step``) with
+    the port's ``adam`` on DP=2, two steps each: parameters bitwise equal
+    to replicated-DP Adam, ranks identical, half the optimizer state (and
+    for ZeRO-3 half the parameters) per rank, every attention launch
+    ``tc``; step ms, idle share, peak memory;
+21. the packed (``numelem`` tuples on Gather/Allgather/Scatter/Alltoall)
+    and ragged collectives at phase 15's size and uneven counts, padding
+    poisoned with NaN: value and gradient bitwise equal to the plain
+    recomputation and the closed-form adjoint, every padding slot's
+    gradient zero; wall ms, device ms, idle share per op;
+22. TP=2 serving with ``ServeConfig(overlap=True)`` and with
+    ``algorithm="rhd"``: phase 5's requests, tokens identical to phase
+    5's blocking engine; decode tokens/s beside phase 5's;
+23. one JSON line describing each ported kernel (K2, K3 and K4 with
+    the variant the main path ran; the launches of phases 18–20).
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 TF32 is switched off for matmuls and cuDNN here, so float32 work on the
@@ -337,6 +363,8 @@ A2A_SIDE = 4096
 # with history 10 for 20 iterations.
 STENCIL_N, STENCIL_RANKS, STENCIL_ITERS, STENCIL_HISTORY = 8192, 4, 20, 10
 STENCIL_REL = 1e-5
+# ZeRO-1 and ZeRO-3 against replicated-DP Adam: steps and learning rate.
+ZERO_STEPS, ADAM_LR = 2, 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -600,7 +628,13 @@ def profile_top(fn, label, n_top=6):
     return wall_ms, busy_ms, ev
 
 
-def serve_tp2(P, T, serve, kv, kernels, cfg, params, prompts):
+def serve_tp2(P, T, serve, kv, kernels, cfg, params, prompts, **scfg):
+    """Phase 5's two-rank run (a prefill, then TP2_REQUESTS requests
+    through serve.Engine with ServeConfig options ``scfg``).  Returns each
+    rank's (first prefill's logits, token streams), the flash_fwd launch
+    counts (all, tc), the run's ms and rank 0's decode tokens per second
+    over its decode-only steps (steps that admitted no request), as phase
+    6 counts them."""
     def rank_body():
         with torch.inference_mode():
             shards = kv.shard_params_tp(cfg, params, P.COMM_WORLD)
@@ -610,18 +644,28 @@ def serve_tp2(P, T, serve, kv, kernels, cfg, params, prompts):
             logits, _ = kv.prefill_tp(cfg, shards, cache, p0, P.COMM_WORLD)
             eng = serve.Engine(cfg, params,
                                serve.ServeConfig(slots=SLOTS,
-                                                 max_new=TP2_MAX_NEW),
+                                                 max_new=TP2_MAX_NEW,
+                                                 **scfg),
                                device="cuda")
             for p in prompts[:TP2_REQUESTS]:
                 eng.submit(p)
-            res = eng.run()
+            decode_s, decode_tok = 0.0, 0
+            while eng.pending():
+                t0 = time.perf_counter()
+                ev = eng.step()       # ends in a host read of the tokens
+                if not ev["admitted"]:
+                    decode_s += time.perf_counter() - t0
+                    decode_tok += len(ev["emitted"])
+            res = eng.results()
             return logits[0].float().cpu(), \
-                [res[i].tolist() for i in range(TP2_REQUESTS)]
+                [res[i].tolist() for i in range(TP2_REQUESTS)], \
+                decode_tok / decode_s
 
     kernels.reset_launch_counts()
     ms, out = sync_ms(lambda: P.run_ranks(rank_body, 2, device="cuda"))
-    return out, (kernels.launch_counts["flash_fwd"],
-                 kernels.launch_counts["flash_fwd.tc"]), ms
+    return [o[:2] for o in out], (kernels.launch_counts["flash_fwd"],
+                                  kernels.launch_counts["flash_fwd.tc"]), \
+        ms, out[0][2]
 
 
 def bound(flops, nbytes, dtype):
@@ -1523,15 +1567,15 @@ def op_value_and_grad(P, op, xs, ws):
     return P.run_ranks(body, OP_RANKS, device="cuda")
 
 
-def op_table_phase(P, C, ring, tune):
-    """Every op of the table on four rank threads at the bench size:
-    value and gradient bitwise equal to the plain recomputation and the
-    closed-form adjoint, a buffer of its own on every rank; fwd+bwd wall
-    and device ms, bytes, share of the copy bound, peak memory.  Returns
-    per op (wall ms, device ms, bound ms, peak GiB)."""
+def run_table(P, table):
+    """Every op of ``table`` on four rank threads: value and gradient
+    bitwise equal to the plain recomputation and the closed-form adjoint,
+    a buffer of its own on every rank, and (for an op with padding views)
+    every padding slot's gradient exactly zero; fwd+bwd wall and device
+    ms, bytes, share of the copy bound, peak memory.  Returns per op
+    (wall ms, device ms, bound ms, peak GiB, idle share)."""
     res = {}
-    for name, (op, make_x, make_w, fwd, adj) in op_table(P, C, ring,
-                                                          tune).items():
+    for name, (op, make_x, make_w, fwd, adj, *padding) in table.items():
         xs, ws = make_x(0), make_w(0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1546,6 +1590,10 @@ def op_table_phase(P, C, ring, tune):
                  if not (got[r][1].shape == want_g[r].shape
                          and torch.equal(got[r][1], want_g[r]))]
         own = len({y.data_ptr() for y, _ in got}) == OP_RANKS
+        pad = padding[0] if padding else None
+        bad_pad = [] if pad is None else [
+            r for r in range(OP_RANKS)
+            if any(not bool((v == 0).all()) for v in pad(got[r][1], r))]
         nbytes = 4 * sum(xs[r].numel() + got[r][0].numel() + ws[r].numel()
                          + got[r][1].numel() for r in range(OP_RANKS))
         del got, want_y, want_g
@@ -1554,17 +1602,21 @@ def op_table_phase(P, C, ring, tune):
         prof_wall, busy_ms, _ = device_busy_ms(
             lambda: op_value_and_grad(P, op, xs, ws))
         bound_ms = nbytes / PEAK_BYTES_S * 1e3
-        ok = not bad_y and not bad_g and own
-        print(f"  {name:24s} fwd+bwd {wall_ms:8.2f} ms wall, device "
+        ok = not bad_y and not bad_g and own and not bad_pad
+        idle = 100 - 100 * busy_ms / prof_wall
+        print(f"  {name:26s} fwd+bwd {wall_ms:8.2f} ms wall, device "
               f"{busy_ms:7.3f} ms (idle {100 - 100 * busy_ms / prof_wall:.0f}%"
               f" of {prof_wall:.2f} ms profiled); {nbytes / 1e9:.3f} GB, copy "
               f"bound {bound_ms:.3f} ms = {100 * bound_ms / busy_ms:.1f}% of "
               f"device; peak +{peak:.2f} GiB; value bitwise "
-              f"{not bad_y}, grad bitwise {not bad_g}, own buffers {own}  "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+              f"{not bad_y}, grad bitwise {not bad_g}, own buffers {own}"
+              + ("" if pad is None else
+                 f", padding gradient zero {not bad_pad}")
+              + f"  {'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"op {name}: ranks {bad_y} value / {bad_g} gradient differ "
-              "from the plain recomputation, or ranks share an output")
-        res[name] = (wall_ms, busy_ms, bound_ms, peak)
+              "from the plain recomputation, ranks share an output, or "
+              f"ranks {bad_pad} have a padding gradient that is not zero")
+        res[name] = (wall_ms, busy_ms, bound_ms, peak, idle)
         del xs, ws
         torch.cuda.empty_cache()
     return res
@@ -1717,6 +1769,522 @@ def examples_phase(linreg, ringex):
     check(all(float(g[0]) == 2.0 for _, g in res), "ring gradients wrong")
 
 
+class ExchangeCounter:
+    """Counts rank 0's rendezvous (``World.exchange``) and point-to-point
+    sends (``World.p2p_send``) while it is entered: one count per
+    collective or message of the rank."""
+
+    def __init__(self):
+        from mpi4torch_tpu_torch import runtime
+
+        self._world = runtime.World
+        self.exchanges = self.sends = 0
+
+    def __enter__(self):
+        world, counter = self._world, self
+        self._saved = world.exchange, world.p2p_send
+
+        def exchange(w, rank, *a, **kw):
+            counter.exchanges += rank == 0
+            return counter._saved[0](w, rank, *a, **kw)
+
+        def p2p_send(w, src, *a, **kw):
+            counter.sends += src == 0
+            return counter._saved[1](w, src, *a, **kw)
+
+        world.exchange, world.p2p_send = exchange, p2p_send
+        return self
+
+    def __exit__(self, *exc):
+        self._world.exchange, self._world.p2p_send = self._saved
+        return False
+
+
+def attention_all_tc(kernels, launches):
+    return all(launches[k] == launches[f"{k}.tc"] > 0
+               for k in kernels.ATTENTION_KERNELS)
+
+
+def fused_dp2_phase(P, T, tree, fuse, kernels, config, cfg, params, tokens,
+                    dp_ms):
+    """The train_step recipe (all_average_tree) on two rank threads with
+    the default 4 MiB buckets, per leaf (fusion_scope(0)) and through the
+    overlap pipeline (overlap_scope(True)): parameters bitwise equal to
+    the per-leaf run, ranks identical, every attention launch tc; bucket
+    count, rendezvous per step, step ms and the device's idle share.
+    Returns the fused run's launch counts and numbers."""
+    rows = TRAIN_BATCH // 2
+    n_leaves = len(tree.tree_leaves(params))
+    n_buckets = fuse.bucket_layout(params,
+                                   config.DEFAULT_BUCKET_BYTES).num_buckets
+
+    def step(bucket_bytes, overlap):
+        def body(rank):
+            x = tokens[rank * rows:(rank + 1) * rows]
+            with config.fusion_scope(bucket_bytes), \
+                    config.overlap_scope(overlap):
+                return T.train_step(cfg, params, x, comm_dp=P.COMM_WORLD,
+                                    lr=LR)
+        return P.run_ranks(body, 2, device="cuda")
+
+    runs = {"per-leaf": (0, None),
+            "fused": (config.DEFAULT_BUCKET_BYTES, None),
+            "fused+overlap": (config.DEFAULT_BUCKET_BYTES, True)}
+    out, launches, counts = {}, {}, {}
+    for label, (bb, ov) in runs.items():
+        kernels.reset_launch_counts()
+        with ExchangeCounter() as cnt:
+            out[label] = step(bb, ov)
+        launches[label] = dict(kernels.launch_counts)
+        counts[label] = (cnt.exchanges, cnt.sends)
+    (l0, p0), (l1, p1) = out["per-leaf"]
+    results = {}
+    for label in runs:
+        (a0, q0), (a1, q1) = out[label]
+        same_ranks = torch.equal(a0, a1) and leaves_equal(tree, q0, q1)
+        same_leaf = torch.equal(a0, l0) and leaves_equal(tree, q0, p0)
+        tc = attention_all_tc(kernels, launches[label])
+        results[label] = same_ranks and same_leaf and tc
+        print(f"  {label:13s}: buckets "
+              f"{n_leaves if label == 'per-leaf' else n_buckets} for "
+              f"{n_leaves} leaves; rank 0 per step: {counts[label][0]} "
+              f"rendezvous, {counts[label][1]} p2p messages; ranks bitwise "
+              f"identical {same_ranks}; parameters bitwise equal to the "
+              f"per-leaf run {same_leaf}; attention all tc {tc}  "
+              f"{'ok' if results[label] else 'FAIL'}", flush=True)
+    del out, p0, p1, q0, q1
+    check(all(results.values()), "a fused DP=2 run differs from the "
+          "per-leaf run, the ranks disagree, or an attention launch was "
+          "not tc")
+    times = {label: [] for label in runs}
+    for label in list(runs) + list(reversed(list(runs))):
+        times[label].append(sync_ms(lambda: step(*runs[label]))[0])
+    idle = {}
+    for label in runs:
+        wall, busy, _ = profile_top(lambda: step(*runs[label]),
+                                    f"one DP=2 step, {label}", n_top=4)
+        idle[label] = 100 - 100 * busy / wall
+    print(f"  DP=2 step ms (two runs each, interleaved): "
+          + "; ".join(f"{k} {[round(x, 1) for x in v]}"
+                      for k, v in times.items())
+          + f" (phase 9's step {dp_ms:.1f} ms ran fused by default)")
+    return launches["fused"], {
+        "buckets": n_buckets, "leaves": n_leaves,
+        "rendezvous": {k: v[0] for k, v in counts.items()},
+        "p2p": {k: v[1] for k, v in counts.items()},
+        "ms": {k: min(v) for k, v in times.items()}, "idle_pct": idle}
+
+
+def bucket_q8_bounds(qk, fuse, g0, g1, s0_mean, s1_mean, bb):
+    """Per bucket of ``bb``, the compressed DP=2 sum (2 x the rank-mean
+    ``s0_mean``) against the exact bf16 sum of the two ranks' gradient
+    buckets: (norm-relative error, the rigorous q8 ring bound of phase
+    13 applied to the bucket), and whether rank 1's result is bitwise
+    rank 0's."""
+    b0, layout = fuse.flatten_buckets(g0, bb)
+    b1, _ = fuse.flatten_buckets(g1, bb)
+    y0, _ = fuse.flatten_buckets(s0_mean, bb)
+    y1, _ = fuse.flatten_buckets(s1_mean, bb)
+    errs, same = [], True
+    for x0, x1, r0, r1 in zip(b0, b1, y0, y1):
+        same = same and torch.equal(r0, r1)
+        ex = x0 + x1
+        sy = r0 * 2
+        s0 = torch.maximum(block_scales(qk, x0.float(), 2),
+                           block_scales(qk, x1.float(), 2))
+        amax = qk.chunk_blocks(ex, 2, 256)[0].reshape(-1, 256) \
+            .float().abs().amax(1)
+        s1 = qk.po2_scale(amax * (1 + BF16_U) + s0 / 2)
+        e_q = (256 * ((s0.double() + s1.double()) / 2).square().sum()) \
+            .sqrt()
+        e_ref = torch.linalg.vector_norm(ex.float(), dtype=torch.float64)
+        e_out = torch.linalg.vector_norm(sy.float(), dtype=torch.float64)
+        err = torch.linalg.vector_norm(sy.float() - ex.float(),
+                                       dtype=torch.float64)
+        if e_ref > 0:
+            errs.append(((err / e_ref).item(),
+                         ((e_q + BF16_U * (e_ref + e_out)) / e_ref).item()))
+        del ex, sy, s0, s1, amax
+    return errs, same, layout
+
+
+def fused_q8_phase(P, T, tree, fuse, qk, kernels, config, cfg, params,
+                   tokens):
+    """Compressed-gradient DP=2 through comm.Allreduce_tree(...,
+    compression="q8", mean=True) at 4 MiB buckets and at one bucket per
+    dtype: the hops on K1 bitwise equal to the plain hop, ranks
+    identical, each bucket within the q8 ring bound, two q8_hop launches
+    per bucket per step; step ms and idle share; K1 at the largest
+    bucket chunk against its bound."""
+    rows = TRAIN_BATCH // 2
+    grad_bytes = sum(t.numel() * t.element_size()
+                     for t in tree.tree_leaves(params))
+    sizes = {"4MiB": config.DEFAULT_BUCKET_BYTES, "one_bucket": grad_bytes}
+
+    def step(bb, keep=False):
+        def body(rank):
+            x = tokens[rank * rows:(rank + 1) * rows]
+            _, g = tree.value_and_grad(lambda q: T.lm_loss(cfg, q, x),
+                                       params)
+            synced = P.COMM_WORLD.Allreduce_tree(
+                g, P.MPI_SUM, mean=True, compression="q8", bucket_bytes=bb)
+            with torch.no_grad():
+                new = tree.tree_map(lambda p, s: p - LR * s, params, synced)
+            return (g, synced) if keep else new
+        return P.run_ranks(body, 2, device="cuda")
+
+    res = {}
+    for label, bb in sizes.items():
+        nbk = fuse.bucket_layout(params, bb).num_buckets
+        kernels.reset_launch_counts()
+        with ExchangeCounter() as cnt:
+            (g0, y0), (g1, y1) = step(bb, keep=True)
+        hops = kernels.launch_counts["q8_hop"]
+        launches = dict(kernels.launch_counts)
+        config.set_quant_hop_impl("torch")
+        try:
+            (_, w0), (_, w1) = step(bb, keep=True)
+        finally:
+            config.set_quant_hop_impl("auto")
+        mism = sum(bits_differ(a, b) for a, b in zip(
+            tree.tree_leaves((y0, y1)), tree.tree_leaves((w0, w1))))
+        max_err = max(max_abs_diff(a, b) for a, b in zip(
+            tree.tree_leaves((y0, y1)), tree.tree_leaves((w0, w1))))
+        del w0, w1
+        errs, same, layout = bucket_q8_bounds(qk, fuse, g0, g1, y0, y1, bb)
+        del g0, g1, y0, y1
+        torch.cuda.empty_cache()
+        tight = max(e / b for e, b in errs)
+        worst = max(errs, key=lambda e: e[0])
+        tc = attention_all_tc(kernels, launches)
+        ok = (mism == 0 and same and hops == 2 * nbk and tight <= 1.0
+              and tc)
+        big = max(layout.bucket_sizes)
+        print(f"  {label:10s} (bucket_bytes {bb}): {nbk} buckets "
+              f"(largest {big} elements); rank 0: {cnt.exchanges} "
+              f"rendezvous; q8_hop launches {hops} (expected 2 x {nbk}); "
+              f"K1 vs plain hop mismatched {mism}; ranks bitwise identical "
+              f"{same}; per-bucket error vs the exact sum: worst "
+              f"{worst[0]:.3e} (its bound {worst[1]:.3e}), largest error / "
+              f"bound {tight:.3f}; attention all tc {tc}  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"fused compressed DP=2 at {label} failed a check")
+        t = [sync_ms(lambda: step(bb))[0] for _ in range(2)]
+        wall, busy, _ = profile_top(lambda: step(bb),
+                                    f"one fused q8 DP=2 step, {label}",
+                                    n_top=6)
+        res[label] = {"buckets": nbk, "hops": hops,
+                      "rendezvous": cnt.exchanges, "ms": min(t),
+                      "runs_ms": t, "idle_pct": 100 - 100 * busy / wall,
+                      "largest_bucket": big, "max_abs_err": max_err,
+                      "launches": launches}
+        print(f"  {label}: step {[round(x, 1) for x in t]} ms", flush=True)
+    # K1 at the largest bucket chunk of the one-bucket step (and of the
+    # 4 MiB step, the embedding's own bucket): its time against its bound.
+    for label in sizes:
+        nb = qk.chunk_blocks(torch.empty(res[label]["largest_bucket"],
+                                         device="meta"), 2, 256)[1]
+        q, scale, mine, noise = hop_operands(nb, 256, seed=900)
+        c, err, _ = hop_compare(qk, (q, scale), mine, None, False)
+        check(sum(c) == 0, f"hop kernel disagrees at the {label} chunk")
+        k_ms = event_ms(lambda: qk.dequant_accum_requant(
+            q, scale, mine, impl="cuda"), iters=10, warmup=2)
+        p_ms = event_ms(lambda: qk.dequant_accum_requant(
+            q, scale, mine, impl="torch"), iters=3, warmup=1)
+        nbytes = hop_bytes(nb, 256, False, False)
+        b_ms, b_by = bound(12.0 * nb * 256, nbytes, torch.float32)
+        res[label]["k1"] = (nb, k_ms, p_ms, b_ms, b_by, err)
+        print(f"  q8_hop at the {label} largest chunk ({nb}, 256): kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}, {nbytes / 1e6:.1f} MB), "
+              f"{100 * b_ms / k_ms:.1f}% of bound", flush=True)
+        del q, scale, mine, noise
+        torch.cuda.empty_cache()
+    return res
+
+
+def state_bytes(tree, state):
+    """Bytes of every tensor of an optimizer state (Adam's mu and nu)."""
+    return sum(t.numel() * t.element_size()
+               for t in tree.tree_leaves((state.mu, state.nu)))
+
+
+def zero_phase(P, T, tree, kernels, cfg, params, tokens):
+    """ZeRO-1 (zero_train_step) and ZeRO-3 (zero3_train_step) with the
+    port's adam on two rank threads, two steps each, against
+    replicated-DP Adam on the card: parameters bitwise equal, ranks
+    identical, half the optimizer state (and for ZeRO-3 half the
+    parameters) per rank, every attention launch tc; step ms, idle share,
+    peak memory."""
+    from mpi4torch_tpu_torch.parallel import zero as Z
+    from mpi4torch_tpu_torch.utils import optim
+
+    rows = TRAIN_BATCH // 2
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree.tree_leaves(params))
+    step_ms = {}
+
+    def timed(label, rank, fn):
+        """Run one step, timing it on rank 0 between synchronisations."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        if rank == 0:
+            step_ms.setdefault(label, []).append(
+                (time.perf_counter() - t0) * 1e3)
+        return out
+
+    def replicated(rank, steps=ZERO_STEPS):
+        x = tokens[rank * rows:(rank + 1) * rows]
+        opt = optim.adam(ADAM_LR)
+        p, st = params, opt.init(params)
+        def step(p, st):
+            _, g = tree.value_and_grad(lambda q: T.lm_loss(cfg, q, x), p)
+            g = P.COMM_WORLD.Allreduce_tree(g, P.MPI_SUM, mean=True)
+            with torch.no_grad():
+                upd, st = opt.update(g, st, p)
+                return tree.tree_map(torch.add, p, upd), st
+
+        for _ in range(steps):
+            p, st = timed("replicated", rank, lambda: step(p, st))
+        return p, state_bytes(tree, st), param_bytes
+
+    def zero1(rank, steps=ZERO_STEPS):
+        x = tokens[rank * rows:(rank + 1) * rows]
+        opt = optim.adam(ADAM_LR)
+        p, st = params, Z.zero_init(P.COMM_WORLD, opt, params)
+        for _ in range(steps):
+            _, p, st = timed("ZeRO-1", rank, lambda: T.zero_train_step(
+                cfg, p, x, opt, st, P.COMM_WORLD))
+        return p, state_bytes(tree, st), param_bytes
+
+    def zero3(rank, steps=ZERO_STEPS):
+        x = tokens[rank * rows:(rank + 1) * rows]
+        opt = optim.adam(ADAM_LR)
+        shards, st = Z.zero3_init(P.COMM_WORLD, opt, params)
+        for _ in range(steps):
+            _, shards, st = timed("ZeRO-3", rank, lambda: T.zero3_train_step(
+                cfg, shards, params, x, opt, st, P.COMM_WORLD))
+        held = sum(t.numel() * t.element_size()
+                   for t in tree.tree_leaves(shards))
+        return Z.zero3_params(P.COMM_WORLD, shards, params), \
+            state_bytes(tree, st), held
+
+    out, numbers = {}, {}
+    for label, fn in (("replicated", replicated), ("ZeRO-1", zero1),
+                      ("ZeRO-3", zero3)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        res = P.run_ranks(fn, 2, device="cuda")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = dict(kernels.launch_counts)
+        out[label] = res
+        wall, busy, _ = profile_top(
+            lambda: P.run_ranks(lambda r: fn(r)[1], 2, device="cuda"),
+            f"{label}: {ZERO_STEPS} DP=2 steps with the optimizer's init",
+            n_top=4)
+        numbers[label] = {"ms": step_ms[label][ZERO_STEPS - 1],
+                          "steps_ms": step_ms[label][:ZERO_STEPS],
+                          "peak_gib": peak,
+                          "idle_pct": 100 - 100 * busy / wall,
+                          "state_bytes": res[0][1],
+                          "param_bytes": res[0][2], "launches": launches}
+        torch.cuda.empty_cache()
+    ref = out["replicated"]
+    rep_state = numbers["replicated"]["state_bytes"]
+    ok_all = True
+    for label in ("ZeRO-1", "ZeRO-3"):
+        (p0, sb0, pb0), (p1, sb1, pb1) = out[label]
+        same_ranks = leaves_equal(tree, p0, p1)
+        same_ref = leaves_equal(tree, p0, ref[0][0]) and \
+            leaves_equal(tree, p1, ref[1][0])
+        half_state = 2 * sb0 == rep_state and sb0 == sb1
+        half_params = (2 * pb0 == param_bytes) if label == "ZeRO-3" \
+            else pb0 == param_bytes
+        tc = attention_all_tc(kernels, numbers[label]["launches"])
+        ok = same_ranks and same_ref and half_state and half_params and tc
+        ok_all = ok_all and ok
+        n = numbers[label]
+        print(f"  {label}: {ZERO_STEPS} Adam steps; parameters bitwise "
+              f"equal to replicated-DP Adam {same_ref}; ranks identical "
+              f"{same_ranks}; optimizer state per rank {sb0} B vs "
+              f"replicated {rep_state} B ({sb0 / rep_state:.3f}); "
+              f"parameters held per rank {pb0} B vs {param_bytes} B "
+              f"({pb0 / param_bytes:.3f}); steps "
+              f"{[round(x, 1) for x in n['steps_ms']]} ms (replicated "
+              f"{[round(x, 1) for x in numbers['replicated']['steps_ms']]}"
+              f" ms), idle "
+              f"{n['idle_pct']:.0f}%, peak {n['peak_gib']:.2f} GiB "
+              f"(replicated {numbers['replicated']['peak_gib']:.2f} GiB); "
+              f"attention all tc {tc}  {'ok' if ok else 'FAIL'}",
+              flush=True)
+    del out, ref
+    torch.cuda.empty_cache()
+    check(ok_all, "a ZeRO run differs from replicated Adam, keeps more "
+          "than half the state or parameters, or ran a non-tc attention")
+    return numbers
+
+
+def packed_table(P, C, ragged):
+    """name -> (op, per-rank inputs, per-rank cotangents, plain forward,
+    closed-form adjoint, padding views) for the packed and ragged
+    collectives at the op table's size: rank r holds OP_NUMEL + (2r - 3)
+    OP_SKEW valid elements in a buffer of the largest count (the ragged
+    Alltoall a quarter of that per destination), its padding poisoned
+    with NaN; ``padding(t, r)`` lists the views of rank r's input (or its
+    gradient) that are padding, None where the input has none."""
+    n, SUM = OP_RANKS, P.MPI_SUM
+    counts = tuple(OP_NUMEL + (2 * r - 3) * OP_SKEW for r in range(n))
+    cap, total = max(counts), sum(counts)
+    offs = [sum(counts[:r]) for r in range(n)]
+    new = tuple(reversed(counts))
+    new_offs = [sum(new[:r]) for r in range(n)]
+    # ragged_alltoall: a (n, per-destination capacity, 1) block a rank.
+    acap = OP_NUMEL // n + 3 * OP_SKEW // n
+    sends = [[OP_NUMEL // n + (2 * ((r + d) % n) - 3) * OP_SKEW // n
+              for d in range(n)] for r in range(n)]
+
+    def randn(seed, shape):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def poisoned(seed, shape, padding):
+        xs = []
+        for r in range(n):
+            x = randn(seed + r, shape)
+            for view in padding(x, r):
+                view.fill_(float("nan"))
+            xs.append(x)
+        return xs
+
+    def pad(t, length):
+        return torch.cat([t, t.new_zeros((length - t.shape[0],)
+                                         + tuple(t.shape[1:]))])
+
+    def ordered(vals):
+        return C.reduce_ordered(SUM, vals)
+
+    def rows(t, r):
+        return [t[counts[r]:]]
+
+    def a2a_rows(t, r):
+        return [t[d, sends[r][d]:] for d in range(n)]
+
+    ops = {}
+    ops["packed Gather root 2"] = (
+        lambda c, t, r: c.Gather(t, 0, 2, numelem=counts),
+        lambda s: poisoned(200 + s, (cap,), rows),
+        lambda s: [randn(210 + s + r, (total,)) for r in range(n)],
+        lambda xs: [torch.cat([x[:k] for x, k in zip(xs, counts)])
+                    if r == 2 else torch.zeros(total, device="cuda")
+                    for r in range(n)],
+        lambda xs, ws: [pad(ws[2][offs[r]:offs[r] + counts[r]], cap)
+                        for r in range(n)],
+        rows)
+    ops["packed Allgather"] = (
+        lambda c, t, r: c.Allgather(t, 0, numelem=counts),
+        lambda s: poisoned(220 + s, (cap,), rows),
+        lambda s: [randn(230 + s + r, (total,)) for r in range(n)],
+        lambda xs: [torch.cat([x[:k] for x, k in zip(xs, counts)])] * n,
+        lambda xs, ws: [pad(ordered([w[offs[r]:offs[r] + counts[r]]
+                                      for w in ws]), cap)
+                        for r in range(n)],
+        rows)
+    ops["packed Scatter root 2"] = (
+        lambda c, t, r: c.Scatter(t, 0, counts, 2),
+        lambda s: [randn(240 + s + r, (total,)) for r in range(n)],
+        lambda s: [randn(250 + s + r, (cap,)) for r in range(n)],
+        lambda xs: [pad(xs[2][offs[r]:offs[r] + counts[r]], cap)
+                    for r in range(n)],
+        lambda xs, ws: [torch.cat([w[:k] for w, k in zip(ws, counts)])
+                        if r == 2 else torch.zeros(total, device="cuda")
+                        for r in range(n)],
+        None)
+    ops["packed Alltoall same axis"] = (
+        lambda c, t, r: c.Alltoall(t, 0, 0, new, current_numelem=counts),
+        lambda s: poisoned(260 + s, (cap,), rows),
+        lambda s: [randn(270 + s + r, (max(new),)) for r in range(n)],
+        lambda xs: [pad(torch.cat([x[:k] for x, k in zip(xs, counts)])
+                        [new_offs[r]:new_offs[r] + new[r]], max(new))
+                    for r in range(n)],
+        lambda xs, ws: [pad(torch.cat([w[:k] for w, k in zip(ws, new)])
+                            [offs[r]:offs[r] + counts[r]], cap)
+                        for r in range(n)],
+        rows)
+
+    ops["ragged_alltoall"] = (
+        lambda c, t, r: ragged.ragged_alltoall(
+            c, t, torch.tensor(sends[r], device="cuda"))[0],
+        lambda s: poisoned(280 + s, (n, acap, 1), a2a_rows),
+        lambda s: [randn(290 + s + r, (n, acap, 1)) for r in range(n)],
+        lambda xs: [torch.stack([pad(xs[s][r][:sends[s][r]], acap)
+                                 for s in range(n)]) for r in range(n)],
+        lambda xs, ws: [torch.stack([pad(ws[d][r][:sends[r][d]], acap)
+                                     for d in range(n)]) for r in range(n)],
+        a2a_rows)
+    ops["ragged_allgather"] = (
+        lambda c, t, r: ragged.ragged_allgather(
+            c, t, torch.tensor(counts[r], device="cuda"))[0],
+        lambda s: poisoned(300 + s, (cap, 1), rows),
+        lambda s: [randn(310 + s + r, (n, cap, 1)) for r in range(n)],
+        lambda xs: [torch.stack([pad(x[:k], cap)
+                                 for x, k in zip(xs, counts)])] * n,
+        lambda xs, ws: [pad(ordered([w[r][:counts[r]] for w in ws]), cap)
+                        for r in range(n)],
+        rows)
+    ops["ragged_gather root 2"] = (
+        lambda c, t, r: ragged.ragged_gather(
+            c, t, torch.tensor(counts[r], device="cuda"), root=2)[0],
+        lambda s: poisoned(320 + s, (cap, 1), rows),
+        lambda s: [randn(330 + s + r, (n, cap, 1)) for r in range(n)],
+        lambda xs: [torch.stack([pad(x[:k], cap) for x, k in
+                                 zip(xs, counts)]) if r == 2
+                    else torch.zeros(n, cap, 1, device="cuda")
+                    for r in range(n)],
+        lambda xs, ws: [pad(ws[2][r][:counts[r]], cap) for r in range(n)],
+        rows)
+    ops["ragged_scatter root 2"] = (
+        lambda c, t, r: ragged.ragged_scatter(
+            c, t, torch.tensor(counts, device="cuda"), root=2)[0],
+        lambda s: [randn(340 + s + r, (n, cap, 1)) for r in range(n)],
+        lambda s: [randn(350 + s + r, (cap, 1)) for r in range(n)],
+        lambda xs: [pad(xs[2][r][:counts[r]], cap) for r in range(n)],
+        lambda xs, ws: [torch.stack([pad(w[:k], cap) for w, k in
+                                     zip(ws, counts)]) if r == 2
+                        else torch.zeros(n, cap, 1, device="cuda")
+                        for r in range(n)],
+        None)
+    return ops, {"counts": counts, "sends": sends}
+
+
+def serve_overlap_phase(P, T, serve, kv, kernels, cfg, params, prompts,
+                        blocking):
+    """TP=2 serving through ServeConfig(overlap=True) and
+    ServeConfig(algorithm="rhd"): the same requests as phase 5, tokens
+    identical to phase 5's blocking ring engine, both ranks identical,
+    every prefill launch tc; decode tokens/s beside phase 5's."""
+    (r0, r1), launches, ms, rate = blocking
+    want = 2 * cfg.n_layers * (1 + TP2_REQUESTS)
+    out = {"blocking": rate}
+    for label, kw in (("overlap=True", dict(overlap=True)),
+                      ("algorithm=rhd", dict(algorithm="rhd"))):
+        (a0, a1), got_launches, got_ms, got_rate = serve_tp2(
+            P, T, serve, kv, kernels, cfg, params, prompts, **kw)
+        same = a0[1] == r0[1] and a1[1] == r0[1]
+        ok = same and got_launches == (want, want)
+        print(f"  {label:14s}: tokens identical to phase 5's blocking "
+              f"engine on both ranks {same}; flash_fwd launches "
+              f"{got_launches} (expected {want}, all tc); decode "
+              f"{got_rate:.1f} tokens/s (blocking {rate:.1f}); run "
+              f"{got_ms / 1e3:.2f} s  {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"TP=2 serving with {label} differs from the blocking "
+              "engine or prefill left the tc kernel")
+        out[label] = got_rate
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU",
@@ -1741,6 +2309,8 @@ def main():
     from mpi4torch_tpu_torch.examples import isend_recv_wait as ringex
     from mpi4torch_tpu_torch.examples import simple_linear_regression \
         as linreg
+    from mpi4torch_tpu_torch import fuse
+    from mpi4torch_tpu_torch.ops import ragged
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1860,8 +2430,8 @@ def main():
                 first_logits = tp1_logits[0].float().cpu()
 
     phase(5, "serve the flagship transformer, TP=2 on rank threads")
-    (r0, r1), launches2, tp2_ms = serve_tp2(P, T, serve, kv, kernels, cfg,
-                                            params, prompts)
+    tp2 = serve_tp2(P, T, serve, kv, kernels, cfg, params, prompts)
+    (r0, r1), launches2, tp2_ms, tp2_rate = tp2
     check(r0[1] == r1[1] and torch.equal(r0[0], r1[0]),
           "the two TP ranks disagree")
     tp_diff = (r0[0] - first_logits).abs().max().item()
@@ -1873,7 +2443,8 @@ def main():
           f"max |logit diff| vs TP=1 {tp_diff:.4f} (tol {TP_LOGIT_TOL}); "
           f"{same}/{TP2_REQUESTS} token streams equal to TP=1's prefix; "
           f"flash_fwd launches {launches2[0]}, of them tc {launches2[1]} "
-          f"(expected {want2}, all tc)")
+          f"(expected {want2}, all tc); decode {tp2_rate:.1f} tokens/s "
+          "over rank 0's decode-only steps")
     check(tp_diff <= TP_LOGIT_TOL, "TP=2 prefill logits too far from TP=1")
     check(launches2 == (want2, want2),
           "TP=2 prefill did not run on the tc kernel")
@@ -1994,7 +2565,7 @@ def main():
     phase(15, f"the op table, {OP_RANKS} rank threads x {OP_NUMEL} float32 "
           "(the bench size)")
     print(smi)
-    op_table_phase(P, C, ring, tune)
+    run_table(P, op_table(P, C, ring, tune))
 
     phase(16, f"halo-exchange stencil (config 5), {STENCIL_N} x {STENCIL_N} "
           f"on {STENCIL_RANKS} rank threads, L-BFGS")
@@ -2004,7 +2575,43 @@ def main():
           "Isend/Irecv/Wait ring")
     examples_phase(linreg, ringex)
 
-    phase(18, "kernels")
+    phase(18, "fused exact DP=2 training of the flagship transformer "
+          "(all_average_tree, 4 MiB buckets)")
+    print(smi)
+    fused_launches, fused = fused_dp2_phase(P, T, tree, fuse, kernels,
+                                            config, cfg, params, tokens,
+                                            dp_ms)
+
+    phase(19, "fused compressed DP=2: Allreduce_tree(compression='q8') at "
+          "4 MiB buckets and at one bucket per dtype")
+    q8f = fused_q8_phase(P, T, tree, fuse, qk, kernels, config, cfg, params,
+                         tokens)
+    print(f"  beside phase 14 (per-leaf ef_allreduce q8 step "
+          f"{min(steps['q8']):.1f} ms, exact step {min(steps[None]):.1f} "
+          f"ms) and phase 18 (fused exact step {fused['ms']['fused']:.1f} "
+          f"ms, idle {fused['idle_pct']['fused']:.0f}%): fused q8 step "
+          + "; ".join(f"{k} {v['ms']:.1f} ms, idle {v['idle_pct']:.0f}%, "
+                      f"{v['buckets']} buckets, {v['hops']} q8_hop launches"
+                      for k, v in q8f.items()))
+
+    phase(20, f"ZeRO-1 and ZeRO-3 DP=2 with the port's adam, {ZERO_STEPS} "
+          "steps each, against replicated-DP Adam")
+    zero_numbers = zero_phase(P, T, tree, kernels, cfg, params, tokens)
+
+    phase(21, f"packed and ragged collectives, {OP_RANKS} rank threads x "
+          f"{OP_NUMEL} float32 (per-rank counts {OP_NUMEL} + (2r - 3) x "
+          f"{OP_SKEW})")
+    print(smi)
+    table, _ = packed_table(P, C, ragged)
+    run_table(P, table)
+    del table
+
+    phase(22, "TP=2 serving with ServeConfig(overlap=True) and "
+          "ServeConfig(algorithm='rhd')")
+    serve_overlap_phase(P, T, serve, kv, kernels, cfg, params, prompts,
+                        tp2)
+
+    phase(23, "kernels")
     # flash_fwd: launches on the serving path (phase 4), times at the
     # flagship prefill shape, its error the worst of the serving and the
     # training shape; "variant" is the one every serving launch took
@@ -2075,8 +2682,30 @@ def main():
         "bench_ms": {k: v[0] for k, v in hop.items()},
         "bench_plain_ms": {k: v[1] for k, v in hop.items()},
         "bench_bound_ms": {k: v[2] for k, v in hop.items()}}]}
+    # This slice's paths: the attention kernels' launches in the fused
+    # exact DP=2 step (phase 18) and in the ZeRO-1/ZeRO-3 runs (phase 20);
+    # q8_hop's launches per fused compressed step at each bucket size
+    # (phase 19), and its times at the largest bucket chunk of each.
+    for entry in line["kernels"][:3]:
+        kname = entry["name"]
+        entry["fused_dp2_launches"] = fused_launches[kname]
+        entry["zero_launches"] = {
+            k: zero_numbers[k]["launches"][kname] for k in ("ZeRO-1",
+                                                            "ZeRO-3")}
+    hop_entry = line["kernels"][3]
+    hop_entry["fused_launches"] = {k: v["hops"] for k, v in q8f.items()}
+    hop_entry["fused_buckets"] = {k: v["buckets"] for k, v in q8f.items()}
+    for key, i in (("bucket_chunk_rows", 0), ("bucket_ms", 1),
+                   ("bucket_plain_ms", 2), ("bucket_bound_ms", 3)):
+        hop_entry[key] = {k: v["k1"][i] for k, v in q8f.items()}
+    hop_entry["max_abs_err"] = max(
+        [hop_entry["max_abs_err"]]
+        + [v["max_abs_err"] for v in q8f.values()]
+        + [v["k1"][5] for v in q8f.values()])
     check(p2_launches["q8_hop"] > 0 and p2_launches["q8_requant"] > 0,
           "the compressed DP=2 run launched no hop kernel")
+    check(all(v["hops"] > 0 for v in q8f.values()),
+          "a fused compressed DP=2 run launched no hop kernel")
     print(json.dumps(line))
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)

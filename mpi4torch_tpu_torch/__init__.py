@@ -6,14 +6,19 @@ carries the mpi4torch op table, the serving path, the data-parallel
 training path and the compressed gradient Allreduce: the differentiable
 collective facade (``COMM_WORLD`` with ``Allreduce``, ``Bcast_``,
 ``Reduce_``, ``Gather``, ``Allgather``, ``Reduce_scatter``, ``Scatter``,
-``Alltoall``, ``Isend``/``Irecv``/``Wait``/``Send``/``Recv``,
-``Allreduce_tree``; ``JoinDummies``, ``JoinDummiesHandle``,
-``WaitHandle``) on the rank-thread runtime (``run_ranks``), the ring
-shift and halo exchange (``parallel.ring``), an eager L-BFGS
-(``utils.lbfgs``), the block-q8 codecs on ``ring``/``bidir``/
-``torus`` with cross-step error feedback (``compress``), the flagship
-transformer with its continuous-batching engine (``serve.Engine``) and its
-SGD ``train_step``, and ``parallel.dp``.  Its attention runs through
+``Alltoall`` — per-rank ``numelem`` tuples take the packed path —,
+``Isend``/``Irecv``/``Wait``/``Send``/``Recv``, the split-phase
+``*_start`` collectives, the fused bucketed ``Allreduce_tree``;
+``JoinDummies``, ``JoinDummiesHandle``, ``WaitHandle``) on the
+rank-thread runtime (``run_ranks``), the ragged collectives
+(``ops.ragged``), the bucket fusion and overlap machinery (``fuse``,
+``overlap``), the ring shift and halo exchange (``parallel.ring``), an
+eager L-BFGS (``utils.lbfgs``), the block-q8 codecs on ``ring``/
+``bidir``/``torus`` with cross-step error feedback (``compress``), the
+flagship transformer with its continuous-batching engine
+(``serve.Engine``), its SGD ``train_step`` and its ZeRO-1/3 steps
+(``parallel.zero`` with the functional optimizers of ``utils.optim``),
+and ``parallel.dp``.  Its attention runs through
 hand-written CUDA kernels, forward and backward: on the tensor cores for
 bf16 with head dim <= 128 (``ops/csrc/flash_fwd_tc.cu``,
 ``ops/csrc/flash_bwd_tc.cu``), on the CUDA cores otherwise

@@ -4,9 +4,12 @@ Port of ``mpi4torch_tpu/comm.py`` on the rank-thread runtime:
 :class:`MPI_Communicator` with the mpi4torch op table (``Allreduce``,
 ``Bcast_``, ``Reduce_``, ``Gather``, ``Allgather``, ``Reduce_scatter``,
 ``Scatter``, ``Alltoall``, ``Isend``/``Irecv``/``Wait``/``Send``/
-``Recv``), ``check_health`` and ``Allreduce_tree``; :class:`WaitHandle`,
-:func:`JoinDummies` and :func:`JoinDummiesHandle`; and the
-:data:`COMM_WORLD` singleton.  Inside :func:`run_ranks` each rank thread
+``Recv``), the per-rank ``numelem`` of the packed collectives
+(``ops/packed.py``), the split-phase ``Allreduce_start``/
+``Reduce_scatter_start``/``Allgather_start`` (``overlap/``),
+``check_health`` and the fused ``Allreduce_tree`` (``fuse/``);
+:class:`WaitHandle`, :func:`JoinDummies` and :func:`JoinDummiesHandle`;
+and the :data:`COMM_WORLD` singleton.  Inside :func:`run_ranks` each rank thread
 sees its own concrete rank; outside, ``COMM_WORLD`` is a size-1 world,
 like an MPI binary run without ``mpirun``.  Every op is differentiable,
 its backward the adjoint communication (``ops/eager.py``), and runs
@@ -36,9 +39,8 @@ from . import constants as C
 from .compress import codec_applicable, codec_rides_algorithm, get_codec
 from .compress import eager as _ceager
 from .ops import eager as _eager
-from .runtime import CommError, HealthReport, effective_rank_context
+from .runtime import HealthReport, effective_rank_context
 from .tune import resolve_request
-from .utils.tree import tree_map
 
 
 class WaitHandle:
@@ -54,6 +56,10 @@ class WaitHandle:
         :func:`JoinDummies` / :func:`JoinDummiesHandle`."""
         return self._handle[0]
 
+    def _with_raw(self, raw_handle: List) -> "WaitHandle":
+        """A handle of the same kind over ``raw_handle``."""
+        return WaitHandle(raw_handle)
+
 
 def JoinDummies(loopthrough, dummies: Sequence):
     """Join dummy dependencies into the autograd graph: forward returns
@@ -68,7 +74,7 @@ def JoinDummiesHandle(handle: WaitHandle, dummies: Sequence) -> WaitHandle:
     """:func:`JoinDummies` for a :class:`WaitHandle`: the dummies join the
     descriptor slot only."""
     raw = handle._handle
-    return WaitHandle([JoinDummies(raw[0], dummies), raw[1], raw[2]])
+    return handle._with_raw([JoinDummies(raw[0], dummies), raw[1], raw[2]])
 
 
 def _named_op(method):
@@ -83,13 +89,6 @@ def _named_op(method):
             return method(self, *args, **kwargs)
 
     return wrapped
-
-
-def _not_packed(numelem, what: str) -> None:
-    raise NotImplementedError(
-        f"{what} with a per-rank numelem={numelem!r}: the packed and "
-        "ragged collectives are not ported yet (ROADMAP.md, Queue 1 item "
-        "1)")
 
 
 def _resolve_compression(compression):
@@ -200,48 +199,32 @@ class MPI_Communicator:
     def Allreduce_tree(self, tree, op: int, compression=None,
                        bucket_bytes=None, mean: bool = False, overlap=None,
                        algorithm=None):
-        """Allreduce every leaf of a parameter tree (nested dictionaries,
-        lists and tuples of tensors); ``mean=True`` divides each reduced
-        leaf by :attr:`size` (``MPI_SUM`` only).  Differentiable like
-        :meth:`Allreduce`, whose ``compression`` and ``algorithm`` rules
-        apply per leaf.
+        """Fused bucketed Allreduce over a parameter tree (nested
+        dictionaries, lists and tuples of tensors;
+        :mod:`mpi4torch_tpu_torch.fuse`): the leaves are flattened into
+        dtype-homogeneous flat buckets of ~``bucket_bytes`` (layout
+        cached per tree structure) and each bucket rides one
+        :meth:`Allreduce`.  On the exact wire this is bit-identical to an
+        Allreduce per leaf (the same fold, element by element).
+        Differentiable: the backward is itself fused.
 
-        This is the per-leaf form: one Allreduce per leaf, in traversal
-        order.  The JAX package fuses leaves into flat buckets.  On the
-        exact wire its eager fused form is bit-identical to this one (the
-        same ascending-rank fold, element by element, then the same
-        division), so ``bucket_bytes`` is validated and otherwise changes
-        nothing.  A compressed bucket quantizes other blocks than a
-        compressed leaf, so with a codec only ``bucket_bytes=0`` (the JAX
-        package's per-leaf path) is served.  Bucketed fusion and
-        ``overlap`` come with ROADMAP.md Queue 1 item 2."""
-        if overlap:
-            raise NotImplementedError(
-                f"overlap={overlap!r}: the split-phase overlap pipeline "
-                "is not ported yet (ROADMAP.md, Queue 1 item 2); use None "
-                "or False")
-        if mean and op != C.MPI_SUM:
-            raise CommError(
-                f"mean=True is the rank-mean of an MPI_SUM reduction; got "
-                f"{C.op_name(op)}")
-        if bucket_bytes is not None and bucket_bytes is not False \
-                and int(bucket_bytes) < 0:
-            raise ValueError(f"bucket_bytes must be >= 0, got "
-                             f"{int(bucket_bytes)}")
-        if _resolve_compression(compression) is not None \
-                and bucket_bytes not in (0, False):
-            raise NotImplementedError(
-                f"Allreduce_tree with compression and bucket_bytes="
-                f"{bucket_bytes!r}: compressed buckets are not ported yet "
-                "(ROADMAP.md, Queue 1 item 2); pass bucket_bytes=0 for one "
-                "compressed Allreduce per leaf")
-        size = self.size
+        ``bucket_bytes=None`` uses the :func:`config.fusion_scope` /
+        process default (4 MiB); ``0`` gives one Allreduce per leaf.
+        ``mean=True`` divides each reduced bucket by :attr:`size` once
+        (``MPI_SUM`` only).  ``compression`` and ``algorithm`` follow the
+        :meth:`Allreduce` contract, applied per bucket; a compressed
+        bucket quantizes other blocks than a compressed leaf, so it
+        matches the JAX package's fused form.  ``overlap`` (None: the
+        :func:`config.overlap_scope` / process default) truthy runs the
+        nonblocking Isend/Irecv pipeline, exact ``MPI_SUM`` on the ring
+        association only."""
+        from .fuse import fused_allreduce_tree
+
         with torch.profiler.record_function("mpi4torch.Allreduce_tree"):
-            out = tree_map(lambda t: self.Allreduce(
-                t, op, compression=compression, algorithm=algorithm), tree)
-            if mean:
-                out = tree_map(lambda t: t / size, out)
-        return out
+            return fused_allreduce_tree(
+                self, tree, op, compression=compression,
+                bucket_bytes=bucket_bytes, mean=mean, overlap=overlap,
+                algorithm=algorithm)
 
     # ------------------------------------------------------------ health
 
@@ -284,10 +267,18 @@ class MPI_Communicator:
     def Gather(self, tensor, gatheraxis: int, root: int, numelem=None):
         """Concatenate per-rank tensors along ``gatheraxis`` on ``root``
         (per-rank axis lengths may differ; non-root ranks get zeros of
-        the gathered shape).  A per-rank ``numelem`` (the packed path)
-        is not ported yet and raises."""
+        the gathered shape).
+
+        ``numelem``, a per-rank tuple, takes the packed path
+        (``ops/packed.py``): the axis is capacity-padded, rank ``r``'s
+        first ``numelem[r]`` entries are valid, and the result comes back
+        packed to ``sum(numelem)``.  An int ``numelem`` is the uniform
+        prefix ``(numelem,) * size``."""
         if numelem is not None:
-            _not_packed(numelem, "Gather")
+            from .ops.packed import packed_gather
+            if isinstance(numelem, numbers.Integral):
+                numelem = (int(numelem),) * self.size   # uniform prefix
+            return packed_gather(self, tensor, gatheraxis, numelem, root)
         return _eager.gather(effective_rank_context(), tensor, gatheraxis,
                              root)
 
@@ -295,20 +286,30 @@ class MPI_Communicator:
     def Allgather(self, tensor, gatheraxis: int, numelem=None,
                   compression=None):
         """Gather with the result on every rank; the adjoint is the
-        ordered reduce-scatter.  A compressed Allgather is not ported
-        yet: an explicit ``compression=`` raises, and so does a scope or
-        process codec on a floating tensor (the JAX package would
-        compress there, so the exact wire would be another answer).
-        A per-rank ``numelem`` (the packed path) raises too."""
+        ordered reduce-scatter.  A per-rank tuple ``numelem``: see
+        :meth:`Gather`; the packed path is always exact (an explicit
+        codec raises there, a scope codec does not apply).  A compressed
+        Allgather is not ported yet: an explicit ``compression=`` raises,
+        and so does a scope or process codec on a floating tensor (the
+        JAX package would compress there, so the exact wire would be
+        another answer)."""
         if numelem is not None:
-            _not_packed(numelem, "Allgather")
+            if compression is not None and \
+                    get_codec(compression) is not None:
+                raise ValueError(
+                    "Allgather: compression= is not supported together "
+                    "with the packed numelem= path")
+            from .ops.packed import packed_allgather
+            if isinstance(numelem, numbers.Integral):
+                numelem = (int(numelem),) * self.size   # uniform prefix
+            return packed_allgather(self, tensor, gatheraxis, numelem)
         codec = _codec_for(tensor, _resolve_compression(compression),
                            explicit=compression is not None)
         if codec is not None:
             raise NotImplementedError(
                 f"Allgather with compression {codec.name!r}: the "
                 "compressed Allgather is not ported yet (ROADMAP.md, Queue "
-                "1 item 3); pass compression=False for the exact wire")
+                "1 item 1); pass compression=False for the exact wire")
         return _eager.allgather(effective_rank_context(), tensor, gatheraxis)
 
     @_named_op
@@ -324,9 +325,12 @@ class MPI_Communicator:
         """Split ``root``'s tensor along ``scatteraxis``; this rank keeps
         ``numelem`` entries (the counts must sum to the root's axis
         length).  Non-root input shapes are ignored.  A per-rank tuple
-        ``numelem`` (the packed path) raises."""
+        ``numelem`` takes the packed path (``ops/packed.py``): the axis
+        must be the packed ``sum(numelem)``, and the result is
+        capacity-padded to ``max(numelem)`` with invalid slots zeroed."""
         if not isinstance(numelem, numbers.Integral):
-            _not_packed(numelem, "Scatter")
+            from .ops.packed import packed_scatter
+            return packed_scatter(self, tensor, scatteraxis, numelem, root)
         return _eager.scatter(effective_rank_context(), tensor, scatteraxis,
                               numelem, root)
 
@@ -335,27 +339,54 @@ class MPI_Communicator:
                  current_numelem=None):
         """Gather along ``gatheraxis`` and redistribute along
         ``scatteraxis``, keeping ``numelem`` entries here.  A per-rank
-        tuple ``numelem`` (the packed path) raises."""
+        tuple ``numelem`` takes the packed path (``ops/packed.py``):
+        gather axis capacity-padded in, packed out; scatter axis packed
+        in, capacity-padded and masked out.  For ``gatheraxis ==
+        scatteraxis`` (the interval-overlap redistribution) also pass
+        ``current_numelem``, the present partition."""
         if not isinstance(numelem, numbers.Integral):
-            _not_packed(numelem, "Alltoall")
+            from .ops.packed import packed_alltoall
+            return packed_alltoall(self, tensor, gatheraxis, scatteraxis,
+                                   numelem, current_numelem)
         if current_numelem is not None:
             raise ValueError(
                 "current_numelem only applies to per-rank tuple numelem")
         return _eager.alltoall(effective_rank_context(), tensor, gatheraxis,
                                scatteraxis, numelem)
 
+    # ------------------------------------------ split-phase collectives
+
     def Allreduce_start(self, tensor, op: int, compression=None,
-                        algorithm=None):
-        """Split-phase Allreduce: not ported yet (raises)."""
-        _not_split_phase("Allreduce_start")
+                        algorithm=None) -> WaitHandle:
+        """Split-phase Allreduce, phase 1 (:mod:`mpi4torch_tpu_torch.
+        overlap`): returns a handle with the :class:`WaitHandle` API
+        (``.dummy``; :func:`JoinDummiesHandle` composes) that
+        :meth:`Wait` completes exactly once, with the same bits as the
+        blocking :meth:`Allreduce`.  On the rank threads the collective
+        runs here and the Wait is its completion point.  Split-phase
+        transfers are exact: an explicit ``compression=`` raises, a
+        scope or process codec degrades to the exact wire.  The span
+        carries the resolved algorithm
+        (``mpi4torch.Allreduce_start.rhd``)."""
+        from .overlap import allreduce_start
+        return allreduce_start(self, tensor, op, compression=compression,
+                               algorithm=algorithm)
 
-    def Reduce_scatter_start(self, tensor, op: int, scatteraxis: int):
-        """Split-phase Reduce_scatter: not ported yet (raises)."""
-        _not_split_phase("Reduce_scatter_start")
+    def Reduce_scatter_start(self, tensor, op: int,
+                             scatteraxis: int) -> WaitHandle:
+        """Split-phase :meth:`Reduce_scatter` (the ZeRO gradient-bucket
+        form).  See :meth:`Allreduce_start`."""
+        from .overlap import reduce_scatter_start
+        with torch.profiler.record_function(
+                "mpi4torch.Reduce_scatter_start"):
+            return reduce_scatter_start(self, tensor, op, scatteraxis)
 
-    def Allgather_start(self, tensor, gatheraxis: int):
-        """Split-phase Allgather: not ported yet (raises)."""
-        _not_split_phase("Allgather_start")
+    def Allgather_start(self, tensor, gatheraxis: int) -> WaitHandle:
+        """Split-phase :meth:`Allgather` (the ZeRO-3 parameter-prefetch
+        form).  See :meth:`Allreduce_start`."""
+        from .overlap import allgather_start
+        with torch.profiler.record_function("mpi4torch.Allgather_start"):
+            return allgather_start(self, tensor, gatheraxis)
 
     # --------------------------------------------------------------- p2p
 
@@ -375,7 +406,11 @@ class MPI_Communicator:
     @_named_op
     def Wait(self, waithandle: WaitHandle):
         """Complete a nonblocking request, exactly once: the send's
-        loop-through tensor, or the received message."""
+        loop-through tensor, the received message, or a split-phase
+        collective's result (``*_start``)."""
+        if getattr(waithandle, "_split_state", None) is not None:
+            from .overlap import complete_generic
+            return complete_generic(waithandle)
         return _eager.wait(effective_rank_context(), waithandle._handle)
 
     @_named_op
@@ -391,24 +426,18 @@ class MPI_Communicator:
         return _eager.wait(ctx, _eager.irecv(ctx, tensor, source, tag))
 
 
-def _not_split_phase(what: str) -> None:
-    raise NotImplementedError(
-        f"{what}: the split-phase collectives come with the overlap "
-        "pipeline (ROADMAP.md, Queue 1 item 2)")
-
-
 def comm_from_mesh(mesh, axis_name):
     """A communicator over a device-mesh axis: not ported yet (raises)."""
     raise NotImplementedError(
         "comm_from_mesh: mesh communicators come with the compiled/device "
-        "backend (ROADMAP.md, Queue 1 item 6)")
+        "backend (ROADMAP.md, Queue 1 item 4)")
 
 
 def comm_from_mpi4py(comm):
     """A communicator from an mpi4py one: not ported yet (raises)."""
     raise NotImplementedError(
         "comm_from_mpi4py: multi-process worlds come with the "
-        "compiled/device backend (ROADMAP.md, Queue 1 item 6)")
+        "compiled/device backend (ROADMAP.md, Queue 1 item 4)")
 
 
 COMM_WORLD = MPI_Communicator()

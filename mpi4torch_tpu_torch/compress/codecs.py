@@ -17,7 +17,7 @@ name           scheme                                 rounds
 =============  =====================================  ======
 
 A request for ``bf16`` or ``bf16r`` raises ``NotImplementedError``
-(ROADMAP.md, Queue 1 item 3).
+(ROADMAP.md, Queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -178,7 +178,7 @@ def get_codec(spec) -> Optional[Codec]:
         if spec in _NOT_PORTED:
             raise NotImplementedError(
                 f"compression={spec!r}: the bf16 codecs are not ported yet "
-                "(ROADMAP.md, Queue 1 item 3); the block-q8 family (q8, "
+                "(ROADMAP.md, Queue 1 item 1); the block-q8 family (q8, "
                 "q8_ef, q8_ef_hop) is")
         raise ValueError(
             f"unknown compression codec {spec!r}; available: "

@@ -105,6 +105,6 @@ def allreduce(ctx: RankContext, x, op: int, codec: Codec, algorithm=None):
         raise NotImplementedError(
             f"compression={codec.name!r}: only the block-q8 codecs (q8, "
             "q8_ef, q8_ef_hop) are ported; the others come with ROADMAP.md "
-            "Queue 1 item 3")
+            "Queue 1 item 1")
     algo = resolve_algorithm(ctx.world.size, x, codec, algorithm)
     return _HopOracleAllreduce.apply(x, ctx, codec, algo)

@@ -1,16 +1,19 @@
 """Framework configuration flags.
 
 Port of the part of ``mpi4torch_tpu/config.py`` this package reads:
-``deterministic_mode`` (thread-local, as there), the overlap policy of
-the serving decode collectives, the deadlock timeout of rank worlds, and
-the knobs of the compressed Allreduce: the default codec
+``deterministic_mode`` (thread-local, as there), the bucket size of the
+fused tree collectives (:func:`set_default_bucket_bytes`,
+:func:`fusion_scope`), the split-phase overlap policy
+(:func:`set_default_overlap`, :func:`overlap_scope`) and the split count
+of the serving decode collectives (:data:`SERVE_DECODE_BUCKETS`), the
+deadlock timeout of rank worlds,
+and the knobs of the compressed Allreduce: the default codec
 (:func:`set_default_compression`, :func:`compression_scope`), the
 bandwidth crossover of the algorithm selector, the ``torus`` group
 size and the implementation of the quantized hop
-(:func:`quant_hop_impl`).  The deterministic flag
-and the compression scope are per thread, so a scope opened before
-``run_ranks`` is not seen by the rank threads; the process-wide setters
-are.
+(:func:`quant_hop_impl`).  The deterministic flag and the scopes are per
+thread, so a scope opened before ``run_ranks`` is not seen by the rank
+threads; the process-wide setters are.
 """
 
 from __future__ import annotations
@@ -54,24 +57,118 @@ def deterministic_mode(value: bool = True):
         set_deterministic_reductions(prev)
 
 
+# --- fused tree collectives ------------------------------------------------
+
+# Fused-collective bucket size (mpi4torch_tpu_torch.fuse).  4 MiB: large
+# enough to amortize per-collective cost over many small leaves, small
+# enough that a gradient tree still splits into several buckets.
+DEFAULT_BUCKET_BYTES = 4 * 1024 * 1024
+_process_bucket_bytes = DEFAULT_BUCKET_BYTES
+
+
+def default_bucket_bytes() -> int:
+    """Bucket size (bytes) the fused tree collectives use when no
+    explicit ``bucket_bytes=`` is passed: the innermost active
+    :func:`fusion_scope` on this thread, else the process-wide
+    :func:`set_default_bucket_bytes` value.  ``0`` disables fusion
+    (per-leaf collectives)."""
+    scoped = getattr(_state, "bucket_bytes", _UNSET)
+    return _process_bucket_bytes if scoped is _UNSET else scoped
+
+
+def _validated_bucket_bytes(nbytes) -> int:
+    if nbytes is False:
+        return 0
+    nbytes = int(nbytes)
+    if nbytes < 0:
+        raise ValueError(f"bucket_bytes must be >= 0, got {nbytes}")
+    return nbytes
+
+
+def set_default_bucket_bytes(nbytes) -> None:
+    """Set the process-wide fused-collective bucket size in bytes
+    (``0``/``False`` = fusion off, per-leaf collectives)."""
+    global _process_bucket_bytes
+    _process_bucket_bytes = _validated_bucket_bytes(nbytes)
+
+
+@contextmanager
+def fusion_scope(bucket_bytes):
+    """Lexically scoped bucket size for the fused tree collectives on this
+    thread; ``fusion_scope(0)`` gives per-leaf collectives in the
+    block."""
+    prev = getattr(_state, "bucket_bytes", _UNSET)
+    _state.bucket_bytes = _validated_bucket_bytes(bucket_bytes)
+    try:
+        yield
+    finally:
+        if prev is _UNSET:
+            del _state.bucket_bytes
+        else:
+            _state.bucket_bytes = prev
+
+
+# --- split-phase overlap ---------------------------------------------------
+
 _process_overlap = None
 
 
 def default_overlap():
-    """The overlap policy the serving decode collectives use when none is
-    passed: the process-wide :func:`set_default_overlap` value.  Only
-    ``None`` and ``False`` (blocking collectives) exist in this
-    package."""
-    return _process_overlap
+    """The overlap policy the fused tree collectives, the ZeRO helpers and
+    the serving decode collectives use when no explicit ``overlap=`` is
+    passed: the innermost active :func:`overlap_scope` on this thread,
+    else the process-wide :func:`set_default_overlap` value.  ``None`` and
+    ``False`` are blocking schedules; ``True`` turns on the overlap
+    schedules with a window of 2 collectives in flight, an ``int >= 1``
+    with that window."""
+    scoped = getattr(_state, "overlap", _UNSET)
+    return _process_overlap if scoped is _UNSET else scoped
+
+
+def _validated_overlap(value):
+    if value is None or value is False or value is True:
+        return value
+    try:
+        depth = int(value)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"overlap must be None, a bool, or a prefetch depth >= 1; "
+            f"got {value!r}") from None
+    if depth < 1:
+        raise ValueError(
+            f"overlap prefetch depth must be >= 1, got {depth}")
+    return depth
 
 
 def set_default_overlap(value) -> None:
+    """Set the process-wide overlap policy (``None``/``True``/``False``
+    or an integer window depth; see :func:`default_overlap`)."""
     global _process_overlap
-    if value is not None and value is not False:
-        raise NotImplementedError(
-            f"overlap={value!r}: the split-phase overlap scheduler is not "
-            "ported yet (ROADMAP.md, Queue 1 item 4); use None or False")
-    _process_overlap = value
+    _process_overlap = _validated_overlap(value)
+
+
+@contextmanager
+def overlap_scope(value):
+    """Lexically scoped overlap policy on this thread.  A scope default is
+    a preference: a call it cannot serve (a codec, a reduction other
+    than ``MPI_SUM``) takes the blocking path, where an explicit
+    ``overlap=`` raises."""
+    prev = getattr(_state, "overlap", _UNSET)
+    _state.overlap = _validated_overlap(value)
+    try:
+        yield
+    finally:
+        if prev is _UNSET:
+            del _state.overlap
+        else:
+            _state.overlap = prev
+
+
+# Split count of the serving decode step's per-layer collectives: with the
+# overlap policy on, each decode payload is split into this many windowed
+# split-phase chunks (the JAX package's default; its setter is not ported,
+# no caller here sets another value).
+SERVE_DECODE_BUCKETS = 2
 
 
 def _validated_threshold(nbytes, what: str, minimum: int = 0) -> int:

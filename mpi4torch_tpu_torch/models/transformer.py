@@ -16,9 +16,11 @@ token would double decode memory traffic).  They still return the cache,
 so the call shapes match.
 
 Training runs attention on one device (``comm_sp`` of size 1): the
-sequence-parallel strategies, the expert-parallel MoE FFN and the ZeRO
-steps raise ``NotImplementedError`` naming the ROADMAP.md item that
-brings them.
+sequence-parallel strategies and the expert-parallel MoE FFN raise
+``NotImplementedError`` naming the ROADMAP.md item that brings them.
+Besides the SGD ``train_step`` there are the ZeRO-1 and ZeRO-3 steps
+(``zero_train_step``, ``zero3_train_step``) over the port's functional
+optimizers (``utils/optim.py``).
 """
 
 from __future__ import annotations
@@ -124,7 +126,7 @@ def init_transformer(generator, cfg: TransformerConfig,
     if cfg.n_experts > 0:
         raise NotImplementedError(
             "n_experts > 0: the MoE FFN is not ported yet (ROADMAP.md, "
-            "Queue 1 item 5)")
+            "Queue 1 item 3)")
     params: Dict[str, Any] = {"embed": normal(cfg.vocab, d_model) * 0.02}
     pos = normal(cfg.max_seq, d_model) * 0.02
     if not cfg.rope:
@@ -233,7 +235,7 @@ def _ffn_local(cfg: TransformerConfig, blk, y):
     if cfg.n_experts > 0:
         raise NotImplementedError(
             "n_experts > 0: the MoE FFN is not ported yet (ROADMAP.md, "
-            "Queue 1 item 5)")
+            "Queue 1 item 3)")
     if cfg.ffn == "swiglu":
         gate, up = (y @ blk["w1"]).chunk(2, dim=-1)
         return (F.silu(gate) * up) @ blk["w2"]
@@ -335,7 +337,7 @@ def select_token(logits):
     greedy argmax (the first maximal index, like ``jnp.argmax``).
     :func:`generate` and the serving engine both choose through it.
     Sampled decoding needs a port of the JAX package's threefry key
-    discipline (ROADMAP.md, Queue 1 item 7)."""
+    discipline (ROADMAP.md, Queue 1 item 2)."""
     return torch.argmax(logits, dim=-1)
 
 
@@ -381,12 +383,12 @@ def _check_parallel(comm_sp, attn: str, comm_ep=None) -> None:
         raise NotImplementedError(
             f"comm_sp of size {comm_sp.size} (attn={attn!r}): "
             "sequence-parallel attention (ring, ulysses, zigzag) is not "
-            "ported yet (ROADMAP.md, Queue 1 item 5); pass comm_sp=None "
+            "ported yet (ROADMAP.md, Queue 1 item 3); pass comm_sp=None "
             "with the full sequence")
     if comm_ep is not None and comm_ep.size > 1:
         raise NotImplementedError(
             f"comm_ep of size {comm_ep.size}: the expert-parallel MoE FFN "
-            "is not ported yet (ROADMAP.md, Queue 1 item 5)")
+            "is not ported yet (ROADMAP.md, Queue 1 item 3)")
 
 
 def forward(cfg: TransformerConfig, params, tokens, comm_sp=None,
@@ -517,15 +519,53 @@ def train_step(cfg: TransformerConfig, params, tokens, comm_sp=None,
     return loss, new_params
 
 
-def zero_train_step(*args, **kwargs):
-    """ZeRO-1 training step (sharded optimizer state): not ported yet."""
-    raise NotImplementedError(
-        "zero_train_step: ZeRO-1 (parallel/zero.py) is not ported yet "
-        "(ROADMAP.md, Queue 1 item 4)")
+def zero_train_step(cfg: TransformerConfig, params, tokens, opt,
+                    opt_state, comm_dp, comm_sp=None, attn: str = "ring",
+                    comm_ep=None):
+    """One optimizer step with ZeRO-1 sharded state over ``comm_dp``;
+    returns ``(loss, new_params, new_opt_state)``.
+
+    The data-parallel reduction moves out of the loss and into
+    :func:`~mpi4torch_tpu_torch.parallel.zero.zero_step`'s
+    reduce-scatter: each rank differentiates its local mean loss (no
+    parameter averaging, no loss Allreduce — the un-reduced gradients
+    are what the reduce-scatter sums), the element-wise ``opt`` update
+    (``utils/optim.py``) runs on this rank's ``1/dp`` parameter shard,
+    and the allgather re-replicates.  The parameters match replicated-DP
+    training with the same optimizer bit for bit; the optimizer state is
+    ``1/dp`` of the replicated state.  The returned loss is the dp mean."""
+    from ..parallel.zero import zero_step
+
+    _check_parallel(comm_sp, attn, comm_ep)
+    loss, grads = value_and_grad(
+        lambda p: lm_loss(cfg, p, tokens, comm_sp, attn, comm_ep=comm_ep),
+        params)
+    # zero_step's reduce-scatter / size turns the un-reduced local
+    # gradients into the dp-mean gradient shard.
+    new_params, new_state = zero_step(comm_dp, opt, params, grads,
+                                      opt_state)
+    loss = comm_dp.Allreduce(loss, MPI_SUM, compression=False) / comm_dp.size
+    return loss, new_params, new_state
 
 
-def zero3_train_step(*args, **kwargs):
-    """ZeRO-3 training step (sharded parameters): not ported yet."""
-    raise NotImplementedError(
-        "zero3_train_step: ZeRO-3 (parallel/zero.py) is not ported yet "
-        "(ROADMAP.md, Queue 1 item 4)")
+def zero3_train_step(cfg: TransformerConfig, p_shards, template, tokens,
+                     opt, opt_state, comm_dp, comm_sp=None,
+                     attn: str = "ring"):
+    """One optimizer step with ZeRO-3 over ``comm_dp``: the parameters
+    live as ``1/dp`` flat shards between steps (parameters and optimizer
+    state both ``/ dp``); returns ``(loss, new_p_shards,
+    new_opt_state)``.  The forward gathers the shards on use
+    (:func:`~mpi4torch_tpu_torch.parallel.zero.zero3_params`); the
+    backward reduce-scatters the gradients through the Allgather's
+    adjoint.  Obtain ``(p_shards, opt_state)`` from
+    :func:`~mpi4torch_tpu_torch.parallel.zero.zero3_init`.  The
+    parameters match replicated-DP training with the same optimizer bit
+    for bit."""
+    from ..parallel.zero import zero3_step
+
+    _check_parallel(comm_sp, attn)
+    loss, new_shards, new_state = zero3_step(
+        comm_dp, opt, p_shards, template,
+        lambda p: lm_loss(cfg, p, tokens, comm_sp, attn), opt_state)
+    loss = comm_dp.Allreduce(loss, MPI_SUM, compression=False) / comm_dp.size
+    return loss, new_shards, new_state

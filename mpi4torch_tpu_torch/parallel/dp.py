@@ -20,7 +20,17 @@ def all_average_tree(comm, tree, bucket_bytes=None, overlap=None):
     The DP lock-step primitive: forward is the identity on replicated
     values; the adjoint Allreduce makes downstream gradients the mean over
     ranks (reference: doc/examples.rst:46-65).  Every rank ends with the
-    same bits."""
+    same bits.
+
+    Rides the fused bucketed path (:mod:`mpi4torch_tpu_torch.fuse`) by
+    default: one Allreduce per ~``bucket_bytes`` dtype-homogeneous
+    bucket instead of one per leaf, and the ``/ comm.size`` mean applied
+    once per bucket.  On the exact wire this is bit-identical to the
+    per-leaf form; opt out with ``bucket_bytes=0`` or
+    ``config.fusion_scope(0)``.  ``overlap`` (None → the
+    :func:`~mpi4torch_tpu_torch.config.overlap_scope` / process default)
+    truthy runs the nonblocking Isend/Irecv pipeline, with the same
+    bits."""
     return comm.Allreduce_tree(tree, MPI_SUM, bucket_bytes=bucket_bytes,
                                mean=True, overlap=overlap)
 

@@ -645,7 +645,7 @@ def run_ranks(fn: Callable, nranks: int, timeout: Optional[float] = None,
         raise NotImplementedError(
             f"backend={backend!r}: only rank threads exist in this package; "
             "the multi-process transport is not ported yet (ROADMAP.md, "
-            "Queue 1 item 2)")
+            "Queue 1 item 4)")
     dev = resolve_device(device)
     world = World(nranks, timeout=timeout, device=dev)
     results: List[Any] = [None] * nranks

@@ -18,10 +18,12 @@ Port of the eager dense-slot-table path of
 
 Under :func:`~mpi4torch_tpu_torch.run_ranks` every rank thread builds its
 own engine; the decode collectives run through the rendezvous, and every
-rank selects the same tokens (the logits are rank-identical).  Paging,
-chunked prefill, sampling, the compiled SPMD mode and the overlap
-scheduler are not ported yet: their options raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
+rank selects the same tokens (the logits are rank-identical).
+``ServeConfig.overlap`` runs every decode collective as a window of
+split-phase chunks, and ``ServeConfig.algorithm`` names their schedule.
+Paging, chunked prefill, sampling and the compiled SPMD mode are not
+ported yet: their options raise ``NotImplementedError`` naming the
+ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -93,10 +95,12 @@ class ServeConfig:
     ``queue_limit`` bounds the queue beyond what free slots can absorb
     (None = unbounded); ``shed_policy`` turns a rejection into evicting a
     queued request.  ``cache_dtype`` overrides the KV-cache dtype.
-    ``temperature > 0``, ``block_size > 0`` (paging, with
-    ``num_blocks``/``prefix_cache``/``prefill_chunk``), a truthy
-    ``overlap`` and an ``algorithm`` other than None/"ring" validate
-    here and are refused by :class:`Engine`: they are not ported yet."""
+    ``overlap`` is the decode-collective schedule (None =
+    ``config.default_overlap()``; truthy = windowed split-phase; False =
+    blocking) and ``algorithm`` their wire schedule (None = the
+    selector).  ``temperature > 0`` and ``block_size > 0`` (paging, with
+    ``num_blocks``/``prefix_cache``/``prefill_chunk``) validate here and
+    are refused by :class:`Engine`: they are not ported yet."""
     slots: int = 4
     max_new: int = 16
     eos: Optional[int] = None
@@ -176,17 +180,12 @@ def _refuse_unported(serve_cfg: ServeConfig, spmd: bool) -> None:
     roadmap = "(ROADMAP.md, Queue 1 item {})"
     refusals = [
         (spmd, "spmd=True: the compiled SPMD engine needs the compiled "
-               "backend " + roadmap.format(6)),
+               "backend " + roadmap.format(4)),
         (serve_cfg.temperature > 0,
          "temperature > 0: sampled decoding needs the threefry key "
-         "discipline " + roadmap.format(4)),
+         "discipline " + roadmap.format(2)),
         (serve_cfg.block_size > 0,
-         "block_size > 0: the paged KV cache " + roadmap.format(4)),
-        (bool(serve_cfg.overlap),
-         "overlap: split-phase decode collectives " + roadmap.format(2)),
-        (serve_cfg.algorithm not in (None, "ring"),
-         f"algorithm={serve_cfg.algorithm!r}: decode collectives on "
-         "schedules other than the ring fold " + roadmap.format(4)),
+         "block_size > 0: the paged KV cache " + roadmap.format(2)),
     ]
     for refused, what in refusals:
         if refused:
@@ -411,7 +410,8 @@ class Engine:
             self.cfg, self._shards, self._cache,
             torch.as_tensor(self._tokens, device=self.device),
             torch.as_tensor(self._pos, device=self.device), self._comm,
-            overlap=self.serve_cfg.overlap, active=live)
+            overlap=self.serve_cfg.overlap,
+            algorithm=self.serve_cfg.algorithm, active=live)
         self.last_logits = logits
         toks = self._select(logits)
         self.stats.tick(len(active), self.serve_cfg.slots)

@@ -17,6 +17,8 @@ differentiated.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .. import config as _config
@@ -25,6 +27,7 @@ from ..models.transformer import (TransformerConfig, _ffn_local, _norm,
                                   _rope_rotate)
 from ..ops.flash import flash_attention, flash_block_attention
 from ..ops.ragged import position_onehot
+from ..overlap import overlap_split_allreduce, resolve_overlap
 from ..parallel.tp import shard_axis, shard_heads
 from ..runtime import CommError
 from ..utils.profiling import bucket_scope, serve_step_scope
@@ -151,17 +154,27 @@ def _split_qkv_local(cfg: TransformerConfig, blk, y, positions, size):
     return q, k, v
 
 
-def _decode_allreduce(comm, x, *, site: int, nsites: int, overlap):
+def _decode_allreduce(comm, x, *, site: int, nsites: int, overlap,
+                      algorithm=None):
     """One decode collective site: the row-parallel partial-sum
-    Allreduce, blocking, under a per-site span.  Always exact."""
+    Allreduce, scheduled per the overlap policy.  ``overlap`` truthy →
+    the windowed split-phase chunk window
+    (:func:`~mpi4torch_tpu_torch.overlap.overlap_split_allreduce`, span
+    labels numbered over the step's ``nsites`` sites); falsy → the
+    blocking facade op under a per-site span.  Both give the same bits.
+    Always exact (``compression=False``: decode activations are forward
+    values, out of a gradient codec's reach)."""
     if comm is None:
         return x
     if overlap:
-        raise NotImplementedError(
-            "overlap: split-phase decode collectives are not ported yet "
-            "(ROADMAP.md, Queue 1 item 4)")
+        k = _config.SERVE_DECODE_BUCKETS
+        return overlap_split_allreduce(
+            comm, x, MPI_SUM, nsplits=k, index_base=site * k,
+            index_total=nsites * k, op_name="ServeDecode",
+            algorithm=algorithm)
     with bucket_scope("ServeDecode", site, nsites):
-        return comm.Allreduce(x, MPI_SUM, compression=False)
+        return comm.Allreduce(x, MPI_SUM, compression=False,
+                              algorithm=algorithm)
 
 
 def prefill_tp(cfg: TransformerConfig, shards, cache, prompt, comm=None):
@@ -196,7 +209,8 @@ def prefill_tp(cfg: TransformerConfig, shards, cache, prompt, comm=None):
 
 
 def decode_step_tp(cfg: TransformerConfig, shards, cache, tokens, pos,
-                   comm=None, *, overlap=None, active=None):
+                   comm=None, *, overlap=None,
+                   algorithm: Optional[str] = None, active=None):
     """One continuous-batching decode step over the whole slot table:
     logits ``(slots, vocab)`` for ``tokens`` ``(slots,)``, each slot at
     its own position ``pos[slot]``, writing this rank's KV-cache shard in
@@ -208,13 +222,19 @@ def decode_step_tp(cfg: TransformerConfig, shards, cache, tokens, pos,
     op is row-wise, and the collectives reduce over ranks, not slots.
     ``active`` (``(slots,)`` bool) zeroes the free slots' rows of every
     collective payload, so a NaN-poisoned free slot never reaches the
-    wire; live rows pass through ``where`` unchanged.  ``overlap``
-    (``None`` defers to ``config.default_overlap()``) must resolve to a
-    blocking schedule here."""
+    wire; live rows pass through ``where`` unchanged.
+
+    ``overlap`` (``None`` defers to ``config.default_overlap()``) truthy
+    rides each of the ``2 * n_layers`` collective sites through the
+    windowed split-phase chunk window; falsy is the blocking baseline.
+    ``algorithm`` is the schedule of every decode Allreduce (None: the
+    selector).  The chunks split an elementwise sum, so the overlap
+    window gives the blocking bits; another ``algorithm`` folds in its
+    own association (on two ranks every schedule is the one addition)."""
     slots = tokens.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
     size = _tp_size(cfg, shards)
-    ov = _config.default_overlap() if overlap is None else overlap
+    ov = resolve_overlap(overlap)
     nsites = 2 * len(shards["blocks"])
     live = None if active is None else \
         torch.as_tensor(active, device=tokens.device).to(torch.bool)[:, None]
@@ -243,12 +263,14 @@ def decode_step_tp(cfg: TransformerConfig, shards, cache, tokens, pos,
                 window=cfg.attn_window, impl="torch")
             o_part = o.reshape(slots, -1).to(x.dtype) @ blk["wo"]
             attn = _decode_allreduce(comm, guard_rows(o_part), site=site,
-                                     nsites=nsites, overlap=ov)
+                                     nsites=nsites, overlap=ov,
+                                     algorithm=algorithm)
             site += 1
             x = x + attn.to(x.dtype)
             ff = _ffn_local(cfg, blk, _norm(cfg, x, blk["ln2"]))
             ff = _decode_allreduce(comm, guard_rows(ff), site=site,
-                                   nsites=nsites, overlap=ov)
+                                   nsites=nsites, overlap=ov,
+                                   algorithm=algorithm)
             site += 1
             x = x + ff.to(x.dtype)
         x = _norm(cfg, x, shards["ln_f"])

@@ -7,7 +7,7 @@ selector (:func:`select_auto`).
 
 The JAX package's selector first asks its persisted autotuner cache for
 a measured winner, and its latency tier picks ``rhd``/``tree`` for small
-payloads.  The autotuner is not ported (ROADMAP.md, Queue 1 item 7) and
+payloads.  The autotuner is not ported (ROADMAP.md, Queue 1 item 5) and
 no latency crossover is measured, so here selection is the deterministic
 pin and the bandwidth tier.  The port has no algorithm scope: an
 algorithm is named per call, explicitly, so a request that cannot serve

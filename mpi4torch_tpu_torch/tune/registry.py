@@ -89,7 +89,7 @@ def get_algorithm(spec) -> AlgorithmSpec:
         if spec.startswith("synth:"):
             raise NotImplementedError(
                 f"algorithm={spec!r}: synthesized schedules come with the "
-                "schedule IR and its autotuner (ROADMAP.md, Queue 1 item 7)")
+                "schedule IR and its autotuner (ROADMAP.md, Queue 1 item 5)")
         raise ValueError(
             f"unknown collective algorithm {spec!r}; available: "
             f"{', '.join(sorted(_REGISTRY))}")

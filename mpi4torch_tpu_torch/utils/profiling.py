@@ -1,12 +1,13 @@
-"""Serving observability: profiler spans and engine counters.
+"""Observability: profiler spans and engine counters.
 
-Port of the serving part of ``mpi4torch_tpu/utils/profiling.py``.  The
-spans are ``torch.profiler.record_function`` ranges (the counterpart of
-the JAX package's ``jax.named_scope``), so a ``torch.profiler`` trace
-separates prefill from decode and names every decode collective site.
-:class:`ServeStats` keeps the engine's counters and per-request
-timestamps; :meth:`ServeStats.snapshot` derives occupancy and TTFT /
-end-to-end latency p50 and p99.
+Port of the serving and bucket parts of
+``mpi4torch_tpu/utils/profiling.py``.  The spans are
+``torch.profiler.record_function`` ranges (the counterpart of the JAX
+package's ``jax.named_scope``), so a ``torch.profiler`` trace separates
+prefill from decode and names every decode collective site and every
+bucket of a fused collective.  :class:`ServeStats` keeps the engine's
+counters and per-request timestamps; :meth:`ServeStats.snapshot`
+derives occupancy and TTFT / end-to-end latency p50 and p99.
 """
 
 from __future__ import annotations
@@ -20,10 +21,18 @@ import torch
 __all__ = ["bucket_scope", "serve_step_scope", "ServeStats", "percentile"]
 
 
-def bucket_scope(op: str, index: int, total: int):
-    """Span ``mpi4torch.<op>.bucket<i>of<n>`` around one collective site."""
-    return torch.profiler.record_function(
-        f"mpi4torch.{op}.bucket{index}of{total}")
+def bucket_scope(op: str, index: int, total: int, codec=None, phase=None):
+    """Span ``mpi4torch.<op>.bucket<i>of<n>[.<codec>][.<phase>]`` around
+    one collective site: one bucket of a fused tree collective (a
+    compressed bucket carries its codec's name), one chunk of a decode
+    collective, or one half (``start``/``wait``) of a split-phase
+    bucket."""
+    name = f"mpi4torch.{op}.bucket{index}of{total}"
+    if codec is not None:
+        name += f".{codec.name}"
+    if phase is not None:
+        name += f".{phase}"
+    return torch.profiler.record_function(name)
 
 
 def serve_step_scope(what: str = "decode_step"):

@@ -225,14 +225,21 @@ def test_unported_options_raise(kw):
 
 
 def test_unported_backend_and_overlap_raise():
+    # The multi-process backend is not ported (it raises, naming the
+    # ROADMAP item); the overlap policy is: True and window depths are
+    # accepted, and only malformed values raise.
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         P.run_ranks(lambda: None, 2, backend="process", device="cpu")
-    for value in (True, 2):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    try:
+        for value in (True, 2, False):
             pconfig.set_default_overlap(value)
-    pconfig.set_default_overlap(False)
-    assert pconfig.default_overlap() is False
-    pconfig.set_default_overlap(None)
+            assert pconfig.default_overlap() is value or \
+                pconfig.default_overlap() == value
+        for bad in (0, "x"):
+            with pytest.raises(ValueError):
+                pconfig.set_default_overlap(bad)
+    finally:
+        pconfig.set_default_overlap(None)
 
 
 def test_payload_off_the_world_device_raises():

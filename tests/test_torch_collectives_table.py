@@ -418,18 +418,30 @@ def test_indivisible_reduce_scatter_and_numelem_mismatch_raise():
 def test_unported_options_raise_naming_roadmap():
     def body():
         t = torch.ones(4)
-        for call in (lambda: comm.Gather(t, 0, 0, numelem=(2, 2)),
-                     lambda: comm.Allgather(t, 0, numelem=2),
-                     lambda: comm.Scatter(t, 0, (2, 2), 0),
-                     lambda: comm.Alltoall(t, 0, 0, (2, 2)),
-                     lambda: comm.Allgather(t, 0, compression="q8"),
-                     lambda: comm.Allreduce_start(t, P.MPI_SUM),
-                     lambda: comm.Reduce_scatter_start(t, P.MPI_SUM, 0),
-                     lambda: comm.Allgather_start(t, 0),
+        for call in (lambda: comm.Allgather(t, 0, compression="q8"),
                      lambda: comm.Allreduce(t, P.MPI_SUM,
                                             algorithm="synth:deadbeef")):
             with pytest.raises(NotImplementedError, match="ROADMAP.md"):
                 call()
+        # The packed numelem and the split-phase forms are ported: on two
+        # ranks they give the dense and blocking answers.
+        r = comm.rank
+        x = torch.arange(4.) + 10 * r
+        assert comm.Allgather(x, 0, numelem=2).tolist() == \
+            [0.0, 1.0, 10.0, 11.0]
+        assert comm.Gather(x, 0, 0, numelem=(2, 2)).tolist() == \
+            ([0.0, 1.0, 10.0, 11.0] if r == 0 else [0.0] * 4)
+        assert torch.equal(comm.Scatter(torch.arange(4.), 0, (2, 2), 0),
+                           torch.arange(2.) + 2 * r)
+        assert torch.equal(comm.Alltoall(t, 0, 0, (4, 4),
+                                         current_numelem=(4, 4)), t)
+        assert torch.equal(comm.Wait(comm.Allreduce_start(x, P.MPI_SUM)),
+                           comm.Allreduce(x, P.MPI_SUM))
+        assert torch.equal(
+            comm.Wait(comm.Reduce_scatter_start(x, P.MPI_SUM, 0)),
+            comm.Reduce_scatter(x, P.MPI_SUM, 0))
+        assert torch.equal(comm.Wait(comm.Allgather_start(x, 0)),
+                           comm.Allgather(x, 0))
         # A scope codec would compress in the JAX package: no silent
         # exact wire.  An integer payload stays exact in both.
         with P.config.compression_scope("q8"):
@@ -449,10 +461,22 @@ def test_unported_options_raise_naming_roadmap():
 @pytest.mark.parametrize("name", ["ragged_alltoall", "ragged_allgather",
                                   "ragged_gather", "ragged_scatter"])
 def test_ragged_collectives_raise_naming_roadmap(name):
+    # The ragged collectives are ported (tests/test_torch_ragged.py holds
+    # them against the JAX package); what raises now is a malformed
+    # call, with the JAX package's ValueError, while a well-formed one
+    # on the size-1 world returns (payload, counts).
     from mpi4torch_tpu_torch.ops import ragged
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        getattr(ragged, name)(comm, torch.ones(2, 3), 1)
+    fn = getattr(ragged, name)
+    with pytest.raises(ValueError):
+        fn(comm, torch.ones(2, 3), torch.ones(2, 2, dtype=torch.int64))
+    block = name in ("ragged_alltoall", "ragged_scatter")
+    x = torch.ones(1, 3, 2) if block else torch.ones(3, 2)
+    count = torch.tensor([2]) if block else torch.tensor(2)
+    out, counts = fn(comm, x, count)
+    assert int(counts.reshape(-1)[0]) == 2
+    assert out.reshape(3, 2)[2].eq(0).all() and out.reshape(3, 2)[:2].eq(1) \
+        .all()
 
 
 def test_algorithm_requests_follow_the_registry():

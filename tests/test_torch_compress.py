@@ -359,16 +359,27 @@ def test_torus_group_rule():
 
 
 def test_allreduce_tree_compressed_needs_bucket_bytes_zero():
-    tree = {"w": torch.ones(300), "b": torch.ones(5)}
-    for bb in (None, 1 << 20):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            P.COMM_WORLD.Allreduce_tree(tree, P.MPI_SUM, compression="q8",
-                                        bucket_bytes=bb)
-    with pconfig.compression_scope("q8"):
-        with pytest.raises(NotImplementedError, match="bucket_bytes=0"):
-            P.COMM_WORLD.Allreduce_tree(tree, P.MPI_SUM)
+    # Compressed buckets are ported: with bucket_bytes None (the 4 MiB
+    # default), a size or a compression scope, each float bucket rides
+    # one compressed Allreduce of the flat bucket (the JAX package's
+    # fused form; tests/test_torch_fuse.py holds it bitwise against JAX),
+    # and bucket_bytes=0 keeps one compressed Allreduce per leaf.
     xs = [{"w": torch.from_numpy(x[:300]), "b": torch.from_numpy(x[300:])}
           for x in _inputs(3, numel=305, seed=8)]
+
+    def fused_fn(r):
+        c = P.COMM_WORLD
+        flat = torch.cat([xs[r]["b"], xs[r]["w"]])   # key order: b, w
+        want = c.Allreduce(flat, P.MPI_SUM, compression="q8") / 3
+        outs = [c.Allreduce_tree(xs[r], P.MPI_SUM, compression="q8",
+                                 bucket_bytes=bb, mean=True)
+                for bb in (None, 1 << 20)]
+        with pconfig.compression_scope("q8"):
+            outs.append(c.Allreduce_tree(xs[r], P.MPI_SUM, mean=True))
+        return all(torch.equal(o["b"], want[:5])
+                   and torch.equal(o["w"], want[5:]) for o in outs)
+
+    assert all(_on_world(3, fused_fn))
 
     def fn(r):
         fused = P.COMM_WORLD.Allreduce_tree(xs[r], P.MPI_SUM,

@@ -791,3 +791,199 @@ def test_op_table_never_waits_for_the_device(cuda):
     assert [n for n, _, _ in res[0]] == list(ops)
     assert all(bool(torch.isfinite(t).all()) for rr in res
                for _, y, g in rr for t in (y, g))
+
+
+# ---------------------------------------------------------------------------
+# The packed and ragged collectives, the fused and split-phase trees, ZeRO
+# and the decode overlap window on the card.
+
+
+def _packed_ops():
+    from mpi4torch_tpu_torch.ops import ragged
+
+    counts = (5, 0, 7, 3)
+    cap, total = max(counts), sum(counts)
+    new = tuple(reversed(counts))
+    sends = [[(r + d) % 4 for d in range(4)] for r in range(4)]
+
+    def dev(t, like):
+        return torch.as_tensor(t, device=like.device)
+
+    return {
+        "gather": (lambda c, t, r: c.Gather(t, 0, 2, numelem=counts),
+                   (cap, 3)),
+        "allgather": (lambda c, t, r: c.Allgather(t, 0, numelem=counts),
+                      (cap, 3)),
+        "scatter": (lambda c, t, r: c.Scatter(t, 0, counts, 1), (total, 2)),
+        "alltoall_same_axis": (
+            lambda c, t, r: c.Alltoall(t, 0, 0, new,
+                                       current_numelem=counts), (cap, 2)),
+        "alltoall_axes": (lambda c, t, r: c.Alltoall(t, 1, 0, counts),
+                          (total, cap)),
+        "ragged_alltoall": (lambda c, t, r: ragged.ragged_alltoall(
+            c, t, dev(sends[r], t))[0], (4, 3, 2)),
+        "ragged_allgather": (lambda c, t, r: ragged.ragged_allgather(
+            c, t, dev(counts[r], t))[0], (cap, 2)),
+        "ragged_gather": (lambda c, t, r: ragged.ragged_gather(
+            c, t, dev(counts[r], t), root=3)[0], (cap, 2)),
+        "ragged_scatter": (lambda c, t, r: ragged.ragged_scatter(
+            c, t, dev([3, 1, 0, 2], t), root=0)[0], (4, 3, 2)),
+    }
+
+
+@pytest.mark.cuda
+def test_packed_and_ragged_on_the_card_are_bitwise_the_cpu_run(cuda):
+    import mpi4torch_tpu_torch as P
+
+    ops = _packed_ops()
+    rng = np.random.default_rng(5)
+    xs = {k: [rng.standard_normal(shape).astype(np.float32)
+              for _ in range(4)] for k, (_, shape) in ops.items()}
+
+    def run(device):
+        def body(r):
+            out = {}
+            for name, (op, _) in ops.items():
+                t = torch.from_numpy(xs[name][r]).to(device) \
+                    .requires_grad_()
+                y = op(P.COMM_WORLD, t, r)
+                w = torch.arange(y.numel(), device=device,
+                                 dtype=y.dtype).reshape(y.shape) * 0.25 - r
+                (g,) = torch.autograd.grad((y * w).sum(), t)
+                out[name] = (y.detach(), g)
+            return out
+        return P.run_ranks(body, 4, timeout=60.0, device=device)
+
+    got, want = run(cuda), run(torch.device("cpu"))
+    for r in range(4):
+        for name in ops:
+            for a, b in zip(got[r][name], want[r][name]):
+                assert a.is_cuda and torch.equal(a.cpu(), b), (name, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket_bytes", [1024, 1 << 20])
+def test_fused_q8_tree_on_the_kernel_equals_plain_and_the_cpu(cuda,
+                                                              bucket_bytes):
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch import config, fuse
+
+    rng = np.random.default_rng(9)
+    trees = [{"a": rng.standard_normal(700).astype(np.float32),
+              "b": rng.standard_normal((9, 31)).astype(np.float32),
+              "c": rng.standard_normal(5).astype(np.float32)}
+             for _ in range(2)]
+    nb = fuse.bucket_layout({k: torch.from_numpy(v)
+                             for k, v in trees[0].items()},
+                            bucket_bytes).num_buckets
+
+    def run(device):
+        def body(r):
+            t = {k: torch.from_numpy(v).to(device)
+                 for k, v in trees[r].items()}
+            return P.COMM_WORLD.Allreduce_tree(
+                t, P.MPI_SUM, compression="q8", bucket_bytes=bucket_bytes,
+                mean=True)
+        return P.run_ranks(body, 2, timeout=30.0, device=device)
+
+    _kernels.reset_launch_counts()
+    got = run(cuda)
+    assert _kernels.launch_counts["q8_hop"] == 2 * nb
+    config.set_quant_hop_impl("torch")
+    try:
+        plain = run(cuda)
+    finally:
+        config.set_quant_hop_impl("auto")
+    cpu = run(torch.device("cpu"))
+    for g, p, c in zip(got, plain, cpu):
+        for k in g:
+            assert _bits_differ(g[k], got[0][k]) == 0
+            assert _bits_differ(g[k], p[k]) == 0
+            assert torch.equal(g[k].cpu(), c[k])
+
+
+@pytest.mark.cuda
+def test_fused_overlap_split_phase_and_zero_on_the_card(cuda):
+    # Fused exact (blocking and the Isend/Irecv pipeline), split-phase
+    # handles and ZeRO-1 with adam on the card: bitwise their blocking,
+    # per-leaf and replicated forms.  The sums are also bitwise the CPU
+    # run's; a division by a scalar is not (CUDA multiplies by the
+    # reciprocal), so the means and Adam are held on the card only.
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch.parallel import zero as Z
+    from mpi4torch_tpu_torch.utils import optim
+
+    rng = np.random.default_rng(13)
+    trees = [{"w": rng.standard_normal((40, 7)).astype(np.float32),
+              "b": rng.standard_normal(13).astype(np.float32)}
+             for _ in range(3)]
+
+    def run(device):
+        def body(r):
+            c = P.COMM_WORLD
+            t = {k: torch.from_numpy(v).to(device).requires_grad_()
+                 for k, v in trees[r].items()}
+            outs = []
+            for kw in (dict(bucket_bytes=0), dict(bucket_bytes=64),
+                       dict(bucket_bytes=64, overlap=True)):
+                y = c.Allreduce_tree(t, P.MPI_SUM, **kw)
+                g = torch.autograd.grad(sum((v * v).sum()
+                                            for v in y.values()),
+                                        list(t.values()))
+                outs.append([v.detach() for v in y.values()] + list(g))
+            x = t["w"].detach()
+            outs.append([c.Wait(c.Allreduce_start(x, P.MPI_SUM)),
+                         c.Wait(c.Reduce_scatter_start(x[:39], P.MPI_SUM,
+                                                       0)),
+                         c.Wait(c.Allgather_start(x, 0))])
+            opt = optim.adam(1e-2)
+            p = {k: torch.from_numpy(v).to(device)
+                 for k, v in trees[0].items()}           # replicated
+            g = {k: v.detach() for k, v in t.items()}    # rank-local
+            st = Z.zero_init(c, opt, p)
+            p1, _ = Z.zero_step(c, opt, p, g, st)
+            rep_g = c.Allreduce_tree(g, P.MPI_SUM, mean=True)
+            upd, _ = opt.update(rep_g, opt.init(p), p)
+            outs.append(list(p1.values())
+                        + [a + b for a, b in zip(p.values(),
+                                                 upd.values())])
+            return outs
+        return P.run_ranks(body, 3, timeout=60.0, device=device)
+
+    got, cpu = run(cuda), run(torch.device("cpu"))
+    for r in range(3):
+        leaf, fused, pipe, split, zero = got[r]
+        assert all(torch.equal(a, b) for a, b in zip(fused, leaf))
+        assert all(torch.equal(a, b) for a, b in zip(pipe, leaf))
+        assert all(torch.equal(a, b) for a, b in zip(zero[:2], zero[2:]))
+        for a, b in zip(sum(got[r][:4], []), sum(cpu[r][:4], [])):
+            assert a.is_cuda and torch.equal(a.cpu(), b)
+        assert split[0].shape == (40, 7) and split[2].shape == (120, 7)
+
+
+@pytest.mark.cuda
+def test_decode_overlap_and_rhd_on_the_card(cuda):
+    import mpi4torch_tpu_torch as P
+
+    cfg = T.TransformerConfig(vocab=61, d_model=32, n_heads=4, n_layers=2,
+                              d_ff=64, max_seq=32)
+    params = T.init_transformer(0, cfg, torch.float32, device=cuda)
+
+    def body():
+        c = P.COMM_WORLD
+        shards = serve.shard_params_tp(cfg, params, c)
+        outs = []
+        for kw in (dict(), dict(overlap=True), dict(algorithm="rhd"),
+                   dict(overlap=3, algorithm="rhd")):
+            cache = serve.init_kv_cache_tp(cfg, 2, c.size, torch.float32,
+                                           cuda)
+            for t in range(3):
+                logits, cache = serve.decode_step_tp(
+                    cfg, shards, cache,
+                    torch.tensor([5 + t, 9 + t], device=cuda),
+                    torch.tensor([t, t], device=cuda), c, **kw)
+            outs.append(logits)
+        return outs
+
+    for outs in P.run_ranks(body, 2, timeout=60.0, device=cuda):
+        assert all(torch.equal(o, outs[0]) for o in outs)

@@ -41,7 +41,11 @@ def test_port_has_modules():
                 "utils/lbfgs.py", "examples/__init__.py",
                 "examples/simple_linear_regression.py",
                 "examples/isend_recv_wait.py",
-                "examples/halo_exchange_stencil.py"):
+                "examples/halo_exchange_stencil.py", "ops/packed.py",
+                "fuse/__init__.py", "fuse/bucketing.py",
+                "fuse/collectives.py", "overlap/__init__.py",
+                "overlap/scheduler.py", "parallel/zero.py",
+                "utils/optim.py"):
         assert f"mpi4torch_tpu_torch/{rel}" in names
     for src in ("flash_fwd.cu", "flash_fwd_tc.cu", "flash_bwd.cu",
                 "flash_bwd_tc.cu", "quant_hop.cu"):

@@ -171,7 +171,16 @@ def test_serve_config_validation_matches_jax(kw):
     dict(spmd=True),
 ])
 def test_unported_engine_options_raise(weights, kw):
-    _, _, pcfg, pparams, _, _ = weights
+    # Sampling, paging and the SPMD engine still raise; the overlap
+    # window and the decode schedule are ported and must give the
+    # blocking ring engine's tokens (here on two ranks).
+    _, _, pcfg, pparams, eos, oracle = weights
+    scfg = kw.get("serve_cfg")
+    if scfg is not None and (scfg.overlap or scfg.algorithm):
+        scfg = dataclasses.replace(scfg, slots=2, max_new=8, eos=eos)
+        for tokens, _ in _port_run(pcfg, pparams, scfg, 2):
+            assert tokens == oracle
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pserve.Engine(pcfg, pparams, device="cpu", **kw)
 
@@ -264,3 +273,35 @@ def test_single_rank_serving_path_equals_prefill(weights):
                       prompt)
     assert torch.equal(a, b)
     assert dataclasses.is_dataclass(pserve.ServeConfig())
+
+
+@pytest.mark.parametrize("kw", [dict(overlap=True), dict(algorithm="rhd"),
+                                dict(overlap=3, algorithm="rhd")],
+                         ids=["overlap", "rhd", "overlap3_rhd"])
+def test_decode_overlap_and_schedule_match_the_blocking_ring(weights, kw):
+    # TP=2: decode_step_tp's logits through the split-phase chunk window
+    # and/or the rhd schedule are bitwise the blocking ring's (on two
+    # ranks every schedule is the one addition, and the chunks split an
+    # elementwise sum); the engine emits the oracle's tokens, as the JAX
+    # engine does with the same ServeConfig.
+    jcfg, jparams, pcfg, pparams, eos, oracle = weights
+
+    def body():
+        c = P.COMM_WORLD
+        shards = pserve.shard_params_tp(pcfg, pparams, c)
+        outs = []
+        for dkw in (dict(), kw):
+            cache = pserve.init_kv_cache_tp(pcfg, 2, c.size, torch.float64,
+                                            "cpu")
+            for t in range(3):
+                logits, cache = pserve.decode_step_tp(
+                    pcfg, shards, cache, torch.tensor([5 + t, 9 + t]),
+                    torch.tensor([t, t]), c, **dkw)
+            outs.append(logits)
+        return torch.equal(outs[0], outs[1])
+
+    assert all(P.run_ranks(body, 2, device="cpu"))
+    scfg = dict(slots=2, max_new=8, eos=eos, **kw)
+    for tokens, _ in _port_run(pcfg, pparams, pserve.ServeConfig(**scfg), 2):
+        assert tokens == oracle
+    assert _jax_run(jcfg, jparams, jserve.ServeConfig(**scfg), 2) == oracle

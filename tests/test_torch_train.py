@@ -254,12 +254,18 @@ def test_params_to_numpy_round_trips():
 
 
 @pytest.mark.parametrize("kw, err", [
-    ({"overlap": True}, NotImplementedError),
-    ({"compression": "q8"}, NotImplementedError),
+    ({"overlap": True}, None),
+    ({"compression": "q8"}, None),
     ({"algorithm": "synth:deadbeef00"}, NotImplementedError),
     ({"bucket_bytes": -1}, ValueError),
 ])
 def test_allreduce_tree_unported_options_raise(kw, err):
+    # overlap and compression are ported (err None): on the size-1 world
+    # the fused tree returns the leaf's value; the rest still raise.
+    if err is None:
+        out = P.COMM_WORLD.Allreduce_tree([torch.ones(2)], P.MPI_SUM, **kw)
+        assert torch.equal(out[0], torch.ones(2))
+        return
     with pytest.raises(err):
         P.COMM_WORLD.Allreduce_tree([torch.ones(2)], P.MPI_SUM, **kw)
 
@@ -280,9 +286,23 @@ def test_unported_training_paths_raise():
             PT.lm_loss(pcfg, pparams, tok, comm_ep=P.COMM_WORLD)
 
     P.run_ranks(body, 2, device="cpu")
-    for fn in (PT.zero_train_step, PT.zero3_train_step):
+
+    # The ZeRO steps are ported (tests/test_torch_zero.py); they keep the
+    # sequence-parallel refusal.
+    from mpi4torch_tpu_torch.parallel.zero import zero3_init, zero_init
+    from mpi4torch_tpu_torch.utils.optim import sgd
+
+    def zero_body():
+        c, opt = P.COMM_WORLD, sgd(1e-2)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fn(pcfg, pparams, tok)
+            PT.zero_train_step(pcfg, pparams, tok, opt,
+                               zero_init(c, opt, pparams), c, comm_sp=c)
+        shards, state = zero3_init(c, opt, pparams)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            PT.zero3_train_step(pcfg, shards, pparams, tok, opt, state, c,
+                                comm_sp=c)
+
+    P.run_ranks(zero_body, 2, device="cpu")
     with pytest.raises(ValueError, match="unknown attention"):
         PT.forward(pcfg, pparams, tok, attn="flash")
     with pytest.raises(ValueError, match="must divide"):
