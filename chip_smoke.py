@@ -16,7 +16,8 @@ check fails.  Phases, in order:
    same for the simt kernels at their widest instantiation (DMAX 512);
 3. the block-attention forward kernel (``flash_fwd``) against its plain
    PyTorch version on the card, on the cases listed in ``KERNEL_CASES``
-   (among them head dims 12 and 264, batch x heads 65540 and float16),
+   (among them head dims 12 and 264, batch x heads 65540, float16 and
+   the chunked-prefill shapes of phase 23),
    each within the stated tolerance, printed with the variant that
    ``_kernels.fwd_variant`` picks (``tc`` on the tensor cores, ``simt``
    on the CUDA cores) and counted under it; every ``tc`` case runs twice
@@ -144,8 +145,26 @@ check fails.  Phases, in order:
 22. TP=2 serving with ``ServeConfig(overlap=True)`` and with
     ``algorithm="rhd"``: phase 5's requests, tokens identical to phase
     5's blocking engine; decode tokens/s beside phase 5's;
-23. one JSON line describing each ported kernel (K2, K3 and K4 with
-    the variant the main path ran; the launches of phases 18–20).
+23. paged, sampled serving of the flagship at full width (``PAGED``:
+    16-token pages, 170 of them, the prefix cache, 256-token prefill
+    chunks, temperature 0.8, top-k 50; eight requests, four sharing a
+    600-token system prompt, one repeating another exactly) and its greedy
+    twin: greedy tokens equal ``generate()``'s and phase 4's dense
+    engine's but at near ties; every sampled token is bitwise the draw of
+    the engine's own logits row with ``generate()``'s subkey of its step,
+    and the sampled tokens equal each request's ``generate(temperature,
+    top_k, key)`` but at a near tie of the two tokens (their perturbed
+    scores within ``TIE_TOL / temperature``, or the one a top-k mask
+    dropped within ``TIE_TOL`` of the k-th logit), and differ from the
+    greedy ones; prefix hits >= 4, a copy-on-write, a preemption, fewer
+    prefill tokens than prompt tokens; every K2 launch ``tc``, launches at
+    a q offset counted; K2's chunk rows bitwise the one-shot rows; TTFT
+    p50/p99, decode tokens/s, ms per prefill chunk, ms of the sampling
+    noise, peak KV bytes paged against dense, the idle share of a
+    profiled window; K2 at each chunk shape beside its bound, its plain
+    version and SDPA with a lower-right causal mask;
+24. one JSON line describing each ported kernel (K2, K3 and K4 with
+    the variant the main path ran; the launches of phases 18–20 and 23).
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 TF32 is switched off for matmuls and cuDNN here, so float32 work on the
@@ -224,7 +243,17 @@ KERNEL_CASES = [
     ("d264_bf16", torch.bfloat16, 1, 512, 512, 4, 2, 264, 0, 0, 0, True),
     ("bh_65540", torch.float32, 16385, 16, 16, 4, 4, 8, 0, 0, 0, True),
     ("f16", torch.float16, 1, 1024, 1024, 16, 16, 64, 0, 0, 0, True),
+    # Chunked prefill (phase 23): a 256-row chunk at q offsets 256 to 1024
+    # against q_off + 256 keys, and the 36-row last chunk of a 1316-token
+    # prompt (sq < sk, the causal tile cut taken from the offsets).
+] + [(f"chunk_256_q_off_{q_off}", torch.bfloat16, 1, 256, q_off + 256, 16,
+      16, 128, q_off, 0, 0, True) for q_off in (256, 512, 768, 1024)] + [
+    ("chunk_36_q_off_1280", torch.bfloat16, 1, 36, 1316, 16, 16, 128, 1280,
+     0, 0, True),
 ]
+# (rows, q_off) of the prefill-chunk shapes above.
+CHUNK_SHAPES = [(256, q_off) for q_off in (256, 512, 768, 1024)] + \
+    [(36, 1280)]
 
 # Serving checks.  Engine (batch of slots) and generate() (batch of one)
 # run different GEMM shapes, so their bf16 logits differ slightly (the
@@ -239,6 +268,19 @@ TIE_TOL = 0.1
 TP_LOGIT_TOL = 0.1
 N_REQUESTS, MAX_NEW, SLOTS = 8, 32, 4
 TP2_REQUESTS, TP2_MAX_NEW = 4, 8
+# Paged, sampled serving (phase 23): 16-token pages, a pool of 170 (a third
+# of the 512 pages the dense cache holds for 4 slots, under the run's peak
+# demand, so pages are reclaimed and a request is preempted), the prefix
+# cache, 256-token prefill chunks, temperature 0.8 and top-k 50.  Requests
+# (submission order; request i's key is PRNGKey(1000 + i)): four share a
+# 600-token system prompt with suffixes of 40-700 tokens, three are phase
+# 4's prompts (its longest, median and shortest), and the last repeats the
+# shortest exactly (a prefix hit that leaves a one-token suffix and copies
+# the partly filled tail page).
+PAGED = dict(slots=4, max_new=32, block_size=16, num_blocks=170,
+             prefix_cache=True, prefill_chunk=256, temperature=0.8,
+             top_k=50)
+SYS_LEN, SYS_SUFFIXES = 600, (40, 150, 400, 700)
 
 # Backward kernels vs the plain backward.  f32: both sides sum in f32 in
 # other orders; rtol 1e-3 / atol 1e-4 is the JAX package's own
@@ -1142,7 +1184,7 @@ def hop_kernel_phase(qk, kernels):
                                    (5, 7, 3, (1, 1))]:
         key = qk.schedule_key(salt, hop, rank)
         mism += bits_differ(qk.hop_noise(key, *shape, device="cuda").cpu(),
-                            qk.hop_noise(key, *shape))
+                            qk.hop_noise(key, *shape, device="cpu"))
     print(f"  threefry noise made on the card vs on the CPU, 3 keys: "
           f"mismatched elements {mism}  {'ok' if not mism else 'FAIL'}")
     check(mism == 0, "threefry noise differs between the card and the CPU")
@@ -2285,6 +2327,411 @@ def serve_overlap_phase(P, T, serve, kv, kernels, cfg, params, prompts,
     return out
 
 
+def paged_requests(cfg, prompts):
+    """Phase 23's requests in submission order, each with the index of
+    the phase 4 prompt it is (None for the system-prompt requests)."""
+    rng = np.random.default_rng(7)
+    sysp = rng.integers(0, cfg.vocab, SYS_LEN)
+    sys_reqs = [np.concatenate([sysp, rng.integers(0, cfg.vocab, n)])
+                for n in SYS_SUFFIXES]
+    by_len = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))
+    short, mid, longest = by_len[0], by_len[len(by_len) // 2], by_len[-1]
+    order = [("sys", 0), ("p4", longest), ("p4", mid), ("sys", 1),
+             ("p4", short), ("sys", 2), ("sys", 3), ("p4", short)]
+    return [(sys_reqs[i].copy(), None) if kind == "sys"
+            else (prompts[i].copy(), i) for kind, i in order]
+
+
+def sampled_oracle(T, threefry, cfg, params, prompt, n_new, key):
+    """The port's sampled generate() loop for one request with ``key``:
+    its tokens, the subkey of each step (generate()'s split, which the
+    engine follows whatever tokens it chose) and each step's logits
+    row."""
+    cache = T.init_kv_cache(cfg, 1, params["embed"].dtype, "cuda")
+    p = torch.as_tensor(prompt, device="cuda")[None]
+    logits, cache = T.prefill(cfg, params, cache, p)
+    toks, subs, rows = [], [], []
+    for i in range(n_new):
+        if i:
+            logits, cache = T.decode_step(cfg, params, cache,
+                                          torch.tensor([toks[-1]],
+                                                       device="cuda"),
+                                          len(prompt) + i - 1)
+        key, sub = threefry.split(key)
+        subs.append(sub)
+        rows.append(logits[0])
+        toks.append(int(T.select_token(logits, sub, PAGED["temperature"],
+                                       PAGED["top_k"])[0]))
+    return toks, subs, rows
+
+
+def sampled_tie(T, eng_row, gen_row, sub, got, want):
+    """The near-tie measures of a step where the engine chose ``got``
+    from its logits row and generate() chose ``want`` from its own, with
+    the same subkey ``sub`` (each measure over its tolerance, so that at
+    most 1 admits the divergence).  ``score``: the gap s[want] - s[got]
+    of generate()'s perturbed scores (the top-k masked logits /
+    temperature plus the Gumbel noise, what the draw takes the argmax
+    of), over ``TIE_TOL / temperature``; only where ``got`` survives
+    generate()'s top-k mask.  ``edge``: how far below its row's k-th
+    logit lies the token that one row's top-k mask dropped (``got`` in
+    generate()'s row, ``want`` in the engine's), over ``TIE_TOL``."""
+    k, t = PAGED["top_k"], PAGED["temperature"]
+    g, e = gen_row.float(), eng_row.float()
+    s = T.perturbed_scores(gen_row[None], sub, t, k)[0].float()
+    out = {}
+    if torch.isfinite(s[got]):
+        out["score"] = (s[want] - s[got]).item() * t / TIE_TOL
+    kth_g, kth_e = g.topk(k).values[-1], e.topk(k).values[-1]
+    edge = [(kth - row[tok]).item() for kth, row, tok in
+            ((kth_g, g, got), (kth_e, e, want)) if row[tok] < kth]
+    if edge:
+        out["edge"] = min(edge) / TIE_TOL
+    return out
+
+
+def near_tie_check(label, rid, got, want, gaps, tol):
+    """``got`` may leave ``want`` only at a step whose near-tie measure
+    (``gaps``) is within ``tol``; returns the step it left at (None if
+    equal)."""
+    first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+    if first is not None:
+        check(gaps[first] <= tol,
+              f"{label} request {rid}: token {first} differs from "
+              f"generate() without a near tie ({gaps[first]:.4f} > {tol})")
+    return first
+
+
+def paged_run(serve, kernels, threefry, cfg, params, reqs, temperature,
+              profile_at=None):
+    """Drive phase 23's requests through a paged engine (the PAGED
+    configuration at ``temperature``), timing every step.  Returns the
+    engine, the flash_fwd launch counts of the run (all, tc, simt, at a
+    q offset above 0), decode ms and tokens over decode-only steps (no
+    admission, no prefill chunk), the peak paged and dense-equivalent KV
+    bytes, the run's seconds, the profile of the steps from
+    ``profile_at`` (None: no profile) and, per request, the logits rows
+    its tokens were chosen from, in order."""
+    eng = serve.Engine(cfg, params,
+                       serve.ServeConfig(**dict(PAGED,
+                                                temperature=temperature)),
+                       device="cuda")
+    hd = cfg.d_model // cfg.n_heads
+    row = 2 * cfg.kv_heads * hd * cfg.n_layers * params["embed"].element_size()
+    for i, (p, _) in enumerate(reqs):
+        eng.submit(p, key=threefry.PRNGKey(1000 + i))
+    # Every logits table the engine chose from, with the request of each
+    # row (prefill and decode alike; the comparison with generate() reads
+    # them).  Inside the timed steps the wrapper only keeps a reference:
+    # no device work, no copy (the engine never writes a logits table
+    # after choosing from it); the rows are split after the run.
+    chosen = []
+    select = eng._select
+
+    def keep_rows(reqs_, logits):
+        chosen.append(([None if r is None else r.rid for r in reqs_],
+                       logits))
+        return select(reqs_, logits)
+
+    eng._select = keep_rows
+    decode_ms, decode_tok, peak, peak_dense, prof = 0.0, 0, 0, 0, None
+    kernels.reset_launch_counts()
+    t_run = time.perf_counter()
+    steps = 0
+    while eng.pending():
+        if profile_at is not None and steps == profile_at:
+            prof = profile_top(lambda: [eng.step() for _ in range(6)],
+                               "6 steps of the paged engine (greedy twin)")
+            steps += 6
+            continue
+        before = eng.stats.counters["prefill_tokens"]
+        t0 = time.perf_counter()
+        ev = eng.step()           # ends in a host read of the tokens
+        dt = (time.perf_counter() - t0) * 1e3
+        steps += 1
+        if not ev["admitted"] and eng.stats.counters["prefill_tokens"] \
+                == before:
+            decode_ms += dt
+            decode_tok += len(ev["emitted"])
+        peak = max(peak, eng.kv_bytes_resident())
+        peak_dense = max(peak_dense, eng.occupancy() * cfg.max_seq * row)
+    run_s = time.perf_counter() - t_run
+    launches = {k: kernels.launch_counts[k] for k in
+                ("flash_fwd", "flash_fwd.tc", "flash_fwd.simt",
+                 "flash_fwd.q_off")}
+    chosen_from = {}
+    for rids, logits in chosen:
+        for rid, lrow in zip(rids, logits):
+            if rid is not None:
+                chosen_from.setdefault(rid, []).append(lrow)
+    return eng, launches, decode_ms, decode_tok, peak, peak_dense, run_s, \
+        prof, chosen_from
+
+
+def chunk_numbers(flash, kernels):
+    """K2 at the chunked-prefill shapes (bf16, 16 heads of 128): the
+    chunk's rows against rows q_off:q_off + rows of a one-shot call over
+    1316 rows (bitwise), then per shape the kernel, its plain version and
+    scaled_dot_product_attention with a lower-right causal mask (the
+    chunk's causal alignment; SDPA's is_causal aligns top-left), its
+    bound, and the largest kernel-vs-plain error."""
+    from torch.nn.attention.bias import causal_lower_right
+
+    dt, h, d = torch.bfloat16, 16, 128
+    q, k, v = attention_inputs(dt, 1, 1316, 1316, h, h, d, seed=23)
+    full, full_lse = flash.flash_block_attention(q, k, v, causal=True)
+    same = True
+    out = []
+    for rows, q_off in CHUNK_SHAPES:
+        hi = q_off + rows
+        qc, kc, vc = q[:, q_off:hi], k[:, :hi], v[:, :hi]
+        kw = dict(causal=True, q_offset=q_off)
+        o, l = flash.flash_block_attention(qc, kc, vc, **kw)
+        same = same and torch.equal(o, full[:, q_off:hi]) and torch.equal(
+            l, full_lse[:, q_off:hi])
+        po, pl = flash.flash_block_attention(qc, kc, vc, impl="torch", **kw)
+        err, _, err_l, ok = forward_errors(o, l, po, pl, dt)
+        check(ok, f"K2 at the chunk ({rows}, q_off {q_off}) disagrees with "
+              "the plain version")
+        ms = event_ms(lambda: flash.flash_block_attention(qc, kc, vc, **kw))
+        plain_ms = event_ms(lambda: flash.flash_block_attention(
+            qc, kc, vc, impl="torch", **kw), iters=5)
+        qt, kt, vt = (x.transpose(1, 2) for x in (qc, kc, vc))
+        mask = causal_lower_right(rows, hi)
+        lib_ms = event_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask))
+        pairs = live_pairs(rows, hi, q_off, 0, 0, True)
+        flops = 4.0 * h * d * pairs
+        nbytes = (2 * rows * h * d + 2 * hi * h * d) * 2 + rows * h * 4
+        b_ms, b_by = bound(flops, nbytes, dt)
+        print(f"  K2 chunk ({rows} rows, q_off {q_off}, {hi} keys): tc "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA lower-right "
+              f"causal {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{100 * b_ms / ms:.1f}% of bound; out err {err:.3e}, lse err "
+              f"{err_l:.3e}", flush=True)
+        out.append({"rows": rows, "q_off": q_off, "keys": hi, "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err})
+    print(f"  chunk rows bitwise equal to the one-shot rows (1316 rows): "
+          f"{same}")
+    check(same, "a chunk's K2 rows differ from the one-shot K2 rows")
+    return out
+
+
+def paged_phase(P, T, serve, kv, kernels, flash, threefry, cfg, params,
+                prompts, dense_results):
+    """Phase 23: paged, sampled serving of the flagship (see PAGED),
+    with a greedy twin; checks and numbers as the module docstring says.
+    Returns the numbers the kernels line carries."""
+    reqs = paged_requests(cfg, prompts)
+    lens = [len(p) for p, _ in reqs]
+    print(f"  {len(reqs)} requests, prompt lengths {lens}; {PAGED}")
+    with torch.inference_mode():
+        greedy = paged_run(serve, kernels, threefry, cfg, params, reqs, 0.0,
+                           profile_at=40)
+        (eng, launches, decode_ms, decode_tok, peak, peak_dense, run_s,
+         _, s_rows) = sampled = paged_run(serve, kernels, threefry, cfg, params,
+                                  reqs, PAGED["temperature"])
+        g_res, s_res = greedy[0].results(), eng.results()
+        snap = eng.stats.snapshot()
+        check(all(len(g_res[r]) == len(s_res[r]) == len(p) + PAGED["max_new"]
+                  and eng.status(r) == serve.STATUS_OK
+                  for r, (p, _) in enumerate(reqs)),
+              "a paged request did not finish its budget")
+        for name, run in (("greedy", greedy), ("sampled", sampled)):
+            got = run[1]
+            print(f"  {name}: flash_fwd launches {got['flash_fwd']}, of them "
+                  f"tc {got['flash_fwd.tc']}, simt {got['flash_fwd.simt']}, "
+                  f"at q_off > 0 {got['flash_fwd.q_off']}")
+            check(got["flash_fwd"] == got["flash_fwd.tc"] > 0
+                  and got["flash_fwd.q_off"] > 0,
+                  f"the {name} paged run left the tc kernel or ran no "
+                  "chunk at a q offset")
+        counters = {k: snap[k] for k in ("prefix_hits", "prefix_misses",
+                                         "prefill_tokens", "cow_copies",
+                                         "preempted", "admitted",
+                                         "blocks_in_use")}
+        print(f"  counters (sampled): {counters}; sum of prompt lengths "
+              f"{sum(lens)}; greedy twin's: "
+              + str({k: greedy[0].stats.counters[k] for k in counters}))
+        check(counters["prefix_hits"] >= 4 and counters["cow_copies"] >= 1
+              and counters["preempted"] >= 1
+              and counters["prefill_tokens"] < sum(lens)
+              and counters["blocks_in_use"] == 0,
+              "the paged run did not share prefixes, copy a tail page, "
+              "preempt, save prefill tokens, or release its pages")
+        # Greedy: near-tie parity with generate(), and with phase 4's
+        # dense engine on the requests both served.  The logits rows the
+        # engine chose from against generate()'s at the steps both share
+        # (up to and including the first divergence).  Sampled: every
+        # token the engine chose is, bit for bit, the draw of its own
+        # logits row with the subkey of generate()'s split at that step
+        # (the key discipline across admission, chunking and preemption,
+        # the batched draw and the top-k mask on the card); where it
+        # leaves generate()'s stream, the divergence must be a near tie
+        # of those two tokens (sampled_tie).
+        g_div, dense_div, ties, s_ties = 0, 0, 0, 0
+        s_div = {"score": 0, "edge": 0}
+        mine_equal, mine_total = 0, 0
+        differs = False
+        diff = {"greedy": 0.0, "sampled": 0.0}
+
+        def row_diff(mine, theirs, upto):
+            n = len(theirs) if upto is None else upto + 1
+            return max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(mine[:n], theirs[:n]))
+
+        for rid, (p, p4) in enumerate(reqs):
+            got = g_res[rid][len(p):].tolist()
+            g_rows, s_rows_r = greedy[8][rid], s_rows[rid]
+            check(len(g_rows) == len(s_rows_r) == PAGED["max_new"],
+                  f"request {rid}: the engine chose {len(g_rows)} greedy and "
+                  f"{len(s_rows_r)} sampled tokens, not {PAGED['max_new']}")
+            mine = torch.stack(g_rows).argmax(-1).tolist()
+            check(mine == got, f"greedy paged request {rid}: a token is not "
+                  "the argmax of the row the engine chose it from")
+            want, gaps, rows = oracle_stream(T, cfg, params, p,
+                                             PAGED["max_new"])
+            ties += sum(g <= TIE_TOL for g in gaps)
+            first = near_tie_check("greedy paged", rid, got, want, gaps,
+                                   TIE_TOL)
+            g_div += first is not None
+            diff["greedy"] = max(diff["greedy"], row_diff(g_rows, rows, first))
+            if p4 is not None:
+                dense = dense_results[p4][len(p):].tolist()
+                d_first = near_tie_check("phase 4 dense", rid, dense, want,
+                                         gaps, TIE_TOL)
+                both = next((i for i, (a, b) in enumerate(zip(got, dense))
+                             if a != b), None)
+                check(both is None or gaps[both] <= TIE_TOL or min(
+                    [x for x in (first, d_first) if x is not None]
+                    + [both]) < both,
+                    f"request {rid}: paged and dense greedy tokens differ "
+                    "without a near tie")
+                dense_div += both is not None
+            sgot = s_res[rid][len(p):].tolist()
+            swant, subs, srows = sampled_oracle(
+                T, threefry, cfg, params, p, PAGED["max_new"],
+                threefry.PRNGKey(1000 + rid))
+            redraw = [int(T.select_token(row[None], sub, PAGED["temperature"],
+                                         PAGED["top_k"])[0])
+                      for row, sub in zip(s_rows_r, subs)]
+            bad = [i for i, (a, b) in enumerate(zip(redraw, sgot)) if a != b]
+            mine_equal += len(sgot) - len(bad)
+            mine_total += len(sgot)
+            check(not bad, f"sampled paged request {rid}: token(s) {bad} are "
+                  "not the draw of the engine's own logits row with "
+                  "generate()'s subkey (the key discipline, the batched draw "
+                  "or the mask)")
+            s_first = next((i for i, (a, b) in enumerate(zip(sgot, swant))
+                            if a != b), None)
+            upto = len(swant) if s_first is None else s_first + 1
+            for row, sub in zip(srows[:upto], subs[:upto]):
+                top2 = T.perturbed_scores(row[None], sub,
+                                          PAGED["temperature"],
+                                          PAGED["top_k"])[0].float().topk(2)
+                s_ties += (top2.values[0] - top2.values[1]).item() \
+                    * PAGED["temperature"] <= TIE_TOL
+            d = row_diff(s_rows_r, srows, s_first)
+            diff["sampled"] = max(diff["sampled"], d)
+            if s_first is not None:
+                m = sampled_tie(T, s_rows_r[s_first], srows[s_first],
+                                subs[s_first], sgot[s_first], swant[s_first])
+                how = min(m, key=m.get) if m else None
+                print(f"    sampled request {rid}: token {s_first} differs "
+                      f"from generate() ({sgot[s_first]} for "
+                      f"{swant[s_first]}); near-tie measures of those two "
+                      f"tokens (<= 1 a near tie) "
+                      + (", ".join(f"{n} {v:.3f}" for n, v in m.items())
+                         or "none applies")
+                      + f"; max |logit diff| up to it {d:.4f}")
+                check(how is not None and m[how] <= 1.0,
+                      f"sampled paged request {rid}: token {s_first} differs "
+                      "from generate() without a near tie of the two tokens")
+                s_div[how] += 1
+            differs = differs or sgot != got
+        print(f"  max |logit diff| against generate() at shared steps: "
+              f"greedy {diff['greedy']:.4f}, sampled {diff['sampled']:.4f} "
+              f"(tolerance {TIE_TOL})")
+        check(max(diff.values()) <= TIE_TOL,
+              "paged engine logits too far from generate()'s")
+        print(f"  sampled tokens redrawn from the engine's own rows with "
+              f"generate()'s subkeys: {mine_equal} of {mine_total} bitwise "
+              f"equal")
+        # generate() itself is the sampled loop above.
+        p0 = reqs[0][0]
+        g0 = T.generate(cfg, params, torch.as_tensor(p0, device="cuda")[None],
+                        PAGED["max_new"], temperature=PAGED["temperature"],
+                        top_k=PAGED["top_k"],
+                        key=threefry.PRNGKey(1000))[0, len(p0):].tolist()
+        check(g0 == sampled_oracle(T, threefry, cfg, params, p0,
+                                   PAGED["max_new"],
+                                   threefry.PRNGKey(1000))[0],
+              "sampled generate() disagrees with its own step loop")
+        check(differs, "no sampled token differs from the greedy stream: "
+              "the sampler did not run")
+        print(f"  tokens vs generate(): greedy near-tie divergences {g_div}; "
+              f"sampled {sum(s_div.values())}, admitted by the perturbed-"
+              f"score gap of the two tokens (<= "
+              f"{TIE_TOL / PAGED['temperature']:g}) {s_div['score']}, by the "
+              f"top-k edge (a dropped token within {TIE_TOL} of the k-th "
+              f"logit) {s_div['edge']}; compared sampled steps with a "
+              f"perturbed top-2 gap <= {TIE_TOL / PAGED['temperature']:g}: "
+              f"{s_ties}; greedy vs phase 4's dense engine on the 4 requests "
+              f"both served: {dense_div} near-tie divergences (oracle steps "
+              f"with a top-2 gap <= {TIE_TOL}: {ties}); sampled differs from "
+              f"greedy: {differs}")
+        # Numbers.
+        ttft = snap["ttft_s"]
+        shards = eng._shards
+        long_p = max((p for p, _ in reqs), key=len)
+        past = [{"k": r["k"][:, :0], "v": r["v"][:, :0]}
+                for r in kv.init_kv_cache_tp(cfg, 1, 1, torch.bfloat16,
+                                             "cuda")]
+        _, rows = kv.prefill_chunk_tp(
+            cfg, shards, past, torch.as_tensor(long_p[:1024],
+                                               device="cuda")[None])
+        chunk = torch.as_tensor(long_p[1024:1280], device="cuda")[None]
+        chunk_ms = [sync_ms(lambda: kv.prefill_chunk_tp(cfg, shards, rows,
+                                                        chunk))[0]
+                    for _ in range(4)][1:]
+        keys = torch.tensor([threefry.split(threefry.PRNGKey(s))[1]
+                             for s in range(PAGED["slots"])],
+                            dtype=torch.int64, device="cuda")
+        logits = eng.last_logits
+        # A draw is about two hundred small int64 kernels, more than the
+        # launch queue holds behind event_ms's sleep, so event_ms would
+        # time the host's issue rate.  Both are read from the profiler's
+        # trace (the sum of the kernels' durations over five calls), so
+        # the selection, which draws the noise, reads at least the noise.
+        def per_call(fn, n=5):
+            return device_busy_ms(lambda: [fn() for _ in range(n)])[1] / n
+
+        noise_ms = per_call(lambda: threefry.gumbel(keys, (cfg.vocab,),
+                                                    logits.dtype))
+        select_ms = per_call(lambda: T.select_token(
+            logits, keys, PAGED["temperature"], PAGED["top_k"]))
+        wall, busy, _ = greedy[7]
+        print(f"  sampled run {run_s:.2f} s, {snap['steps']} decode steps; "
+              f"TTFT p50 {ttft['p50'] * 1e3:.1f} ms, p99 "
+              f"{ttft['p99'] * 1e3:.1f} ms; decode "
+              f"{decode_tok / (decode_ms / 1e3):.1f} tokens/s over "
+              f"decode-only steps; prefill chunk (256 rows at q_off 1024) "
+              f"{np.mean(chunk_ms):.2f} ms (runs "
+              + "/".join(f"{x:.2f}" for x in chunk_ms)
+              + f"); sampling noise {noise_ms:.4f} device ms a step (the "
+              f"whole batched selection {select_ms:.4f}; kernel time from "
+              f"the profiler's trace); KV resident at peak "
+              f"{peak / 2**20:.1f} MiB paged against {peak_dense / 2**20:.1f} "
+              f"MiB dense ({peak / peak_dense:.3f}); profiled window idle "
+              f"{100 - 100 * busy / wall:.0f}%", flush=True)
+        chunks = chunk_numbers(flash, kernels)
+    return {"launches": launches, "greedy_launches": greedy[1],
+            "chunks": chunks}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU",
@@ -2311,6 +2758,7 @@ def main():
         as linreg
     from mpi4torch_tpu_torch import fuse
     from mpi4torch_tpu_torch.ops import ragged
+    from mpi4torch_tpu_torch.utils import threefry
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2611,13 +3059,22 @@ def main():
     serve_overlap_phase(P, T, serve, kv, kernels, cfg, params, prompts,
                         tp2)
 
-    phase(23, "kernels")
+    phase(23, "paged, sampled serving of the flagship transformer: "
+          "prefix cache, copy-on-write, chunked prefill on K2, preemption")
+    print(smi)
+    paged = paged_phase(P, T, serve, kv, kernels, flash, threefry, cfg,
+                        params, prompts, results)
+
+    phase(24, "kernels")
     # flash_fwd: launches on the serving path (phase 4), times at the
     # flagship prefill shape, its error the worst of the serving and the
     # training shape; "variant" is the one every serving launch took
     # (phase 4 checks that it is tc), "simt_ms" the CUDA-core kernel on
     # the same inputs, called by name, and "train_*" its numbers at the
-    # training shape (phase 10).  flash_bwd_*: launches in the TP=1 training run
+    # training shape (phase 10); "paged_*" its launches in phase 23's
+    # sampled run (all, at a q offset above 0) and greedy twin, "chunks"
+    # its numbers at the chunked-prefill shapes (SDPA with a lower-right
+    # causal mask as the library call).  flash_bwd_*: launches in the TP=1 training run
     # (phase 8), everything else at the training shape.  No single
     # library call computes dq alone or dk/dv alone, so their library_ms
     # is null; pair_plain_ms and pair_library_ms are the whole backward's
@@ -2647,7 +3104,8 @@ def main():
         "source": src["flash_fwd"][serve_variant],
         "replaces": "mpi4torch_tpu/ops/flash.py:243",
         "launches": launches[0],
-        "max_abs_err": max(errs["flagship_prefill"], train_err["flash_fwd"]),
+        "max_abs_err": max([errs["flagship_prefill"], train_err["flash_fwd"]]
+                           + [c["max_abs_err"] for c in paged["chunks"]]),
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms, "simt_ms": simt_ms_prefill,
@@ -2656,7 +3114,11 @@ def main():
         "train_ms": k_ms["flash_fwd"], "train_simt_ms": simt_ms["flash_fwd"],
         "train_plain_ms": plain["flash_fwd"],
         "train_bound_ms": bounds["flash_fwd"][0],
-        "train_library_ms": lib["flash_fwd"]}] + [{
+        "train_library_ms": lib["flash_fwd"],
+        "paged_launches": paged["launches"]["flash_fwd"],
+        "paged_q_off_launches": paged["launches"]["flash_fwd.q_off"],
+        "paged_greedy_launches": paged["greedy_launches"]["flash_fwd"],
+        "chunks": paged["chunks"]}] + [{
             "name": kname, "route": "cuda",
             "variant": train_variant[kname],
             "source": src[kname][train_variant[kname]],

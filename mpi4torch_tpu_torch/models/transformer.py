@@ -3,9 +3,10 @@
 Port of ``mpi4torch_tpu/models/transformer.py`` for serving and for
 data-parallel training: the configuration, parameter initialisation, the
 JAX-to-torch weight conversion (both ways), prefill, incremental decode,
-greedy generation, the training forward, the chunked-vocabulary loss and
-the SGD train step.  The parameters are a plain dictionary in the JAX
-package's layout — ``(in, out)`` matrices used as ``x @ W``, the fused
+the decoding rule (greedy, or sampled under the JAX package's threefry
+key discipline) and generation, the training forward, the
+chunked-vocabulary loss and the SGD train step.  The parameters are a
+plain dictionary in the JAX package's layout — ``(in, out)`` matrices used as ``x @ W``, the fused
 ``wqkv`` q|k|v head-block projection, swiglu's fused gate|up ``w1`` — so
 one parameter tree means the same model in both packages, and the
 tensor-parallel slicing rules of ``serve/kv.py`` carry over unchanged.
@@ -38,6 +39,7 @@ from ..constants import MPI_SUM
 from ..ops.flash import flash_attention, flash_block_attention
 from ..parallel.dp import all_average_tree
 from ..runtime import resolve_device
+from ..utils import threefry
 from ..utils.tree import tree_map, value_and_grad
 
 
@@ -332,20 +334,60 @@ def prefill(cfg: TransformerConfig, params, cache, prompt):
     return x[:, -1] @ params["unembed"], cache
 
 
-def select_token(logits):
-    """The decoding choice for each row of ``(batch, vocab)`` logits: the
-    greedy argmax (the first maximal index, like ``jnp.argmax``).
-    :func:`generate` and the serving engine both choose through it.
-    Sampled decoding needs a port of the JAX package's threefry key
-    discipline (ROADMAP.md, Queue 1 item 2)."""
-    return torch.argmax(logits, dim=-1)
+def _scalar(x, like):
+    """``x`` as a 0-d tensor of ``like``'s dtype on its device, as JAX's
+    weak typing casts a Python scalar before the op.  A 0-d device tensor
+    (not a Python scalar) also keeps a CUDA division a true division: a
+    host scalar there becomes a multiplication by its reciprocal."""
+    return torch.full((), x, dtype=like.dtype, device=like.device)
+
+
+def _top_k_mask(logits, top_k: int):
+    """Every logit below the row's ``top_k``-th largest becomes -inf; ties
+    with the ``top_k``-th value all stay (``logits >= kth``)."""
+    kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+    return torch.where(logits >= kth, logits, _scalar(-math.inf, logits))
+
+
+def perturbed_scores(logits, key, temperature: float, top_k: int):
+    """The scores a sampled choice takes the argmax of: the top-k masked
+    ``logits / temperature`` plus Gumbel noise in the logits' dtype
+    (``jax.random.categorical``'s Gumbel-max draw).  ``key`` is one key
+    for the whole ``(batch, vocab)`` table, or a ``(batch, 2)`` int64
+    tensor of one key per row (the serving engine's batched draw)."""
+    if top_k:
+        logits = _top_k_mask(logits, top_k)
+    return threefry.gumbel_scores(key, logits / _scalar(temperature, logits))
+
+
+def select_token(logits, key=None, temperature: float = 0.0,
+                 top_k: int = 0, dtype=None):
+    """The decoding choice for each row of ``(batch, vocab)`` logits, the
+    rule of the JAX package's ``select_token``: the greedy argmax (the
+    first maximal index, like ``jnp.argmax``) when ``temperature == 0``,
+    else a categorical draw at that temperature from the ``top_k``
+    highest logits (0 = all), with ``key`` (see
+    :func:`perturbed_scores`).  :func:`generate` and the serving engine
+    both choose through it.  ``dtype`` casts the chosen ids."""
+    if temperature == 0.0:
+        tok = torch.argmax(logits, dim=-1)
+    else:
+        tok = torch.argmax(perturbed_scores(logits, key, temperature,
+                                            top_k), dim=-1)
+    return tok if dtype is None else tok.to(dtype)
 
 
 def generate(cfg: TransformerConfig, params, prompt, n_new: int,
-             dtype=None):
-    """Autoregressive greedy decoding: prefill the cache from ``prompt``
+             dtype=None, temperature: float = 0.0, top_k: int = 0,
+             key=None):
+    """Autoregressive decoding: prefill the cache from ``prompt``
     ``(batch, prompt_len)`` in one batched pass, then emit ``n_new``
-    tokens one decode step at a time.  The cache dtype follows the
+    tokens one decode step at a time.  ``temperature == 0`` (default) is
+    greedy; ``temperature > 0`` samples (``key`` required: two 32-bit
+    words, ``utils.threefry.PRNGKey``), optionally from the ``top_k``
+    highest logits.  The key splits once before the first token and once
+    per step, greedy or not, as the JAX package's ``generate`` does, so
+    the same key gives the same tokens.  The cache dtype follows the
     parameters unless ``dtype`` overrides it.  Returns ``(batch,
     prompt_len + n_new)`` tokens."""
     b, p_len = prompt.shape
@@ -353,18 +395,28 @@ def generate(cfg: TransformerConfig, params, prompt, n_new: int,
         raise ValueError(
             f"prompt {p_len} + n_new {n_new} exceeds max_seq "
             f"{cfg.max_seq}")
+    if temperature < 0:
+        raise ValueError(f"temperature must be >= 0, got {temperature}")
+    if top_k < 0 or top_k > cfg.vocab:
+        raise ValueError(
+            f"top_k must be in [0, vocab={cfg.vocab}], got {top_k}")
+    if temperature > 0 and key is None:
+        raise ValueError("temperature > 0 requires a PRNG `key`")
     if n_new == 0:
         return prompt
     dtype = dtype or params["embed"].dtype
+    key = threefry.PRNGKey(0) if key is None else threefry.as_key(key)
     cache = init_kv_cache(cfg, b, dtype, prompt.device)
     logits, cache = prefill(cfg, params, cache, prompt)
-    tok = select_token(logits).to(prompt.dtype)
+    key, sub = threefry.split(key)
+    tok = select_token(logits, sub, temperature, top_k, prompt.dtype)
     out = [tok]
     # Each step feeds the token at position i and emits position i+1's
     # choice; the last emitted token needs no decode step of its own.
     for i in range(p_len, p_len + n_new - 1):
         logits, cache = decode_step(cfg, params, cache, tok, i)
-        tok = select_token(logits).to(prompt.dtype)
+        key, sub = threefry.split(key)
+        tok = select_token(logits, sub, temperature, top_k, prompt.dtype)
         out.append(tok)
     return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
 

@@ -24,7 +24,9 @@ Kernels and the sources that hold them:
   the CUDA cores; float32, float16 cast to float32, and bf16 with d >
   128, up to d = 512).  A head dim that is not a multiple of 8 runs
   zero-padded to the next one.  Each launch counts under the kernel's
-  name and under ``"<name>.<variant>"``;
+  name and under ``"<name>.<variant>"``; a forward launch at a query
+  offset above 0 (a prefill chunk after the first) also under
+  ``"flash_fwd.q_off"``;
 * ``q8_hop``, ``q8_requant`` — ``csrc/quant_hop.cu``, one quantized ring
   hop: ``q8_hop`` counts launches with an arriving payload, ``q8_requant``
   those of hop 0 and the codec encode (no payload yet).
@@ -80,7 +82,7 @@ ATTENTION_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 launch_counts = {**{name: 0 for name in ATTENTION_KERNELS},
                  **{f"{name}.{variant}": 0 for name in ATTENTION_KERNELS
                     for variant in VARIANTS},
-                 "q8_hop": 0, "q8_requant": 0}
+                 "flash_fwd.q_off": 0, "q8_hop": 0, "q8_requant": 0}
 
 
 def reset_launch_counts() -> None:
@@ -284,10 +286,10 @@ def _strides(*tensors):
 
 
 def _launch(kernel: str, lib: str, fn_name: str, device, *args,
-            variant: str = None) -> None:
+            variant: str = None, also: tuple = ()) -> None:
     """Call ``fn_name`` of library ``lib`` with ``args`` and the current
     stream; raise on a CUDA error, else count the launch under ``kernel``
-    (and ``kernel.variant`` when given)."""
+    (and ``kernel.variant`` when given, and each name of ``also``)."""
     fn = getattr(load(lib), fn_name)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
@@ -295,7 +297,7 @@ def _launch(kernel: str, lib: str, fn_name: str, device, *args,
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed with CUDA error "
                            f"{err}")
-    _count(kernel, *([f"{kernel}.{variant}"] if variant else []))
+    _count(kernel, *([f"{kernel}.{variant}"] if variant else []), *also)
 
 
 def fwd_variant(dtype, d: int) -> str:
@@ -363,7 +365,9 @@ def _attention_launch(kernel, variant, ins, outs, q_off, kv_off, causal,
     _launch(kernel, lib, f"mpi4torch_{lib}{suffix}", q.device,
             *(t.data_ptr() for t in ins + outs), *dtype, b, h, k.shape[2],
             sq, k.shape[1], d, _strides(*ins), int(q_off), int(kv_off),
-            int(bool(causal)), int(window), int(dh), variant=variant)
+            int(bool(causal)), int(window), int(dh), variant=variant,
+            also=("flash_fwd.q_off",) if kernel == "flash_fwd" and q_off > 0
+            else ())
 
 
 def flash_fwd(q, k, v, q_off: int, kv_off: int, causal: bool,

@@ -72,7 +72,8 @@ def schedule_key(salt: int, hop: int, rank: int):
 def hop_noise(key, nblocks: int, block: int, device=None):
     """Uniform [0, 1) stochastic-rounding noise for one hop, in the block
     shape the hop consumes, made outside the kernel and passed to it as
-    an operand."""
+    an operand.  ``device`` is resolved by ``runtime.resolve_device``:
+    CUDA unless the caller names another device."""
     return threefry.uniform(key, (nblocks, block), device=device)
 
 

@@ -1,15 +1,15 @@
 """Ragged (per-rank-varying) collectives over capacity-padded buffers.
 
-Port of ``mpi4torch_tpu/ops/ragged.py`` without its paging helpers
-(``block_gather``/``block_scatter`` come with the paged KV cache,
-ROADMAP.md Queue 1 item 2).  The reference's Gather/Scatter/Alltoall
-accept per-rank-varying segment sizes (MPI_Gatherv-style derived
-datatypes); the JAX package expresses them as **capacity-padded buffers
-+ validity counts + masks**, which carry exactly the information of
-their MPI_*v counterparts — (payload, counts) in, (payload, counts) out.
-They are built on the facade's dense collectives, so they are
-differentiable: cotangents route back through the same exchange, and
-padding slots never receive or leak gradient.
+Port of ``mpi4torch_tpu/ops/ragged.py``, with the paged KV cache's two
+device primitives :func:`block_gather` and :func:`block_scatter`.  The
+reference's Gather/Scatter/Alltoall accept per-rank-varying segment
+sizes (MPI_Gatherv-style derived datatypes); the JAX package expresses
+them as **capacity-padded buffers + validity counts + masks**, which
+carry exactly the information of their MPI_*v counterparts — (payload,
+counts) in, (payload, counts) out.  They are built on the facade's
+dense collectives, so they are differentiable: cotangents route back
+through the same exchange, and padding slots never receive or leak
+gradient.
 
 :func:`position_onehot` is the per-slot KV-cache write mask of the
 continuous-batching decode step.
@@ -37,6 +37,97 @@ def position_onehot(pos, capacity: int):
     pos = torch.as_tensor(pos)
     p = torch.arange(capacity, device=pos.device)
     return (p == pos[..., None]).to(torch.int32)
+
+
+def block_gather(pool, table):
+    """Gather of a paged KV pool through a block table.
+
+    ``pool``: ``(num_blocks, block_size, *feat)``, the page pool (one
+    block-id space shared by every layer).  ``table``: ``(rows, n_blk)``
+    int block ids, ``-1`` (any negative) marking an unmapped entry.
+    Returns ``(rows, n_blk * block_size, *feat)``: each row's pages
+    concatenated in table order, unmapped entries as all-zero pages (the
+    inert tail behind the serving decode's per-row causal frontier).
+    Values move by one gather (ids clamped into the pool, then the
+    unmapped pages zeroed by ``where``), so mapped pages come back
+    bit-identical in ``pool``'s dtype, as in the JAX package."""
+    if pool.dim() < 2:
+        raise ValueError(
+            f"block_gather expects pool of shape (num_blocks, "
+            f"block_size, *feat); got {tuple(pool.shape)}")
+    t = torch.as_tensor(table, device=pool.device).to(torch.int64)
+    if t.dim() != 2:
+        raise ValueError(
+            f"block_gather expects a (rows, n_blk) table; got shape "
+            f"{tuple(t.shape)}")
+    nb, bs = pool.shape[0], pool.shape[1]
+    g = pool[t.clamp(0, nb - 1)]                  # (rows, n_blk, bs, *f)
+    valid = (t >= 0).reshape(t.shape + (1,) * (g.dim() - 2))
+    g = torch.where(valid, g, torch.zeros((), dtype=pool.dtype,
+                                          device=pool.device))
+    return g.reshape((t.shape[0], t.shape[1] * bs) + tuple(pool.shape[2:]))
+
+
+def block_scatter(pool, block_ids, offsets, values, active=None):
+    """Write one row per writer into a paged pool, in place; returns
+    ``pool``.  The JAX package's semantics in another form.
+
+    ``pool``: ``(num_blocks, block_size, *feat)``.  ``block_ids`` /
+    ``offsets``: ``(writers,)`` ints — writer ``w`` writes ``values[w]``
+    (``(writers, *feat)``, cast to ``pool``'s dtype) into
+    ``pool[block_ids[w], offsets[w]]``.  ``active`` (``(writers,)``
+    bool/int, optional) masks writers out; out-of-range ids or offsets
+    (the engine's ``-1`` free-slot convention among them) write nothing.
+    Writers must target distinct cells (the copy-on-write rule of
+    ``serve/paging.py``); under it the result is exact and deterministic.
+
+    The JAX package writes the pool as a one-hot ``where`` over every page
+    (its arrays are immutable); that would rewrite the whole pool on every
+    layer and every decode step, so the port writes the live cells in
+    place with one ``index_put_``, as its dense KV cache is updated in
+    place.  Which writers are live is decided on the host: pass the ids,
+    offsets and ``active`` as host arrays (numpy or CPU tensors), as the
+    engine does, and no device value is read back."""
+    if pool.dim() < 2:
+        raise ValueError(
+            f"block_scatter expects pool of shape (num_blocks, "
+            f"block_size, *feat); got {tuple(pool.shape)}")
+    if tuple(values.shape[1:]) != tuple(pool.shape[2:]):
+        raise ValueError(
+            f"block_scatter values feature shape {tuple(values.shape[1:])} "
+            f"must match pool feature shape {tuple(pool.shape[2:])}")
+    return write_cells(pool, live_cells(block_ids, offsets, pool, active),
+                       values)
+
+
+def live_cells(block_ids, offsets, pool, active=None):
+    """The live writers of a :func:`block_scatter` into ``pool``, picked
+    on the host: ``(writer rows, block ids, offsets)`` as int64 tensors on
+    ``pool``'s device, or None when no writer is live.  A caller that
+    writes the same cells into several pools (every layer's K and V of a
+    decode step) picks them once and passes them to :func:`write_cells`
+    for each."""
+    nb, bs = pool.shape[0], pool.shape[1]
+    b = torch.as_tensor(block_ids).to("cpu", torch.int64)
+    o = torch.as_tensor(offsets).to("cpu", torch.int64)
+    live = (b >= 0) & (b < nb) & (o >= 0) & (o < bs)
+    if active is not None:
+        live &= torch.as_tensor(active).to("cpu", torch.bool)
+    rows = torch.nonzero(live).flatten()
+    if not rows.numel():
+        return None
+    return rows.to(pool.device), b[rows].to(pool.device), \
+        o[rows].to(pool.device)
+
+
+def write_cells(pool, cells, values):
+    """Write ``values`` (``(writers, *feat)``) of the writers
+    :func:`live_cells` picked into their cells of ``pool``, in place with
+    one ``index_put_``; returns ``pool``."""
+    if cells is not None:
+        rows, b, o = cells
+        pool.index_put_((b, o), values[rows].to(pool.dtype))
+    return pool
 
 
 def _masked(x, counts, capacity: int):

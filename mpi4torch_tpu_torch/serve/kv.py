@@ -1,7 +1,7 @@
 """Tensor-parallel KV-cache prefill and decode: the serving compute core.
 
-Port of the dense slot-table part of ``mpi4torch_tpu/serve/kv.py``.
-Heads are sharded over the communicator by the ``parallel/tp.py``
+Port of ``mpi4torch_tpu/serve/kv.py`` (without ``admit_zero3``): the
+dense slot-table cache and the paged pool.  Heads are sharded over the communicator by the ``parallel/tp.py``
 conventions (each rank owns ``n_heads / size`` query heads and
 ``kv_heads / size`` KV heads end to end), so per-head attention never
 crosses ranks and each layer costs two collectives: the row-parallel
@@ -10,9 +10,13 @@ output projection's Allreduce and the row-parallel FFN Allreduce.
 :func:`decode_step_tp` takes one position per slot: every slot of the
 continuous batch sits at its own sequence position, written through a
 :func:`~mpi4torch_tpu_torch.ops.ragged.position_onehot` mask and masked
-per row in attention.  The KV cache is updated in place (see
-``models/transformer.py``).  Inference only: nothing here is
-differentiated.
+per row in attention.  :func:`decode_step_paged` is the same step over a
+page pool (:func:`init_kv_pool_tp`) addressed through a per-slot block
+table, and :func:`prefill_chunk_tp` prefills one prompt chunk against
+the prefix rows already computed (prefix sharing, chunked prefill).  The
+KV cache and the pool are updated in place (see ``models/transformer.py``
+and :func:`~mpi4torch_tpu_torch.ops.ragged.block_scatter`).  Inference
+only: nothing here is differentiated.
 """
 
 from __future__ import annotations
@@ -26,18 +30,22 @@ from ..constants import MPI_SUM
 from ..models.transformer import (TransformerConfig, _ffn_local, _norm,
                                   _rope_rotate)
 from ..ops.flash import flash_attention, flash_block_attention
-from ..ops.ragged import position_onehot
+from ..ops.ragged import (block_gather, live_cells, position_onehot,
+                          write_cells)
 from ..overlap import overlap_split_allreduce, resolve_overlap
 from ..parallel.tp import shard_axis, shard_heads
-from ..runtime import CommError
+from ..runtime import CommError, resolve_device
 from ..utils.profiling import bucket_scope, serve_step_scope
 
 __all__ = [
     "validate_tp",
     "shard_params_tp",
     "init_kv_cache_tp",
+    "init_kv_pool_tp",
     "prefill_tp",
+    "prefill_chunk_tp",
     "decode_step_tp",
+    "decode_step_paged",
 ]
 
 
@@ -128,6 +136,34 @@ def init_kv_cache_tp(cfg: TransformerConfig, slots: int, size: int,
     return [{"k": buf(), "v": buf()} for _ in range(cfg.n_layers)]
 
 
+def init_kv_pool_tp(cfg: TransformerConfig, num_blocks: int,
+                    block_size: int, size: int, dtype=torch.float32,
+                    device=None):
+    """Per-layer TP-sharded paged KV pool, ``(num_blocks, block_size,
+    kv_heads / size, head_dim)`` per rank, zero-filled: the paged
+    counterpart of :func:`init_kv_cache_tp`, addressed through a per-slot
+    block table.  One block-id space serves every layer.
+    ``block_size`` must divide ``cfg.max_seq``: the decode step gathers
+    each slot's pages back into the full ``max_seq`` extent, so paged
+    attention sees the dense buffer's shape.  No poison fill: a free page
+    is one no table entry points at, and
+    :func:`~mpi4torch_tpu_torch.ops.ragged.block_gather` zeroes unmapped
+    entries.  ``device`` is resolved by ``runtime.resolve_device``."""
+    if block_size < 1 or cfg.max_seq % block_size != 0:
+        raise CommError(
+            f"serve: block_size={block_size} must be >= 1 and divide "
+            f"max_seq={cfg.max_seq} (the paged gather reconstructs the "
+            "dense attention extent)")
+    hd = cfg.d_model // cfg.n_heads
+    shape = (num_blocks, block_size, cfg.kv_heads // size, hd)
+    dev = resolve_device(device)
+
+    def buf():
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return [{"k": buf(), "v": buf()} for _ in range(cfg.n_layers)]
+
+
 def _tp_size(cfg: TransformerConfig, shards) -> int:
     """The TP world size a shard tree was built for, read off the output
     projection's row count."""
@@ -208,6 +244,60 @@ def prefill_tp(cfg: TransformerConfig, shards, cache, prompt, comm=None):
         return x[:, -1] @ shards["unembed"], cache
 
 
+def prefill_chunk_tp(cfg: TransformerConfig, shards, past, chunk,
+                     comm=None):
+    """TP prefill of one prompt chunk against prefix K/V already computed:
+    the suffix/chunked half of paged admission.  ``chunk`` is ``(1,
+    c_len)`` tokens at global positions ``p_len .. p_len + c_len - 1``,
+    where ``p_len`` is read off ``past``, a per-layer ``[{"k", "v"}]``
+    list of exact-length ``(1, p_len, ...)`` prefix rows (``p_len = 0``
+    makes this a prefill from scratch).  Returns ``(last_logits,
+    chunk_rows)``, ``chunk_rows`` the chunk's own K/V in ``past``'s
+    dtype, ready to install into the page pool.
+
+    Attention is ``flash_block_attention(q, [past ++ chunk],
+    q_offset=p_len, kv_offset=0, causal=True)`` with ``impl`` left at
+    auto: on the card the attention kernel (the same kernel as the
+    one-shot prefill of :func:`prefill_tp`, now at ``sq < sk``), on the
+    CPU the plain version.  Prompt rows depend only on the tokens at or
+    before them, so a chunk's rows are what the one-shot prefill computes
+    for those positions (to the GEMMs' rounding at another row count),
+    which is what prefix sharing rides on.  The JAX package pins
+    ``impl="jnp"`` here because its one-shot prefill takes the jnp path
+    on its CPU; the port's one-shot prefill takes the kernel on the
+    card, and so does its chunk.  One blocking Allreduce per
+    row-parallel half."""
+    b, c_len = chunk.shape
+    p_len = int(past[0]["k"].shape[1])
+    size = _tp_size(cfg, shards)
+    x = shards["embed"][chunk]
+    if not cfg.rope:
+        x = x + shards["pos"][None, p_len:p_len + c_len]
+    positions = torch.arange(p_len, p_len + c_len, dtype=torch.int32,
+                             device=x.device)
+    rows = []
+    with serve_step_scope("prefill"):
+        for blk, p in zip(shards["blocks"], past):
+            y = _norm(cfg, x, blk["ln1"])
+            q, k, v = _split_qkv_local(cfg, blk, y, positions, size)
+            rows.append({"k": k.to(p["k"].dtype), "v": v.to(p["v"].dtype)})
+            kf = torch.cat([p["k"].to(k.dtype), k], dim=1)
+            vf = torch.cat([p["v"].to(v.dtype), v], dim=1)
+            o, _ = flash_block_attention(
+                q, kf, vf, causal=True, q_offset=p_len, kv_offset=0,
+                window=cfg.attn_window)
+            o_part = o.reshape(b, c_len, -1) @ blk["wo"]
+            if comm is not None:
+                o_part = comm.Allreduce(o_part, MPI_SUM, compression=False)
+            x = x + o_part.to(x.dtype)
+            ff = _ffn_local(cfg, blk, _norm(cfg, x, blk["ln2"]))
+            if comm is not None:
+                ff = comm.Allreduce(ff, MPI_SUM, compression=False)
+            x = x + ff.to(x.dtype)
+        x = _norm(cfg, x, shards["ln_f"])
+        return x[:, -1] @ shards["unembed"], rows
+
+
 def decode_step_tp(cfg: TransformerConfig, shards, cache, tokens, pos,
                    comm=None, *, overlap=None,
                    algorithm: Optional[str] = None, active=None):
@@ -275,3 +365,87 @@ def decode_step_tp(cfg: TransformerConfig, shards, cache, tokens, pos,
             x = x + ff.to(x.dtype)
         x = _norm(cfg, x, shards["ln_f"])
         return x @ shards["unembed"], cache
+
+
+def decode_step_paged(cfg: TransformerConfig, shards, pool, table, tokens,
+                      pos, comm=None, *, overlap=None,
+                      algorithm: Optional[str] = None, active=None):
+    """One continuous-batching decode step over a paged slot table:
+    :func:`decode_step_tp`'s math with the dense per-slot cache replaced
+    by ``pool`` (per-layer ``(num_blocks, block_size, kv_heads/size,
+    head_dim)`` pages, :func:`init_kv_pool_tp`) and a ``(slots,
+    max_seq/block_size)`` block ``table`` (``-1`` = unmapped).  Returns
+    ``(logits, pool)``; the pool is written in place.
+
+    Per layer the new K/V row lands by
+    :func:`~mpi4torch_tpu_torch.ops.ragged.block_scatter` in the slot's
+    current page (``table[s, pos[s] // bs]`` at offset ``pos[s] % bs``),
+    then :func:`~mpi4torch_tpu_torch.ops.ragged.block_gather` rebuilds
+    each slot's full ``max_seq`` extent (unmapped pages as zeros behind
+    the per-row causal frontier) and attention proceeds as in the dense
+    step, on the plain version (per-row offsets).  The caller's block
+    manager keeps live slots' write cells in distinct private pages (the
+    copy-on-write rule).  Free slots carry ``-1`` pages and
+    ``active=False``: no write, zero rows, payload rows zeroed before the
+    wire.
+
+    ``table``, ``pos`` and ``active`` may be host arrays (numpy or CPU
+    tensors; the engine passes its own) or device tensors, which are read
+    back once: the write cells are picked on the host, once per step,
+    before any of the step's work is queued."""
+    dev = pool[0]["k"].device
+    bs = pool[0]["k"].shape[1]
+    table_h = torch.as_tensor(table).to("cpu", torch.int64)
+    pos_h = torch.as_tensor(pos).to("cpu", torch.int64)
+    live_h = None if active is None else \
+        torch.as_tensor(active).to("cpu", torch.bool)
+    # The slot's current write page and in-page offset; a free slot's
+    # all -1 table row yields -1, which the scatter drops.
+    n_blk = table_h.shape[1]
+    wb = table_h.gather(1, (pos_h // bs).clamp(0, n_blk - 1)[:, None])[:, 0]
+    cells = live_cells(wb, pos_h % bs, pool[0]["k"], live_h)
+    table_d = table_h.to(dev)
+    pos_d = pos_h.to(dev, torch.int32)
+    tokens = torch.as_tensor(tokens, device=dev)
+    slots = tokens.shape[0]
+    size = _tp_size(cfg, shards)
+    ov = resolve_overlap(overlap)
+    nsites = 2 * len(shards["blocks"])
+    live = None if live_h is None else live_h.to(dev)[:, None]
+
+    def guard_rows(payload):
+        if live is None:
+            return payload
+        return torch.where(live, payload, torch.zeros((), dtype=payload.dtype,
+                                                      device=payload.device))
+
+    with serve_step_scope("decode_step"):
+        x = shards["embed"][tokens]
+        if not cfg.rope:
+            x = x + shards["pos"][pos_d]
+        site = 0
+        for blk, c in zip(shards["blocks"], pool):
+            y = _norm(cfg, x, blk["ln1"])
+            q, k_new, v_new = _split_qkv_local(cfg, blk, y[:, None, :],
+                                               pos_d[:, None], size)
+            write_cells(c["k"], cells, k_new[:, 0])
+            write_cells(c["v"], cells, v_new[:, 0])
+            o, _ = flash_block_attention(
+                q, block_gather(c["k"], table_d),
+                block_gather(c["v"], table_d), causal=True,
+                q_offset=pos_d, kv_offset=0, window=cfg.attn_window,
+                impl="torch")
+            o_part = o.reshape(slots, -1).to(x.dtype) @ blk["wo"]
+            attn = _decode_allreduce(comm, guard_rows(o_part), site=site,
+                                     nsites=nsites, overlap=ov,
+                                     algorithm=algorithm)
+            site += 1
+            x = x + attn.to(x.dtype)
+            ff = _ffn_local(cfg, blk, _norm(cfg, x, blk["ln2"]))
+            ff = _decode_allreduce(comm, guard_rows(ff), site=site,
+                                   nsites=nsites, overlap=ov,
+                                   algorithm=algorithm)
+            site += 1
+            x = x + ff.to(x.dtype)
+        x = _norm(cfg, x, shards["ln_f"])
+        return x @ shards["unembed"], pool

@@ -58,13 +58,23 @@ class ServeStats:
     emitted by decode steps; a prefill's first token counts under
     ``admitted``), ``occupancy_ticks`` (active slots summed over steps)
     and ``slot_ticks`` (slots x steps) — their ratio is the mean slot
-    occupancy.  Spans per request id: ``submitted`` → ``admitted`` →
+    occupancy.  The paged engine adds ``prefix_hits`` / ``prefix_misses``
+    (admissions that did / did not reuse indexed prefix pages),
+    ``prefill_tokens`` (tokens actually run through prefill: reused
+    prefix tokens never are), ``cow_copies`` (copy-on-write page copies)
+    and ``preempted`` (slots preempted under pool pressure), and the
+    levels ``blocks_in_use`` / ``blocks_free`` / ``blocks_cached``
+    (absolute pool populations, re-set every step by :meth:`level`).
+    Spans per request id: ``submitted`` → ``admitted`` →
     ``first_token`` → ``finished`` host timestamps, capped at the most
     recent :data:`SPAN_CAP` requests.  Thread-safe."""
 
     _COUNTERS = ("steps", "admitted", "evicted", "finished", "rejected",
                  "decode_tokens", "occupancy_ticks", "slot_ticks",
-                 "deadline_expired", "shed")
+                 "deadline_expired", "shed",
+                 "prefix_hits", "prefix_misses", "prefill_tokens",
+                 "cow_copies", "preempted",
+                 "blocks_in_use", "blocks_free", "blocks_cached")
     SPAN_CAP = 1024
 
     def __init__(self):
@@ -75,6 +85,12 @@ class ServeStats:
     def count(self, name: str, n: int = 1) -> None:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + int(n)
+
+    def level(self, name: str, value) -> None:
+        """Set a gauge counter to an absolute value (the paged engine's
+        pool populations, re-set every step)."""
+        with self._lock:
+            self.counters[name] = int(value)
 
     def tick(self, active: int, slots: int) -> None:
         """One decode step over a ``slots``-slot table with ``active``

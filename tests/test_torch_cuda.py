@@ -527,7 +527,7 @@ def test_threefry_noise_on_the_card_equals_the_cpu(cuda):
                                    (5, 7, 3, (1, 1))]:
         key = qk.schedule_key(salt, hop, rank)
         a = qk.hop_noise(key, *shape, device=cuda).cpu()
-        b = qk.hop_noise(key, *shape)
+        b = qk.hop_noise(key, *shape, device="cpu")
         assert _bits_differ(a, b) == 0
 
 
@@ -987,3 +987,89 @@ def test_decode_overlap_and_rhd_on_the_card(cuda):
 
     for outs in P.run_ranks(body, 2, timeout=60.0, device=cuda):
         assert all(torch.equal(o, outs[0]) for o in outs)
+
+
+# --- sampled decoding and the paged engine ---------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_draw_on_the_card_is_the_row_by_row_draw(cuda, dtype):
+    from mpi4torch_tpu_torch.utils import threefry
+
+    keys = [threefry.split(threefry.PRNGKey(s))[1] for s in range(4)]
+    table = torch.tensor(keys, dtype=torch.int64, device=cuda)
+    noise = threefry.gumbel(table, (32768,), dtype)
+    logits = torch.randn((4, 32768), device=cuda).to(dtype)
+    toks = T.select_token(logits, table, 0.8, 50)
+    for r, key in enumerate(keys):
+        own = threefry.gumbel(key, (1, 32768), dtype, device=cuda)[0]
+        assert torch.equal(noise[r], own)
+        assert int(toks[r]) == int(T.select_token(logits[r:r + 1], key, 0.8,
+                                                  50)[0])
+        # The uniforms under the noise are the CPU's, bit for bit.
+        u = threefry.uniform(key, (32768,), dtype, device=cuda)
+        assert torch.equal(u.cpu(), threefry.uniform(key, (32768,), dtype,
+                                                     device="cpu"))
+
+
+# Prefill chunks on K2: a 256-row chunk at q_off 256/512/768/1024 against
+# q_off + 256 keys, and the 36-row last chunk of a 1316-token prompt.
+CHUNK_SHAPES = [(256, q_off) for q_off in (256, 512, 768, 1024)] + \
+    [(36, 1280)]
+
+
+@pytest.mark.cuda
+def test_prefill_chunk_shapes_on_the_kernel(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n = 1316
+    q, k, v = (torch.randn((1, n, 16, 128), generator=g, device=cuda,
+                           dtype=torch.bfloat16) for _ in range(3))
+    full, full_lse = flash.flash_block_attention(q, k, v, causal=True)
+    for rows, q_off in CHUNK_SHAPES:
+        hi = q_off + rows
+        _kernels.reset_launch_counts()
+        o, lse = flash.flash_block_attention(q[:, q_off:hi], k[:, :hi],
+                                             v[:, :hi], causal=True,
+                                             q_offset=q_off)
+        assert _kernels.launch_counts["flash_fwd.tc"] == 1
+        assert _kernels.launch_counts["flash_fwd.q_off"] == 1
+        po, pl = flash.flash_block_attention(q[:, q_off:hi], k[:, :hi],
+                                             v[:, :hi], causal=True,
+                                             q_offset=q_off, impl="torch")
+        assert ((o.float() - po.float()).abs() <= bf16_out_bound(po)).all()
+        assert (lse - pl.float()).abs().max().item() <= 1e-4
+        # Fully masked key tiles add nothing: the chunk's rows are the
+        # one-shot rows, bit for bit.
+        assert torch.equal(o, full[:, q_off:hi])
+        assert torch.equal(lse, full_lse[:, q_off:hi])
+
+
+@pytest.mark.cuda
+def test_paged_sampled_engine_on_the_card(cuda):
+    from mpi4torch_tpu_torch.utils import threefry
+
+    cfg = T.TransformerConfig(vocab=97, d_model=128, n_heads=4, n_layers=2,
+                              d_ff=256, max_seq=64)
+    params = T.init_transformer(0, cfg, torch.bfloat16, device=cuda)
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, cfg.vocab, size=21)
+    prompts = [base, np.concatenate([base, rng.integers(0, 97, 9)]),
+               rng.integers(0, cfg.vocab, size=40), base.copy()]
+    scfg = serve.ServeConfig(slots=2, max_new=8, block_size=8, num_blocks=16,
+                             prefill_chunk=16, temperature=0.8, top_k=20)
+    with torch.inference_mode():
+        eng = serve.Engine(cfg, params, scfg)
+        for i, p in enumerate(prompts):
+            eng.submit(p, key=threefry.PRNGKey(50 + i))
+        _kernels.reset_launch_counts()
+        res = eng.run()
+        snap = eng.stats.snapshot()
+        assert _kernels.launch_counts["flash_fwd"] == \
+            _kernels.launch_counts["flash_fwd.tc"] > 0
+        assert _kernels.launch_counts["flash_fwd.q_off"] > 0
+        assert snap["prefix_hits"] >= 1 and snap["cow_copies"] >= 1
+        assert snap["blocks_in_use"] == 0
+        for i, p in enumerate(prompts):
+            assert len(res[i]) == len(p) + 8
+            assert res[i][:len(p)].tolist() == p.tolist()

@@ -22,6 +22,7 @@ from mpi4torch_tpu import serve as jserve
 from mpi4torch_tpu.models import transformer as JT
 from mpi4torch_tpu_torch import serve as pserve
 from mpi4torch_tpu_torch.models import transformer as PT
+from mpi4torch_tpu_torch.utils import threefry
 
 CFG = dict(vocab=61, d_model=32, n_heads=4, n_layers=2, d_ff=64,
            max_seq=32)
@@ -66,17 +67,18 @@ def _pick_eos(jcfg, jparams):
     return int(seq[len(PROMPTS[0]) + 2])
 
 
-def _drive(eng):
-    for p, n in zip(PROMPTS, BUDGETS):
-        eng.submit(p, max_new=n)
+def _drive(eng, keys=None):
+    for i, (p, n) in enumerate(zip(PROMPTS, BUDGETS)):
+        eng.submit(p, max_new=n, key=None if keys is None else keys[i])
     res = eng.run()
     return [res[i].tolist() for i in range(len(PROMPTS))], \
         eng.stats.snapshot()
 
 
-def _port_run(pcfg, pparams, scfg, nranks):
+def _port_run(pcfg, pparams, scfg, nranks, keys=None):
     def body():
-        return _drive(pserve.Engine(pcfg, pparams, scfg, device="cpu"))
+        return _drive(pserve.Engine(pcfg, pparams, scfg, device="cpu"),
+                      keys)
 
     if nranks == 1:
         return [body()]
@@ -163,6 +165,22 @@ def test_serve_config_validation_matches_jax(kw):
     assert str(perr.value) == str(jerr.value)
 
 
+def _sampled_oracle(jcfg, jparams, eos, temperature, top_k, seed0):
+    """JAX ``generate()`` per request with request i's key
+    ``PRNGKey(seed0 + i)``, cut after EOS."""
+    out = []
+    for i, (p, n) in enumerate(zip(PROMPTS, BUDGETS)):
+        seq = np.asarray(JT.generate(
+            jcfg, jparams, jnp.asarray(p, jnp.int32)[None], n,
+            dtype=jnp.float64, temperature=temperature, top_k=top_k,
+            key=jax.random.PRNGKey(seed0 + i))[0])
+        hits = np.where(seq[len(p):] == eos)[0]
+        if hits.size:
+            seq = seq[:len(p) + hits[0] + 1]
+        out.append(seq.tolist())
+    return out
+
+
 @pytest.mark.parametrize("kw", [
     dict(serve_cfg=pserve.ServeConfig(temperature=0.5)),
     dict(serve_cfg=pserve.ServeConfig(block_size=4)),
@@ -171,18 +189,25 @@ def test_serve_config_validation_matches_jax(kw):
     dict(spmd=True),
 ])
 def test_unported_engine_options_raise(weights, kw):
-    # Sampling, paging and the SPMD engine still raise; the overlap
-    # window and the decode schedule are ported and must give the
-    # blocking ring engine's tokens (here on two ranks).
-    _, _, pcfg, pparams, eos, oracle = weights
+    # Only the SPMD engine still raises.  Sampling (each request with its
+    # own key), paging, the overlap window and the decode schedule are
+    # ported: on two ranks their engines emit the JAX generate() tokens
+    # of every request, as the blocking ring's dense greedy engine does.
+    jcfg, jparams, pcfg, pparams, eos, oracle = weights
     scfg = kw.get("serve_cfg")
-    if scfg is not None and (scfg.overlap or scfg.algorithm):
-        scfg = dataclasses.replace(scfg, slots=2, max_new=8, eos=eos)
-        for tokens, _ in _port_run(pcfg, pparams, scfg, 2):
-            assert tokens == oracle
+    if scfg is None:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            pserve.Engine(pcfg, pparams, device="cpu", **kw)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pserve.Engine(pcfg, pparams, device="cpu", **kw)
+    scfg = dataclasses.replace(scfg, slots=2, max_new=8, eos=eos)
+    keys = None
+    if scfg.temperature:
+        oracle = _sampled_oracle(jcfg, jparams, eos, scfg.temperature, 0,
+                                 300)
+        keys = [threefry.PRNGKey(300 + i)
+                for i in range(len(PROMPTS))]
+    for tokens, _ in _port_run(pcfg, pparams, scfg, 2, keys):
+        assert tokens == oracle
 
 
 def test_queue_full_and_shed(weights):
@@ -305,3 +330,198 @@ def test_decode_overlap_and_schedule_match_the_blocking_ring(weights, kw):
     for tokens, _ in _port_run(pcfg, pparams, pserve.ServeConfig(**scfg), 2):
         assert tokens == oracle
     assert _jax_run(jcfg, jparams, jserve.ServeConfig(**scfg), 2) == oracle
+
+
+# The paged, sampled engine against the JAX engine: a tight pool (6 pages
+# of 4 tokens for 2 slots), prefixes shared across requests (prompt A,
+# A extended, A again: these hit A's partly filled tail page and copy
+# it), chunked prefill (3 tokens a step) and preemption.
+PAGED_A = np.array([1, 2, 3, 4, 5, 6])
+PAGED_PROMPTS = [PAGED_A, np.array([40, 41, 42]),
+                 np.concatenate([PAGED_A, [7, 8, 9, 10, 11]]),
+                 np.arange(20, 33), PAGED_A.copy(),
+                 np.concatenate([PAGED_A, [50, 51]])]
+PAGED_CFG = dict(slots=2, max_new=6, block_size=4, num_blocks=6,
+                 prefill_chunk=3, temperature=0.7, top_k=8)
+PAGED_COUNTERS = ("prefix_hits", "prefix_misses", "prefill_tokens",
+                  "cow_copies", "preempted", "admitted", "decode_tokens",
+                  "blocks_in_use")
+
+
+def _paged_drive(eng, keys, steps=None):
+    for i, p in enumerate(PAGED_PROMPTS):
+        eng.submit(p, key=keys[i])
+    res = eng.run(max_steps=steps)
+    snap = eng.stats.snapshot()
+    return ({k: v.tolist() for k, v in res.items()},
+            {k: snap[k] for k in PAGED_COUNTERS})
+
+
+@pytest.fixture(scope="module")
+def paged_jax(weights):
+    """The JAX engine's tokens and counters per world size (computed once
+    each; the JAX engine is the slow side)."""
+    jcfg, jparams = weights[:2]
+    runs = {}
+
+    def get(nranks):
+        if nranks not in runs:
+            def body():
+                eng = jserve.Engine(jcfg, jparams,
+                                    jserve.ServeConfig(**PAGED_CFG))
+                return _paged_drive(eng, [jax.random.PRNGKey(1000 + i)
+                                          for i in range(len(PAGED_PROMPTS))])
+            runs[nranks] = body() if nranks == 1 else \
+                mpi.run_ranks(body, nranks)[0]
+        return runs[nranks]
+
+    return get
+
+
+@pytest.mark.parametrize("nranks", [1, 2])
+def test_paged_sampled_engine_matches_jax(weights, paged_jax, nranks):
+    jcfg, jparams, pcfg, pparams = weights[:4]
+    keys = [threefry.PRNGKey(1000 + i)
+            for i in range(len(PAGED_PROMPTS))]
+
+    def body():
+        return _paged_drive(pserve.Engine(pcfg, pparams,
+                                          pserve.ServeConfig(**PAGED_CFG),
+                                          device="cpu"), keys)
+
+    runs = [body()] if nranks == 1 else P.run_ranks(body, nranks,
+                                                    device="cpu")
+    want = paged_jax(nranks)
+    for got in runs:
+        assert got == want                 # tokens and counters, per rank
+    tokens, counters = want
+    assert counters["prefix_hits"] >= 1 and counters["cow_copies"] >= 1
+    assert counters["preempted"] >= 1 and counters["blocks_in_use"] == 0
+    # Each stream is the request's own generate() with its key, also
+    # across its preemption.
+    for i, p in enumerate(PAGED_PROMPTS):
+        g = np.asarray(JT.generate(
+            jcfg, jparams, jnp.asarray(p, jnp.int32)[None],
+            PAGED_CFG["max_new"], dtype=jnp.float64,
+            temperature=PAGED_CFG["temperature"], top_k=PAGED_CFG["top_k"],
+            key=jax.random.PRNGKey(1000 + i)))[0]
+        assert tokens[i] == g.tolist()
+
+
+def _paged_streams(E, cfg, params, scfg, key, extra):
+    eng = E.Engine(cfg, params, scfg, **extra)
+    for i, p in enumerate(PAGED_PROMPTS):
+        eng.submit(p, key=key(1000 + i))
+    res = eng.run()
+    return [res[i].tolist() for i in range(len(PAGED_PROMPTS))]
+
+
+def test_matched_pages_survive_their_own_admission(weights):
+    # A fault of the JAX engine the port does not copy: admission matches
+    # the prefix index, then allocates the fresh pages before it
+    # references the matched ones, so the allocation can reclaim a
+    # matched (cached) page and the request reads rows its own prefill
+    # overwrote.  With 7 pages here it does, and some JAX engine stream
+    # leaves its generate(); the port's allocation keeps the matched
+    # pages, and every stream stays generate()'s.
+    jcfg, jparams, pcfg, pparams = weights[:4]
+    kw = dict(PAGED_CFG, num_blocks=7)
+    oracle = []
+    for i, p in enumerate(PAGED_PROMPTS):
+        oracle.append(np.asarray(JT.generate(
+            jcfg, jparams, jnp.asarray(p, jnp.int32)[None], kw["max_new"],
+            dtype=jnp.float64, temperature=kw["temperature"],
+            top_k=kw["top_k"], key=jax.random.PRNGKey(1000 + i)))[0]
+            .tolist())
+    jax_streams = _paged_streams(jserve, jcfg, jparams,
+                                 jserve.ServeConfig(**kw),
+                                 jax.random.PRNGKey, {})
+    port_streams = _paged_streams(pserve, pcfg, pparams,
+                                  pserve.ServeConfig(**kw),
+                                  threefry.PRNGKey, {"device": "cpu"})
+    assert port_streams == oracle
+    assert jax_streams != oracle
+
+
+def test_paged_greedy_engine_matches_dense(weights):
+    _, _, pcfg, pparams, _, oracle = weights
+    (paged, snap), = _port_run(pcfg, pparams, pserve.ServeConfig(
+        slots=2, max_new=8, block_size=4, num_blocks=9, prefill_chunk=2), 1)
+    greedy = [g[:len(p) + n] for g, p, n in zip(
+        _oracle(*weights[:2], None), PROMPTS, BUDGETS)]
+    assert paged == greedy
+    assert snap["blocks_in_use"] == 0 and snap["prefix_misses"] >= 1
+    # A cache dtype below the parameters' keeps paging but turns sharing
+    # and chunking off, as in the JAX package.
+    eng = pserve.Engine(pcfg, pparams, pserve.ServeConfig(
+        block_size=4, prefill_chunk=2, cache_dtype=torch.float32),
+        device="cpu")
+    assert eng._chunk is None and not eng._mgr.prefix_cache
+    assert oracle[0][:len(PROMPTS[0])] == PROMPTS[0].tolist()
+
+
+def test_paged_submit_and_construction_validation(weights):
+    jcfg, jparams, pcfg, pparams = weights[:4]
+    for E, cfg, params, extra in ((pserve, pcfg, pparams, {"device": "cpu"}),
+                                  (jserve, jcfg, jparams, {})):
+        with pytest.raises(ValueError, match="must divide max_seq"):
+            E.Engine(cfg, params, E.ServeConfig(block_size=5), **extra)
+    msgs = []
+    for E, cfg, params, extra in ((pserve, pcfg, pparams, {"device": "cpu"}),
+                                  (jserve, jcfg, jparams, {})):
+        eng = E.Engine(cfg, params, E.ServeConfig(block_size=4, num_blocks=2,
+                                                  temperature=0.5), **extra)
+        for args in ((np.arange(6), dict(max_new=5, key=(0, 1))),
+                     (np.arange(3), dict(max_new=2))):
+            with pytest.raises(ValueError) as err:
+                eng.submit(args[0], **args[1])
+            msgs.append(str(err.value))
+    assert msgs[:2] == msgs[2:]
+    assert "needs 3 pages of 4 tokens" in msgs[0]
+    assert "requires a PRNG `key`" in msgs[1]
+
+
+def _records(recs):
+    """Drain records with keys as two words, prompts as lists and the
+    deadline as whether there is one (each engine reads its own clock)."""
+    out = []
+    for r in recs:
+        r = dict(r)
+        r["prompt"] = np.asarray(r["prompt"]).tolist()
+        r["key"] = None if r["key"] is None else \
+            [int(w) for w in np.asarray(r["key"])]
+        r["deadline"] = r["deadline"] is not None
+        out.append(r)
+    return out
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_drain_snapshot_and_admit_expired_match_jax(weights, paged):
+    jcfg, jparams, pcfg, pparams = weights[:4]
+    kw = dict(slots=2, max_new=6, temperature=0.7, top_k=8)
+    if paged:
+        kw.update(block_size=4, num_blocks=7, prefill_chunk=3)
+    got = {}
+    for name, E, cfg, params, key, extra in (
+            ("jax", jserve, jcfg, jparams, jax.random.PRNGKey, {}),
+            ("port", pserve, pcfg, pparams, threefry.PRNGKey,
+             {"device": "cpu"})):
+        eng = E.Engine(cfg, params, E.ServeConfig(**kw), **extra)
+        for i, p in enumerate(PAGED_PROMPTS):
+            eng.submit(p, key=key(1000 + i), deadline_s=1e6)
+        for _ in range(3):
+            eng.step()
+        snap = _records(eng.snapshot_inflight())
+        drained = _records(eng.drain())
+        late = eng.admit_expired(np.array([7, 7]), emitted=[1, 2])
+        got[name] = (snap, drained, late, eng.status(late),
+                     eng.results()[late].tolist(), eng.pending(),
+                     eng.results().keys() - {late})
+        with pytest.raises(ValueError, match="already in use"):
+            eng.admit_expired(np.array([1]), rid=late)
+    assert got["port"] == got["jax"]
+    snap, drained = got["port"][:2]
+    assert snap == drained and len(drained) == len(PAGED_PROMPTS) - len(
+        got["port"][6])
+    assert any(r["emitted"] for r in drained)
+    assert any(r["pages"] for r in drained) == paged
