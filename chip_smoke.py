@@ -163,18 +163,54 @@ check fails.  Phases, in order:
     noise, peak KV bytes paged against dense, the idle share of a
     profiled window; K2 at each chunk shape beside its bound, its plain
     version and SDPA with a lower-right causal mask;
-24. one JSON line describing each ported kernel (K2, K3 and K4 with
-    the variant the main path ran; the launches of phases 18–20 and 23).
+24. sequence-parallel training of the flagship on two rank threads
+    (``comm_sp=COMM_WORLD``, s_local 1024) under ``attn="ring"``,
+    ``"zigzag"`` (tokens through ``zigzag_slice``'s layout) and
+    ``"ulysses"``: each strategy's loss and gradient against one device,
+    first in float32 at batch 1 x 2048 (the simt kernels; the algebra,
+    within ``SP_F32_REL``), then in bf16 at batch 8 x 2048 (within
+    phase 9's bounds); three ``train_step``s each, the first update
+    exactly ``p - lr g``, both ranks' parameters bitwise identical; K2/K3/K4
+    launches a step, at a nonzero offset and on a wholly masked block, as
+    ``SP_BLOCKS`` predicts, all ``tc``; step ms beside phase 10's TP=1
+    step, a profiled step's idle share and each rank's attention device
+    ms (the profiler's kernel records, attributed to the rank threads by
+    launch order);
+25. long-context SP: 1 x 16384 tokens with rope (no position table), SP=2
+    (s_local 8192), ring and zigzag, two steps each of the chunked loss
+    (``vocab_chunk=4096``) at full depth; a 2-layer float32 model's
+    hidden states, loss and gradient against one device on the whole
+    sequence;
+26. expert-parallel MoE training of the flagship with four gelu experts
+    (capacity 2560 a source rank), EP=2 rank threads of batch 4 x 2048:
+    the first gradient against the replicated dense-expert form (float32
+    at 2 layers, bf16 at full depth), three ``train_step``s (ranks
+    identical, the update ``p - lr g``), the dropped-token share (every
+    (expert, slot) holds at most one token, and each routing keeps
+    ``sum_e min(count_e, capacity)`` tokens), the forward ``Alltoall`` payload, the aux loss, peak memory, K2/K3/K4
+    launches; then greedy ``generate()`` of the MoE config (float32,
+    dense experts) against the stepwise argmax of ``forward``;
+27. the tensor-parallel layers at the flagship widths, x (8, 2048, 2048)
+    bf16 on two rank threads: ``tp_mlp`` and ``tp_attention`` with
+    ``attention_fn=flash_attention``, forward and backward against the
+    unsharded layers, one ``Allreduce`` each way, ms;
+28. one JSON line describing each ported kernel (K2, K3 and K4 with
+    the variant the main path ran; the launches of phases 18–20 and 23–27;
+    their numbers at the SP shapes, a wholly masked block and a live-dlse
+    backward among them, against the plain versions, their bounds and
+    SDPA).
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 TF32 is switched off for matmuls and cuDNN here, so float32 work on the
 card stays float32-exact like the JAX reference.
 """
 
+import contextlib
 import itertools
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -359,6 +395,38 @@ LOSS_TOL = 0.125
 # sums in another grouping), and train_step's update must be exactly
 # p - lr * g of that DP gradient.
 DP_GRAD_REL = GRAD_REL_TOL
+
+# Sequence-parallel training (phase 24): two rank threads of the one card
+# share phase 8's batch 8 x 2048 (s_local 1024); three train_steps each.
+SP_RANKS, SP_STEPS = 2, 3
+SP_ATTNS = ("ring", "zigzag", "ulysses")
+# Attention launches a layer makes on each kernel, summed over the two
+# ranks, and how many sit at a nonzero q or KV offset and how many are
+# wholly masked (parallel/attention.py): the ring 2 blocks a rank (rank
+# 0's second block is wholly in its future); zigzag 3 (q, kv) half pairs
+# per arriving block (one of them wholly in the future on each rank);
+# Ulysses one full-sequence call a rank.
+SP_BLOCKS = {"ring": (4, 3, 1), "zigzag": (12, 11, 2), "ulysses": (2, 0, 0)}
+# f32 (the simt kernels) against one device, the worst leaf's
+# norm-relative gradient error and the loss's relative error: the two
+# differ in the order of their sums (the merges, the sp Allreduce); 1e-6
+# on the CPU at a small config.
+SP_F32_REL = 1e-4
+# bf16 against one device: the merge rounds out to bf16 after every block,
+# as the JAX package does; the f32 run above shows the algebra holds, so
+# the bound is phase 9's for two ways of rounding the same gradient.
+SP_BF16_REL = GRAD_REL_TOL
+# Long-context SP (phase 25): batch 1 x 16384 with rope, s_local 8192.
+LONG_SEQ, LONG_STEPS = 16384, 2
+# EP MoE (phase 26): 4 gelu experts, capacity 1.25 x T_local / E with
+# T_local = 4 x 2048 tokens a rank.
+EP_EXPERTS, EP_CAPACITY, EP_BATCH = 4, 2560, 4
+# Then greedy generate() of 8 tokens after a prompt of this many.
+EP_PROMPT = 128
+# TP layers (phase 27) at x (8, 2048, 2048) bf16: sharded against
+# unsharded, norm-relative; each output sums two bf16-rounded rank
+# partials where the unsharded product rounds once (a few bf16 ulps).
+TP_REL = 2e-2
 
 # Quantized hop kernel vs plain: (name, nb, block, storage offset in
 # elements).  Rows 0, 1 and 2 of every case are a zero block, a subnormal
@@ -2732,6 +2800,775 @@ def paged_phase(P, T, serve, kv, kernels, flash, threefry, cfg, params,
             "chunks": chunks}
 
 
+# ------------------------------------------------- slice 9: SP, EP, TP
+
+class LaunchOrder:
+    """While entered, records the rank thread and kernel of every kernel
+    launch in launch order: ``_kernels._launch`` runs under a lock, so on
+    the one stream the device runs the kernels in the recorded order, and
+    a profiler's kernel records sorted by start time pair off with it."""
+
+    def __init__(self, P, kernels):
+        self._P, self._kernels = P, kernels
+        self.order = []
+
+    def __enter__(self):
+        lock, saved, order, P = threading.Lock(), self._kernels._launch, \
+            self.order, self._P
+        self._saved = saved
+
+        def launch(kernel, *a, **kw):
+            with lock:
+                order.append((P.COMM_WORLD.rank, kernel))
+                return saved(kernel, *a, **kw)
+
+        self._kernels._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self._kernels._launch = self._saved
+        return False
+
+
+def profiled_rank_ms(P, kernels, fn, label, n_ranks):
+    """Profile ``fn`` (which runs rank threads) twice: once as it runs,
+    for the wall ms and the device's busy ms; once with the launches
+    serialised by :class:`LaunchOrder`, for each rank's attention-kernel
+    device ms (the profiler's kernel records, attributed by launch
+    order; None where they do not pair off with the launches)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def profile(order=None):
+        torch.cuda.synchronize()
+        with contextlib.ExitStack() as stack:
+            if order is not None:
+                stack.enter_context(order)
+            prof = stack.enter_context(
+                torch.profiler.profile(activities=acts))
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        return wall, [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.is_user_annotation]
+
+    wall, dev = profile()
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    lo = LaunchOrder(P, kernels)
+    lo_wall, dev = profile(lo)
+    lo_busy = sum(e.self_device_time_total for e in dev) / 1e3
+    flash_ev = sorted((e for e in dev if "flash_" in e.name),
+                      key=lambda e: e.time_range.start)
+    attn = [x for x in lo.order if x[1] in kernels.ATTENTION_KERNELS]
+    per_rank = None
+    if len(flash_ev) == len(attn) and attn:
+        per_rank = [0.0] * n_ranks
+        for e, (rank, _) in zip(flash_ev, attn):
+            per_rank[rank] += e.time_range.elapsed_us() / 1e3
+    print(f"  profile {label}: wall {wall:.2f} ms, device busy {busy:.2f} "
+          f"ms (idle {100 - 100 * busy / wall:.0f}%); launches serialised:"
+          f" wall {lo_wall:.2f} ms, idle {100 - 100 * lo_busy / lo_wall:.0f}%,"
+          f" attention kernels "
+          + (f"per rank {[round(x, 3) for x in per_rank]} device ms"
+             if per_rank is not None else
+             f"not attributed ({len(flash_ev)} profiled, {len(attn)} "
+             "launched)"))
+    return wall, busy, per_rank
+
+
+def sp_local(tokens, attn, rank, size=SP_RANKS):
+    """This rank's sequence shard of replicated ``tokens``: contiguous, or
+    the zigzag shard."""
+    from mpi4torch_tpu_torch.parallel import zigzag_positions
+
+    s_local = tokens.shape[1] // size
+    if attn == "zigzag":
+        idx = torch.as_tensor(zigzag_positions(size, s_local)[rank],
+                              device=tokens.device)
+        return tokens.index_select(1, idx)
+    return tokens[:, rank * s_local:(rank + 1) * s_local]
+
+
+def sp_grad(P, T, tree, dp, cfg, params, local, attn, vocab_chunk=0):
+    """train_step's gradient on this rank: the sp-summed loss of the
+    parameters averaged over sp (its adjoint makes every rank's gradient
+    the one-device gradient)."""
+    c = P.COMM_WORLD
+    return tree.value_and_grad(lambda p: T.lm_loss(
+        cfg, dp.all_average_tree(c, p), local, comm_sp=c, attn=attn,
+        vocab_chunk=vocab_chunk), params)
+
+
+def attention_counts(kernels, launches):
+    """(all, offset, masked) launches of each attention kernel, and
+    whether every launch took tc."""
+    return ({k: (launches[k], launches[f"{k}.offset"],
+                 launches[f"{k}.masked"])
+             for k in kernels.ATTENTION_KERNELS},
+            attention_all_tc(kernels, launches))
+
+
+def sp_phase(P, T, tree, dp, kernels, cfg, params, tokens, tp1_ms):
+    """SP=2 training of the flagship: each strategy's gradient against one
+    device in f32 (batch 1) and bf16 (batch 8), then SP_STEPS train_steps
+    with launches per step, both ranks bitwise identical; a profiled step
+    (idle share, each rank's attention device ms)."""
+    n = cfg.n_layers
+    # f32 at batch 1 x 2048: the simt kernels; the algebra against one
+    # device.
+    p32 = tree.tree_map(lambda t: t.float(), params)
+    one = tokens[:1]
+    ref_l, ref_g = tree.value_and_grad(lambda p: T.lm_loss(cfg, p, one),
+                                       p32)
+    f32_err = {}
+    for attn in SP_ATTNS:
+        kernels.reset_launch_counts()
+        (l0, g0), (l1, g1) = P.run_ranks(
+            lambda r: sp_grad(P, T, tree, dp, cfg, p32,
+                              sp_local(one, attn, r), attn), SP_RANKS,
+            device="cuda")
+        same = torch.equal(l0, l1) and leaves_equal(tree, g0, g1)
+        del g1
+        simt = all(kernels.launch_counts[k] == kernels.launch_counts[
+            f"{k}.simt"] > 0 for k in kernels.ATTENTION_KERNELS)
+        rel_l = abs(l0.item() - ref_l.item()) / ref_l.item()
+        worst = norm_rel(tree, g0, ref_g)
+        f32_err[attn] = worst
+        ok = same and simt and rel_l <= SP_F32_REL and worst <= SP_F32_REL
+        print(f"  f32 batch 1 x {TRAIN_SEQ}, {attn:7s}: loss {l0.item():.6f}"
+              f" vs one device {ref_l.item():.6f} (rel {rel_l:.2e}); worst "
+              f"leaf's norm-relative gradient error {worst:.3e} (tol "
+              f"{SP_F32_REL:g}); ranks bitwise identical {same}; every "
+              f"launch simt {simt}  {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"f32 SP ({attn}) disagrees with one device")
+        del g0
+    del p32, ref_g
+
+    ref_l, ref_g = tree.value_and_grad(lambda p: T.lm_loss(cfg, p, tokens),
+                                       params)
+    out = {"launches": {}, "ms": {}, "idle_pct": {}, "rank_attn_ms": {},
+           "f32_rel": f32_err, "bf16_rel": {}}
+    for attn in SP_ATTNS:
+        locs = [sp_local(tokens, attn, r) for r in range(SP_RANKS)]
+        (l0, g0), (l1, g1) = P.run_ranks(
+            lambda r: sp_grad(P, T, tree, dp, cfg, params, locs[r], attn),
+            SP_RANKS, device="cuda")
+        same = torch.equal(l0, l1) and leaves_equal(tree, g0, g1)
+        del g1
+        worst = norm_rel(tree, g0, ref_g)
+        out["bf16_rel"][attn] = worst
+        ps, ms, per_step = [params] * SP_RANKS, [], []
+        for step in range(SP_STEPS):
+            kernels.reset_launch_counts()
+            t, res = sync_ms(lambda: P.run_ranks(
+                lambda r: T.train_step(cfg, ps[r], locs[r],
+                                       comm_sp=P.COMM_WORLD, attn=attn,
+                                       lr=LR), SP_RANKS, device="cuda"))
+            per_step.append(attention_counts(kernels, kernels.launch_counts))
+            ms.append(t)
+            if step == 0:
+                with torch.no_grad():
+                    applied = torch.equal(res[0][0], l0) and leaves_equal(
+                        tree, res[0][1], tree.tree_map(
+                            lambda p, g: p - LR * g, params, g0))
+                del g0
+            ps = [x[1] for x in res]
+        ranks_same = leaves_equal(tree, ps[0], ps[1])
+        del ps, res
+        blocks, off, masked = SP_BLOCKS[attn]
+        want = {k: (n * blocks, n * off, n * masked)
+                for k in kernels.ATTENTION_KERNELS}
+        counts_ok = all(c == (want, True) for c in per_step)
+        out["launches"][attn] = per_step[0][0]
+        out["ms"][attn] = float(np.mean(ms[1:]))
+        ok = (same and applied and ranks_same and counts_ok
+              and abs(l0.item() - ref_l.item()) <= LOSS_TOL
+              and worst <= SP_BF16_REL)
+        print(f"  bf16 batch {TRAIN_BATCH} x {TRAIN_SEQ}, {attn:7s}: first "
+              f"loss {l0.item():.4f} vs one device {ref_l.item():.4f} (tol "
+              f"{LOSS_TOL}); worst leaf's norm-relative gradient error "
+              f"{worst:.3e} (tol {SP_BF16_REL:g}; f32 {f32_err[attn]:.1e});"
+              f" first update p - lr g bitwise {applied}; {SP_STEPS} steps "
+              f"{[round(x, 1) for x in ms]} ms (TP=1 step {tp1_ms:.1f} ms); "
+              f"launches a step (all, offset, masked) "
+              f"{per_step[0][0]} (expected {want[kernels.ATTENTION_KERNELS[0]]}"
+              f" each), all tc {per_step[0][1]}; ranks' parameters bitwise "
+              f"identical after {SP_STEPS} steps {ranks_same}  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"SP training ({attn}) failed a check")
+        wall, busy, per_rank = profiled_rank_ms(
+            P, kernels, lambda: P.run_ranks(
+                lambda r: T.train_step(cfg, params, locs[r],
+                                       comm_sp=P.COMM_WORLD, attn=attn,
+                                       lr=LR), SP_RANKS, device="cuda"),
+            f"one SP=2 {attn} step", SP_RANKS)
+        out["idle_pct"][attn] = 100 - 100 * busy / wall
+        out["rank_attn_ms"][attn] = per_rank
+    del ref_g
+    return out
+
+
+def long_context_phase(P, T, tree, dp, kernels, cfg, params):
+    """SP=2 at 16384 tokens with rope: LONG_STEPS steps of the chunked
+    loss per strategy at full depth; the 2-layer f32 model's hidden
+    states, loss and gradient against one device on the whole sequence."""
+    import dataclasses
+
+    lcfg = dataclasses.replace(cfg, rope=True)
+    lparams = {k: v for k, v in params.items() if k != "pos"}
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (1, LONG_SEQ))).to("cuda")
+    out = {"launches": {}, "ms": {}, "f32_rel": {}, "rank_attn_ms": {}}
+    torch.cuda.reset_peak_memory_stats()
+    for attn in ("ring", "zigzag"):
+        locs = [sp_local(tokens, attn, r) for r in range(SP_RANKS)]
+
+        def step(r, p):
+            loss, g = sp_grad(P, T, tree, dp, lcfg, p, locs[r], attn,
+                              VOCAB_CHUNK)
+            with torch.no_grad():
+                return loss, tree.tree_map(lambda a, b: a - LR * b, p, g)
+
+        ps, ms, losses = [lparams] * SP_RANKS, [], []
+        for _ in range(LONG_STEPS):
+            kernels.reset_launch_counts()
+            t, res = sync_ms(lambda: P.run_ranks(lambda r: step(r, ps[r]),
+                                                 SP_RANKS, device="cuda"))
+            ms.append(t)
+            losses.append([x[0].item() for x in res])
+            ps = [x[1] for x in res]
+        counts, tc = attention_counts(kernels, kernels.launch_counts)
+        same = leaves_equal(tree, ps[0], ps[1])
+        del ps, res
+        out["launches"][attn] = counts
+        out["ms"][attn] = ms
+        _, _, out["rank_attn_ms"][attn] = profiled_rank_ms(
+            P, kernels, lambda: P.run_ranks(lambda r: step(r, lparams),
+                                            SP_RANKS, device="cuda"),
+            f"one long-context {attn} step", SP_RANKS)
+        ok = (same and tc and all(a == b for a, b in losses)
+              and all(np.isfinite(losses[i][0]) for i in range(LONG_STEPS))
+              and abs(losses[0][0] - np.log(cfg.vocab)) <= INIT_LOSS_TOL)
+        print(f"  {attn:6s} 1 x {LONG_SEQ} (s_local {LONG_SEQ // SP_RANKS}),"
+              f" rope, vocab_chunk {VOCAB_CHUNK}: losses "
+              f"{[round(x[0], 4) for x in losses]}; step "
+              f"{[round(x, 1) for x in ms]} ms; launches a step (all, "
+              f"offset, masked) {counts}, all tc {tc}; ranks identical "
+              f"{same}  {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"long-context SP ({attn}) failed a check")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # f32 at n_layers=2 on the whole sequence: hidden states, loss and
+    # gradient of one device against SP.
+    c2 = dataclasses.replace(lcfg, n_layers=2)
+    p2 = tree.tree_map(lambda t: t.float(), dict(
+        lparams, blocks=lparams["blocks"][:2]))
+    with torch.no_grad():
+        ref_h = T.forward(c2, p2, tokens, return_hidden=True)
+    ref_l, ref_g = tree.value_and_grad(lambda p: T.lm_loss(
+        c2, p, tokens, vocab_chunk=VOCAB_CHUNK), p2)
+    from mpi4torch_tpu_torch.parallel import zigzag_positions
+    for attn in ("ring", "zigzag"):
+        locs = [sp_local(tokens, attn, r) for r in range(SP_RANKS)]
+
+        def body(r):
+            with torch.no_grad():
+                h = T.forward(c2, p2, locs[r], comm_sp=P.COMM_WORLD,
+                              attn=attn, return_hidden=True)
+            return h, sp_grad(P, T, tree, dp, c2, p2, locs[r], attn,
+                              VOCAB_CHUNK)
+
+        (h0, (l0, g0)), (h1, (l1, g1)) = P.run_ranks(body, SP_RANKS,
+                                                     device="cuda")
+        h = torch.cat([h0, h1], dim=1)
+        if attn == "zigzag":
+            perm = np.concatenate(list(zigzag_positions(
+                SP_RANKS, LONG_SEQ // SP_RANKS)))
+            h = torch.empty_like(h).index_copy_(
+                1, torch.as_tensor(perm, device="cuda"), h)
+        rel_h = ((h - ref_h).norm() / ref_h.norm()).item()
+        rel_l = abs(l0.item() - ref_l.item()) / ref_l.item()
+        worst = norm_rel(tree, g0, ref_g)
+        same = torch.equal(l0, l1) and leaves_equal(tree, g0, g1)
+        del g0, g1, h, h0, h1
+        out["f32_rel"][attn] = max(rel_h, worst)
+        ok = same and max(rel_h, rel_l, worst) <= SP_F32_REL
+        print(f"  f32, 2 layers, {attn:6s} vs one device on {LONG_SEQ} "
+              f"tokens: hidden states norm-relative {rel_h:.2e}, loss rel "
+              f"{rel_l:.2e}, worst leaf's gradient {worst:.2e} (tol "
+              f"{SP_F32_REL:g}); ranks identical {same}  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"long-context f32 SP ({attn}) disagrees with one device")
+    del p2, ref_g, ref_h
+    out["peak_gb"] = peak
+    print(f"  peak memory of the full-depth runs {peak:.2f} GiB")
+    return out
+
+
+class CollectiveNames:
+    """While entered, lists the signature name of each of rank 0's
+    rendezvous (``World.exchange``): one ``"Allreduce"`` per Allreduce,
+    whose ring form adds an ``"Allreduce.fold"`` above a few thousand
+    elements."""
+
+    def __init__(self):
+        from mpi4torch_tpu_torch import runtime
+
+        self._world = runtime.World
+        self.names = []
+
+    def __enter__(self):
+        saved, names = self._world.exchange, self.names
+        self._saved = saved
+
+        def exchange(w, rank, signature, *a, **kw):
+            if rank == 0:
+                names.append(signature[0])
+            return saved(w, rank, signature, *a, **kw)
+
+        self._world.exchange = exchange
+        return self
+
+    def __exit__(self, *exc):
+        self._world.exchange = self._saved
+        return False
+
+
+class MoeCounter:
+    """While entered, sums the tokens ``top1_route`` kept and routed, and
+    the payload bytes of forward ``Alltoall`` calls on rank 0.  Per call
+    it also records the fullest (expert, slot) (at most one token), the
+    tokens kept against ``sum_e min(count_e, C)`` of the router's own
+    argmax, and the largest share of tokens one expert was chosen by."""
+
+    def __init__(self, P, moe):
+        self._P, self._moe = P, moe
+        self.kept, self.want_kept, self.slot_max, self.top_share = \
+            [], [], [], []
+        self.routed = 0
+        self.a2a_bytes = 0
+
+    def slots_ok(self):
+        return (all(m.item() <= 1 for m in self.slot_max)
+                and all(int(k.item()) == int(w.item())
+                        for k, w in zip(self.kept, self.want_kept)))
+
+    def __enter__(self):
+        moe, P, me = self._moe, self._P, self
+        self._route, self._a2a = moe.top1_route, P.MPI_Communicator.Alltoall
+
+        def route(logits, capacity):
+            d, c, aux = me._route(logits, capacity)
+            with torch.no_grad():
+                expert = torch.softmax(logits, dim=-1).argmax(dim=-1)
+                count = torch.bincount(expert, minlength=logits.shape[1])
+                me.kept.append(d.sum(dtype=torch.float32))
+                me.want_kept.append(count.clamp(max=capacity).sum())
+                me.slot_max.append(d.sum(dim=0, dtype=torch.float32).max())
+                me.top_share.append(count.max() / logits.shape[0])
+            me.routed += logits.shape[0]
+            return d, c, aux
+
+        def a2a(comm, tensor, *a, **kw):
+            if comm.rank == 0:
+                me.a2a_bytes += tensor.numel() * tensor.element_size()
+            return me._a2a(comm, tensor, *a, **kw)
+
+        moe.top1_route, P.MPI_Communicator.Alltoall = route, a2a
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.top1_route = self._route
+        self._P.MPI_Communicator.Alltoall = self._a2a
+        return False
+
+
+def ep_phase(P, T, tree, dp, kernels, cfg, tokens):
+    """EP=2 training of the flagship with EP_EXPERTS gelu experts: the
+    first gradient against the replicated dense-expert form (f32 at 2
+    layers, bf16 at full depth), SP_STEPS train_steps, routing numbers;
+    greedy generate() of an MoE config against the stepwise argmax of
+    forward."""
+    import dataclasses
+
+    from mpi4torch_tpu_torch.parallel import moe
+
+    mcfg = dataclasses.replace(cfg, n_experts=EP_EXPERTS,
+                               capacity=EP_CAPACITY)
+    torch.cuda.reset_peak_memory_stats()
+    mparams = T.init_transformer(0, mcfg, torch.bfloat16, device="cuda")
+    n_params = sum(t.numel() for t in tree.tree_leaves(mparams))
+    locs = [tokens[r * EP_BATCH:(r + 1) * EP_BATCH] for r in range(2)]
+
+    def ep_grad(r, cfg_, p):
+        c = P.COMM_WORLD
+
+        def loss(q):
+            l_ = T.lm_loss(cfg_, dp.all_average_tree(c, q), locs[r],
+                           comm_ep=c)
+            return c.Allreduce(l_, P.MPI_SUM, compression=False) / c.size
+        return tree.value_and_grad(loss, p)
+
+    def replicated(cfg_, p):
+        return tree.value_and_grad(lambda q: sum(
+            T.lm_loss(cfg_, q, x) for x in locs) / len(locs), p)
+
+    # f32 at 2 layers: the algebra.
+    c2 = dataclasses.replace(mcfg, n_layers=2)
+    p2 = tree.tree_map(lambda t: t.float(), dict(
+        mparams, blocks=mparams["blocks"][:2]))
+    (l0, g0), (l1, g1) = P.run_ranks(lambda r: ep_grad(r, c2, p2), 2,
+                                     device="cuda")
+    same32 = torch.equal(l0, l1) and leaves_equal(tree, g0, g1)
+    del g1
+    rl, rg = replicated(c2, p2)
+    rel32 = max(abs(l0.item() - rl.item()) / rl.item(),
+                norm_rel(tree, g0, rg))
+    del g0, rg, p2
+    print(f"  f32, 2 layers: EP loss {l0.item():.6f} vs replicated "
+          f"{rl.item():.6f}; worst of loss and leaves' norm-relative "
+          f"gradient error {rel32:.2e} (tol {SP_F32_REL:g}); ranks identical"
+          f" {same32}", flush=True)
+    check(same32 and rel32 <= SP_F32_REL,
+          "f32 EP disagrees with the replicated form")
+
+    # bf16 at full depth: the first gradient, then SP_STEPS steps.
+    with MoeCounter(P, moe) as mc:
+        (l0, g0), (l1, g1) = P.run_ranks(lambda r: ep_grad(r, mcfg, mparams),
+                                         2, device="cuda")
+    same = torch.equal(l0, l1) and leaves_equal(tree, g0, g1)
+    del g1
+    kept = sum(k.item() for k in mc.kept)
+    dropped = 1 - kept / mc.routed
+    slots_ok = mc.slots_ok()
+    top_share = max(x.item() for x in mc.top_share)
+    a2a_fwd = mc.a2a_bytes
+    rl, rg = replicated(mcfg, mparams)
+    worst = norm_rel(tree, g0, rg)
+    del rg
+    ps, ms, per_step = [mparams] * 2, [], []
+    for step in range(SP_STEPS):
+        kernels.reset_launch_counts()
+        t, res = sync_ms(lambda: P.run_ranks(
+            lambda r: T.train_step(mcfg, ps[r], locs[r],
+                                   comm_ep=P.COMM_WORLD, lr=LR), 2,
+            device="cuda"))
+        per_step.append(attention_counts(kernels, kernels.launch_counts))
+        ms.append(t)
+        if step == 0:
+            with torch.no_grad():
+                applied = torch.equal(res[0][0], l0) and leaves_equal(
+                    tree, res[0][1], tree.tree_map(lambda p, g: p - LR * g,
+                                                   mparams, g0))
+            del g0
+        ps = [x[1] for x in res]
+    ranks_same = leaves_equal(tree, ps[0], ps[1])
+    del ps, res
+    with torch.no_grad():
+        # forward sums the layers' load-balancing losses: a layer's mean.
+        aux = P.run_ranks(lambda r: T.forward(
+            mcfg, mparams, locs[r], comm_ep=P.COMM_WORLD, return_aux=True,
+            return_hidden=True)[1].item() / cfg.n_layers, 2, device="cuda")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # One routing's wall ms at a rank's shape (F.one_hot checks its
+    # indices on the host, so the call waits for the device).
+    g = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn((EP_BATCH * TRAIN_SEQ, EP_EXPERTS), generator=g,
+                         device="cuda").to(torch.bfloat16)
+    route_ms = float(np.median([sync_ms(lambda: moe.top1_route(
+        logits, EP_CAPACITY))[0] for _ in range(10)]))
+    del logits
+    want = {k: (2 * cfg.n_layers, 0, 0) for k in kernels.ATTENTION_KERNELS}
+    counts_ok = all(c == (want, True) for c in per_step)
+    ok = (same and applied and ranks_same and counts_ok and slots_ok
+          and abs(l0.item() - rl.item()) <= LOSS_TOL
+          and worst <= GRAD_REL_TOL)
+    print(f"  bf16, {n_params / 1e9:.2f}B parameters, EP=2 x batch "
+          f"{EP_BATCH} x {TRAIN_SEQ}, capacity {EP_CAPACITY}: first loss "
+          f"{l0.item():.4f} vs replicated {rl.item():.4f} (tol {LOSS_TOL}); "
+          f"worst leaf's norm-relative gradient error {worst:.3e} (tol "
+          f"{GRAD_REL_TOL:g}); first update p - lr g bitwise {applied}; "
+          f"{SP_STEPS} steps {[round(x, 1) for x in ms]} ms; dropped "
+          f"tokens {100 * dropped:.2f}% of {mc.routed} routings ("
+          f"{cfg.n_layers} layers x 2 ranks; busiest expert "
+          f"{100 * top_share:.1f}% of a rank's tokens against capacity "
+          f"{100 * EP_CAPACITY / EP_BATCH / TRAIN_SEQ:.2f}%; one routing "
+          f"{route_ms:.3f} ms wall, {cfg.n_layers} a rank and step); every slot "
+          f"holds at most one token and kept = sum_e min(count_e, C) in "
+          f"every call {slots_ok}; Alltoall payload rank 0 forward "
+          f"{a2a_fwd / 2**20:.1f} MiB a step, the same again in the "
+          f"backward; aux a layer {[round(a, 4) for a in aux]} (1 at "
+          f"balance); "
+          f"peak {peak:.2f} GiB; launches a step {per_step[0][0]}, all tc "
+          f"{per_step[0][1]}; ranks identical after {SP_STEPS} steps "
+          f"{ranks_same}  {'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "EP MoE training failed a check")
+
+    # Greedy generate() of the MoE model (dense experts) at TP=1, f32:
+    # each token the argmax of forward over the sequence so far, but at a
+    # near tie (top-2 gap within 1e-3, after which the streams may part).
+    p32 = tree.tree_map(lambda t: t.float(), mparams)
+    del mparams
+    p_len = min(EP_PROMPT, tokens.shape[1] // 2)
+    prompt = tokens[:1, :p_len]
+    with torch.no_grad():
+        gen = T.generate(mcfg, p32, prompt, 8)
+        seq, match, gap = prompt, 0, None
+        for i in range(8):
+            logits = T.forward(mcfg, p32, seq)[0, -1]
+            top2 = torch.topk(logits, 2).values
+            if int(logits.argmax()) != int(gen[0, p_len + i]):
+                gap = (top2[0] - top2[1]).item()
+                break
+            match += 1
+            seq = gen[:, :p_len + i + 1]
+    tie_ok = match == 8 or (gap is not None and gap <= 1e-3)
+    print(f"  generate() 8 greedy tokens of the MoE config (f32, dense "
+          f"experts): {match}/8 equal to the stepwise argmax of forward"
+          + (f" (first divergence at a top-2 gap {gap:.2e}, tol 1e-3)"
+             if gap is not None else "") + f"  {'ok' if tie_ok else 'FAIL'}",
+          flush=True)
+    check(tie_ok, "MoE generate() disagrees with forward")
+    del p32
+    return {"launches": per_step[0][0], "ms": float(np.mean(ms[1:])),
+            "dropped": dropped, "top_share": top_share, "route_ms": route_ms,
+            "a2a_fwd_bytes": a2a_fwd, "aux": aux,
+            "peak_gb": peak, "bf16_rel": worst, "f32_rel": rel32}
+
+
+def tp_layers_phase(P, kernels, flash):
+    """tp_mlp and tp_attention (flash_attention) at the flagship widths on
+    two rank threads, forward and backward, against the unsharded
+    composition; one rendezvous each way; ms."""
+    from mpi4torch_tpu_torch.parallel import tp
+
+    dt, b, s, d, f, h = torch.bfloat16, TRAIN_BATCH, TRAIN_SEQ, 2048, 8192, 16
+    g = torch.Generator(device="cuda").manual_seed(21)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(dt)
+
+    x = rnd(b, s, d)
+    w = rnd(b, s, d)
+    mlp = [rnd(d, f, scale=d ** -0.5), rnd(f, scale=0.1),
+           rnd(f, d, scale=f ** -0.5), rnd(d, scale=0.1)]
+    att = [rnd(d, d, scale=d ** -0.5) for _ in range(4)]
+    # Each rank's shards (axis), in the layers' argument order.
+    layers = {
+        "tp_mlp": (lambda c, xx, ws: tp.tp_mlp(c, xx, *ws), mlp,
+                   (1, 0, 0, None)),
+        "tp_attention": (lambda c, xx, ws: tp.tp_attention(
+            c, *ws, xx, n_heads=h, attention_fn=flash.flash_attention),
+            att, (1, 1, 1, 0))}
+    out = {}
+    for name, (fn, full, axes) in layers.items():
+        def shards(c):
+            return [t if a is None else tp.shard_axis(c, t, a)
+                    for t, a in zip(full, axes)]
+
+        def body(r):
+            c = P.COMM_WORLD
+            xx = x.detach().requires_grad_()
+            ws = [t.detach().requires_grad_() for t in shards(c)]
+            y = fn(c, xx, ws)
+            # Every rank seeds 1 / size: the Allreduce's adjoint sums them.
+            grads = torch.autograd.grad(
+                (y.float() * w.float()).sum() / c.size, [xx] + ws)
+            return y.detach(), grads
+
+        def unsharded():
+            xx = x.detach().requires_grad_()
+            ws = [t.detach().requires_grad_() for t in full]
+            if name == "tp_mlp":
+                y = torch.nn.functional.gelu(
+                    xx @ ws[0] + ws[1], approximate="tanh") @ ws[2] + ws[3]
+            else:
+                q, k, v = ((xx @ wt).reshape(b, s, h, d // h)
+                           for wt in ws[:3])
+                y = flash.flash_attention(q, k, v, causal=True).reshape(
+                    b, s, d) @ ws[3]
+            return y.detach(), torch.autograd.grad(
+                (y.float() * w.float()).sum(), [xx] + ws)
+
+        kernels.reset_launch_counts()
+        with CollectiveNames() as cnt:
+            (y0, g0), (y1, g1) = P.run_ranks(body, 2, device="cuda")
+        colls = [x for x in cnt.names if x != "Allreduce.fold"]
+        launches = {k: kernels.launch_counts[k]
+                    for k in kernels.ATTENTION_KERNELS}
+        ry, rg = unsharded()
+        rel_y = ((y0.float() - ry.float()).norm() / ry.float().norm()).item()
+        # dx: the two ranks' partials sum to the unsharded dx; shards: the
+        # matching slice of the unsharded gradient; a replicated leaf (b2)
+        # sums its two rank halves.
+        errs = [((g0[0].float() + g1[0].float() - rg[0].float()).norm()
+                 / rg[0].float().norm()).item()]
+        for i, a in enumerate(axes):
+            ref = rg[1 + i].float()
+            if a is None:
+                got = g0[1 + i].float() + g1[1 + i].float()
+                errs.append(((got - ref).norm() / ref.norm()).item())
+            else:
+                for r, gr in enumerate((g0, g1)):
+                    part = ref.narrow(a, r * ref.shape[a] // 2,
+                                      ref.shape[a] // 2)
+                    errs.append(((gr[1 + i].float() - part).norm()
+                                 / part.norm()).item())
+        same_y = torch.equal(y0, y1)
+        del g0, g1, rg
+        ms = [sync_ms(lambda: P.run_ranks(body, 2, device="cuda"))[0]
+              for _ in range(3)]
+        one_ms = [sync_ms(unsharded)[0] for _ in range(3)]
+        want_l = 2 if name == "tp_attention" else 0
+        ok = (same_y and rel_y <= TP_REL and max(errs) <= TP_REL
+              and colls == ["Allreduce"] * 2
+              and all(v == want_l for v in launches.values()))
+        out[name] = {"ms": min(ms), "one_ms": min(one_ms),
+                     "launches": launches, "collectives": colls}
+        print(f"  {name:12s} TP=2 at ({b}, {s}, {d}) bf16, forward + "
+              f"backward: output norm-relative {rel_y:.2e}, worst gradient "
+              f"{max(errs):.2e} (tol {TP_REL:g}) against the unsharded "
+              f"layer; ranks' outputs bitwise identical {same_y}; rank 0's "
+              f"collectives {colls} (one Allreduce each way); "
+              f"attention launches {launches}; {min(ms):.1f} ms on two rank "
+              f"threads (runs {[round(v, 1) for v in ms]}) vs unsharded "
+              f"{min(one_ms):.1f} ms  {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"{name} disagrees with the unsharded layer")
+    return out
+
+
+# SP kernel shapes (kernels phase): (name, b, sq, sk, h, d, q_off, kv_off,
+# what one SDPA call computes the same function as: "causal" (the block is
+# its own causal diagonal), "full" (every pair live) or None).
+SP_KERNEL_SHAPES = [
+    ("ring_past", 8, 1024, 1024, 16, 128, 1024, 0, "full"),
+    ("ring_diag", 8, 1024, 1024, 16, 128, 1024, 1024, "causal"),
+    ("ring_masked", 8, 1024, 1024, 16, 128, 0, 1024, None),
+    ("zigzag_half_past", 8, 512, 512, 16, 128, 1536, 512, "full"),
+    ("ulysses", 8, 2048, 2048, 8, 128, 0, 0, "causal"),
+    ("long_ring_past", 1, 8192, 8192, 16, 128, 8192, 0, "full"),
+    ("long_ring_diag", 1, 8192, 8192, 16, 128, 8192, 8192, "causal")]
+
+
+def sp_kernel_numbers(flash, kernels):
+    """K2, K3 and K4 at the SP path's shapes, bf16 causal: each held
+    against its plain version with a live dlse (the merge's); device ms
+    beside the bound (the masked block's: the bytes it must write, and
+    for K2 read q), the plain version's ms and SDPA's where one call
+    computes the block.  Returns name -> numbers, and the largest |kernel
+    - plain| of each kernel."""
+    dt = torch.bfloat16
+    res, worst = {}, {k: 0.0 for k in kernels.ATTENTION_KERNELS}
+    for i, (name, b, sq, sk, h, d, q_off, kv_off, lib) in enumerate(
+            SP_KERNEL_SHAPES):
+        q, k, v = attention_inputs(dt, b, sq, sk, h, h, d, seed=300 + i)
+        do = attention_inputs(dt, b, sq, sk, h, h, d, seed=400 + i)[0]
+        g = torch.Generator(device="cuda").manual_seed(500 + i)
+        dlse = torch.randn((b, sq, h), generator=g, device="cuda")
+        qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
+        ko = torch.tensor(kv_off, dtype=torch.int32, device="cuda")
+        out, lse = kernels.flash_fwd(q, k, v, q_off, kv_off, True)
+        dd = (do.float() * out.float()).sum(-1) - dlse
+        got = [kernels.flash_bwd_dq(q, k, v, do, lse, dd, q_off, kv_off,
+                                    True),
+               *kernels.flash_bwd_dkv(q, k, v, do, lse, dd, q_off, kv_off,
+                                      True)]
+        p_out, p_lse = flash._torch_block(q, k, v, qo, ko, True)
+        want = flash._torch_block_bwd(q, k, v, out, lse, do, dlse, qo, ko,
+                                      True)
+        torch.cuda.synchronize()
+        err_o, _, err_l, ok = forward_errors(out, lse, p_out, p_lse, dt)
+        errs = []
+        for a, r in zip(got, want):
+            e = (a.float() - r.float()).abs().max().item()
+            errs.append(e)
+            ok = ok and bool(torch.isfinite(a).all()) and \
+                e <= BWD_BF16_REL * max(r.float().abs().max().item(), 1e-30)
+        masked = kernels.block_masked(sq, sk, q_off, kv_off, True)
+        if masked:
+            ok = ok and bool((out == 0).all()) and bool(
+                (lse == flash.NEG_BIG).all()) and all(
+                bool((t == 0).all()) for t in got) and max(errs) == 0.0
+        worst["flash_fwd"] = max(worst["flash_fwd"], err_o)
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs[0])
+        worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], *errs[1:])
+        del got, want, p_out, p_lse
+        check(ok, f"SP kernel shape {name} disagrees with the plain version")
+
+        pairs = b * h * live_pairs(sq, sk, q_off, kv_off, 0, True)
+        qb, kb, st = b * sq * h * d * 2, b * sk * h * d * 2, b * sq * h * 4
+        if masked:
+            bounds = {"flash_fwd": bound(0.0, 2 * qb + st, dt),
+                      "flash_bwd_dq": bound(0.0, qb, dt),
+                      "flash_bwd_dkv": bound(0.0, 2 * kb, dt)}
+        else:
+            bounds = {"flash_fwd": bound(4.0 * d * pairs,
+                                         2 * qb + 2 * kb + st, dt),
+                      "flash_bwd_dq": bound(6.0 * d * pairs,
+                                            3 * qb + 2 * kb + 2 * st, dt),
+                      "flash_bwd_dkv": bound(8.0 * d * pairs,
+                                             2 * qb + 4 * kb + 2 * st, dt)}
+        it = 3 if b * sq * sk > 2**27 else 10
+        ms = {"flash_fwd": event_ms(lambda: kernels.flash_fwd(
+            q, k, v, q_off, kv_off, True), iters=it),
+            "flash_bwd_dq": event_ms(lambda: kernels.flash_bwd_dq(
+                q, k, v, do, lse, dd, q_off, kv_off, True), iters=it),
+            "flash_bwd_dkv": event_ms(lambda: kernels.flash_bwd_dkv(
+                q, k, v, do, lse, dd, q_off, kv_off, True), iters=it)}
+
+        def plain_bwd(parts):
+            return event_ms(lambda: flash._torch_block_bwd(
+                q, k, v, out, lse, do, dlse, qo, ko, True, parts=parts),
+                iters=2, warmup=1)
+
+        plain = {"flash_fwd": event_ms(lambda: flash._torch_block(
+            q, k, v, qo, ko, True), iters=2, warmup=1),
+            "flash_bwd_dq": plain_bwd(("dq",)),
+            "flash_bwd_dkv": plain_bwd(("dkv",))}
+        lib_ms = {"flash_fwd": None, "pair": None}
+        if lib is not None:
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            dot = do.transpose(1, 2)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            causal = lib == "causal"
+            lf = event_ms(lambda: sdpa(qt, kt, vt, is_causal=causal),
+                          iters=it)
+            lfb = event_ms(lambda: torch.autograd.grad(
+                sdpa(qt, kt, vt, is_causal=causal), (qt, kt, vt), dot),
+                iters=it)
+            lib_ms = {"flash_fwd": lf, "pair": lfb - lf}
+            del qt, kt, vt
+        res[name] = {"ms": ms, "bound_ms": {n: x[0] for n, x in
+                                            bounds.items()},
+                     "bound_by": {n: x[1] for n, x in bounds.items()},
+                     "plain_ms": plain, "library_ms": lib_ms,
+                     "max_abs_err": {"flash_fwd": err_o,
+                                     "flash_bwd_dq": errs[0],
+                                     "flash_bwd_dkv": max(errs[1:])}}
+        pair = ms["flash_bwd_dq"] + ms["flash_bwd_dkv"]
+        print(f"  {name:16s} ({b}, {sq}, {h}, {d}) q_off {q_off} kv_off "
+              f"{kv_off}{' masked' if masked else ''}: K2 {ms['flash_fwd']:.4f}"
+              f" ms (bound {bounds['flash_fwd'][0]:.4f} "
+              f"{bounds['flash_fwd'][1]}, plain {plain['flash_fwd']:.3f}"
+              + (f", SDPA {lib_ms['flash_fwd']:.4f}" if lib else "")
+              + f"), K3 {ms['flash_bwd_dq']:.4f} (bound "
+              f"{bounds['flash_bwd_dq'][0]:.4f}, plain "
+              f"{plain['flash_bwd_dq']:.3f}), K4 {ms['flash_bwd_dkv']:.4f} "
+              f"(bound {bounds['flash_bwd_dkv'][0]:.4f}, plain "
+              f"{plain['flash_bwd_dkv']:.3f})"
+              + (f", pair {pair:.4f} vs SDPA backward {lib_ms['pair']:.4f}"
+                 if lib else "")
+              + f"; errors out {err_o:.2e} lse {err_l:.2e} dq/dk/dv "
+              + "/".join(f"{e:.2e}" for e in errs) + " with dlse live  ok",
+              flush=True)
+        del q, k, v, do, out, lse, dd
+        torch.cuda.empty_cache()
+    return res, worst
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU",
@@ -3065,7 +3902,26 @@ def main():
     paged = paged_phase(P, T, serve, kv, kernels, flash, threefry, cfg,
                         params, prompts, results)
 
-    phase(24, "kernels")
+    phase(24, "sequence-parallel training of the flagship transformer: "
+          "SP=2 rank threads, ring, zigzag and ulysses")
+    print(smi)
+    sp = sp_phase(P, T, tree, dp, kernels, cfg, params, tokens, mean_ms)
+
+    phase(25, f"long-context SP: 1 x {LONG_SEQ} tokens with rope, SP=2 "
+          "rank threads, ring and zigzag")
+    long_ctx = long_context_phase(P, T, tree, dp, kernels, cfg, params)
+
+    phase(26, f"expert-parallel MoE training of the flagship: "
+          f"{EP_EXPERTS} experts, capacity {EP_CAPACITY}, EP=2 rank threads")
+    ep = ep_phase(P, T, tree, dp, kernels, cfg, tokens)
+
+    phase(27, "tensor-parallel layers: tp_mlp and tp_attention "
+          "(flash_attention), TP=2 rank threads")
+    tp_layers = tp_layers_phase(P, kernels, flash)
+
+    phase(28, "kernels")
+    print(smi)
+    sp_shapes, sp_worst = sp_kernel_numbers(flash, kernels)
     # flash_fwd: launches on the serving path (phase 4), times at the
     # flagship prefill shape, its error the worst of the serving and the
     # training shape; "variant" is the one every serving launch took
@@ -3168,6 +4024,41 @@ def main():
           "the compressed DP=2 run launched no hop kernel")
     check(all(v["hops"] > 0 for v in q8f.values()),
           "a fused compressed DP=2 run launched no hop kernel")
+    # This slice's paths: each attention kernel's launches per step under
+    # each SP strategy (phase 24; all, at a nonzero offset, wholly
+    # masked), per long-context step (phase 25), per EP step (phase 26)
+    # and in one TP attention forward + backward (phase 27); its numbers
+    # at the SP shapes (sp_shapes: a ring chunk's past, diagonal and
+    # masked blocks, a zigzag half, Ulysses' full sequence, the long
+    # context's ring blocks; the backward with a live dlse), and its
+    # error the worst over those too.
+    for entry in line["kernels"][:3]:
+        kname = entry["name"]
+        for key, i in (("sp_launches", 0), ("sp_offset_launches", 1),
+                       ("sp_masked_launches", 2)):
+            entry[key] = {a: sp["launches"][a][kname][i] for a in SP_ATTNS}
+        entry["long_context_launches"] = {
+            a: v[kname][0] for a, v in long_ctx["launches"].items()}
+        entry["ep_launches"] = ep["launches"][kname][0]
+        entry["tp_launches"] = tp_layers["tp_attention"]["launches"][kname]
+        entry["sp_shapes"] = {
+            name: {"ms": v["ms"][kname], "bound_ms": v["bound_ms"][kname],
+                   "bound_by": v["bound_by"][kname],
+                   "plain_ms": v["plain_ms"][kname],
+                   "library_ms": v["library_ms"]["flash_fwd"]
+                   if kname == "flash_fwd" else None,
+                   "pair_library_ms": None if kname == "flash_fwd"
+                   else v["library_ms"]["pair"],
+                   "max_abs_err": v["max_abs_err"][kname]}
+            for name, v in sp_shapes.items()}
+        entry["max_abs_err"] = max(entry["max_abs_err"], sp_worst[kname])
+    check(all(sp["launches"][a][k][0] > 0 for a in SP_ATTNS
+              for k in kernels.ATTENTION_KERNELS)
+          and all(sp["launches"][a][k][1] > 0 and sp["launches"][a][k][2] > 0
+                  for a in ("ring", "zigzag")
+                  for k in kernels.ATTENTION_KERNELS),
+          "an SP strategy launched no attention kernel, or none at an "
+          "offset or on a masked block")
     print(json.dumps(line))
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -16,12 +16,17 @@ in place (JAX arrays are immutable; here a copy of the whole cache per
 token would double decode memory traffic).  They still return the cache,
 so the call shapes match.
 
-Training runs attention on one device (``comm_sp`` of size 1): the
-sequence-parallel strategies and the expert-parallel MoE FFN raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
-Besides the SGD ``train_step`` there are the ZeRO-1 and ZeRO-3 steps
-(``zero_train_step``, ``zero3_train_step``) over the port's functional
-optimizers (``utils/optim.py``).
+Training shards the sequence over ``comm_sp`` (``attn="ring"``,
+``"zigzag"`` or ``"ulysses"``, ``parallel/attention.py``: the K2 forward
+and K3/K4 backward per block on a CUDA device) and, with ``n_experts >
+0``, runs every block's FFN as the expert-parallel MoE over ``comm_ep``
+(``parallel/moe.py``); ``comm_dp`` averages data-parallel replicas.
+Each of the three axes is its own communicator; on rank threads, which
+have no sub-communicators, one of them spans the world at a time.
+Decoding an MoE configuration runs the dense-expert form
+(``moe_ffn_dense``).  Besides the SGD ``train_step`` there are the
+ZeRO-1 and ZeRO-3 steps (``zero_train_step``, ``zero3_train_step``) over
+the port's functional optimizers (``utils/optim.py``).
 """
 
 from __future__ import annotations
@@ -37,7 +42,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..constants import MPI_SUM
 from ..ops.flash import flash_attention, flash_block_attention
+from ..parallel.attention import (ring_attention, ulysses_attention,
+                                  zigzag_ring_attention, zigzag_slice)
 from ..parallel.dp import all_average_tree
+from ..parallel.moe import init_moe, moe_ffn, moe_ffn_dense
+from ..parallel.ring import ring_shift
 from ..runtime import resolve_device
 from ..utils import threefry
 from ..utils.tree import tree_map, value_and_grad
@@ -46,8 +55,9 @@ from ..utils.tree import tree_map, value_and_grad
 @dataclass(frozen=True)
 class TransformerConfig:
     """Static model hyperparameters, validated as in the JAX package.
-    ``n_experts > 0`` (the expert-parallel MoE FFN) is accepted here and
-    refused by the forward functions: the MoE path is not ported yet."""
+    ``n_experts > 0`` makes every block's FFN a top-1 MoE with that many
+    gelu experts: ``capacity`` slots per (expert, source rank), and the
+    load-balancing loss weighted by ``aux_coef`` in :func:`lm_loss`."""
     vocab: int
     d_model: int
     n_heads: int
@@ -105,8 +115,10 @@ def init_transformer(generator, cfg: TransformerConfig,
     0.02, matrices normal over ``sqrt(fan_in)``).  ``generator`` is a
     ``torch.Generator`` on ``device`` or an integer seed.  Draws happen
     in the JAX package's key order (embed, pos — drawn even under rope,
-    so the stream does not shift — unembed, then per layer wqkv, wo, w1,
-    w2); the numbers differ from JAX's, since the generators do."""
+    so the stream does not shift — unembed, then per layer wqkv, wo, and
+    w1, w2 or, with ``n_experts > 0``, the MoE leaves ``blk["moe"]``:
+    gate, w1, w2); the numbers differ from JAX's, since the generators
+    do."""
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
@@ -125,10 +137,6 @@ def init_transformer(generator, cfg: TransformerConfig,
             p["bias"] = torch.zeros(d_model, dtype=dtype, device=dev)
         return p
 
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "n_experts > 0: the MoE FFN is not ported yet (ROADMAP.md, "
-            "Queue 1 item 3)")
     params: Dict[str, Any] = {"embed": normal(cfg.vocab, d_model) * 0.02}
     pos = normal(cfg.max_seq, d_model) * 0.02
     if not cfg.rope:
@@ -142,11 +150,15 @@ def init_transformer(generator, cfg: TransformerConfig,
                "wqkv": dense(d_model, d_model + 2 * cfg.kv_heads * hd),
                "wo": dense(d_model, d_model),
                "ln2": norm_p()}
-        if cfg.ffn == "swiglu":
-            blk["w1"] = dense(d_model, 2 * d_ff)   # gate | up, fused
+        if cfg.n_experts > 0:
+            blk["moe"] = init_moe(generator, cfg.n_experts, d_model, d_ff,
+                                  dtype, dev)
         else:
-            blk["w1"] = dense(d_model, d_ff)
-        blk["w2"] = dense(d_ff, d_model)
+            if cfg.ffn == "swiglu":
+                blk["w1"] = dense(d_model, 2 * d_ff)   # gate | up, fused
+            else:
+                blk["w1"] = dense(d_model, d_ff)
+            blk["w2"] = dense(d_ff, d_model)
         blocks.append(blk)
     params["blocks"] = blocks
     return params
@@ -234,19 +246,30 @@ def _split_qkv(cfg: TransformerConfig, blk, y, positions=None):
 def _ffn_local(cfg: TransformerConfig, blk, y):
     """The dense FFN product of normalised ``y`` (gelu is the tanh form,
     as ``jax.nn.gelu``'s default)."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "n_experts > 0: the MoE FFN is not ported yet (ROADMAP.md, "
-            "Queue 1 item 3)")
     if cfg.ffn == "swiglu":
         gate, up = (y @ blk["w1"]).chunk(2, dim=-1)
         return (F.silu(gate) * up) @ blk["w2"]
     return F.gelu(y @ blk["w1"], approximate="tanh") @ blk["w2"]
 
 
-def _ffn_residual(cfg: TransformerConfig, blk, x):
-    """Post-attention dense FFN with pre-LN and residual."""
-    return x + _ffn_local(cfg, blk, _norm(cfg, x, blk["ln2"]))
+def _ffn_residual(cfg: TransformerConfig, blk, x, comm_ep=None):
+    """Post-attention FFN with pre-LN and residual; returns ``(x, aux)``.
+    With ``n_experts > 0`` the FFN is the MoE over the flattened tokens:
+    expert-parallel over ``comm_ep`` of size > 1, else all experts local
+    (``moe_ffn_dense``), and ``aux`` its load-balancing loss; a dense
+    FFN's ``aux`` is None.  Capacity competes over exactly the tokens in
+    ``x`` (a whole batch x sequence in training and prefill, one
+    position's batch in decode), so the two can drop different tokens
+    when capacity binds."""
+    y = _norm(cfg, x, blk["ln2"])
+    if cfg.n_experts > 0:
+        flat = y.reshape(-1, x.shape[-1])
+        if comm_ep is not None and comm_ep.size > 1:
+            ff, aux = moe_ffn(comm_ep, flat, blk["moe"], cfg.capacity)
+        else:
+            ff, aux = moe_ffn_dense(flat, blk["moe"], cfg.capacity)
+        return x + ff.reshape(x.shape), aux
+    return x + _ffn_local(cfg, blk, y), None
 
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, dtype, device):
@@ -307,7 +330,7 @@ def decode_step(cfg: TransformerConfig, params, cache, tokens, pos: int):
                                      kv_offset=start, window=win,
                                      impl="torch")
         x = x + o.reshape(b, cfg.d_model).to(x.dtype) @ blk["wo"]
-        x = _ffn_residual(cfg, blk, x)
+        x, _ = _ffn_residual(cfg, blk, x)
     x = _norm(cfg, x, params["ln_f"])
     return x @ params["unembed"], cache
 
@@ -329,7 +352,7 @@ def prefill(cfg: TransformerConfig, params, cache, prompt):
         c["v"][:, :p_len] = v.to(c["v"].dtype)
         o = flash_attention(q, k, v, causal=True, window=cfg.attn_window)
         x = x + o.reshape(b, p_len, cfg.d_model) @ blk["wo"]
-        x = _ffn_residual(cfg, blk, x)
+        x, _ = _ffn_residual(cfg, blk, x)
     x = _norm(cfg, x, params["ln_f"])
     return x[:, -1] @ params["unembed"], cache
 
@@ -426,58 +449,116 @@ def generate(cfg: TransformerConfig, params, prompt, n_new: int,
 _ATTNS = ("dense", "ring", "ulysses", "zigzag")
 
 
-def _check_parallel(comm_sp, attn: str, comm_ep=None) -> None:
-    """The training functions run attention on one device: a size>1
-    sequence-parallel or expert-parallel communicator raises."""
+def _check_parallel(attn: str) -> None:
     if attn not in _ATTNS:
         raise ValueError(f"unknown attention strategy {attn!r}")
-    if comm_sp is not None and comm_sp.size > 1:
-        raise NotImplementedError(
-            f"comm_sp of size {comm_sp.size} (attn={attn!r}): "
-            "sequence-parallel attention (ring, ulysses, zigzag) is not "
-            "ported yet (ROADMAP.md, Queue 1 item 3); pass comm_sp=None "
-            "with the full sequence")
-    if comm_ep is not None and comm_ep.size > 1:
-        raise NotImplementedError(
-            f"comm_ep of size {comm_ep.size}: the expert-parallel MoE FFN "
-            "is not ported yet (ROADMAP.md, Queue 1 item 3)")
+
+
+def _sharded(comm) -> bool:
+    return comm is not None and comm.size > 1
+
+
+def _zigzag_positions(comm_sp, s_local: int, device):
+    """Global positions of this rank's zigzag sequence shard, cut from the
+    global position axis by :func:`zigzag_slice` itself, so the
+    position and label arithmetic follows the data layout."""
+    return zigzag_slice(comm_sp, torch.arange(
+        comm_sp.size * s_local, dtype=torch.int32, device=device), axis=0)
+
+
+def _attention(q, k, v, comm_sp, attn: str, window: int = 0):
+    """Causal attention of one block's q/k/v under the sequence-parallel
+    strategy ``attn`` over ``comm_sp``; flash attention on one device when
+    ``comm_sp`` is None or of size 1."""
+    if not _sharded(comm_sp):
+        return flash_attention(q, k, v, causal=True, window=window)
+    if attn == "dense":
+        raise ValueError(
+            "attn='dense' cannot see across sequence shards: with a "
+            "size>1 sequence-parallel communicator each rank would attend "
+            "only within its own block (and mask as if it started at "
+            "position 0).  Use attn='ring' or attn='ulysses', or pass "
+            "comm_sp=None with the full sequence.")
+    if attn == "ring":
+        return ring_attention(comm_sp, q, k, v, causal=True, window=window)
+    if attn == "zigzag":
+        if window:
+            raise ValueError(
+                "attn='zigzag' does not compose with attn_window: a "
+                "sliding window already balances causal work (every query "
+                "sees the same key count), which is the point of the "
+                "zigzag layout — use attn='ring' for windowed sequence "
+                "parallelism")
+        return zigzag_ring_attention(comm_sp, q, k, v)
+    return ulysses_attention(comm_sp, q, k, v, causal=True, window=window)
 
 
 def forward(cfg: TransformerConfig, params, tokens, comm_sp=None,
-            attn: str = "ring", comm_ep=None, return_hidden: bool = False):
-    """Logits ``(batch, seq, vocab)`` for ``(batch, seq)`` token ids, the
-    training forward.  Attention is causal single-device flash attention
-    (the CUDA kernels on a CUDA device), whatever ``attn`` names, as in
-    the JAX package when ``comm_sp`` is None or of size 1.
-    ``return_hidden`` returns the post-``ln_f`` hidden states ``(batch,
-    seq, d_model)`` instead of logits (what :func:`lm_loss`'s chunked
-    vocabulary consumes).  With ``cfg.remat`` each
-    block is recomputed in the backward (``torch.utils.checkpoint``, the
-    counterpart of ``jax.checkpoint``)."""
-    _check_parallel(comm_sp, attn, comm_ep)
-    b, s = tokens.shape
-    if not cfg.rope and s > cfg.max_seq:
-        raise ValueError(f"sequence {s} exceeds cfg.max_seq {cfg.max_seq}")
-    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
+            attn: str = "ring", comm_ep=None, return_aux: bool = False,
+            return_hidden: bool = False):
+    """Logits ``(batch, seq_local, vocab)`` for this rank's ``(batch,
+    seq_local)`` token ids, the training forward.
+
+    ``comm_sp`` (None, or size 1, for the full sequence) shards the
+    sequence: ``tokens`` is this rank's contiguous block, rank-major, or
+    its zigzag shard (:func:`~mpi4torch_tpu_torch.parallel.attention.
+    zigzag_slice`) under ``attn="zigzag"``; positions (learned table or
+    rope) are global.  Without rope the global length may not exceed
+    ``cfg.max_seq``.  With ``cfg.n_experts > 0`` each block's FFN is the
+    MoE, expert-parallel over ``comm_ep`` (None keeps all experts local);
+    ``return_aux`` also returns the summed load-balancing loss (0 without
+    experts).  ``return_hidden`` returns the post-``ln_f`` hidden states
+    ``(batch, seq_local, d_model)`` instead of logits (what
+    :func:`lm_loss`'s chunked vocabulary consumes).  With ``cfg.remat``
+    each block is recomputed in the backward
+    (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``)."""
+    _check_parallel(attn)
+    b, s_local = tokens.shape
+    if _sharded(comm_sp):
+        s_global = comm_sp.size * s_local
+        offset = comm_sp.rank * s_local
+    else:
+        s_global, offset = s_local, 0
+    if not cfg.rope and s_global > cfg.max_seq:
+        raise ValueError(
+            f"global sequence {s_global} (sp x s_local) exceeds "
+            f"cfg.max_seq {cfg.max_seq}")
+    if attn == "zigzag" and _sharded(comm_sp):
+        # Two global position intervals: chunk r and chunk 2*sp-1-r.
+        positions = _zigzag_positions(comm_sp, s_local, tokens.device)
+    else:
+        positions = offset + torch.arange(s_local, dtype=torch.int32,
+                                          device=tokens.device)
     x = F.embedding(tokens, params["embed"])
     if not cfg.rope:
-        x = x + params["pos"][None, :s]
+        if attn == "zigzag" and _sharded(comm_sp):
+            x = x + params["pos"].index_select(0, positions)[None]
+        else:
+            x = x + params["pos"][None, offset:offset + s_local]
     d = x.shape[-1]
 
     def block_fn(x, blk):
         y = _norm(cfg, x, blk["ln1"])
         q, k, v = _split_qkv(cfg, blk, y, positions)
-        o = flash_attention(q, k, v, causal=True, window=cfg.attn_window)
-        x = x + o.reshape(b, s, d) @ blk["wo"]
-        return _ffn_residual(cfg, blk, x)
+        o = _attention(q, k, v, comm_sp, attn, cfg.attn_window)
+        x = x + o.reshape(b, s_local, d) @ blk["wo"]
+        return _ffn_residual(cfg, blk, x, comm_ep)
 
+    aux_total = None
     for blk in params["blocks"]:
         if cfg.remat:
-            x = checkpoint(block_fn, x, blk, use_reentrant=False)
+            x, aux = checkpoint(block_fn, x, blk, use_reentrant=False)
         else:
-            x = block_fn(x, blk)
+            x, aux = block_fn(x, blk)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
     x = _norm(cfg, x, params["ln_f"])
-    return x if return_hidden else x @ params["unembed"]
+    out = x if return_hidden else x @ params["unembed"]
+    if return_aux:
+        if aux_total is None:
+            aux_total = torch.zeros((), dtype=x.dtype, device=x.device)
+        return out, aux_total
+    return out
 
 
 def _ce_chunk(x, w, labels, m, se, zt, lo: int):
@@ -518,29 +599,85 @@ def _chunked_ce(x, unembed, labels, vocab_chunk: int):
 def lm_loss(cfg: TransformerConfig, params, tokens, comm_sp=None,
             attn: str = "ring", seq_global=None, comm_ep=None,
             vocab_chunk: int = 0):
-    """Mean next-token cross-entropy over the sequence.  The last position
-    has no successor and is masked out; the sum is normalised by
-    ``batch * (seq_global - 1)``.  ``vocab_chunk`` (a divisor of the
-    vocabulary, smaller than it) computes the loss through
+    """Mean next-token cross-entropy over the global sequence.
+
+    Under sequence parallelism the label of a shard's last token lives on
+    the next sp rank and is fetched with a one-column ``ring_shift(shift=
+    -1)``; under the zigzag layout the lo chunk's last label comes from
+    the next rank's lo chunk (the last rank's from its own hi chunk) and
+    the hi chunk's from the previous rank's hi chunk (``shift=+1``), both
+    shifts on every rank.  The final global position has no successor and
+    is masked out; the sp-summed loss (``Allreduce``) is normalised by
+    ``batch * (seq_global - 1)``.  With experts, ``cfg.aux_coef`` times
+    the sp-averaged load-balancing loss is added.  ``vocab_chunk`` (a
+    divisor of the vocabulary, smaller than it) computes the loss through
     :func:`_chunked_ce` without materialising the logits."""
-    _check_parallel(comm_sp, attn, comm_ep)
-    b, s = tokens.shape
-    s_global = seq_global or s
+    b, s_local = tokens.shape
+    sp = comm_sp.size if comm_sp is not None else 1
+    s_global = seq_global or sp * s_local
     if vocab_chunk and (vocab_chunk <= 0
                         or cfg.vocab % vocab_chunk != 0):
         raise ValueError(
             f"vocab_chunk={vocab_chunk} must divide vocab={cfg.vocab}")
     want_hidden = bool(vocab_chunk) and vocab_chunk < cfg.vocab
-    out = forward(cfg, params, tokens, return_hidden=want_hidden)
-    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
-    global_pos = torch.arange(s, device=tokens.device)
+    if cfg.n_experts > 0:
+        out, aux = forward(cfg, params, tokens, comm_sp, attn,
+                           comm_ep=comm_ep, return_aux=True,
+                           return_hidden=want_hidden)
+    else:
+        out = forward(cfg, params, tokens, comm_sp, attn,
+                      return_hidden=want_hidden)
+        aux = None
+
+    if sp > 1 and attn == "zigzag":
+        c = s_local // 2
+        lo, hi = tokens[:, :c], tokens[:, c:]
+        from_next_lo = ring_shift(comm_sp, lo[:, :1], shift=-1)
+        from_prev_hi = ring_shift(comm_sp, hi[:, :1], shift=1)
+        lo_last = hi[:, :1] if comm_sp.rank == sp - 1 else from_next_lo
+        labels = torch.cat([lo[:, 1:], lo_last, hi[:, 1:], from_prev_hi],
+                           dim=1)
+        global_pos = _zigzag_positions(comm_sp, s_local, tokens.device)
+    elif sp > 1:
+        nxt = ring_shift(comm_sp, tokens[:, :1], shift=-1)
+        labels = torch.cat([tokens[:, 1:], nxt], dim=1)
+        global_pos = comm_sp.rank * s_local + torch.arange(
+            s_local, device=tokens.device)
+    else:
+        labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+        global_pos = torch.arange(s_local, device=tokens.device)
     mask = (global_pos < s_global - 1).to(out.dtype)
+
     if want_hidden:
         ce = _chunked_ce(out, params["unembed"], labels, vocab_chunk)
     else:
         logp = F.log_softmax(out, dim=-1)
         ce = -logp.gather(-1, labels[..., None])[..., 0]
-    return torch.sum(ce * mask[None, :]) / (b * (s_global - 1))
+    local_sum = torch.sum(ce * mask[None, :])
+    if sp > 1:
+        # compression=False: an exact-parity internal sum, which a
+        # gradient-compression scope must not reach.
+        total = comm_sp.Allreduce(local_sum, MPI_SUM, compression=False)
+    else:
+        total = local_sum
+    loss = total / (b * (s_global - 1))
+    if aux is not None:
+        if sp > 1:
+            # Each sp rank routes its own shard: average, so the loss
+            # stays rank-identical.
+            aux = comm_sp.Allreduce(aux, MPI_SUM, compression=False) / sp
+        loss = loss + cfg.aux_coef * aux
+    return loss
+
+
+def _average(comm, tree):
+    return all_average_tree(comm, tree) if _sharded(comm) else tree
+
+
+def _mean_over(comm, loss):
+    if not _sharded(comm):
+        return loss
+    return comm.Allreduce(loss, MPI_SUM, compression=False) / comm.size
 
 
 def train_step(cfg: TransformerConfig, params, tokens, comm_sp=None,
@@ -548,22 +685,22 @@ def train_step(cfg: TransformerConfig, params, tokens, comm_sp=None,
                comm_ep=None):
     """One SGD step; returns ``(loss, new_params)``.
 
-    Data parallelism follows the reference recipe exactly: the
-    parameters are averaged over ``comm_dp`` (an Allreduce whose adjoint
-    makes each rank's gradient the rank mean) and the loss is Allreduced
-    over ``comm_dp``, so replicas stay in lock-step.  The gradient comes
-    from :func:`torch.autograd.grad`; the update is ``p - lr * g``."""
-    _check_parallel(comm_sp, attn, comm_ep)
-    dp = comm_dp is not None and comm_dp.size > 1
+    The reference's data-parallel recipe, applied per axis: the
+    parameters are averaged over ``comm_dp``, ``comm_sp`` and ``comm_ep``
+    (an Allreduce whose adjoint makes each rank's gradient the mean over
+    the axis), and the loss is averaged over ``comm_dp`` and ``comm_ep``
+    (ranks holding other data).  Over sp the loss is already the
+    sp-summed global loss: each rank's cotangents come out ``sp`` times
+    too large and the parameter average's ``1/sp`` cancels it.  Over ep
+    the experts, sliced per rank inside ``moe_ffn``, are logically
+    replicated leaves like the rest.  The gradient comes from
+    :func:`torch.autograd.grad`; the update is ``p - lr * g``."""
+    _check_parallel(attn)
 
     def global_loss(p):
-        if dp:
-            p = all_average_tree(comm_dp, p)
+        p = _average(comm_ep, _average(comm_sp, _average(comm_dp, p)))
         loss = lm_loss(cfg, p, tokens, comm_sp, attn, comm_ep=comm_ep)
-        if dp:
-            loss = comm_dp.Allreduce(loss, MPI_SUM,
-                                     compression=False) / comm_dp.size
-        return loss
+        return _mean_over(comm_ep, _mean_over(comm_dp, loss))
 
     loss, grads = value_and_grad(global_loss, params)
     with torch.no_grad():
@@ -579,19 +716,25 @@ def zero_train_step(cfg: TransformerConfig, params, tokens, opt,
 
     The data-parallel reduction moves out of the loss and into
     :func:`~mpi4torch_tpu_torch.parallel.zero.zero_step`'s
-    reduce-scatter: each rank differentiates its local mean loss (no
-    parameter averaging, no loss Allreduce — the un-reduced gradients
+    reduce-scatter: each rank differentiates its local loss (no dp
+    parameter averaging, no dp loss Allreduce — the un-reduced gradients
     are what the reduce-scatter sums), the element-wise ``opt`` update
     (``utils/optim.py``) runs on this rank's ``1/dp`` parameter shard,
-    and the allgather re-replicates.  The parameters match replicated-DP
-    training with the same optimizer bit for bit; the optimizer state is
-    ``1/dp`` of the replicated state.  The returned loss is the dp mean."""
+    and the allgather re-replicates.  The sp and ep axes compose inside
+    the local loss as in :func:`train_step`.  The parameters match
+    replicated-DP training with the same optimizer bit for bit; the
+    optimizer state is ``1/dp`` of the replicated state.  The returned
+    loss is the dp mean."""
     from ..parallel.zero import zero_step
 
-    _check_parallel(comm_sp, attn, comm_ep)
-    loss, grads = value_and_grad(
-        lambda p: lm_loss(cfg, p, tokens, comm_sp, attn, comm_ep=comm_ep),
-        params)
+    _check_parallel(attn)
+
+    def local_loss(p):
+        p = _average(comm_ep, _average(comm_sp, p))
+        loss = lm_loss(cfg, p, tokens, comm_sp, attn, comm_ep=comm_ep)
+        return _mean_over(comm_ep, loss)
+
+    loss, grads = value_and_grad(local_loss, params)
     # zero_step's reduce-scatter / size turns the un-reduced local
     # gradients into the dp-mean gradient shard.
     new_params, new_state = zero_step(comm_dp, opt, params, grads,
@@ -609,15 +752,19 @@ def zero3_train_step(cfg: TransformerConfig, p_shards, template, tokens,
     new_opt_state)``.  The forward gathers the shards on use
     (:func:`~mpi4torch_tpu_torch.parallel.zero.zero3_params`); the
     backward reduce-scatters the gradients through the Allgather's
-    adjoint.  Obtain ``(p_shards, opt_state)`` from
+    adjoint.  Sequence parallelism composes inside the local loss as in
+    :func:`zero_train_step`.  Obtain ``(p_shards, opt_state)`` from
     :func:`~mpi4torch_tpu_torch.parallel.zero.zero3_init`.  The
     parameters match replicated-DP training with the same optimizer bit
     for bit."""
     from ..parallel.zero import zero3_step
 
-    _check_parallel(comm_sp, attn)
+    _check_parallel(attn)
+
+    def local_loss(p):
+        return lm_loss(cfg, _average(comm_sp, p), tokens, comm_sp, attn)
+
     loss, new_shards, new_state = zero3_step(
-        comm_dp, opt, p_shards, template,
-        lambda p: lm_loss(cfg, p, tokens, comm_sp, attn), opt_state)
+        comm_dp, opt, p_shards, template, local_loss, opt_state)
     loss = comm_dp.Allreduce(loss, MPI_SUM, compression=False) / comm_dp.size
     return loss, new_shards, new_state

@@ -26,7 +26,11 @@ Kernels and the sources that hold them:
   zero-padded to the next one.  Each launch counts under the kernel's
   name and under ``"<name>.<variant>"``; a forward launch at a query
   offset above 0 (a prefill chunk after the first) also under
-  ``"flash_fwd.q_off"``;
+  ``"flash_fwd.q_off"``; a launch of any of the three with a nonzero q
+  or KV offset (a sequence-parallel block) also under
+  ``"<name>.offset"``, and one whose causal or window mask hides every
+  key from every query (:func:`block_masked`, a ring block wholly in the
+  future) also under ``"<name>.masked"``;
 * ``q8_hop``, ``q8_requant`` — ``csrc/quant_hop.cu``, one quantized ring
   hop: ``q8_hop`` counts launches with an arriving payload, ``q8_requant``
   those of hop 0 and the codec encode (no payload yet).
@@ -81,7 +85,7 @@ VARIANTS = ("tc", "simt")
 ATTENTION_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 launch_counts = {**{name: 0 for name in ATTENTION_KERNELS},
                  **{f"{name}.{variant}": 0 for name in ATTENTION_KERNELS
-                    for variant in VARIANTS},
+                    for variant in VARIANTS + ("offset", "masked")},
                  "flash_fwd.q_off": 0, "q8_hop": 0, "q8_requant": 0}
 
 
@@ -342,6 +346,20 @@ def _rows_aligned(t) -> torch.Tensor:
                        device=t.device).copy_(t)
 
 
+def block_masked(sq: int, sk: int, q_off: int, kv_off: int, causal: bool,
+                 window: int = 0) -> bool:
+    """Whether the causal (and window) mask hides every key of a block
+    from every query: all keys after the last query, or, with a window,
+    the last key at least ``window`` positions before the first query.
+    Such a block's forward gives ``out = 0`` and ``lse = -1e30`` and its
+    backward zero gradients."""
+    if not causal or sq == 0 or sk == 0:
+        return False
+    if kv_off > q_off + sq - 1:
+        return True
+    return bool(window) and q_off - (kv_off + sk - 1) >= window
+
+
 # Attention kernel -> (library stem, suffix of its C function).
 _ATTENTION_LIBS = {"flash_fwd": ("flash_fwd", ""),
                    "flash_bwd_dq": ("flash_bwd", "_dq"),
@@ -362,12 +380,18 @@ def _attention_launch(kernel, variant, ins, outs, q_off, kv_off, causal,
     q, k = ins[0], ins[1]
     b, sq, h, d = q.shape
     dtype = [] if variant == "tc" else [_FLASH_DTYPES[q.dtype]]
+    also = []
+    if kernel == "flash_fwd" and q_off > 0:
+        also.append("flash_fwd.q_off")
+    if q_off != 0 or kv_off != 0:
+        also.append(f"{kernel}.offset")
+    if block_masked(sq, k.shape[1], q_off, kv_off, causal, window):
+        also.append(f"{kernel}.masked")
     _launch(kernel, lib, f"mpi4torch_{lib}{suffix}", q.device,
             *(t.data_ptr() for t in ins + outs), *dtype, b, h, k.shape[2],
             sq, k.shape[1], d, _strides(*ins), int(q_off), int(kv_off),
             int(bool(causal)), int(window), int(dh), variant=variant,
-            also=("flash_fwd.q_off",) if kernel == "flash_fwd" and q_off > 0
-            else ())
+            also=tuple(also))
 
 
 def flash_fwd(q, k, v, q_off: int, kv_off: int, causal: bool,

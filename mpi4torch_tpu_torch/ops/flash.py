@@ -27,9 +27,13 @@ scores from the residuals ``q, k, v, out, lse`` and never stores them.
   never fall back.  On a CPU tensor, the plain versions.
 * ``"cuda"`` — the kernels, forced (raises on a CPU tensor).
 
-The JAX package's KV chunking (``_KV_VMEM_BUDGET``, ``_kv_chunk_for``)
-exists because its TPU kernels stage the whole KV block in VMEM; the CUDA
-kernels stream tiles, so the port has no chunking.
+:func:`merge_partials` combines two normalised partials over disjoint KV
+sets (the online-softmax rule ring attention and KV chunking merge by).
+The JAX package's automatic KV chunking (``_KV_VMEM_BUDGET``,
+``_kv_chunk_for``) exists because its TPU kernels stage the whole KV
+block in VMEM; the CUDA kernels stream KV tiles and need no staging
+budget, so :func:`flash_attention` chunks only when the caller forces a
+``kv_chunk``.
 """
 
 from __future__ import annotations
@@ -307,10 +311,54 @@ def flash_block_attention(q, k, v, *, causal: bool = False, q_offset=0,
                                  impl)
 
 
+def merge_partials(out_a, lse_a, out_b, lse_b):
+    """Exact merge of two normalised attention partials over disjoint KV
+    sets, the online-softmax combination rule: ``lse = logaddexp(lse_a,
+    lse_b)`` and each ``out`` weighted by ``exp(lse_x - lse)``.  The
+    arithmetic runs in ``out_a``'s compute dtype (at least f32) and
+    ``out`` is cast back to ``out_a``'s dtype after every merge, as the
+    JAX package does, so a bf16 ring rounds where the JAX ring rounds.
+    A fully masked partial (``lse = -1e30``) gets weight 0."""
+    ct = _compute_dtype(out_a)
+    lse = torch.logaddexp(lse_a, lse_b)
+    wa = torch.exp(lse_a - lse).to(ct)[..., None]
+    wb = torch.exp(lse_b - lse).to(ct)[..., None]
+    out = out_a.to(ct) * wa + out_b.to(ct) * wb
+    return out.to(out_a.dtype), lse
+
+
 def flash_attention(q, k, v, *, causal: bool = False, impl: str = "auto",
-                    window: int = 0):
+                    kv_chunk: int = 0, window: int = 0):
     """Single-device attention over the full local KV: the ``out`` of
-    :func:`flash_block_attention` with both offsets at 0."""
-    out, _ = flash_block_attention(q, k, v, causal=causal, impl=impl,
-                                   window=window)
+    :func:`flash_block_attention` with both offsets at 0.
+
+    ``kv_chunk`` forces the KV to be processed in chunks of that many
+    keys, each through :func:`flash_block_attention` at its KV offset,
+    merged by :func:`merge_partials` from a neutral start (``out = 0``,
+    ``lse = -1e30``), as the JAX package's chunked path does.  A forced
+    chunk must divide the KV length and, on a kernel path (``impl`` other
+    than ``"torch"``), be a multiple of the 128-row KV tile.
+    ``kv_chunk=0`` is one call on every path: the CUDA kernels tile the
+    KV themselves and need no staging budget, so there is no counterpart
+    of the JAX package's automatic choice (``_kv_chunk_for``, which its
+    CPU path also takes); the two differ by the merges' rounding only."""
+    sk = k.shape[1]
+    if kv_chunk:
+        if kv_chunk < 0 or sk % kv_chunk != 0 or (
+                impl != "torch" and kv_chunk % _KV_TILE != 0):
+            raise ValueError(
+                f"kv_chunk={kv_chunk} must divide the KV length {sk} and "
+                f"(for kernel paths) be a multiple of {_KV_TILE}")
+    if not kv_chunk or kv_chunk == sk:
+        out, _ = flash_block_attention(q, k, v, causal=causal, impl=impl,
+                                       window=window)
+        return out
+    out = torch.zeros_like(q)
+    lse = torch.full(q.shape[:3], NEG_BIG, dtype=_compute_dtype(q),
+                     device=q.device)
+    for lo in range(0, sk, kv_chunk):
+        o_b, lse_b = flash_block_attention(
+            q, k[:, lo:lo + kv_chunk], v[:, lo:lo + kv_chunk],
+            causal=causal, kv_offset=lo, impl=impl, window=window)
+        out, lse = merge_partials(out, lse, o_b, lse_b)
     return out

@@ -1,1 +1,44 @@
-"""Parallelism helpers."""
+"""Parallelism strategies built on the differentiable op surface.
+
+Port of ``mpi4torch_tpu/parallel``:
+
+    dp         — data parallelism (the reference's two-Allreduce recipe)
+    ring       — differentiable ring shifts and halo exchange (Isend/Irecv)
+    attention  — long-context attention: ring attention (CP), its zigzag
+                 layout, and Ulysses all-to-all attention (SP)
+    tp         — tensor parallelism: sharding helpers, column/row-parallel
+                 layers, the TP MLP and attention
+    moe        — expert parallelism: capacity-based MoE over Alltoall
+    zero       — ZeRO-1/3 sharded optimizer steps
+
+Pipeline parallelism (``pp``) and ``zero3_to_tp`` are not ported yet
+(ROADMAP.md, Queue 1 item 3).
+"""
+
+from . import attention, dp, moe, ring, tp, zero
+
+from .attention import (dense_attention, ring_attention,
+                        ulysses_attention, zigzag_positions, zigzag_slice,
+                        zigzag_ring_attention)
+from .dp import all_average_tree, dp_value_and_grad
+from .moe import (balanced_assignment, init_moe, moe_ffn, moe_ffn_dense,
+                  rebalance_experts, top1_route)
+from .ring import halo_exchange, ring_shift
+from .tp import (column_parallel_linear, row_parallel_linear, shard_axis,
+                 shard_heads, tp_attention, tp_mlp)
+from .zero import (shard_global_norm, zero3_init, zero3_params,
+                   zero3_shard_params, zero3_step, zero_init, zero_step)
+
+__all__ = [
+    "attention", "dp", "moe", "ring", "tp", "zero",
+    "all_average_tree", "dp_value_and_grad",
+    "halo_exchange", "ring_shift",
+    "dense_attention", "ring_attention", "ulysses_attention",
+    "zigzag_positions", "zigzag_slice", "zigzag_ring_attention",
+    "column_parallel_linear", "row_parallel_linear", "shard_axis",
+    "shard_heads", "tp_attention", "tp_mlp",
+    "init_moe", "moe_ffn", "moe_ffn_dense", "balanced_assignment",
+    "rebalance_experts", "top1_route",
+    "shard_global_norm", "zero_init", "zero_step", "zero3_init",
+    "zero3_params", "zero3_shard_params", "zero3_step",
+]

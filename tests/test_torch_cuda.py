@@ -1073,3 +1073,161 @@ def test_paged_sampled_engine_on_the_card(cuda):
         for i, p in enumerate(prompts):
             assert len(res[i]) == len(p) + 8
             assert res[i][:len(p)].tolist() == p.tolist()
+
+
+# Sequence-parallel blocks (all causal): (name, b, sq, sk, h, h_kv, d,
+# q_off, kv_off).  The ring chunk at SP = 2: its past block (every pair
+# live), a block wholly in the future, the diagonal at a nonzero offset;
+# zigzag's half chunks; Ulysses' full sequence over half the heads.
+SP_BLOCKS = [("ring_past", 8, 1024, 1024, 16, 16, 128, 1024, 0),
+             ("ring_masked", 8, 1024, 1024, 16, 16, 128, 0, 1024),
+             ("ring_diag", 8, 1024, 1024, 16, 16, 128, 1024, 1024),
+             ("zigzag_hi_past", 8, 512, 512, 16, 16, 128, 1536, 512),
+             ("zigzag_hi_diag", 8, 512, 512, 16, 16, 128, 1536, 1536),
+             ("ulysses", 8, 2048, 2048, 8, 8, 128, 0, 0)]
+
+
+def _sp_grads(q, k, v, wo, wl, impl, kw):
+    """dq, dk, dv of sum(out * wo) + sum(lse * wl): the lse term makes
+    dlse nonzero, as the ring's merge does."""
+    x = [t.detach().requires_grad_() for t in (q, k, v)]
+    o, l = flash.flash_block_attention(*x, impl=impl, **kw)
+    loss = (o.float() * wo.float()).sum() + (l.float() * wl).sum()
+    return o.detach(), l.detach(), torch.autograd.grad(loss, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SP_BLOCKS, ids=[c[0] for c in SP_BLOCKS])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sp_blocks_on_the_kernels_with_live_dlse(cuda, case, dtype):
+    name, b, sq, sk, h, h_kv, d, q_off, kv_off = case
+    if dtype == torch.float32:
+        b = 2       # the simt kernels, at a quarter of the batch
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda, dtype=dtype)
+    k, v = (torch.randn((b, sk, h_kv, d), generator=g, device=cuda,
+                        dtype=dtype) for _ in range(2))
+    wo = torch.randn(q.shape, generator=g, device=cuda, dtype=dtype)
+    wl = torch.randn(q.shape[:3], generator=g, device=cuda)
+    kw = dict(causal=True, q_offset=q_off, kv_offset=kv_off)
+    masked = _kernels.block_masked(sq, sk, q_off, kv_off, True)
+    assert masked == (name == "ring_masked")
+    _kernels.reset_launch_counts()
+    o, l, got = _sp_grads(q, k, v, wo, wl, "cuda", kw)
+    for kname in _kernels.ATTENTION_KERNELS:
+        assert _kernels.launch_counts[kname] == 1
+        assert _kernels.launch_counts[f"{kname}.offset"] == int(
+            q_off != 0 or kv_off != 0)
+        assert _kernels.launch_counts[f"{kname}.masked"] == int(masked)
+    po, pl, want = _sp_grads(q, k, v, wo, wl, "torch", kw)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        assert bool(((o.float() - po.float()).abs()
+                     <= bf16_out_bound(po)).all())
+    else:
+        assert (o - po).abs().max().item() <= 1e-5
+    assert (l - pl.float()).abs().max().item() <= 1e-4
+    for a, r in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        e = (a.float() - r.float()).abs().max().item()
+        if dtype == torch.bfloat16:
+            assert e <= 2e-2 * r.float().abs().max().item()
+        else:
+            assert bool(((a - r).abs() <= 1e-4 + 1e-3 * r.abs()).all())
+    if masked:
+        # A block wholly in the future: out 0, lse -1e30 and exactly zero
+        # gradients, so the merge gives it weight 0.
+        assert bool((o == 0).all()) and bool((l == flash.NEG_BIG).all())
+        assert all(bool((t == 0).all()) for t in got)
+
+
+@pytest.mark.cuda
+def test_sp_views_run_in_place_on_the_kernels(cuda):
+    # Zigzag hands the kernels its halves q[:, :c] / q[:, c:] as views
+    # (batch stride 2c rows); they take strides, so a view gives the bits
+    # of its contiguous copy, forward and backward.
+    g = torch.Generator(device=cuda).manual_seed(12)
+    full = [torch.randn((4, 1024, 16, 128), generator=g, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(3)]
+    wo = torch.randn((4, 512, 16, 128), generator=g, device=cuda,
+                     dtype=torch.bfloat16)
+    wl = torch.randn((4, 512, 16), generator=g, device=cuda)
+    kw = dict(causal=True, q_offset=1536, kv_offset=0)
+    views = [full[0][:, 512:], full[1][:, :512], full[2][:, :512]]
+    assert not any(t.is_contiguous() for t in views)
+    assert all(_kernels._rows_aligned(t) is t for t in views)
+    got = _sp_grads(*views, wo, wl, "cuda", kw)
+    want = _sp_grads(*(t.contiguous() for t in views), wo, wl, "cuda", kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert all(torch.equal(a, b) for a, b in zip(got[2], want[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn", ["ring", "zigzag", "ulysses"])
+def test_sp_lm_loss_on_two_rank_threads_matches_one_device(cuda, attn):
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch.parallel import zigzag_positions
+    from mpi4torch_tpu_torch.parallel.dp import all_average_tree
+    from mpi4torch_tpu_torch.utils.tree import value_and_grad
+
+    cfg = T.TransformerConfig(vocab=256, d_model=256, n_heads=4,
+                              n_layers=2, d_ff=512, max_seq=512)
+    params = T.init_transformer(0, cfg, torch.float32, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 512))).to(cuda)
+    pos = zigzag_positions(2, 256)
+
+    def local(r):
+        return tokens[:, pos[r]] if attn == "zigzag" else \
+            tokens[:, r * 256:(r + 1) * 256]
+
+    def body(r):
+        c = P.COMM_WORLD
+        return value_and_grad(lambda p: T.lm_loss(
+            cfg, all_average_tree(c, p), local(r), comm_sp=c, attn=attn),
+            params)
+
+    _kernels.reset_launch_counts()
+    (l0, g0), (l1, g1) = P.run_ranks(body, 2, device=cuda)
+    counts = dict(_kernels.launch_counts)
+    ref_l, ref_g = value_and_grad(lambda p: T.lm_loss(cfg, p, tokens),
+                                  params)
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(g0), tree_leaves(g1)))
+    assert abs(l0.item() - ref_l.item()) <= 1e-5 * ref_l.item()
+    for a, r in zip(tree_leaves(g0), tree_leaves(ref_g)):
+        assert ((a - r).norm() / r.norm().clamp_min(1e-30)).item() <= 1e-4
+    blocks = {"ring": 2, "zigzag": 6, "ulysses": 1}[attn]
+    masked = {"ring": 1, "zigzag": 2, "ulysses": 0}[attn]
+    for kname in _kernels.ATTENTION_KERNELS:
+        assert counts[kname] == counts[f"{kname}.simt"] == \
+            2 * cfg.n_layers * blocks
+        assert counts[f"{kname}.masked"] == cfg.n_layers * masked
+        assert (counts[f"{kname}.offset"] > 0) == (attn != "ulysses")
+
+
+@pytest.mark.cuda
+def test_bf16_top1_route_on_the_card_counts_every_slot(cuda):
+    # The EP phase's routing: 8192 tokens a rank, 4 experts, capacity
+    # 2560, bf16.  Every token's (expert, slot) is the integer count's,
+    # so no two tokens share a slot past 256 and the capacity binds.
+    from mpi4torch_tpu_torch.parallel import moe
+
+    rng = np.random.default_rng(7)
+    T_, E, C = 8192, 4, 2560
+    expert = rng.choice(E, size=T_, p=[0.55, 0.25, 0.1, 0.1])
+    logits = 0.1 * rng.standard_normal((T_, E))
+    logits[np.arange(T_), expert] += 4.0
+    d, c, _ = moe.top1_route(
+        torch.from_numpy(logits).to(cuda, torch.bfloat16), C)
+    t, e, s = (x.cpu().numpy() for x in d.nonzero(as_tuple=True))
+    seen, want = [0] * E, []
+    for i, x in enumerate(expert):
+        if seen[x] < C:
+            want.append((i, x, seen[x]))
+        seen[x] += 1
+    assert list(zip(t.tolist(), e.tolist(), s.tolist())) == want
+    assert bool((d.float().sum(dim=0) <= 1).all())
+    assert bool(((c != 0) == (d != 0)).all())

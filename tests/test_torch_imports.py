@@ -45,7 +45,11 @@ def test_port_has_modules():
                 "fuse/__init__.py", "fuse/bucketing.py",
                 "fuse/collectives.py", "overlap/__init__.py",
                 "overlap/scheduler.py", "parallel/zero.py",
-                "utils/optim.py", "serve/paging.py"):
+                "utils/optim.py", "serve/paging.py",
+                "parallel/attention.py", "parallel/moe.py",
+                "examples/ring_attention_longcontext.py",
+                "examples/expert_parallel_moe.py",
+                "examples/tensor_parallel_mlp.py"):
         assert f"mpi4torch_tpu_torch/{rel}" in names
     for src in ("flash_fwd.cu", "flash_fwd_tc.cu", "flash_bwd.cu",
                 "flash_bwd_tc.cu", "quant_hop.cu"):

@@ -276,33 +276,24 @@ def test_allreduce_tree_mean_needs_sum():
 
 
 def test_unported_training_paths_raise():
+    # Sequence parallelism and the MoE are ported
+    # (tests/test_torch_transformer.py, tests/test_torch_moe.py); what
+    # still raises is what the JAX package refuses too: attention that
+    # cannot see across sequence shards, and the zigzag layout under a
+    # sliding window.
     _, _, pcfg, pparams = _pair("layernorm_gelu_mha")
+    wcfg = dataclasses.replace(pcfg, attn_window=5)
     tok = torch.from_numpy(_tokens())
 
     def body():
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            PT.train_step(pcfg, pparams, tok, comm_sp=P.COMM_WORLD)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            PT.lm_loss(pcfg, pparams, tok, comm_ep=P.COMM_WORLD)
+        c = P.COMM_WORLD
+        local = tok[:, c.rank * (S // 2):(c.rank + 1) * (S // 2)]
+        with pytest.raises(ValueError, match="cannot see across"):
+            PT.train_step(pcfg, pparams, local, comm_sp=c, attn="dense")
+        with pytest.raises(ValueError, match="does not compose"):
+            PT.lm_loss(wcfg, pparams, local, comm_sp=c, attn="zigzag")
 
     P.run_ranks(body, 2, device="cpu")
-
-    # The ZeRO steps are ported (tests/test_torch_zero.py); they keep the
-    # sequence-parallel refusal.
-    from mpi4torch_tpu_torch.parallel.zero import zero3_init, zero_init
-    from mpi4torch_tpu_torch.utils.optim import sgd
-
-    def zero_body():
-        c, opt = P.COMM_WORLD, sgd(1e-2)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            PT.zero_train_step(pcfg, pparams, tok, opt,
-                               zero_init(c, opt, pparams), c, comm_sp=c)
-        shards, state = zero3_init(c, opt, pparams)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            PT.zero3_train_step(pcfg, shards, pparams, tok, opt, state, c,
-                                comm_sp=c)
-
-    P.run_ranks(zero_body, 2, device="cpu")
     with pytest.raises(ValueError, match="unknown attention"):
         PT.forward(pcfg, pparams, tok, attn="flash")
     with pytest.raises(ValueError, match="must divide"):
