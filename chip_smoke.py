@@ -3141,19 +3141,32 @@ class MoeCounter:
     the payload bytes of forward ``Alltoall`` calls on rank 0.  Per call
     it also records the fullest (expert, slot) (at most one token), the
     tokens kept against ``sum_e min(count_e, C)`` of the router's own
-    argmax, and the largest share of tokens one expert was chosen by."""
+    argmax, and the largest share of tokens one expert was chosen by.
+    Both rank threads route at once, so each call's numbers go in as one
+    record (one ``append``): lists appended one by one would pair one
+    rank's kept count with the other's expected count."""
 
     def __init__(self, P, moe):
         self._P, self._moe = P, moe
-        self.kept, self.want_kept, self.slot_max, self.top_share = \
-            [], [], [], []
-        self.routed = 0
+        # (kept, want_kept, slot_max, top_share, tokens routed)
+        self.calls = []
         self.a2a_bytes = 0
 
+    @property
+    def routed(self):
+        return sum(c[4] for c in self.calls)
+
+    @property
+    def kept(self):
+        return [c[0] for c in self.calls]
+
+    @property
+    def top_share(self):
+        return [c[3] for c in self.calls]
+
     def slots_ok(self):
-        return (all(m.item() <= 1 for m in self.slot_max)
-                and all(int(k.item()) == int(w.item())
-                        for k, w in zip(self.kept, self.want_kept)))
+        return all(m.item() <= 1 and int(k.item()) == int(w.item())
+                   for k, w, m, _, _ in self.calls)
 
     def __enter__(self):
         moe, P, me = self._moe, self._P, self
@@ -3164,11 +3177,11 @@ class MoeCounter:
             with torch.no_grad():
                 expert = torch.softmax(logits, dim=-1).argmax(dim=-1)
                 count = torch.bincount(expert, minlength=logits.shape[1])
-                me.kept.append(d.sum(dtype=torch.float32))
-                me.want_kept.append(count.clamp(max=capacity).sum())
-                me.slot_max.append(d.sum(dim=0, dtype=torch.float32).max())
-                me.top_share.append(count.max() / logits.shape[0])
-            me.routed += logits.shape[0]
+                me.calls.append((
+                    d.sum(dtype=torch.float32),
+                    count.clamp(max=capacity).sum(),
+                    d.sum(dim=0, dtype=torch.float32).max(),
+                    count.max() / logits.shape[0], logits.shape[0]))
             return d, c, aux
 
         def a2a(comm, tensor, *a, **kw):
@@ -3453,31 +3466,818 @@ SP_KERNEL_SHAPES = [
 
 
 def sp_kernel_numbers(flash, kernels):
-    """K2, K3 and K4 at the SP path's shapes, bf16 causal: each held
-    against its plain version with a live dlse (the merge's); device ms
-    beside the bound (the masked block's: the bytes it must write, and
-    for K2 read q), the plain version's ms and SDPA's where one call
-    computes the block.  Returns name -> numbers, and the largest |kernel
-    - plain| of each kernel."""
+    """K2, K3 and K4 at the SP path's shapes, bf16 causal
+    (:func:`attention_kernel_numbers`)."""
+    return attention_kernel_numbers(
+        flash, kernels, [(name, b, sq, sk, h, d, q_off, kv_off, True, lib)
+                         for name, b, sq, sk, h, d, q_off, kv_off, lib
+                         in SP_KERNEL_SHAPES], seed0=300)
+
+
+# ---------------------------------------------------------------------------
+# Slice 10 (phases 28-32): the bf16 codecs and the compressed Allgather,
+# BASELINE config 4 (ResNet-18 DP=2), ViT-B/16, PP=2 on the flagship, and
+# the kernel rows at their shapes.
+# ---------------------------------------------------------------------------
+
+AG_CODECS = ("q8", "q8_ef", "q8_ef_hop", "bf16", "bf16r")
+# Per-element error of one bf16 encode, as a share of |x|: half an ulp of
+# 8 significant bits (round to nearest even), or one ulp (stochastic).
+BF16_REL = {"bf16": 2.0 ** -8, "bf16r": 2.0 ** -7}
+# A gradient read back from one SGD step: lr a power of two, so lr * g is
+# exact and the update's one rounding is 2^-24 of lr * g in float32 (2^-8
+# in bf16); (p0 - p1) / lr in float64 is then the gradient the step
+# applied, to that share.
+GRAD_LR = 2.0 ** 20
+# BASELINE config 4: ResNet-18 at its published CIFAR widths, batch 128 per
+# rank, DP=2, three steps of each recipe.
+RESNET_BATCH, RESNET_HW, RESNET_STEPS, RESNET_LR = 128, 32, 3, 0.05
+RESNET_REL = 1e-5
+# ViT-Base/16 (Dosovitskiy et al., ICLR 2021, Table 1; mean pool, no class
+# token): bf16, batch 64 per rank; the f32 check at 2 layers and 8 images.
+VIT_B16 = dict(image_hw=224, patch=16, d_model=768, n_heads=12,
+               n_layers=12, d_ff=3072, num_classes=1000)
+VIT_BATCH, VIT_F32_BATCH, VIT_LR = 64, 8, 1e-3
+BF16_GRAD_REL, F32_GRAD_REL = 5e-2, 1e-4
+# PP=2 on the flagship: 4 microbatches of 2 x 2048; the f32 check at 2
+# layers with microbatches of 1 x 512.
+PP_MB, PP_ROWS, PP_F32_SEQ = 4, 2, 512
+# Kernel rows of this slice's paths: (name, b, sq, sk, h, d, q_off, kv_off,
+# causal, the SDPA call computing the same block or None).
+SLICE10_KERNEL_SHAPES = [
+    ("vit", 64, 196, 196, 12, 64, 0, 0, False, "full"),
+    ("vit_patch_block", 64, 98, 98, 12, 64, 0, 98, False, "full"),
+    ("pp_microbatch", 2, 2048, 2048, 16, 128, 0, 0, True, "causal")]
+AG_SHARD_BLOCKS = 65536          # K1 at the Allgather shard, hop-0 form
+
+
+def rank_key(threefry, salt, rank, n):
+    """The key of a rank's ``n``-th keyed encode in a world, as
+    ``compress/eager._rank_key`` makes it."""
+    key = threefry.fold_in(threefry.PRNGKey(0), salt)
+    return threefry.fold_in(threefry.fold_in(key, rank), n)
+
+
+class PlainCodec:
+    """Each rank's encode-decode with the key that rank's call counter
+    gives, for the plain recomputation of a compressed collective."""
+
+    def __init__(self, threefry, codec, n):
+        self.threefry, self.base, self.calls = threefry, codec.base(), [0] * n
+
+    def roundtrip(self, v, rank, salt):
+        key = None
+        if self.base.stochastic:
+            key = rank_key(self.threefry, salt, rank, self.calls[rank])
+            self.calls[rank] += 1
+        payload, meta = self.base.encode(v, key)
+        return self.base.decode(payload, meta)
+
+
+def plain_allreduce(C, pc, xs):
+    """Value and gradient of ``vdot(y, y)`` through the rendezvous-codec
+    Allreduce, recomputed: every rank's decoded payload folded in
+    ascending rank order, forward and backward (cotangent 2y)."""
+    n = len(xs)
+    y = C.reduce_ordered(C.MPI_SUM, [pc.roundtrip(xs[r], r, 0)
+                                     for r in range(n)])
+    g = C.reduce_ordered(C.MPI_SUM, [pc.roundtrip(y + y, r, 0)
+                                     for r in range(n)])
+    return y, g
+
+
+def allgather_run(P, xs, codec):
+    """Each rank's (y, dx) of y = Allgather(x, 0, compression=codec) with
+    the cotangent (rank + 1) * y."""
+    def body(rank):
+        x = xs[rank].clone().requires_grad_()
+        y = P.COMM_WORLD.Allgather(x, 0, compression=codec)
+        (g,) = torch.autograd.grad(y, x, y.detach() * (rank + 1))
+        return y.detach(), g
+
+    return P.run_ranks(body, len(xs), device="cuda")
+
+
+def plain_allgather(C, pc, xs, rounds):
+    """The compressed Allgather and its adjoint recomputed: each rank's
+    decoded shards concatenated (and the error-feedback rounds), then
+    every rank's decoded cotangent summed segment by segment in ascending
+    rank order."""
+    n = len(xs)
+    dec = [pc.roundtrip(xs[r], r, 0) for r in range(n)]
+    y = torch.cat(dec)
+    for rd in range(1, rounds):
+        more = [pc.roundtrip(xs[r] - dec[r], r, rd) for r in range(n)]
+        y = y + torch.cat(more)
+        dec = [d + m for d, m in zip(dec, more)]
+    cots = [y * (r + 1) for r in range(n)]
+    lens = [x.shape[0] for x in xs]
+    offs = [sum(lens[:r]) for r in range(n)]
+    own = [pc.roundtrip(cots[s], s, 100) for s in range(n)]
+    segs = [C.reduce_ordered(C.MPI_SUM, [d.narrow(0, offs[r], lens[r])
+                                         for d in own]) for r in range(n)]
+    for rd in range(1, rounds):
+        more = [pc.roundtrip(cots[s] - own[s], s, 100 + rd)
+                for s in range(n)]
+        segs = [seg + C.reduce_ordered(C.MPI_SUM, [
+            d.narrow(0, offs[r], lens[r]) for d in more])
+            for r, seg in enumerate(segs)]
+        own = [o + m for o, m in zip(own, more)]
+    return y, segs
+
+
+def compression_phase(P, C, config, kernels, threefry):
+    """Phase 28: the bf16 Allreduces and the compressed Allgather of every
+    codec at the bench size, four rank threads x 2^24 float32.  Returns
+    codec -> numbers."""
+    n = BENCH_RANKS
+    xs = bench_inputs()
+    exact = xs[0].clone()
+    for x in xs[1:]:
+        exact += x
+    sabs = sum(x.abs() for x in xs)
+    res = {"allreduce": {}, "allgather": {}}
+    tiny = 2.0 ** -24 * 2 * n
+    q8_value_and_grad(P, xs, False, None)            # warm-up
+    exact_ms = min(sync_ms(lambda: q8_value_and_grad(P, xs, False, None))[0]
+                   for _ in range(2))
+    for codec in ("bf16", "bf16r"):
+        ms, got = sync_ms(lambda: q8_value_and_grad(P, xs, codec, None))
+        ms = min([ms] + [sync_ms(lambda: q8_value_and_grad(
+            P, xs, codec, None))[0] for _ in range(2)])
+        pc = PlainCodec(threefry, P.compress.get_codec(codec), n)
+        y_p, g_p = plain_allreduce(C, pc, xs)
+        y, g = got[0]
+        same = all(torch.equal(a, y) and torch.equal(b, g) for a, b in got)
+        mism = bits_differ(y, y_p) + bits_differ(g, g_p)
+        # Norm-relative: every element's error is at most BF16_REL of the
+        # sum of the contributions' magnitudes, plus the folds' rounding.
+        err = norm_rel1(y, exact)
+        bnd = (BF16_REL[codec] + tiny) * sabs.double().norm().item() \
+            / exact.double().norm().item()
+        err_g = norm_rel1(g, 2 * n * y)
+        bnd_g = BF16_REL[codec] + tiny
+        ok = same and mism == 0 and err <= bnd and err_g <= bnd_g
+        print(f"  Allreduce {codec:5s}: fwd+bwd {ms:8.2f} ms (exact "
+              f"{exact_ms:.2f} ms); ranks identical {same}; vs plain "
+              f"recomputation (decode, ordered fold) mismatched {mism}; "
+              f"norm-relative error vs exact {err:.3e} (bound {bnd:.3e}), "
+              f"grad {err_g:.3e} (bound {bnd_g:.3e})  "
+              f"{'ok' if ok else 'FAIL'}",
+              flush=True)
+        check(ok, f"Allreduce with compression={codec} failed a check")
+        res["allreduce"][codec] = {"ms": ms, "exact_ms": exact_ms}
+        del got, y, g, y_p, g_p
+    # Unbiased rounding: the mean signed error of one 2^24-element encode,
+    # each error signed by its element's sign (a biased rounding, like
+    # truncation, shows as a mean far from 0).
+    x0 = xs[0]
+    for codec in ("bf16", "bf16r"):
+        c = P.compress.get_codec(codec)
+        e = (c.roundtrip(x0, rank_key(threefry, 0, 0, 0)).double()
+             - x0.double()) * torch.sign(x0.double())
+        mean, se = e.mean().item(), (e.std() / e.numel() ** 0.5).item()
+        ok = codec != "bf16r" or abs(mean) <= 4 * se
+        verdict = "; within 4 se of 0: unbiased" if codec == "bf16r" else ""
+        print(f"  {codec:5s} encode of {x0.numel()} elements: mean signed "
+              f"error {mean:.3e}, standard error {se:.3e} ({mean / se:+.2f} "
+              f"se){verdict}"
+              f"  {'ok' if ok else 'FAIL'}")
+        check(ok, "bf16r's mean signed error is not within 4 standard "
+              "errors of 0")
+        del e
+    allgather_run(P, xs, False)                      # warm-up
+    ag_exact_ms = min(sync_ms(lambda: allgather_run(P, xs, False))[0]
+                      for _ in range(2))
+    full = torch.cat(xs)
+    for codec in AG_CODECS:
+        c = P.compress.get_codec(codec)
+        rounds = c.ef_rounds
+        kernels.reset_launch_counts()
+        ms, got = sync_ms(lambda: allgather_run(P, xs, codec))
+        launches = dict(kernels.launch_counts)
+        ms = min([ms] + [sync_ms(lambda: allgather_run(P, xs, codec))[0]
+                         for _ in range(2)])
+        config.set_quant_hop_impl("torch")
+        try:
+            y_p, segs = plain_allgather(C, PlainCodec(threefry, c, n), xs,
+                                        rounds)
+        finally:
+            config.set_quant_hop_impl("auto")
+        y = got[0][0]
+        same = all(torch.equal(a, y) for a, _ in got)
+        mism = bits_differ(y, y_p) + sum(bits_differ(g, s) for (_, g), s
+                                         in zip(got, segs))
+        q8 = c.base().hop_fused
+        want_req = 2 * n * rounds if q8 else 0
+        rel = norm_rel1(y, full)
+        tri = n * (n + 1) / 2
+        rel_g = max(norm_rel1(g, tri * y[sum(x.shape[0] for x in xs[:r]):]
+                              [:xs[r].shape[0]])
+                    for r, (_, g) in enumerate(got))
+        bnd = CODEC_REL[codec] if q8 else BF16_REL[codec] + tiny
+        ok = (same and mism == 0 and launches["q8_requant"] == want_req
+              and launches["q8_hop"] == 0 and rel <= bnd and rel_g <= bnd)
+        wire = c.wire_bytes((BENCH_NUMEL,), torch.float32)
+        print(f"  Allgather {codec:9s}: fwd+bwd {ms:8.2f} ms (exact "
+              f"{ag_exact_ms:.2f} ms, {ms / ag_exact_ms:.2f}x); wire "
+              f"{wire} B a shard ({4 * BENCH_NUMEL / wire:.2f}x less than "
+              f"f32); ranks identical {same}; vs plain recomputation "
+              f"(plain requant, decode, ordered fold) mismatched {mism}; "
+              f"K1 q8_requant launches {launches['q8_requant']}/{want_req} "
+              f"(2 x {n} ranks x {rounds} rd); err vs exact {rel:.3e}, "
+              f"grad {rel_g:.3e} (bound {bnd:.3e})  {'ok' if ok else 'FAIL'}",
+              flush=True)
+        check(ok, f"compressed Allgather {codec} failed a check")
+        res["allgather"][codec] = {"ms": ms, "exact_ms": ag_exact_ms,
+                                   "wire_bytes": wire,
+                                   "requant_launches": launches[
+                                       "q8_requant"]}
+        del got, y, y_p, segs
+        torch.cuda.empty_cache()
+    return res
+
+
+def fused_bf16_line(P, T, tree, cfg, params, tokens, q8f, fused):
+    """Phase 19's fused DP=2 step with compression="bf16" at 4 MiB: ranks
+    identical; step ms beside phase 18's exact and phase 19's q8 step."""
+    rows = TRAIN_BATCH // 2
+
+    def step():
+        def body(rank):
+            x = tokens[rank * rows:(rank + 1) * rows]
+            _, g = tree.value_and_grad(lambda q: T.lm_loss(cfg, q, x),
+                                       params)
+            return P.COMM_WORLD.Allreduce_tree(g, P.MPI_SUM, mean=True,
+                                               compression="bf16")
+        return P.run_ranks(body, 2, device="cuda")
+
+    a, b = step()
+    same = all(torch.equal(x, y) for x, y in zip(tree.tree_leaves(a),
+                                                  tree.tree_leaves(b)))
+    del a, b
+    t = [sync_ms(step)[0] for _ in range(2)]
+    print(f"  fused DP=2 step with compression='bf16' (4 MiB buckets): "
+          f"{[round(x, 1) for x in t]} ms; ranks identical {same}; exact "
+          f"(phase 18) {fused['ms']['fused']:.1f} ms, q8 (phase 19) "
+          f"{q8f['4MiB']['ms']:.1f} ms")
+    check(same, "the fused bf16 DP=2 step's ranks differ")
+    return min(t)
+
+
+def synthetic_images(n, hw, classes, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, hw, hw, 3), generator=g, device="cuda").to(dtype)
+    y = torch.randint(0, classes, (n,), generator=g, device="cuda")
+    return x, y
+
+
+def step_grads(tree, p0, p1, lr=GRAD_LR):
+    """The gradient one SGD step applied: (p0 - p1) / lr in float64."""
+    return tree.tree_map(lambda a, b: (a.double() - b.double()) / lr,
+                         p0, p1)
+
+
+def tree_rel(tree, a, b):
+    """||a - b|| / ||b|| over all the leaves of two trees together."""
+    num = sum(((x.double() - y.double()) ** 2).sum().item()
+              for x, y in zip(tree.tree_leaves(a), tree.tree_leaves(b)))
+    den = sum((y.double() ** 2).sum().item() for y in tree.tree_leaves(b))
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def resnet_phase(P, R, data, tree):
+    """Phase 29: BASELINE config 4, ResNet-18 DP=2 at batch 128 per rank,
+    f32, fed by shard_batches_comm and prefetch_to_device."""
+    cfg = R.ResNetConfig()
+    n, bs = 2, RESNET_BATCH
+    # One global batch, revisited each epoch under the (seed, epoch)
+    # permutation, as the JAX package's ResNet example does, so the loss
+    # of a training run falls.
+    g = torch.Generator().manual_seed(4)
+    images = torch.randn((n * bs, RESNET_HW, RESNET_HW, 3),
+                         generator=g).numpy()
+    labels = torch.randint(0, cfg.num_classes, (images.shape[0],),
+                           generator=g).numpy()
+    params, state = R.init_resnet(0, cfg, device="cuda")
+    n_params = sum(t.numel() for t in tree.tree_leaves(params))
+
+    def run(recipe, lr, steps, times=None):
+        def body(rank):
+            comm = P.COMM_WORLD
+            p, s, losses = params, state, []
+            batches = data.prefetch_to_device(
+                (b for epoch in range(steps) for b in data.shard_batches_comm(
+                    (images, labels), bs, comm, seed=7, epoch=epoch)),
+                device="cuda")
+            for batch in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, p, s = recipe(comm, cfg, p, s, batch, lr=lr)
+                torch.cuda.synchronize()
+                if rank == 0 and times is not None:
+                    times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(loss.item())
+            return p, s, losses
+        return P.run_ranks(body, n, device="cuda")
+
+    # The gradient each recipe applies, against the mean of the one-device
+    # per-shard gradients (BN normalises each shard with its own stats).
+    grads = {}
+    for name in ("dp_grad_train_step", "dp_loss_train_step"):
+        outs = run(getattr(R, name), GRAD_LR, 1)
+        grads[name] = step_grads(tree, params, outs[0][0])
+        del outs
+    shard = []
+    for r in range(n):
+        x, y = next(data.shard_batches((images, labels), bs, rank=r, size=n,
+                                       seed=7))
+        batch = (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+        _, gr = tree.value_and_grad(
+            lambda p: R.local_loss(cfg, p, state, batch)[0], params)
+        shard.append(gr)
+    mean = tree.tree_map(lambda a, b: (a.double() + b.double()) / 2, *shard)
+    rel_recipes = tree_rel(tree, grads["dp_loss_train_step"],
+                           grads["dp_grad_train_step"])
+    rel_mean = tree_rel(tree, grads["dp_grad_train_step"], mean)
+    ok = rel_recipes <= RESNET_REL and rel_mean <= RESNET_REL
+    print(f"  ResNet-18 (CIFAR widths {cfg.widths}, {n_params / 1e6:.2f}M "
+          f"parameters, f32), DP=2 x batch {bs} of {RESNET_HW} x "
+          f"{RESNET_HW} x 3: the recipes' gradients differ by "
+          f"{rel_recipes:.2e}"
+          f" norm-relative; the DP gradient vs the mean of one-device "
+          f"per-shard gradients {rel_mean:.2e} (bound {RESNET_REL:g})  "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "ResNet-18 DP=2 gradients disagree")
+    del grads, shard, mean
+    out = {}
+    for name in ("dp_grad_train_step", "dp_loss_train_step"):
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        (p0, s0, l0), (p1, s1, l1) = run(getattr(R, name), RESNET_LR,
+                                         RESNET_STEPS, times)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        same = l0 == l1 and all(torch.equal(a, b) for a, b in zip(
+            tree.tree_leaves((p0, s0)), tree.tree_leaves((p1, s1))))
+        falls = all(np.isfinite(l0)) and l0[-1] < l0[0]
+        ms = float(np.mean(times[1:]))
+        wall, busy, _ = device_busy_ms(lambda: run(getattr(R, name),
+                                                   RESNET_LR, 1))
+        ok = same and falls
+        print(f"  {name}: losses {[round(x, 4) for x in l0]} (falls "
+              f"{falls}); ranks bitwise "
+              f"identical (params, BN state, losses) {same}; step "
+              f"{[round(x, 1) for x in times]} ms, {2 * bs / (ms / 1e3):.0f} "
+              f"images/s; a profiled step: wall {wall:.1f} ms, device busy "
+              f"{busy:.1f} ms (idle {100 - 100 * busy / wall:.0f}%); peak "
+              f"memory {peak:.2f} GiB  {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"ResNet-18 DP=2 {name} failed a check")
+        out[name] = {"ms": ms, "images_s": 2 * bs / (ms / 1e3),
+                     "idle_pct": 100 - 100 * busy / wall, "peak_gib": peak,
+                     "losses": l0}
+        del p0, s0, p1, s1
+    torch.cuda.empty_cache()
+    return out
+
+
+def vit_ce(logits, labels):
+    logp = torch.nn.functional.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, labels[:, None])[:, 0].mean()
+
+
+def vit_checks(P, V, tree, kernels, cfg, params, images, labels, tol,
+               label):
+    """DP=2 (dp_grad_train_step) and patch-parallel SP=2 against one
+    device: the DP gradient against the global batch's, the SP logits and
+    gradients against the whole sequence's, per leaf within ``tol``;
+    ranks identical.  Returns the launch counts of the DP and SP runs."""
+    n = 2
+    bs = images.shape[0] // n
+
+    def dp(rank):
+        batch = (images[rank * bs:(rank + 1) * bs],
+                 labels[rank * bs:(rank + 1) * bs])
+        return V.dp_grad_train_step(P.COMM_WORLD, cfg, params, batch,
+                                    lr=GRAD_LR)[1]
+
+    kernels.reset_launch_counts()
+    p_a, p_b = P.run_ranks(dp, n, device="cuda")
+    dp_launches = dict(kernels.launch_counts)
+    same = all(torch.equal(a, b) for a, b in zip(tree.tree_leaves(p_a),
+                                                  tree.tree_leaves(p_b)))
+    g_dp = step_grads(tree, params, p_a)
+    del p_a, p_b
+    _, g_one = tree.value_and_grad(
+        lambda p: V.local_loss(cfg, p, (images, labels)), params)
+    rel_dp = norm_rel(tree, g_dp, g_one)
+    del g_dp, g_one
+    # Patch-parallel: the first bs images, their patch axis halved.
+    x, y = images[:bs], labels[:bs]
+    patches = V.patchify(cfg, x)
+    sl = cfg.n_patches // n
+
+    def sp(rank):
+        local = patches[:, rank * sl:(rank + 1) * sl]
+        logits = {}
+
+        def loss(p):
+            logits["out"] = V.forward_patches(cfg, p, local,
+                                              comm_sp=P.COMM_WORLD)
+            return vit_ce(logits["out"], y)
+
+        _, g = tree.value_and_grad(loss, params)
+        out = logits["out"].detach()
+        # Both ranks seed the replicated loss: the parameter Allreduce
+        # sums two copies of the gradient.
+        g = tree.tree_map(
+            lambda t: P.COMM_WORLD.Allreduce(t, P.MPI_SUM) / n, g)
+        return out, g
+
+    kernels.reset_launch_counts()
+    (o_a, g_a), (o_b, g_b) = P.run_ranks(sp, n, device="cuda")
+    sp_launches = dict(kernels.launch_counts)
+    same = same and torch.equal(o_a, o_b) and all(
+        torch.equal(a, b) for a, b in zip(tree.tree_leaves(g_a),
+                                          tree.tree_leaves(g_b)))
+    one = V.forward(cfg, params, x).detach()
+    _, g_one = tree.value_and_grad(
+        lambda p: vit_ce(V.forward(cfg, p, x), y), params)
+    rel_o = norm_rel(tree, [o_a], [one])
+    rel_sp = norm_rel(tree, g_a, g_one)
+    ok = same and max(rel_dp, rel_o, rel_sp) <= tol
+    print(f"  {label}: DP=2 gradient vs one device (batch {2 * bs}) worst "
+          f"leaf {rel_dp:.2e}; patch-parallel SP=2 ({sl} patches a rank) "
+          f"logits {rel_o:.2e}, gradient worst leaf {rel_sp:.2e} (bound "
+          f"{tol:g}); ranks bitwise identical {same}  "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, f"ViT {label} disagrees with one device")
+    return dp_launches, sp_launches
+
+
+def vit_phase(P, V, kernels, tree):
+    """Phase 30: ViT-B/16 in bf16, batch 64 per rank: DP=2 and
+    patch-parallel SP=2 against one device, every attention launch tc at
+    head dim 64; an f32 check at 2 layers; step ms, images/s and each
+    rank's attention device ms."""
+    f32_cfg = V.ViTConfig(**dict(VIT_B16, n_layers=2))
+    f32_params = V.init_vit(1, f32_cfg, torch.float32, device="cuda")
+    x32, y32 = synthetic_images(2 * VIT_F32_BATCH, f32_cfg.image_hw,
+                                f32_cfg.num_classes, torch.float32, seed=31)
+    vit_checks(P, V, tree, kernels, f32_cfg, f32_params, x32, y32,
+               F32_GRAD_REL, "f32, 2 layers (simt kernels)")
+    del f32_params, x32, y32
+    cfg = V.ViTConfig(**VIT_B16)
+    params = V.init_vit(0, cfg, torch.bfloat16, device="cuda")
+    n_params = sum(t.numel() for t in tree.tree_leaves(params))
+    images, labels = synthetic_images(2 * VIT_BATCH, cfg.image_hw,
+                                      cfg.num_classes, torch.bfloat16,
+                                      seed=32)
+    dp_l, sp_l = vit_checks(P, V, tree, kernels, cfg, params, images,
+                            labels, BF16_GRAD_REL,
+                            f"bf16, ViT-B/16 ({n_params / 1e6:.1f}M "
+                            "parameters)")
+    layers = cfg.n_layers
+    want = {"dp": 2 * layers, "sp": 2 * 2 * layers}
+    counts = {"dp": {k: dp_l[k] for k in kernels.ATTENTION_KERNELS},
+              "sp": {k: sp_l[k] for k in kernels.ATTENTION_KERNELS}}
+    ok = attention_all_tc(kernels, dp_l) and attention_all_tc(kernels, sp_l) \
+        and all(v == want[run] for run in counts
+                for v in counts[run].values())
+    print(f"  attention launches (K2, K3, K4): DP=2 step {counts['dp']} "
+          f"(expected 2 ranks x {layers} layers each), SP=2 fwd+bwd "
+          f"{counts['sp']} (2 ranks x {layers} layers x 2 ring blocks); "
+          f"all tc at head dim {cfg.d_model // cfg.n_heads}  "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "a ViT attention launch was not tc, or the counts differ")
+
+    def step():
+        def body(rank):
+            batch = (images[rank * VIT_BATCH:(rank + 1) * VIT_BATCH],
+                     labels[rank * VIT_BATCH:(rank + 1) * VIT_BATCH])
+            return V.dp_grad_train_step(P.COMM_WORLD, cfg, params, batch,
+                                        lr=VIT_LR)[0]
+        return P.run_ranks(body, 2, device="cuda")
+
+    step()
+    torch.cuda.reset_peak_memory_stats()
+    t = [sync_ms(step)[0] for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = min(t)
+    wall, busy, per_rank = profiled_rank_ms(P, kernels, step,
+                                            "one ViT-B/16 DP=2 step", 2)
+    print(f"  ViT-B/16 DP=2 step {[round(x, 1) for x in t]} ms, "
+          f"{2 * VIT_BATCH / (ms / 1e3):.0f} images/s; peak memory "
+          f"{peak:.2f} GiB", flush=True)
+    del images, labels, params
+    torch.cuda.empty_cache()
+    return {"ms": ms, "images_s": 2 * VIT_BATCH / (ms / 1e3),
+            "idle_pct": 100 - 100 * busy / wall, "rank_attention_ms":
+            per_rank, "launches": counts, "peak_gib": peak}
+
+
+class _Held:
+    """A saved tensor held for a :class:`StashMeter`, released with the
+    autograd graph that holds it."""
+
+    __slots__ = ("t", "meter", "key")
+
+    def __init__(self, t, meter, key):
+        self.t, self.meter, self.key = t, meter, key
+
+    def __del__(self):
+        self.meter._release(self.key)
+
+
+class StashMeter:
+    """While entered on a rank thread, the bytes of the tensors that
+    thread's autograd graphs hold for their backward (each storage counted
+    once), and their peak: the activation stash of a pipeline stage.
+    ``saved_tensors_hooks`` are thread-local, so each rank thread meters
+    its own graphs."""
+
+    def __init__(self):
+        self.live = self.peak = 0
+        self._refs = {}
+
+    def _pack(self, t):
+        st = t.untyped_storage()
+        key = (st.data_ptr(), str(t.device), st.nbytes())
+        if key not in self._refs:
+            self._refs[key] = 0
+            self.live += key[2]
+            self.peak = max(self.peak, self.live)
+        self._refs[key] += 1
+        return _Held(t, self, key)
+
+    def _release(self, key):
+        self._refs[key] -= 1
+        if self._refs[key] == 0:
+            del self._refs[key]
+            self.live -= key[2]
+
+    def __enter__(self):
+        self._hooks = torch.autograd.graph.saved_tensors_hooks(
+            self._pack, lambda held: held.t)
+        self._hooks.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._hooks.__exit__(*exc)
+
+
+def pp_cuts(layers):
+    """The layer ranges of the interleaved schedule's four global stages
+    (2 chunks on each of 2 ranks; stage s on rank s % 2); a stage may hold
+    no layer."""
+    h, q = layers // 2, layers // 4
+    return [(0, q), (q, h), (h, h + q), (h + q, layers)]
+
+
+def pp_stage(params, lo, hi, first, last):
+    stage = {"blocks": params["blocks"][lo:hi]}
+    if first:
+        stage["embed"], stage["pos"] = params["embed"], params["pos"]
+    if last:
+        stage["ln_f"], stage["unembed"] = params["ln_f"], params["unembed"]
+    return stage
+
+
+def pp_program(T, flash, cfg):
+    """The user program of the PP phase: a stage applies the embedding if
+    it holds it, its transformer blocks (K2 forward, K3/K4 backward), and
+    the final norm and unembedding if it holds them; the loss is the
+    microbatch's mean next-token cross entropy as ``lm_loss`` computes it
+    (the last position masked)."""
+    F = torch.nn.functional
+
+    def apply_stage(p, x):
+        if "embed" in p:
+            x = F.embedding(x, p["embed"]) + p["pos"][None, :x.shape[1]]
+        for blk in p["blocks"]:
+            y = T._norm(cfg, x, blk["ln1"])
+            q, k, v = T._split_qkv(cfg, blk, y)
+            o = flash.flash_attention(q, k, v, causal=True)
+            x = x + o.reshape(x.shape) @ blk["wo"]
+            x, _ = T._ffn_residual(cfg, blk, x)
+        if "unembed" in p:
+            x = T._norm(cfg, x, p["ln_f"]) @ p["unembed"]
+        return x
+
+    def loss_fn_for(mbs):
+        def loss_fn(logits, i):
+            tok = mbs[i]
+            b, s = tok.shape
+            labels = torch.cat([tok[:, 1:], tok[:, :1]], dim=1)
+            mask = (torch.arange(s, device=tok.device) < s - 1).to(
+                logits.dtype)
+            logp = F.log_softmax(logits, dim=-1)
+            ce = -logp.gather(-1, labels[..., None])[..., 0]
+            return torch.sum(ce * mask[None, :]) / (b * (s - 1))
+        return loss_fn
+
+    return apply_stage, loss_fn_for
+
+
+def pp_runs(P, pp, kernels, apply_stage, loss_fn, params, cfg, mbs,
+            schedules, timed=False):
+    """Each schedule's (loss, per-rank grads, launches, rank stash peaks,
+    device peak GiB, ms) on two rank threads."""
+    layers = cfg.n_layers
+    gpipe_stages = [pp_stage(params, 0, layers // 2, True, False),
+                    pp_stage(params, layers // 2, layers, False, True)]
+    cuts = pp_cuts(layers)
+    chunks = [[pp_stage(params, *cuts[c * 2 + r], c * 2 + r == 0,
+                        c * 2 + r == 3) for c in range(2)]
+              for r in range(2)]
+    like = torch.zeros((mbs[0].shape[0], mbs[0].shape[1], cfg.d_model),
+                       dtype=params["embed"].dtype, device="cuda")
+    fns = {"gpipe": (pp.pipeline_step, {}),
+           "1f1b": (pp.pipeline_step_1f1b, {}),
+           "1f1b_overlap": (pp.pipeline_step_1f1b, {"overlap": True}),
+           "interleaved": (pp.pipeline_step_interleaved, {})}
+    out = {}
+    for name in schedules:
+        fn, kw = fns[name]
+        meters = [StashMeter(), StashMeter()]
+
+        def body(rank):
+            mine = chunks[rank] if name == "interleaved" \
+                else gpipe_stages[rank]
+            with meters[rank]:
+                return fn(P.COMM_WORLD, apply_stage, mine, mbs, loss_fn,
+                          recv_like=like, **kw)
+
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        (l0, g0), (l1, g1) = P.run_ranks(body, 2, device="cuda")
+        launches = dict(kernels.launch_counts)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = None
+        if timed:
+            ms = min(sync_ms(lambda: P.run_ranks(
+                lambda r: fn(P.COMM_WORLD, apply_stage, chunks[r]
+                             if name == "interleaved" else gpipe_stages[r],
+                             mbs, loss_fn, recv_like=like, **kw), 2,
+                device="cuda"))[0] for _ in range(2))
+        check(torch.equal(l0, l1), f"PP {name}: the ranks' losses differ")
+        out[name] = {"loss": l0, "grads": (g0, g1), "launches": launches,
+                     "stash": [m.peak for m in meters], "peak_gib": peak,
+                     "ms": ms}
+    return out
+
+
+def pp_compare(tree, name, run, oracle, cfg):
+    """Worst leaf's norm-relative error of a schedule's stage gradients
+    against the one-device gradient."""
+    layers = cfg.n_layers
+    g0, g1 = run["grads"]
+    pairs = []
+    if name == "interleaved":
+        for s, (lo, hi) in enumerate(pp_cuts(layers)):
+            g = (g0, g1)[s % 2][s // 2]
+            pairs += list(zip(g["blocks"], oracle["blocks"][lo:hi]))
+            for k in ("embed", "pos", "ln_f", "unembed"):
+                if k in g:
+                    pairs.append((g[k], oracle[k]))
+    else:
+        h = layers // 2
+        pairs += list(zip(g0["blocks"], oracle["blocks"][:h]))
+        pairs += list(zip(g1["blocks"], oracle["blocks"][h:]))
+        pairs += [(g0["embed"], oracle["embed"]), (g0["pos"], oracle["pos"]),
+                  (g1["ln_f"], oracle["ln_f"]),
+                  (g1["unembed"], oracle["unembed"])]
+    n_oracle = len(tree.tree_leaves(oracle))
+    got = [a for a, _ in pairs]
+    check(len(tree.tree_leaves(got)) == n_oracle,
+          f"PP {name}: the stages do not cover the model")
+    return norm_rel(tree, got, [b for _, b in pairs])
+
+
+def pp_phase(P, T, pp, kernels, flash, tree, cfg, params, tokens):
+    """Phase 31: PP=2 on the flagship at full width (stage 0 the embedding
+    and layers 0-3, stage 1 layers 4-7, the final norm, the unembedding and
+    the loss), 4 microbatches of 2 x 2048 through GPipe, 1F1B (blocking
+    and overlap=True) and the interleaved schedule (2 chunks of 2 layers a
+    rank): stage gradients against one device (f32 at 2 layers within
+    1e-4, bf16 within 5e-2), 1F1B blocking and overlapped bitwise, rank
+    0's 1F1B stash no larger than GPipe's, every attention launch tc."""
+    # f32 at 2 layers, microbatches of 1 x 512 (the simt kernels).
+    cfg2 = T.TransformerConfig(vocab=cfg.vocab, d_model=cfg.d_model,
+                               n_heads=cfg.n_heads, n_layers=2,
+                               d_ff=cfg.d_ff, max_seq=cfg.max_seq)
+    p2 = T.init_transformer(2, cfg2, torch.float32, device="cuda")
+    mbs2 = [tokens[i:i + 1, :PP_F32_SEQ] for i in range(PP_MB)]
+    apply_stage, loss_fn_for = pp_program(T, flash, cfg2)
+    loss_fn = loss_fn_for(mbs2)
+    o_loss, oracle = tree.value_and_grad(
+        lambda p: sum(T.lm_loss(cfg2, p, mb) for mb in mbs2), p2)
+    runs = pp_runs(P, pp, kernels, apply_stage, loss_fn, p2, cfg2,
+                   mbs2, ("gpipe", "1f1b", "1f1b_overlap", "interleaved"))
+    worst = max(pp_compare(tree, k, v, oracle, cfg2)
+                for k, v in runs.items())
+    bitwise = torch.equal(runs["1f1b"]["loss"], runs["1f1b_overlap"]["loss"]) \
+        and all(torch.equal(a, b) for a, b in zip(
+            tree.tree_leaves(runs["1f1b"]["grads"]),
+            tree.tree_leaves(runs["1f1b_overlap"]["grads"])))
+    loss_rel = max(abs(v["loss"].item() - o_loss.item()) / abs(o_loss.item())
+                   for v in runs.values())
+    ok = worst <= F32_GRAD_REL and loss_rel <= F32_GRAD_REL and bitwise
+    print(f"  f32, 2 layers, {PP_MB} microbatches of 1 x {PP_F32_SEQ}: "
+          f"stage gradients vs one device worst leaf {worst:.2e} (bound "
+          f"{F32_GRAD_REL:g}), loss {loss_rel:.2e}; 1F1B blocking == "
+          f"overlap=True bitwise {bitwise}  {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, "PP f32 check failed")
+    del p2, oracle, runs
+    torch.cuda.empty_cache()
+
+    # bf16 at full width.
+    mbs = [tokens[i * PP_ROWS:(i + 1) * PP_ROWS] for i in range(PP_MB)]
+    apply_stage, loss_fn_for = pp_program(T, flash, cfg)
+    loss_fn = loss_fn_for(mbs)
+    torch.cuda.reset_peak_memory_stats()
+    o_loss, oracle = tree.value_and_grad(
+        lambda p: sum(T.lm_loss(cfg, p, mb) for mb in mbs), params)
+    one_peak = torch.cuda.max_memory_allocated() / 2**30
+    runs = pp_runs(P, pp, kernels, apply_stage, loss_fn, params, cfg,
+                   mbs, ("gpipe", "1f1b", "1f1b_overlap", "interleaved"),
+                   timed=True)
+    errs = {k: pp_compare(tree, k, v, oracle, cfg)
+            for k, v in runs.items()}
+    del oracle
+    bitwise = torch.equal(runs["1f1b"]["loss"], runs["1f1b_overlap"]["loss"]) \
+        and all(torch.equal(a, b) for a, b in zip(
+            tree.tree_leaves(runs["1f1b"]["grads"]),
+            tree.tree_leaves(runs["1f1b_overlap"]["grads"])))
+    want = cfg.n_layers * PP_MB
+    launches = {k: {n: v["launches"][n] for n in kernels.ATTENTION_KERNELS}
+                for k, v in runs.items()}
+    tc = all(attention_all_tc(kernels, v["launches"]) for v in runs.values())
+    counted = all(x == want for v in launches.values() for x in v.values())
+    stash_ok = runs["1f1b"]["stash"][0] <= runs["gpipe"]["stash"][0]
+    ok = max(errs.values()) <= BF16_GRAD_REL and bitwise and tc and \
+        counted and stash_ok
+    for k, v in runs.items():
+        print(f"  bf16 {k:12s}: loss {v['loss'].item():.4f} (one device "
+              f"{o_loss.item():.4f}); stage gradients vs one device worst "
+              f"leaf {errs[k]:.2e} (bound {BF16_GRAD_REL:g}); step "
+              f"{v['ms']:.1f} ms; K2/K3/K4 launches {launches[k]} "
+              f"(expected {cfg.n_layers} layers x {PP_MB} microbatches "
+              f"each); saved activations per rank peak "
+              f"{[round(x / 2**30, 2) for x in v['stash']]} GiB; device "
+              f"peak {v['peak_gib']:.2f} GiB", flush=True)
+    print(f"  one-device oracle (the summed microbatch losses) peak "
+          f"{one_peak:.2f} GiB; 1F1B blocking == overlap=True bitwise "
+          f"{bitwise}; all attention launches tc {tc}; rank 0's 1F1B "
+          f"stash <= GPipe's {stash_ok}  {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, "PP bf16 check failed")
+    stages = [pp_stage(params, 0, cfg.n_layers // 2, True, False),
+              pp_stage(params, cfg.n_layers // 2, cfg.n_layers, False, True)]
+    like = torch.zeros((PP_ROWS, mbs[0].shape[1], cfg.d_model),
+                       dtype=params["embed"].dtype, device="cuda")
+    wall, busy, per_rank = profiled_rank_ms(
+        P, kernels, lambda: P.run_ranks(lambda r: pp.pipeline_step_1f1b(
+            P.COMM_WORLD, apply_stage, stages[r], mbs, loss_fn,
+            recv_like=like), 2, device="cuda"), "one 1F1B PP=2 step", 2)
+    out = {k: {"ms": v["ms"], "launches": launches[k],
+               "stash_gib": [x / 2**30 for x in v["stash"]],
+               "peak_gib": v["peak_gib"], "grad_rel": errs[k]}
+           for k, v in runs.items()}
+    out["1f1b"]["rank_attention_ms"] = per_rank
+    out["1f1b"]["idle_pct"] = 100 - 100 * busy / wall
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_kernel_numbers(flash, kernels, shapes, seed0):
+    """K2, K3 and K4 at ``shapes`` ((name, b, sq, sk, h, d, q_off, kv_off,
+    causal, lib)), bf16: each held against its plain version with a live
+    dlse; device ms beside the bound (a wholly masked block's: the bytes
+    it must write, and for K2 read q), the plain version's ms and SDPA's
+    where one call computes the block.  Returns name -> numbers, and the
+    largest |kernel - plain| of each kernel."""
     dt = torch.bfloat16
     res, worst = {}, {k: 0.0 for k in kernels.ATTENTION_KERNELS}
-    for i, (name, b, sq, sk, h, d, q_off, kv_off, lib) in enumerate(
-            SP_KERNEL_SHAPES):
-        q, k, v = attention_inputs(dt, b, sq, sk, h, h, d, seed=300 + i)
-        do = attention_inputs(dt, b, sq, sk, h, h, d, seed=400 + i)[0]
-        g = torch.Generator(device="cuda").manual_seed(500 + i)
+    for i, (name, b, sq, sk, h, d, q_off, kv_off, causal, lib) in \
+            enumerate(shapes):
+        q, k, v = attention_inputs(dt, b, sq, sk, h, h, d, seed=seed0 + i)
+        do = attention_inputs(dt, b, sq, sk, h, h, d,
+                              seed=seed0 + 100 + i)[0]
+        g = torch.Generator(device="cuda").manual_seed(seed0 + 200 + i)
         dlse = torch.randn((b, sq, h), generator=g, device="cuda")
         qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
         ko = torch.tensor(kv_off, dtype=torch.int32, device="cuda")
-        out, lse = kernels.flash_fwd(q, k, v, q_off, kv_off, True)
+        out, lse = kernels.flash_fwd(q, k, v, q_off, kv_off, causal)
         dd = (do.float() * out.float()).sum(-1) - dlse
         got = [kernels.flash_bwd_dq(q, k, v, do, lse, dd, q_off, kv_off,
-                                    True),
+                                    causal),
                *kernels.flash_bwd_dkv(q, k, v, do, lse, dd, q_off, kv_off,
-                                      True)]
-        p_out, p_lse = flash._torch_block(q, k, v, qo, ko, True)
+                                      causal)]
+        p_out, p_lse = flash._torch_block(q, k, v, qo, ko, causal)
         want = flash._torch_block_bwd(q, k, v, out, lse, do, dlse, qo, ko,
-                                      True)
+                                      causal)
         torch.cuda.synchronize()
         err_o, _, err_l, ok = forward_errors(out, lse, p_out, p_lse, dt)
         errs = []
@@ -3486,7 +4286,7 @@ def sp_kernel_numbers(flash, kernels):
             errs.append(e)
             ok = ok and bool(torch.isfinite(a).all()) and \
                 e <= BWD_BF16_REL * max(r.float().abs().max().item(), 1e-30)
-        masked = kernels.block_masked(sq, sk, q_off, kv_off, True)
+        masked = kernels.block_masked(sq, sk, q_off, kv_off, causal)
         if masked:
             ok = ok and bool((out == 0).all()) and bool(
                 (lse == flash.NEG_BIG).all()) and all(
@@ -3495,9 +4295,9 @@ def sp_kernel_numbers(flash, kernels):
         worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs[0])
         worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], *errs[1:])
         del got, want, p_out, p_lse
-        check(ok, f"SP kernel shape {name} disagrees with the plain version")
+        check(ok, f"kernel shape {name} disagrees with the plain version")
 
-        pairs = b * h * live_pairs(sq, sk, q_off, kv_off, 0, True)
+        pairs = b * h * live_pairs(sq, sk, q_off, kv_off, 0, causal)
         qb, kb, st = b * sq * h * d * 2, b * sk * h * d * 2, b * sq * h * 4
         if masked:
             bounds = {"flash_fwd": bound(0.0, 2 * qb + st, dt),
@@ -3512,19 +4312,19 @@ def sp_kernel_numbers(flash, kernels):
                                              2 * qb + 4 * kb + 2 * st, dt)}
         it = 3 if b * sq * sk > 2**27 else 10
         ms = {"flash_fwd": event_ms(lambda: kernels.flash_fwd(
-            q, k, v, q_off, kv_off, True), iters=it),
+            q, k, v, q_off, kv_off, causal), iters=it),
             "flash_bwd_dq": event_ms(lambda: kernels.flash_bwd_dq(
-                q, k, v, do, lse, dd, q_off, kv_off, True), iters=it),
+                q, k, v, do, lse, dd, q_off, kv_off, causal), iters=it),
             "flash_bwd_dkv": event_ms(lambda: kernels.flash_bwd_dkv(
-                q, k, v, do, lse, dd, q_off, kv_off, True), iters=it)}
+                q, k, v, do, lse, dd, q_off, kv_off, causal), iters=it)}
 
         def plain_bwd(parts):
             return event_ms(lambda: flash._torch_block_bwd(
-                q, k, v, out, lse, do, dlse, qo, ko, True, parts=parts),
+                q, k, v, out, lse, do, dlse, qo, ko, causal, parts=parts),
                 iters=2, warmup=1)
 
         plain = {"flash_fwd": event_ms(lambda: flash._torch_block(
-            q, k, v, qo, ko, True), iters=2, warmup=1),
+            q, k, v, qo, ko, causal), iters=2, warmup=1),
             "flash_bwd_dq": plain_bwd(("dq",)),
             "flash_bwd_dkv": plain_bwd(("dkv",))}
         lib_ms = {"flash_fwd": None, "pair": None}
@@ -3533,11 +4333,11 @@ def sp_kernel_numbers(flash, kernels):
                           for x in (q, k, v))
             dot = do.transpose(1, 2)
             sdpa = torch.nn.functional.scaled_dot_product_attention
-            causal = lib == "causal"
-            lf = event_ms(lambda: sdpa(qt, kt, vt, is_causal=causal),
+            is_causal = lib == "causal"
+            lf = event_ms(lambda: sdpa(qt, kt, vt, is_causal=is_causal),
                           iters=it)
             lfb = event_ms(lambda: torch.autograd.grad(
-                sdpa(qt, kt, vt, is_causal=causal), (qt, kt, vt), dot),
+                sdpa(qt, kt, vt, is_causal=is_causal), (qt, kt, vt), dot),
                 iters=it)
             lib_ms = {"flash_fwd": lf, "pair": lfb - lf}
             del qt, kt, vt
@@ -3549,7 +4349,8 @@ def sp_kernel_numbers(flash, kernels):
                                      "flash_bwd_dq": errs[0],
                                      "flash_bwd_dkv": max(errs[1:])}}
         pair = ms["flash_bwd_dq"] + ms["flash_bwd_dkv"]
-        print(f"  {name:16s} ({b}, {sq}, {h}, {d}) q_off {q_off} kv_off "
+        print(f"  {name:16s} ({b}, {sq}, {h}, {d}) "
+              f"{'causal' if causal else 'non-causal'} q_off {q_off} kv_off "
               f"{kv_off}{' masked' if masked else ''}: K2 {ms['flash_fwd']:.4f}"
               f" ms (bound {bounds['flash_fwd'][0]:.4f} "
               f"{bounds['flash_fwd'][1]}, plain {plain['flash_fwd']:.3f}"
@@ -3567,6 +4368,37 @@ def sp_kernel_numbers(flash, kernels):
         del q, k, v, do, out, lse, dd
         torch.cuda.empty_cache()
     return res, worst
+
+
+def requant_numbers(qk):
+    """K1 in its hop-0 form (``requant_blocks``, the block-q8 encode of
+    the compressed Allgather) at the Allgather shard's (65536, 256)
+    blocks: bitwise against the plain requant, then kernel ms, bound and
+    plain ms.  The operands (84 MB) exceed the 50 MB L2."""
+    nb = AG_SHARD_BLOCKS
+    g = torch.Generator(device="cuda").manual_seed(77)
+    mine = torch.randn((nb, 256), generator=g, device="cuda")
+    q, s, _ = qk.dequant_accum_requant(None, None, mine, impl="cuda")
+    pq, ps, _ = qk.dequant_accum_requant(None, None, mine, impl="torch")
+    mism = bits_differ(q, pq) + bits_differ(s, ps)
+    check(mism == 0, "K1 requant disagrees at the Allgather shard")
+    k_ms = event_ms(lambda: qk.dequant_accum_requant(None, None, mine,
+                                                     impl="cuda"),
+                    iters=20, warmup=3)
+    p_ms = event_ms(lambda: qk.dequant_accum_requant(None, None, mine,
+                                                     impl="torch"),
+                    iters=5, warmup=1)
+    # mine read (4 B), q' written (1 B) per element, the scale (4 B) per
+    # row; |x|, max, divide, round, clamp: 5 operations per element.
+    nbytes = nb * 256 * 5 + nb * 4
+    b_ms, b_by = bound(5.0 * nb * 256, nbytes, torch.float32)
+    print(f"  q8_requant (K1 hop 0) at the Allgather shard ({nb}, 256): "
+          f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}, {nbytes / 1e6:.1f} MB), {100 * b_ms / k_ms:.1f}% of "
+          f"bound; kernel vs plain mismatched elements {mism}; no single "
+          "PyTorch call computes it (library_ms null)", flush=True)
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "blocks": nb}
 
 
 def main():
@@ -3596,6 +4428,10 @@ def main():
     from mpi4torch_tpu_torch import fuse
     from mpi4torch_tpu_torch.ops import ragged
     from mpi4torch_tpu_torch.utils import threefry
+    from mpi4torch_tpu_torch.models import resnet as R
+    from mpi4torch_tpu_torch.models import vit as V
+    from mpi4torch_tpu_torch.parallel import pp
+    from mpi4torch_tpu_torch.utils import data
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3919,7 +4755,34 @@ def main():
           "(flash_attention), TP=2 rank threads")
     tp_layers = tp_layers_phase(P, kernels, flash)
 
-    phase(28, "kernels")
+    phase(28, f"the bf16 codecs and the compressed Allgather, "
+          f"{BENCH_RANKS} rank threads x {BENCH_NUMEL} float32")
+    print(smi)
+    compressed = compression_phase(P, C, config, kernels, threefry)
+    compressed["fused_bf16_ms"] = fused_bf16_line(
+        P, T, tree, cfg, params, tokens, q8f, fused)
+
+    phase(29, f"BASELINE config 4: ResNet-18 DP=2, batch {RESNET_BATCH} a "
+          f"rank, {RESNET_HW} x {RESNET_HW} x 3, f32")
+    resnet = resnet_phase(P, R, data, tree)
+
+    phase(30, f"ViT-B/16, bf16, batch {VIT_BATCH} a rank: DP=2 and "
+          "patch-parallel SP=2")
+    vit = vit_phase(P, V, kernels, tree)
+
+    phase(31, f"PP=2 on the flagship at full width: {PP_MB} microbatches "
+          f"of {PP_ROWS} x {TRAIN_SEQ}, GPipe, 1F1B, interleaved")
+    pipe = pp_phase(P, T, pp, kernels, flash, tree, cfg, params, tokens)
+
+    phase(32, "kernel rows at this slice's shapes: K2/K3/K4 at the ViT, "
+          "its patch-parallel block and the PP microbatch; K1 at the "
+          "Allgather shard")
+    print(smi)
+    s10_shapes, s10_worst = attention_kernel_numbers(
+        flash, kernels, SLICE10_KERNEL_SHAPES, seed0=600)
+    requant = requant_numbers(qk)
+
+    phase(33, "kernels")
     print(smi)
     sp_shapes, sp_worst = sp_kernel_numbers(flash, kernels)
     # flash_fwd: launches on the serving path (phase 4), times at the
@@ -4059,7 +4922,44 @@ def main():
                   for k in kernels.ATTENTION_KERNELS),
           "an SP strategy launched no attention kernel, or none at an "
           "offset or on a masked block")
+    # This slice's paths: each attention kernel's launches in a ViT-B/16
+    # DP=2 step and SP=2 forward + backward (phase 30) and in a PP=2 step
+    # of each schedule (phase 31); its numbers at the ViT, patch-parallel
+    # block and PP microbatch shapes (phase 32).  q8_hop: K1's requant
+    # launches in each compressed Allgather (phase 28), its numbers at the
+    # Allgather shard in the hop-0 form (phase 32).
+    for entry in line["kernels"][:3]:
+        kname = entry["name"]
+        entry["vit_launches"] = {k: v[kname]
+                                 for k, v in vit["launches"].items()}
+        entry["pp_launches"] = {k: v["launches"][kname]
+                                for k, v in pipe.items()}
+        entry["slice10_shapes"] = {
+            name: {"ms": v["ms"][kname], "bound_ms": v["bound_ms"][kname],
+                   "bound_by": v["bound_by"][kname],
+                   "plain_ms": v["plain_ms"][kname],
+                   "library_ms": v["library_ms"]["flash_fwd"]
+                   if kname == "flash_fwd" else None,
+                   "pair_library_ms": None if kname == "flash_fwd"
+                   else v["library_ms"]["pair"],
+                   "max_abs_err": v["max_abs_err"][kname]}
+            for name, v in s10_shapes.items()}
+        entry["max_abs_err"] = max(entry["max_abs_err"], s10_worst[kname])
+    hop_entry["allgather_requant_launches"] = {
+        k: v["requant_launches"] for k, v in compressed["allgather"].items()}
+    hop_entry["allgather_shard"] = requant
+    check(all(v["requant_launches"] > 0 for k, v in
+              compressed["allgather"].items() if k.startswith("q8")),
+          "a compressed q8 Allgather launched no requant kernel")
+    check(all(v[k] > 0 for v in vit["launches"].values()
+              for k in kernels.ATTENTION_KERNELS)
+          and all(v["launches"][k] > 0 for v in pipe.values()
+                  for k in kernels.ATTENTION_KERNELS),
+          "a ViT or PP run launched no attention kernel")
     print(json.dumps(line))
+    print(f"  ResNet-18 DP=2 step {resnet['dp_grad_train_step']['ms']:.1f} "
+          f"ms; ViT-B/16 DP=2 step {vit['ms']:.1f} ms; PP=2 1F1B step "
+          f"{pipe['1f1b']['ms']:.1f} ms")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

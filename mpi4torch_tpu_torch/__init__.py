@@ -14,11 +14,14 @@ rank-thread runtime (``run_ranks``), the ragged collectives
 (``ops.ragged``), the bucket fusion and overlap machinery (``fuse``,
 ``overlap``), the ring shift and halo exchange (``parallel.ring``), an
 eager L-BFGS (``utils.lbfgs``), the block-q8 codecs on ``ring``/
-``bidir``/``torus`` with cross-step error feedback (``compress``), the
+``bidir``/``torus``, the bf16 codecs on ``ring`` and the compressed
+``Allgather``, with cross-step error feedback (``compress``), the
 flagship transformer with its continuous-batching engine
 (``serve.Engine``), its SGD ``train_step`` and its ZeRO-1/3 steps
 (``parallel.zero`` with the functional optimizers of ``utils.optim``),
-and ``parallel.dp``.  Its attention runs through
+``parallel.dp``, pipeline parallelism (``parallel.pp``), the MLP,
+ResNet-18 and ViT models (``models``) and the per-rank input pipeline
+(``utils.data``).  Its attention runs through
 hand-written CUDA kernels, forward and backward: on the tensor cores for
 bf16 with head dim <= 128 (``ops/csrc/flash_fwd_tc.cu``,
 ``ops/csrc/flash_bwd_tc.cu``), on the CUDA cores otherwise

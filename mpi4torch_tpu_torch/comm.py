@@ -40,7 +40,7 @@ from .compress import codec_applicable, codec_rides_algorithm, get_codec
 from .compress import eager as _ceager
 from .ops import eager as _eager
 from .runtime import HealthReport, effective_rank_context
-from .tune import resolve_request
+from .tune import codec_algorithms, resolve_request
 
 
 class WaitHandle:
@@ -109,7 +109,7 @@ def _reconcile_codec_algorithm(codec, algo, codec_explicit: bool):
     if codec_explicit:
         raise ValueError(
             f"compression={codec.name!r} composes with the "
-            f"{'/'.join(codec.algorithms)} wire algorithm(s) "
+            f"{'/'.join(codec_algorithms(codec))} wire algorithm(s) "
             f"only; algorithm={algo!r} cannot carry this codec — drop "
             "one of the two")
     return None, algo
@@ -174,16 +174,16 @@ class MPI_Communicator:
         Only ``MPI_SUM`` is differentiable; other ops raise in backward.
 
         ``compression`` picks a codec (``"q8"``, ``"q8_ef"``,
-        ``"q8_ef_hop"``, a Codec object, or ``False`` to override a
-        compression scope); a compressed Allreduce is ``MPI_SUM`` only and
-        its backward is itself compressed.  ``algorithm`` picks the wire
-        schedule (``"ring"``, ``"rhd"``, ``"tree"``, ``"hier"``,
-        ``"bidir"``, ``"torus"``; the block-q8 codecs ride ``ring``,
-        ``bidir`` and ``torus``; ``False``/``"auto"``/None for the
-        selector).  On the rank threads a schedule is a reduction
-        association: the exact wire folds in that schedule's (ascending
-        rank for ``ring`` and ``bidir``), and the backward uses the same
-        one.  The profiler span carries the codec and a non-ring
+        ``"q8_ef_hop"``, ``"bf16"``, ``"bf16r"``, a Codec object, or
+        ``False`` to override a compression scope); a compressed Allreduce
+        is ``MPI_SUM`` only and its backward is itself compressed.
+        ``algorithm`` picks the wire schedule (``"ring"``, ``"rhd"``,
+        ``"tree"``, ``"hier"``, ``"bidir"``, ``"torus"``; the block-q8
+        codecs ride ``ring``, ``bidir`` and ``torus``, the bf16 codecs
+        ``ring``; ``False``/``"auto"``/None for the selector).  On the
+        rank threads a schedule is a reduction association: the exact
+        wire folds in that schedule's (ascending rank for ``ring`` and
+        ``bidir``), and the backward uses the same one.  The profiler span carries the codec and a non-ring
         algorithm (``mpi4torch.Allreduce.q8.bidir``)."""
         codec, algo = self._allreduce_plan(tensor, op, compression,
                                            algorithm)
@@ -282,35 +282,38 @@ class MPI_Communicator:
         return _eager.gather(effective_rank_context(), tensor, gatheraxis,
                              root)
 
-    @_named_op
     def Allgather(self, tensor, gatheraxis: int, numelem=None,
                   compression=None):
         """Gather with the result on every rank; the adjoint is the
         ordered reduce-scatter.  A per-rank tuple ``numelem``: see
         :meth:`Gather`; the packed path is always exact (an explicit
-        codec raises there, a scope codec does not apply).  A compressed
-        Allgather is not ported yet: an explicit ``compression=`` raises,
-        and so does a scope or process codec on a floating tensor (the
-        JAX package would compress there, so the exact wire would be
-        another answer)."""
+        codec raises there, a scope codec does not apply).
+
+        ``compression`` picks a wire codec as for :meth:`Allreduce`
+        (``None`` defers to the compression scope, which applies to
+        floating tensors only): the shard travels encoded, every rank
+        decodes every shard, and the adjoint is a compressed
+        reduce-scatter.  The profiler span carries the codec
+        (``mpi4torch.Allgather.bf16``)."""
         if numelem is not None:
             if compression is not None and \
                     get_codec(compression) is not None:
                 raise ValueError(
                     "Allgather: compression= is not supported together "
                     "with the packed numelem= path")
-            from .ops.packed import packed_allgather
-            if isinstance(numelem, numbers.Integral):
-                numelem = (int(numelem),) * self.size   # uniform prefix
-            return packed_allgather(self, tensor, gatheraxis, numelem)
+            with torch.profiler.record_function("mpi4torch.Allgather"):
+                from .ops.packed import packed_allgather
+                if isinstance(numelem, numbers.Integral):
+                    numelem = (int(numelem),) * self.size  # uniform prefix
+                return packed_allgather(self, tensor, gatheraxis, numelem)
         codec = _codec_for(tensor, _resolve_compression(compression),
                            explicit=compression is not None)
-        if codec is not None:
-            raise NotImplementedError(
-                f"Allgather with compression {codec.name!r}: the "
-                "compressed Allgather is not ported yet (ROADMAP.md, Queue "
-                "1 item 1); pass compression=False for the exact wire")
-        return _eager.allgather(effective_rank_context(), tensor, gatheraxis)
+        ctx = effective_rank_context()
+        span = "mpi4torch.Allgather" + (f".{codec.name}" if codec else "")
+        with torch.profiler.record_function(span):
+            if codec is None:
+                return _eager.allgather(ctx, tensor, gatheraxis)
+            return _ceager.allgather(ctx, tensor, gatheraxis, codec)
 
     @_named_op
     def Reduce_scatter(self, tensor, op: int, scatteraxis: int):

@@ -5,7 +5,7 @@ Port of ``mpi4torch_tpu/compress/codecs.py``.  A codec is a pair of maps
     encode(x, key=None) -> (payload, meta)      # payload: dict of tensors
     decode(payload, meta) -> x_approx           # original shape and dtype
 
-plus the flags the collectives read.  The block-q8 family is ported:
+plus the flags the collectives read.  The registered codecs:
 
 =============  =====================================  ======
 name           scheme                                 rounds
@@ -14,10 +14,12 @@ name           scheme                                 rounds
 ``q8_ef``      q8 + one in-call error-feedback round   2
 ``q8_ef_hop``  q8 with per-hop stochastic rounding     1
                and per-hop error feedback
+``bf16``       round-to-nearest-even bfloat16          1
+``bf16r``      stochastically rounded bfloat16 (keyed) 1
 =============  =====================================  ======
 
-A request for ``bf16`` or ``bf16r`` raises ``NotImplementedError``
-(ROADMAP.md, Queue 1 item 1).
+:func:`register_codec` adds a codec under its name, and every facade op
+then accepts ``compression="<name>"``.
 """
 
 from __future__ import annotations
@@ -47,12 +49,19 @@ class Codec:
     codecs encode block-shaped data with exactly the requantization of
     ``ops/quant_kernels.py``, so the ring may run each hop as one fused
     kernel; ``hop_ef`` folds each hop's residual into the same rank's next
-    contribution."""
+    contribution.
+
+    ``schedule_keyed`` marks stochastic codecs whose noise is a pure
+    function of the collective schedule (salt × hop × rank), so the
+    quantized fold oracle reproduces it bit for bit.  ``bf16r`` is not
+    schedule-keyed: the rank-thread collectives fold a per-rank call
+    counter into its key, so repeated calls round with fresh noise."""
 
     name: str
     stochastic: bool = False
     ef_rounds: int = 1
     algorithms: Tuple[str, ...] = ("ring",)
+    schedule_keyed: bool = False
     hop_fused: bool = False
     hop_ef: bool = False
 
@@ -70,6 +79,17 @@ class Codec:
         """decode(encode(x)): the local lossy approximation."""
         payload, meta = self.encode(x, key)
         return self.decode(payload, meta)
+
+    def wire_bytes(self, shape, dtype) -> int:
+        """Bytes a tensor of ``shape`` and ``dtype`` occupies on the wire
+        once encoded: the sizes of the payload's tensors, taken from the
+        codec's own encode run on the ``meta`` device (shapes and dtypes,
+        no data), so the number cannot drift from the implementation."""
+        x = torch.zeros(shape, dtype=dtype, device="meta")
+        payload, _ = self.encode(
+            x, threefry.PRNGKey(0) if self.stochastic else None)
+        return int(sum(t.numel() * t.element_size()
+                       for t in payload.values()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,11 +145,61 @@ class HopEFQ8Codec(BlockQ8Codec):
 
     name: str = "q8_ef_hop"
     stochastic: bool = True
+    schedule_keyed: bool = True
     hop_ef: bool = True
 
     def encode(self, x, key=None):
         return self._encode_blocks(
             x, threefry.PRNGKey(0) if key is None else key)
+
+
+@dataclasses.dataclass(frozen=True)
+class BF16Codec(Codec):
+    """Round-to-nearest-even bfloat16: half the f32 wire bytes, relative
+    error at most 2^-8 (half an ulp of 8 significant bits); deterministic
+    and key-free."""
+
+    name: str = "bf16"
+
+    def encode(self, x, key=None):
+        q = x.to(torch.float32).to(torch.bfloat16).reshape(-1)
+        return {"q": q}, ("bf16", tuple(x.shape), x.dtype)
+
+    def decode(self, payload, meta):
+        _, shape, dtype = meta
+        return payload["q"].to(torch.float32).reshape(shape).to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class BF16StochasticCodec(Codec):
+    """Stochastically rounded bfloat16: 16 uniform random bits are added
+    to the f32 bit pattern (wrapping in 32 bits) before its high 16 bits
+    are kept, so rounding is unbiased (``E[decode(encode(x))] = x``).  The
+    bits are ``jax.random.bits(key, n, uint32) & 0xFFFF``
+    (:func:`~mpi4torch_tpu_torch.utils.threefry.random_bits`), so the
+    encode is bitwise the JAX package's for the same key.  The words are
+    carried in int64, masked to 32 bits: torch has no uint32 arithmetic
+    on every device."""
+
+    name: str = "bf16r"
+    stochastic: bool = True
+
+    def encode(self, x, key=None):
+        if key is None:
+            key = threefry.PRNGKey(0)
+        x32 = x.to(torch.float32).reshape(-1)
+        bits = x32.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        noise = threefry.random_bits(key, 32, x32.shape,
+                                     device=x32.device) & 0xFFFF
+        hi = ((bits + noise) & 0xFFFFFFFF) >> 16
+        # The 16-bit pattern as a signed int16, then read as bfloat16.
+        hi = hi - ((hi >> 15) << 16)
+        q = hi.to(torch.int16).view(torch.bfloat16)
+        return {"q": q}, ("bf16r", tuple(x.shape), x.dtype)
+
+    def decode(self, payload, meta):
+        _, shape, dtype = meta
+        return payload["q"].to(torch.float32).reshape(shape).to(dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,10 +223,19 @@ class ErrorFeedbackCodec(Codec):
         return self._base.decode(payload, meta)
 
 
-_REGISTRY: Dict[str, Codec] = {
-    codec.name: codec
-    for codec in (BlockQ8Codec(), HopEFQ8Codec(), ErrorFeedbackCodec())}
-_NOT_PORTED = ("bf16", "bf16r")
+    def wire_bytes(self, shape, dtype) -> int:
+        return self.ef_rounds * self._base.wire_bytes(shape, dtype)
+
+
+_REGISTRY: Dict[str, Codec] = {}
+
+
+def register_codec(codec: Codec) -> Codec:
+    """Register ``codec`` under ``codec.name``; returns it."""
+    if not codec.name:
+        raise ValueError("codec must have a non-empty name")
+    _REGISTRY[codec.name] = codec
+    return codec
 
 
 def available_codecs() -> Tuple[str, ...]:
@@ -175,11 +254,6 @@ def get_codec(spec) -> Optional[Codec]:
         codec = _REGISTRY.get(spec)
         if codec is not None:
             return codec
-        if spec in _NOT_PORTED:
-            raise NotImplementedError(
-                f"compression={spec!r}: the bf16 codecs are not ported yet "
-                "(ROADMAP.md, Queue 1 item 1); the block-q8 family (q8, "
-                "q8_ef, q8_ef_hop) is")
         raise ValueError(
             f"unknown compression codec {spec!r}; available: "
             f"{', '.join(available_codecs())}")
@@ -188,3 +262,8 @@ def get_codec(spec) -> Optional[Codec]:
     raise TypeError(
         f"compression must be a registered codec name, a Codec subclass "
         f"instance, or None; got {spec!r}")
+
+
+for _codec in (BlockQ8Codec(), HopEFQ8Codec(), BF16Codec(),
+               BF16StochasticCodec(), ErrorFeedbackCodec()):
+    register_codec(_codec)

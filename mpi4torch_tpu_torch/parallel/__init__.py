@@ -9,13 +9,16 @@ Port of ``mpi4torch_tpu/parallel``:
     tp         — tensor parallelism: sharding helpers, column/row-parallel
                  layers, the TP MLP and attention
     moe        — expert parallelism: capacity-based MoE over Alltoall
+    pp         — pipeline parallelism: GPipe, interleaved and 1F1B over
+                 Isend/Irecv/Wait
     zero       — ZeRO-1/3 sharded optimizer steps
 
-Pipeline parallelism (``pp``) and ``zero3_to_tp`` are not ported yet
-(ROADMAP.md, Queue 1 item 3).
+``pp.pipeline_spmd`` needs the compiled backend (ROADMAP.md, Queue 1
+item 4) and raises; ``zero3_to_tp`` is not ported yet (ROADMAP.md, Queue 1
+item 6).
 """
 
-from . import attention, dp, moe, ring, tp, zero
+from . import attention, dp, moe, pp, ring, tp, zero
 
 from .attention import (dense_attention, ring_attention,
                         ulysses_attention, zigzag_positions, zigzag_slice,
@@ -23,6 +26,9 @@ from .attention import (dense_attention, ring_attention,
 from .dp import all_average_tree, dp_value_and_grad
 from .moe import (balanced_assignment, init_moe, moe_ffn, moe_ffn_dense,
                   rebalance_experts, top1_route)
+from .pp import (pipeline_spmd, pipeline_step, pipeline_step_1f1b,
+                 pipeline_step_interleaved, recv_activation, schedule_1f1b,
+                 send_activation)
 from .ring import halo_exchange, ring_shift
 from .tp import (column_parallel_linear, row_parallel_linear, shard_axis,
                  shard_heads, tp_attention, tp_mlp)
@@ -30,9 +36,12 @@ from .zero import (shard_global_norm, zero3_init, zero3_params,
                    zero3_shard_params, zero3_step, zero_init, zero_step)
 
 __all__ = [
-    "attention", "dp", "moe", "ring", "tp", "zero",
+    "attention", "dp", "moe", "pp", "ring", "tp", "zero",
     "all_average_tree", "dp_value_and_grad",
     "halo_exchange", "ring_shift",
+    "pipeline_spmd", "pipeline_step", "pipeline_step_1f1b",
+    "pipeline_step_interleaved", "recv_activation", "schedule_1f1b",
+    "send_activation",
     "dense_attention", "ring_attention", "ulysses_attention",
     "zigzag_positions", "zigzag_slice", "zigzag_ring_attention",
     "column_parallel_linear", "row_parallel_linear", "shard_axis",

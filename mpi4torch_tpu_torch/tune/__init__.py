@@ -2,8 +2,9 @@
 
 Port of ``mpi4torch_tpu/tune/__init__.py`` as far as the facade reads
 it: the request resolver (:func:`resolve_request`), the 2-level group
-rule of ``hier`` and ``torus`` (:func:`resolve_hier_group`) and the
-selector (:func:`select_auto`).
+rule of ``hier`` and ``torus`` (:func:`resolve_hier_group`), the
+selector (:func:`select_auto`) and a codec's declared algorithms
+(:func:`codec_algorithms`).
 
 The JAX package's selector first asks its persisted autotuner cache for
 a measured winner, and its latency tier picks ``rhd``/``tree`` for small
@@ -23,9 +24,15 @@ from ..runtime import CommError
 from .registry import AlgorithmSpec, best_group, get_algorithm
 
 __all__ = [
-    "AlgorithmSpec", "best_group", "get_algorithm", "resolve_request",
-    "resolve_hier_group", "select_auto",
+    "AlgorithmSpec", "best_group", "codec_algorithms", "get_algorithm",
+    "resolve_request", "resolve_hier_group", "select_auto",
 ]
+
+
+def codec_algorithms(codec) -> tuple:
+    """The wire algorithms ``codec`` declares it composes with
+    (``Codec.algorithms``; a codec without the field is ring-only)."""
+    return tuple(getattr(codec, "algorithms", ("ring",)))
 
 
 def resolve_request(requested, *, collective: str = "allreduce",
@@ -74,11 +81,14 @@ def select_auto(*, nbytes: int, nranks: int, deterministic: bool = False,
     """The selector: the algorithm of an auto-selected Allreduce, a pure
     function of the call and the config knobs.  Deterministic mode pins
     ``ring``; at or above the bandwidth crossover ``bidir``, when
-    ``codec`` (if any) rides it; otherwise ``ring``."""
+    ``codec`` (if any) rides it (``compress.codec_rides_algorithm``);
+    otherwise ``ring``."""
     if nranks <= 1 or deterministic:
         return "ring"
     bandwidth = _config.bandwidth_crossover_bytes()
-    if bandwidth is not None and nbytes >= bandwidth \
-            and (codec is None or "bidir" in codec.algorithms):
-        return "bidir"
+    if bandwidth is not None and nbytes >= bandwidth:
+        from ..compress import codec_rides_algorithm
+
+        if codec is None or codec_rides_algorithm(codec, "bidir"):
+            return "bidir"
     return "ring"

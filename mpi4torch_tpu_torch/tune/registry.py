@@ -23,10 +23,15 @@ class AlgorithmSpec:
     """A registered collective algorithm and its applicability rules: the
     ``collectives`` it serves; ``requires_power_of_two`` algorithms need a
     power-of-two world, ``requires_factorable`` ones a 2-level group split
-    of the world (:func:`best_group`)."""
+    of the world (:func:`best_group`).  ``codec_capable`` is the
+    registry's side of the codec/algorithm composition rule
+    (``compress.codec_rides_algorithm``): True for the ring-shaped
+    schedules, whose channels can carry a requantizing per-hop pipeline;
+    a codec must also declare the algorithm in ``Codec.algorithms``."""
 
     name: str
     collectives: Tuple[str, ...] = ("allreduce",)
+    codec_capable: bool = False
     requires_power_of_two: bool = False
     requires_factorable: bool = False
 
@@ -68,12 +73,13 @@ def best_group(n: int) -> Optional[int]:
 
 
 _REGISTRY = {spec.name: spec for spec in (
-    AlgorithmSpec("ring", collectives=("allreduce", "reduce", "bcast")),
+    AlgorithmSpec("ring", collectives=("allreduce", "reduce", "bcast"),
+                  codec_capable=True),
     AlgorithmSpec("rhd", requires_power_of_two=True),
     AlgorithmSpec("tree", collectives=("allreduce", "reduce", "bcast")),
     AlgorithmSpec("hier", requires_factorable=True),
-    AlgorithmSpec("bidir"),
-    AlgorithmSpec("torus", requires_factorable=True),
+    AlgorithmSpec("bidir", codec_capable=True),
+    AlgorithmSpec("torus", requires_factorable=True, codec_capable=True),
 )}
 
 

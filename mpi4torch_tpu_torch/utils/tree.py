@@ -80,14 +80,21 @@ def tree_from_structure(treedef, leaves):
     return build(treedef)
 
 
-def value_and_grad(fn: Callable, params, *args):
+def value_and_grad(fn: Callable, params, *args, has_aux: bool = False):
     """``(fn(params, *args), d fn / d params)`` for a scalar ``fn``: the
     counterpart of ``jax.value_and_grad``.  The gradient is a tree shaped
     like ``params``, zero for a leaf ``fn`` does not read (as in JAX);
-    the value is detached."""
+    the value is detached.  With ``has_aux``, ``fn`` returns ``(scalar,
+    aux)`` and the result is ``((value, aux), grads)``, aux's tensors
+    detached."""
     leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
-    value = fn(tree_unflatten(params, leaves), *args)
+    out = fn(tree_unflatten(params, leaves), *args)
+    value = out[0] if has_aux else out
     grads = torch.autograd.grad(value, leaves, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g
              for t, g in zip(leaves, grads)]
-    return value.detach(), tree_unflatten(params, grads)
+    grads = tree_unflatten(params, grads)
+    if has_aux:
+        return (value.detach(), tree_map(torch.Tensor.detach, out[1])), \
+            grads
+    return value.detach(), grads

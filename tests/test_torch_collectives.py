@@ -220,8 +220,21 @@ def test_bitwise_op_on_floats_raises_on_every_rank(numel):
 @pytest.mark.parametrize("kw", [{"compression": "bf16"},
                                 {"algorithm": "synth:deadbeef00"}])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        P.COMM_WORLD.Allreduce(torch.ones(3), P.MPI_SUM, **kw)
+    # Synthesized schedules are not ported and raise, naming ROADMAP.md.
+    # The bf16 codec is ported: on two ranks it returns the bf16-rounded
+    # sum on both.
+    if "algorithm" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            P.COMM_WORLD.Allreduce(torch.ones(3), P.MPI_SUM, **kw)
+        return
+    x = torch.tensor([1.0, 1 / 3, -2.5])
+
+    def fn(r):
+        return P.COMM_WORLD.Allreduce(x * (r + 1), P.MPI_SUM, **kw)
+
+    want = (x.bfloat16().float() + (2 * x).bfloat16().float())
+    for out in P.run_ranks(fn, 2, device="cpu"):
+        assert torch.equal(out, want)
 
 
 def test_unported_backend_and_overlap_raise():

@@ -418,11 +418,12 @@ def test_indivisible_reduce_scatter_and_numelem_mismatch_raise():
 def test_unported_options_raise_naming_roadmap():
     def body():
         t = torch.ones(4)
-        for call in (lambda: comm.Allgather(t, 0, compression="q8"),
-                     lambda: comm.Allreduce(t, P.MPI_SUM,
-                                            algorithm="synth:deadbeef")):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                call()
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            comm.Allreduce(t, P.MPI_SUM, algorithm="synth:deadbeef")
+        # The compressed Allgather is ported: q8 carries integer-valued
+        # blocks exactly.
+        assert torch.equal(comm.Allgather(t, 0, compression="q8"),
+                           torch.ones(8))
         # The packed numelem and the split-phase forms are ported: on two
         # ranks they give the dense and blocking answers.
         r = comm.rank
@@ -442,12 +443,15 @@ def test_unported_options_raise_naming_roadmap():
             comm.Reduce_scatter(x, P.MPI_SUM, 0))
         assert torch.equal(comm.Wait(comm.Allgather_start(x, 0)),
                            comm.Allgather(x, 0))
-        # A scope codec would compress in the JAX package: no silent
-        # exact wire.  An integer payload stays exact in both.
+        # A scope codec compresses a floating Allgather, as in the JAX
+        # package; an integer payload stays exact in both.
+        third = x / 3
         with P.config.compression_scope("q8"):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                comm.Allgather(t, 0)
+            scoped = comm.Allgather(third, 0)
             ints = comm.Allgather(torch.ones(2, dtype=torch.int32), 0)
+        assert torch.equal(scoped, comm.Allgather(third, 0,
+                                                  compression="q8"))
+        assert not torch.equal(scoped, comm.Allgather(third, 0))
         assert ints.tolist() == [1] * 4
         return True
 

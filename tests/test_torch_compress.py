@@ -5,8 +5,10 @@ Every value comparison is bitwise: the quantized fold oracle
 torus over (2,), (3,), (4,) and (8,) worlds; the compressed ``Allreduce``
 value and gradient under ``run_ranks`` against JAX ``run_ranks``; and
 ``ef_allreduce`` over two steps.  The facade's degrade/raise rules are
-held to the JAX package's where both packages serve the call, and to
-``NotImplementedError`` naming ROADMAP.md where the port does not yet.
+held to the JAX package's.  The bf16 codecs (round-to-nearest and
+stochastic) and the compressed ``Allgather`` with its reduce-scatter
+adjoint are held bitwise to JAX's Mode B for every codec, ``bf16r`` with
+the same per-rank call counter.
 """
 
 import jax
@@ -159,7 +161,8 @@ def _bf16_as_f32(tree):
             else np.asarray(v) for k, v in tree.items()}
 
 
-@pytest.mark.parametrize("codec", ["q8", "q8_ef", "q8_ef_hop"])
+@pytest.mark.parametrize("codec", ["q8", "q8_ef", "q8_ef_hop", "bf16",
+                                   "bf16r"])
 def test_ef_allreduce_two_steps_bitwise_vs_jax(codec):
     n = 3
     grads = [[_grad_tree(np.random.default_rng(10 * step + r), step)
@@ -202,7 +205,7 @@ def test_ef_allreduce_two_steps_bitwise_vs_jax(codec):
                 for k in ("a", "b", "c"):
                     assert _same_bits(got[r][step][part][k],
                                       want[r][step][part][k])
-    if codec != "q8_ef_hop":
+    if codec not in ("q8_ef_hop", "bf16r"):
         assert np.abs(got[0][0][1]["a"]).max() > 0    # a residual is carried
 
 
@@ -394,9 +397,15 @@ def test_allreduce_tree_compressed_needs_bucket_bytes_zero():
 
 
 def test_codec_registry_and_unported_codecs():
+    # Every codec of the JAX package is registered in the port (the bf16
+    # pair since their port), resolves by name, and is accepted by the
+    # facade and as a process default; unknown names and types raise.
+    from mpi4torch_tpu import compress as jcompress
     from mpi4torch_tpu_torch import compress
 
-    assert compress.available_codecs() == ("q8", "q8_ef", "q8_ef_hop")
+    assert compress.available_codecs() == \
+        ("bf16", "bf16r", "q8", "q8_ef", "q8_ef_hop") == \
+        jcompress.available_codecs()
     assert compress.get_codec("none") is None
     assert compress.get_codec(False) is None
     with pytest.raises(ValueError, match="unknown compression"):
@@ -404,11 +413,17 @@ def test_codec_registry_and_unported_codecs():
     with pytest.raises(TypeError):
         compress.get_codec(3)
     for name in ("bf16", "bf16r"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            P.COMM_WORLD.Allreduce(torch.ones(3), P.MPI_SUM,
-                                   compression=name)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            pconfig.set_default_compression(name)
+        codec = compress.get_codec(name)
+        assert codec.name == name and codec.algorithms == ("ring",)
+        assert codec.stochastic == (name == "bf16r")
+        assert not codec.schedule_keyed and not codec.hop_fused
+        x = torch.ones(3)
+        assert torch.equal(
+            P.COMM_WORLD.Allreduce(x, P.MPI_SUM, compression=name), x)
+        pconfig.set_default_compression(name)
+        assert pconfig.default_compression() is codec
+        pconfig.set_default_compression(None)
+    assert compress.get_codec("q8_ef_hop").schedule_keyed
     with pytest.raises(ValueError, match="unknown"):
         pconfig.set_default_compression("nope")
     pconfig.set_default_compression("q8")
@@ -420,7 +435,7 @@ def test_codec_registry_and_unported_codecs():
         pconfig.set_default_compression(None)
 
 
-@pytest.mark.parametrize("name", ["q8", "q8_ef_hop"])
+@pytest.mark.parametrize("name", ["q8", "q8_ef_hop", "bf16", "bf16r"])
 def test_codec_roundtrip_bitwise_vs_jax(name):
     from mpi4torch_tpu.compress import get_codec as jget
     from mpi4torch_tpu_torch.compress import get_codec as pget
@@ -447,3 +462,320 @@ def test_knob_validation():
         ptune.get_algorithm("synth:deadbeef00")
     with pytest.raises(ValueError, match="unknown collective algorithm"):
         ptune.get_algorithm("nope")
+
+
+# --- the bf16 codecs and the compressed Allgather ----------------------------
+
+ALL_CODECS = ("q8", "q8_ef", "q8_ef_hop", "bf16", "bf16r")
+
+
+@pytest.mark.parametrize("name", ["bf16", "bf16r"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_bf16_encode_bitwise_vs_jax(name, dtype):
+    from mpi4torch_tpu.compress import get_codec as jget
+    from mpi4torch_tpu_torch.compress import get_codec as pget
+    from mpi4torch_tpu_torch.utils import threefry
+
+    x = (np.random.default_rng(2).standard_normal((13, 77)) * 5) \
+        .astype(dtype)
+    # ties of round-to-nearest-even: the halfway points between bf16s
+    x.reshape(-1)[:4] = [1 + 2 ** -8, 1 + 3 * 2 ** -8, -(1 + 2 ** -8), 0.0]
+    for seed in (0, 7):
+        jp, jm = jget(name).encode(jnp.asarray(x), jax.random.PRNGKey(seed))
+        pp, pm = pget(name).encode(torch.from_numpy(x),
+                                   threefry.PRNGKey(seed))
+        assert pp["q"].dtype == torch.bfloat16
+        assert np.array_equal(pp["q"].view(torch.int16).numpy(),
+                              np.asarray(jp["q"]).view(np.int16))
+        got = pget(name).decode(pp, pm)
+        want = jget(name).decode(jp, jm)
+        assert got.dtype == torch.from_numpy(x).dtype
+        assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_bf16r_is_unbiased_and_bf16_error_bounded():
+    from mpi4torch_tpu_torch.compress import get_codec
+    from mpi4torch_tpu_torch.utils import threefry
+
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(1 << 16)
+                         .astype(np.float32))
+    # half a bf16 ulp: at most 2^-8 of |x| (8 significant bits)
+    rel = ((get_codec("bf16").roundtrip(x) - x).abs() / x.abs()).max()
+    assert rel <= 2.0 ** -8
+    err = get_codec("bf16r").roundtrip(x, threefry.PRNGKey(1)) - x
+    # one bf16 ulp of |x| bounds each error; the mean is within 4 standard
+    # errors of 0
+    assert ((err.abs() / x.abs()).max() < 2.0 ** -7).item()
+    se = err.std() / len(err) ** 0.5
+    assert abs(err.mean().item()) < 4 * se.item()
+
+
+def _jax_allreduce_twice(xs, n, codec):
+    def body(r):
+        def loss(v):
+            y = mpi.COMM_WORLD.Allreduce(v, mpi.MPI_SUM, compression=codec)
+            y2 = mpi.COMM_WORLD.Allreduce(y * 0.5, mpi.MPI_SUM,
+                                          compression=codec)
+            return jnp.vdot(y2, jnp.arange(y2.size, dtype=y2.dtype)), y2
+
+        (_, y), g = jax.value_and_grad(loss, has_aux=True)(
+            jnp.asarray(xs[r]))
+        return np.asarray(y), np.asarray(g)
+
+    return mpi.run_ranks(body, n)
+
+
+def _torch_allreduce_twice(xs, n, codec):
+    def body(r):
+        x = torch.from_numpy(xs[r]).requires_grad_()
+        y = P.COMM_WORLD.Allreduce(x, P.MPI_SUM, compression=codec)
+        y2 = P.COMM_WORLD.Allreduce(y * 0.5, P.MPI_SUM, compression=codec)
+        w = torch.arange(y2.numel(), dtype=y2.dtype)
+        (g,) = torch.autograd.grad((y2 * w).sum(), x)
+        return y2.detach().numpy(), g.numpy()
+
+    return P.run_ranks(body, n, device="cpu")
+
+
+@pytest.mark.parametrize("codec", ["bf16", "bf16r"])
+@pytest.mark.parametrize("n, numel", [(2, 1000), (3, 1000), (4, 70000)])
+def test_bf16_allreduce_value_and_grad_bitwise_vs_jax(n, numel, codec):
+    # Two Allreduces and their two adjoints: bf16r's call counter advances
+    # four times per rank in the same order in both packages; 70000
+    # elements take the fold-once path.
+    xs = _inputs(n, numel=numel, seed=11)
+    want = _jax_allreduce_twice(xs, n, codec)
+    got = _torch_allreduce_twice(xs, n, codec)
+    for r in range(n):
+        for i in (0, 1):
+            assert _same_bits(got[r][i], want[r][i])
+            assert _same_bits(got[r][i], got[0][i])
+    exact = 0.5 * n * np.sum(xs, axis=0)
+    assert np.linalg.norm(got[0][0] - exact) <= 1e-2 * np.linalg.norm(exact)
+
+
+def _gather_inputs(n, seed):
+    rng = np.random.default_rng(seed)
+    xs = [(rng.standard_normal((3, 40 + 37 * r)) * 2).astype(np.float32)
+          for r in range(n)]
+    ws = [rng.standard_normal((3, sum(x.shape[1] for x in xs)))
+          .astype(np.float32) for _ in range(n)]
+    return xs, ws
+
+
+@pytest.mark.parametrize("codec", ALL_CODECS)
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_compressed_allgather_value_and_grad_bitwise_vs_jax(n, codec):
+    # Uneven shards along axis 1 and a rank-specific cotangent, so the
+    # adjoint reduce-scatter sums distinct decoded segments.
+    xs, ws = _gather_inputs(n, seed=20 + n)
+
+    def jax_body(r):
+        def loss(v):
+            y = mpi.COMM_WORLD.Allgather(v, 1, compression=codec)
+            return jnp.vdot(y, jnp.asarray(ws[r])), y
+
+        (_, y), g = jax.value_and_grad(loss, has_aux=True)(
+            jnp.asarray(xs[r]))
+        return np.asarray(y), np.asarray(g)
+
+    def torch_body(r):
+        x = torch.from_numpy(xs[r]).requires_grad_()
+        y = P.COMM_WORLD.Allgather(x, 1, compression=codec)
+        (g,) = torch.autograd.grad((y * torch.from_numpy(ws[r])).sum(), x)
+        return y.detach().numpy(), g.numpy()
+
+    want = mpi.run_ranks(jax_body, n)
+    got = P.run_ranks(torch_body, n, device="cpu")
+    exact = np.concatenate(xs, axis=1)
+    for r in range(n):
+        assert got[r][0].shape == exact.shape
+        assert got[r][1].shape == xs[r].shape
+        assert _same_bits(got[r][0], want[r][0])
+        assert _same_bits(got[r][1], want[r][1])
+        assert _same_bits(got[r][0], got[0][0])
+    rel = np.linalg.norm(got[0][0] - exact) / np.linalg.norm(exact)
+    assert rel <= {"q8": 2.5e-2, "q8_ef_hop": 2.5e-2, "q8_ef": 1e-3}.get(
+        codec, 1e-2)
+
+
+def test_compressed_allgather_size_one_and_float64():
+    # One rank: the identity (nothing is encoded, as in the JAX package).
+    x = torch.ones(3, 4, requires_grad=True)
+    assert P.COMM_WORLD.Allgather(x, 0, compression="q8") is x
+    # A float64 payload decodes to float64 on both sides.
+    xs = [np.random.default_rng(r).standard_normal((5, 2)) for r in range(2)]
+
+    def fn(r):
+        return P.COMM_WORLD.Allgather(torch.from_numpy(xs[r]), 0,
+                                      compression="bf16").numpy()
+
+    want = mpi.run_ranks(lambda r: np.asarray(mpi.COMM_WORLD.Allgather(
+        jnp.asarray(xs[r]), 0, compression="bf16")), 2)
+    for got, w in zip(P.run_ranks(fn, 2, device="cpu"), want):
+        assert got.dtype == np.float64 and np.array_equal(got, w)
+
+
+def test_allgather_compression_rules_match_jax():
+    def body():
+        c = P.COMM_WORLD
+        t = torch.arange(4.) + c.rank
+        # an explicit codec with the packed path raises; no-compression
+        # spellings stay accepted there
+        with pytest.raises(ValueError, match="numelem"):
+            c.Allgather(t, 0, numelem=2, compression="q8")
+        assert torch.equal(c.Allgather(t, 0, numelem=2, compression=False),
+                           c.Allgather(t, 0, numelem=2))
+        # an explicit codec on an integer tensor raises; a scope codec
+        # applies to floating tensors only
+        with pytest.raises(ValueError, match="floating"):
+            c.Allgather(torch.ones(2, dtype=torch.int32), 0,
+                        compression="bf16")
+        with pconfig.compression_scope("bf16"):
+            scoped = c.Allgather(t / 3, 0)
+            ints = c.Allgather(torch.ones(2, dtype=torch.int32), 0)
+            off = c.Allgather(t / 3, 0, compression=False)
+        explicit = c.Allgather(t / 3, 0, compression="bf16")
+        exact = c.Allgather(t / 3, 0)
+        return (torch.equal(scoped, explicit), ints.tolist() == [1] * 4,
+                torch.equal(off, exact), torch.equal(scoped, exact))
+
+    for same, ints, off, lossless in _on_world(2, body):
+        assert same and ints and off and not lossless
+
+
+def test_allgather_span_carries_codec():
+    def body():
+        x = torch.ones(8)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU]) as prof:
+            P.COMM_WORLD.Allgather(x, 0, compression="bf16")
+            P.COMM_WORLD.Allgather(x, 0)
+        return {e.name for e in prof.events()}
+
+    names = P.run_ranks(body, 1, device="cpu")[0]
+    assert {"mpi4torch.Allgather.bf16", "mpi4torch.Allgather"} <= names
+
+
+def test_bf16_rides_ring_only():
+    # The JAX rule, both sides consulted: bf16 declares ring only, and an
+    # explicit bf16 with an explicit bidir raises in both packages; a
+    # scope bf16 yields to an explicit bidir (the exact wire); auto
+    # selection past the bandwidth crossover keeps bf16 on ring.
+    with pytest.raises(ValueError, match="ring"):
+        mpi.COMM_WORLD.Allreduce(jnp.ones(4), mpi.MPI_SUM,
+                                 compression="bf16", algorithm="bidir")
+    with pytest.raises(ValueError, match="ring"):
+        P.COMM_WORLD.Allreduce(torch.ones(4), P.MPI_SUM, compression="bf16",
+                               algorithm="bidir")
+    for name in ALL_CODECS:
+        for algo in ("ring", "bidir", "torus", "tree", "rhd", "hier"):
+            assert P.compress.codec_rides_algorithm(
+                P.compress.get_codec(name), algo) == \
+                mpi.compress.codec_rides_algorithm(
+                    mpi.compress.get_codec(name), algo), (name, algo)
+    for algo in ("ring", "rhd", "tree", "hier", "bidir", "torus"):
+        assert ptune.get_algorithm(algo).codec_capable == \
+            mpi.tune.get_algorithm(algo).codec_capable
+    xs = _inputs(2, numel=40, seed=12)
+
+    def scoped(r):
+        x = torch.from_numpy(xs[r])
+        with pconfig.compression_scope("bf16"):
+            got = P.COMM_WORLD.Allreduce(x, P.MPI_SUM, algorithm="bidir")
+        return torch.equal(got, P.COMM_WORLD.Allreduce(
+            x, P.MPI_SUM, compression=False, algorithm="bidir"))
+
+    assert all(_on_world(2, scoped))
+    codec = P.compress.get_codec("bf16")
+    pconfig.set_bandwidth_crossover_bytes(1 << 10)
+    try:
+        x = torch.zeros(1 << 12)
+        assert ptune.select_auto(nbytes=1 << 14, nranks=4,
+                                 codec=codec) == "ring"
+        assert peager.resolve_algorithm(4, x, codec, None) == "ring"
+        assert ptune.select_auto(nbytes=1 << 14, nranks=4) == "bidir"
+    finally:
+        pconfig.set_bandwidth_crossover_bytes(None)
+
+
+def test_register_codec_and_wire_bytes_match_jax():
+    from mpi4torch_tpu_torch.compress import codecs as pcodecs
+
+    for name in ALL_CODECS:
+        for shape, jdt, pdt in (((1000,), jnp.float32, torch.float32),
+                                ((7, 300), jnp.bfloat16, torch.bfloat16)):
+            assert P.compress.get_codec(name).wire_bytes(shape, pdt) == \
+                mpi.compress.get_codec(name).wire_bytes(shape, jdt)
+    custom = P.compress.BF16Codec(name="bf16_test")
+    assert P.compress.register_codec(custom) is custom
+    try:
+        assert P.compress.get_codec("bf16_test") is custom
+        xs = _inputs(2, numel=30, seed=13)
+
+        def fn(r):
+            x = torch.from_numpy(xs[r])
+            return torch.equal(
+                P.COMM_WORLD.Allreduce(x, P.MPI_SUM, compression="bf16_test"),
+                P.COMM_WORLD.Allreduce(x, P.MPI_SUM, compression="bf16"))
+
+        assert all(_on_world(2, fn))
+    finally:
+        del pcodecs._REGISTRY["bf16_test"]
+    with pytest.raises(ValueError, match="non-empty"):
+        P.compress.register_codec(P.compress.BF16Codec(name=""))
+
+
+@pytest.mark.parametrize("codec", ["bf16", "bf16r"])
+def test_fused_bf16_buckets_bitwise_vs_jax(codec):
+    # Allreduce_tree(compression=bf16) rides one compressed Allreduce per
+    # bucket through the facade, as in the JAX package.
+    n = 3
+    trees = [{"w": _inputs(n, 300, seed=14)[r].reshape(30, 10),
+              "b": _inputs(n, 7, seed=15)[r]} for r in range(n)]
+
+    def jax_body(r):
+        out = mpi.COMM_WORLD.Allreduce_tree(
+            {k: jnp.asarray(v) for k, v in trees[r].items()}, mpi.MPI_SUM,
+            compression=codec, mean=True)
+        return {k: np.asarray(v) for k, v in out.items()}
+
+    def torch_body(r):
+        out = P.COMM_WORLD.Allreduce_tree(
+            {k: torch.from_numpy(v) for k, v in trees[r].items()},
+            P.MPI_SUM, compression=codec, mean=True)
+        return {k: v.numpy() for k, v in out.items()}
+
+    want = mpi.run_ranks(jax_body, n)
+    got = P.run_ranks(torch_body, n, device="cpu")
+    for r in range(n):
+        for k in ("w", "b"):
+            assert _same_bits(got[r][k], want[r][k])
+
+
+@pytest.mark.parametrize("codec", ["bf16", "bf16r"])
+@pytest.mark.parametrize("n, numel", [(2, 3000), (5, 3000), (4, 70000)])
+def test_bf16_payloads_fold_bitwise_vs_jax(n, numel, codec):
+    # A bfloat16 tensor: the encode is the identity for both codecs (a
+    # bf16 value's low 16 f32 bits are zero, so bf16r's 16-bit noise never
+    # carries), the decode widens to f32 and narrows back, and the fold
+    # runs in bf16, one rounding a step.  JAX's Mode B dispatches the
+    # ordered fold op by op, so each of its bf16 adds rounds too: the
+    # results are bitwise equal, fold-once path (70000 elements) included.
+    xs = _inputs(n, numel=numel, seed=16)
+
+    def jax_body(r):
+        y = mpi.COMM_WORLD.Allreduce(jnp.asarray(xs[r]).astype(jnp.bfloat16),
+                                     mpi.MPI_SUM, compression=codec)
+        return np.asarray(y.astype(jnp.float32))
+
+    def torch_body(r):
+        y = P.COMM_WORLD.Allreduce(torch.from_numpy(xs[r]).bfloat16(),
+                                   P.MPI_SUM, compression=codec)
+        assert y.dtype == torch.bfloat16
+        return y.float().numpy()
+
+    want = mpi.run_ranks(jax_body, n)
+    got = P.run_ranks(torch_body, n, device="cpu")
+    for r in range(n):
+        assert _same_bits(got[r], want[r]) and _same_bits(got[r], got[0])

@@ -1231,3 +1231,113 @@ def test_bf16_top1_route_on_the_card_counts_every_slot(cuda):
     assert list(zip(t.tolist(), e.tolist(), s.tolist())) == want
     assert bool((d.float().sum(dim=0) <= 1).all())
     assert bool(((c != 0) == (d != 0)).all())
+
+
+# ---------------------------------------------------------------------------
+# The compressed Allgather, the ViT's attention and the pipeline on the card.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["q8", "q8_ef", "q8_ef_hop", "bf16r"])
+def test_compressed_allgather_on_the_kernel_equals_plain(cuda, codec):
+    # Every block-q8 encode of the Allgather and of its adjoint is K1's
+    # hop-0 form: one q8_requant launch a rank and round each way, bitwise
+    # the plain requant; bf16r launches none.
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch import config
+
+    n = 3
+    xs = [torch.from_numpy(np.random.default_rng(r).standard_normal(
+        (700 + 300 * r, 3)).astype(np.float32)).to(cuda) for r in range(n)]
+
+    def run():
+        def body(r):
+            x = xs[r].clone().requires_grad_()
+            y = P.COMM_WORLD.Allgather(x, 0, compression=codec)
+            (g,) = torch.autograd.grad(y, x, y.detach() * (r + 1))
+            return y.detach(), g
+        return P.run_ranks(body, n, timeout=30.0, device=cuda)
+
+    rounds = P.compress.get_codec(codec).ef_rounds
+    _kernels.reset_launch_counts()
+    got = run()
+    want_launches = 2 * n * rounds if codec.startswith("q8") else 0
+    assert _kernels.launch_counts["q8_requant"] == want_launches
+    assert _kernels.launch_counts["q8_hop"] == 0
+    config.set_quant_hop_impl("torch")
+    try:
+        _kernels.reset_launch_counts()
+        want = run()
+        assert _kernels.launch_counts["q8_requant"] == 0
+    finally:
+        config.set_quant_hop_impl("auto")
+    for (y, g), (yw, gw) in zip(got, want):
+        assert torch.equal(y, got[0][0])
+        assert _bits_differ(y, yw) == 0 and _bits_differ(g, gw) == 0
+
+
+@pytest.mark.cuda
+def test_tc_at_head_dim_64_on_a_196_row_non_causal_block(cuda):
+    # The ViT-B/16 block: 196 patches (off the 64-row tiles), 12 heads of
+    # 64, non-causal, forward and backward on the tc kernels against the
+    # plain version, the forward repeating its bits.
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn((4, 196, 12, 64), generator=g, device=cuda,
+                           dtype=torch.bfloat16) for _ in range(3))
+    _kernels.reset_launch_counts()
+    o, l = flash.flash_block_attention(q, k, v, impl="cuda")
+    o2, l2 = flash.flash_block_attention(q, k, v, impl="cuda")
+    assert torch.equal(o, o2) and torch.equal(l, l2)
+    po, pl = flash.flash_block_attention(q, k, v, impl="torch")
+    torch.cuda.synchronize()
+    assert bool(((o.float() - po.float()).abs() <= bf16_out_bound(po)).all())
+    assert (l - pl.float()).abs().max().item() <= 1e-4
+    got = _grads(q, k, v, "cuda", {}, torch.Generator(
+        device=cuda).manual_seed(2))
+    want = _grads(q, k, v, "torch", {}, torch.Generator(
+        device=cuda).manual_seed(2))
+    for a, b in zip(got, want):
+        scale = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= 2e-2 * scale
+    for kname in _kernels.ATTENTION_KERNELS:
+        assert _kernels.launch_counts[kname] == \
+            _kernels.launch_counts[f"{kname}.tc"] > 0
+
+
+@pytest.mark.cuda
+def test_pipeline_schedules_on_the_card(cuda):
+    # GPipe and 1F1B (blocking and overlapped) on two rank threads of the
+    # card: the same loss, the same gradients (1F1B's two forms bitwise).
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch.parallel import pp
+
+    rng = np.random.default_rng(3)
+    stages = [{"w": torch.from_numpy(rng.standard_normal((16, 16)) / 4)
+               .to(cuda), "b": torch.zeros(16, device=cuda,
+                                           dtype=torch.float64)}
+              for _ in range(2)]
+    mbs = [torch.from_numpy(rng.standard_normal((4, 16))).to(cuda)
+           for _ in range(4)]
+
+    def apply(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    def loss_fn(y, i):
+        return (i + 1.0) * (y ** 2).sum()
+
+    def run(fn, **kw):
+        return P.run_ranks(lambda r: fn(
+            P.COMM_WORLD, apply, stages[r], mbs, loss_fn,
+            recv_like=torch.zeros_like(mbs[0]), **kw), 2, timeout=30.0,
+            device=cuda)
+
+    gpipe = run(pp.pipeline_step)
+    f1 = run(pp.pipeline_step_1f1b)
+    f2 = run(pp.pipeline_step_1f1b, overlap=True)
+    for r in range(2):
+        assert torch.equal(f1[r][0], f2[r][0])
+        for k in ("w", "b"):
+            assert torch.equal(f1[r][1][k], f2[r][1][k])
+            torch.testing.assert_close(f1[r][1][k], gpipe[r][1][k],
+                                       rtol=1e-10, atol=1e-12)
+        torch.testing.assert_close(f1[r][0], gpipe[r][0], rtol=1e-12,
+                                   atol=0)

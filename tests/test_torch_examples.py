@@ -8,11 +8,22 @@ steps against ``moe_ffn_dense`` (rtol 1e-10 / 1e-8), the TP MLP's loss
 at every step and its final shards against the unsharded SGD trajectory
 (rtol 1e-10)."""
 
+import importlib.util
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
 import pytest
 
+import mpi4torch_tpu as jmpi
+from mpi4torch_tpu_torch.examples import compressed_data_parallel as cdp_ex
 from mpi4torch_tpu_torch.examples import expert_parallel_moe as moe_ex
+from mpi4torch_tpu_torch.examples import pipeline_training as pp_ex
+from mpi4torch_tpu_torch.examples import resnet_cifar_dp as resnet_ex
 from mpi4torch_tpu_torch.examples import ring_attention_longcontext as ring_ex
 from mpi4torch_tpu_torch.examples import tensor_parallel_mlp as tp_ex
+from mpi4torch_tpu_torch.examples import vit_patch_parallel as vit_ex
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -34,3 +45,75 @@ def test_expert_parallel_moe_example(n):
 def test_tensor_parallel_mlp_example(n):
     losses = tp_ex.run(n, device="cpu")
     assert len(losses) == tp_ex.N_STEPS and losses[-1] < losses[0]
+
+
+_JAX_EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
+
+
+def _jax_example(name):
+    spec = importlib.util.spec_from_file_location(
+        f"jax_example_{name}", _JAX_EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_compressed_data_parallel_example(monkeypatch):
+    # The same data and zero start in both packages: the three final
+    # losses agree with the JAX example's (the q8 wire is bitwise JAX's),
+    # and the compressed ones land within 2% of the exact one.
+    jmod = _jax_example("compressed_data_parallel")
+    jmod.STEPS = 60
+    monkeypatch.setattr(cdp_ex, "STEPS", 60)
+    want = jmpi.run_ranks(jmod.main, 2)[0]
+    got = cdp_ex.run(2, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=1e-10)
+
+
+def test_resnet_cifar_dp_example():
+    # BASELINE config 4 at the JAX test's reduced width: the JAX example's
+    # initial weights carried across (params_from_jax), the same seeded
+    # data and pipeline; losses within 1e-5 and the ranks in lock-step.
+    from mpi4torch_tpu.models import resnet as JR
+    from mpi4torch_tpu_torch.models import resnet as PR
+
+    jmod = _jax_example("resnet_cifar_dp")
+    kw = dict(steps=2, hw=8, batch_per_rank=2)
+    jcfg = JR.ResNetConfig(num_classes=10, stage_sizes=(1, 1), widths=(8, 16))
+    pcfg = PR.ResNetConfig(num_classes=10, stage_sizes=(1, 1), widths=(8, 16))
+    want = jmpi.run_ranks(lambda: jmod.main(cfg=jcfg, **kw), 2)[0]
+    jp, js = JR.init_resnet(jax.random.PRNGKey(0), jcfg)
+    params = PR.params_from_jax(jax.tree.map(np.asarray, jp),
+                                jax.tree.map(np.asarray, js), "cpu")
+    losses, head = resnet_ex.run(2, device="cpu", cfg=pcfg, params=params,
+                                 **kw)
+    np.testing.assert_allclose(losses, want[0], rtol=1e-5)
+    np.testing.assert_allclose(head, want[1], rtol=1e-4, atol=1e-6)
+
+
+def test_vit_patch_parallel_example():
+    # The JAX example's initial ViT carried across; losses and the trained
+    # head within 1e-5 of the JAX example's, and the patch-parallel logits
+    # equal to the single-device ones (checked inside run).
+    from mpi4torch_tpu.models import vit as JV
+    from mpi4torch_tpu_torch.models import vit as PV
+
+    jmod = _jax_example("vit_patch_parallel")
+    want = jmpi.run_ranks(lambda: jmod.main(steps=2), 2)[0]
+    params = PV.params_from_jax(jax.tree.map(np.asarray, JV.init_vit(
+        jax.random.PRNGKey(0), jmod.CFG)), "cpu")
+    got = vit_ex.run(2, device="cpu", steps=2, params=params)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_pipeline_training_example(n):
+    # The same numpy stages in both packages: the 1F1B loss trajectory is
+    # the JAX example's within 1e-10 (GPipe == 1F1B is checked inside).
+    jmod = _jax_example("pipeline_training")
+    want = jmpi.run_ranks(jmod.main, n)[0]
+    got = pp_ex.run(n, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=1e-10)

@@ -49,7 +49,12 @@ def test_port_has_modules():
                 "parallel/attention.py", "parallel/moe.py",
                 "examples/ring_attention_longcontext.py",
                 "examples/expert_parallel_moe.py",
-                "examples/tensor_parallel_mlp.py"):
+                "examples/tensor_parallel_mlp.py", "parallel/pp.py",
+                "models/mlp.py", "models/resnet.py", "models/vit.py",
+                "utils/data.py", "examples/compressed_data_parallel.py",
+                "examples/resnet_cifar_dp.py",
+                "examples/vit_patch_parallel.py",
+                "examples/pipeline_training.py"):
         assert f"mpi4torch_tpu_torch/{rel}" in names
     for src in ("flash_fwd.cu", "flash_fwd_tc.cu", "flash_bwd.cu",
                 "flash_bwd_tc.cu", "quant_hop.cu"):
