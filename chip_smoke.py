@@ -187,18 +187,60 @@ check fails.  Phases, in order:
     at 2 layers, bf16 at full depth), three ``train_step``s (ranks
     identical, the update ``p - lr g``), the dropped-token share (every
     (expert, slot) holds at most one token, and each routing keeps
-    ``sum_e min(count_e, capacity)`` tokens), the forward ``Alltoall`` payload, the aux loss, peak memory, K2/K3/K4
-    launches; then greedy ``generate()`` of the MoE config (float32,
-    dense experts) against the stepwise argmax of ``forward``;
+    ``sum_e min(count_e, capacity)`` tokens), the forward ``Alltoall``
+    payload, the aux loss, peak memory, K2/K3/K4 launches; then greedy
+    ``generate()`` of the MoE config (float32, dense experts) against the
+    stepwise argmax of ``forward``;
 27. the tensor-parallel layers at the flagship widths, x (8, 2048, 2048)
     bf16 on two rank threads: ``tp_mlp`` and ``tp_attention`` with
     ``attention_fn=flash_attention``, forward and backward against the
     unsharded layers, one ``Allreduce`` each way, ms;
-28. one JSON line describing each ported kernel (K2, K3 and K4 with
-    the variant the main path ran; the launches of phases 18–20 and 23–27;
-    their numbers at the SP shapes, a wholly masked block and a live-dlse
-    backward among them, against the plain versions, their bounds and
-    SDPA).
+28. the bf16 Allreduces and the compressed Allgather of every codec at
+    four rank threads x 2^24 float32, bitwise their plain recomputation;
+29. BASELINE config 4, ResNet-18 DP=2 (both recipes);
+30. ViT-B/16 bf16, DP=2 and patch-parallel SP=2;
+31. PP=2 on the flagship: GPipe, 1F1B (blocking, overlapped),
+    interleaved;
+32. K2–K4 at the ViT, patch-parallel and PP microbatch shapes, K1's
+    requant form at the Allgather shard;
+33. the observability layer on phase 18's fused DP=2 step: traced and
+    untraced bitwise equal; events per step per rank; the censused
+    all-reduce bytes equal to twice the bucket bytes plus the loss; step
+    ms and idle share with the tracer off and on; the tracer's host us
+    per event; the device-to-host copies and syncs of one profiled step
+    off and on (equal); a Chrome trace with one track per rank; then one
+    traced fused q8 step (K1's hops);
+34. the flight recorder: ``rank_death`` on rank 1 mid-step, every
+    survivor's ``RankFailedError`` naming rank 1 far inside the world
+    timeout, the postmortem's per-rank tails;
+35. the finite guard on the DP=2 step: ``corrupt_nan`` on rank 1 under
+    ``"raise"`` raises ``IntegrityError`` naming rank 1 on every rank,
+    ``"warn"`` completes, a clean guarded step is bitwise the unguarded
+    one; the guard's ms on a 4 x 2^24 float32 Allreduce and on the step;
+36. the wire checksum on the compressed q8 and bf16 Allgather at phase
+    28's size: bitwise inert on a clean wire, a corrupted wire on rank 1
+    named, the same fault silent without it; K1's requant launches;
+37. retries and gray failure: a delay past the world timeout rescued by
+    ``comm_retries=2`` (retry events mirrored in the metrics); a
+    ``slow_rank`` named by the ``GrayFailureDetector``;
+38. phase 5's TP=2 serving traced: tokens unchanged; ``serve.stats()``
+    and the ``mpi4torch_serve_*`` Prometheus lines against
+    ``ServeStats.snapshot()``;
+39. the ``generate_kv_cache`` and ``zero_sharded_optimizer`` examples on
+    the card (float32) against their CPU runs, and the 3-rank means
+    (DP, ``Allreduce_tree``, reduce-scatter, ZeRO-1 Adam) bitwise the
+    CPU run;
+40. one JSON line describing each ported kernel (K2, K3 and K4 with
+    the variant the main path ran; the launches of phases 18–20, 23–27,
+    30–31 and of this slice's phases, ``obs_launches`` and
+    ``resilience_launches``; their numbers at the SP and slice-10
+    shapes, against the plain versions, their bounds and SDPA; K1 with
+    its hop and requant launches).
+
+Each phase of 28–39 prints the card's name and power limit beside its
+numbers.  Times on the host clock are host times; event times of the
+comm tracer are host times (a rendezvous returns before the card has
+run its work).
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 TF32 is switched off for matmuls and cuDNN here, so float32 work on the
@@ -4401,6 +4443,573 @@ def requant_numbers(qk):
             "bound_by": b_by, "blocks": nb}
 
 
+# ---------------------------------------------------------------------------
+# Slice 11: observability (obs/) and fault tolerance (resilience/) on the
+# rank-thread world.
+
+# Where the slice writes its Chrome trace and postmortem (git-ignored).
+OBS_OUT = "smoke_out"
+# The flight recorder's ring per rank in phase 34.
+OBS_RING = 6
+# Phase 37: a delay past the world timeout, rescued by retries (windows of
+# RETRY_TIMEOUT, then RETRY_BACKOFF and 2 x RETRY_BACKOFF: 2.0 s of
+# patience against a 0.8 s delay); and a chronically slow rank.
+RETRY_TIMEOUT, RETRY_DELAY, RETRY_BACKOFF = 0.5, 0.8, 0.5
+GRAY_NUMEL, GRAY_CALLS, GRAY_SLEEP = 1 << 20, 8, 0.05
+# Phase 39: the two examples on the card (float32) against their CPU runs
+# (float64) from the same initial weights.  Their losses agree within
+# EXAMPLE_LOSS_REL and the ZeRO parameters within EXAMPLE_PARAM_REL
+# (float32 rounding over the run: on the CPU, float32 against float64
+# differs by 1.5e-7 in the loss and 1.3e-6 in the parameters); the
+# generated tokens are equal.
+EXAMPLE_STEPS, EXAMPLE_LOSS_REL, EXAMPLE_PARAM_REL = 40, 1e-4, 1e-4
+
+
+def dp2_body(P, T, cfg, params, tokens):
+    """Phase 18's fused exact DP=2 step (train_step, 4 MiB buckets) as a
+    rank body."""
+    rows = TRAIN_BATCH // 2
+
+    def body(rank):
+        x = tokens[rank * rows:(rank + 1) * rows]
+        return T.train_step(cfg, params, x, comm_dp=P.COMM_WORLD, lr=LR)
+    return body
+
+
+def attributed(body):
+    """``body`` returning each rank's outcome instead of raising: (error
+    class name or "ok", the error's ranks, seconds to the outcome)."""
+    def wrapped(rank):
+        t0 = time.perf_counter()
+        try:
+            body(rank)
+        except Exception as e:  # noqa: BLE001 — the outcome under test
+            return (type(e).__name__, sorted(getattr(e, "ranks", ()) or ()),
+                    time.perf_counter() - t0)
+        return "ok", [], time.perf_counter() - t0
+    return wrapped
+
+
+def host_device_waits(fn):
+    """(device-to-host copies, host synchronizations) in one call of
+    ``fn`` under torch.profiler: the profiler's DtoH copy records, and its
+    cudaStreamSynchronize / cudaDeviceSynchronize / cudaEventSynchronize
+    calls (the closing synchronize of the window included)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    d2h = sum(e.count for e in ev if "DtoH" in e.key)
+    syncs = sum(e.count for e in ev if e.key in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize",
+        "cudaEventSynchronize"))
+    return d2h, syncs
+
+
+def traced_dp2_phase(P, T, tree, fuse, obs, kernels, config, cfg, params,
+                     tokens, smi):
+    """Phase 33: the fused DP=2 step untraced and traced: loss and
+    parameters bitwise equal; events per step per rank; the censused
+    all-reduce payload bytes per step equal to twice the bucket bytes
+    plus twice the loss (forward and backward); step ms and idle share
+    off and on; host us per event; device-to-host copies and syncs of one
+    profiled step off and on (equal: the tracer reads no device value); a
+    Chrome trace with one track per rank.  Then one traced fused q8 step
+    (K1's hops).  Returns the numbers and the traced steps' launches."""
+    import os
+
+    body = dp2_body(P, T, cfg, params, tokens)
+    layout = fuse.bucket_layout(params, config.DEFAULT_BUCKET_BYTES)
+    itemsize = tree.tree_leaves(params)[0].element_size()
+    bucket_bytes = sum(layout.bucket_sizes) * itemsize
+    (l0, p0), (l1, p1) = P.run_ranks(body, 2, device="cuda")
+    kernels.reset_launch_counts()
+    with obs.trace() as t:
+        (m0, q0), (m1, q1) = P.run_ranks(body, 2, device="cuda")
+    launches = dict(kernels.launch_counts)
+    same = (torch.equal(l0, m0) and torch.equal(l1, m1)
+            and leaves_equal(tree, p0, q0) and leaves_equal(tree, p1, q1))
+    loss_bytes = l0.numel() * l0.element_size()
+    del p0, p1, q0, q1
+    per_rank = {r: t.events_for(rank=r) for r in range(2)}
+    wire = {r: sum(e.payload_bytes for e in evs if e.family == "all_reduce")
+            for r, evs in per_rank.items()}
+    want = 2 * (bucket_bytes + loss_bytes)
+    labelled = {r: [e for e in evs if e.bucket] for r, evs in
+                per_rank.items()}
+    fwd_bytes = {r: sum(e.payload_bytes for e in evs
+                        if e.family == "all_reduce")
+                 for r, evs in labelled.items()}
+    print(f"  {smi}")
+    print(f"  traced DP=2 step: {len(per_rank[0])} / {len(per_rank[1])} "
+          f"events on rank 0 / 1 ({layout.num_buckets} buckets of "
+          f"{bucket_bytes} B in all); censused all-reduce bytes per rank "
+          f"{wire[0]} / {wire[1]} (2 x (bucket bytes + a {loss_bytes} B "
+          f"loss) = {want}), labelled forward bucket bytes {fwd_bytes[0]} "
+          f"(= {bucket_bytes}); loss and parameters bitwise the untraced "
+          f"step's: {same}; attention launches all tc "
+          f"{attention_all_tc(kernels, launches)}")
+    check(same, "tracing changed the DP=2 step's loss or parameters")
+    check(all(w == want for w in wire.values())
+          and all(b == bucket_bytes for b in fwd_bytes.values()),
+          "the censused payload bytes are not the bucket bytes")
+    check(attention_all_tc(kernels, launches), "an attention launch of the "
+          "traced step was not tc")
+    os.makedirs(OBS_OUT, exist_ok=True)
+    path = obs.write_chrome_trace(os.path.join(OBS_OUT, "obs_dp2.json"),
+                                  t.events)
+    with open(path, encoding="utf-8") as f:
+        doc = json.load(f)
+    tracks = {(e["pid"], e["tid"]) for e in doc["traceEvents"]
+              if e["ph"] == "X"}
+    print(f"  Chrome trace {path}: {len(doc['traceEvents'])} records, "
+          f"tracks {sorted(tracks)}")
+    check(tracks == {(0, 0), (0, 1)}, "the Chrome trace lacks one track "
+          "per rank")
+    n_events = len(per_rank[0])
+    del t
+
+    def run(traced):
+        if not traced:
+            return P.run_ranks(body, 2, device="cuda")
+        with obs.trace():
+            return P.run_ranks(body, 2, device="cuda")
+
+    times = {False: [], True: []}
+    for traced in (False, True, True, False):
+        times[traced].append(sync_ms(lambda: run(traced))[0])
+    idle, waits = {}, {}
+    for traced in (False, True):
+        label = "on" if traced else "off"
+        wall, busy, _ = device_busy_ms(lambda: run(traced))
+        idle[label] = 100 - 100 * busy / wall
+        waits[label] = host_device_waits(lambda: run(traced))
+    # The tracer's own host cost: begin + commit of one event at the
+    # bucket payload, timed on the host.
+    tr = obs.CommTracer()
+    world = P.runtime.World(2)
+    x = tree.tree_leaves(params)[0]
+    sig = ("Allreduce", P.MPI_SUM, "ring", (tuple(x.shape), str(x.dtype)))
+    reps = 20000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        tr.commit(tr.begin(world, 0, "exchange", sig, x))
+    us_event = (time.perf_counter() - t0) / reps * 1e6
+    off_ms, on_ms = min(times[False]), min(times[True])
+    print(f"  step ms off {[round(v, 1) for v in times[False]]}, on "
+          f"{[round(v, 1) for v in times[True]]} (host clock); idle share "
+          f"off {idle['off']:.0f}%, on {idle['on']:.0f}%; host us per "
+          f"event: begin + commit {us_event:.2f} us, step difference "
+          f"{1e3 * (on_ms - off_ms) / n_events:.1f} us over {n_events} "
+          f"events; device-to-host copies / syncs in one profiled step: "
+          f"off {waits['off']}, on {waits['on']}")
+    check(waits["on"] == waits["off"], "the tracer added device-to-host "
+          "copies or syncs")
+
+    rows = TRAIN_BATCH // 2
+
+    def q8_body(rank):
+        x = tokens[rank * rows:(rank + 1) * rows]
+        _, g = tree.value_and_grad(lambda q: T.lm_loss(cfg, q, x), params)
+        return P.COMM_WORLD.Allreduce_tree(g, P.MPI_SUM, mean=True,
+                                           compression="q8")
+
+    kernels.reset_launch_counts()
+    with obs.trace() as tq:
+        s0, s1 = P.run_ranks(q8_body, 2, device="cuda")
+    q8_launches = dict(kernels.launch_counts)
+    codecs = {e.codec for e in tq.events_for(rank=0)
+              if e.op == "Allreduce.q8hop"}
+    same_q8 = leaves_equal(tree, s0, s1)
+    del s0, s1
+    print(f"  traced fused q8 DP=2 step: {len(tq.events_for(rank=0))} "
+          f"events on rank 0, codecs {sorted(codecs)}, q8_hop launches "
+          f"{q8_launches['q8_hop']}, ranks bitwise identical {same_q8}")
+    check(same_q8 and codecs == {"q8"} and q8_launches["q8_hop"] > 0,
+          "the traced fused q8 step went wrong")
+    return {"launches": launches, "q8_launches": q8_launches,
+            "events": n_events, "ms": {"off": off_ms, "on": on_ms},
+            "idle_pct": idle, "us_event": us_event, "waits": waits}
+
+
+def flight_phase(P, T, obs, resilience, fuse, config, cfg, params, tokens):
+    """Phase 34: rank_death on rank 1 at the middle forward bucket of the
+    DP=2 step: every survivor raises RankFailedError naming rank 1 well
+    within the world timeout; the postmortem's per-rank tails."""
+    import os
+
+    nb = fuse.bucket_layout(params, config.DEFAULT_BUCKET_BYTES).num_buckets
+    spec = resilience.FaultSpec("rank_death", rank=1, op="Allreduce",
+                                index=nb // 2)
+    body = attributed(dp2_body(P, T, cfg, params, tokens))
+    with obs.trace(ring=OBS_RING) as t, \
+            resilience.fault_scope([spec]) as plan:
+        outs = P.run_ranks(body, 2, device="cuda")
+    timeout = config.world_timeout()
+    pm = t.last_postmortem()
+    print(f"  outcomes (error, ranks, s): {outs}; world timeout "
+          f"{timeout:.0f} s; fired {sorted(plan.fired_kinds())}")
+    print("\n".join("  " + line for line in
+                    obs.format_postmortem(pm).splitlines()))
+    obs.dump_postmortem(pm, OBS_OUT, stem="obs_rank_death")
+    check(all(o[0] == "RankFailedError" and o[1] == [1] for o in outs),
+          "a survivor did not raise RankFailedError naming rank 1")
+    check(outs[0][2] < timeout / 10, "the survivor waited for the world "
+          "timeout instead of the attributed failure")
+    check(pm["failed_ranks"] == [1] and all(pm["tails"].get(r)
+                                            for r in (0, 1)),
+          "the postmortem lacks a rank's tail")
+    return outs
+
+
+def guard_phase(P, T, tree, resilience, kernels, config, cfg, params,
+                tokens, smi):
+    """Phase 35: the finite guard on the DP=2 step: corrupt_nan on rank 1
+    under "raise" raises IntegrityError naming rank 1 on every rank;
+    "warn" completes; a clean guarded step is bitwise the unguarded one.
+    The guard's ms on a 4 x 2^24 float32 Allreduce and on the step."""
+    import warnings
+
+    body = dp2_body(P, T, cfg, params, tokens)
+    spec = resilience.FaultSpec("corrupt_nan", rank=1, op="Allreduce")
+    try:
+        config.set_comm_finite_guard("raise")
+        with resilience.fault_scope([spec]):
+            outs = P.run_ranks(attributed(body), 2, device="cuda")
+        kernels.reset_launch_counts()
+        (g0, q0), (g1, q1) = P.run_ranks(body, 2, device="cuda")
+        launches = dict(kernels.launch_counts)
+        config.set_comm_finite_guard("warn")
+        with warnings.catch_warnings(record=True) as caught, \
+                resilience.fault_scope([spec]):
+            warnings.simplefilter("always")
+            (w0, _), _ = P.run_ranks(body, 2, device="cuda")
+    finally:
+        config.set_comm_finite_guard("off")
+    (l0, p0), (l1, p1) = P.run_ranks(body, 2, device="cuda")
+    same = (torch.equal(g0, l0) and torch.equal(g1, l1)
+            and leaves_equal(tree, q0, p0) and leaves_equal(tree, q1, p1))
+    del q0, q1, p0, p1
+    warned = [w for w in caught
+              if issubclass(w.category, resilience.IntegrityWarning)]
+    print(f"  {smi}")
+    print(f"  corrupt_nan on rank 1, guard raise: {outs}; guard warn: "
+          f"{len(warned)} IntegrityWarnings, the step completed (loss "
+          f"{w0.item():.4f}); clean guarded step bitwise the unguarded "
+          f"one: {same}")
+    check(all(o[0] == "IntegrityError" and o[1] == [1] for o in outs),
+          "the finite guard did not raise IntegrityError naming rank 1 on "
+          "every rank")
+    check(len(warned) >= 2, "guard warn did not warn on every rank")
+    check(same, "the guarded clean step differs from the unguarded one")
+    xs = bench_inputs()
+
+    def allreduce():
+        return P.run_ranks(lambda r: P.COMM_WORLD.Allreduce(xs[r],
+                                                            P.MPI_SUM),
+                           BENCH_RANKS, device="cuda")
+
+    def guarded(fn, mode):
+        config.set_comm_finite_guard(mode)
+        try:
+            return sync_ms(fn)[0]
+        finally:
+            config.set_comm_finite_guard("off")
+
+    res = {}
+    for label, fn in (("allreduce", allreduce),
+                      ("dp2_step", lambda: P.run_ranks(body, 2,
+                                                       device="cuda"))):
+        fn()
+        ms = {"off": [], "raise": []}
+        for mode in ("off", "raise", "raise", "off"):
+            ms[mode].append(guarded(fn, mode))
+        res[label] = {k: min(v) for k, v in ms.items()}
+        print(f"  {label}: guard off {[round(v, 2) for v in ms['off']]} "
+              f"ms, on {[round(v, 2) for v in ms['raise']]} ms (host "
+              f"clock); the guard's cost "
+              f"{res[label]['raise'] - res[label]['off']:.2f} ms")
+    del xs
+    return {"launches": launches, "ms": res}
+
+
+def checksum_phase(P, resilience, kernels, config, smi):
+    """Phase 36: the wire checksum on the compressed q8 and bf16 Allgather
+    at phase 28's size (4 rank threads x 2^24 float32): with the checksum
+    on, value and gradient bitwise the unchecked run's; a corrupted wire
+    on rank 1 raises IntegrityError naming rank 1 (q8: bitflip on the
+    int8 blocks; bf16, a float wire a bit-flip cannot act on: a NaN);
+    with the checksum off the same fault corrupts silently.  K1's
+    requant launches under the checksum."""
+    xs = bench_inputs()
+    print(f"  {smi}")
+    res = {}
+    for codec, kind in (("q8", "bitflip"), ("bf16", "corrupt_nan")):
+        clean = allgather_run(P, xs, codec)
+
+        def timed(on):
+            config.set_comm_wire_checksum(on)
+            try:
+                return sync_ms(lambda: allgather_run(P, xs, codec))
+            finally:
+                config.set_comm_wire_checksum(False)
+
+        ms, same = {False: [], True: []}, True
+        for on in (False, True, True, False):
+            t_ms, out = timed(on)
+            ms[on].append(t_ms)
+            if on:
+                same = same and all(torch.equal(a, b) for o, c in
+                                    zip(out, clean) for a, b in zip(o, c))
+        del out
+        kernels.reset_launch_counts()
+        timed(True)
+        requant = kernels.launch_counts["q8_requant"]
+        spec = resilience.FaultSpec(kind, rank=1, op="Allgather.c")
+        config.set_comm_wire_checksum(True)
+        try:
+            with resilience.fault_scope([spec]):
+                caught = P.run_ranks(
+                    attributed(lambda r: P.COMM_WORLD.Allgather(
+                        xs[r], 0, compression=codec)),
+                    BENCH_RANKS, device="cuda")
+        finally:
+            config.set_comm_wire_checksum(False)
+        with resilience.fault_scope([spec]) as plan:
+            silent = allgather_run(P, xs, codec)
+        corrupt = sum(bits_differ(s[0], c[0]) for s, c in zip(silent,
+                                                              clean))
+        inert = None
+        if codec == "bf16":
+            with resilience.fault_scope([resilience.FaultSpec(
+                    "bitflip", rank=1, op="Allgather.c")]) as bplan:
+                flipped = allgather_run(P, xs, codec)
+            inert = (not bplan.fired_kinds() and all(
+                torch.equal(f[0], c[0]) for f, c in zip(flipped, clean)))
+            del flipped
+        del silent, clean
+        torch.cuda.empty_cache()
+        res[codec] = {"ms_off": min(ms[False]), "ms_on": min(ms[True]),
+                      "requant_launches": requant}
+        print(f"  {codec}: checksum on bitwise the unchecked run (value "
+              f"and gradient) {same}; ms off "
+              f"{[round(v, 2) for v in ms[False]]}, on "
+              f"{[round(v, 2) for v in ms[True]]} (host clock); "
+              f"{kind} on rank 1 with the checksum: {caught[0][:2]} on rank "
+              f"0, {[c[:2] for c in caught]}; without it the fault fired "
+              f"({sorted(plan.fired_kinds())}) and corrupted {corrupt} "
+              f"elements silently; q8_requant launches under the checksum "
+              f"{requant}"
+              + ("" if inert is None else
+                 f"; a bitflip on the float bf16 wire is inert: {inert}"))
+        check(same, f"{codec}: the checksummed Allgather differs")
+        check(all(c[0] == "IntegrityError" and c[1] == [1] for c in caught),
+              f"{codec}: the checksum did not name rank 1 on every rank")
+        check(corrupt > 0 and plan.fired_kinds() == {kind},
+              f"{codec}: the negative control did not corrupt")
+        check(codec != "q8" or requant > 0, "the checksummed q8 Allgather "
+              "launched no requant kernel")
+        check(inert in (None, True), "a bitflip acted on the bf16 wire")
+    del xs
+    torch.cuda.empty_cache()
+    return res
+
+
+def retry_gray_phase(P, obs, resilience, config):
+    """Phase 37: a delay on rank 1 longer than the world timeout, rescued
+    under comm_retries=2 (retry_events > 0, mirrored by the metric,
+    results bitwise the undelayed run's); a slow_rank on rank 1 named by
+    the GrayFailureDetector."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    xs = [torch.randn(GRAY_NUMEL, generator=g, device="cuda")
+          for _ in range(BENCH_RANKS)]
+    worlds = []
+
+    def body(rank):
+        worlds.append(P.runtime.current_rank_context().world)
+        y = xs[rank]
+        for _ in range(GRAY_CALLS):
+            y = P.COMM_WORLD.Allreduce(y, P.MPI_SUM) * 0.25
+        return y
+
+    clean = P.run_ranks(body, BENCH_RANKS, device="cuda")
+    obs.reset_metrics()
+    worlds.clear()
+    config.set_comm_retries(2)
+    config.set_comm_backoff(RETRY_BACKOFF)
+    try:
+        with resilience.fault_scope([resilience.FaultSpec(
+                "delay", rank=1, op="Allreduce", seconds=RETRY_DELAY)]):
+            t0 = time.perf_counter()
+            got = P.run_ranks(body, BENCH_RANKS, timeout=RETRY_TIMEOUT,
+                              device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        config.set_comm_retries(0)
+        config.set_comm_backoff(0.05)
+    used = worlds[0].retry_events
+    metric = obs.snapshot()["counters"].get("comm_retry_events_total", 0)
+    same = all(torch.equal(a, b) for a, b in zip(got, clean))
+    print(f"  delay {RETRY_DELAY} s on rank 1, world timeout "
+          f"{RETRY_TIMEOUT} s, comm_retries 2 (backoff {RETRY_BACKOFF} s): "
+          f"completed in {wall:.2f} s, retry_events {used}, metric "
+          f"comm_retry_events_total {metric}, results bitwise the "
+          f"undelayed run's {same}")
+    check(same and used > 0 and metric == used,
+          "the delayed Allreduce was not rescued by the retries")
+    # Every one of rank 1's rendezvous (each Allreduce above the fold-once
+    # size is two) pays the tax.
+    spec = resilience.FaultSpec("slow_rank", rank=1, op="Allreduce",
+                                seconds=GRAY_SLEEP, count=2 * GRAY_CALLS)
+    with obs.trace() as t, resilience.fault_scope([spec]):
+        P.run_ranks(body, BENCH_RANKS, device="cuda")
+    rep = resilience.GrayFailureDetector(t, floor_s=0.02).check()
+    print(f"  slow_rank {GRAY_SLEEP} s x {GRAY_CALLS} calls on rank 1: "
+          f"{rep.summary()} (host times)")
+    check(rep.slow == frozenset({1}), "the gray-failure detector did not "
+          "name rank 1")
+    return {"retry_events": used, "gray_slow": sorted(rep.slow)}
+
+
+def traced_serving_phase(P, T, serve, obs, kernels, cfg, params, prompts,
+                         tp2):
+    """Phase 38: phase 5's TP=2 serving traced: tokens and first logits
+    equal to the untraced run's; serve.stats() and the mpi4torch_serve_*
+    Prometheus lines agree with the engines' ServeStats.snapshot()."""
+    engines = []
+    lock = threading.Lock()
+
+    def rank_body():
+        with torch.inference_mode():
+            eng = serve.Engine(cfg, params,
+                               serve.ServeConfig(slots=SLOTS,
+                                                 max_new=TP2_MAX_NEW),
+                               device="cuda")
+            with lock:
+                engines.append(eng)
+            for p in prompts[:TP2_REQUESTS]:
+                eng.submit(p)
+            eng.run()
+            res = eng.results()
+            return [res[i].tolist() for i in range(TP2_REQUESTS)]
+
+    serve.reset_stats()
+    kernels.reset_launch_counts()
+    with obs.trace() as t:
+        streams = P.run_ranks(rank_body, 2, device="cuda")
+    launches = dict(kernels.launch_counts)
+    want = tp2[0][0][1]
+    agg = serve.stats()
+    snaps = [e.stats.snapshot() for e in engines]
+    text = obs.prometheus_text()
+    keys = [k for k, v in agg.items()
+            if isinstance(v, (int, float)) and not isinstance(v, bool)]
+    agree = all(agg[k] == sum(s[k] for s in snaps)
+                for k in keys if k not in ("n_engines", "occupancy"))
+    lines = all(f"mpi4torch_serve_{k} {agg[k]:g}" in text for k in keys)
+    labels = sorted({e.bucket.split(".")[1] for e in t.events
+                     if e.bucket})
+    print(f"  traced TP=2 serving: tokens equal to phase 5's untraced run "
+          f"{streams[0] == want and streams[1] == want}; "
+          f"{len(t.events_for(rank=0))} events on rank 0 over "
+          f"{snaps[0]['steps']} decode steps, labels {labels}; serve.stats() "
+          f"over {agg['n_engines']} engines agrees with the snapshots "
+          f"{agree}; every mpi4torch_serve_* line matches {lines}")
+    check(streams[0] == want and streams[1] == want,
+          "tracing changed the served tokens")
+    check(agg["n_engines"] == 2 and agree and lines,
+          "serve.stats() or the Prometheus lines disagree with ServeStats")
+    del engines
+    serve.reset_stats()
+    return launches
+
+
+def means_body(P, rank, device):
+    """The DP mean, Allreduce_tree's mean (per leaf, fused, pipelined),
+    the reduce-scatter mean and ZeRO-1 with adam, at 3 ranks (1/3 is
+    inexact, so a reciprocal multiplication would show)."""
+    from mpi4torch_tpu_torch import fuse
+    from mpi4torch_tpu_torch.parallel import all_average_tree, zero
+    from mpi4torch_tpu_torch.parallel.dp import dp_loss
+    from mpi4torch_tpu_torch.utils import optim
+    from mpi4torch_tpu_torch.utils.tree import tree_leaves, value_and_grad
+
+    c = P.COMM_WORLD
+    rng = np.random.default_rng(100 + rank)
+    t = {"w": torch.from_numpy(rng.standard_normal((1700, 50))
+                               .astype(np.float32)).to(device),
+         "b": torch.from_numpy(rng.standard_normal(11)
+                               .astype(np.float32)).to(device)}
+    out = [c.Allreduce_tree(t, P.MPI_SUM, mean=True, **kw)
+           for kw in (dict(bucket_bytes=0), {},
+                      dict(bucket_bytes=4096, overlap=True))]
+    out.append(all_average_tree(c, t))
+    out.append(value_and_grad(lambda p: dp_loss(
+        c, lambda q, x: q["w"][0, 0] * x[1, 1] + q["b"][3] ** 2, p,
+        t["w"]), t))
+    out.append(fuse.fused_reduce_scatter_tree(c, t, P.MPI_SUM, mean=True,
+                                              bucket_bytes=8192))
+    opt = optim.adam(1e-2)
+    p = {k: v * 0.5 for k, v in t.items()}
+    st = zero.zero_init(c, opt, p)
+    for _ in range(2):
+        p, st = zero.zero_step(c, opt, p, t, st)
+    out.append(p)
+    return tree_leaves(out)
+
+
+def examples_means_phase(P, T, tree, kernels, kv_ex, zero_ex):
+    """Phase 39: generate_kv_cache and zero_sharded_optimizer on the card
+    (float32; attention on the simt kernels) against their CPU runs
+    (float64), and the 3-rank means bitwise against the CPU run."""
+    p64 = T.init_transformer(0, kv_ex.CFG, torch.float64, device="cpu")
+    p32 = tree.tree_map(lambda t: t.to("cuda", torch.float32), p64)
+    kernels.reset_launch_counts()
+    ms, (loss, _, gen, want) = sync_ms(lambda: kv_ex.run(
+        2, device="cuda", steps=EXAMPLE_STEPS, params=p32))
+    launches = dict(kernels.launch_counts)
+    c_loss, _, c_gen, _ = kv_ex.run(2, device="cpu", steps=EXAMPLE_STEPS,
+                                    params=p64)
+    rel = abs(loss - c_loss) / abs(c_loss)
+    print(f"  generate_kv_cache, 2 ranks x {EXAMPLE_STEPS} steps: card "
+          f"(f32) loss {loss:.6f}, CPU (f64) {c_loss:.6f} (rel {rel:.2e}, "
+          f"tol {EXAMPLE_LOSS_REL:g}); tokens {gen.tolist()} (CPU "
+          f"{c_gen.tolist()}, pattern {want.tolist()}); attention launches "
+          + ", ".join(f"{k} {launches[k]} ({launches[f'{k}.simt']} simt)"
+                      for k in kernels.ATTENTION_KERNELS)
+          + f"; {ms:.0f} ms")
+    check(rel <= EXAMPLE_LOSS_REL and np.array_equal(gen, c_gen),
+          "generate_kv_cache on the card differs from its CPU run")
+    check(all(launches[k] == launches[f"{k}.simt"] > 0
+              for k in kernels.ATTENTION_KERNELS),
+          "generate_kv_cache's f32 attention did not run on simt")
+    p1, p3, _ = zero_ex.run(4, device="cuda")
+    c1, c3, _ = zero_ex.run(4, device="cpu")
+    worst = max(float(((a[k].double().cpu() - b[k]).abs()
+                       / b[k].abs().clamp_min(1e-12)).max())
+                for a, b in ((p1, c1), (p3, c3)) for k in ("w", "b"))
+    print(f"  zero_sharded_optimizer, 4 ranks: ZeRO-1 and ZeRO-3 on the "
+          f"card match their oracle (checked inside) and the CPU run "
+          f"within {worst:.2e} (tol {EXAMPLE_PARAM_REL:g})")
+    check(worst <= EXAMPLE_PARAM_REL, "zero_sharded_optimizer on the card "
+          "differs from its CPU run")
+    got = P.run_ranks(lambda r: means_body(P, r, torch.device("cuda")), 3,
+                      device="cuda")
+    cpu = P.run_ranks(lambda r: means_body(P, r, torch.device("cpu")), 3,
+                      device="cpu")
+    same = all(torch.equal(a.cpu(), b) and a.is_cuda
+               for gr, cr in zip(got, cpu) for a, b in zip(gr, cr))
+    print(f"  3-rank means (DP mean, Allreduce_tree per leaf / fused / "
+          f"pipelined, reduce-scatter mean, ZeRO-1 adam): card bitwise "
+          f"the CPU run {same} ({sum(len(g) for g in got)} tensors)")
+    check(same, "a 3-rank mean on the card differs from the CPU run")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU",
@@ -4432,6 +5041,10 @@ def main():
     from mpi4torch_tpu_torch.models import vit as V
     from mpi4torch_tpu_torch.parallel import pp
     from mpi4torch_tpu_torch.utils import data
+    from mpi4torch_tpu_torch import obs, resilience
+    from mpi4torch_tpu_torch.examples import generate_kv_cache as kv_ex
+    from mpi4torch_tpu_torch.examples import zero_sharded_optimizer \
+        as zero_ex
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4782,7 +5395,39 @@ def main():
         flash, kernels, SLICE10_KERNEL_SHAPES, seed0=600)
     requant = requant_numbers(qk)
 
-    phase(33, "kernels")
+    phase(33, "observability: the traced fused DP=2 step of the flagship "
+          "(batch 8 x 2048, bf16, 4 MiB buckets)")
+    traced = traced_dp2_phase(P, T, tree, fuse, obs, kernels, config, cfg,
+                              params, tokens, smi)
+
+    phase(34, "flight recorder: rank_death on rank 1 mid-step")
+    print(smi)
+    flight_phase(P, T, obs, resilience, fuse, config, cfg, params, tokens)
+
+    phase(35, "finite guard on the DP=2 step and a 4 x 2^24 Allreduce")
+    guard = guard_phase(P, T, tree, resilience, kernels, config, cfg,
+                        params, tokens, smi)
+
+    phase(36, f"wire checksum on the compressed Allgather, {BENCH_RANKS} "
+          f"rank threads x {BENCH_NUMEL} float32")
+    checksum = checksum_phase(P, resilience, kernels, config, smi)
+
+    phase(37, "retries and gray failure")
+    print(smi)
+    retry_gray_phase(P, obs, resilience, config)
+
+    phase(38, "traced TP=2 serving and the serving metrics")
+    print(smi)
+    serve_launches = traced_serving_phase(P, T, serve, obs, kernels, cfg,
+                                          params, prompts, tp2)
+
+    phase(39, "the generate_kv_cache and zero_sharded_optimizer examples "
+          "on the card, and the 3-rank means")
+    print(smi)
+    example_launches = examples_means_phase(P, T, tree, kernels, kv_ex,
+                                            zero_ex)
+
+    phase(40, "kernels")
     print(smi)
     sp_shapes, sp_worst = sp_kernel_numbers(flash, kernels)
     # flash_fwd: launches on the serving path (phase 4), times at the
@@ -4956,6 +5601,32 @@ def main():
           and all(v["launches"][k] > 0 for v in pipe.values()
                   for k in kernels.ATTENTION_KERNELS),
           "a ViT or PP run launched no attention kernel")
+    # This slice's paths: each attention kernel's launches in the traced
+    # DP=2 step (phase 33) and traced TP=2 serving (phase 38), under
+    # obs_launches; in the clean guarded DP=2 step (phase 35) and the
+    # generate_kv_cache example on the card (phase 39, f32: the simt
+    # kernels), under resilience_launches and examples_launches.  q8_hop:
+    # its hop launches in the traced fused q8 step (phase 33) and its
+    # requant launches in the checksummed q8 Allgather (phase 36).
+    for entry in line["kernels"][:3]:
+        kname = entry["name"]
+        entry["obs_launches"] = {"dp2_step": traced["launches"][kname]}
+        if kname == "flash_fwd":
+            entry["obs_launches"]["tp2_serving"] = serve_launches[kname]
+        entry["resilience_launches"] = {
+            "guarded_dp2_step": guard["launches"][kname]}
+        entry["examples_launches"] = {
+            "generate_kv_cache": example_launches[kname],
+            "generate_kv_cache_simt": example_launches[f"{kname}.simt"]}
+    hop_entry["obs_launches"] = {
+        "fused_q8_step": traced["q8_launches"]["q8_hop"]}
+    hop_entry["resilience_launches"] = {
+        "checksummed_q8_allgather_requant":
+            checksum["q8"]["requant_launches"]}
+    check(all(v > 0 for e in line["kernels"]
+              for key in ("obs_launches", "resilience_launches")
+              for v in e[key].values()),
+          "a kernel of this slice's paths was launched no time")
     print(json.dumps(line))
     print(f"  ResNet-18 DP=2 step {resnet['dp_grad_train_step']['ms']:.1f} "
           f"ms; ViT-B/16 DP=2 step {vit['ms']:.1f} ms; PP=2 1F1B step "

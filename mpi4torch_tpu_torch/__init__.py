@@ -26,7 +26,11 @@ hand-written CUDA kernels, forward and backward: on the tensor cores for
 bf16 with head dim <= 128 (``ops/csrc/flash_fwd_tc.cu``,
 ``ops/csrc/flash_bwd_tc.cu``), on the CUDA cores otherwise
 (``ops/csrc/flash_fwd.cu``, ``ops/csrc/flash_bwd.cu``), and every hop of
-a quantized ring through another (``ops/csrc/quant_hop.cu``).
+a quantized ring through another (``ops/csrc/quant_hop.cu``).  The
+runtime's chokepoints carry the observability layer (``obs``: comm
+tracing, metrics, the flight recorder, Chrome-trace export) and the core
+of fault tolerance (``resilience``: fault injection, retries with
+backoff, the integrity guards, gray-failure detection).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device and no such request they raise.  The package imports
@@ -53,6 +57,9 @@ from .comm import (
     JoinDummiesHandle,
     MPI_Communicator,
     WaitHandle,
+    comm_from_mesh,
+    comm_from_mpi4py,
+    deactivate_cuda_aware_mpi_support,
 )
 from .runtime import (
     BifurcationError,
@@ -61,19 +68,26 @@ from .runtime import (
     DeadlockError,
     HealthReport,
     InPlaceReuseError,
+    IntegrityError,
     RankFailedError,
     resolve_device,
     run_ranks,
 )
-from . import compress, config
+from . import compress, config, fuse, obs, overlap, resilience, serve, tune
+from .config import compression_scope, fusion_scope, overlap_scope
+from .resilience import FaultPlan, FaultSpec, fault_scope
 
 __all__ = [
     "MPI_MAX", "MPI_MIN", "MPI_SUM", "MPI_PROD", "MPI_LAND", "MPI_BAND",
     "MPI_LOR", "MPI_BOR", "MPI_LXOR", "MPI_BXOR", "MPI_MINLOC",
     "MPI_MAXLOC",
     "COMM_WORLD", "MPI_Communicator", "WaitHandle", "JoinDummies",
-    "JoinDummiesHandle",
+    "JoinDummiesHandle", "comm_from_mesh", "comm_from_mpi4py",
+    "deactivate_cuda_aware_mpi_support",
     "CommError", "CollectiveMismatchError", "DeadlockError",
     "RankFailedError", "InPlaceReuseError", "BifurcationError",
-    "HealthReport", "resolve_device", "run_ranks", "compress", "config",
+    "IntegrityError", "HealthReport", "resolve_device", "run_ranks",
+    "config", "compress", "fuse", "tune", "overlap", "resilience", "serve",
+    "obs", "FaultPlan", "FaultSpec", "fault_scope", "compression_scope",
+    "fusion_scope", "overlap_scope",
 ]

@@ -9,11 +9,13 @@ Port of ``mpi4torch_tpu/comm.py`` on the rank-thread runtime:
 ``Reduce_scatter_start``/``Allgather_start`` (``overlap/``),
 ``check_health`` and the fused ``Allreduce_tree`` (``fuse/``);
 :class:`WaitHandle`, :func:`JoinDummies` and :func:`JoinDummiesHandle`;
-and the :data:`COMM_WORLD` singleton.  Inside :func:`run_ranks` each rank thread
-sees its own concrete rank; outside, ``COMM_WORLD`` is a size-1 world,
-like an MPI binary run without ``mpirun``.  Every op is differentiable,
-its backward the adjoint communication (``ops/eager.py``), and runs
-under ``torch.profiler.record_function("mpi4torch.<Name>")``.
+the :data:`COMM_WORLD` singleton; and mpi4torch's
+``deactivate_cuda_aware_mpi_support``, a no-op here.  Inside
+:func:`run_ranks` each rank thread sees its own concrete rank; outside,
+``COMM_WORLD`` is a size-1 world, like an MPI binary run without
+``mpirun``.  Every op is differentiable, its backward the adjoint
+communication (``ops/eager.py``), and runs under
+``torch.profiler.record_function("mpi4torch.<Name>")``.
 
 ``Allreduce`` resolves its codec and algorithm with the JAX package's
 rules: ``compression=None`` defers to the compression scope or process
@@ -441,6 +443,15 @@ def comm_from_mpi4py(comm):
     raise NotImplementedError(
         "comm_from_mpi4py: multi-process worlds come with the "
         "compiled/device backend (ROADMAP.md, Queue 1 item 4)")
+
+
+def deactivate_cuda_aware_mpi_support() -> None:
+    """A documented no-op kept so that mpi4torch scripts run unmodified.
+    In mpi4torch it stops MPI from reading CUDA buffers directly and
+    stages them through host memory instead.  Here collectives never go
+    through MPI: rank threads of one world hand each other device tensors
+    on the card's shared stream, so there is no CUDA-aware transport to
+    turn off."""
 
 
 COMM_WORLD = MPI_Communicator()

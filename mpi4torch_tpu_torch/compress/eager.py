@@ -29,10 +29,15 @@ so on a card they run on the CUDA kernel K1.  The kernel and the plain
 version are bitwise equal (power-of-two scales make every product and
 division exact), so the results keep the JAX package's bits.
 
-Not ported: the wire checksum and the finite guard on the contributions
-(``config.comm_wire_checksum``, ``comm_finite_guard``), which come with
-the resilience package (ROADMAP.md, Queue 1 item 6); both are off by
-default in the JAX package.
+Both integrity guards of ``resilience.guards`` ride these wires, off by
+default as in the JAX package.  ``config.comm_wire_checksum`` adds a
+CRC32 of each encoded ``(meta, payload)`` to the rendezvous item
+(:func:`_wire_exchange`): the sender computes it once, and the item as
+deposited, after fault injection, is verified once, so a flipped bit or
+a corrupt scale raises an ``IntegrityError`` naming its contributor on
+every rank.  ``config.comm_finite_guard`` checks each rank's raw
+contribution to the hop oracle and each decoded contribution of the
+rendezvous codecs and of the compressed Allgather.
 """
 
 from __future__ import annotations
@@ -43,9 +48,38 @@ from .. import config as _config
 from .. import constants as C
 from ..ops.eager import _FOLD_ONCE_MIN, _check_payload, _norm_axis, \
     _own, _shape_sig
+from ..resilience import guards as _guards
 from ..runtime import CommError, RankContext
 from ..utils import threefry
 from .codecs import Codec
+
+
+def _wire_exchange(world, rank: int, sig, meta, payload, opname: str,
+                   read, decode=None):
+    """Ship an encoded ``(meta, payload)`` through the rendezvous and
+    return ``read`` of the rank-ordered ``(meta, payload)`` list.
+
+    With ``config.comm_wire_checksum`` on, the item also carries the
+    CRC32 of its wire bytes (the signature gains ``"crc"``), and each
+    rank's item is verified as deposited: a mismatch raises
+    ``IntegrityError`` naming the corrupt contributor(s) on every rank.
+    With ``decode`` given and the finite guard on, each rank's decoded
+    contribution is checked as well.  Off, the item and the signature
+    are the unguarded wire's."""
+    checks = ()
+    item = (meta, payload)
+    if _config.comm_wire_checksum():
+        item = (meta, payload, _guards.wire_checksum((meta, payload)))
+        sig = sig + ("crc",)
+        checks = _guards.wire_check(opname)
+        plain_read = read
+
+        def read(vals):
+            return plain_read([v[:2] for v in vals])
+    if decode is not None:
+        checks += _guards.finite_check(
+            opname, decode=lambda it: decode(it[1], it[0]))
+    return world.exchange(rank, sig, item, read=read, checks=checks)
 
 
 def _rank_key(codec: Codec, ctx: RankContext, salt: int):
@@ -112,7 +146,9 @@ def _hop_oracle_value(ctx: RankContext, x, codec: Codec, algo: str,
 
     # Rank 0 folds and the others copy its result inside the rendezvous,
     # before any owner can modify its payload in place.
-    red = world.exchange(rank, sig, x, read=fold)
+    red = world.exchange(rank, sig, x, read=fold,
+                         checks=_guards.finite_check(
+                             f"Allreduce[{codec.name}]"))
     return world.exchange(rank, sig + ("fold",), red,
                           read=lambda vals: vals[0] if rank == 0
                           else vals[0].clone())
@@ -141,20 +177,23 @@ def _rendezvous_round(ctx: RankContext, v, codec: Codec, salt: int):
     own = base.decode(payload, meta)
     sig = ("Allreduce.c", codec.name, salt, _shape_sig(v))
 
+    opname = f"Allreduce[{codec.name}]"
+
     def fold(vals):
         return C.reduce_ordered(C.MPI_SUM,
                                 [base.decode(p, m) for (m, p) in vals])
 
     if v.numel() >= _FOLD_ONCE_MIN:
         # Rank 0 decodes and folds once; the others take a copy.
-        red = world.exchange(rank, sig, (meta, payload),
-                             read=lambda vals: fold(vals) if rank == 0
-                             else None)
+        red = _wire_exchange(world, rank, sig, meta, payload, opname,
+                             lambda vals: fold(vals) if rank == 0
+                             else None, decode=base.decode)
         out = world.exchange(rank, ("Allreduce.c.fold", codec.name, salt,
                                     _shape_sig(v)), red,
                              read=lambda vals: _own(vals[0], rank, 0))
         return out, own
-    return world.exchange(rank, sig, (meta, payload), read=fold), own
+    return _wire_exchange(world, rank, sig, meta, payload, opname, fold,
+                          decode=base.decode), own
 
 
 def _rendezvous_value(ctx: RankContext, v, codec: Codec):
@@ -207,9 +246,10 @@ def _gather_round(ctx: RankContext, v, codec: Codec, ax: int, salt: int):
     payload, meta = base.encode(v, _rank_key(base, ctx, salt))
     othershape = tuple(s for i, s in enumerate(v.shape) if i != ax)
     sig = ("Allgather.c", codec.name, salt, ax, othershape, str(v.dtype))
-    return ctx.world.exchange(
-        ctx.rank, sig, (meta, payload),
-        read=lambda vals: [base.decode(p, m) for (m, p) in vals])
+    return _wire_exchange(
+        ctx.world, ctx.rank, sig, meta, payload, f"Allgather[{codec.name}]",
+        lambda vals: [base.decode(p, m) for (m, p) in vals],
+        decode=base.decode)
 
 
 def _scatter_round(ctx: RankContext, g, codec: Codec, ax: int, counts,
@@ -222,11 +262,11 @@ def _scatter_round(ctx: RankContext, g, codec: Codec, ax: int, counts,
     payload, meta = base.encode(g, _rank_key(base, ctx, salt))
     offset = sum(counts[:rank])
     sig = ("Allgather.c.bwd", codec.name, salt, ax, _shape_sig(g))
-    seg = world.exchange(rank, sig, (meta, payload),
-                         read=lambda vals: C.reduce_ordered(C.MPI_SUM, [
-                             base.decode(p, m).narrow(ax, offset,
-                                                      counts[rank])
-                             for (m, p) in vals]))
+    seg = _wire_exchange(
+        world, rank, sig, meta, payload, f"Allgather.bwd[{codec.name}]",
+        lambda vals: C.reduce_ordered(C.MPI_SUM, [
+            base.decode(p, m).narrow(ax, offset, counts[rank])
+            for (m, p) in vals]))
     return seg, base.decode(payload, meta)
 
 

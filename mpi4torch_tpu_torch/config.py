@@ -11,9 +11,12 @@ and the knobs of the compressed Allreduce: the default codec
 (:func:`set_default_compression`, :func:`compression_scope`), the
 bandwidth crossover of the algorithm selector, the ``torus`` group
 size and the implementation of the quantized hop
-(:func:`quant_hop_impl`).  The deterministic flag and the scopes are per
-thread, so a scope opened before ``run_ranks`` is not seen by the rank
-threads; the process-wide setters are.
+(:func:`quant_hop_impl`), and the fault-tolerance and observability
+knobs: comm retries and backoff, the finite guard, the wire checksum,
+the fault plan and the comm tracer.  The deterministic flag and the
+scopes are per thread, so a scope opened before ``run_ranks`` is not
+seen by the rank threads; the process-wide setters are, and the
+fault-tolerance and observability knobs are process-wide only.
 """
 
 from __future__ import annotations
@@ -287,3 +290,132 @@ def set_quant_hop_impl(impl: str) -> None:
             f"quant_hop_impl must be one of {_QUANT_HOP_IMPLS}, got "
             f"{impl!r}")
     _quant_hop_impl = impl
+
+
+# --- fault tolerance and observability ---------------------------------------
+#
+# These knobs are process-wide module globals, not per-thread state: a
+# fault plan, a guard or a tracer installed outside ``run_ranks`` must
+# reach the rank threads, which a thread-local scope opened outside them
+# would never see.
+
+# Retry budget of a timed-out rendezvous barrier or p2p receive: this many
+# more patience windows of capped exponential backoff before it raises.
+# 0 keeps the single-timeout behaviour.
+_comm_retries = 0
+# Base backoff in seconds: retry k waits min(backoff * 2**(k-1), 30 s).
+_comm_backoff = 0.05
+
+
+def comm_retries() -> int:
+    """Retry extensions a timed-out rendezvous barrier or p2p receive gets
+    before it raises (``mpi4torch_tpu_torch.resilience``)."""
+    return _comm_retries
+
+
+def set_comm_retries(n) -> None:
+    global _comm_retries
+    try:
+        n = int(n)
+    except (TypeError, ValueError):
+        raise ValueError(f"comm_retries must be an integer retry count, "
+                         f"got {n!r}") from None
+    if n < 0:
+        raise ValueError(f"comm_retries must be >= 0, got {n}")
+    _comm_retries = n
+
+
+def comm_backoff() -> float:
+    """Base seconds of the capped exponential backoff between retries
+    (retry k waits ``min(comm_backoff * 2**(k-1), 30 s)``)."""
+    return _comm_backoff
+
+
+def set_comm_backoff(seconds) -> None:
+    global _comm_backoff
+    try:
+        seconds = float(seconds)
+    except (TypeError, ValueError):
+        raise ValueError(f"comm_backoff must be a number of seconds, got "
+                         f"{seconds!r}") from None
+    if seconds < 0:
+        raise ValueError(f"comm_backoff must be >= 0, got {seconds}")
+    _comm_backoff = seconds
+
+
+# Non-finite payload guard of the collectives: "off" (no check),
+# "warn" (IntegrityWarning naming the offending rank(s)) or "raise"
+# (IntegrityError naming them).
+_GUARD_MODES = ("off", "warn", "raise")
+_comm_finite_guard = "off"
+
+
+def comm_finite_guard() -> str:
+    """Non-finite payload check of the collectives
+    (``resilience.guards``): ``"off"``, ``"warn"`` or ``"raise"``."""
+    return _comm_finite_guard
+
+
+def set_comm_finite_guard(mode: str) -> None:
+    global _comm_finite_guard
+    if mode not in _GUARD_MODES:
+        raise ValueError(f"comm_finite_guard must be one of {_GUARD_MODES}, "
+                         f"got {mode!r}")
+    _comm_finite_guard = mode
+
+
+# Checksum leg of the compressed rendezvous wire (compress/eager.py):
+# when True every encoded payload travels with the CRC32 of its wire
+# bytes, and a mismatch raises IntegrityError naming the contributor.
+_comm_wire_checksum = False
+
+
+def comm_wire_checksum() -> bool:
+    """Whether the compressed wire carries a verified checksum
+    (``resilience.guards.wire_checksum``)."""
+    return _comm_wire_checksum
+
+
+def set_comm_wire_checksum(value: bool) -> None:
+    global _comm_wire_checksum
+    _comm_wire_checksum = bool(value)
+
+
+# The active fault-injection plan (resilience.FaultPlan) or None: the
+# chokepoints read it once per call.
+_fault_plan = None
+
+
+def fault_plan():
+    """The active fault-injection plan, or None
+    (``mpi4torch_tpu_torch.resilience``)."""
+    return _fault_plan
+
+
+def set_fault_plan(plan) -> None:
+    """Install a process-wide fault plan: a ``FaultPlan``, a ``FaultSpec``,
+    a sequence of specs, or None to clear."""
+    global _fault_plan
+    if plan is None:
+        _fault_plan = None
+        return
+    from .resilience.faults import as_plan
+
+    _fault_plan = as_plan(plan)
+
+
+# The active comm tracer (obs.CommTracer) or None: the chokepoints read
+# it once per call.
+_comm_tracer = None
+
+
+def comm_tracer():
+    """The active comm tracer, or None (``mpi4torch_tpu_torch.obs``)."""
+    return _comm_tracer
+
+
+def set_comm_tracer(tracer) -> None:
+    """Install a process-wide comm tracer (an ``obs.CommTracer``), or None
+    to turn tracing off."""
+    global _comm_tracer
+    _comm_tracer = tracer

@@ -10,9 +10,10 @@ the tensors' own device, in the identical association.
 It also holds the folds of the other wire algorithms, each in the
 association its compiled schedule reduces in (:func:`reduce_rhd`,
 :func:`reduce_tree`, :func:`reduce_grouped`, :func:`reduce_torus`,
-bitwise equal to the JAX package's on the same inputs), and the quantized
+bitwise equal to the JAX package's on the same inputs), the quantized
 fold oracle of the block-q8 codecs (:func:`reduce_q8_hop`) with its
-multipath schedule rules.
+multipath schedule rules, and the division of the rank means
+(:func:`divide`).
 """
 
 from __future__ import annotations
@@ -69,6 +70,22 @@ def fold_applicable(op: int, dtype: torch.dtype) -> bool:
     if op in _BITWISE_OPS:
         return not (dtype.is_floating_point or dtype.is_complex)
     return True
+
+
+def scalar_like(x, like):
+    """``x`` as a 0-d tensor of ``like``'s dtype on its device, as JAX's
+    weak typing casts a Python scalar before the op.  A 0-d device tensor
+    (not a Python scalar) also keeps a CUDA division a true division: a
+    host scalar there becomes a multiplication by its reciprocal, which
+    is one ulp off ``x / n`` for some ``n`` (3 and 6 among them)."""
+    return torch.full((), x, dtype=like.dtype, device=like.device)
+
+
+def divide(x, n):
+    """``x / n`` for a Python number ``n``, rounded as the JAX package's
+    ``x / n`` on every device: the rank means (``mean=True``, ``/ size``)
+    divide through here."""
+    return x / scalar_like(n, x)
 
 
 def combine2(op: int, a, b):

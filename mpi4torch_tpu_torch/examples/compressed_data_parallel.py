@@ -26,6 +26,7 @@ import torch
 
 import mpi4torch_tpu_torch as mpi
 from mpi4torch_tpu_torch.compress import ef_allreduce, ef_init, get_codec
+from mpi4torch_tpu_torch.constants import divide
 
 comm = mpi.COMM_WORLD
 
@@ -56,7 +57,7 @@ def train(compression=False, stateful_ef=False):
 
     def local_loss(p):
         pred = some_parametrized_function(xs, p)
-        return torch.mean((ys - pred) ** 2) / comm.size
+        return divide(torch.mean((ys - pred) ** 2), comm.size)
 
     params = torch.zeros(3, dtype=torch.float64, device=xs.device)
     resid = ef_init(params)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 import mpi4torch_tpu_torch as mpi
+from mpi4torch_tpu_torch.constants import divide
 from mpi4torch_tpu_torch.utils.lbfgs import LBFGS
 
 comm = mpi.COMM_WORLD
@@ -51,7 +52,7 @@ def main():
 
     def lossfunction(params):
         # average initial params to bring all ranks on the same page
-        params = comm.Allreduce(params, mpi.MPI_SUM) / comm.size
+        params = divide(comm.Allreduce(params, mpi.MPI_SUM), comm.size)
 
         # compute local loss
         localloss = torch.sum(torch.square(

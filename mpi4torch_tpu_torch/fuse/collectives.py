@@ -28,10 +28,10 @@ the JAX package's fused form, not its per-leaf form, that it matches.
 The JAX package's compiled (SPMD) path — the reduce-scatter +
 all-gather pair per bucket staged through optimization barriers, and the
 tier-stack window — belongs to the compiled backend (ROADMAP.md Queue 1
-item 4) and has no counterpart on the rank threads.  Its finite guard
-over the pipeline's per-peer contributions is a no-op while
-``comm_finite_guard`` is off, its default, and comes with the guard
-(ROADMAP.md Queue 1 items 1 and 6).
+item 4) and has no counterpart on the rank threads.  The finite guard
+(``config.comm_finite_guard``) runs on the pipeline's per-peer
+contributions, as in the JAX package: each rank checks the list it
+received, so a corrupt bucket is named by its sender.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ import torch
 
 from .. import config as _config
 from .. import constants as C
+from ..resilience import guards as _guards
 from ..runtime import CommError
 from ..utils.profiling import bucket_scope
 from ..utils.tree import tree_map
@@ -150,6 +151,7 @@ def _pipeline_allreduce(comm, buckets: Sequence, op: int, *,
         vals[rank] = b
         for off, r in enumerate(recvs, start=1):
             vals[(rank - off) % n] = comm.Wait(r)
+        _guards.check_contributions(vals, "Iallreduce_tree")
         out = C.reduce_ordered(op, vals)
         # Completing the sends through JoinDummies keeps every Isend on
         # the differentiation path even though its Wait output is a pure
@@ -237,7 +239,7 @@ def fused_allreduce_tree(comm, tree, op: int = C.MPI_SUM, *,
         out = tree_map(lambda p: comm.Allreduce(
             p, op, compression=compression, algorithm=algorithm), tree)
         if mean:
-            out = tree_map(lambda p: p / size, out)
+            out = tree_map(lambda p: C.divide(p, size), out)
         return out
 
     buckets, layout = flatten_buckets(tree, bb)
@@ -247,7 +249,7 @@ def fused_allreduce_tree(comm, tree, op: int = C.MPI_SUM, *,
         reduced = _pipeline_allreduce(comm, buckets, op,
                                       depth=overlap_depth(overlap))
         if mean:
-            reduced = [b / size for b in reduced]
+            reduced = [C.divide(b, size) for b in reduced]
         return unflatten_buckets(reduced, layout)
 
     reduced = []
@@ -262,7 +264,7 @@ def fused_allreduce_tree(comm, tree, op: int = C.MPI_SUM, *,
             False if (codec is not None or explicit) else None)
         with bucket_scope("Allreduce_tree", i, nb, codec=bcodec):
             out = comm.Allreduce(b, op, compression=arg, algorithm=balgo)
-        reduced.append(out / size if mean else out)
+        reduced.append(C.divide(out, size) if mean else out)
     return unflatten_buckets(reduced, layout)
 
 
@@ -296,7 +298,7 @@ def fused_reduce_scatter_tree(comm, tree, op: int = C.MPI_SUM, *,
             if pad:
                 flat = torch.cat([flat, flat.new_zeros(pad)])
             rs = comm.Reduce_scatter(flat, op, 0)
-            return rs / size if mean else rs
+            return C.divide(rs, size) if mean else rs
         return tree_map(per_leaf, tree)
     if overlap:
         return overlap_reduce_scatter_tree(
@@ -308,7 +310,7 @@ def fused_reduce_scatter_tree(comm, tree, op: int = C.MPI_SUM, *,
     for i, b in enumerate(buckets):
         with bucket_scope("Reduce_scatter_tree", i, layout.num_buckets):
             row = comm.Reduce_scatter(b, op, 0).reshape(-1)
-        rows.append(row / size if mean else row)
+        rows.append(C.divide(row, size) if mean else row)
     return unflatten_shard_rows(rows, layout)
 
 

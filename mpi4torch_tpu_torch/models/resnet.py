@@ -39,7 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..constants import MPI_SUM
+from ..constants import MPI_SUM, divide
 from ..runtime import resolve_device
 from ..utils.tree import tree_map, value_and_grad
 
@@ -227,8 +227,8 @@ def _average_state(comm, state):
     # compression=False: BN running statistics are carried state — codec
     # error would accumulate across steps.
     return tree_map(
-        lambda s: comm.Allreduce(s, MPI_SUM, compression=False) / comm.size,
-        state)
+        lambda s: divide(comm.Allreduce(s, MPI_SUM, compression=False),
+                         comm.size), state)
 
 
 def dp_grad_train_step(comm, cfg: ResNetConfig, params, state, batch,
@@ -241,8 +241,9 @@ def dp_grad_train_step(comm, cfg: ResNetConfig, params, state, batch,
     (loss, new_state), grads = value_and_grad(
         lambda p: local_loss(cfg, p, state, batch), params, has_aux=True)
     size = comm.size
-    grads = tree_map(lambda g: comm.Allreduce(g, MPI_SUM) / size, grads)
-    global_loss = comm.Allreduce(loss, MPI_SUM) / size
+    grads = tree_map(lambda g: divide(comm.Allreduce(g, MPI_SUM), size),
+                     grads)
+    global_loss = divide(comm.Allreduce(loss, MPI_SUM), size)
     new_state = _average_state(comm, new_state)
     with torch.no_grad():
         new_params = tree_map(lambda p, g: p - lr * g, params, grads)
@@ -258,9 +259,9 @@ def dp_loss_train_step(comm, cfg: ResNetConfig, params, state, batch,
     size = comm.size
 
     def global_loss_fn(p):
-        p = tree_map(lambda t: comm.Allreduce(t, MPI_SUM) / size, p)
+        p = tree_map(lambda t: divide(comm.Allreduce(t, MPI_SUM), size), p)
         loss, ns = local_loss(cfg, p, state, batch)
-        return comm.Allreduce(loss, MPI_SUM) / size, ns
+        return divide(comm.Allreduce(loss, MPI_SUM), size), ns
 
     (loss, new_state), grads = value_and_grad(global_loss_fn, params,
                                               has_aux=True)

@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..constants import MPI_SUM
+from ..constants import MPI_SUM, divide, scalar_like
 from ..ops.flash import flash_attention, flash_block_attention
 from ..parallel.attention import (ring_attention, ulysses_attention,
                                   zigzag_ring_attention, zigzag_slice)
@@ -357,19 +357,12 @@ def prefill(cfg: TransformerConfig, params, cache, prompt):
     return x[:, -1] @ params["unembed"], cache
 
 
-def _scalar(x, like):
-    """``x`` as a 0-d tensor of ``like``'s dtype on its device, as JAX's
-    weak typing casts a Python scalar before the op.  A 0-d device tensor
-    (not a Python scalar) also keeps a CUDA division a true division: a
-    host scalar there becomes a multiplication by its reciprocal."""
-    return torch.full((), x, dtype=like.dtype, device=like.device)
-
-
 def _top_k_mask(logits, top_k: int):
     """Every logit below the row's ``top_k``-th largest becomes -inf; ties
     with the ``top_k``-th value all stay (``logits >= kth``)."""
     kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
-    return torch.where(logits >= kth, logits, _scalar(-math.inf, logits))
+    return torch.where(logits >= kth, logits,
+                       scalar_like(-math.inf, logits))
 
 
 def perturbed_scores(logits, key, temperature: float, top_k: int):
@@ -380,7 +373,8 @@ def perturbed_scores(logits, key, temperature: float, top_k: int):
     tensor of one key per row (the serving engine's batched draw)."""
     if top_k:
         logits = _top_k_mask(logits, top_k)
-    return threefry.gumbel_scores(key, logits / _scalar(temperature, logits))
+    return threefry.gumbel_scores(
+        key, logits / scalar_like(temperature, logits))
 
 
 def select_token(logits, key=None, temperature: float = 0.0,
@@ -677,7 +671,8 @@ def _average(comm, tree):
 def _mean_over(comm, loss):
     if not _sharded(comm):
         return loss
-    return comm.Allreduce(loss, MPI_SUM, compression=False) / comm.size
+    return divide(comm.Allreduce(loss, MPI_SUM, compression=False),
+                  comm.size)
 
 
 def train_step(cfg: TransformerConfig, params, tokens, comm_sp=None,
@@ -739,7 +734,8 @@ def zero_train_step(cfg: TransformerConfig, params, tokens, opt,
     # gradients into the dp-mean gradient shard.
     new_params, new_state = zero_step(comm_dp, opt, params, grads,
                                       opt_state)
-    loss = comm_dp.Allreduce(loss, MPI_SUM, compression=False) / comm_dp.size
+    loss = divide(comm_dp.Allreduce(loss, MPI_SUM, compression=False),
+                  comm_dp.size)
     return loss, new_params, new_state
 
 
@@ -766,5 +762,6 @@ def zero3_train_step(cfg: TransformerConfig, p_shards, template, tokens,
 
     loss, new_shards, new_state = zero3_step(
         comm_dp, opt, p_shards, template, local_loss, opt_state)
-    loss = comm_dp.Allreduce(loss, MPI_SUM, compression=False) / comm_dp.size
+    loss = divide(comm_dp.Allreduce(loss, MPI_SUM, compression=False),
+                  comm_dp.size)
     return loss, new_shards, new_state

@@ -21,7 +21,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from ..constants import MPI_SUM
+from ..constants import MPI_SUM, divide
 from ..ops.flash import flash_attention
 from ..parallel.attention import ring_attention
 from ..runtime import resolve_device
@@ -156,8 +156,8 @@ def forward_patches(cfg: ViTConfig, params, patches, comm_sp=None,
     if sp:
         # Mean over the whole patch axis = mean of the equal shards' means.
         # compression=False: a forward activation.
-        pooled = comm_sp.Allreduce(pooled, MPI_SUM,
-                                   compression=False) / comm_sp.size
+        pooled = divide(comm_sp.Allreduce(pooled, MPI_SUM,
+                                          compression=False), comm_sp.size)
     return pooled @ params["head"]
 
 
@@ -176,8 +176,9 @@ def dp_grad_train_step(comm, cfg: ViTConfig, params, batch,
     ``(global_loss, new_params)``."""
     loss, grads = value_and_grad(lambda p: local_loss(cfg, p, batch), params)
     size = comm.size
-    grads = tree_map(lambda g: comm.Allreduce(g, MPI_SUM) / size, grads)
-    global_loss = comm.Allreduce(loss, MPI_SUM) / size
+    grads = tree_map(lambda g: divide(comm.Allreduce(g, MPI_SUM), size),
+                     grads)
+    global_loss = divide(comm.Allreduce(loss, MPI_SUM), size)
     with torch.no_grad():
         new_params = tree_map(lambda p, g: p - lr * g, params, grads)
     return global_loss, new_params

@@ -31,7 +31,10 @@ another rank's tensor, or a slice of one, is copied.  Every read of
 another rank's payload runs inside the rendezvous (``World.exchange``'s
 ``read``), so no owner can modify a payload in place before the others
 have taken what they need of it.  A buffered send copies its payload.
-Nothing here reads a device value on the host.
+Nothing here reads a device value on the host, except the finite guard
+(``config.comm_finite_guard``, off by default), which checks each rank's
+contribution to Allreduce, Reduce_scatter, Reduce_ and Allgather once,
+on its own rank, and raises or warns on every rank alike.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from .. import constants as C
+from ..resilience import guards as _guards
 from ..runtime import (REQ_IRECV, REQ_ISEND, BifurcationError, CommError,
                        RankContext)
 
@@ -143,6 +147,7 @@ def _allreduce_value(ctx: RankContext, x, op: int, algorithm=None):
     _check_payload(ctx, x, "Allreduce")
     name, fold = _rendezvous_fold(world.size, algorithm)
     sig = _shape_sig(x)
+    checks = _guards.finite_check("Allreduce")
     if x.numel() >= _FOLD_ONCE_MIN and C.fold_applicable(op, x.dtype):
         # Every rank would compute the identical fold; above the
         # threshold rank 0 folds once and a second rendezvous shares the
@@ -150,11 +155,11 @@ def _allreduce_value(ctx: RankContext, x, op: int, algorithm=None):
         # dtype stays on the every-rank path and raises on every rank.
         red = world.exchange(rank, ("Allreduce", op, name, sig), x,
                              read=lambda vals: fold(op, vals)
-                             if rank == 0 else None)
+                             if rank == 0 else None, checks=checks)
         return world.exchange(rank, ("Allreduce.fold", op, name, sig), red,
                               read=lambda vals: _own(vals[0], rank, 0))
     return world.exchange(rank, ("Allreduce", op, name, sig), x,
-                          read=lambda vals: fold(op, vals))
+                          read=lambda vals: fold(op, vals), checks=checks)
 
 
 class _Allreduce(torch.autograd.Function):
@@ -195,7 +200,8 @@ class _ReduceScatter(torch.autograd.Function):
         return world.exchange(
             rank, ("Reduce_scatter", op, ax, _shape_sig(x)), x,
             read=lambda vals: C.reduce_ordered(
-                op, [v.narrow(ax, rank * shard, shard) for v in vals]))
+                op, [v.narrow(ax, rank * shard, shard) for v in vals]),
+            checks=_guards.finite_check("Reduce_scatter"))
 
     @staticmethod
     def backward(fctx, g):
@@ -248,7 +254,7 @@ def _bcast_value(rctx, v, root: int, label: str):
         read=lambda vals: _own(vals[root], rctx.rank, root))
 
 
-def _reduce_value(rctx, v, op: int, root: int, fold, label: str, sig):
+def _reduce_value(rctx, v, op: int, root: int, fold, sig, checks=()):
     def read(vals):
         # Non-root ranks discard the reduction, so they fold only when
         # the fold itself would raise: the rejection stays symmetric.
@@ -257,7 +263,7 @@ def _reduce_value(rctx, v, op: int, root: int, fold, label: str, sig):
             return red if rctx.rank == root else torch.zeros_like(red)
         return torch.zeros_like(v)
 
-    return rctx.world.exchange(rctx.rank, sig, v, read=read)
+    return rctx.world.exchange(rctx.rank, sig, v, read=read, checks=checks)
 
 
 class _Bcast(torch.autograd.Function):
@@ -270,7 +276,7 @@ class _Bcast(torch.autograd.Function):
     def backward(fctx, g):
         sig = ("Bcast_.bwd", fctx.root, _shape_sig(g))
         return _reduce_value(fctx.rctx, g, C.MPI_SUM, fctx.root, fctx.fold,
-                             "Bcast_.bwd", sig), None, None, None
+                             sig), None, None, None
 
 
 def bcast_(ctx: RankContext, x, root: int, algorithm=None):
@@ -290,7 +296,7 @@ class _Reduce(torch.autograd.Function):
         fctx.rctx, fctx.op, fctx.root = rctx, op, root
         sig = ("Reduce_", op, root, algorithm or "ring", _shape_sig(x))
         return _reduce_value(rctx, x, op, root, _root_fold(algorithm, root),
-                             "Reduce_", sig)
+                             sig, _guards.finite_check("Reduce_"))
 
     @staticmethod
     def backward(fctx, g):
@@ -395,7 +401,8 @@ class _Allgather(torch.autograd.Function):
         fctx.counts, out = rctx.world.exchange(
             rctx.rank, ("Allgather", ax, othershape, str(x.dtype)), x,
             read=lambda vals: (tuple(v.shape[ax] for v in vals),
-                               torch.cat(vals, dim=ax)))
+                               torch.cat(vals, dim=ax)),
+            checks=_guards.finite_check("Allgather"))
         return out
 
     @staticmethod

@@ -29,6 +29,7 @@ from typing import Sequence
 
 import torch
 
+from ..constants import divide
 from ..utils.profiling import bucket_scope
 from ..utils.tree import tree_map
 
@@ -138,7 +139,7 @@ def overlap_allreduce_tree(comm, buckets: Sequence, layout, op: int, *,
                                                 algorithm=balgo))
 
     _windowed(nb, depth, start, win.finish)
-    reduced = [r / size if mean else r for r in win.results]
+    reduced = [divide(r, size) if mean else r for r in win.results]
     return unflatten_buckets(reduced, layout)
 
 
@@ -160,7 +161,7 @@ def overlap_reduce_scatter_tree(comm, tree, op: int, *, bucket_bytes: int,
             win.started(i, comm.Reduce_scatter_start(buckets[i], op, 0))
 
     _windowed(nb, depth, start, win.finish)
-    rows = [r.reshape(-1) / size if mean else r.reshape(-1)
+    rows = [divide(r.reshape(-1), size) if mean else r.reshape(-1)
             for r in win.results]
     return unflatten_shard_rows(rows, layout)
 

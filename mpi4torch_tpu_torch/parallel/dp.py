@@ -10,7 +10,7 @@ functions.
 
 from __future__ import annotations
 
-from ..constants import MPI_SUM
+from ..constants import MPI_SUM, divide
 from ..utils.tree import value_and_grad
 
 
@@ -40,7 +40,8 @@ def dp_loss(comm, local_loss_fn, params, batch):
     batch shard, with the parameter-averaging Allreduce that keeps per-rank
     optimizer replicas arithmetically identical."""
     params = all_average_tree(comm, params)
-    return comm.Allreduce(local_loss_fn(params, batch), MPI_SUM) / comm.size
+    return divide(comm.Allreduce(local_loss_fn(params, batch), MPI_SUM),
+                  comm.size)
 
 
 def dp_value_and_grad(comm, local_loss_fn):

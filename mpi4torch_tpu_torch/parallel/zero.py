@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from ..constants import MPI_SUM
+from ..constants import MPI_SUM, divide
 from ..utils.tree import tree_leaves, tree_map, value_and_grad
 
 
@@ -155,7 +155,7 @@ def zero3_step(comm, opt, p_shards, template, local_loss_fn, opt_state,
     loss, g_shards = value_and_grad(
         lambda shards: local_loss_fn(zero3_params(comm, shards, template)),
         p_shards)
-    g_shards = tree_map(lambda g: g / size, g_shards)
+    g_shards = tree_map(lambda g: divide(g, size), g_shards)
     if grad_transform is not None:
         g_shards = grad_transform(g_shards)
     updates, new_state = opt.update(g_shards, opt_state, p_shards)

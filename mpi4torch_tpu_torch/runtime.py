@@ -14,6 +14,15 @@ the request table of the non-blocking ops with its wait-handle guards, the
 per-rank in-place reuse guard of ``Reduce_``, and a resettable health
 probe.
 
+Every collective goes through :meth:`World.exchange` and every message
+through :meth:`World.p2p_send` / :meth:`World.p2p_recv`.  These two
+chokepoints carry what the observability and fault-tolerance packages
+hook: the comm tracer (``config.comm_tracer``, ``obs``), the fault plan
+(``config.fault_plan``, ``resilience``), retries with capped exponential
+backoff (``config.comm_retries`` / ``comm_backoff``) and the integrity
+checks an exchange is given (``checks=``).  With none of them on, each
+costs one attribute read per call.
+
 Payloads are torch tensors.  Rank threads of one world share one device;
 on a CUDA device they all issue on the same stream, which is what makes
 handing one thread's tensor to another safe without events.
@@ -26,7 +35,8 @@ import queue
 import threading
 import time
 from dataclasses import dataclass
-from typing import (Any, Callable, Dict, FrozenSet, List, Optional, Tuple)
+from typing import (Any, Callable, Dict, FrozenSet, List, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -66,6 +76,17 @@ class RankFailedError(CommError):
         self.ranks: FrozenSet[int] = frozenset(ranks)
 
 
+class IntegrityError(CommError):
+    """A payload failed an integrity guard: a non-finite contribution
+    under ``config.comm_finite_guard="raise"``, or a compressed-wire
+    checksum mismatch under ``config.comm_wire_checksum``.  ``ranks``
+    names the rank(s) whose contribution was corrupt."""
+
+    def __init__(self, message: str, ranks=()):
+        super().__init__(message)
+        self.ranks: FrozenSet[int] = frozenset(ranks)
+
+
 class InPlaceReuseError(CommError):
     """A tensor consumed by an in-place collective (``Reduce_``) was
     passed to a later communication op on the same rank."""
@@ -79,6 +100,24 @@ class BifurcationError(CommError):
 # Request kinds of the non-blocking point-to-point ops.
 REQ_ISEND = 1
 REQ_IRECV = 2
+
+# What a fault plan's p2p hook returns to swallow a message
+# (``resilience`` ``drop_p2p``): the payload waits in the world's dropped
+# stash, and a receive that retries gets it redelivered.
+_P2P_DROPPED = object()
+
+# Ceiling of one backoff pause: retries extend a wait, they must not turn
+# a real deadlock into an unbounded hang.
+_BACKOFF_CAP_S = 30.0
+
+
+def _backoff_pause(attempt: int, backoff: float, base: float) -> float:
+    """Length of retry ``attempt``'s patience window: capped exponential
+    on ``backoff``, or the base timeout again when backoff is 0.  One
+    rule for the rendezvous barrier and the p2p receive."""
+    if backoff > 0:
+        return min(backoff * (2 ** (attempt - 1)), _BACKOFF_CAP_S)
+    return base
 
 
 @dataclass
@@ -196,13 +235,16 @@ class _AttributedBarrier:
         self.timeout_arrived: Optional[FrozenSet[int]] = None
         self.timeout_arrive_t: Dict[int, float] = {}
 
-    def wait(self, rank: int, timeout: float,
-             collect_arrivals: Optional[list] = None) -> None:
-        """Arrive and wait for the generation to fill.  Raises
-        :class:`_BarrierTimeout` when ``timeout`` runs out and
-        :class:`_BarrierBroken` when another waiter broke the barrier.
-        ``collect_arrivals`` (a list) receives the completed round's
-        arrival times, appended under the lock."""
+    def wait(self, rank: int, timeout: float, retries: int = 0,
+             backoff: float = 0.0,
+             collect_arrivals: Optional[list] = None) -> int:
+        """Arrive and wait for the generation to fill; returns the number
+        of retry extensions this waiter used (0: the base timeout was
+        enough).  Raises :class:`_BarrierTimeout` when the patience (the
+        timeout and ``retries`` windows of capped exponential
+        ``backoff``) runs out and :class:`_BarrierBroken` when another
+        waiter broke the barrier.  ``collect_arrivals`` (a list) receives
+        the completed round's arrival times, appended under the lock."""
         with self._cond:
             if self._broken:
                 if not self.resettable:
@@ -234,11 +276,19 @@ class _AttributedBarrier:
                 self._cond.notify_all()
                 if collect_arrivals is not None:
                     collect_arrivals.append(dict(self._last_arrivals))
-                return
+                return 0
+            attempt = 0
             deadline = time.monotonic() + timeout
             while True:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
+                    if attempt < retries:
+                        # One more patience window: a slow rank that
+                        # arrives inside it completes the round for all.
+                        attempt += 1
+                        deadline = time.monotonic() + _backoff_pause(
+                            attempt, backoff, timeout)
+                        continue
                     arrived = frozenset(self._arrived)
                     self.timeout_arrived = arrived
                     self.timeout_arrive_t = dict(self._arrive_t)
@@ -250,7 +300,7 @@ class _AttributedBarrier:
                 if self._gen != gen:
                     if collect_arrivals is not None:
                         collect_arrivals.append(dict(self._last_arrivals))
-                    return
+                    return attempt
                 if self._broken:
                     self._leave(rank)
                     raise _BarrierBroken(self.timeout_arrived,
@@ -281,7 +331,11 @@ class World:
     all-to-all of per-rank payloads, and a signature agreement check.
     Point-to-point messages go through per-``(src, dst, tag)`` FIFO
     mailboxes (:meth:`p2p_send`, :meth:`p2p_recv`).  ``device``
-    (optional) is the device every payload must live on."""
+    (optional) is the device every payload must live on.
+
+    ``retry_events`` counts the retry extensions used by waits that then
+    completed, per waiter: one slow rank on an N-rank world can add up to
+    ``(N - 1) x retries``."""
 
     def __init__(self, size: int, timeout: Optional[float] = None,
                  device: Optional[torch.device] = None):
@@ -295,6 +349,9 @@ class World:
         self._health = _AttributedBarrier(size, resettable=True)
         self._slots: List[Any] = [None] * size
         self._sigs: List[Any] = [None] * size
+        # Each rank's verdicts on its own deposited payload, one per check
+        # of the exchange (see exchange's ``checks``).
+        self._verdicts: List[Any] = [()] * size
         self._mailboxes: Dict[Tuple[int, int, int], queue.Queue] = {}
         self._mb_lock = threading.Lock()
         self._req_lock = threading.Lock()
@@ -307,6 +364,10 @@ class World:
         self._first_error: Optional[BaseException] = None
         self._err_lock = threading.Lock()
         self._dead: dict = {}
+        # Messages a fault plan dropped off the p2p wire, redelivered to
+        # a receive that retries (the analogue of a NACK retransmission).
+        self._dropped: Dict[Tuple[int, int, int], List[Any]] = {}
+        self.retry_events = 0
 
     # ---------------------------------------------------------------- errors
 
@@ -345,7 +406,8 @@ class World:
     # ----------------------------------------------------------- collectives
 
     def exchange(self, rank: int, signature: Tuple, payload: Any,
-                 read: Optional[Callable[[List[Any]], Any]] = None) -> Any:
+                 read: Optional[Callable[[List[Any]], Any]] = None,
+                 checks: Sequence = ()) -> Any:
         """All ranks deposit ``(signature, payload)``; returns every
         payload in rank order, or ``read(payloads)`` when ``read`` is
         given.  A signature mismatch raises on every rank.
@@ -354,24 +416,59 @@ class World:
         it takes from other ranks' payloads (a copy, a fold, a
         concatenation) is taken (on the CPU) or queued on the shared
         stream (on the card) before their owners can go on and modify
-        them in place."""
+        them in place.
+
+        ``checks`` are integrity checks (``resilience.guards``): each
+        rank runs ``check.ok(payload)`` once on its own payload as
+        deposited, after fault injection, and between the barriers every
+        rank sees every rank's verdict, so a failure is reported by
+        ``check.report(bad_ranks)`` on every rank alike.
+
+        This is the collective chokepoint: with a comm tracer installed
+        it records a ``CommEvent``, and a fault plan may delay, kill or
+        corrupt this rank's contribution here."""
+        tracer = _cfg.comm_tracer()
+        if tracer is None:
+            return self._exchange(rank, signature, payload, read, checks,
+                                  None)
+        meter = tracer.begin(self, rank, "exchange", signature, payload)
+        try:
+            out = self._exchange(rank, signature, payload, read, checks,
+                                 meter)
+        except BaseException as e:  # noqa: BLE001 — recorded, re-raised
+            tracer.commit(meter, error=e)
+            raise
+        tracer.commit(meter)
+        return out
+
+    def _exchange(self, rank: int, signature: Tuple, payload: Any, read,
+                  checks, meter) -> Any:
         self._check_failed()
-        return self._exchange_wire(rank, signature, payload, read)
+        plan = _cfg.fault_plan()
+        if plan is not None:
+            payload = plan.on_exchange(self, rank, signature, payload)
+        return self._exchange_wire(rank, signature, payload, read, checks,
+                                   meter)
 
     def _exchange_wire(self, rank: int, signature: Tuple, payload: Any,
-                       read=None) -> Any:
+                       read=None, checks=(), meter=None) -> Any:
         self._sigs[rank] = signature
         self._slots[rank] = payload
-        self._wait_barrier(rank)
+        self._verdicts[rank] = tuple(c.ok(payload) for c in checks)
+        self._wait_barrier(rank, meter)
         try:
             self._check_sig_agreement(self._sigs)
+            for i, check in enumerate(checks):
+                bad = [r for r, v in enumerate(self._verdicts) if not v[i]]
+                if bad:
+                    check.report(bad)
             out = list(self._slots)
             if read is not None:
                 out = read(out)
         finally:
             # All readers are done before the slots are reused, and
             # before any owner may modify its payload.
-            self._wait_barrier(rank)
+            self._wait_barrier(rank, meter)
         return out
 
     @staticmethod
@@ -383,9 +480,25 @@ class World:
                 "ranks disagree on the collective being executed: "
                 + "; ".join(f"rank {i}: {s}" for i, s in enumerate(sigs)))
 
-    def _wait_barrier(self, rank: int) -> None:
+    def _count_retries(self, used: int, meter) -> None:
+        """Retry bookkeeping of the barrier and the p2p receive: the
+        world counter, the ``comm_retry_events_total`` metric and the
+        traced operation.  Runs only when a retry rescued a wait."""
+        with self._err_lock:
+            self.retry_events += used
+        if meter is not None:
+            meter.add_retries(used)
+        from .obs import metrics as _metrics
+        _metrics.inc("comm_retry_events_total", used,
+                     help="retry extensions consumed by rendezvous/p2p "
+                          "waits that eventually completed")
+
+    def _wait_barrier(self, rank: int, meter=None) -> None:
+        t0 = time.perf_counter() if meter is not None else 0.0
         try:
-            self._barrier.wait(rank, self.timeout)
+            used = self._barrier.wait(rank, self.timeout,
+                                      retries=_cfg.comm_retries(),
+                                      backoff=_cfg.comm_backoff())
         except _BarrierTimeout as t:
             if self._dead:
                 raise self._rank_failed_error("cannot complete") \
@@ -400,6 +513,12 @@ class World:
                     "collective aborted because another rank failed"
                 ) from self._first_error
             raise self._deadlock_error(b.arrived) from None
+        if meter is not None:
+            # Time blocked on peers; the event's duration minus this is
+            # the rank's own local latency, the gray-failure signal.
+            meter.add_wait(time.perf_counter() - t0)
+        if used:
+            self._count_retries(used, meter)
 
     def _deadlock_error(self, arrived: Optional[FrozenSet[int]]
                         ) -> DeadlockError:
@@ -435,6 +554,10 @@ class World:
             ok = False
             arrived = frozenset() if e.arrived is None else e.arrived
             arrive_t = e.arrive_t
+        from .obs import metrics as _metrics
+        _metrics.inc(
+            f'comm_health_probes_total{{result="{"ok" if ok else "failed"}"}}',
+            help="health_check barrier probes by outcome")
         arrival_s: Dict[int, float] = {}
         if arrive_t:
             first = min(arrive_t.values())
@@ -458,20 +581,61 @@ class World:
 
     def p2p_send(self, src: int, dst: int, tag: int, payload: Any) -> None:
         """Buffered send: never blocks.  Messages of one ``(src, dst,
-        tag)`` arrive in the order they were sent."""
+        tag)`` arrive in the order they were sent.  The p2p send
+        chokepoint: traced like :meth:`exchange`, and a fault plan may
+        delay, kill, corrupt or drop the message here."""
+        tracer = _cfg.comm_tracer()
+        if tracer is None:
+            return self._p2p_send(src, dst, tag, payload)
+        meter = tracer.begin(self, src, "p2p_send", ("p2p_send", tag),
+                             payload, peer=dst, tag=tag)
+        try:
+            self._p2p_send(src, dst, tag, payload)
+        except BaseException as e:  # noqa: BLE001 — recorded, re-raised
+            tracer.commit(meter, error=e)
+            raise
+        tracer.commit(meter)
+
+    def _p2p_send(self, src: int, dst: int, tag: int, payload: Any) -> None:
         self._check_failed()
         if not (0 <= dst < self.size):
             raise CommError(f"invalid destination rank {dst} (size "
                             f"{self.size})")
+        plan = _cfg.fault_plan()
+        if plan is not None:
+            payload = plan.on_p2p_send(self, src, dst, tag, payload)
+            if payload is _P2P_DROPPED:
+                return
         self._mailbox(src, dst, tag).put(payload)
 
     def p2p_recv(self, src: int, dst: int, tag: int) -> Any:
         """Blocking receive with the deadlock timeout.  A dead ``src``
         raises a :class:`RankFailedError` naming it; no message within
-        the world timeout raises :class:`DeadlockError`."""
+        the world timeout raises :class:`DeadlockError`.  With
+        ``config.comm_retries`` set, an empty wait retries with capped
+        exponential backoff, first asking for redelivery of a message a
+        fault plan dropped.  The p2p receive chokepoint: traced like
+        :meth:`exchange`, with the received bytes."""
+        tracer = _cfg.comm_tracer()
+        if tracer is None:
+            return self._p2p_recv(src, dst, tag, None)
+        meter = tracer.begin(self, dst, "p2p_recv", ("p2p_recv", tag),
+                             None, peer=src, tag=tag)
+        try:
+            out = self._p2p_recv(src, dst, tag, meter)
+        except BaseException as e:  # noqa: BLE001 — recorded, re-raised
+            tracer.commit(meter, error=e)
+            raise
+        tracer.commit(meter, result_payload=out)
+        return out
+
+    def _p2p_recv(self, src: int, dst: int, tag: int, meter) -> Any:
         if not (0 <= src < self.size):
             raise CommError(f"invalid source rank {src} (size {self.size})")
         q = self._mailbox(src, dst, tag)
+        retries = _cfg.comm_retries()
+        backoff = _cfg.comm_backoff()
+        attempt = 0
         deadline = time.monotonic() + self.timeout
         while True:
             # The sender-specific check comes first: it says which peer
@@ -486,10 +650,32 @@ class World:
                 return q.get(timeout=0.05)
             except queue.Empty:
                 if time.monotonic() > deadline:
+                    if attempt < retries:
+                        attempt += 1
+                        if self._redeliver_dropped(src, dst, tag):
+                            self._count_retries(1, meter)
+                        deadline = time.monotonic() + _backoff_pause(
+                            attempt, backoff, self.timeout)
+                        continue
+                    with self._mb_lock:
+                        dropped = bool(self._dropped.get((src, dst, tag)))
                     raise DeadlockError(
                         f"receive (src={src}, dst={dst}, tag={tag}) timed "
                         f"out after {self.timeout}s — the matching send was "
-                        "never posted") from None
+                        "never posted" + (
+                            " (a fault-injected drop consumed the message "
+                            "and config.comm_retries is exhausted or unset)"
+                            if dropped else "")) from None
+
+    def _redeliver_dropped(self, src: int, dst: int, tag: int) -> bool:
+        """Move one dropped message back onto its mailbox."""
+        with self._mb_lock:
+            stash = self._dropped.get((src, dst, tag))
+            if not stash:
+                return False
+            payload = stash.pop(0)
+        self._mailbox(src, dst, tag).put(payload)
+        return True
 
     # --------------------------------------------------------- requests
 
@@ -666,6 +852,11 @@ def run_ranks(fn: Callable, nranks: int, timeout: Optional[float] = None,
                 results[rank] = fn(rank) if nparams >= 1 else fn()
             except BaseException as e:  # noqa: BLE001 — re-raised below
                 errors[rank] = e
+                tracer = _cfg.comm_tracer()
+                if tracer is not None:
+                    # The flight recorder also sees failures raised away
+                    # from the chokepoints (a guard after a rendezvous).
+                    tracer.note_rank_failure(world, rank, e)
                 world.fail(e)
 
     threads = [threading.Thread(target=worker, args=(r,), name=f"rank{r}")

@@ -2,7 +2,7 @@
 KV-cache prefill and decode, dense or paged (port of
 ``mpi4torch_tpu.serve``, without the compiled SPMD mode)."""
 
-from ..utils.profiling import ServeStats
+from ..utils.profiling import ServeStats, reset_serve_stats, serve_stats
 from .engine import (POLICIES, SHED_POLICIES, STATUS_EXPIRED, STATUS_OK,
                      STATUS_SHED, Engine, QueueFullError, Request,
                      ServeConfig)
@@ -16,5 +16,10 @@ __all__ = [
     "STATUS_OK", "STATUS_EXPIRED", "STATUS_SHED", "QueueFullError",
     "ServeStats", "decode_step_tp", "prefill_tp", "shard_params_tp",
     "init_kv_cache_tp", "validate_tp", "decode_step_paged",
-    "prefill_chunk_tp", "init_kv_pool_tp", "BlockManager",
+    "prefill_chunk_tp", "init_kv_pool_tp", "BlockManager", "stats",
+    "reset_stats",
 ]
+
+# Process-wide aggregate of every live engine's ServeStats, and its reset.
+stats = serve_stats
+reset_stats = reset_serve_stats

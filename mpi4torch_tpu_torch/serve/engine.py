@@ -53,7 +53,7 @@ from ..models.transformer import TransformerConfig, select_token
 from ..ops.ragged import block_gather, live_cells, write_cells
 from ..runtime import CommError, resolve_device
 from ..utils import threefry
-from ..utils.profiling import ServeStats
+from ..utils.profiling import ServeStats, _register_serve_stats
 from . import kv as _kv
 from . import paging as _paging
 
@@ -309,7 +309,7 @@ class Engine:
         self._known_rids = set()
         self._next_rid = 0
         self.slot_log: List[tuple] = []   # (rid, slot) admission history
-        self.stats = ServeStats()
+        self.stats = _register_serve_stats(ServeStats())
         # Logits table of the most recent decode step (a device tensor,
         # kept for inspection; the engine reads back only the tokens).
         self.last_logits = None

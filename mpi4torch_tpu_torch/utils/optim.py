@@ -8,9 +8,9 @@ port cannot import optax, so it keeps its own functional counterpart of
 :func:`sgd` and :func:`adam`, working on the port's trees of tensors
 (``utils/tree.py``) with optax 0.2.6's order of operations and state
 dtypes: the moments and the momentum trace in the parameter dtype, every
-scalar cast to the tensor's dtype before it multiplies (as JAX's
-weakly-typed Python scalars are), and Adam's step count a Python int
-(optax keeps an int32 scalar).
+scalar cast to the tensor's dtype on its device before it multiplies or
+divides (as JAX's weakly-typed Python scalars are), and Adam's step
+count a Python int (optax keeps an int32 scalar).
 
 ``torch.optim``'s classes do not fit: they update parameters in place
 and keep their state inside the optimizer object, while ZeRO needs the
@@ -24,6 +24,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from ..constants import scalar_like
 from .tree import tree_map
 
 __all__ = ["Optimizer", "AdamState", "sgd", "adam"]
@@ -42,8 +43,19 @@ class AdamState(NamedTuple):
 
 
 def _c(value: float, like):
-    """``value`` as a scalar of ``like``'s dtype."""
-    return torch.tensor(value, dtype=like.dtype)
+    """``value`` as a 0-d tensor of ``like``'s dtype on its device (a
+    host scalar would turn a CUDA division into a multiplication by its
+    reciprocal; see ``constants.scalar_like``)."""
+    return scalar_like(value, like)
+
+
+def _sqrt(x):
+    """The correctly rounded square root of ``x`` on every device: taken
+    in float64 and rounded once to ``x``'s dtype (a double rounding that
+    is exact for a square root into 24 or fewer significant bits).
+    torch's float32 ``sqrt`` on CUDA is not correctly rounded, so without
+    this a card's Adam step drifts an ulp from the CPU's and JAX's."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
 
 
 def _scale(updates, step_size: float):
@@ -92,7 +104,7 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
         bc1, bc2 = 1 - b1 ** count, 1 - b2 ** count
         updates = tree_map(
             lambda m, v: (m / _c(bc1, m))
-            / (torch.sqrt(v / _c(bc2, v)) + _c(eps, v)), mu, nu)
+            / (_sqrt(v / _c(bc2, v)) + _c(eps, v)), mu, nu)
         return _scale(updates, -learning_rate), AdamState(count, mu, nu)
 
     return Optimizer(init, update)

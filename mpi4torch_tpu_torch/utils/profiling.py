@@ -1,24 +1,32 @@
-"""Observability: profiler spans and engine counters.
+"""Observability: profiler spans, engine counters and trace capture.
 
-Port of the serving and bucket parts of
-``mpi4torch_tpu/utils/profiling.py``.  The spans are
+Port of ``mpi4torch_tpu/utils/profiling.py``.  The spans are
 ``torch.profiler.record_function`` ranges (the counterpart of the JAX
 package's ``jax.named_scope``), so a ``torch.profiler`` trace separates
 prefill from decode and names every decode collective site and every
-bucket of a fused collective.  :class:`ServeStats` keeps the engine's
-counters and per-request timestamps; :meth:`ServeStats.snapshot`
-derives occupancy and TTFT / end-to-end latency p50 and p99.
+bucket of a fused collective; with a comm tracer installed
+(``mpi4torch_tpu_torch.obs``) each span's name is also pushed as the
+label of the chokepoint events inside it.  :class:`ServeStats` keeps an
+engine's counters and per-request timestamps; :meth:`ServeStats.snapshot`
+derives occupancy and TTFT / end-to-end latency p50 and p99.  Engines
+register their stats with the obs source registry, so
+:func:`serve_stats` aggregates every live engine and the metrics
+registry exports them as ``mpi4torch_serve_*``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
-from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["bucket_scope", "serve_step_scope", "ServeStats", "percentile"]
+from ..obs.metrics import percentile, register_collector, sources
+from ..obs.trace import push_label
+
+__all__ = ["profiler_trace", "bucket_scope", "serve_step_scope",
+           "ServeStats", "serve_stats", "reset_serve_stats", "percentile"]
 
 
 def bucket_scope(op: str, index: int, total: int, codec=None, phase=None):
@@ -32,21 +40,20 @@ def bucket_scope(op: str, index: int, total: int, codec=None, phase=None):
         name += f".{codec.name}"
     if phase is not None:
         name += f".{phase}"
-    return torch.profiler.record_function(name)
+    return _labeled_scope(name)
 
 
 def serve_step_scope(what: str = "decode_step"):
     """Span ``mpi4torch.serve.<what>`` around one serving-engine phase."""
-    return torch.profiler.record_function(f"mpi4torch.serve.{what}")
+    return _labeled_scope(f"mpi4torch.serve.{what}")
 
 
-def percentile(values: Sequence[float], q: float) -> Optional[float]:
-    """Nearest-rank-floor percentile: element ``min(int(q * n), n - 1)``
-    of the sorted sample (the JAX package's rule), or None when empty."""
-    vals = sorted(values)
-    if not vals:
-        return None
-    return vals[min(int(q * len(vals)), len(vals) - 1)]
+@contextlib.contextmanager
+def _labeled_scope(name: str):
+    """``record_function(name)`` plus the obs label push (which does
+    nothing while no comm tracer is installed)."""
+    with push_label(name), torch.profiler.record_function(name):
+        yield
 
 
 class ServeStats:
@@ -81,6 +88,14 @@ class ServeStats:
         self._lock = threading.Lock()
         self.counters = {k: 0 for k in self._COUNTERS}
         self.spans = {}
+
+    def reset(self) -> None:
+        """Zero the counters and drop the spans, in place (an engine
+        holding this object goes on counting from zero)."""
+        with self._lock:
+            for k in list(self.counters):
+                self.counters[k] = 0
+            self.spans.clear()
 
     def count(self, name: str, n: int = 1) -> None:
         with self._lock:
@@ -127,3 +142,59 @@ class ServeStats:
                             "p50": percentile(lat, 0.50),
                             "p99": percentile(lat, 0.99)}
         return out
+
+
+# Engines register their ServeStats weakly in the obs source registry,
+# so a discarded engine leaves the aggregate (and memory).
+_SERVE_GROUP = "serve"
+
+
+def _register_serve_stats(stats: ServeStats) -> ServeStats:
+    return sources().register(_SERVE_GROUP, stats)
+
+
+def serve_stats() -> dict:
+    """Process-wide aggregate of every live engine's :class:`ServeStats`
+    (``serve.stats()``).  Counters sum across engines: on rank threads
+    each rank runs its own engine, so counts there are ``nranks`` times
+    the logical traffic."""
+    engines = sources().live(_SERVE_GROUP)
+    agg = {k: 0 for k in ServeStats._COUNTERS}
+    for e in engines:
+        snap = e.snapshot()
+        for k in agg:
+            agg[k] += snap.get(k, 0)
+    agg["n_engines"] = len(engines)
+    agg["occupancy"] = (round(agg["occupancy_ticks"] / agg["slot_ticks"], 4)
+                        if agg["slot_ticks"] else None)
+    return agg
+
+
+def reset_serve_stats() -> None:
+    """Zero every live engine's counters and spans in place and empty the
+    registry (``serve.reset_stats()``).  Engines made before the reset
+    keep counting on their own stats but leave the aggregate."""
+    for e in sources().clear(_SERVE_GROUP):
+        e.reset()
+
+
+# The serving counters in the metrics namespace (mpi4torch_serve_*),
+# polled at snapshot time from the engines' own live state.
+register_collector("serve", serve_stats)
+
+
+@contextlib.contextmanager
+def profiler_trace(logdir: str):
+    """Capture a ``torch.profiler`` trace of the enclosed block (host and,
+    with CUDA available, device activity) into ``logdir``, in the
+    TensorBoard / Perfetto format; the spans above name the collective
+    sites in it.  The counterpart of the JAX package's
+    ``profiler_trace``, which captures a JAX profiler trace."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                logdir)):
+        yield

@@ -906,9 +906,8 @@ def test_fused_q8_tree_on_the_kernel_equals_plain_and_the_cpu(cuda,
 def test_fused_overlap_split_phase_and_zero_on_the_card(cuda):
     # Fused exact (blocking and the Isend/Irecv pipeline), split-phase
     # handles and ZeRO-1 with adam on the card: bitwise their blocking,
-    # per-leaf and replicated forms.  The sums are also bitwise the CPU
-    # run's; a division by a scalar is not (CUDA multiplies by the
-    # reciprocal), so the means and Adam are held on the card only.
+    # per-leaf and replicated forms, and bitwise the CPU run's, the
+    # means and Adam included (they divide by 0-d device tensors).
     import mpi4torch_tpu_torch as P
     from mpi4torch_tpu_torch.parallel import zero as Z
     from mpi4torch_tpu_torch.utils import optim
@@ -956,7 +955,7 @@ def test_fused_overlap_split_phase_and_zero_on_the_card(cuda):
         assert all(torch.equal(a, b) for a, b in zip(fused, leaf))
         assert all(torch.equal(a, b) for a, b in zip(pipe, leaf))
         assert all(torch.equal(a, b) for a, b in zip(zero[:2], zero[2:]))
-        for a, b in zip(sum(got[r][:4], []), sum(cpu[r][:4], [])):
+        for a, b in zip(sum(got[r], []), sum(cpu[r], [])):
             assert a.is_cuda and torch.equal(a.cpu(), b)
         assert split[0].shape == (40, 7) and split[2].shape == (120, 7)
 
@@ -1341,3 +1340,172 @@ def test_pipeline_schedules_on_the_card(cuda):
                                        rtol=1e-10, atol=1e-12)
         torch.testing.assert_close(f1[r][0], gpipe[r][0], rtol=1e-12,
                                    atol=0)
+
+
+
+# ---------------------------------------------------------------------------
+# The rank means, the integrity guards, the wire checksum and the comm
+# tracer on CUDA payloads.
+
+def _means_body(rank, device):
+    """The DP mean, Allreduce_tree's mean (per leaf, fused, pipelined),
+    the reduce-scatter mean and ZeRO-1 with adam, at 3 ranks (1/3 is
+    inexact, so a reciprocal multiplication would show) and 85000
+    elements (enough for an ulp of a square root not correctly rounded
+    to show in Adam)."""
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch import fuse
+    from mpi4torch_tpu_torch.parallel import all_average_tree, zero
+    from mpi4torch_tpu_torch.parallel.dp import dp_loss
+    from mpi4torch_tpu_torch.utils import optim
+    from mpi4torch_tpu_torch.utils.tree import value_and_grad
+
+    c = P.COMM_WORLD
+    rng = np.random.default_rng(100 + rank)
+    t = {"w": torch.from_numpy(rng.standard_normal((1700, 50))
+                               .astype(np.float32)).to(device),
+         "b": torch.from_numpy(rng.standard_normal(11)
+                               .astype(np.float32)).to(device)}
+    out = [c.Allreduce_tree(t, P.MPI_SUM, mean=True, **kw)
+           for kw in (dict(bucket_bytes=0), {},
+                      dict(bucket_bytes=4096, overlap=True))]
+    out.append(all_average_tree(c, t))
+    out.append(value_and_grad(lambda p: dp_loss(
+        c, lambda q, x: q["w"][0, 0] * x[1, 1] + q["b"][3] ** 2, p,
+        t["w"]), t))
+    out.append(fuse.fused_reduce_scatter_tree(c, t, P.MPI_SUM, mean=True,
+                                              bucket_bytes=8192))
+    opt = optim.adam(1e-2)
+    p = {k: v * 0.5 for k, v in t.items()}
+    st = zero.zero_init(c, opt, p)
+    for _ in range(2):
+        p, st = zero.zero_step(c, opt, p, t, st)
+    out.append(p)
+    return tree_leaves(out)
+
+
+@pytest.mark.cuda
+def test_three_rank_means_and_adam_bitwise_the_cpu_run(cuda):
+    import mpi4torch_tpu_torch as P
+
+    got = P.run_ranks(lambda r: _means_body(r, cuda), 3, timeout=60.0,
+                      device=cuda)
+    cpu = P.run_ranks(lambda r: _means_body(r, torch.device("cpu")), 3,
+                      timeout=60.0, device="cpu")
+    for r in range(3):
+        assert len(got[r]) == len(cpu[r])
+        for a, b in zip(got[r], cpu[r]):
+            assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_finite_guard_raises_alike_on_every_rank_thread(cuda):
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch import config, resilience as rz
+
+    def body(rank):
+        x = torch.arange(4096.0, device=cuda) * (rank + 1)
+        y = x.clone()
+        try:
+            P.COMM_WORLD.Allreduce(y, P.MPI_SUM)
+        except P.IntegrityError as e:
+            # The fault acted on a clone: the caller's tensor is intact.
+            return "IntegrityError", e.ranks, torch.equal(x, y)
+        return "ok", None, torch.equal(x, y)
+
+    config.set_comm_finite_guard("raise")
+    try:
+        with rz.fault_scope([rz.FaultSpec("corrupt_nan", rank=1,
+                                          op="Allreduce")]) as plan:
+            outs = P.run_ranks(body, 3, timeout=30.0, device=cuda)
+        clean = P.run_ranks(lambda r: P.COMM_WORLD.Allreduce(
+            torch.arange(70000.0, device=cuda) * (r + 1), P.MPI_SUM), 3,
+            timeout=30.0, device=cuda)
+    finally:
+        config.set_comm_finite_guard("off")
+    assert plan.fired_kinds() == frozenset({"corrupt_nan"})
+    assert outs == [("IntegrityError", frozenset({1}), True)] * 3
+    off = P.run_ranks(lambda r: P.COMM_WORLD.Allreduce(
+        torch.arange(70000.0, device=cuda) * (r + 1), P.MPI_SUM), 3,
+        timeout=30.0, device=cuda)
+    assert all(torch.equal(a, b) for a, b in zip(clean, off))
+
+
+@pytest.mark.cuda
+def test_poison_and_bitflip_clone_on_the_card(cuda):
+    from mpi4torch_tpu_torch.resilience import faults
+
+    x = torch.arange(6.0, device=cuda)
+    p = faults._poison(x, float("inf"))
+    q = torch.arange(5, dtype=torch.int8, device=cuda)
+    f = faults._flip_bits(q, 3)
+    torch.cuda.synchronize()
+    assert p.is_cuda and torch.isinf(p[0]) and torch.equal(
+        x, torch.arange(6.0, device=cuda))
+    assert f.is_cuda and torch.equal(
+        q, torch.arange(5, dtype=torch.int8, device=cuda))
+    assert torch.equal(f.cpu(), faults._flip_bits(q.cpu(), 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["q8", "bf16"])
+def test_wire_checksum_on_the_card(cuda, codec):
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch import config, resilience as rz
+    from mpi4torch_tpu_torch.compress import get_codec
+
+    def body(rank):
+        x = torch.linspace(-2.0, 2.0, 5000, device=cuda) * (rank + 1)
+        return P.COMM_WORLD.Allgather(x, 0, compression=codec)
+
+    off = P.run_ranks(body, 3, timeout=30.0, device=cuda)
+    config.set_comm_wire_checksum(True)
+    try:
+        on = P.run_ranks(body, 3, timeout=30.0, device=cuda)
+        # A bit-flip needs an integer wire (the q8 blocks); the bf16 wire
+        # is float, so a NaN stands in for its corruption.
+        kind = "bitflip" if codec == "q8" else "corrupt_nan"
+        with rz.fault_scope([rz.FaultSpec(kind, rank=1, op="Allgather.c")]):
+            with pytest.raises(P.IntegrityError) as ei:
+                P.run_ranks(body, 3, timeout=30.0, device=cuda)
+    finally:
+        config.set_comm_wire_checksum(False)
+    assert all(torch.equal(a, b) for a, b in zip(on, off))
+    assert ei.value.ranks == frozenset({1})
+    # The CRC of a wire on the card equals the CRC of the same wire on
+    # the CPU.
+    payload, meta = get_codec(codec).encode(
+        torch.linspace(-1.0, 1.0, 777, device=cuda))
+    cpu_payload = {k: v.cpu() for k, v in payload.items()}
+    assert rz.wire_checksum((meta, payload)) \
+        == rz.wire_checksum((meta, cpu_payload))
+
+
+@pytest.mark.cuda
+def test_tracer_adds_no_device_sync(cuda):
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch import obs
+
+    def body(rank):
+        x = torch.ones(70000, device=cuda) * (rank + 1)
+        t = {"a": x, "b": x[:1000] * 2}
+        y = P.COMM_WORLD.Allreduce(x, P.MPI_SUM)
+        z = P.COMM_WORLD.Allreduce_tree(t, P.MPI_SUM, mean=True)
+        return y, z["a"], z["b"]
+
+    plain = P.run_ranks(body, 2, timeout=30.0, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with obs.trace() as t:
+            traced = P.run_ranks(body, 2, timeout=30.0, device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for pa, ta in zip(plain, traced)
+               for a, b in zip(pa, ta))
+    evs = t.events_for(rank=0)
+    assert [e.op for e in evs] == ["Allreduce", "Allreduce.fold",
+                                   "Allreduce", "Allreduce.fold"]
+    assert evs[0].payload_bytes == 70000 * 4
+    assert evs[2].payload_bytes == 71000 * 4

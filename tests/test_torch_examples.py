@@ -1,7 +1,9 @@
 """The port's strategy examples (``mpi4torch_tpu_torch.examples``):
-ring/Ulysses long-context attention, the expert-parallel MoE and the
-tensor-parallel MLP.  Each ``run`` drives its ``main`` on rank threads on
-the CPU (float64) and checks itself against its single-device oracle:
+ring/Ulysses long-context attention, the expert-parallel MoE, the
+tensor-parallel MLP, and beside the JAX package's own examples the
+compressed DP regression, ResNet, ViT, the pipeline, KV-cache generation
+and the ZeRO-1/3 optimizer.  Each ``run`` drives its ``main`` on rank
+threads on the CPU (float64) and checks itself against its single-device oracle:
 ring and Ulysses against dense attention over the full sequence (values
 and gradients, rtol 1e-9), the MoE loss and gradient at every one of 25
 steps against ``moe_ffn_dense`` (rtol 1e-10 / 1e-8), the TP MLP's loss
@@ -19,11 +21,13 @@ import pytest
 import mpi4torch_tpu as jmpi
 from mpi4torch_tpu_torch.examples import compressed_data_parallel as cdp_ex
 from mpi4torch_tpu_torch.examples import expert_parallel_moe as moe_ex
+from mpi4torch_tpu_torch.examples import generate_kv_cache as kv_ex
 from mpi4torch_tpu_torch.examples import pipeline_training as pp_ex
 from mpi4torch_tpu_torch.examples import resnet_cifar_dp as resnet_ex
 from mpi4torch_tpu_torch.examples import ring_attention_longcontext as ring_ex
 from mpi4torch_tpu_torch.examples import tensor_parallel_mlp as tp_ex
 from mpi4torch_tpu_torch.examples import vit_patch_parallel as vit_ex
+from mpi4torch_tpu_torch.examples import zero_sharded_optimizer as zero_ex
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -117,3 +121,45 @@ def test_pipeline_training_example(n):
     want = jmpi.run_ranks(jmod.main, n)[0]
     got = pp_ex.run(n, device="cpu")
     np.testing.assert_allclose(got, want, rtol=1e-10)
+
+
+def test_generate_kv_cache_example(monkeypatch):
+    # The JAX example's initial weights and data carried across: ten DP
+    # steps on 2 rank threads give the JAX example's loss within 1e-10
+    # and its parameters within 1e-8 (float64), and generate() emits the
+    # JAX generate()'s tokens (each equal to its own full-forward
+    # oracle, checked inside both).
+    from mpi4torch_tpu.models import transformer as JT
+    from mpi4torch_tpu_torch.models import transformer as PT
+
+    jmod = _jax_example("generate_kv_cache")
+    monkeypatch.setattr(jmod, "STEPS", 10)
+    tokens = np.asarray(jmod.make_data(jax.random.PRNGKey(1)))
+    jloss, jparams = jmod.train(2)
+    prompt = np.asarray([kv_ex.PROMPT], np.int32)
+    jgen = np.asarray(JT.generate(jmod.CFG, jparams, prompt,
+                                  n_new=kv_ex.N_NEW))[0, len(kv_ex.PROMPT):]
+    params0 = PT.params_from_jax(jax.tree.map(np.asarray, JT.init_transformer(
+        jax.random.PRNGKey(0), jmod.CFG, dtype=jax.numpy.float64)), "cpu")
+    loss, params, gen, want = kv_ex.run(2, device="cpu", params=params0,
+                                        tokens=tokens, steps=10)
+    np.testing.assert_allclose(loss, jloss, rtol=1e-10)
+    for a, b in zip(jax.tree.leaves(PT.params_to_numpy(params)),
+                    jax.tree.leaves(jax.tree.map(np.asarray, jparams))):
+        np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-12)
+    np.testing.assert_array_equal(gen, jgen)
+    assert want.tolist() == [7, 0, 1, 2, 3, 4, 5, 6, 7, 0, 1, 2]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_zero_sharded_optimizer_example(n):
+    # Both stages match the single-process Adam oracle on every rank and
+    # leaf (checked inside run, rtol 1e-9), and the JAX example's
+    # parameters (optax's adam) within 1e-12.
+    jmod = _jax_example("zero_sharded_optimizer")
+    want, _ = jmod.main(n)
+    p1, p3, ref = zero_ex.run(n, device="cpu")
+    for k in ("w", "b"):
+        for got in (p1, p3, ref):
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                       rtol=1e-12, atol=1e-15)

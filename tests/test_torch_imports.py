@@ -54,7 +54,13 @@ def test_port_has_modules():
                 "utils/data.py", "examples/compressed_data_parallel.py",
                 "examples/resnet_cifar_dp.py",
                 "examples/vit_patch_parallel.py",
-                "examples/pipeline_training.py"):
+                "examples/pipeline_training.py", "obs/__init__.py",
+                "obs/events.py", "obs/metrics.py", "obs/trace.py",
+                "obs/flight.py", "obs/export.py",
+                "resilience/__init__.py", "resilience/faults.py",
+                "resilience/guards.py", "resilience/health.py",
+                "examples/generate_kv_cache.py",
+                "examples/zero_sharded_optimizer.py"):
         assert f"mpi4torch_tpu_torch/{rel}" in names
     for src in ("flash_fwd.cu", "flash_fwd_tc.cu", "flash_bwd.cu",
                 "flash_bwd_tc.cu", "quant_hop.cu"):
