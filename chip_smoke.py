@@ -230,15 +230,47 @@ check fails.  Phases, in order:
     the card (float32) against their CPU runs, and the 3-rank means
     (DP, ``Allreduce_tree``, reduce-scatter, ZeRO-1 Adam) bitwise the
     CPU run;
-40. one JSON line describing each ported kernel (K2, K3 and K4 with
+40. the reshard planner at full width: eight rank threads each hold the
+    flagship's bf16 tree in the (8,) row layout and move it to (2, 4) by
+    partition rules (2-D leaves rows x columns, the 1-D norms over both
+    mesh axes) under the auto strategy and ``gather``: bitwise the sliced
+    tree, the backward bitwise the reverse reshard; steps per leaf kind,
+    ms a tree, wire bytes a rank (plan), the card's peak live bytes
+    against eight times the plan's per-rank estimate; then
+    ``restore_resharded`` of the tree saved by rank 0, from the (8,)
+    layout to (2, 4), bitwise; then the compressed wide hop
+    (``compression="q8"``, ``strategy="gather"``) on the f32 embedding:
+    one K1 requant a rank, bitwise the plain recomputation;
+41. the train -> serve handoff: two ZeRO-3 DP=2 Adam steps, then
+    ``admit_zero3`` into TP=2 bf16 serving shards, bitwise
+    ``shard_params_tp(zero3_params(...))``, its ms and peak against that
+    gather-everything route; a TP=2 ``Engine`` on the admitted shards
+    serves phase 4's eight requests, tokens held to ``generate()`` on the
+    gathered parameters under the near-tie rule (the first token too);
+42. checkpoint and preemption: phase 20's replicated DP=2 Adam, rank 0
+    saving after steps 0, 1 and 2 (``CheckpointManager(max_to_keep=2)``),
+    ``truncate_save`` tearing the step-2 save; ``restore_or_init``
+    returns step 1 with step 2 skipped, ``Bcast_`` to rank 1, step 2
+    again: parameters and Adam state bitwise the pre-crash step-2 state;
+    a template of another layout raises ``CommError``; free disk, state
+    bytes, save and restore GB/s (the checkpoints are deleted after);
+43. the MoE rebalance on phase 26's EP=2 experts by router load:
+    ``rebalance_experts`` with ``strategy="auto"`` (the default) and
+    ``"rounds"`` bitwise equal to the permuted experts, the gradient the
+    inverse move, each route timed after a warm-up; ``"permute"`` refused
+    (no whole-shard bijection);
+44. the ``checkpoint_resume`` example on the card (float32) within 1e-4
+    of its CPU run, each bitwise its own uninterrupted run;
+45. one JSON line describing each ported kernel (K2, K3 and K4 with
     the variant the main path ran; the launches of phases 18–20, 23–27,
-    30–31 and of this slice's phases, ``obs_launches`` and
-    ``resilience_launches``; their numbers at the SP and slice-10
+    30–31 and of the later slices' phases, ``obs_launches``,
+    ``resilience_launches``, ``handoff_launches`` and
+    ``checkpoint_launches``; their numbers at the SP and slice-10
     shapes, against the plain versions, their bounds and SDPA; K1 with
-    its hop and requant launches).
+    its hop and requant launches, ``reshard_launches`` among them).
 
-Each phase of 28–39 prints the card's name and power limit beside its
-numbers.  Times on the host clock are host times; event times of the
+Each phase prints the seconds it took, and each of 28–45 the card's name
+and power limit beside its numbers.  Times on the host clock are host times; event times of the
 comm tracer are host times (a rendezvous returns before the card has
 run its work).
 
@@ -562,8 +594,19 @@ def event_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def phase(n, title):
-    print(f"\n== phase {n}: {title}", flush=True)
+_PHASE_CLOCK = {}
+
+
+def phase(n, title=None):
+    """Print the seconds the previous phase took, then phase ``n``'s
+    header (none when ``title`` is None: the end of the last phase)."""
+    now = time.perf_counter()
+    if _PHASE_CLOCK:
+        print(f"  [phase {_PHASE_CLOCK['n']}: "
+              f"{now - _PHASE_CLOCK['t']:.1f} s]", flush=True)
+    _PHASE_CLOCK.update(n=n, t=now)
+    if title is not None:
+        print(f"\n== phase {n}: {title}", flush=True)
 
 
 def attention_inputs(dtype, b, sq, sk, h, h_kv, d, seed):
@@ -5010,6 +5053,559 @@ def examples_means_phase(P, T, tree, kernels, kv_ex, zero_ex):
     return launches
 
 
+# Phases 40-44: the reshard planner at full width, the ZeRO-3 -> TP
+# serving handoff, checkpoint and preemption, the planned MoE rebalance,
+# and the checkpoint_resume example.
+RESHARD_RANKS, RESHARD_MESH = 8, (2, 4)
+RESHARD_REPEATS = 3
+# Phase 42 keeps its checkpoints under smoke_out/ckpt and deletes them
+# after; phase 40 its migration checkpoint under smoke_out/migrate.
+CKPT_KEEP = 2
+# Phase 44: the example's float32 card run against its float64 CPU run.
+CKPT_EXAMPLE_REL = 1e-4
+
+
+def reshard_specs(rs, params, n, mesh):
+    """The flagship's tree in the (n,) row layout and in the ``mesh``
+    layout, by partition rules: 2-D leaves rows, then (rows, columns);
+    1-D leaves (the norms) over every mesh axis."""
+    src = rs.match_partition_rules(
+        [(r"(^|/)ln", rs.layout((n,), 0)), (r".*", rs.layout((n,), 0, None))],
+        params)
+    dst = rs.match_partition_rules(
+        [(r"(^|/)ln", rs.layout(mesh, (0, 1))),
+         (r".*", rs.layout(mesh, 0, 1))], params)
+    return src, dst
+
+
+def tree_plans(rs, tree, params, src, dst, strategy):
+    """Each leaf's plan; the per-rank wire bytes of the tree; its per-rank
+    peak estimate (every leaf's input and output shards live, plus the
+    largest step buffers of any one leaf); the step kinds per leaf rank."""
+    plans = tree.tree_leaves(tree.tree_map(
+        lambda x, a, b: rs.plan_reshard(a, b, x.shape, x.dtype, strategy),
+        params, src, dst))
+    isz = params["embed"].element_size()
+    io = [(np.prod(p.in_shape) + np.prod(p.out_shape)) * isz for p in plans]
+    peak = int(sum(io) + max(p.peak_bytes - b for p, b in zip(plans, io)))
+    kinds = {}
+    for p in plans:
+        kinds.setdefault(f"{len(p.in_shape)}-D", set()).add(
+            " + ".join(s.kind for s in p.steps) or "(none)")
+    return plans, sum(p.wire_bytes for p in plans), peak, \
+        {k: sorted(v) for k, v in kinds.items()}
+
+
+def tie_rule_tokens(T, cfg, params, prompts, results, n_new):
+    """Each request's tokens against generate()'s step loop under the
+    near-tie rule, the first token included: equal up to the first
+    difference, which must fall at a step whose top-2 logit gap is within
+    TIE_TOL.  Returns (near-tie divergences, oracle near-tie steps)."""
+    divergences, tie_steps = 0, 0
+    for rid, prompt in enumerate(prompts):
+        got = results[rid][len(prompt):].tolist()
+        want, gaps, _ = oracle_stream(T, cfg, params, prompt, n_new)
+        check(len(got) == n_new, f"request {rid} was cut short")
+        tie_steps += sum(g <= TIE_TOL for g in gaps)
+        first = next((i for i, (a, b) in enumerate(zip(got, want))
+                      if a != b), None)
+        if first is not None:
+            check(gaps[first] <= TIE_TOL,
+                  f"request {rid}: token {first} differs from generate() "
+                  f"without a near tie (top-2 gap {gaps[first]:.4f} > "
+                  f"{TIE_TOL})")
+            divergences += 1
+    return divergences, tie_steps
+
+
+def rank_barrier(P):
+    """A rendezvous of every rank thread (one tiny Allreduce)."""
+    P.COMM_WORLD.Allreduce(torch.zeros(1, device=P.COMM_WORLD.device),
+                           P.MPI_SUM)
+
+
+def timed_on_rank0(P, fn, repeats=1):
+    """``fn()`` on every rank, ``repeats`` times after a warm-up, each
+    between a barrier and a synchronisation: (last result, rank 0's ms
+    per repeat, rank 0's peak bytes above the allocation at the barrier
+    over the timed repeats)."""
+    out = fn()
+    ms, peak = [], 0
+    for _ in range(repeats):
+        del out
+        rank_barrier(P)
+        torch.cuda.synchronize()
+        if P.COMM_WORLD.rank == 0:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        rank_barrier(P)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        rank_barrier(P)
+        torch.cuda.synchronize()
+        if P.COMM_WORLD.rank == 0:
+            peak = max(peak, torch.cuda.max_memory_allocated() - base)
+    return out, ms, peak
+
+
+def reshard_phase(P, T, tree, rs, config, kernels, cfg, params, smi):
+    """The flagship's bf16 tree, (8,) rows -> (2, 4), on eight rank
+    threads: auto and gather bitwise the sliced tree, ms, wire bytes,
+    peak against the plan's estimate; the backward bitwise the reverse
+    reshard; restore_resharded of the saved tree; the compressed wide hop
+    on the f32 embedding."""
+    import os
+    import shutil
+
+    from mpi4torch_tpu_torch.utils import restore_resharded, save_checkpoint
+
+    n = RESHARD_RANKS
+    src, dst = reshard_specs(rs, params, n, RESHARD_MESH)
+    in_bytes = sum(t.numel() * t.element_size()
+                   for t in tree.tree_leaves(params)) // n
+    print(smi)
+    numbers = {}
+    for strategy in (None, "gather"):
+        label = strategy or "auto"
+        plans, wire, est, kinds = tree_plans(rs, tree, params, src, dst,
+                                             strategy)
+
+        def body(rank, strategy=strategy):
+            c = P.COMM_WORLD
+            mine = rs.shard_of(params, src, rank)
+            want = rs.shard_of(params, dst, rank)
+            got, ms, peak = timed_on_rank0(
+                P, lambda: c.Reshard(mine, src, dst, strategy=strategy),
+                RESHARD_REPEATS)
+            same = leaves_equal(tree, got, want)
+            del got
+            # The backward: cotangents in the (2, 4) layout come back in
+            # the (8,) layout, bitwise the reverse reshard of them.
+            x = tree.tree_map(lambda t: t.detach().requires_grad_(), mine)
+            y = c.Reshard(x, src, dst, strategy=strategy)
+            w = tree.tree_map(lambda t: t.detach() * 2, y)
+            g = torch.autograd.grad(tree.tree_leaves(y), tree.tree_leaves(x),
+                                    tree.tree_leaves(w))
+            rev = c.Reshard(w, dst, src, strategy=strategy)
+            back = all(torch.equal(a, b)
+                       for a, b in zip(g, tree.tree_leaves(rev)))
+            return same, back, ms, peak
+
+        torch.cuda.synchronize()
+        out = P.run_ranks(body, n, timeout=300.0, device="cuda")
+        same = all(o[0] for o in out)
+        back = all(o[1] for o in out)
+        ms, peak = out[0][2], out[0][3]
+        # The transition's live set: the eight input trees (allocated
+        # before the barrier) and what the call added at its peak.
+        live = peak + n * in_bytes
+        numbers[label] = dict(ms=ms, wire=wire, est=n * est, peak=live,
+                              kinds=kinds, same=same, back=back)
+        print(f"  {label}: steps per leaf {kinds}; {np.mean(ms):.1f} ms a "
+              f"tree (runs {[round(x, 1) for x in ms]}); wire "
+              f"{wire / 1e6:.2f} MB a rank (plan); peak live "
+              f"{live / 1e9:.3f} GB on the card (inputs + the call's peak "
+              f"{peak / 1e9:.3f} GB) vs 8 x the plan's per-rank peak "
+              f"{n * est / 1e9:.3f} GB; bitwise the sliced tree {same}; "
+              f"backward bitwise the reverse reshard {back}", flush=True)
+        check(same and back, f"the {label} reshard is not bitwise the "
+              "sliced tree, or its backward not the reverse reshard")
+        torch.cuda.empty_cache()
+    a, g = numbers["auto"], numbers["gather"]
+    print(f"  auto vs gather: {np.mean(a['ms']):.1f} vs "
+          f"{np.mean(g['ms']):.1f} ms, peak {a['peak'] / 1e9:.3f} vs "
+          f"{g['peak'] / 1e9:.3f} GB, wire {a['wire'] / 1e6:.1f} vs "
+          f"{g['wire'] / 1e6:.1f} MB a rank")
+    check(a["peak"] < g["peak"], "the planned reshard peaked above gather")
+
+    # restore_resharded: rank 0 saves the global tree; every rank restores
+    # its (8,) shard and reshards it to (2, 4) on the card.
+    path = os.path.join(OBS_OUT, "migrate")
+    shutil.rmtree(path, ignore_errors=True)
+    meta = tree.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                               device="meta"), params)
+
+    def migrate(rank):
+        c = P.COMM_WORLD
+        if rank == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_checkpoint(path, params)
+            save_s = time.perf_counter() - t0
+        rank_barrier(P)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = restore_resharded(path, meta, dst, saved_layout=src, comm=c)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = leaves_equal(tree, got, rs.shard_of(params, dst, rank))
+        return same, (save_s if rank == 0 else None), restore_s
+
+    out = P.run_ranks(migrate, n, timeout=300.0, device="cuda")
+    shutil.rmtree(path, ignore_errors=True)
+    nbytes = n * in_bytes
+    numbers["migrate"] = dict(save_s=out[0][1],
+                              restore_s=max(o[2] for o in out))
+    print(f"  restore_resharded from (8,) to (2, 4): {nbytes / 1e9:.3f} GB "
+          f"saved by rank 0 in {out[0][1]:.2f} s "
+          f"({nbytes / out[0][1] / 1e9:.2f} GB/s); eight ranks restored and "
+          f"resharded in {numbers['migrate']['restore_s']:.2f} s; bitwise "
+          f"the sliced tree {all(o[0] for o in out)}", flush=True)
+    check(all(o[0] for o in out), "restore_resharded differs from the "
+          "sliced tree")
+
+    # The compressed wide hop: the f32 embedding under strategy="gather"
+    # with compression="q8" rides the compressed Allgather (K1's requant
+    # form), bitwise the plain recomputation of that gather.
+    emb = params["embed"].float()
+    l8, l24 = rs.layout((n,), 0, None), rs.layout(RESHARD_MESH, 0, 1)
+
+    def hop(rank):
+        x = rs.slice_shard(emb, l8, rank)
+        return P.COMM_WORLD.Reshard(x, l8, l24, strategy="gather",
+                                    compression="q8")
+
+    kernels.reset_launch_counts()
+    ms, got = sync_ms(lambda: P.run_ranks(hop, n, device="cuda"))
+    requant = kernels.launch_counts["q8_requant"]
+    config.set_quant_hop_impl("torch")
+    try:
+        kernels.reset_launch_counts()
+        want = P.run_ranks(hop, n, device="cuda")
+        plain_requant = kernels.launch_counts["q8_requant"]
+    finally:
+        config.set_quant_hop_impl("auto")
+    bitwise = all(bits_differ(a, b) == 0 for a, b in zip(got, want))
+    err = max((a - rs.slice_shard(emb, l24, r)).abs().max().item()
+              for r, a in enumerate(got))
+    numbers["wide_hop"] = dict(requant=requant, ms=ms, err=err)
+    print(f"  compressed wide hop (q8, gather) on the f32 embedding "
+          f"{tuple(emb.shape)}: {requant} q8_requant launches ({plain_requant}"
+          f" on the plain hop), bitwise the plain recomputation {bitwise}, "
+          f"max |err| vs exact {err:.3e}, {ms:.1f} ms", flush=True)
+    check(requant == n and bitwise, "the compressed wide hop did not run "
+          "one requant a rank, or differs from its plain recomputation")
+    del emb, got, want
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def handoff_phase(P, T, tree, serve, kv, kernels, cfg, params, tokens,
+                  prompts):
+    """ZeRO-3 DP=2 Adam steps, admit_zero3 into TP=2 bf16 serving shards
+    (bitwise shard_params_tp(zero3_params)), the handoff's ms and peak
+    against the gather-everything route, then TP=2 serving on the
+    admitted shards against generate() on the gathered parameters."""
+    from mpi4torch_tpu_torch.parallel import zero as Z
+    from mpi4torch_tpu_torch.utils import optim
+
+    rows = TRAIN_BATCH // 2
+
+    def train(rank):
+        c = P.COMM_WORLD
+        x = tokens[rank * rows:(rank + 1) * rows]
+        opt = optim.adam(ADAM_LR)
+        shards, st = Z.zero3_init(c, opt, params)
+        for _ in range(ZERO_STEPS):
+            _, shards, st = T.zero3_train_step(cfg, shards, params, x, opt,
+                                               st, c)
+        return shards
+
+    kernels.reset_launch_counts()
+    shards = P.run_ranks(train, 2, device="cuda")
+    train_launches = dict(kernels.launch_counts)
+    torch.cuda.empty_cache()
+
+    def handoff(route):
+        def body(rank):
+            c = P.COMM_WORLD
+            if route == "admit":
+                fn = lambda: kv.admit_zero3(cfg, c, shards[rank], params,  # noqa: E731
+                                            dtype=torch.bfloat16)
+            else:
+                fn = lambda: kv.shard_params_tp(  # noqa: E731
+                    cfg, Z.zero3_params(c, shards[rank], params), c)
+            out, ms, peak = timed_on_rank0(P, fn, 2)
+            return out, ms, peak
+        return P.run_ranks(body, 2, device="cuda")
+
+    admitted = handoff("admit")
+    gathered_route = handoff("gather")
+    same = all(leaves_equal(tree, a[0], b[0])
+               for a, b in zip(admitted, gathered_route))
+    ms_a, ms_g = admitted[0][1], gathered_route[0][1]
+    peak_a, peak_g = admitted[0][2], gathered_route[0][2]
+    print(f"  admit_zero3 after {ZERO_STEPS} ZeRO-3 Adam steps: TP=2 bf16 "
+          f"serving shards bitwise shard_params_tp(zero3_params) {same}; "
+          f"handoff {[round(x, 1) for x in ms_a]} ms, peak {peak_a / 1e9:.3f}"
+          f" GB on the card, against the gather-everything route "
+          f"{[round(x, 1) for x in ms_g]} ms, peak {peak_g / 1e9:.3f} GB",
+          flush=True)
+    check(same, "admit_zero3 differs from shard_params_tp(zero3_params)")
+    serve_shards = [a[0] for a in admitted]
+    del gathered_route, admitted
+    full = P.run_ranks(lambda r: Z.zero3_params(P.COMM_WORLD, shards[r],
+                                                params), 2,
+                       device="cuda")[0]
+    del shards
+    torch.cuda.empty_cache()
+
+    def serve_body(rank):
+        with torch.inference_mode():
+            eng = serve.Engine(cfg, None,
+                               serve.ServeConfig(slots=SLOTS,
+                                                 max_new=MAX_NEW),
+                               device="cuda", shards=serve_shards[rank])
+            for p in prompts:
+                eng.submit(p)
+            eng.run()
+            return eng.results()
+
+    kernels.reset_launch_counts()
+    ms, out = sync_ms(lambda: P.run_ranks(serve_body, 2, device="cuda"))
+    serve_launches = dict(kernels.launch_counts)
+    same_ranks = all(np.array_equal(out[0][i], out[1][i])
+                     for i in range(len(prompts)))
+    with torch.inference_mode():
+        divergences, ties = tie_rule_tokens(T, cfg, full, prompts, out[0],
+                                            MAX_NEW)
+    tc = serve_launches["flash_fwd"] == serve_launches["flash_fwd.tc"] > 0
+    print(f"  TP=2 Engine on the admitted shards: {len(prompts)} requests x "
+          f"{MAX_NEW} tokens in {ms / 1e3:.2f} s, ranks identical "
+          f"{same_ranks}; tokens vs generate() on the gathered parameters: "
+          f"near-tie divergences {divergences} (oracle near-tie steps "
+          f"{ties}); flash_fwd launches {serve_launches['flash_fwd']}, all "
+          f"tc {tc}", flush=True)
+    check(same_ranks and tc, "the TP=2 ranks disagree, or prefill left the "
+          "tc kernel")
+    del serve_shards, full, out
+    torch.cuda.empty_cache()
+    return dict(train_launches=train_launches,
+                serve_launches=serve_launches, ms=ms_a, gather_ms=ms_g,
+                peak=peak_a, gather_peak=peak_g)
+
+
+def checkpoint_phase(P, T, tree, resilience, kernels, cfg, params, tokens,
+                     smi):
+    """Phase 20's replicated DP=2 Adam: rank 0 saves after steps 0, 1, 2
+    (max_to_keep=2), truncate_save tears step 2's save, restore_or_init
+    returns step 1 with step 2 skipped, Bcast_ to rank 1, step 2 again:
+    bitwise the pre-crash step-2 state.  State bytes, save and restore
+    GB/s, free disk; a template of another layout raises CommError."""
+    import os
+    import shutil
+
+    from mpi4torch_tpu_torch.reshard import layout, shard_template
+    from mpi4torch_tpu_torch.utils import (CheckpointManager, optim,
+                                           restore_checkpoint)
+    from mpi4torch_tpu_torch.utils.optim import AdamState
+
+    workdir = os.path.join(OBS_OUT, "ckpt")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(OBS_OUT, exist_ok=True)
+    free = shutil.disk_usage(OBS_OUT).free
+    print(smi)
+    rows = TRAIN_BATCH // 2
+
+    def state_of(p, st):
+        return {"params": p, "mu": st.mu, "nu": st.nu,
+                "count": torch.tensor(st.count, device="cuda")}
+
+    def body(rank):
+        c = P.COMM_WORLD
+        x = tokens[rank * rows:(rank + 1) * rows]
+        opt = optim.adam(ADAM_LR)
+
+        def step(p, st):
+            _, g = tree.value_and_grad(lambda q: T.lm_loss(cfg, q, x), p)
+            g = c.Allreduce_tree(g, P.MPI_SUM, mean=True)
+            with torch.no_grad():
+                upd, st = opt.update(g, st, p)
+                return tree.tree_map(torch.add, p, upd), st
+
+        mgr = CheckpointManager(workdir, max_to_keep=CKPT_KEEP) \
+            if rank == 0 else None
+        p, st = params, opt.init(params)
+        save_s = []
+        for s in range(3):
+            p, st = step(p, st)
+            if rank == 0:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mgr.save(s, state_of(p, st))
+                save_s.append(time.perf_counter() - t0)
+        pre = state_of(p, st)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in tree.tree_leaves(pre))
+        del p, st
+        # The crash: every rank drops its state; rank 0 resumes from disk.
+        template = state_of(params, opt.init(params))
+        restored, skipped, restore_s = template, None, None
+        if rank == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = resilience.restore_or_init(workdir, template=template)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            restored, skipped = res.state, (res.step, res.skipped)
+        restored = tree.tree_map(lambda a: c.Bcast_(a, 0), restored)
+        p = restored["params"]
+        st = AdamState(int(restored["count"]), restored["mu"],
+                       restored["nu"])
+        p, st = step(p, st)
+        same = leaves_equal(tree, state_of(p, st), pre)
+        guard = None
+        if rank == 0:
+            wrong = shard_template(template, tree.tree_map(
+                lambda t: layout((2,), *((0,) + (None,) * (t.dim() - 1)))
+                if t.dim() else layout((2,)), template))
+            try:
+                restore_checkpoint(os.path.join(workdir, "1"), wrong)
+            except P.CommError as e:
+                guard = "restore_resharded" in str(e)
+        return same, skipped, nbytes, save_s, restore_s, guard
+
+    spec = resilience.FaultSpec("truncate_save", rank=0, op="ckpt_save",
+                                index=2)
+    kernels.reset_launch_counts()
+    with resilience.fault_scope([spec]) as plan:
+        out = P.run_ranks(body, 2, timeout=600.0, device="cuda")
+    launches = dict(kernels.launch_counts)
+    kept = sorted(os.listdir(workdir))
+    shutil.rmtree(workdir, ignore_errors=True)
+    same, (step, skipped), nbytes, save_s, restore_s, guard = out[0]
+    fired = "truncate_save" in plan.fired_kinds()
+    ok = same and out[1][0] and step == 1 and \
+        [s.step for s in skipped] == [2] and fired and guard
+    print(f"  free disk before the phase {free / 1e9:.1f} GB; state "
+          f"(params, Adam mu and nu, count) {nbytes / 1e9:.3f} GB; saves "
+          f"{[round(s, 2) for s in save_s]} s ("
+          f"{', '.join(f'{nbytes / s / 1e9:.2f}' for s in save_s)} GB/s); "
+          f"steps on disk {kept} (max_to_keep {CKPT_KEEP}); truncate_save "
+          f"fired {fired}; restore_or_init returned step {step}, skipped "
+          f"{[(s.step, s.reason.split(':')[0]) for s in skipped]}, in "
+          f"{restore_s:.2f} s ({nbytes / restore_s / 1e9:.2f} GB/s); step 2 "
+          f"redone on both ranks bitwise the pre-crash state {same} / "
+          f"{out[1][0]}; a template of another layout raised CommError "
+          f"naming restore_resharded {guard}; attention launches "
+          f"{launches['flash_fwd']} / {launches['flash_bwd_dq']} / "
+          f"{launches['flash_bwd_dkv']}", flush=True)
+    check(ok, "checkpoint and preemption: the resumed state differs, the "
+          "torn step was not skipped, or the layout guard did not raise")
+    torch.cuda.empty_cache()
+    return dict(launches=launches, bytes=nbytes, save_s=save_s,
+                restore_s=restore_s, free=free)
+
+
+def moe_rebalance_phase(P, T, tree, cfg, tokens):
+    """Phase 26's EP=2 MoE experts rebalanced by router load: the planned
+    block permutation under auto and rounds bitwise the permuted experts;
+    the gradient of the moved experts is the inverse move (the experts
+    themselves, for a cotangent of the output).  Each route runs once
+    untimed before its timed run."""
+    import dataclasses
+
+    from mpi4torch_tpu_torch import reshard as rs
+    from mpi4torch_tpu_torch.parallel import moe
+
+    mcfg = dataclasses.replace(cfg, n_experts=EP_EXPERTS,
+                               capacity=EP_CAPACITY)
+    mparams = T.init_transformer(0, mcfg, torch.bfloat16, device="cuda")
+    blk0 = mparams["blocks"][0]["moe"]
+    h = mparams["embed"][tokens[:EP_BATCH]].reshape(-1, cfg.d_model)
+    loads = torch.bincount((h @ blk0["gate"]).argmax(-1),
+                           minlength=EP_EXPERTS).tolist()
+    perm = moe.balanced_assignment(loads, 2)
+    epr = EP_EXPERTS // 2
+    keys = ("w1", "b1", "w2", "b2")
+    experts = [{k: blk["moe"][k] for k in keys} for blk in mparams["blocks"]]
+    lay = rs.Layout((2,), ((0,), (), ()))
+    plan = rs.plan_permutation(lay, 0, perm, experts[0]["w1"].shape,
+                               torch.bfloat16)
+
+    def body(rank):
+        c = P.COMM_WORLD
+        mine = tree.tree_map(
+            lambda t: t[rank * epr:(rank + 1) * epr].clone(), experts)
+        want = tree.tree_map(
+            lambda t: t[list(perm)][rank * epr:(rank + 1) * epr], experts)
+        out = {}
+        for strategy in ("auto", "rounds"):
+            moe.rebalance_experts(c, mine, perm, strategy=strategy)
+            x = tree.tree_map(lambda t: t.detach().requires_grad_(), mine)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = moe.rebalance_experts(c, x, perm, strategy=strategy)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            g = torch.autograd.grad(tree.tree_leaves(y), tree.tree_leaves(x),
+                                    [t.detach() for t in
+                                     tree.tree_leaves(y)])
+            out[strategy] = (
+                leaves_equal(tree, y, want),
+                all(torch.equal(a, b)
+                    for a, b in zip(g, tree.tree_leaves(mine))), ms)
+        refused = False
+        try:
+            moe.rebalance_experts(c, mine, perm, strategy="permute")
+        except P.CommError as e:
+            refused = "cannot serve" in str(e)
+        return out, refused
+
+    out = P.run_ranks(body, 2, device="cuda")
+    ok = all(v[0] and v[1] for o in out for v in o[0].values()) and \
+        all(o[1] for o in out)
+    moved = sum(t.numel() * t.element_size()
+                for t in tree.tree_leaves(experts)) // 2
+    print(f"  {EP_EXPERTS} experts x {mcfg.n_layers} layers, router loads "
+          f"{loads} -> assignment {perm}; auto plans {plan.strategy} "
+          f"({[s.kind for s in plan.steps]}, {plan.wire_bytes / 1e6:.1f} MB "
+          f"a rank of w1 on the wire); per route (bitwise the permuted "
+          f"experts, gradient = the inverse move, ms on rank 0): "
+          + "; ".join(f"{k} {v[0]}/{v[1]} {v[2]:.1f} ms"
+                      for k, v in out[0][0].items())
+          + f"; {moved / 1e9:.3f} GB of experts a rank; \"permute\" refused "
+          f"(no whole-shard bijection) {all(o[1] for o in out)}",
+          flush=True)
+    check(ok, "a rebalance route differs from the permuted experts, or its "
+          "gradient from the inverse move")
+    del mparams, experts
+    torch.cuda.empty_cache()
+    return {k: v[2] for k, v in out[0][0].items()}
+
+
+def ckpt_example_phase(ckpt_ex):
+    """The checkpoint_resume example on the card (float32) against its
+    CPU run (float64): within CKPT_EXAMPLE_REL; each run checks itself
+    bitwise against its own uninterrupted run."""
+    import os
+    import shutil
+
+    dirs = [os.path.join(OBS_OUT, f"ckpt_example_{d}")
+            for d in ("card", "cpu")]
+    for d in dirs:
+        for p in (d, d + "_ref"):
+            shutil.rmtree(p, ignore_errors=True)
+    card = ckpt_ex.run(2, device="cuda", workdir=dirs[0])
+    cpu = ckpt_ex.run(2, device="cpu", workdir=dirs[1])
+    for d in dirs:
+        for p in (d, d + "_ref"):
+            shutil.rmtree(p, ignore_errors=True)
+    rel = ((card[0].double().cpu() - cpu[0]).abs().max()
+           / cpu[0].abs().max()).item()
+    lrel = max(abs(a - b) / abs(b) for a, b in zip(card[1], cpu[1]))
+    print(f"  2 ranks: resumed run bitwise its uninterrupted run on the "
+          f"card and on the CPU; card params {card[0].cpu().numpy()} vs "
+          f"CPU {cpu[0].numpy()}: {rel:.2e} relative, losses {lrel:.2e} "
+          f"(tol {CKPT_EXAMPLE_REL:g})", flush=True)
+    check(rel <= CKPT_EXAMPLE_REL and lrel <= CKPT_EXAMPLE_REL,
+          "the checkpoint_resume example on the card left its CPU run")
+    return rel
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU",
@@ -5045,6 +5641,8 @@ def main():
     from mpi4torch_tpu_torch.examples import generate_kv_cache as kv_ex
     from mpi4torch_tpu_torch.examples import zero_sharded_optimizer \
         as zero_ex
+    from mpi4torch_tpu_torch import reshard as rs
+    from mpi4torch_tpu_torch.examples import checkpoint_resume as ckpt_ex
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5427,7 +6025,32 @@ def main():
     example_launches = examples_means_phase(P, T, tree, kernels, kv_ex,
                                             zero_ex)
 
-    phase(40, "kernels")
+    phase(40, f"the reshard planner at full width: the flagship's bf16 tree "
+          f"on {RESHARD_RANKS} rank threads, (8,) rows -> (2, 4)")
+    resharded = reshard_phase(P, T, tree, rs, config, kernels, cfg, params,
+                              smi)
+
+    phase(41, "the train -> serve handoff: ZeRO-3 DP=2 Adam, admit_zero3 "
+          "into TP=2 bf16 shards, TP=2 serving on them")
+    print(smi)
+    handoff = handoff_phase(P, T, tree, serve, kv, kernels, cfg, params,
+                            tokens, prompts)
+
+    phase(42, "checkpoint and preemption at full width: replicated DP=2 "
+          "Adam, truncate_save, restore_or_init, Bcast_")
+    ckpt = checkpoint_phase(P, T, tree, resilience, kernels, cfg, params,
+                            tokens, smi)
+
+    phase(43, f"MoE rebalance: EP=2, {EP_EXPERTS} experts, the planned "
+          "block permutation under auto and rounds")
+    print(smi)
+    rebalance = moe_rebalance_phase(P, T, tree, cfg, tokens)
+
+    phase(44, "the checkpoint_resume example on the card")
+    print(smi)
+    ckpt_example_phase(ckpt_ex)
+
+    phase(45, "kernels")
     print(smi)
     sp_shapes, sp_worst = sp_kernel_numbers(flash, kernels)
     # flash_fwd: launches on the serving path (phase 4), times at the
@@ -5627,10 +6250,38 @@ def main():
               for key in ("obs_launches", "resilience_launches")
               for v in e[key].values()),
           "a kernel of this slice's paths was launched no time")
+    # This slice's paths: each attention kernel's launches in the ZeRO-3
+    # training before the handoff (phase 41) and in the DP=2 Adam run
+    # that saves, resumes and redoes its last step (phase 42); flash_fwd's
+    # in the TP=2 serving on the admitted shards (phase 41).  q8_hop: its
+    # requant launches in the compressed wide hop of the reshard (phase
+    # 40).
+    for entry in line["kernels"][:3]:
+        kname = entry["name"]
+        entry["handoff_launches"] = {
+            "zero3_train": handoff["train_launches"][kname]}
+        if kname == "flash_fwd":
+            entry["handoff_launches"]["tp2_serving"] = \
+                handoff["serve_launches"][kname]
+        entry["checkpoint_launches"] = {"dp2_adam": ckpt["launches"][kname]}
+    hop_entry["reshard_launches"] = {
+        "compressed_wide_hop_requant": resharded["wide_hop"]["requant"]}
+    check(all(v > 0 for e in line["kernels"]
+              for key in ("handoff_launches", "checkpoint_launches",
+                          "reshard_launches") if key in e
+              for v in e[key].values()),
+          "a kernel of this slice's paths was launched no time")
     print(json.dumps(line))
     print(f"  ResNet-18 DP=2 step {resnet['dp_grad_train_step']['ms']:.1f} "
           f"ms; ViT-B/16 DP=2 step {vit['ms']:.1f} ms; PP=2 1F1B step "
-          f"{pipe['1f1b']['ms']:.1f} ms")
+          f"{pipe['1f1b']['ms']:.1f} ms; reshard auto / gather "
+          f"{np.mean(resharded['auto']['ms']):.1f} / "
+          f"{np.mean(resharded['gather']['ms']):.1f} ms a tree; handoff "
+          f"{handoff['ms'][-1]:.1f} ms; checkpoint save "
+          f"{ckpt['bytes'] / min(ckpt['save_s']) / 1e9:.2f} GB/s, restore "
+          f"{ckpt['bytes'] / ckpt['restore_s'] / 1e9:.2f} GB/s; MoE "
+          f"rebalance {rebalance}")
+    phase(46)
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,11 @@ a quantized ring through another (``ops/csrc/quant_hop.cu``).  The
 runtime's chokepoints carry the observability layer (``obs``: comm
 tracing, metrics, the flight recorder, Chrome-trace export) and the core
 of fault tolerance (``resilience``: fault injection, retries with
-backoff, the integrity guards, gray-failure detection).
+backoff, the integrity guards, gray-failure detection, preemption-safe
+resume), the reshard planner (``reshard``, ``comm.Reshard``: the
+(mesh, spec) -> (mesh', spec') moves of state between layouts, the
+ZeRO-3 -> TP serving handoff, the planned MoE rebalance) and
+training-state checkpoints (``utils.checkpoint``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device and no such request they raise.  The package imports
@@ -73,8 +77,10 @@ from .runtime import (
     resolve_device,
     run_ranks,
 )
-from . import compress, config, fuse, obs, overlap, resilience, serve, tune
+from . import (compress, config, fuse, obs, overlap, reshard, resilience,
+               serve, tune)
 from .config import compression_scope, fusion_scope, overlap_scope
+from .mesh import device_mesh, hybrid_mesh
 from .resilience import FaultPlan, FaultSpec, fault_scope
 
 __all__ = [
@@ -87,7 +93,7 @@ __all__ = [
     "CommError", "CollectiveMismatchError", "DeadlockError",
     "RankFailedError", "InPlaceReuseError", "BifurcationError",
     "IntegrityError", "HealthReport", "resolve_device", "run_ranks",
-    "config", "compress", "fuse", "tune", "overlap", "resilience", "serve",
-    "obs", "FaultPlan", "FaultSpec", "fault_scope", "compression_scope",
+    "config", "compress", "fuse", "tune", "overlap", "resilience",
+    "reshard", "serve", "obs", "device_mesh", "hybrid_mesh", "FaultPlan", "FaultSpec", "fault_scope", "compression_scope",
     "fusion_scope", "overlap_scope",
 ]

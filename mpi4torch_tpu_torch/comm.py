@@ -7,7 +7,8 @@ Port of ``mpi4torch_tpu/comm.py`` on the rank-thread runtime:
 ``Recv``), the per-rank ``numelem`` of the packed collectives
 (``ops/packed.py``), the split-phase ``Allreduce_start``/
 ``Reduce_scatter_start``/``Allgather_start`` (``overlap/``),
-``check_health`` and the fused ``Allreduce_tree`` (``fuse/``);
+``check_health``, the fused ``Allreduce_tree`` (``fuse/``) and the
+planned redistribution ``Reshard`` (``reshard/``);
 :class:`WaitHandle`, :func:`JoinDummies` and :func:`JoinDummiesHandle`;
 the :data:`COMM_WORLD` singleton; and mpi4torch's
 ``deactivate_cuda_aware_mpi_support``, a no-op here.  Inside
@@ -227,6 +228,34 @@ class MPI_Communicator:
                 self, tree, op, compression=compression,
                 bucket_bytes=bucket_bytes, mean=mean, overlap=overlap,
                 algorithm=algorithm)
+
+    def Reshard(self, tree, from_spec, to_spec, strategy=None,
+                compression=None):
+        """Redistribute a tree of shards from one sharding layout to
+        another (:mod:`mpi4torch_tpu_torch.reshard`): each leaf moves from
+        its ``from_spec`` :class:`~mpi4torch_tpu_torch.reshard.Layout` to
+        its ``to_spec`` Layout through a planned program of collectives
+        whose peak live bytes stay ``O(shard + chunk)``, never those of
+        gathering everything.  ``from_spec``/``to_spec`` are one Layout
+        (broadcast over the tree) or a matching tree of Layouts (e.g. from
+        :func:`~mpi4torch_tpu_torch.reshard.match_partition_rules`).
+
+        Differentiable: the backward redistributes the cotangents
+        ``to_spec`` -> ``from_spec`` by the reverse plan; a replication
+        adjoint sums them in ascending group order.  The bits equal the
+        JAX package's (every step but that sum moves data).
+
+        ``strategy`` pins a planner strategy
+        (:data:`mpi4torch_tpu_torch.reshard.STRATEGIES`; ``None``: the
+        :func:`config.default_reshard_strategy`, else the preference
+        order).  ``compression`` (explicit only: a state migration never
+        inherits the gradient codec scope) rides the full-world gather hop
+        of the ``gather`` strategy."""
+        from .reshard import reshard_tree
+
+        with torch.profiler.record_function("mpi4torch.Reshard"):
+            return reshard_tree(self, tree, from_spec, to_spec,
+                                strategy=strategy, compression=compression)
 
     # ------------------------------------------------------------ health
 

@@ -11,9 +11,10 @@ and the knobs of the compressed Allreduce: the default codec
 (:func:`set_default_compression`, :func:`compression_scope`), the
 bandwidth crossover of the algorithm selector, the ``torus`` group
 size and the implementation of the quantized hop
-(:func:`quant_hop_impl`), and the fault-tolerance and observability
-knobs: comm retries and backoff, the finite guard, the wire checksum,
-the fault plan and the comm tracer.  The deterministic flag and the
+(:func:`quant_hop_impl`), the reshard planner's default strategy
+(:func:`set_default_reshard_strategy`), and the fault-tolerance and
+observability knobs: comm retries and backoff, the finite guard, the
+wire checksum, the fault plan and the comm tracer.  The deterministic flag and the
 scopes are per thread, so a scope opened before ``run_ranks`` is not
 seen by the rank threads; the process-wide setters are, and the
 fault-tolerance and observability knobs are process-wide only.
@@ -290,6 +291,36 @@ def set_quant_hop_impl(impl: str) -> None:
             f"quant_hop_impl must be one of {_QUANT_HOP_IMPLS}, got "
             f"{impl!r}")
     _quant_hop_impl = impl
+
+
+# --- the reshard planner -----------------------------------------------------
+
+# Default strategy of mpi4torch_tpu_torch.reshard: None ("auto") walks
+# the planner's preference order (local < permute < allgather < alltoall
+# < rounds; gather, the gather-everything baseline, only when asked for);
+# a strategy name pins every plan to it, and a plan it cannot serve
+# raises.  Process-wide, so the rank threads see it.
+_reshard_strategy = None
+
+
+def default_reshard_strategy():
+    """The strategy :func:`mpi4torch_tpu_torch.reshard.plan_reshard` uses
+    when no ``strategy=`` is passed (``None``: the preference order)."""
+    return _reshard_strategy
+
+
+def set_default_reshard_strategy(name) -> None:
+    global _reshard_strategy
+    if name in (None, "auto"):
+        _reshard_strategy = None
+        return
+    from .reshard.plan import STRATEGIES
+
+    if name not in STRATEGIES:
+        raise ValueError(
+            f"reshard strategy must be one of {STRATEGIES} or "
+            f"None/'auto', got {name!r}")
+    _reshard_strategy = name
 
 
 # --- fault tolerance and observability ---------------------------------------

@@ -68,6 +68,11 @@ FAMILY_OF = {
     "Allgather.c.bwd": "reduce_scatter",
     "Reduce_scatter": "reduce_scatter",
     "Reduce_scatter.bwd": "all_gather",
+    # The reshard executor's wire steps (reshard/executor.py).
+    "Reshard.permute": "collective_permute",
+    "Reshard.alltoall": "all_to_all",
+    "Reshard.allgather": "all_gather",
+    "Reshard.reduce_scatter": "reduce_scatter",
     # Fold-once result shares and barriers are artifacts of the thread
     # rendezvous, not of the collective's wire schedule.
     "Allreduce.fold": None,
@@ -105,7 +110,8 @@ def annotate_signature(signature) -> dict:
     """Logical annotation of a rendezvous signature tuple: ``op`` (the
     head), ``family`` (wire kind, or None for bookkeeping), ``shape`` /
     ``dtype`` (where the grammar carries them), ``algorithm`` /
-    ``codec`` labels, ``bookkeeping`` and ``unmodeled``."""
+    ``codec`` labels, ``group_size`` (a reshard step's replica group;
+    None: the whole communicator), ``bookkeeping`` and ``unmodeled``."""
     if not isinstance(signature, tuple) or not signature \
             or not isinstance(signature[0], str):
         return {"op": repr(signature), "family": None,
@@ -125,6 +131,10 @@ def annotate_signature(signature) -> dict:
         sig = signature[idx]
         if isinstance(sig, tuple) and len(sig) == 2:
             out["shape"], out["dtype"] = sig[0], _dtype_name(sig[1])
+    if head.startswith("Reshard.") and len(signature) >= 5:
+        out["group_size"] = signature[2]
+        out["shape"] = signature[3]
+        out["dtype"] = _dtype_name(signature[4])
     idx = _ALGO_AT.get(head)
     if idx is not None and len(signature) > idx:
         out["algorithm"] = signature[idx]

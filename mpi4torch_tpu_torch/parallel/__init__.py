@@ -14,8 +14,7 @@ Port of ``mpi4torch_tpu/parallel``:
     zero       — ZeRO-1/3 sharded optimizer steps
 
 ``pp.pipeline_spmd`` needs the compiled backend (ROADMAP.md, Queue 1
-item 4) and raises; ``zero3_to_tp`` is not ported yet (ROADMAP.md, Queue 1
-item 6).
+item 4) and raises.
 """
 
 from . import attention, dp, moe, pp, ring, tp, zero
@@ -33,7 +32,8 @@ from .ring import halo_exchange, ring_shift
 from .tp import (column_parallel_linear, row_parallel_linear, shard_axis,
                  shard_heads, tp_attention, tp_mlp)
 from .zero import (shard_global_norm, zero3_init, zero3_params,
-                   zero3_shard_params, zero3_step, zero_init, zero_step)
+                   zero3_shard_params, zero3_step, zero3_to_tp, zero_init,
+                   zero_step)
 
 __all__ = [
     "attention", "dp", "moe", "pp", "ring", "tp", "zero",
@@ -49,5 +49,5 @@ __all__ = [
     "init_moe", "moe_ffn", "moe_ffn_dense", "balanced_assignment",
     "rebalance_experts", "top1_route",
     "shard_global_norm", "zero_init", "zero_step", "zero3_init",
-    "zero3_params", "zero3_shard_params", "zero3_step",
+    "zero3_params", "zero3_shard_params", "zero3_step", "zero3_to_tp",
 ]

@@ -175,16 +175,14 @@ def rebalance_experts(comm, experts, assignment, strategy=None):
     global experts (e.g. from :func:`balanced_assignment`): new global
     slot ``u`` receives old expert ``assignment[u]``.
 
-    Each leaf rides one ``Alltoall`` in which every rank sends each other
-    rank the experts it will own (at most ``epr``, padded to ``epr``), so
-    the move is differentiable: cotangents return over the same exchange.
-    The JAX package plans the move with its reshard planner; ``strategy``
-    (a planner strategy) is not ported and must be None."""
-    if strategy is not None:
-        raise NotImplementedError(
-            "rebalance_experts(strategy=...): the reshard planner is not "
-            "ported yet (ROADMAP.md, Queue 1 item 6)")
-    size, rank = comm.size, comm.rank
+    Every leaf rides one block-permutation plan of
+    :mod:`mpi4torch_tpu_torch.reshard` under ``strategy`` (``None`` is
+    the process default, ``"auto"`` unless set), which never gathers
+    (``"gather"`` cannot serve a permutation and raises).  The move is
+    differentiable: the cotangents return over the inverse move."""
+    from .. import reshard as _rs
+
+    size = comm.size
     assignment = tuple(int(a) for a in assignment)
     E = len(assignment)
     if sorted(assignment) != list(range(E)):
@@ -194,31 +192,14 @@ def rebalance_experts(comm, experts, assignment, strategy=None):
         raise ValueError(
             f"n_experts ({E}) not divisible by world size ({size})")
     epr = E // size
-    # Rows this rank sends: for each destination r, the old local experts
-    # r's new slots take from here, in slot order, padded to epr.
-    send_rows = []
-    for r in range(size):
-        need = [a % epr for a in assignment[r * epr:(r + 1) * epr]
-                if a // epr == rank]
-        send_rows += need + [0] * (epr - len(need))
-    # Row of the received block that fills each of this rank's new slots.
-    take, seen = [], [0] * size
-    for a in assignment[rank * epr:(rank + 1) * epr]:
-        src = a // epr
-        take.append(src * epr + seen[src])
-        seen[src] += 1
 
     def one(x):
         if x.shape[0] != epr:
             raise ValueError(f"expert leaf holds {x.shape[0]} experts on "
                              f"axis 0; expected {epr} per rank")
-        if size == 1:
-            return x[torch.tensor(list(assignment), device=x.device)]
-        send = x[torch.tensor(send_rows, device=x.device)]
-        recv = comm.Alltoall(send.reshape(size, -1), gatheraxis=1,
-                             scatteraxis=0, numelem=1)
-        recv = recv.reshape(size * epr, *x.shape[1:])
-        return recv[torch.tensor(take, device=x.device)]
+        lay = _rs.Layout((size,), ((0,),) + ((),) * (x.dim() - 1))
+        return _rs.reshard_blocks(comm, x, lay, 0, assignment,
+                                  strategy=strategy)
 
     return tree_map(one, experts)
 

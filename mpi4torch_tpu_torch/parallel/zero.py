@@ -134,10 +134,50 @@ def zero3_init(comm, opt, params):
 
 def zero3_to_tp(comm, p_shards, template, tp_specs, strategy=None,
                 dtype=None):
-    """ZeRO-shard → TP-shard handoff: not ported yet (raises)."""
-    raise NotImplementedError(
-        "zero3_to_tp: the handoff needs the tensor-parallel layers and the "
-        "reshard planner (ROADMAP.md, Queue 1 items 3 and 6)")
+    """ZeRO-shard -> TP-shard handoff at the train/serve boundary
+    (:mod:`mpi4torch_tpu_torch.reshard`): this rank's ZeRO-3 flat shards
+    become its tensor-parallel shards under ``tp_specs`` (one
+    :class:`~mpi4torch_tpu_torch.reshard.Layout` per leaf, or one
+    broadcast over the tree), without the full parameters on every rank
+    that ``zero3_params`` followed by slicing would hold.
+
+    A ZeRO-3 shard is ``1/size`` of the flattened, padded leaf.  Where
+    the leading axis divides by the world size, the flat shard is a
+    contiguous row block: a reshape, then one planned ``Reshard`` from
+    the row layout to the TP layout (``O(shard)`` peak).  Where the ZeRO
+    boundary cuts a row, the leaf takes the ``gather`` strategy (the
+    padded flat vector on every rank, one leaf at a time) and is sliced
+    by a local plan.
+
+    Returns the TP shard tree; differentiable like every facade op (the
+    backward moves cotangents TP -> ZeRO).  ``dtype`` casts the TP
+    shards after the exchange, so the wire moves the training state's
+    exact bits and only the serving copy is lowered."""
+    from .. import reshard as _rs
+    from ..reshard.executor import _spec_tree
+
+    size = comm.size
+    tp_tree = _spec_tree(tp_specs, template)
+
+    def one(shard, tmpl, tp_lay):
+        tshape = tuple(tmpl.shape)
+        n = tmpl.numel()
+        if tshape and tshape[0] % size == 0:
+            row_shard = shard.reshape((tshape[0] // size,) + tshape[1:])
+            row_lay = _rs.Layout((size,),
+                                 ((0,),) + ((),) * (len(tshape) - 1))
+            return comm.Reshard(row_shard, row_lay, tp_lay,
+                                strategy=strategy)
+        flat = comm.Reshard(shard, _rs.Layout((size,), ((0,),)),
+                            _rs.Layout((size,), ((),)), strategy="gather")
+        full = flat[:n].reshape(tshape)
+        return comm.Reshard(full, _rs.Layout((size,), ((),) * len(tshape)),
+                            tp_lay)
+
+    out = tree_map(one, p_shards, template, tp_tree)
+    if dtype is not None:
+        out = tree_map(lambda x: x.to(dtype), out)
+    return out
 
 
 def zero3_step(comm, opt, p_shards, template, local_loss_fn, opt_state,

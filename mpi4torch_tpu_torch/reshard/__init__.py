@@ -1,0 +1,67 @@
+"""mpi4torch_tpu_torch.reshard — differentiable sharding -> sharding
+redistribution with memory-bounded plans of portable collectives.
+
+Port of ``mpi4torch_tpu.reshard`` on the rank-thread world.  The
+transitions production hits — train on ``(8,)`` and serve on ``(2, 4)``;
+ZeRO shard -> TP shard at the train/serve boundary; MoE expert
+rebalancing; a checkpoint restored onto another topology — are one
+facade call::
+
+    y = comm.Reshard(tree, from_spec, to_spec)
+
+The planner (:mod:`.plan`) decomposes a (mesh, spec) -> (mesh', spec')
+pair into a short program of all-gather / all-to-all / permute / slice
+steps whose peak live bytes stay ``O(shard + chunk)``; the executor
+(:mod:`.executor`) replays it through the rendezvous; the backward runs
+the reverse plan, so cotangents redistribute spec' -> spec.
+
+Not ported yet: the compiled SPMD executor and the ``python -m
+mpi4torch_tpu.reshard`` sweep (ROADMAP.md, Queue 1 item 4), and the
+StableHLO census (``peak_live_bytes``, ``tensor_bytes``; item 7), which
+raise here.
+"""
+
+from .executor import (apply_plan, execute_plan, gather_then_slice,
+                       global_template, reshard_blocks, reshard_tree,
+                       reshard_value, shard_of, shard_template,
+                       slice_shard)
+from .plan import (STEP_KINDS, STRATEGIES, Layout, ReshardPlan, layout,
+                   plan_permutation, plan_reshard, plan_resize)
+from .rules import match_partition_rules, tree_paths
+
+__all__ = [
+    "Layout",
+    "layout",
+    "ReshardPlan",
+    "STEP_KINDS",
+    "STRATEGIES",
+    "plan_reshard",
+    "plan_permutation",
+    "plan_resize",
+    "apply_plan",
+    "execute_plan",
+    "reshard_value",
+    "reshard_tree",
+    "reshard_blocks",
+    "gather_then_slice",
+    "slice_shard",
+    "shard_of",
+    "shard_template",
+    "global_template",
+    "match_partition_rules",
+    "tree_paths",
+]
+
+
+def peak_live_bytes(program_text):
+    """Peak live bytes of a lowered program: not ported yet (raises)."""
+    raise NotImplementedError(
+        "peak_live_bytes: the census reads StableHLO through analyze "
+        "(ROADMAP.md, Queue 1 item 7)")
+
+
+def tensor_bytes(type_text):
+    """Bytes of a StableHLO tensor type: not ported yet (raises)."""
+    raise NotImplementedError(
+        "tensor_bytes: the census reads StableHLO through analyze "
+        "(ROADMAP.md, Queue 1 item 7)")

@@ -19,11 +19,15 @@ Port of the core of ``mpi4torch_tpu.resilience``:
   :mod:`.guards`) catch lying payloads and cost one attribute read per
   collective while off;
 * gray failures (:mod:`.health`): the slow rank attributed from the comm
-  tracer's events (:class:`SlowRankReport`, :class:`SlowRankError`).
+  tracer's events (:class:`SlowRankReport`, :class:`SlowRankError`);
+* recovery (:mod:`.recovery`): :func:`restore_or_init` resumes from the
+  newest checkpoint that loads, past torn saves, with the skipped steps
+  in its ledger;
+* the fault matrix (:mod:`.matrix`): every kind against one collective
+  per subsystem, with its typed expected outcome.
 
 Not ported yet: ``degrade`` (ROADMAP.md, Queue 1 item 6, with the
-controller and ``elastic``), ``chaos`` (item 6), ``recovery`` and
-``matrix`` (item 3, with the checkpoint).
+controller and ``elastic``) and ``chaos`` (item 6).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from .guards import (IntegrityWarning, check_contributions,
                      verify_wire, wire_checksum)
 from .health import (GrayFailureDetector, RankCommStats, SlowRankError,
                      SlowRankReport, detect_slow_ranks)
+from .recovery import RestoreResult, SkippedStep, restore_or_init
 
 __all__ = [
     "FAULT_KINDS",
@@ -60,6 +65,9 @@ __all__ = [
     "SlowRankError",
     "SlowRankReport",
     "detect_slow_ranks",
+    "restore_or_init",
+    "RestoreResult",
+    "SkippedStep",
     "DeadlockError",
     "RankFailedError",
     "IntegrityError",

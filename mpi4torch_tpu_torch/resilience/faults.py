@@ -144,9 +144,9 @@ register_fault_kind(FaultKind(
     "truncate_save", frozenset({"checkpoint"}), transient=True,
     doc="the checkpoint write is killed mid-save (the just-written step's "
         "largest file is truncated): resilience.restore_or_init falls "
-        "back to the last complete step.  Registered for the plan grammar; "
-        "its site, FaultPlan.on_checkpoint_save, has no caller until the "
-        "checkpoint is ported (ROADMAP.md, Queue 1 item 3)"))
+        "back to the last complete step.  Its site, "
+        "FaultPlan.on_checkpoint_save, runs after every save of "
+        "utils.checkpoint"))
 
 # ------------------------------------------------------ gray failures
 # Performance faults: nothing dies, nothing corrupts, the job just gets
@@ -365,9 +365,8 @@ class FaultPlan:
     def on_checkpoint_save(self, path: str, rank: int = 0) -> None:
         """Checkpoint hook, called after a save finalizes with the step
         directory: ``truncate_save`` damages the just-written step, the
-        deterministic stand-in for a kill mid-save.  Nothing calls it
-        yet: the checkpoint is not ported (ROADMAP.md, Queue 1 item
-        3)."""
+        deterministic stand-in for a kill mid-save.  Every save of
+        ``utils/checkpoint.py`` calls it."""
         for i, spec in self._matching("checkpoint", rank, "ckpt_save"):
             if spec.kind == "truncate_save":
                 if _truncate_tree(path):

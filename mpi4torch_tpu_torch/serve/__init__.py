@@ -6,9 +6,9 @@ from ..utils.profiling import ServeStats, reset_serve_stats, serve_stats
 from .engine import (POLICIES, SHED_POLICIES, STATUS_EXPIRED, STATUS_OK,
                      STATUS_SHED, Engine, QueueFullError, Request,
                      ServeConfig)
-from .kv import (decode_step_paged, decode_step_tp, init_kv_cache_tp,
-                 init_kv_pool_tp, prefill_chunk_tp, prefill_tp,
-                 shard_params_tp, validate_tp)
+from .kv import (admit_zero3, decode_step_paged, decode_step_tp,
+                 init_kv_cache_tp, init_kv_pool_tp, prefill_chunk_tp,
+                 prefill_tp, shard_params_tp, validate_tp)
 from .paging import BlockManager
 
 __all__ = [
@@ -17,7 +17,7 @@ __all__ = [
     "ServeStats", "decode_step_tp", "prefill_tp", "shard_params_tp",
     "init_kv_cache_tp", "validate_tp", "decode_step_paged",
     "prefill_chunk_tp", "init_kv_pool_tp", "BlockManager", "stats",
-    "reset_stats",
+    "reset_stats", "admit_zero3",
 ]
 
 # Process-wide aggregate of every live engine's ServeStats, and its reset.

@@ -236,12 +236,16 @@ class Engine:
     Greedy and sampled decoding emit the tokens of a per-request
     ``models/transformer.generate`` call with the same key.  ``device`` is
     where the engine runs: CUDA unless the caller passes ``"cpu"``; the
-    parameters are moved there."""
+    parameters are moved there.  ``shards`` (a port extension) hands the
+    engine this rank's serving shards in :func:`serve.kv.shard_params_tp`'s
+    layout, e.g. from :func:`serve.kv.admit_zero3`, in place of sharding
+    full ``params`` (which may then be None)."""
 
     def __init__(self, cfg: TransformerConfig, params,
                  serve_cfg: ServeConfig = None, *, spmd: bool = False,
                  nranks: Optional[int] = None, mesh=None,
-                 axis_name: Optional[str] = None, clock=None, device=None):
+                 axis_name: Optional[str] = None, clock=None, device=None,
+                 shards=None):
         self.cfg = cfg
         self.serve_cfg = serve_cfg or ServeConfig()
         # nranks / mesh / axis_name configure the compiled SPMD mode.
@@ -256,14 +260,18 @@ class Engine:
         self._comm = COMM_WORLD
         self._size = self._comm.size
         _kv.validate_tp(cfg, self._size)
-        params = _to_device(params, self.device)
-        self._dtype = self.serve_cfg.cache_dtype or params["embed"].dtype
-        self._shards = _kv.shard_params_tp(cfg, params, self._comm)
+        if shards is None:
+            self._shards = _kv.shard_params_tp(
+                cfg, _to_device(params, self.device), self._comm)
+        else:
+            self._shards = _to_device(shards, self.device)
+        compute_dtype = self._shards["embed"].dtype
+        self._dtype = self.serve_cfg.cache_dtype or compute_dtype
         self._paged = self.serve_cfg.block_size > 0
         # Prefix sharing and chunked prefill splice cache-dtype rows into
         # prefill attention: exact only when the cache has the compute
         # dtype.
-        self._exact_kv = self._dtype == params["embed"].dtype
+        self._exact_kv = self._dtype == compute_dtype
         slots = self.serve_cfg.slots
         if self._paged:
             bs = self.serve_cfg.block_size

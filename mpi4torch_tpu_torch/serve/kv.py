@@ -1,7 +1,8 @@
 """Tensor-parallel KV-cache prefill and decode: the serving compute core.
 
-Port of ``mpi4torch_tpu/serve/kv.py`` (without ``admit_zero3``): the
-dense slot-table cache and the paged pool.  Heads are sharded over the communicator by the ``parallel/tp.py``
+Port of ``mpi4torch_tpu/serve/kv.py``: the dense slot-table cache, the
+paged pool, and :func:`admit_zero3`, the handoff of ZeRO-3 training
+shards into serving shards.  Heads are sharded over the communicator by the ``parallel/tp.py``
 conventions (each rank owns ``n_heads / size`` query heads and
 ``kv_heads / size`` KV heads end to end), so per-head attention never
 crosses ranks and each layer costs two collectives: the row-parallel
@@ -46,6 +47,7 @@ __all__ = [
     "prefill_chunk_tp",
     "decode_step_tp",
     "decode_step_paged",
+    "admit_zero3",
 ]
 
 
@@ -117,6 +119,63 @@ def shard_params_tp(cfg: TransformerConfig, params, comm):
     if "pos" in params:
         shards["pos"] = params["pos"]
     return shards
+
+
+def admit_zero3(cfg: TransformerConfig, comm, p_shards, template, *,
+                dtype=None, strategy=None):
+    """Admit ZeRO-3 training shards as serving TP shards: the
+    train -> serve handoff on the planned ``comm.Reshard`` path
+    (:func:`~mpi4torch_tpu_torch.parallel.zero.zero3_to_tp`), never
+    gathering every parameter on every rank.
+
+    Per leaf: ``wo`` and ``w2`` take the row-shard Layout and a gelu
+    ``w1`` the column-shard Layout, each one planned exchange of
+    ``O(shard)`` peak; ``wqkv`` (its q/k/v head blocks interleave per
+    rank, which no axis-contiguous layout expresses) and swiglu's fused
+    ``w1`` take the replicated Layout and are sliced locally by the same
+    helpers :func:`shard_params_tp` cuts with; embeddings, norms,
+    positions and the unembedding replicate.  ``dtype`` is the serving
+    precision (bf16 shards of f32 training state), applied after the
+    exchange.  ``template`` is the full-shape parameter tree (meta
+    tensors will do).
+
+    Returns the :func:`shard_params_tp` layout, bitwise equal to
+    ``shard_params_tp(cfg, zero3_params(...), comm)`` (cast to
+    ``dtype``): the redistribution moves bits and never rounds them."""
+    import re
+
+    from .. import reshard as _rs
+    from ..parallel.zero import zero3_to_tp
+    from ..utils.tree import tree_map
+
+    size = comm.size
+    validate_tp(cfg, size)
+    row = _rs.Layout((size,), ((0,), ()))
+    col = _rs.Layout((size,), ((), (0,)))
+    rules = [(r"blocks/\d+/wo$", row), (r"blocks/\d+/w2$", row)]
+    if cfg.ffn != "swiglu":
+        rules.append((r"blocks/\d+/w1$", col))
+
+    def lay_for(path, leaf):
+        shape = tuple(leaf.shape)
+        for pat, lay in rules:
+            if re.search(pat, path) and len(shape) == lay.ndim:
+                return lay
+        return _rs.Layout((size,), ((),) * len(shape))
+
+    specs = tree_map(lay_for, _rs.tree_paths(template), template)
+    tp_tree = zero3_to_tp(comm, p_shards, template, specs,
+                          strategy=strategy, dtype=dtype)
+    out_blocks = []
+    for blk in tp_tree["blocks"]:
+        nb = dict(blk)
+        nb["wqkv"] = _shard_wqkv(cfg, comm, blk["wqkv"])
+        if cfg.ffn == "swiglu":
+            nb["w1"] = _shard_swiglu_w1(cfg, comm, blk["w1"])
+        out_blocks.append(nb)
+    out = {k: v for k, v in tp_tree.items() if k != "blocks"}
+    out["blocks"] = out_blocks
+    return out
 
 
 def init_kv_cache_tp(cfg: TransformerConfig, slots: int, size: int,

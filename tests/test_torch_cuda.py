@@ -1509,3 +1509,108 @@ def test_tracer_adds_no_device_sync(cuda):
                                    "Allreduce", "Allreduce.fold"]
     assert evs[0].payload_bytes == 70000 * 4
     assert evs[2].payload_bytes == 71000 * 4
+
+
+# ------------------------------------------------ reshard and checkpoints
+
+def _reshard_run(device, strategy=None, compression=None, n=8):
+    """(8,) rows -> (2, 4) blocks of a float32 (64, 32) array on ``n``
+    rank threads of ``device``: each rank's value and the gradient of
+    ``vdot(y, w_r)``."""
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch import reshard as rs
+
+    full = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (64, 32)).astype(np.float32))
+    src, dst = rs.layout((n,), 0, None), rs.layout((2, n // 2), 0, 1)
+
+    def body(r):
+        x = rs.slice_shard(full, src, r).to(device).requires_grad_()
+        y = P.COMM_WORLD.Reshard(x, src, dst, strategy=strategy,
+                                 compression=compression)
+        w = torch.arange(y.numel(), dtype=y.dtype, device=device).reshape(
+            y.shape) * 1e-3 + r
+        (g,) = torch.autograd.grad(y, x, w)
+        return y.detach().cpu(), g.cpu()
+
+    return P.run_ranks(body, n, timeout=60.0, device=device), full, dst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", [None, "gather", "rounds"])
+def test_reshard_on_the_card_bitwise_its_cpu_run(cuda, strategy):
+    from mpi4torch_tpu_torch import reshard as rs
+
+    got, full, dst = _reshard_run(cuda, strategy)
+    want, _, _ = _reshard_run("cpu", strategy)
+    for r, ((y, g), (yw, gw)) in enumerate(zip(got, want)):
+        assert torch.equal(y, rs.slice_shard(full, dst, r))
+        assert torch.equal(y, yw) and torch.equal(g, gw)
+
+
+@pytest.mark.cuda
+def test_compressed_wide_hop_launches_q8_requant(cuda):
+    # compression="q8" rides the gather strategy's full-world gather
+    # through the compressed Allgather: one K1 requant launch a rank, the
+    # bits of the CPU run, and an exact backward.
+    _kernels.reset_launch_counts()
+    got, full, dst = _reshard_run(cuda, "gather", "q8")
+    assert _kernels.launch_counts["q8_requant"] == 8
+    want, _, _ = _reshard_run("cpu", "gather", "q8")
+    exact, _, _ = _reshard_run(cuda, "gather")
+    for (y, g), (yw, gw), (ye, ge) in zip(got, want, exact):
+        assert _bits_differ(y, yw) == 0 and torch.equal(g, gw)
+        assert torch.equal(g, ge) and not torch.equal(y, ye)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_onto_a_cuda_template(cuda, tmp_path):
+    from mpi4torch_tpu_torch.resilience import restore_or_init
+    from mpi4torch_tpu_torch.utils import (CheckpointManager,
+                                           restore_checkpoint,
+                                           save_checkpoint)
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    state = {"w": torch.randn((300, 7), generator=g, device=cuda,
+                              dtype=torch.bfloat16),
+             "m": torch.randn(513, generator=g, device=cuda),
+             "n": torch.tensor(5, dtype=torch.int32, device=cuda)}
+    save_checkpoint(str(tmp_path / "ck"), state)
+    got = restore_checkpoint(str(tmp_path / "ck"),
+                             tree_map(torch.zeros_like, state))
+    for k in state:
+        assert got[k].device == state[k].device and \
+            got[k].dtype == state[k].dtype
+        assert torch.equal(got[k], state[k])
+    # A CPU template takes the leaves to the host, bitwise.
+    host = restore_checkpoint(str(tmp_path / "ck"),
+                              tree_map(lambda t: t.cpu(), state))
+    assert all(torch.equal(host[k], state[k].cpu()) for k in state)
+    with CheckpointManager(str(tmp_path / "run"), max_to_keep=2) as mgr:
+        for step in range(3):
+            mgr.save(step, tree_map(lambda t: t * (step + 1), state))
+    res = restore_or_init(str(tmp_path / "run"), template=state)
+    assert res.step == 2 and res.skipped == ()
+    assert torch.equal(res.state["w"], state["w"] * 3)
+
+
+@pytest.mark.cuda
+def test_admit_zero3_at_two_layers_bitwise_shard_params_tp(cuda):
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch.parallel import zero as Z
+    from mpi4torch_tpu_torch.serve import kv
+
+    cfg = T.TransformerConfig(vocab=32768, d_model=2048, n_heads=16,
+                              n_layers=2, d_ff=8192, max_seq=2048)
+    params = T.init_transformer(0, cfg, torch.float32, device=cuda)
+
+    def body(r):
+        c = P.COMM_WORLD
+        shards = Z.zero3_shard_params(c, params)
+        got = kv.admit_zero3(cfg, c, shards, params, dtype=torch.bfloat16)
+        want = kv.shard_params_tp(cfg, Z.zero3_params(c, shards, params), c)
+        return all(a.dtype == torch.bfloat16
+                   and torch.equal(a, b.to(torch.bfloat16))
+                   for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+    assert all(P.run_ranks(body, 2, timeout=120.0, device=cuda))

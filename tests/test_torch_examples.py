@@ -1,9 +1,10 @@
 """The port's strategy examples (``mpi4torch_tpu_torch.examples``):
 ring/Ulysses long-context attention, the expert-parallel MoE, the
 tensor-parallel MLP, and beside the JAX package's own examples the
-compressed DP regression, ResNet, ViT, the pipeline, KV-cache generation
-and the ZeRO-1/3 optimizer.  Each ``run`` drives its ``main`` on rank
-threads on the CPU (float64) and checks itself against its single-device oracle:
+compressed DP regression, ResNet, ViT, the pipeline, KV-cache generation,
+the ZeRO-1/3 optimizer and checkpoint/resume.  Each ``run`` drives its
+``main`` on rank threads on the CPU (float64) and checks itself against
+its single-device oracle:
 ring and Ulysses against dense attention over the full sequence (values
 and gradients, rtol 1e-9), the MoE loss and gradient at every one of 25
 steps against ``moe_ffn_dense`` (rtol 1e-10 / 1e-8), the TP MLP's loss
@@ -19,6 +20,7 @@ import numpy as np
 import pytest
 
 import mpi4torch_tpu as jmpi
+from mpi4torch_tpu_torch.examples import checkpoint_resume as ckpt_ex
 from mpi4torch_tpu_torch.examples import compressed_data_parallel as cdp_ex
 from mpi4torch_tpu_torch.examples import expert_parallel_moe as moe_ex
 from mpi4torch_tpu_torch.examples import generate_kv_cache as kv_ex
@@ -163,3 +165,23 @@ def test_zero_sharded_optimizer_example(n):
         for got in (p1, p3, ref):
             np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                        rtol=1e-12, atol=1e-15)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_checkpoint_resume_example(n, tmp_path, monkeypatch):
+    # The resumed run is bitwise the uninterrupted one on every rank
+    # (checked inside run), and the final parameters are the JAX
+    # example's within 1e-12 (float64; the packages' loss sums may
+    # associate differently).  The JAX example reads its workdir from
+    # argv, as its own test runs it.
+    jmod = _jax_example("checkpoint_resume")
+    monkeypatch.setattr(sys, "argv", ["checkpoint_resume", str(n),
+                                      str(tmp_path / "jax")])
+    want = jmpi.run_ranks(jmod.main, n)[0]
+    params, losses, tail = ckpt_ex.run(n, device="cpu",
+                                       workdir=str(tmp_path / "port"))
+    assert len(losses) == ckpt_ex.N_STEPS
+    assert len(tail) == ckpt_ex.N_STEPS - ckpt_ex.CRASH_AFTER
+    assert tail == losses[ckpt_ex.CRASH_AFTER:]
+    np.testing.assert_allclose(params.numpy(), np.asarray(want),
+                               rtol=1e-12)

@@ -60,7 +60,11 @@ def test_port_has_modules():
                 "resilience/__init__.py", "resilience/faults.py",
                 "resilience/guards.py", "resilience/health.py",
                 "examples/generate_kv_cache.py",
-                "examples/zero_sharded_optimizer.py"):
+                "examples/zero_sharded_optimizer.py", "mesh.py",
+                "reshard/__init__.py", "reshard/plan.py",
+                "reshard/rules.py", "reshard/executor.py",
+                "utils/checkpoint.py", "resilience/recovery.py",
+                "resilience/matrix.py", "examples/checkpoint_resume.py"):
         assert f"mpi4torch_tpu_torch/{rel}" in names
     for src in ("flash_fwd.cu", "flash_fwd_tc.cu", "flash_bwd.cu",
                 "flash_bwd_tc.cu", "quant_hop.cu"):

@@ -28,6 +28,7 @@ import mpi4torch_tpu as mpi
 import mpi4torch_tpu_torch as P
 from mpi4torch_tpu.parallel import moe as JM
 from mpi4torch_tpu_torch.parallel import moe as PM
+from mpi4torch_tpu_torch.runtime import CommError
 from mpi4torch_tpu_torch.utils.tree import value_and_grad
 
 TOL = 1e-12
@@ -268,7 +269,9 @@ def test_rebalance_experts_refusals():
         with pytest.raises(ValueError, match="expected 2 per rank"):
             PM.rebalance_experts(c, {"w": torch.zeros((3, 3))},
                                  (0, 1, 2, 3))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        # The planned route never gathers: "gather" cannot serve a block
+        # permutation.
+        with pytest.raises(CommError, match="cannot serve"):
             PM.rebalance_experts(c, x, (0, 1, 2, 3), strategy="gather")
 
     P.run_ranks(body, 2, device="cpu")

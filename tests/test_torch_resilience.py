@@ -58,7 +58,7 @@ def test_fault_kinds_equal_jax():
     for name, kind in faults.FAULT_KINDS.items():
         ref = jfaults.FAULT_KINDS[name]
         assert (kind.sites, kind.transient) == (ref.sites, ref.transient)
-    assert "no caller until the checkpoint is ported" in \
+    assert "runs after every save of utils.checkpoint" in \
         faults.FAULT_KINDS["truncate_save"].doc
 
 

@@ -1,8 +1,8 @@
 """The port's package surface and its rank means.
 
 Surface: every name the JAX package exports in the ``__all__`` of the
-package, ``ops``, ``utils``, ``obs`` and ``resilience`` exists in the
-port, or is listed in ``UNPORTED`` under the ROADMAP.md Queue 1 item it
+package, ``ops``, ``utils``, ``reshard``, ``obs`` and ``resilience``
+exists in the port, or is listed in ``UNPORTED`` under the ROADMAP.md Queue 1 item it
 waits for; a listed name the port keeps as a stub raises
 ``NotImplementedError`` naming that item.
 
@@ -35,21 +35,19 @@ UNPORTED = {
         "finalize_distributed": 4, "init_distributed": 4,
         "is_distributed": 4, "local_values": 4, "RankExpr": 4,
         "PermRank": 4, "SpmdWaitHandle": 4, "comm_from_mesh": 4,
-        "comm_from_mpi4py": 4, "reshard": 3, "algorithm_scope": 5,
+        "comm_from_mpi4py": 4, "algorithm_scope": 5,
         "csched": 5, "elastic": 6, "ctl": 6, "analyze": 7,
     },
     "ops": {},
-    "utils": {"CheckpointManager": 3, "restore_checkpoint": 3,
-              "restore_resharded": 3, "save_checkpoint": 3},
+    "utils": {},
+    "reshard": {"peak_live_bytes": 7, "tensor_bytes": 7},
     "obs": {"spmd_collective_event": 4, "measured_wire_table": 7,
             "reconcile": 7, "equivalent_wire": 7,
             "equivalent_tier_wire": 7},
     "resilience": {"spmd_finite_value": 4, "DEGRADE_POLICIES": 6,
                    "DegradeController": 6, "DegradeError": 6,
                    "DegradeTransition": 6, "failover_schedule": 6,
-                   "rank_wire_bytes": 6, "register_degrade_policy": 6,
-                   "restore_or_init": 3, "RestoreResult": 3,
-                   "SkippedStep": 3},
+                   "rank_wire_bytes": 6, "register_degrade_policy": 6},
 }
 
 
