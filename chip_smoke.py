@@ -261,15 +261,39 @@ check fails.  Phases, in order:
     (no whole-shard bijection);
 44. the ``checkpoint_resume`` example on the card (float32) within 1e-4
     of its CPU run, each bitwise its own uninterrupted run;
-45. one JSON line describing each ported kernel (K2, K3 and K4 with
+45. the process transport (``run_ranks(backend="process")``, one worker
+    process, CUDA context and stream per rank): on (3,) worlds the plain
+    Allreduce, deterministic mode, ``Allreduce_tree`` in 4 MiB buckets,
+    the q8 Allreduce on ``ring``, an Isend/Recv/Wait ring, and on (8,)
+    the (8,) -> (2, 4) reshard, each value and gradient bitwise the same
+    body's on rank threads; every rank in a process of its own, none the
+    launcher, each on the world's device; K1's launches counted in the
+    workers and returned by the bodies, equal to the schedule's;
+46. phase 9's flagship DP=2 ``train_step`` on two workers at full width
+    and depth, seeded in each worker: ranks bitwise identical and
+    bitwise the rank threads' run of the same two steps, every attention
+    launch in each worker ``tc``; step ms on threads and processes,
+    payload bytes a step through the parent, the idle share of a step
+    profiled on rank 0;
+47. real signals: the ``rank_death`` matrix cell on CUDA workers (rank 1
+    attributed, its PID gone, its card memory back, one respawn), a real
+    SIGTERM to rank 1 (a 64-op notice on the transport's board and in
+    ``pending_preemptions``, the run's values right), a traced process
+    run's events in seq order, as many per rank as on threads;
+48. process-transport numbers: an 8-byte Allreduce's latency on 2 and 4
+    ranks, the bench-size Allreduce (4 x 2^24 float32) and the parent
+    wire's GB/s, cold spawn and warm run seconds, a worker's context
+    bytes on the card;
+49. one JSON line describing each ported kernel (K2, K3 and K4 with
     the variant the main path ran; the launches of phases 18–20, 23–27,
     30–31 and of the later slices' phases, ``obs_launches``,
-    ``resilience_launches``, ``handoff_launches`` and
-    ``checkpoint_launches``; their numbers at the SP and slice-10
-    shapes, against the plain versions, their bounds and SDPA; K1 with
-    its hop and requant launches, ``reshard_launches`` among them).
+    ``resilience_launches``, ``handoff_launches``,
+    ``checkpoint_launches`` and ``process_launches`` (counted in the
+    workers); their numbers at the SP and slice-10 shapes, against the
+    plain versions, their bounds and SDPA; K1 with its hop and requant
+    launches, ``reshard_launches`` and ``process_launches`` among them).
 
-Each phase prints the seconds it took, and each of 28–45 the card's name
+Each phase prints the seconds it took, and each of 28–49 the card's name
 and power limit beside its numbers.  Times on the host clock are host times; event times of the
 comm tracer are host times (a rendezvous returns before the card has
 run its work).
@@ -282,6 +306,8 @@ card stays float32-exact like the JAX reference.
 import contextlib
 import itertools
 import json
+import os
+import signal
 import subprocess
 import sys
 import threading
@@ -5606,6 +5632,509 @@ def ckpt_example_phase(ckpt_ex):
     return rel
 
 
+# ------------------------------------------------ the process transport
+# Phases 45-48: run_ranks(backend="process") on the card.  Every rank
+# body below is a closure of this script, shipped to the workers by value
+# (transport/_ship.py); it returns what the parent checks, since each
+# worker has its own launch counts, profiler and memory statistics.
+
+PROC_RANKS = 3
+PROC_NUMEL = 1 << 20            # phase 45's Allreduce bodies, float32
+PROC_TREE = (3 << 20, 1 << 20, 4097)    # the fused body's leaves
+PROC_BUCKET = 4 << 20
+PROC_STEPS = 2                  # phase 46: a warm step, then a timed one
+LAT_ITERS, LAT_RANKS = 200, (2, 4)
+SPAWN_RANKS = 4
+CTX_FREED_MIN = 100 << 20       # phase 47: bytes a killed worker returns
+
+
+def tree_bytes_differ(tree, a, b):
+    """Differing bytes between two result trees (every leaf a tensor of
+    the same dtype and shape; None leaves must match); -1 on a structure
+    or dtype mismatch."""
+    la, lb = tree.tree_leaves(a), tree.tree_leaves(b)
+    if len(la) != len(lb):
+        return -1
+    n = 0
+    for x, y in zip(la, lb):
+        if not isinstance(x, torch.Tensor):
+            if x != y:
+                return -1
+            continue
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return -1
+        bx = x.detach().reshape(-1).contiguous()
+        by = y.detach().reshape(-1).contiguous().to(bx.device)
+        if bx.dtype == torch.bool:
+            bx, by = bx.to(torch.uint8), by.to(torch.uint8)
+        n += int((bx.view(torch.uint8) != by.view(torch.uint8)).sum())
+    return n
+
+
+def proc_meta(kernels, before):
+    """What a rank body reports about itself: its PID, its current CUDA
+    device and its process's kernel launches since ``before``."""
+    return (os.getpid(), torch.cuda.current_device(),
+            {k: v - before.get(k, 0)
+             for k, v in kernels.launch_counts.items()})
+
+
+def proc_parity_bodies(P, kernels, rs):
+    """``{name: (nranks, body)}`` of phase 45: each body returns (its
+    value and gradient, ``proc_meta``)."""
+    comm = P.COMM_WORLD
+
+    def seeded(rank, n, salt):
+        g = torch.Generator(device="cuda").manual_seed(1000 * salt + rank)
+        return torch.randn(n, generator=g, device="cuda")
+
+    def weights(y):
+        return torch.cos(torch.arange(y.numel(), device=y.device,
+                                      dtype=y.dtype)).reshape(y.shape)
+
+    def value_and_grad(x, op):
+        x = x.clone().requires_grad_()
+        y = op(x)
+        (g,) = torch.autograd.grad(
+            torch.vdot(y.reshape(-1), weights(y).reshape(-1)), x)
+        return y.detach(), g
+
+    def reported(fn):
+        def body(rank):
+            before = dict(kernels.launch_counts)
+            out = fn(rank)
+            torch.cuda.synchronize()
+            return out, proc_meta(kernels, before)
+        return body
+
+    def plain(rank):
+        return value_and_grad(seeded(rank, PROC_NUMEL, 1),
+                              lambda x: comm.Allreduce(x, P.MPI_SUM))
+
+    def det(rank):
+        with P.config.deterministic_mode(True):
+            return plain(rank)
+
+    def fused(rank):
+        leaves = {k: seeded(rank, n, 2 + i).requires_grad_()
+                  for i, (k, n) in enumerate(zip("abc", PROC_TREE))}
+        out = comm.Allreduce_tree(leaves, P.MPI_SUM,
+                                  bucket_bytes=PROC_BUCKET)
+        loss = sum(torch.vdot(out[k], weights(out[k])) for k in out)
+        grads = torch.autograd.grad(loss, [leaves[k] for k in "abc"])
+        return {k: v.detach() for k, v in out.items()}, grads
+
+    def q8(rank):
+        return value_and_grad(seeded(rank, PROC_NUMEL, 5), lambda x:
+                              comm.Allreduce(x, P.MPI_SUM, compression="q8",
+                                             algorithm="ring"))
+
+    def p2p(rank):
+        n = comm.size
+        a = seeded(rank, 4096, 6).requires_grad_()
+        h = comm.Isend(a, (rank + 1) % n, 0)
+        buf = P.JoinDummies(torch.empty_like(a), [h.dummy])
+        b = comm.Recv(buf, (rank - 1) % n, 0)
+        done = comm.Wait(P.JoinDummiesHandle(h, [b]))
+        res = P.JoinDummies(a + b, [done])
+        (g,) = torch.autograd.grad(torch.vdot(res, weights(res)), a)
+        return res.detach(), g
+
+    src, dst = rs.layout((8,), 0, None), rs.layout((2, 4), 0, 1)
+    shard = src.shard_shape((1024, 256))
+
+    def migrate(rank):
+        x = seeded(rank, shard[0] * shard[1], 7).reshape(shard)
+        return value_and_grad(x, lambda v: comm.Reshard(v, src, dst))
+
+    cases = {"plain Allreduce": (PROC_RANKS, plain),
+             "deterministic mode": (PROC_RANKS, det),
+             "Allreduce_tree, 4 MiB buckets": (PROC_RANKS, fused),
+             "q8 Allreduce on ring": (PROC_RANKS, q8),
+             "Isend/Recv/Wait ring": (PROC_RANKS, p2p),
+             "(8,) -> (2, 4) reshard": (8, migrate)}
+    return {k: (n, reported(fn)) for k, (n, fn) in cases.items()}
+
+
+def process_parity_phase(P, tree, kernels, rs, transport, smi):
+    """Phase 45: each body on CUDA rank threads and on CUDA workers:
+    values and gradients bitwise alike, one process per rank (none the
+    launcher), each on the world's device; K1's launches in the workers
+    equal to the schedule's and to the rank threads'."""
+    launcher, world_dev = os.getpid(), torch.cuda.current_device()
+    out = {}
+    for name, (n, body) in proc_parity_bodies(P, kernels, rs).items():
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        want = P.run_ranks(body, n, device="cuda", backend="thread")
+        thread_s = time.perf_counter() - t0
+        thread_launches = dict(kernels.launch_counts)
+        t0 = time.perf_counter()
+        got = P.run_ranks(body, n, device="cuda", backend="process")
+        proc_s = time.perf_counter() - t0
+        stats = transport.get_transport("process").last_stats
+        differ = tree_bytes_differ(tree, [r[0] for r in want],
+                                   [r[0] for r in got])
+        pids = [r[1][0] for r in got]
+        devs = [r[1][1] for r in got]
+        launches = {k: sum(r[1][2][k] for r in got)
+                    for k in ("q8_hop", "q8_requant")}
+        print(f"  {name}: {n} workers, pids {pids} (launcher {launcher}), "
+              f"devices {devs}; value and gradient bytes differing from "
+              f"the rank threads {differ}; run {proc_s:.2f} s (threads "
+              f"{thread_s:.2f} s); {stats['rendezvous']} rendezvous, "
+              f"{stats['messages']} messages, payload bytes into / out of "
+              f"the parent {stats['payload_bytes_in']} / "
+              f"{stats['payload_bytes_out']}; K1 launches in the workers "
+              f"{launches}, on the rank threads "
+              f"{ {k: thread_launches[k] for k in launches} }", flush=True)
+        check(differ == 0, f"{name}: the process backend is not bitwise "
+              "the thread backend")
+        check(len(set(pids)) == n and launcher not in pids,
+              f"{name}: the ranks did not run in processes of their own")
+        check(devs == [world_dev] * n,
+              f"{name}: a worker ran on another device than the world's")
+        if name.startswith("q8"):
+            want_hops, want_req = 2 * n * (n - 1), 2 * n
+            check(launches == {"q8_hop": want_hops, "q8_requant": want_req}
+                  and all(thread_launches[k] == v
+                          for k, v in launches.items()),
+                  f"K1 launches in the workers {launches}, expected "
+                  f"{want_hops} hops and {want_req} requants as on the "
+                  "rank threads")
+            out["q8"] = launches
+        del want, got
+    return out
+
+
+# The tensor-core attention kernels' names in a profile, by launcher.
+TC_PROFILE_NAMES = {"flash_fwd": "flash_fwd_tc_kernel",
+                    "flash_bwd_dq": "flash_bwd_dq_tc_kernel",
+                    "flash_bwd_dkv": "flash_bwd_dkv_tc_kernel"}
+
+
+def device_busy_split(fn, kernels):
+    """One call of ``fn`` under torch.profiler: (wall ms, device busy ms,
+    copy ms, kernel ms, {launcher: [tc kernels the profile holds,
+    launches the wrapper counted]}).  Busy is split into copies and
+    memsets against kernels; the counts say whether the profile caught
+    every attention launch of the call (in a worker the profiler starts
+    on the rank body's thread, not the thread that made the context)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    before = dict(kernels.launch_counts)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and not e.is_user_annotation and e.self_device_time_total > 0]
+    copy_ms = sum(e.self_device_time_total for e in ev
+                  if e.key.startswith(("Memcpy", "Memset"))) / 1e3
+    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    seen = {k: [sum(e.count for e in ev if name in e.key),
+                kernels.launch_counts[k] - before.get(k, 0)]
+            for k, name in TC_PROFILE_NAMES.items()}
+    return wall_ms, busy_ms, copy_ms, busy_ms - copy_ms, seen
+
+
+def proc_flagship_body(P, T, kernels, profile):
+    """Phase 46's rank body: the flagship's DP=2 ``train_step`` from
+    seeded parameters and tokens, a warm step then a timed one (each
+    between a rendezvous and a synchronisation), then (``profile``) one
+    more step profiled on rank 0.  Returns ((loss, parameters after the
+    two steps), (pid, device, launches, step ms, the profiled step's
+    ``device_busy_split``))."""
+    def body(rank):
+        cfg = flagship_config(T)
+        params = T.init_transformer(0, cfg, torch.bfloat16, device="cuda")
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ))).to("cuda")
+        rows = TRAIN_BATCH // 2
+        x = tokens[rank * rows:(rank + 1) * rows]
+        before = dict(kernels.launch_counts)
+        p, ms = params, []
+        del params
+        for _ in range(PROC_STEPS):
+            rank_barrier(P)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, p = T.train_step(cfg, p, x, comm_dp=P.COMM_WORLD, lr=LR)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        meta = proc_meta(kernels, before)
+        prof = None
+        if profile:
+            def step():
+                return T.train_step(cfg, p, x, comm_dp=P.COMM_WORLD, lr=LR)
+            rank_barrier(P)
+            if rank == 0:
+                prof = device_busy_split(step, kernels)
+            else:
+                step()
+            torch.cuda.synchronize()
+        return (loss, p), meta + (ms, prof)
+    return body
+
+
+def process_flagship_phase(P, T, tree, kernels, transport, cfg, smi):
+    """Phase 46: the flagship's DP=2 training on two CUDA workers, two
+    steps: ranks bitwise identical and bitwise the rank threads' run of
+    the same steps from the same seed; every attention launch in each
+    worker ``tc``; step ms on threads and on processes, the wire bytes a
+    step through the parent, the idle share of a step profiled in worker
+    0."""
+    runs = {}
+    for backend in ("thread", "process"):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs[backend] = P.run_ranks(proc_flagship_body(P, T, kernels, True),
+                                    2, device="cuda", backend=backend)
+        runs[backend + "_s"] = time.perf_counter() - t0
+        if backend == "thread":
+            runs["thread_launches"] = dict(kernels.launch_counts)
+        torch.cuda.empty_cache()
+    stats = transport.get_transport("process").last_stats
+    (th0, thm0), (th1, _) = runs["thread"]
+    (pr0, prm0), (pr1, prm1) = runs["process"]
+    ranks_same = tree_bytes_differ(tree, pr0, pr1)
+    vs_threads = tree_bytes_differ(tree, [th0, th1], [pr0, pr1])
+    want = PROC_STEPS * cfg.n_layers
+    per_worker = [{k: m[2][k] for k in kernels.ATTENTION_KERNELS
+                   + tuple(f"{k}.tc" for k in kernels.ATTENTION_KERNELS)}
+                  for m in (prm0, prm1)]
+    # The run holds PROC_STEPS + 1 steps (the profiled one last), each
+    # after one one-float barrier.
+    nsteps = PROC_STEPS + 1
+    steps = (stats["rendezvous"] - nsteps) / nsteps
+    step_bytes = (stats["payload_bytes_in"] + stats["payload_bytes_out"]) \
+        / nsteps
+    idle = {b: 100 * (1 - prof[1] / prof[0]) for b, prof in
+            (("thread", thm0[4]), ("process", prm0[4]))}
+    print(smi)
+    print(f"  {PROC_STEPS} steps at batch {TRAIN_BATCH // 2} x {TRAIN_SEQ} "
+          f"a rank, full width ({cfg.n_layers} layers, not cut): loss "
+          f"{pr0[0].item():.4f}; workers {[prm0[0], prm1[0]]} on devices "
+          f"{[prm0[1], prm1[1]]}; parameter bytes differing between the "
+          f"ranks {ranks_same}, from the rank threads' run {vs_threads}; "
+          f"attention launches per worker {per_worker} (expected {want} "
+          f"each, all tc)")
+    print(f"  step ms (warm, timed) on rank 0: threads "
+          f"{[round(x, 1) for x in thm0[3]]}, processes "
+          f"{[round(x, 1) for x in prm0[3]]}; a profiled step on rank 0: "
+          f"threads {thm0[4][0]:.1f} ms wall, {thm0[4][1]:.1f} ms busy "
+          f"(idle {idle['thread']:.0f}%), processes {prm0[4][0]:.1f} ms "
+          f"wall, {prm0[4][1]:.1f} ms busy (idle {idle['process']:.0f}%); "
+          f"through the parent a step: {steps:.1f} rendezvous, "
+          f"{step_bytes / 1e6:.1f} MB of payload (in + out, its barrier "
+          "included); whole run "
+          f"threads {runs['thread_s']:.1f} s, processes "
+          f"{runs['process_s']:.1f} s (spawn, CUDA contexts, seeding and "
+          "the returned parameters included)", flush=True)
+    for b, prof in (("threads", thm0[4]), ("processes", prm0[4])):
+        print(f"  the profiled step on {b}: busy {prof[1]:.1f} ms = copies "
+              f"and memsets {prof[2]:.1f} + kernels {prof[3]:.1f}; tc "
+              "attention kernels in the profile / launched in its process "
+              f"{prof[4]}", flush=True)
+    check(ranks_same == 0, "the two DP workers disagree")
+    check(vs_threads == 0,
+          "the process run is not bitwise the rank threads' run")
+    check(all(v == want for w in per_worker for v in w.values()),
+          "a worker ran an attention launch off the tc kernels")
+    launches = {k: sum(w[k] for w in per_worker)
+                for k in kernels.ATTENTION_KERNELS}
+    return {"launches": launches,
+            "thread_ms": thm0[3][-1], "process_ms": prm0[3][-1],
+            "idle_pct": idle, "step_bytes": step_bytes,
+            "profile": {"thread": thm0[4], "process": prm0[4]}}
+
+
+def process_signals_phase(P, transport, resilience, obs, smi):
+    """Phase 47: a real SIGKILL (the ``rank_death`` cell on CUDA workers),
+    a real SIGTERM, and a traced process run."""
+    from mpi4torch_tpu_torch.resilience.matrix import run_cell
+    from mpi4torch_tpu_torch.transport.pool import shared_pool
+
+    def touch(rank):
+        torch.ones(1 << 20, device="cuda").sum().item()
+        return os.getpid()
+
+    print(smi)
+    # A pool of exactly the world's size, whose workers hold a context
+    # and little else: one kill then costs one respawn, and frees about
+    # a context's bytes.
+    transport.shutdown()
+    pids = P.run_ranks(touch, PROC_RANKS, device="cuda", backend="process")
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    rec = run_cell("rank_death", "plain", nranks=PROC_RANKS,
+                   backend="process", device="cuda")
+    gone = True
+    try:
+        os.kill(pids[1], 0)
+        gone = False
+    except ProcessLookupError:
+        pass
+    t0, gained = time.perf_counter(), 0
+    while time.perf_counter() - t0 < 20.0:
+        gained = torch.cuda.mem_get_info()[0] - free0
+        if gained >= CTX_FREED_MIN:
+            break
+        time.sleep(0.1)
+    back_s = time.perf_counter() - t0
+    before = shared_pool().spawned_total
+    P.run_ranks(touch, PROC_RANKS, device="cuda", backend="process")
+    respawned = shared_pool().spawned_total - before
+    print(f"  rank_death cell on CUDA workers: {rec['status']}, "
+          f"{rec['detail']}, fired {rec['fired']}, backend "
+          f"{rec['backend']}; rank 1's pid {pids[1]} gone: {gone}; the card "
+          f"got {gained / 2**20:.0f} MiB back within {back_s:.2f} s of "
+          f"the run's end; respawns on the next run "
+          f"{respawned}", flush=True)
+    check(rec["status"] == "ok" and rec["fired"] == ["rank_death"]
+          and "rank [1]" in rec["detail"] and rec["backend"] == "process",
+          f"the rank_death cell failed: {rec}")
+    check(gone, "the killed worker's process is still there")
+    check(gained >= CTX_FREED_MIN,
+          "the killed worker's card memory did not come back")
+    check(respawned == 1, f"{respawned} respawns after one kill")
+
+    def sigterm(rank):
+        if rank == 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+        x = torch.full((1 << 16,), float(rank + 1), device="cuda")
+        return P.COMM_WORLD.Allreduce(x, P.MPI_SUM), os.getpid()
+
+    got = P.run_ranks(sigterm, PROC_RANKS, device="cuda", backend="process")
+    board = transport.external_preemptions()
+    pending = resilience.pending_preemptions()
+    total = float(PROC_RANKS * (PROC_RANKS + 1) // 2)
+    right = all(torch.equal(y, torch.full_like(y, total)) for y, _ in got)
+    alive = got[1][1] in shared_pool().pids()
+    transport.clear_external_preemption(1)
+    print(f"  SIGTERM to rank 1 (pid {got[1][1]}): board {board}, "
+          f"pending_preemptions {pending}, values right {right}, the "
+          f"worker lives on {alive}", flush=True)
+    check(board.get(1) == 64 and pending.get(1) == 64 and right and alive,
+          "the real SIGTERM did not reach the preemption board as a "
+          "64-op notice, or the run's values are wrong")
+
+    def traced(rank):
+        x = torch.arange(4096.0, device="cuda") * (rank + 1)
+        tot = P.COMM_WORLD.Allreduce(x, P.MPI_SUM)
+        for _ in range(3):
+            tot = P.COMM_WORLD.Allreduce(tot / PROC_RANKS, P.MPI_SUM)
+        return tot
+
+    counts = {}
+    for backend in ("thread", "process"):
+        with obs.trace() as t:
+            P.run_ranks(traced, PROC_RANKS, device="cuda", backend=backend)
+        evs = list(t.events)
+        in_order = [e.seq for e in evs] == sorted(e.seq for e in evs)
+        counts[backend] = ({r: len(t.events_for(rank=r))
+                            for r in range(PROC_RANKS)}, in_order)
+    print(f"  traced runs: events per rank (in seq order) on threads "
+          f"{counts['thread']}, on processes {counts['process']}",
+          flush=True)
+    check(counts["process"] == counts["thread"]
+          and counts["process"][1] and all(counts["process"][0].values()),
+          "the traced process run's events differ from the thread run's")
+    return {"freed_mib": gained / 2**20}
+
+
+def process_numbers_phase(P, transport, smi):
+    """Phase 48: rendezvous latency on 2 and 4 ranks, the bench-size
+    Allreduce through the parent, cold spawn and warm lease seconds, and
+    the card memory a worker's CUDA context takes."""
+    from mpi4torch_tpu_torch.transport.pool import shared_pool
+
+    print(smi)
+
+    def latency(rank):
+        x = torch.ones(2, device="cuda")
+        for _ in range(20):
+            P.COMM_WORLD.Allreduce(x, P.MPI_SUM)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LAT_ITERS):
+            x = P.COMM_WORLD.Allreduce(x, P.MPI_SUM) / P.COMM_WORLD.size
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / LAT_ITERS * 1e6
+
+    lat = {}
+    for n in LAT_RANKS:
+        for backend in ("thread", "process"):
+            lat[(n, backend)] = P.run_ranks(latency, n, device="cuda",
+                                            backend=backend)[0]
+    print("  rendezvous latency (one 8-byte Allreduce, rank 0, mean of "
+          f"{LAT_ITERS}, us): " + "; ".join(
+              f"{n} ranks threads {lat[(n, 'thread')]:.1f}, processes "
+              f"{lat[(n, 'process')]:.1f}" for n in LAT_RANKS), flush=True)
+
+    def bench(rank):
+        g = torch.Generator(device="cuda").manual_seed(5 + rank)
+        x = torch.randn(BENCH_NUMEL, generator=g, device="cuda")
+        P.COMM_WORLD.Allreduce(x, P.MPI_SUM)
+        ms = []
+        for _ in range(3):
+            rank_barrier(P)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            P.COMM_WORLD.Allreduce(x, P.MPI_SUM)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return min(ms)
+
+    bench_ms = {}
+    for backend in ("thread", "process"):
+        bench_ms[backend] = P.run_ranks(bench, BENCH_RANKS, device="cuda",
+                                        backend=backend)[0]
+    st = transport.get_transport("process").last_stats
+    # Four Allreduces (a warm one and three timed), two rendezvous each
+    # (the fold-once share), and three one-float barriers.
+    per_ar = (st["payload_bytes_in"] + st["payload_bytes_out"]) / 4
+    gbs = per_ar / (bench_ms["process"] / 1e3) / 1e9
+    print(f"  Allreduce of {BENCH_RANKS} x {BENCH_NUMEL} float32 (rank 0, "
+          f"best of 3): threads {bench_ms['thread']:.2f} ms, processes "
+          f"{bench_ms['process']:.2f} ms; the parent moves "
+          f"{per_ar / 1e9:.3f} GB of payload an Allreduce (in + out), "
+          f"{gbs:.2f} GB/s", flush=True)
+
+    transport.shutdown()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    shared_pool().lease(SPAWN_RANKS)
+    spawn_s = time.perf_counter() - t0
+
+    def touch(rank):
+        torch.ones(1 << 18, device="cuda").sum().item()
+
+    t0 = time.perf_counter()
+    P.run_ranks(touch, SPAWN_RANKS, device="cuda", backend="process")
+    first_s = time.perf_counter() - t0
+    ctx = (free0 - torch.cuda.mem_get_info()[0]) / SPAWN_RANKS
+    warm = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        P.run_ranks(touch, SPAWN_RANKS, device="cuda", backend="process")
+        warm.append(time.perf_counter() - t0)
+    print(f"  {SPAWN_RANKS} workers: cold spawn (interpreter and imports, "
+          f"to hello) {spawn_s:.2f} s; first run (CUDA contexts) "
+          f"{first_s:.2f} s; warm run {min(warm) * 1e3:.1f} ms (best of "
+          f"5); card memory a worker {ctx / 2**20:.0f} MiB (its CUDA "
+          "context and a 2 MiB allocator block)", flush=True)
+    check(ctx > 0 and spawn_s > 0, "no worker memory or spawn time seen")
+    return {"latency_us": {f"{n}_{b}": v for (n, b), v in lat.items()},
+            "bench_ms": bench_ms, "parent_gb_s": gbs, "spawn_s": spawn_s,
+            "first_run_s": first_s, "warm_run_ms": min(warm) * 1e3,
+            "context_mib": ctx / 2**20}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU",
@@ -6050,7 +6579,29 @@ def main():
     print(smi)
     ckpt_example_phase(ckpt_ex)
 
-    phase(45, "kernels")
+    # The process transport: each rank its own worker process, CUDA
+    # context and stream.  The parent frees what its caching allocator
+    # holds first: the workers share the card with it.
+    from mpi4torch_tpu_torch import transport
+    torch.cuda.empty_cache()
+
+    phase(45, f"the process transport: parity on ({PROC_RANKS},) worlds of "
+          "CUDA workers against rank threads")
+    print(smi)
+    proc_parity = process_parity_phase(P, tree, kernels, rs, transport, smi)
+
+    phase(46, "the flagship's DP=2 training on two worker processes")
+    proc_train = process_flagship_phase(P, T, tree, kernels, transport, cfg,
+                                         smi)
+
+    phase(47, "real signals: SIGKILL, SIGTERM and a traced process run")
+    process_signals_phase(P, transport, resilience, obs, smi)
+
+    phase(48, "process transport numbers")
+    proc_numbers = process_numbers_phase(P, transport, smi)
+    transport.shutdown()
+
+    phase(49, "kernels")
     print(smi)
     sp_shapes, sp_worst = sp_kernel_numbers(flash, kernels)
     # flash_fwd: launches on the serving path (phase 4), times at the
@@ -6271,7 +6822,25 @@ def main():
                           "reshard_launches") if key in e
               for v in e[key].values()),
           "a kernel of this slice's paths was launched no time")
+    # This slice's paths: each attention kernel's launches in the two
+    # workers of the flagship's DP=2 steps (phase 46), K1's in the three
+    # workers of the q8 Allreduce (phase 45), counted in the workers and
+    # returned by the rank bodies.
+    for entry in line["kernels"][:3]:
+        entry["process_launches"] = {
+            "flagship_dp2_workers": proc_train["launches"][entry["name"]]}
+    hop_entry["process_launches"] = {
+        "q8_allreduce_workers": proc_parity["q8"]["q8_hop"],
+        "q8_allreduce_workers_requant": proc_parity["q8"]["q8_requant"]}
+    check(all(v > 0 for e in line["kernels"]
+              for v in e["process_launches"].values()),
+          "a kernel of this slice's paths was launched no time")
     print(json.dumps(line))
+    print(f"  process transport: DP=2 step "
+          f"{proc_train['process_ms']:.1f} ms on workers vs "
+          f"{proc_train['thread_ms']:.1f} ms on threads; rendezvous "
+          f"{proc_numbers['latency_us']['4_process']:.1f} us on 4 workers; "
+          f"the parent wire {proc_numbers['parent_gb_s']:.2f} GB/s")
     print(f"  ResNet-18 DP=2 step {resnet['dp_grad_train_step']['ms']:.1f} "
           f"ms; ViT-B/16 DP=2 step {vit['ms']:.1f} ms; PP=2 1F1B step "
           f"{pipe['1f1b']['ms']:.1f} ms; reshard auto / gather "
@@ -6281,7 +6850,7 @@ def main():
           f"{ckpt['bytes'] / min(ckpt['save_s']) / 1e9:.2f} GB/s, restore "
           f"{ckpt['bytes'] / ckpt['restore_s'] / 1e9:.2f} GB/s; MoE "
           f"rebalance {rebalance}")
-    phase(46)
+    phase(50)
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,9 @@ backoff, the integrity guards, gray-failure detection, preemption-safe
 resume), the reshard planner (``reshard``, ``comm.Reshard``: the
 (mesh, spec) -> (mesh', spec') moves of state between layouts, the
 ZeRO-3 -> TP serving handoff, the planned MoE rebalance) and
-training-state checkpoints (``utils.checkpoint``).
+training-state checkpoints (``utils.checkpoint``).  ``run_ranks`` runs
+its ranks on threads of this process or, with ``backend="process"``, in
+pooled worker processes (``transport``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device and no such request they raise.  The package imports
@@ -78,7 +80,7 @@ from .runtime import (
     run_ranks,
 )
 from . import (compress, config, fuse, obs, overlap, reshard, resilience,
-               serve, tune)
+               serve, transport, tune)
 from .config import compression_scope, fusion_scope, overlap_scope
 from .mesh import device_mesh, hybrid_mesh
 from .resilience import FaultPlan, FaultSpec, fault_scope
@@ -94,6 +96,6 @@ __all__ = [
     "RankFailedError", "InPlaceReuseError", "BifurcationError",
     "IntegrityError", "HealthReport", "resolve_device", "run_ranks",
     "config", "compress", "fuse", "tune", "overlap", "resilience",
-    "reshard", "serve", "obs", "device_mesh", "hybrid_mesh", "FaultPlan", "FaultSpec", "fault_scope", "compression_scope",
+    "reshard", "serve", "obs", "transport", "device_mesh", "hybrid_mesh", "FaultPlan", "FaultSpec", "fault_scope", "compression_scope",
     "fusion_scope", "overlap_scope",
 ]

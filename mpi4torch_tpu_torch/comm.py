@@ -135,8 +135,15 @@ def _codec_for(tensor, codec, explicit):
 
 
 class MPI_Communicator:
-    """Communicator wrapper: the rank-thread world of the calling
-    thread."""
+    """Communicator wrapper: the rank world of the calling thread."""
+
+    def __reduce__(self):
+        """Pickling, world-only: the round trip restores the
+        :data:`COMM_WORLD` singleton, which resolves its world in the
+        loading context (so a rank body shipped to a transport worker
+        still talks to its world).  The JAX package refuses the
+        mesh-axis communicators, which the port does not have yet."""
+        return (_restore_comm_world, ())
 
     @property
     def rank(self) -> int:
@@ -481,6 +488,11 @@ def deactivate_cuda_aware_mpi_support() -> None:
     through MPI: rank threads of one world hand each other device tensors
     on the card's shared stream, so there is no CUDA-aware transport to
     turn off."""
+
+
+def _restore_comm_world():
+    """Unpickle target: the :data:`COMM_WORLD` singleton."""
+    return COMM_WORLD
 
 
 COMM_WORLD = MPI_Communicator()

@@ -14,10 +14,14 @@ size and the implementation of the quantized hop
 (:func:`quant_hop_impl`), the reshard planner's default strategy
 (:func:`set_default_reshard_strategy`), and the fault-tolerance and
 observability knobs: comm retries and backoff, the finite guard, the
-wire checksum, the fault plan and the comm tracer.  The deterministic flag and the
+wire checksum, the fault plan and the comm tracer, and the default
+transport of ``run_ranks`` (:func:`set_comm_transport`,
+:func:`transport_scope`).  The deterministic flag and the
 scopes are per thread, so a scope opened before ``run_ranks`` is not
 seen by the rank threads; the process-wide setters are, and the
 fault-tolerance and observability knobs are process-wide only.
+:func:`snapshot_process_state` / :func:`apply_process_state` carry the
+process-wide state to the process transport's workers.
 """
 
 from __future__ import annotations
@@ -450,3 +454,174 @@ def set_comm_tracer(tracer) -> None:
     to turn tracing off."""
     global _comm_tracer
     _comm_tracer = tracer
+
+
+# --- the transport -----------------------------------------------------------
+
+# Which registered transport serves run_ranks when no ``backend=`` is
+# passed: "thread" (rank threads in this process) or "process" (pooled
+# worker processes, mpi4torch_tpu_torch.transport).  Process-wide, like the
+# fault plan: the choice must reach whichever thread calls run_ranks.
+TRANSPORT_ENV = "MPI4TORCH_TPU_TRANSPORT"
+_comm_transport = os.environ.get(TRANSPORT_ENV, "thread")
+
+
+def comm_transport() -> str:
+    """The transport :func:`~mpi4torch_tpu_torch.run_ranks` uses when no
+    ``backend=`` is passed (initially ``MPI4TORCH_TPU_TRANSPORT``, else
+    ``"thread"``)."""
+    return _comm_transport
+
+
+def set_comm_transport(name) -> None:
+    """Set the process-wide default transport: a name registered in
+    ``transport.TRANSPORTS`` (``None``: ``"thread"``)."""
+    global _comm_transport
+    if name is None:
+        name = "thread"
+    from .transport import TRANSPORTS
+
+    if name not in TRANSPORTS:
+        raise ValueError(f"comm_transport must be one of "
+                         f"{sorted(TRANSPORTS)}, got {name!r}")
+    _comm_transport = name
+
+
+@contextmanager
+def transport_scope(name):
+    """The default transport for a ``with`` block, process-wide like
+    :func:`set_comm_transport`::
+
+        with mpi.config.transport_scope("process"):
+            mpi.run_ranks(step, 4)      # one worker process per rank
+    """
+    global _comm_transport
+    prev = _comm_transport
+    set_comm_transport(name)
+    try:
+        yield
+    finally:
+        _comm_transport = prev
+
+
+# --- process state shipped to transport workers -----------------------------
+#
+# A rank thread sees this process's process-wide knobs and torch's own
+# process-wide numeric state; a worker process sees neither unless it is
+# shipped.  Thread-scoped state (deterministic_mode and the scopes) is
+# not shipped: rank threads do not see the launcher thread's scopes
+# either.
+
+
+def _matmul_precision():
+    import torch
+
+    try:
+        return torch.get_float32_matmul_precision()
+    except RuntimeError:
+        # torch refuses to read it back after the precision and the TF32
+        # flag were set apart; the flags below still carry the state.
+        return None
+
+
+# torch's backend flags that decide a result's bits: the cuBLAS TF32 and
+# reduced-precision reductions, cuDNN's TF32 and algorithm choice.
+_CUDA_MATMUL_FLAGS = ("allow_tf32", "allow_fp16_reduced_precision_reduction",
+                      "allow_bf16_reduced_precision_reduction")
+_CUDNN_FLAGS = ("allow_tf32", "deterministic", "benchmark")
+
+
+def _flag_objects():
+    import torch
+
+    return (("cuda_matmul", torch.backends.cuda.matmul, _CUDA_MATMUL_FLAGS),
+            ("cudnn", torch.backends.cudnn, _CUDNN_FLAGS))
+
+
+def _torch_numeric_state() -> dict:
+    import torch
+
+    return {
+        "default_dtype": torch.get_default_dtype(),
+        "float32_matmul_precision": _matmul_precision(),
+        **{key: {name: getattr(obj, name) for name in names}
+           for key, obj, names in _flag_objects()},
+        "deterministic_algorithms": (
+            torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled()),
+        # A CPU reduction splits its work by thread count, so its bits
+        # may depend on it.
+        "num_threads": torch.get_num_threads(),
+    }
+
+
+def _apply_torch_numeric_state(st: dict) -> None:
+    """Set each piece of torch's numeric state that differs here (torch
+    refuses some combinations of the precision and the TF32 flags set
+    one after the other, so nothing already equal is set again)."""
+    import torch
+
+    torch.set_default_dtype(st["default_dtype"])
+    # The precision first: it also moves the TF32 flag compared below.
+    want = st["float32_matmul_precision"]
+    if want is not None and want != _matmul_precision():
+        torch.set_float32_matmul_precision(want)
+    for key, obj, _names in _flag_objects():
+        for name, value in st[key].items():
+            if getattr(obj, name) != value:
+                setattr(obj, name, value)
+    enabled, warn_only = st["deterministic_algorithms"]
+    if (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled()) \
+            != (enabled, warn_only):
+        torch.use_deterministic_algorithms(enabled, warn_only=warn_only)
+    if torch.get_num_threads() != st["num_threads"]:
+        torch.set_num_threads(st["num_threads"])
+
+
+def snapshot_process_state() -> dict:
+    """Picklable snapshot of the process-wide state a rank body's bits
+    depend on: this module's process-wide knobs (a codec by its name)
+    and torch's numeric state (default dtype, matmul precision and the
+    TF32 / reduced-precision flags, cuDNN's flags, deterministic
+    algorithms, the CPU thread count).  The process transport ships it
+    to every worker (:func:`apply_process_state`)."""
+    codec = _process_compression
+    if codec is not None and getattr(codec, "name", None) is not None:
+        codec = codec.name
+    return {
+        "compression": codec,
+        "bucket_bytes": _process_bucket_bytes,
+        "overlap": _process_overlap,
+        "bandwidth_crossover_bytes": _bandwidth_crossover_bytes,
+        "hier_group_size": _hier_group_size,
+        "quant_hop_impl": _quant_hop_impl,
+        "reshard_strategy": _reshard_strategy,
+        "comm_retries": _comm_retries,
+        "comm_backoff": _comm_backoff,
+        "comm_finite_guard": _comm_finite_guard,
+        "comm_wire_checksum": _comm_wire_checksum,
+        "world_timeout": os.environ.get(WORLD_TIMEOUT_ENV),
+        "torch": _torch_numeric_state(),
+    }
+
+
+def apply_process_state(state: dict) -> None:
+    """Apply a :func:`snapshot_process_state` dict: the worker's half of
+    shipping the configuration."""
+    set_default_compression(state["compression"])
+    set_default_bucket_bytes(state["bucket_bytes"])
+    set_default_overlap(state["overlap"])
+    set_bandwidth_crossover_bytes(state["bandwidth_crossover_bytes"])
+    set_hier_group_size(state["hier_group_size"])
+    set_quant_hop_impl(state["quant_hop_impl"])
+    set_default_reshard_strategy(state["reshard_strategy"])
+    set_comm_retries(state["comm_retries"])
+    set_comm_backoff(state["comm_backoff"])
+    set_comm_finite_guard(state["comm_finite_guard"])
+    set_comm_wire_checksum(state["comm_wire_checksum"])
+    if state["world_timeout"] is None:
+        os.environ.pop(WORLD_TIMEOUT_ENV, None)
+    else:
+        os.environ[WORLD_TIMEOUT_ENV] = state["world_timeout"]
+    _apply_torch_numeric_state(state["torch"])

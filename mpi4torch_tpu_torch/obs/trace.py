@@ -17,6 +17,10 @@ events per rank, snapshotted into a rank-attributed postmortem when a
 chokepoint raises ``RankFailedError``, ``DeadlockError``,
 ``IntegrityError`` or ``SlowRankError`` (see :mod:`.flight`).
 
+On the process transport each worker traces its own rank and ships its
+events back; :meth:`CommTracer.absorb` merges them into the parent's
+tracer under the transport's world.
+
 The JAX package's Mode A hook (:func:`spmd_collective_event`, a host
 callback in a compiled lowering) waits for the compiled backend.
 """
@@ -24,6 +28,7 @@ callback in a compiled lowering) waits for the compiled backend.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import itertools
 import threading
 import time
@@ -278,6 +283,51 @@ class CommTracer:
             op=f"({type(error).__name__})",
             status=type(error).__name__)
         self._note_failure(ev, error)
+
+    def absorb(self, world, shards: List[Optional[dict]]) -> None:
+        """Merge process-backend worker dumps into this tracer: the
+        parent's half of the transport's tracing contract.
+
+        ``shards[rank]`` is the worker's shipped dump (``{"events",
+        "postmortems", "dropped"}``) or None.  The events are merged in
+        the order of their start times (``time.perf_counter`` is the
+        host's monotonic clock, shared by processes) and re-sequenced in
+        that order under this tracer's ordinal for ``world`` (the
+        transport's switchboard); the postmortems merge as concurrent
+        observers of one tear do (the first snapshot stays, later ones
+        add their observers and their own ranks' tails)."""
+        ord_ = self._world_ord(world)
+        merged: List[CommEvent] = []
+        for sh in shards:
+            if not sh:
+                continue
+            with self._lock:
+                self.dropped += int(sh.get("dropped") or 0)
+            merged.extend(sh.get("events") or ())
+        merged.sort(key=lambda ev: ev.t_start)
+        for ev in merged:
+            self._append(dataclasses.replace(ev, seq=next(self._seq),
+                                             world=ord_))
+        for sh in shards:
+            for pm in (sh or {}).get("postmortems") or ():
+                self._absorb_postmortem(ord_, pm)
+
+    def _absorb_postmortem(self, ord_: int, pm: dict) -> None:
+        with self._lock:
+            idx = self._failed_worlds.get(ord_)
+            if idx is None:
+                pm = dict(pm, world=ord_, tails=dict(pm.get("tails") or {}))
+                self._failed_worlds[ord_] = len(self.postmortems)
+                self.postmortems.append(pm)
+                return
+            dst = self.postmortems[idx]
+            dst["observers"] += pm.get("observers", 1)
+            dst["observer_ranks"] = sorted(
+                set(dst["observer_ranks"])
+                | set(pm.get("observer_ranks") or ()))
+            dst["tails"].update(pm.get("tails") or {})
+            if not dst.get("failed_ranks") and pm.get("failed_ranks"):
+                dst["failed_ranks"] = pm["failed_ranks"]
 
     # -------------------------------------------------------------- reads
 

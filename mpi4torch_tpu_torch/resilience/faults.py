@@ -64,15 +64,20 @@ __all__ = [
 
 
 def pending_preemptions() -> Dict[int, int]:
-    """The preemption notice board, ``{rank: ops_remaining}``: the active
-    fault plan's posted notices (:meth:`FaultPlan.preemption_notices`).
-    The JAX package also merges notices a real ``SIGTERM`` posts to a
-    worker process; the port has no process transport yet (ROADMAP.md,
-    Queue 1 item 4)."""
+    """The merged preemption notice board, ``{rank: ops_remaining}``: the
+    active fault plan's posted notices
+    (:meth:`FaultPlan.preemption_notices`) plus the transport's external
+    board, the notices a real ``SIGTERM`` to a process-backend worker
+    posts (``transport.external_preemptions``).  A caller cannot tell,
+    and need not care, which of the two posted a notice."""
     from .. import config as _cfg
+    from ..transport import external_preemptions
 
     plan = _cfg.fault_plan()
-    return dict(plan.preemption_notices()) if plan is not None else {}
+    out = dict(plan.preemption_notices()) if plan is not None else {}
+    for rank, grace in external_preemptions().items():
+        out.setdefault(rank, grace)
+    return out
 
 
 @dataclass(frozen=True)
@@ -307,9 +312,31 @@ class FaultPlan:
 
     def clear_preemption(self, rank: int) -> None:
         """Drop ``rank``'s notice (once the rank has been drained out of
-        the world, its death op never runs)."""
+        the world, its death op never runs), the transport's external
+        notice for it included: the drain consumed whichever posted
+        it."""
         with self._lock:
             self._preempt_death_at.pop(rank, None)
+        from ..transport import clear_external_preemption
+
+        clear_external_preemption(rank)
+
+    def absorb_remote(self, rank: int, dump: dict) -> None:
+        """Merge a process-backend worker's plan epilogue into this
+        (parent) plan: ``rank``'s fired-fault entries, its per-(spec,
+        rank) call counters and the preemption notice it posted.  Only
+        ``rank``'s own keys move (a rank advances only its own counters),
+        so the merges of several ranks commute and the plan reads as if
+        its hooks had run in this process."""
+        with self._lock:
+            for key, n in (dump.get("counts") or {}).items():
+                if key[1] == rank:
+                    self._counts[key] = max(self._counts.get(key, 0), n)
+            self.fired.extend(f for f in (dump.get("fired") or ())
+                              if f.rank == rank)
+            for r, v in (dump.get("notices") or {}).items():
+                if r == rank:
+                    self._preempt_death_at[r] = tuple(v)
 
     def wants_checkpoint(self) -> bool:
         """Does any spec target the checkpoint site at all?"""

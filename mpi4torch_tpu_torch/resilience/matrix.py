@@ -219,7 +219,7 @@ def _baseline(subsystem: str, kind: str, nranks: int,
     if key not in _baselines:
         fn, _op = _cell_fn(subsystem, kind, algorithm)
         _baselines[key] = mpi.run_ranks(fn, nranks, timeout=30.0,
-                                        device=device)
+                                        backend="thread", device=device)
     return _baselines[key]
 
 
@@ -228,9 +228,12 @@ def run_cell(kind: str, subsystem: str, nranks: int = 3,
              backend: Optional[str] = None, device=None) -> dict:
     """Run one matrix cell; returns a verdict record with ``status``
     ``"ok"`` or ``"fail"`` and a readable ``detail``.  ``device`` is the
-    rank world's (CUDA unless ``"cpu"`` is asked for); ``backend`` is
-    ``run_ranks``'s (the rank threads; the process transport is
-    ROADMAP.md Queue 1 item 4)."""
+    rank world's (CUDA unless ``"cpu"`` is asked for); ``backend`` is the
+    transport the faulted run takes (None: ``config.comm_transport()``),
+    recorded in the verdict.  The fault-free baseline always comes from
+    the rank threads, so a ``backend="process"`` cell holds recovery and
+    inertness bitwise across backends, and its ``rank_death`` and
+    ``preempt`` kills are SIGKILLs of real worker processes."""
     import mpi4torch_tpu_torch as mpi
 
     expected = COVERAGE.get(kind, {}).get(subsystem)
@@ -262,7 +265,7 @@ def run_cell(kind: str, subsystem: str, nranks: int = 3,
 
     rec = {"kind": kind, "subsystem": subsystem, "nranks": nranks,
            "algorithm": algorithm, "expected": expected,
-           "backend": backend or "thread",
+           "backend": backend or mpi.config.comm_transport(),
            "fired": sorted(plan.fired_kinds())}
 
     def fail(detail):

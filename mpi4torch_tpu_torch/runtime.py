@@ -26,6 +26,12 @@ costs one attribute read per call.
 Payloads are torch tensors.  Rank threads of one world share one device;
 on a CUDA device they all issue on the same stream, which is what makes
 handing one thread's tensor to another safe without events.
+
+Below each chokepoint sits its wire (``_exchange_wire``,
+``_p2p_send_wire``, ``_on_wire_drop``, ``_p2p_recv_wire``,
+``_health_wire``): the only methods a transport replaces.  The process
+transport (``transport/``) runs each rank in a worker process whose wire
+goes through the parent.
 """
 
 from __future__ import annotations
@@ -452,6 +458,13 @@ class World:
 
     def _exchange_wire(self, rank: int, signature: Tuple, payload: Any,
                        read=None, checks=(), meter=None) -> Any:
+        """The rendezvous's wire: everything below the chokepoint's tracer
+        and fault hook.  A transport (``mpi4torch_tpu_torch.transport``)
+        replaces only this method and its siblings
+        (:meth:`_p2p_send_wire`, :meth:`_on_wire_drop`,
+        :meth:`_p2p_recv_wire`, :meth:`_health_wire`), so tracing, fault
+        injection and retry accounting are the same code on every
+        backend."""
         self._sigs[rank] = signature
         self._slots[rank] = payload
         self._verdicts[rank] = tuple(c.ok(payload) for c in checks)
@@ -545,15 +558,7 @@ class World:
         timeout = self.timeout if timeout is None else float(timeout)
         everyone = frozenset(range(self.size))
         t0 = time.monotonic()
-        arrivals: List[Dict[int, float]] = []
-        try:
-            self._health.wait(rank, timeout, collect_arrivals=arrivals)
-            ok, arrived = True, everyone
-            arrive_t = arrivals[0] if arrivals else {}
-        except (_BarrierTimeout, _BarrierBroken) as e:
-            ok = False
-            arrived = frozenset() if e.arrived is None else e.arrived
-            arrive_t = e.arrive_t
+        ok, arrived, arrive_t = self._health_wire(rank, timeout)
         from .obs import metrics as _metrics
         _metrics.inc(
             f'comm_health_probes_total{{result="{"ok" if ok else "failed"}"}}',
@@ -567,6 +572,19 @@ class World:
                             everyone - frozenset(arrived),
                             probe_duration_s=time.monotonic() - t0,
                             arrival_s=arrival_s)
+
+    def _health_wire(self, rank: int, timeout: float):
+        """The health probe's wire (a transport seam, like
+        :meth:`_exchange_wire`): ``(ok, arrived, arrive_t)`` of one round
+        of the resettable barrier."""
+        arrivals: List[Dict[int, float]] = []
+        try:
+            self._health.wait(rank, timeout, collect_arrivals=arrivals)
+        except (_BarrierTimeout, _BarrierBroken) as e:
+            arrived = frozenset() if e.arrived is None else e.arrived
+            return False, arrived, e.arrive_t
+        return (True, frozenset(range(self.size)),
+                arrivals[0] if arrivals else {})
 
     # -------------------------------------------------------------- p2p
 
@@ -605,8 +623,22 @@ class World:
         if plan is not None:
             payload = plan.on_p2p_send(self, src, dst, tag, payload)
             if payload is _P2P_DROPPED:
+                # The plan stashed the payload in this world's _dropped;
+                # a transport moves it to where its receives redeliver.
+                self._on_wire_drop(src, dst, tag)
                 return
+        self._p2p_send_wire(src, dst, tag, payload)
+
+    def _p2p_send_wire(self, src: int, dst: int, tag: int,
+                       payload: Any) -> None:
+        """The p2p send's wire (a transport seam, like
+        :meth:`_exchange_wire`)."""
         self._mailbox(src, dst, tag).put(payload)
+
+    def _on_wire_drop(self, src: int, dst: int, tag: int) -> None:
+        """Called after a fault plan dropped a message.  On rank threads
+        the payload already waits in ``_dropped``, where a retrying
+        receive redelivers it from."""
 
     def p2p_recv(self, src: int, dst: int, tag: int) -> Any:
         """Blocking receive with the deadlock timeout.  A dead ``src``
@@ -632,6 +664,12 @@ class World:
     def _p2p_recv(self, src: int, dst: int, tag: int, meter) -> Any:
         if not (0 <= src < self.size):
             raise CommError(f"invalid source rank {src} (size {self.size})")
+        return self._p2p_recv_wire(src, dst, tag, meter)
+
+    def _p2p_recv_wire(self, src: int, dst: int, tag: int, meter) -> Any:
+        """The p2p receive's wire (a transport seam, like
+        :meth:`_exchange_wire`): the blocking wait, the retry windows and
+        the redelivery of a dropped message."""
         q = self._mailbox(src, dst, tag)
         retries = _cfg.comm_retries()
         backoff = _cfg.comm_backoff()
@@ -813,25 +851,35 @@ def _raise_primary(errors: List[Optional[BaseException]],
 def run_ranks(fn: Callable, nranks: int, timeout: Optional[float] = None,
               return_results: bool = True, backend: Optional[str] = None,
               device=None) -> List[Any]:
-    """Run ``fn`` on ``nranks`` rank threads — the ``mpirun -np N``
-    analogue.
+    """Run ``fn`` on ``nranks`` ranks — the ``mpirun -np N`` analogue.
 
     ``fn`` is called as ``fn()`` or ``fn(rank)``.  Inside it,
     ``COMM_WORLD`` resolves to this world with a concrete integer rank.
     ``device`` is the world's device (CUDA unless the caller passes
-    ``"cpu"``; see :func:`resolve_device`): every rank thread makes it
-    its current device, and collective payloads must live on it.
+    ``"cpu"``; see :func:`resolve_device`): every rank makes it its
+    current device, and collective payloads must live on it.
     ``timeout`` is the deadlock-detection wall clock (``None``: the
     ``MPI4TORCH_TPU_WORLD_TIMEOUT`` environment variable, else 60 s).
+
+    ``backend`` picks the transport (``mpi4torch_tpu_torch.transport``):
+    ``"thread"``, N rank threads in this process, or ``"process"``, N
+    pooled worker processes, each with its own interpreter, CUDA context
+    and stream, whose rendezvous runs through this process.  ``None``
+    defers to ``config.comm_transport()`` (the ``MPI4TORCH_TPU_TRANSPORT``
+    environment variable, else ``"thread"``).  Results are bitwise the
+    same on both.
+
     Every backward pass inside ``fn`` runs on its rank's thread (CUDA
     included), so differentiating through collectives works on one card.
-    The first per-rank exception is re-raised after every thread has
-    been joined, with the other ranks' failures attached as a note."""
-    if backend not in (None, "thread"):
-        raise NotImplementedError(
-            f"backend={backend!r}: only rank threads exist in this package; "
-            "the multi-process transport is not ported yet (ROADMAP.md, "
-            "Queue 1 item 4)")
+    The first per-rank exception is re-raised after every rank has
+    ended, with the other ranks' failures attached as a note."""
+    name = backend if backend is not None else _cfg.comm_transport()
+    if name != "thread":
+        from .transport import get_transport
+
+        return get_transport(name).run_ranks(
+            fn, nranks, timeout=timeout, return_results=return_results,
+            device=device)
     dev = resolve_device(device)
     world = World(nranks, timeout=timeout, device=dev)
     results: List[Any] = [None] * nranks

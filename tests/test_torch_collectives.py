@@ -238,11 +238,14 @@ def test_unported_options_raise(kw):
 
 
 def test_unported_backend_and_overlap_raise():
-    # The multi-process backend is not ported (it raises, naming the
-    # ROADMAP item); the overlap policy is: True and window depths are
-    # accepted, and only malformed values raise.
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        P.run_ranks(lambda: None, 2, backend="process", device="cpu")
+    # A backend the transport registry does not hold raises, naming the
+    # registered ones; the multi-process backend is ported and runs. The
+    # overlap policy is ported too: True and window depths are accepted,
+    # and only malformed values raise.
+    with pytest.raises(ValueError, match="unknown transport"):
+        P.run_ranks(lambda: None, 2, backend="mpirun", device="cpu")
+    assert P.run_ranks(lambda r: r * 10, 2, backend="process",
+                       device="cpu") == [0, 10]
     try:
         for value in (True, 2, False):
             pconfig.set_default_overlap(value)

@@ -1614,3 +1614,83 @@ def test_admit_zero3_at_two_layers_bitwise_shard_params_tp(cuda):
                    for a, b in zip(tree_leaves(got), tree_leaves(want)))
 
     assert all(P.run_ranks(body, 2, timeout=120.0, device=cuda))
+
+
+# -------------------------------------------------- the process transport
+
+
+@pytest.mark.cuda
+def test_process_backend_bitwise_the_thread_backend(cuda):
+    # The same Allreduce and DP=2 step of a two-layer model on rank
+    # threads and in worker processes (each with its own CUDA context)
+    # give the same bits, on the world's device.
+    import os
+
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch.transport.__main__ import bitwise_equal
+
+    def allreduce(rank):
+        x = (torch.sin(torch.arange(1 << 17, device=cuda,
+                                    dtype=torch.float32)) * (rank + 1)
+             ).requires_grad_()
+        y = P.COMM_WORLD.Allreduce(x, P.MPI_SUM)
+        (g,) = torch.autograd.grad(torch.vdot(y, torch.cos(y)), x)
+        return (y.detach(), g, torch.cuda.current_device(), os.getpid())
+
+    a = P.run_ranks(allreduce, 3, device=cuda, backend="thread")
+    b = P.run_ranks(allreduce, 3, device=cuda, backend="process")
+    assert bitwise_equal([r[:3] for r in a], [r[:3] for r in b])
+    assert all(r[0].device.type == "cuda" for r in b)
+    assert len({r[3] for r in b} | {os.getpid()}) == 4
+
+    cfg = T.TransformerConfig(vocab=97, d_model=128, n_heads=4, n_layers=2,
+                              d_ff=256, max_seq=64)
+
+    def step(rank):
+        params = T.init_transformer(0, cfg, torch.float32, device=cuda)
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (4, 64))).to(cuda)
+        _kernels.reset_launch_counts()
+        out = T.train_step(cfg, params, tokens[2 * rank:2 * rank + 2],
+                           comm_dp=P.COMM_WORLD, lr=1e-2)
+        return out, dict(_kernels.launch_counts)
+
+    a = P.run_ranks(step, 2, timeout=60.0, device=cuda, backend="thread")
+    b = P.run_ranks(step, 2, timeout=60.0, device=cuda, backend="process")
+    assert bitwise_equal([r[0] for r in a], [r[0] for r in b])
+    assert bitwise_equal(b[0][0], b[1][0])
+    # Each worker counts its own launches: n_layers of each kernel.
+    assert all(r[1]["flash_bwd_dq"] == cfg.n_layers for r in b)
+
+
+@pytest.mark.cuda
+def test_a_killed_workers_card_memory_comes_back(cuda):
+    import os
+    import time
+
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch.resilience.matrix import run_cell
+    from mpi4torch_tpu_torch.transport.pool import shared_pool
+
+    def touch(rank):
+        torch.ones(1 << 20, device=cuda).sum().item()
+        return os.getpid()
+
+    pids = P.run_ranks(touch, 3, device=cuda, backend="process")
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    rec = run_cell("rank_death", "plain", nranks=3, backend="process",
+                   device=cuda)
+    assert rec["status"] == "ok", rec["detail"]
+    with pytest.raises(ProcessLookupError):
+        os.kill(pids[1], 0)
+    deadline, gained = time.monotonic() + 20.0, 0
+    while time.monotonic() < deadline:
+        gained = torch.cuda.mem_get_info()[0] - free0
+        if gained >= 100 << 20:
+            break
+        time.sleep(0.2)
+    assert gained >= 100 << 20, f"only {gained} B came back"
+    before = shared_pool().spawned_total
+    P.run_ranks(touch, 3, device=cuda, backend="process")
+    assert shared_pool().spawned_total == before + 1

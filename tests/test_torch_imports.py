@@ -64,7 +64,12 @@ def test_port_has_modules():
                 "reshard/__init__.py", "reshard/plan.py",
                 "reshard/rules.py", "reshard/executor.py",
                 "utils/checkpoint.py", "resilience/recovery.py",
-                "resilience/matrix.py", "examples/checkpoint_resume.py"):
+                "resilience/matrix.py", "examples/checkpoint_resume.py",
+                "transport/__init__.py", "transport/__main__.py",
+                "transport/base.py", "transport/thread.py",
+                "transport/wire.py", "transport/_ship.py",
+                "transport/pool.py", "transport/_worker.py",
+                "transport/process.py"):
         assert f"mpi4torch_tpu_torch/{rel}" in names
     for src in ("flash_fwd.cu", "flash_fwd_tc.cu", "flash_bwd.cu",
                 "flash_bwd_tc.cu", "quant_hop.cu"):

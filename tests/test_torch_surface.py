@@ -1,7 +1,8 @@
 """The port's package surface and its rank means.
 
 Surface: every name the JAX package exports in the ``__all__`` of the
-package, ``ops``, ``utils``, ``reshard``, ``obs`` and ``resilience``
+package, ``ops``, ``utils``, ``reshard``, ``obs``, ``resilience`` and
+``transport``
 exists in the port, or is listed in ``UNPORTED`` under the ROADMAP.md Queue 1 item it
 waits for; a listed name the port keeps as a stub raises
 ``NotImplementedError`` naming that item.
@@ -44,6 +45,7 @@ UNPORTED = {
     "obs": {"spmd_collective_event": 4, "measured_wire_table": 7,
             "reconcile": 7, "equivalent_wire": 7,
             "equivalent_tier_wire": 7},
+    "transport": {},
     "resilience": {"spmd_finite_value": 4, "DEGRADE_POLICIES": 6,
                    "DegradeController": 6, "DegradeError": 6,
                    "DegradeTransition": 6, "failover_schedule": 6,
@@ -85,7 +87,8 @@ def test_package_surface_repairs():
     for name in ("compression_scope", "fusion_scope", "overlap_scope",
                  "fuse", "overlap", "serve", "obs", "resilience",
                  "IntegrityError", "deactivate_cuda_aware_mpi_support",
-                 "FaultPlan", "FaultSpec", "fault_scope", "tune"):
+                 "FaultPlan", "FaultSpec", "fault_scope", "tune",
+                 "transport"):
         assert name in mpi.__all__ and hasattr(mpi, name)
     assert mpi.deactivate_cuda_aware_mpi_support() is None
     with mpi.compression_scope("q8_ef"):
