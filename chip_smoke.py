@@ -284,16 +284,40 @@ check fails.  Phases, in order:
     ranks, the bench-size Allreduce (4 x 2^24 float32) and the parent
     wire's GB/s, cold spawn and warm run seconds, a worker's context
     bytes on the card;
-49. one JSON line describing each ported kernel (K2, K3 and K4 with
+49. Mode A (``run_spmd``), A: every op and p2p program of
+    ``tests/test_torch_spmd.py`` at 2^20 float32 a rank on (3,) and (8,)
+    worlds and the (2, 4) mesh on the card, with each registered
+    Allreduce algorithm: values and gradients (taken from outside
+    ``run_spmd``) bitwise equal to the same body under ``run_ranks`` in
+    deterministic mode and to the port's CPU Mode A run;
+50. Mode A, B: bench.py's Allreduce body (``value_and_grad`` of
+    ``vdot(y, y)``, ``y = Allreduce(x)``) at 2^26 float32 on 2 and 4 rank
+    threads of the card: the default (native) and the deterministic ring
+    fold against the same body under ``run_ranks``, bitwise; median ms of
+    20 steps, bench's GB/s accounting, rendezvous a step;
+51. Mode A, C: the flagship's DP=2 step (``dp_value_and_grad`` + the SGD
+    update, each rank taking its 4 rows by ``comm.rank``) under
+    ``run_spmd(nranks=2)``, three steps, outside and inside deterministic
+    mode: loss and parameters bitwise the same steps under ``run_ranks``;
+    8 launches a step of each attention kernel on each rank, all ``tc``;
+    step ms, rendezvous a step, the idle share;
+52. Mode A, D: misuse on the card (an unmatched ``Isend`` raises
+    ``DeadlockError`` naming the ring shift, ``int(comm.rank)`` raises)
+    and gradients from outside through an Allreduce, an Allgather and a
+    ring program bitwise the CPU run's;
+53. the ``variable_token_exchange`` example under ``run_spmd`` on the card
+    against its CPU run;
+54. one JSON line describing each ported kernel (K2, K3 and K4 with
     the variant the main path ran; the launches of phases 18–20, 23–27,
     30–31 and of the later slices' phases, ``obs_launches``,
     ``resilience_launches``, ``handoff_launches``,
-    ``checkpoint_launches`` and ``process_launches`` (counted in the
-    workers); their numbers at the SP and slice-10 shapes, against the
-    plain versions, their bounds and SDPA; K1 with its hop and requant
-    launches, ``reshard_launches`` and ``process_launches`` among them).
+    ``checkpoint_launches``, ``process_launches`` (counted in the
+    workers) and ``mode_a_launches``; their numbers at the SP and
+    slice-10 shapes, against the plain versions, their bounds and SDPA;
+    K1 with its hop and requant launches, ``reshard_launches`` and
+    ``process_launches`` among them).
 
-Each phase prints the seconds it took, and each of 28–49 the card's name
+Each phase prints the seconds it took, and each of 28–54 the card's name
 and power limit beside its numbers.  Times on the host clock are host times; event times of the
 comm tracer are host times (a rendezvous returns before the card has
 run its work).
@@ -6135,6 +6159,472 @@ def process_numbers_phase(P, transport, smi):
             "context_mib": ctx / 2**20}
 
 
+MODE_A_NUMEL = 1 << 20          # phase 49: a rank's row, float32
+MODE_A_WORLDS = (3, 8)
+MODE_A_BENCH_NUMEL = 1 << 26    # phase 50: bench.py's Allreduce size
+MODE_A_BENCH_RANKS = (2, 4)
+MODE_A_STEPS = 20               # phase 50: timed steps a form
+MODE_A_DP2_STEPS = 3            # phase 51
+MODE_A_ALGOS = ("ring", "rhd", "tree", "hier", "bidir", "torus")
+
+
+def mode_a_table(P, n):
+    """``name -> op(comm, t)`` of phase 49 on an ``n``-rank axis: the
+    Allreduce on every registered algorithm that serves ``n`` ranks, the op
+    table of ``tests/test_torch_spmd.py`` (roots, algorithms, the
+    split-phase starts) and its p2p programs (the ring's orderings, a
+    longer shift, a butterfly, a reversal and a 3-cycle table, a
+    self-send)."""
+    S = P.MPI_SUM
+    ops = {}
+    for algo in MODE_A_ALGOS:
+        if algo == "rhd" and n & (n - 1):
+            continue
+        if algo in ("hier", "torus") and all(n % g for g in range(2, n)):
+            continue
+        ops[f"allreduce_{algo}"] = (
+            lambda a: lambda c, t: c.Allreduce(t, S, algorithm=a))(algo)
+
+    def rows(t):
+        return t[:n * (t.numel() // n)].reshape(n, -1)
+
+    def exchange(dest, src):
+        def prog(c, t):
+            h = c.Isend(t, dest(c), 0)
+            b = c.Recv(P.JoinDummies(torch.empty_like(t), [h.dummy]),
+                       src(c), 0)
+            return P.JoinDummies(b, [c.Wait(P.JoinDummiesHandle(h, [b]))])
+        return prog
+
+    def ring_isendirecv(c, t):
+        # Isend, Irecv, both Waits (the first of the test's orderings).
+        req = c.Isend(t, (c.rank + 1) % c.size, 0)
+        req2 = c.Irecv(P.JoinDummies(torch.empty_like(t), [req.dummy]),
+                       (c.rank + c.size - 1) % c.size, 0)
+        res = c.Wait(P.JoinDummiesHandle(req, [req2.dummy]))
+        return c.Wait(P.JoinDummiesHandle(req2, [res])) * (1.0 + c.rank)
+
+    def ring_irecvsend(c, t):
+        # Irecv, blocking Send, Wait (the third ordering).
+        req = c.Irecv(P.JoinDummies(torch.empty_like(t), [t]),
+                      (c.rank + c.size - 1) % c.size, 0)
+        res = c.Send(t, (c.rank + 1) % c.size, 0)
+        return c.Wait(P.JoinDummiesHandle(req, [res])) * (1.0 + c.rank)
+
+    cycle = list(range(n))
+    cycle[0], cycle[1], cycle[2] = 1, 2, 0        # 0->1->2->0
+    cycle_src = [cycle.index(r) for r in range(n)]
+
+    ops.update({
+        "bcast_ring": lambda c, t: c.Bcast_(t, 1, algorithm="ring"),
+        "bcast_tree": lambda c, t: c.Bcast_(t, n - 1, algorithm="tree"),
+        "reduce_ring": lambda c, t: c.Reduce_(t, S, 1, algorithm="ring"),
+        "reduce_tree": lambda c, t: c.Reduce_(t, S, 2 % n,
+                                              algorithm="tree"),
+        "allgather": lambda c, t: c.Allgather(t.reshape(2, -1), 1),
+        "gather": lambda c, t: c.Gather(t, 0, n - 1),
+        "scatter": lambda c, t: c.Scatter(rows(t), 0, 1, 1),
+        "alltoall": lambda c, t: c.Alltoall(rows(t), 1, 0, 1),
+        "reduce_scatter": lambda c, t: c.Reduce_scatter(rows(t), S, 0),
+        "allreduce_start": lambda c, t: c.Wait(c.Allreduce_start(t, S)),
+        "ring_shift": exchange(lambda c: (c.rank + 1) % c.size,
+                               lambda c: (c.rank - 1) % c.size),
+        "table": exchange(lambda c: [n - 1 - r for r in range(n)],
+                          lambda c: [n - 1 - r for r in range(n)]),
+        "ring_isendirecv": ring_isendirecv,
+        "ring_irecvsend": ring_irecvsend,
+        "shift_3": exchange(lambda c: (c.rank + 3) % c.size,
+                            lambda c: (c.rank - 3) % c.size),
+        "cycle_table": exchange(lambda c: cycle, lambda c: cycle_src),
+        "self_send": exchange(lambda c: c.rank, lambda c: c.rank),
+        "reduce_scatter_start": lambda c, t: c.Wait(c.Reduce_scatter_start(
+            rows(t), S, 0)),
+        "allgather_start": lambda c, t: c.Wait(c.Allgather_start(t, 0)),
+    })
+    if n % 2 == 0:
+        ops["butterfly"] = exchange(lambda c: c.rank ^ 1,
+                                    lambda c: c.rank ^ 1)
+    return ops
+
+
+def mode_a_value_and_grad(P, fn, x, seed, **kw):
+    """A ``run_spmd`` call of ``fn(v)`` on the stacked rows ``x`` (moved to
+    the run's device), and the gradient of ``vdot(out, w)`` taken from
+    outside it, ``w`` seeded on the CPU from the output's shape: ``(out,
+    grad, w)`` on the CPU."""
+    f = P.run_spmd(fn, **kw)
+    dev = kw["mesh"].devices.reshape(-1)[0] if "mesh" in kw \
+        else P.resolve_device(kw.get("device"))
+    xt = x.to(dev).requires_grad_()
+    out = f(xt)
+    w = torch.randn(out.shape, generator=torch.Generator().manual_seed(seed))
+    (g,) = torch.autograd.grad(
+        torch.vdot(out.reshape(-1), w.to(dev).reshape(-1)), xt)
+    return out.detach().cpu(), g.cpu(), w
+
+
+def mode_b_value_and_grad(P, op, n, x, w):
+    """The same op on the card's Mode B (``run_ranks``): per rank
+    ``(out, grad of vdot(out, w[r]))`` on the CPU."""
+    comm = P.COMM_WORLD
+
+    def body(r):
+        t = x[r].to("cuda").clone().requires_grad_()
+        o = op(comm, t)
+        (g,) = torch.autograd.grad(
+            torch.vdot(o.reshape(-1), w[r].to("cuda").reshape(-1)), t)
+        return o.detach().cpu(), g.cpu()
+
+    return P.run_ranks(body, n, device="cuda")
+
+
+def mode_a_ops_phase(P, tree):
+    """Phase 49: on the card under deterministic mode, every op of
+    :func:`mode_a_table` (and the (2, 4) mesh's tier-stack and per-axis
+    ops) under ``run_spmd``, values and gradients from outside bitwise
+    equal to the same body under ``run_ranks`` on the card and to the
+    port's CPU Mode A run."""
+    from mpi4torch_tpu_torch import config
+
+    comm = P.COMM_WORLD
+    worst = 0
+    for n in MODE_A_WORLDS:
+        x = torch.from_numpy(np.random.default_rng(n).standard_normal(
+            (n, MODE_A_NUMEL)).astype(np.float32))
+        table = mode_a_table(P, n)
+        bad = []
+        t0 = time.perf_counter()
+        for i, (name, op) in enumerate(table.items()):
+            def fn(v, op=op):
+                return op(comm, v[comm.rank])
+            with config.deterministic_mode(True):
+                card = mode_a_value_and_grad(P, fn, x, i, nranks=n,
+                                             device="cuda")
+                cpu = mode_a_value_and_grad(P, fn, x, i, nranks=n,
+                                            device="cpu")
+            ranks = mode_b_value_and_grad(P, op, n, x, card[2])
+            diff = (tree_bytes_differ(tree, card[:2], cpu[:2])
+                    + sum(tree_bytes_differ(tree, (card[0][r], card[1][r]),
+                                            ranks[r]) for r in range(n)))
+            worst = max(worst, diff)
+            if diff:
+                bad.append((name, diff))
+        print(f"  ({n},): {len(table)} bodies ({', '.join(table)}) in "
+              f"{time.perf_counter() - t0:.1f} s; bytes differing from "
+              f"run_ranks and from the CPU Mode A run: {bad or 0}",
+              flush=True)
+        check(not bad, f"Mode A on ({n},) differs: {bad}")
+    # The (2, 4) mesh: the tier stack over both axes (hier, torus, ring)
+    # against run_ranks' hier/torus with a group of 4 (under
+    # deterministic mode the 2-axis ring is the grouped fold, as in the
+    # JAX package), and the per-axis Allreduce and Alltoall against the
+    # CPU run.
+    shape = {"dp": 2, "tp": 4}
+    card_mesh = P.device_mesh(shape)
+    cpu_mesh = P.device_mesh(shape, devices=["cpu"] * 8)
+    x = torch.from_numpy(np.random.default_rng(24).standard_normal(
+        (8, MODE_A_NUMEL)).astype(np.float32))
+
+    def mesh_ops(mesh):
+        tier = P.comm_from_mesh(mesh, ("dp", "tp"))
+        dp_c = P.comm_from_mesh(mesh, "dp")
+        tp_c = P.comm_from_mesh(mesh, "tp")
+        ops = {f"tier_{a}": (lambda a: lambda v: tier.Allreduce(
+            v[tier.rank], P.MPI_SUM, algorithm=a))(a)
+            for a in ("hier", "torus", "ring")}
+        ops["dp_allreduce"] = lambda v: dp_c.Allreduce(
+            v[dp_c.rank * 4 + tp_c.rank], P.MPI_SUM)
+        ops["tp_allreduce"] = lambda v: tp_c.Allreduce(
+            v[dp_c.rank * 4 + tp_c.rank], P.MPI_SUM)
+        ops["tp_alltoall"] = lambda v: tp_c.Alltoall(
+            v[dp_c.rank * 4 + tp_c.rank].reshape(4, -1), 1, 0, 1)
+        return ops
+
+    bad = []
+    card_ops, cpu_ops = mesh_ops(card_mesh), mesh_ops(cpu_mesh)
+    config.set_hier_group_size(4)
+    try:
+        for i, name in enumerate(card_ops):
+            with config.deterministic_mode(True):
+                card = mode_a_value_and_grad(P, card_ops[name], x, 100 + i,
+                                             mesh=card_mesh, axis_name="dp")
+                cpu = mode_a_value_and_grad(P, cpu_ops[name], x, 100 + i,
+                                            mesh=cpu_mesh, axis_name="dp")
+            diff = tree_bytes_differ(tree, card[:2], cpu[:2])
+            if name.startswith("tier_"):
+                algo = {"ring": "hier"}.get(name[5:], name[5:])
+                ranks = mode_b_value_and_grad(
+                    P, lambda c, t, a=algo: c.Allreduce(t, P.MPI_SUM,
+                                                        algorithm=a),
+                    8, x, card[2])
+                diff += sum(tree_bytes_differ(
+                    tree, (card[0][r], card[1][r]), ranks[r])
+                    for r in range(8))
+            worst = max(worst, diff)
+            if diff:
+                bad.append((name, diff))
+    finally:
+        config.set_hier_group_size(None)
+    print(f"  (2, 4) mesh: {len(card_ops)} bodies ({', '.join(card_ops)}); "
+          f"bytes differing: {bad or 0}")
+    check(not bad, f"Mode A on the (2, 4) mesh differs: {bad}")
+    return worst
+
+
+def mode_a_bench_phase(P, tree, config):
+    """Phase 50: bench.py's Allreduce body under ``run_spmd`` (the default
+    native form and the deterministic ring fold) and under ``run_ranks``
+    at 2^26 float32 a rank: bitwise alike; median ms of ``MODE_A_STEPS``
+    interleaved steps, bench's GB/s accounting, rank 0's rendezvous a
+    step.  Returns ``{nranks: {form: numbers}}``."""
+    comm = P.COMM_WORLD
+
+    def loss(v):
+        y = comm.Allreduce(v, P.MPI_SUM)
+        return torch.vdot(y, y)
+
+    def body(v):
+        return tree.value_and_grad(loss, v)
+
+    x = torch.ones(MODE_A_BENCH_NUMEL, device="cuda")
+    nbytes = x.numel() * x.element_size()
+    out = {}
+    for n in MODE_A_BENCH_RANKS:
+        def spmd(det, n=n):
+            with config.deterministic_mode(det):
+                v, g = P.run_spmd(body, nranks=n)(x)
+            return v, g
+
+        def ranks(n=n):
+            res = P.run_ranks(lambda: body(x), n, device="cuda")
+            return (torch.stack([r[0] for r in res]),
+                    torch.stack([r[1] for r in res]))
+
+        forms = {"run_spmd": lambda: spmd(False),
+                 "run_spmd_deterministic": lambda: spmd(True),
+                 "run_ranks": ranks}
+        ref = ranks()
+        same = {k: tree_bytes_differ(tree, f(), ref) == 0
+                for k, f in forms.items() if k != "run_ranks"}
+        del ref
+        rdv = {}
+        for k, f in forms.items():
+            with ExchangeCounter() as cnt:
+                f()
+            rdv[k] = cnt.exchanges
+        times = {k: [] for k in forms}
+        for _ in range(MODE_A_STEPS):
+            for k, f in forms.items():
+                times[k].append(sync_ms(f)[0])
+        wire = 2.0 * (n - 1) / n * nbytes
+        out[n] = {}
+        for k in forms:
+            ms = float(np.median(times[k]))
+            out[n][k] = {"ms": ms, "rendezvous": rdv[k],
+                         "gb_s": 2.0 * wire / (ms / 1e3) / 1e9}
+            print(f"  {n} ranks {k:23s}: median {ms:9.2f} ms of "
+                  f"{MODE_A_STEPS} (min {min(times[k]):.2f}, max "
+                  f"{max(times[k]):.2f}); {out[n][k]['gb_s']:.2f} GB/s by "
+                  f"bench's accounting (2 x 2(n-1)/n x {nbytes >> 20} MiB "
+                  f"a step; rank threads on one card, not a wire); "
+                  f"{rdv[k]} rendezvous a step", flush=True)
+        print(f"  {n} ranks: value and gradient bitwise the run_ranks "
+              f"body's: {same}")
+        check(all(same.values()),
+              f"bench's Allreduce body under run_spmd differs from "
+              f"run_ranks on {n} ranks: {same}")
+    return out
+
+
+def first_differing_leaf(tree, a, b):
+    """``(index, largest ulp distance)`` of the first leaf whose bits
+    differ between two trees of floating tensors, or None."""
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    for i, (x, y) in enumerate(zip(tree.tree_leaves(a),
+                                   tree.tree_leaves(b))):
+        xi = x.detach().contiguous().view(ints[x.element_size()])
+        yi = y.detach().contiguous().view(ints[y.element_size()])
+        if not torch.equal(xi, yi):
+            return i, int((xi.long() - yi.long()).abs().max())
+    return None
+
+
+def mode_a_dp2_phase(P, T, tree, dp, kernels, config, cfg, params,
+                     tokens):
+    """Phase 51: the flagship's DP=2 step, ``dp_value_and_grad`` plus the
+    SGD update, each rank taking its ``TRAIN_BATCH // 2`` rows by
+    ``comm.rank``, for ``MODE_A_DP2_STEPS`` steps under ``run_spmd`` (outside
+    and inside deterministic mode) and under ``run_ranks``: losses and
+    parameters bitwise alike; attention launches of the run_spmd run
+    (counted from 0 just before it); step ms, rendezvous a step and the
+    idle share."""
+    rows = TRAIN_BATCH // 2
+    comm = P.COMM_WORLD
+
+    def loss_fn(p, x):
+        return T.lm_loss(cfg, p, x)
+
+    def step(p, x):
+        loss, g = dp.dp_value_and_grad(comm, loss_fn)(p, x)
+        with torch.no_grad():
+            return loss, tree.tree_map(lambda a, b: a - LR * b, p, g)
+
+    def spmd_body(p, toks):
+        idx = comm.rank * rows + torch.arange(rows, device=toks.device)
+        return step(p, toks.index_select(0, idx))
+
+    def spmd_step(p, det):
+        with config.deterministic_mode(det):
+            loss, new = P.run_spmd(spmd_body, nranks=2)(p, tokens)
+        same = torch.equal(loss[0], loss[1]) and leaves_equal(
+            tree, tree.tree_map(lambda t: t[0], new),
+            tree.tree_map(lambda t: t[1], new))
+        return loss[0], tree.tree_map(lambda t: t[0], new), same
+
+    def ranks_step(p):
+        (l0, p0), (l1, p1) = P.run_ranks(
+            lambda r: step(p, tokens[r * rows:(r + 1) * rows]), 2,
+            device="cuda")
+        return l0, p0, torch.equal(l0, l1) and leaves_equal(tree, p0, p1)
+
+    def steps(fn, label):
+        p, losses, ms, same = params, [], [], True
+        for _ in range(MODE_A_DP2_STEPS):
+            t_ms, (loss, p, ok) = sync_ms(lambda: fn(p))
+            losses.append(loss)
+            ms.append(t_ms)
+            same = same and ok
+        print(f"  {label:28s}: step ms {[round(t, 1) for t in ms]}; ranks "
+              f"bitwise identical {same}; losses "
+              f"{[round(float(v), 4) for v in losses]}", flush=True)
+        return losses, p, ms, same
+
+    ranks = steps(ranks_step, "run_ranks")
+    kernels.reset_launch_counts()
+    spmd = steps(lambda p: spmd_step(p, False), "run_spmd")
+    launches = dict(kernels.launch_counts)
+    spmd_det = steps(lambda p: spmd_step(p, True),
+                     "run_spmd, deterministic")
+    want = 2 * MODE_A_DP2_STEPS * cfg.n_layers
+    results = {}
+    for label, run in (("run_spmd", spmd), ("run_spmd_deterministic",
+                                            spmd_det)):
+        same_loss = all(torch.equal(a, b) for a, b in zip(run[0], ranks[0]))
+        same_params = leaves_equal(tree, run[1], ranks[1])
+        results[label] = same_loss and same_params and run[3]
+        if not (same_loss and same_params):
+            print(f"  {label}: first differing parameter leaf (index, "
+                  f"largest ulp distance): "
+                  f"{first_differing_leaf(tree, run[1], ranks[1])}")
+        print(f"  {label}: losses bitwise run_ranks' {same_loss}, "
+              f"parameters after {MODE_A_DP2_STEPS} steps bitwise "
+              f"{same_params}")
+    # Steps 2.. of each run (the first pays one-time costs).
+    ms = {k: float(np.mean(run[2][1:])) for k, run in (
+        ("spmd", spmd), ("spmd_deterministic", spmd_det), ("ranks", ranks))}
+    del spmd, spmd_det
+    print(f"  attention launches of the run_spmd steps {launches} "
+          f"(expected {want} each, all tc: 8 a step on each rank)")
+    check(all(results.values()),
+          f"the DP=2 step under run_spmd differs from run_ranks: {results}")
+    check(all(launches[k] == launches[f"{k}.tc"] == want
+              for k in kernels.ATTENTION_KERNELS),
+          "the run_spmd DP=2 steps did not launch every attention kernel "
+          "8 times a step on each rank on tc")
+    p1 = ranks[1]
+    rdv = {}
+    for label, fn in (("spmd", lambda: spmd_step(p1, False)),
+                      ("spmd_deterministic", lambda: spmd_step(p1, True)),
+                      ("ranks", lambda: ranks_step(p1))):
+        with ExchangeCounter() as cnt:
+            fn()
+        rdv[label] = cnt.exchanges
+    wall, busy, _ = profile_top(lambda: spmd_step(p1, False),
+                                "one DP=2 step under run_spmd", n_top=4)
+    idle = 100 - 100 * busy / wall
+    print(f"  step ms (steps 2-{MODE_A_DP2_STEPS}): run_spmd "
+          f"{ms['spmd']:.1f}, deterministic {ms['spmd_deterministic']:.1f}, "
+          f"run_ranks {ms['ranks']:.1f}; rank 0's rendezvous a step: "
+          f"{rdv}; device idle {idle:.1f}% of the profiled run_spmd step")
+    return {"launches": launches, "rendezvous": rdv, "ms": ms,
+            "idle_pct": idle}
+
+
+def mode_a_misuse_phase(P):
+    """Phase 52: Mode A's misuse guards on the card, and gradients taken
+    from outside ``run_spmd`` through an Allreduce, an Allgather and a
+    ring program bitwise equal to the CPU run."""
+    comm = P.COMM_WORLD
+
+    def lonely(x):
+        comm.Isend(x, (comm.rank + 1) % comm.size, 0)
+        return x
+
+    msg = ""
+    try:
+        P.run_spmd(lonely, nranks=3)(torch.ones(4, device="cuda"))
+    except P.DeadlockError as e:
+        msg = str(e)
+    print(f"  unmatched Isend: DeadlockError {msg[:120]!r}...")
+    check("unmatched" in msg and "ring shift 1" in msg,
+          "an unmatched Isend did not raise DeadlockError naming the shift")
+    raised = []
+
+    def concrete(x):
+        try:
+            int(comm.rank)
+        except P.CommError:
+            raised.append(True)
+        return x
+
+    P.run_spmd(concrete, nranks=2)(torch.ones(1, device="cuda"))
+    print(f"  int(comm.rank) raised CommError on {len(raised)} of 2 ranks")
+    check(len(raised) == 2, "int(comm.rank) did not raise on every rank")
+
+    def ring(c, t):
+        h = c.Isend(t, (c.rank + 1) % c.size, 0)
+        b = c.Recv(P.JoinDummies(torch.empty_like(t), [h.dummy]),
+                   (c.rank - 1) % c.size, 0)
+        return P.JoinDummies(b, [c.Wait(P.JoinDummiesHandle(h, [b]))]) \
+            * (1.0 + c.rank)
+
+    ops = {"allreduce": lambda c, t: c.Allreduce(t, P.MPI_SUM),
+           "allgather": lambda c, t: c.Allgather(t, 0),
+           "ring": ring}
+    x = torch.from_numpy(np.random.default_rng(52).standard_normal(
+        (4, 4096)).astype(np.float32))
+    same = {}
+    for i, (name, op) in enumerate(ops.items()):
+        def fn(v, op=op):
+            return op(comm, v[comm.rank])
+        card = mode_a_value_and_grad(P, fn, x, i, nranks=4, device="cuda")
+        cpu = mode_a_value_and_grad(P, fn, x, i, nranks=4, device="cpu")
+        same[name] = all(torch.equal(a.view(torch.int32),
+                                     b.view(torch.int32))
+                         for a, b in zip(card[:2], cpu[:2]))
+    print(f"  gradients from outside run_spmd, card vs CPU bitwise: {same}")
+    check(all(same.values()), f"a Mode A gradient differs from the CPU "
+          f"run: {same}")
+
+
+def vte_phase():
+    """Phase 53: the ``variable_token_exchange`` example (butterfly p2p
+    and the packed Alltoall under ``run_spmd``, 8 ranks, float64) on the
+    card, checked against its own oracle inside ``run`` and against its
+    CPU run with tolerance 0 (data movement and integer-valued sums)."""
+    from mpi4torch_tpu_torch.examples import variable_token_exchange as vte
+
+    t0 = time.perf_counter()
+    card = vte.run(8, device="cuda")
+    card_s = time.perf_counter() - t0
+    cpu = vte.run(8, device="cpu")
+    diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(card, cpu))
+    print(f"  8 ranks on the card in {card_s:.2f} s: spans and per-rank "
+          f"gradients match the token-id oracle; max |card - CPU| over "
+          f"tokens, spans and gradients {diff} (tolerance 0)")
+    check(diff == 0, "the example's card run differs from its CPU run")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU",
@@ -6601,7 +7091,28 @@ def main():
     proc_numbers = process_numbers_phase(P, transport, smi)
     transport.shutdown()
 
-    phase(49, "kernels")
+    phase(49, "Mode A (A): the op table and p2p programs under run_spmd at "
+          f"2^20 float32 on {MODE_A_WORLDS} worlds and the (2, 4) mesh")
+    print(smi)
+    mode_a_ops_phase(P, tree)
+
+    phase(50, f"Mode A (B): bench.py's Allreduce body at 2^26 float32 on "
+          f"{MODE_A_BENCH_RANKS} rank threads")
+    print(smi)
+    mode_a_bench = mode_a_bench_phase(P, tree, config)
+
+    phase(51, "Mode A (C): the flagship's DP=2 step under run_spmd")
+    print(smi)
+    mode_a_dp2 = mode_a_dp2_phase(P, T, tree, dp, kernels, config, cfg,
+                                  params, tokens)
+
+    phase(52, "Mode A (D): misuse and gradients from outside on the card")
+    mode_a_misuse_phase(P)
+
+    phase(53, "the variable_token_exchange example under run_spmd")
+    vte_phase()
+
+    phase(54, "kernels")
     print(smi)
     sp_shapes, sp_worst = sp_kernel_numbers(flash, kernels)
     # flash_fwd: launches on the serving path (phase 4), times at the
@@ -6835,6 +7346,16 @@ def main():
     check(all(v > 0 for e in line["kernels"]
               for v in e["process_launches"].values()),
           "a kernel of this slice's paths was launched no time")
+    # This slice's path: each attention kernel's launches in the three
+    # DP=2 steps of the flagship under run_spmd (phase 51, both ranks,
+    # outside deterministic mode).  K1 is not on it: a codec under Mode A
+    # raises (compress/spmd.py is ROADMAP Queue 1 item 4.9).
+    for entry in line["kernels"][:3]:
+        entry["mode_a_launches"] = {
+            "flagship_dp2_run_spmd": mode_a_dp2["launches"][entry["name"]]}
+    check(all(e["mode_a_launches"]["flagship_dp2_run_spmd"] > 0
+              for e in line["kernels"][:3]),
+          "a kernel of this slice's paths was launched no time")
     print(json.dumps(line))
     print(f"  process transport: DP=2 step "
           f"{proc_train['process_ms']:.1f} ms on workers vs "
@@ -6850,7 +7371,14 @@ def main():
           f"{ckpt['bytes'] / min(ckpt['save_s']) / 1e9:.2f} GB/s, restore "
           f"{ckpt['bytes'] / ckpt['restore_s'] / 1e9:.2f} GB/s; MoE "
           f"rebalance {rebalance}")
-    phase(50)
+    print(f"  Mode A: DP=2 step {mode_a_dp2['ms']['spmd']:.1f} ms under "
+          f"run_spmd vs {mode_a_dp2['ms']['ranks']:.1f} ms under run_ranks "
+          f"({mode_a_dp2['rendezvous']['spmd']} vs "
+          f"{mode_a_dp2['rendezvous']['ranks']} rendezvous a step); bench "
+          "Allreduce at 4 x 2^26 float32 "
+          + ", ".join(f"{k} {v['ms']:.2f} ms" for k, v in
+                      mode_a_bench[4].items()))
+    phase(55)
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

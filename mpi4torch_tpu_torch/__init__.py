@@ -36,7 +36,12 @@ resume), the reshard planner (``reshard``, ``comm.Reshard``: the
 ZeRO-3 -> TP serving handoff, the planned MoE rebalance) and
 training-state checkpoints (``utils.checkpoint``).  ``run_ranks`` runs
 its ranks on threads of this process or, with ``backend="process"``, in
-pooled worker processes (``transport``).
+pooled worker processes (``transport``).  ``run_spmd`` runs one
+program on every rank thread under the JAX package's Mode A contract
+(``ops/spmd.py``: a symbolic ``comm.rank``, static p2p permutations,
+every Allreduce algorithm as its explicit schedule, the stacked outputs
+differentiable from outside), with ``device_mesh``/``hybrid_mesh`` and
+the mesh communicators of ``comm_from_mesh``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device and no such request they raise.  The package imports
@@ -83,6 +88,8 @@ from . import (compress, config, fuse, obs, overlap, reshard, resilience,
                serve, transport, tune)
 from .config import compression_scope, fusion_scope, overlap_scope
 from .mesh import device_mesh, hybrid_mesh
+from .ops.spmd import PermRank, RankExpr, p2p_scope, run_spmd
+from .overlap import SpmdWaitHandle
 from .resilience import FaultPlan, FaultSpec, fault_scope
 
 __all__ = [
@@ -96,6 +103,8 @@ __all__ = [
     "RankFailedError", "InPlaceReuseError", "BifurcationError",
     "IntegrityError", "HealthReport", "resolve_device", "run_ranks",
     "config", "compress", "fuse", "tune", "overlap", "resilience",
-    "reshard", "serve", "obs", "transport", "device_mesh", "hybrid_mesh", "FaultPlan", "FaultSpec", "fault_scope", "compression_scope",
-    "fusion_scope", "overlap_scope",
+    "reshard", "serve", "obs", "transport", "device_mesh", "hybrid_mesh",
+    "FaultPlan", "FaultSpec", "fault_scope", "compression_scope",
+    "fusion_scope", "overlap_scope", "run_spmd", "p2p_scope", "RankExpr",
+    "PermRank", "SpmdWaitHandle",
 ]

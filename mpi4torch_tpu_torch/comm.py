@@ -18,6 +18,14 @@ the :data:`COMM_WORLD` singleton; and mpi4torch's
 communication (``ops/eager.py``), and runs under
 ``torch.profiler.record_function("mpi4torch.<Name>")``.
 
+Inside :func:`~mpi4torch_tpu_torch.ops.spmd.run_spmd` (Mode A)
+``COMM_WORLD`` and the mesh communicators of :func:`comm_from_mesh`
+route every op to :class:`~mpi4torch_tpu_torch.ops.spmd.SpmdBackend`:
+``rank`` is then symbolic and ``size`` static.  Under Mode A a codec
+raises ``NotImplementedError`` (``compress/spmd.py``, ROADMAP.md Queue 1
+item 4.9), and so does ``Reshard`` (item 4.10): an exact or Mode B form
+does not stand in for them.
+
 ``Allreduce`` resolves its codec and algorithm with the JAX package's
 rules: ``compression=None`` defers to the compression scope or process
 default, and ``algorithm=None`` to the selector.  An explicit argument
@@ -32,6 +40,7 @@ the codec does not ride).  The block-q8 codecs run on ``ring``,
 from __future__ import annotations
 
 import functools
+import math
 import numbers
 from typing import List, Sequence
 
@@ -42,7 +51,7 @@ from . import constants as C
 from .compress import codec_applicable, codec_rides_algorithm, get_codec
 from .compress import eager as _ceager
 from .ops import eager as _eager
-from .runtime import HealthReport, effective_rank_context
+from .runtime import CommError, HealthReport, effective_rank_context
 from .tune import codec_algorithms, resolve_request
 
 
@@ -134,32 +143,83 @@ def _codec_for(tensor, codec, explicit):
     return codec
 
 
+def _mode_a_codec_refusal(codec):
+    """Under Mode A a codec has no port yet: raise rather than let an
+    exact transfer stand in for it (the bits would differ from the JAX
+    package's)."""
+    return NotImplementedError(
+        f"compression={codec.name!r} under Mode A (run_spmd): the "
+        "compressed SPMD collectives (compress/spmd.py) are not ported "
+        "yet (ROADMAP.md, Queue 1 item 4.9); pass compression=False, or "
+        "run the body under run_ranks")
+
+
 class MPI_Communicator:
-    """Communicator wrapper: the rank world of the calling thread."""
+    """Communicator wrapper.  ``COMM_WORLD`` resolves to the Mode A axis
+    of the calling rank thread inside ``run_spmd``, else to its rank
+    world; a mesh communicator (:func:`comm_from_mesh`) carries its own
+    resolver."""
+
+    def __init__(self, backend_resolver=None):
+        self._resolver = backend_resolver
 
     def __reduce__(self):
         """Pickling, world-only: the round trip restores the
         :data:`COMM_WORLD` singleton, which resolves its world in the
         loading context (so a rank body shipped to a transport worker
-        still talks to its world).  The JAX package refuses the
-        mesh-axis communicators, which the port does not have yet."""
-        return (_restore_comm_world, ())
+        still talks to its world).  A mesh-derived communicator refuses,
+        as in the JAX package."""
+        if self._resolver is None:
+            return (_restore_comm_world, ())
+        import pickle
+        raise pickle.PicklingError(
+            "Unsupported communicator for serialization: only COMM_WORLD "
+            "can be pickled (mesh-derived communicators hold live device "
+            "references; rebuild them with comm_from_mesh after loading)")
+
+    def __copy__(self):
+        # A communicator denotes a process group, not data: copying a
+        # structure that holds one hands back the same handle.
+        return self
+
+    def __deepcopy__(self, memo):
+        return self
+
+    def _spmd(self):
+        """The Mode A backend this communicator resolves to on the calling
+        thread, or None (the rank-thread eager runtime)."""
+        if self._resolver is not None:
+            return self._resolver()
+        from .ops import spmd as _spmd
+        ctx = _spmd.current_spmd_context()
+        return None if ctx is None else _spmd.SpmdBackend(ctx)
 
     @property
     def rank(self) -> int:
-        """Rank of the calling thread within this communicator."""
-        return effective_rank_context().rank
+        """Rank of the calling thread within this communicator: an int on
+        the rank threads, a symbolic
+        :class:`~mpi4torch_tpu_torch.ops.spmd.RankExpr` under Mode A."""
+        b = self._spmd()
+        return effective_rank_context().rank if b is None else b.rank
 
     @property
     def size(self) -> int:
-        """Number of ranks in the communicator."""
-        return effective_rank_context().world.size
+        """Number of ranks in the communicator (static under Mode A)."""
+        if self._resolver is not None:
+            axes = getattr(self, "_spmd_axis", None)
+            if axes is not None:
+                return axes[1]
+            return math.prod(self._hier_axes[1])
+        b = self._spmd()
+        return effective_rank_context().world.size if b is None else b.size
 
     @property
     def device(self):
         """The device of this communicator's rank world (``None`` for the
         default size-1 world, which takes tensors on any device)."""
-        return effective_rank_context().world.device
+        b = self._spmd()
+        return effective_rank_context().world.device if b is None \
+            else b.device
 
     def _allreduce_plan(self, tensor, op: int, compression, algorithm):
         """``(codec, algorithm)`` of an Allreduce call, after the
@@ -175,7 +235,15 @@ class MPI_Communicator:
             codec = None
         # There is no algorithm scope in this package yet: only an
         # explicit argument names an algorithm, and None is the selector.
-        algo = resolve_request(algorithm, nranks=self.size)
+        if getattr(self._spmd(), "owns_algorithm_resolution", False):
+            # The tier-stack backend keys its tiers off the mesh axes,
+            # so the flat-world gates do not apply: validate the name
+            # only; the backend enforces what it can lower.
+            from .tune import get_algorithm
+            algo = (None if algorithm in (None, False, "auto")
+                    else get_algorithm(algorithm).name)
+        else:
+            algo = resolve_request(algorithm, nranks=self.size)
         return _reconcile_codec_algorithm(
             codec, algo, codec_explicit=compression is not None)
 
@@ -197,9 +265,18 @@ class MPI_Communicator:
         algorithm (``mpi4torch.Allreduce.q8.bidir``)."""
         codec, algo = self._allreduce_plan(tensor, op, compression,
                                            algorithm)
-        ctx = effective_rank_context()
         span = "mpi4torch.Allreduce" + (f".{codec.name}" if codec else "") \
             + (f".{algo}" if algo not in (None, "ring") else "")
+        b = self._spmd()
+        if b is not None:
+            if codec is not None:
+                raise _mode_a_codec_refusal(codec)
+            with torch.profiler.record_function(span):
+                return b.allreduce(
+                    tensor, op, algorithm=algo,
+                    algorithm_explicit=algorithm not in (None, False,
+                                                         "auto"))
+        ctx = effective_rank_context()
         with torch.profiler.record_function(span):
             if codec is None:
                 return _eager.allreduce(ctx, tensor, op, algorithm=algo)
@@ -260,6 +337,11 @@ class MPI_Communicator:
         of the ``gather`` strategy."""
         from .reshard import reshard_tree
 
+        if self._spmd() is not None:
+            raise NotImplementedError(
+                "Reshard under Mode A (run_spmd): the SPMD reshard executor "
+                "is not ported yet (ROADMAP.md, Queue 1 item 4.10); run "
+                "the redistribution under run_ranks")
         with torch.profiler.record_function("mpi4torch.Reshard"):
             return reshard_tree(self, tree, from_spec, to_spec,
                                 strategy=strategy, compression=compression)
@@ -272,7 +354,15 @@ class MPI_Communicator:
         (default: the world's deadlock timeout) and, when not, which ranks
         arrived and which are missing.  A failed probe returns its report
         and leaves the collective rendezvous untouched, and a later probe
-        starts fresh."""
+        starts fresh.  Host-level by nature: under Mode A it raises
+        :class:`~mpi4torch_tpu_torch.runtime.CommError`, as in the JAX
+        package."""
+        if self._spmd() is not None:
+            raise CommError(
+                "check_health is a host-level liveness probe: call it on "
+                "the eager thread world (run_ranks) or outside SPMD "
+                "regions — a compiled SPMD program cannot host-probe "
+                "mid-schedule")
         ctx = effective_rank_context()
         return ctx.world.health_check(ctx.rank, timeout)
 
@@ -285,6 +375,9 @@ class MPI_Communicator:
         ``Reduce_`` to ``root`` in that association."""
         algo = resolve_request(algorithm, collective="bcast",
                                nranks=self.size)
+        b = self._spmd()
+        if b is not None:
+            return b.bcast_(tensor, root, algorithm=algo)
         return _eager.bcast_(effective_rank_context(), tensor, root,
                              algorithm=algo)
 
@@ -298,6 +391,9 @@ class MPI_Communicator:
         Only ``MPI_SUM`` is differentiable; the adjoint is a ``Bcast_``."""
         algo = resolve_request(algorithm, collective="reduce",
                                nranks=self.size)
+        b = self._spmd()
+        if b is not None:
+            return b.reduce_(tensor, op, root, algorithm=algo)
         return _eager.reduce_(effective_rank_context(), tensor, op, root,
                               algorithm=algo)
 
@@ -317,6 +413,9 @@ class MPI_Communicator:
             if isinstance(numelem, numbers.Integral):
                 numelem = (int(numelem),) * self.size   # uniform prefix
             return packed_gather(self, tensor, gatheraxis, numelem, root)
+        b = self._spmd()
+        if b is not None:
+            return b.gather(tensor, gatheraxis, root)
         return _eager.gather(effective_rank_context(), tensor, gatheraxis,
                              root)
 
@@ -346,8 +445,14 @@ class MPI_Communicator:
                 return packed_allgather(self, tensor, gatheraxis, numelem)
         codec = _codec_for(tensor, _resolve_compression(compression),
                            explicit=compression is not None)
-        ctx = effective_rank_context()
         span = "mpi4torch.Allgather" + (f".{codec.name}" if codec else "")
+        b = self._spmd()
+        if b is not None:
+            if codec is not None:
+                raise _mode_a_codec_refusal(codec)
+            with torch.profiler.record_function(span):
+                return b.allgather(tensor, gatheraxis)
+        ctx = effective_rank_context()
         with torch.profiler.record_function(span):
             if codec is None:
                 return _eager.allgather(ctx, tensor, gatheraxis)
@@ -358,6 +463,9 @@ class MPI_Communicator:
         """Element-wise reduce across ranks, scattered in equal
         ``scatteraxis`` segments (rank r keeps segment r).  Only
         ``MPI_SUM`` is differentiable; the adjoint is an allgather."""
+        b = self._spmd()
+        if b is not None:
+            return b.reduce_scatter(tensor, op, scatteraxis)
         return _eager.reduce_scatter(effective_rank_context(), tensor, op,
                                      scatteraxis)
 
@@ -372,6 +480,9 @@ class MPI_Communicator:
         if not isinstance(numelem, numbers.Integral):
             from .ops.packed import packed_scatter
             return packed_scatter(self, tensor, scatteraxis, numelem, root)
+        b = self._spmd()
+        if b is not None:
+            return b.scatter(tensor, scatteraxis, int(numelem), root)
         return _eager.scatter(effective_rank_context(), tensor, scatteraxis,
                               numelem, root)
 
@@ -392,6 +503,9 @@ class MPI_Communicator:
         if current_numelem is not None:
             raise ValueError(
                 "current_numelem only applies to per-rank tuple numelem")
+        b = self._spmd()
+        if b is not None:
+            return b.alltoall(tensor, gatheraxis, scatteraxis, int(numelem))
         return _eager.alltoall(effective_rank_context(), tensor, gatheraxis,
                                scatteraxis, numelem)
 
@@ -434,13 +548,20 @@ class MPI_Communicator:
     @_named_op
     def Isend(self, tensor, dest: int, tag: int) -> WaitHandle:
         """Nonblocking (buffered) send to ``dest`` (an int, or a per-rank
-        table) on ``tag``."""
+        table) on ``tag``; under Mode A a static permutation of the
+        symbolic rank."""
+        b = self._spmd()
+        if b is not None:
+            return WaitHandle(b.isend(tensor, dest, tag))
         return WaitHandle(_eager.isend(effective_rank_context(), tensor,
                                        dest, tag))
 
     @_named_op
     def Irecv(self, tensor, source: int, tag: int) -> WaitHandle:
         """Nonblocking receive into ``tensor``'s shape and dtype."""
+        b = self._spmd()
+        if b is not None:
+            return WaitHandle(b.irecv(tensor, source, tag))
         return WaitHandle(_eager.irecv(effective_rank_context(), tensor,
                                        source, tag))
 
@@ -452,26 +573,36 @@ class MPI_Communicator:
         if getattr(waithandle, "_split_state", None) is not None:
             from .overlap import complete_generic
             return complete_generic(waithandle)
+        b = self._spmd()
+        if b is not None:
+            return b.wait(waithandle._handle)
         return _eager.wait(effective_rank_context(), waithandle._handle)
 
     @_named_op
     def Send(self, tensor, dest: int, tag: int):
         """Blocking send = Isend + Wait."""
+        b = self._spmd()
+        if b is not None:
+            return b.wait(b.isend(tensor, dest, tag))
         ctx = effective_rank_context()
         return _eager.wait(ctx, _eager.isend(ctx, tensor, dest, tag))
 
     @_named_op
     def Recv(self, tensor, source: int, tag: int):
         """Blocking receive = Irecv + Wait."""
+        b = self._spmd()
+        if b is not None:
+            return b.wait(b.irecv(tensor, source, tag))
         ctx = effective_rank_context()
         return _eager.wait(ctx, _eager.irecv(ctx, tensor, source, tag))
 
 
 def comm_from_mesh(mesh, axis_name):
-    """A communicator over a device-mesh axis: not ported yet (raises)."""
-    raise NotImplementedError(
-        "comm_from_mesh: mesh communicators come with the compiled/device "
-        "backend (ROADMAP.md, Queue 1 item 4)")
+    """A communicator over a mesh axis (or, for a tuple of axis names, the
+    tier stack over them), used inside ``run_spmd(fn, mesh=mesh)``; see
+    :func:`mpi4torch_tpu_torch.ops.spmd.comm_from_mesh`."""
+    from .ops.spmd import comm_from_mesh as _from_mesh
+    return _from_mesh(mesh, axis_name)
 
 
 def comm_from_mpi4py(comm):

@@ -297,6 +297,85 @@ def set_quant_hop_impl(impl: str) -> None:
     _quant_hop_impl = impl
 
 
+# --- Mode A schedule thresholds (ops/spmd.py) --------------------------------
+#
+# Process-wide, with the JAX package's defaults and validation.  The
+# all-gather+fold form of the deterministic ordered reduction gathers
+# size x the tensor on every rank; below this many gathered bytes
+# (payload x ranks) it is taken, above it the chunked ring fold, whose
+# extra memory does not grow with the rank count.  Both fold in the same
+# ascending-rank association, so the switch never changes a bit.
+DEFAULT_ORDERED_FOLD_GATHER_MAX_BYTES = 4 * 1024 * 1024
+# Pipeline granularity of the deterministic ring fold.
+DEFAULT_ORDERED_RING_CHUNK_BYTES = 8 * 1024 * 1024
+# Payloads at or below this take the binomial-tree broadcast (log2(N)
+# sequential full-payload hops); larger ones the root-masked psum.
+DEFAULT_BCAST_TREE_MAX_BYTES = 256 * 1024
+
+_ordered_fold_gather_max_bytes = DEFAULT_ORDERED_FOLD_GATHER_MAX_BYTES
+_ordered_ring_chunk_bytes = DEFAULT_ORDERED_RING_CHUNK_BYTES
+_bcast_tree_max_bytes = DEFAULT_BCAST_TREE_MAX_BYTES
+
+
+def ordered_fold_gather_max_bytes() -> int:
+    """Gathered-bytes ceiling (payload x ranks) below which the Mode A
+    deterministic ordered fold uses the all-gather+fold form instead of
+    the chunked ring (ops/spmd.py)."""
+    return _ordered_fold_gather_max_bytes
+
+
+def set_ordered_fold_gather_max_bytes(nbytes) -> None:
+    global _ordered_fold_gather_max_bytes
+    _ordered_fold_gather_max_bytes = _validated_threshold(
+        nbytes, "ordered_fold_gather_max_bytes")
+
+
+def ordered_ring_chunk_bytes() -> int:
+    """Chunk size of the Mode A deterministic ring-fold pipeline
+    (ops/spmd.py)."""
+    return _ordered_ring_chunk_bytes
+
+
+def set_ordered_ring_chunk_bytes(nbytes) -> None:
+    global _ordered_ring_chunk_bytes
+    _ordered_ring_chunk_bytes = _validated_threshold(
+        nbytes, "ordered_ring_chunk_bytes", minimum=1)
+
+
+def bcast_tree_max_bytes() -> int:
+    """Payload-bytes ceiling below which a Mode A ``Bcast_`` takes the
+    binomial-tree form instead of the root-masked psum (ops/spmd.py)."""
+    return _bcast_tree_max_bytes
+
+
+def set_bcast_tree_max_bytes(nbytes) -> None:
+    global _bcast_tree_max_bytes
+    _bcast_tree_max_bytes = _validated_threshold(
+        nbytes, "bcast_tree_max_bytes")
+
+
+# Phase pipelining of the deterministic chunked ring fold (ops/spmd.py
+# _ring_fold_allreduce): when True (default) a chunk whose ascending-rank
+# fold has completed starts its all-gather relay around the ring while
+# later chunks are still folding, in one loop with no trailing
+# full-payload broadcast.  False keeps the fold-then-tree-broadcast
+# two-phase form.  The bits are the same either way: the fold association
+# is untouched and the relay only moves data.
+_phase_pipelined_ring = True
+
+
+def phase_pipelined_ring() -> bool:
+    """Whether the deterministic chunked ring fold overlaps its
+    all-gather head with the reduce-scatter tail (see ops/spmd.py
+    ``_ring_fold_allreduce``)."""
+    return _phase_pipelined_ring
+
+
+def set_phase_pipelined_ring(value: bool) -> None:
+    global _phase_pipelined_ring
+    _phase_pipelined_ring = bool(value)
+
+
 # --- the reshard planner -----------------------------------------------------
 
 # Default strategy of mpi4torch_tpu_torch.reshard: None ("auto") walks
@@ -596,6 +675,10 @@ def snapshot_process_state() -> dict:
         "bandwidth_crossover_bytes": _bandwidth_crossover_bytes,
         "hier_group_size": _hier_group_size,
         "quant_hop_impl": _quant_hop_impl,
+        "ordered_fold_gather_max_bytes": _ordered_fold_gather_max_bytes,
+        "ordered_ring_chunk_bytes": _ordered_ring_chunk_bytes,
+        "bcast_tree_max_bytes": _bcast_tree_max_bytes,
+        "phase_pipelined_ring": _phase_pipelined_ring,
         "reshard_strategy": _reshard_strategy,
         "comm_retries": _comm_retries,
         "comm_backoff": _comm_backoff,
@@ -615,6 +698,11 @@ def apply_process_state(state: dict) -> None:
     set_bandwidth_crossover_bytes(state["bandwidth_crossover_bytes"])
     set_hier_group_size(state["hier_group_size"])
     set_quant_hop_impl(state["quant_hop_impl"])
+    set_ordered_fold_gather_max_bytes(
+        state["ordered_fold_gather_max_bytes"])
+    set_ordered_ring_chunk_bytes(state["ordered_ring_chunk_bytes"])
+    set_bcast_tree_max_bytes(state["bcast_tree_max_bytes"])
+    set_phase_pipelined_ring(state["phase_pipelined_ring"])
     set_default_reshard_strategy(state["reshard_strategy"])
     set_comm_retries(state["comm_retries"])
     set_comm_backoff(state["comm_backoff"])

@@ -25,13 +25,17 @@ degrade/raise dtype rules applied per bucket.  A compressed bucket
 quantizes other 256-element blocks than a compressed leaf does, so it is
 the JAX package's fused form, not its per-leaf form, that it matches.
 
-The JAX package's compiled (SPMD) path — the reduce-scatter +
-all-gather pair per bucket staged through optimization barriers, and the
-tier-stack window — belongs to the compiled backend (ROADMAP.md Queue 1
-item 4) and has no counterpart on the rank threads.  The finite guard
-(``config.comm_finite_guard``) runs on the pipeline's per-peer
-contributions, as in the JAX package: each rank checks the list it
-received, so a corrupt bucket is named by its sender.
+Under Mode A (``run_spmd``) :func:`fused_allreduce_tree` takes the JAX
+package's SPMD form: outside deterministic mode an exact ring (or auto)
+SUM bucket becomes the ``Reduce_scatter`` + ``Allgather`` pair, padded
+to the rank count, with the mean applied once per bucket; every other
+bucket is one ``Allreduce``; ``overlap`` truthy runs the split-phase
+scheduler (:mod:`mpi4torch_tpu_torch.overlap`).  The tier-stack window
+and the split-phase form table are ROADMAP.md Queue 1 item 4.8.
+
+The finite guard (``config.comm_finite_guard``) runs on the pipeline's
+per-peer contributions, as in the JAX package: each rank checks the list
+it received, so a corrupt bucket is named by its sender.
 """
 
 from __future__ import annotations
@@ -74,18 +78,29 @@ def _resolve_bucket_bytes(bucket_bytes) -> int:
     return _config._validated_bucket_bytes(bucket_bytes)
 
 
-def _plan_bucket(bucket, op: int, codec, algo, *, explicit: bool):
+def _plan_bucket(bucket, op: int, codec, algo, *, explicit: bool,
+                 mode_a_size: int = 0):
     """Per-bucket codec/algorithm resolution, shared by the blocking path
     and the overlap scheduler: the facade's per-tensor compression rules
     on this bucket's dtype (a scope default degrades non-float buckets
     and non-SUM ops to exact; an explicit codec on a non-float bucket
-    raises), then the codec/algorithm reconcile."""
+    raises), then the codec/algorithm reconcile; under Mode A
+    (``mode_a_size``, the rank count) an unresolved bucket takes the
+    selector's pick for its byte size."""
     from ..comm import _codec_for, _reconcile_codec_algorithm
 
     bcodec = _codec_for(bucket, codec, explicit)
     if bcodec is not None and op != C.MPI_SUM and not explicit:
         bcodec = None
-    return _reconcile_codec_algorithm(bcodec, algo, codec_explicit=explicit)
+    bcodec, balgo = _reconcile_codec_algorithm(bcodec, algo,
+                                               codec_explicit=explicit)
+    if balgo is None and mode_a_size:
+        from ..tune import select_auto
+        balgo = select_auto(
+            nbytes=bucket.numel() * bucket.element_size(),
+            nranks=mode_a_size,
+            deterministic=_config.deterministic_reductions(), codec=bcodec)
+    return bcodec, balgo
 
 
 def _pipeline_allreduce(comm, buckets: Sequence, op: int, *,
@@ -195,15 +210,26 @@ def fused_allreduce_tree(comm, tree, op: int = C.MPI_SUM, *,
         raise CommError(
             f"mean=True is the rank-mean of an MPI_SUM reduction; got "
             f"{C.op_name(op)}")
+    from ..ops.spmd import SpmdBackend
+
     bb = _resolve_bucket_bytes(bucket_bytes)
     size = comm.size
     explicit = compression is not None
     overlap_explicit = overlap is not None
     overlap = resolve_overlap(overlap)
     codec = _resolve_compression(compression)
-    algo = resolve_request(algorithm, nranks=size)
+    backend = comm._spmd()
+    mode_a = isinstance(backend, SpmdBackend)
+    if getattr(backend, "owns_algorithm_resolution", False):
+        # A tier-stack mesh communicator: validate the name only; the
+        # backend enforces what it can lower.
+        from ..tune import get_algorithm
+        algo = (None if algorithm in (None, False, "auto")
+                else get_algorithm(algorithm).name)
+    else:
+        algo = resolve_request(algorithm, nranks=size)
 
-    if overlap:
+    if overlap and backend is None:
         # The pipeline is exact-SUM on the ring association only.  An
         # explicit overlap= fails loudly on a conflict (a silent blocking
         # fallback would leave the caller believing they got the
@@ -244,6 +270,11 @@ def fused_allreduce_tree(comm, tree, op: int = C.MPI_SUM, *,
 
     buckets, layout = flatten_buckets(tree, bb)
     nb = layout.num_buckets
+    if backend is not None:
+        return _mode_a_allreduce(comm, buckets, layout, op, codec, algo,
+                                 explicit=explicit, mean=mean,
+                                 overlap=overlap,
+                                 size=size if mode_a else 0)
 
     if overlap:
         reduced = _pipeline_allreduce(comm, buckets, op,
@@ -265,6 +296,63 @@ def fused_allreduce_tree(comm, tree, op: int = C.MPI_SUM, *,
         with bucket_scope("Allreduce_tree", i, nb, codec=bcodec):
             out = comm.Allreduce(b, op, compression=arg, algorithm=balgo)
         reduced.append(C.divide(out, size) if mean else out)
+    return unflatten_buckets(reduced, layout)
+
+
+def _mode_a_allreduce(comm, buckets, layout, op: int, codec, algo, *,
+                      explicit: bool, mean: bool, overlap, size: int):
+    """The SPMD form of the fused Allreduce.  ``size`` is the rank count
+    on a single-axis communicator, 0 on a tier stack (whose buckets are
+    each one Allreduce).  A codec raises in the facade under Mode A
+    (ROADMAP.md Queue 1 item 4.9)."""
+    from ..overlap import overlap_allreduce_tree, overlap_depth
+
+    nb = len(buckets)
+    n = comm.size
+
+    def plan(i, b):
+        return _plan_bucket(b, op, codec, algo, explicit=explicit,
+                            mode_a_size=size)
+
+    if overlap:
+        return overlap_allreduce_tree(comm, buckets, layout, op,
+                                      depth=overlap_depth(overlap),
+                                      mean=mean, plan=plan)
+    # Phase 1: every bucket's reduction.  Exact SUM buckets outside
+    # deterministic mode take the reduce-scatter half of the ring pair
+    # (the all-gather half is phase 2); everything else is one Allreduce.
+    use_pair = (size > 1 and op == C.MPI_SUM
+                and not _config.deterministic_reductions())
+    stage = []
+    for i, b in enumerate(buckets):
+        bcodec, balgo = plan(i, b)
+        with bucket_scope("Allreduce_tree", i, nb, codec=bcodec):
+            if bcodec is not None or not (use_pair
+                                          and balgo in (None, "ring")):
+                arg = bcodec if bcodec is not None else (
+                    False if (codec is not None or explicit) else None)
+                stage.append(("whole", i, comm.Allreduce(
+                    b, op, compression=arg, algorithm=balgo), None))
+            else:
+                seg = -(-b.numel() // n)
+                padded = b
+                if seg * n != b.numel():
+                    padded = torch.cat([b, b.new_zeros(seg * n
+                                                       - b.numel())])
+                stage.append(("part", i, comm.Reduce_scatter(
+                    padded.reshape(n, seg), op, 0), b.numel()))
+    # The JAX package ties each bucket's part to the next bucket's with an
+    # optimization barrier, which only orders the compiler's schedule; on
+    # eager rank threads the program order already is that order, so the
+    # staging is the identity here.
+    # Phase 2: all-gather the scattered parts, unpad, scale.
+    reduced = [None] * nb
+    for kind, i, val, nelem in stage:
+        if kind == "part":
+            with bucket_scope("Allreduce_tree", i, nb):
+                val = comm.Allgather(val, 0, compression=False) \
+                    .reshape(-1)[:nelem]
+        reduced[i] = C.divide(val, n) if mean else val
     return unflatten_buckets(reduced, layout)
 
 

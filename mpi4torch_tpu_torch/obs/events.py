@@ -78,6 +78,15 @@ FAMILY_OF = {
     "Allreduce.fold": None,
     "Allreduce.c.fold": None,
     "Barrier": None,
+    # Mode A (ops/spmd.py): one rendezvous a lax collective; the finite
+    # guard's check round moves no wire bytes.
+    "spmd.ppermute": "collective_permute",
+    "spmd.all_gather": "all_gather",
+    "spmd.all_gather_tiled": "all_gather",
+    "spmd.psum": "all_reduce",
+    "spmd.psum_scatter": "reduce_scatter",
+    "spmd.all_to_all": "all_to_all",
+    "spmd.finite_guard": None,
 }
 
 # Heads with no single standard wire accounting (root and varying-shape
@@ -93,7 +102,11 @@ _UNMODELED_HEADS = ("Bcast_", "Bcast_.bwd", "Reduce_", "Reduce_.bwd",
 # "float32"), which :func:`_dtype_name` normalizes.
 _SHAPE_AT = {"Allreduce": 3, "Allreduce.q8hop": 4, "Allreduce.c": 3,
              "Allgather.bwd": 2, "Reduce_scatter": 3,
-             "Reduce_scatter.bwd": 2}
+             "Reduce_scatter.bwd": 2,
+             "spmd.ppermute": 3, "spmd.all_gather": 3,
+             "spmd.all_gather_tiled": 4, "spmd.psum": 4,
+             "spmd.psum_scatter": 5, "spmd.all_to_all": 4,
+             "spmd.finite_guard": 2}
 _ALGO_AT = {"Allreduce": 2, "Allreduce.q8hop": 2}
 _CODEC_AT = {"Allreduce.q8hop": 1, "Allreduce.c": 1, "Allgather.c": 1,
              "Allgather.c.bwd": 1}

@@ -21,8 +21,10 @@ On the process transport each worker traces its own rank and ships its
 events back; :meth:`CommTracer.absorb` merges them into the parent's
 tracer under the transport's world.
 
-The JAX package's Mode A hook (:func:`spmd_collective_event`, a host
-callback in a compiled lowering) waits for the compiled backend.
+Mode A (``run_spmd``) has the JAX package's step-event hook too:
+:func:`spmd_collective_event`, with ``mode_a=True``, records one event a
+collective entry (``where``, payload bytes); its exchanges are traced at
+the chokepoint like every other rendezvous.
 """
 
 from __future__ import annotations
@@ -153,7 +155,10 @@ class CommTracer:
       ``observers`` count.
     """
 
-    def __init__(self, ring: int = 64, max_events: int = 200_000):
+    def __init__(self, ring: int = 64, max_events: int = 200_000,
+                 mode_a: bool = False):
+        # Whether spmd_collective_event records Mode A step events.
+        self.mode_a = bool(mode_a)
         self.ring = int(ring)
         self.max_events = int(max_events)
         self.events: collections.deque = collections.deque(
@@ -215,6 +220,16 @@ class CommTracer:
         self._append(ev)
         if error is not None and isinstance(error, _failure_types()):
             self._note_failure(ev, error)
+
+    def record_spmd(self, label: str, nbytes: int) -> None:
+        """Target of :func:`spmd_collective_event`: one step-level Mode A
+        event a collective entry and rank, with the JAX package's fields
+        (rank and world -1, channel ``"spmd"``)."""
+        ev = CommEvent(
+            seq=next(self._seq), rank=-1, world=-1, world_size=0,
+            channel="spmd", op=label, signature=(label,),
+            payload_bytes=int(nbytes), t_start=time.perf_counter())
+        self._append(ev)
 
     def _append(self, ev: CommEvent) -> None:
         with self._lock:
@@ -366,7 +381,7 @@ def current_tracer() -> Optional[CommTracer]:
 
 @contextmanager
 def trace(ring: int = 64, max_events: int = 200_000,
-          tracer: Optional[CommTracer] = None):
+          mode_a: bool = False, tracer: Optional[CommTracer] = None):
     """Install a :class:`CommTracer` for the block and yield it::
 
         with mpi.obs.trace() as t:
@@ -375,9 +390,11 @@ def trace(ring: int = 64, max_events: int = 200_000,
 
     Process-wide, like the fault plan: events come from ``run_ranks``'
     rank threads, which a thread-local scope opened outside them would
-    miss.  The previous tracer is restored on exit."""
+    miss.  ``mode_a=True`` also records the Mode A step events of
+    :func:`spmd_collective_event`.  The previous tracer is restored on
+    exit."""
     t = tracer if tracer is not None else CommTracer(
-        ring=ring, max_events=max_events)
+        ring=ring, max_events=max_events, mode_a=mode_a)
     prev = _config.comm_tracer()
     _config.set_comm_tracer(t)
     try:
@@ -387,10 +404,13 @@ def trace(ring: int = 64, max_events: int = 200_000,
 
 
 def spmd_collective_event(x, where: str):
-    """The JAX package's Mode A step-event hook: a host callback inside
-    a compiled lowering.  The port has no compiled backend yet, so this
-    raises."""
-    raise NotImplementedError(
-        "spmd_collective_event instruments compiled (Mode A) lowerings, "
-        "which come with the compiled/device backend (ROADMAP.md, Queue 1 "
-        "item 4); the rank-thread chokepoints are traced without it")
+    """Mode A step-event hook, called on a collective entry's input.
+    With no tracer installed, or ``mode_a=False`` (the default), returns
+    ``x`` untouched: no op, no sync.  With ``mode_a=True`` it records one
+    step-level event for this rank's entry, carrying the payload bytes
+    (from the shape; nothing is read from the device)."""
+    tracer = _config.comm_tracer()
+    if tracer is None or not tracer.mode_a:
+        return x
+    tracer.record_spmd(where, x.numel() * x.element_size())
+    return x

@@ -54,6 +54,22 @@ def _mask_valid(x, axis: int, count: int):
                                                    device=x.device))
 
 
+@functools.lru_cache(maxsize=64)
+def _table_tensor(values: Tuple[int, ...], device: torch.device
+                  ) -> torch.Tensor:
+    """A per-rank table as an int64 tensor on ``device``, built once."""
+    return torch.tensor(values, dtype=torch.int64, device=device)
+
+
+def _rank_entry(comm, values: Sequence[int], device: torch.device):
+    """``values[comm.rank]``: a Python int on the rank threads' eager
+    runtime, a 0-d tensor under Mode A, where the rank is symbolic."""
+    rank = comm.rank
+    if isinstance(rank, int):
+        return values[rank]
+    return _table_tensor(tuple(values), device)[rank]
+
+
 def _frozen(a: np.ndarray) -> np.ndarray:
     # lru_cache hands the same ndarray to every caller; the index maps are
     # read-only by contract (index_select operands), so freeze them.
@@ -121,7 +137,7 @@ def packed_gather(comm, x, gatheraxis: int, numelem, root: int):
         raise ValueError(
             f"Gather: numelem {counts} exceeds the padded axis length "
             f"{cap} (axis {gatheraxis})")
-    xz = _mask_valid(x, ax, counts[comm.rank])
+    xz = _mask_valid(x, ax, _rank_entry(comm, counts, x.device))
     full = comm.Gather(xz, ax, root)
     return _take(full, "pack", counts, cap, ax)
 
@@ -136,7 +152,7 @@ def packed_allgather(comm, x, gatheraxis: int, numelem):
         raise ValueError(
             f"Allgather: numelem {counts} exceeds the padded axis length "
             f"{cap} (axis {gatheraxis})")
-    xz = _mask_valid(x, ax, counts[comm.rank])
+    xz = _mask_valid(x, ax, _rank_entry(comm, counts, x.device))
     # compression=False: the packed contract reassembles exact padded
     # values; a scope-level codec must not quantize them.
     full = comm.Allgather(xz, ax, compression=False)
@@ -162,7 +178,7 @@ def packed_scatter(comm, x, scatteraxis: int, numelem, root: int):
         return _empty_along(x, ax)
     padded = _take(x, "pad", counts, cap, ax)
     recv = comm.Scatter(padded, ax, cap, root)
-    return _mask_valid(recv, ax, counts[comm.rank])
+    return _mask_valid(recv, ax, _rank_entry(comm, counts, x.device))
 
 
 def packed_alltoall(comm, x, gatheraxis: int, scatteraxis: int, numelem,
@@ -207,9 +223,14 @@ def packed_alltoall(comm, x, gatheraxis: int, scatteraxis: int, numelem,
         pad_shape = list(glob.shape)
         pad_shape[ga] = cap
         glob = torch.cat([glob, glob.new_zeros(pad_shape)], dim=ga)
-        start = sum(counts[:comm.rank])
-        seg = glob.narrow(ga, start, cap)
-        return _mask_valid(seg, ga, counts[comm.rank])
+        start = _rank_entry(comm, [sum(counts[:r]) for r in range(size)],
+                            x.device)
+        if isinstance(start, int):
+            seg = glob.narrow(ga, start, cap)
+        else:
+            seg = glob.index_select(ga, start + torch.arange(
+                cap, device=glob.device))
+        return _mask_valid(seg, ga, _rank_entry(comm, counts, x.device))
 
     if current_numelem is not None:
         raise ValueError(
@@ -233,4 +254,4 @@ def packed_alltoall(comm, x, gatheraxis: int, scatteraxis: int, numelem,
     # the pack keeps each sender's first numelem[r] (dropping the
     # senders' padding rows outright).
     out = _take(ex, "pack", counts, cap_g, ga)
-    return _mask_valid(out, sa, counts[comm.rank])
+    return _mask_valid(out, sa, _rank_entry(comm, counts, x.device))

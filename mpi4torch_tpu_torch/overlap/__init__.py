@@ -15,12 +15,19 @@ the exactly-once completion point — a second Wait raises
 is bit-identical to the blocking op.  Split-phase transfers are exact:
 an explicit codec raises, a scope default degrades to the exact wire.
 
+Under Mode A (``run_spmd``) the starts go to
+:class:`~mpi4torch_tpu_torch.ops.spmd.SpmdBackend`: a ring-SUM
+Allreduce outside deterministic mode runs its reduce-scatter half at the
+start and its all-gather half at the Wait, every other form runs whole
+at the start, and the handle (:class:`SpmdWaitHandle`, its state in the
+region's context) must be waited on before the region ends.
+
 ``overlap=True`` means a window of 2 collectives in flight, an
 ``int >= 1`` sets the window depth (``config.overlap_scope``,
-``config.set_default_overlap``).  The JAX package's compiled split-phase
-forms and their tier-stack window belong to the compiled backend
-(ROADMAP.md Queue 1 item 4); ``scheduled_exposure`` reads lowered
-StableHLO and goes with ``analyze/`` (item 7).
+``config.set_default_overlap``).  The tier-stack window
+(``tier_window_depth``) and ``SPLIT_PHASE_FORMS`` are ROADMAP.md Queue 1
+item 4.8; ``scheduled_exposure`` reads lowered StableHLO and goes with
+``analyze/`` (item 7).
 """
 
 from __future__ import annotations
@@ -81,7 +88,8 @@ class SplitWaitHandle(WaitHandle):
         return SplitWaitHandle(raw_handle, self._split_state)
 
 
-# The JAX package's name for the same handle.
+# The JAX package's name for the same handle: under Mode A it carries no
+# state of its own (the region's context holds it, keyed by the buffer).
 SpmdWaitHandle = SplitWaitHandle
 
 
@@ -128,10 +136,24 @@ def allreduce_start(comm, tensor, op: int, compression=None,
                 "collective with no start/wait form; use the blocking "
                 "Allreduce, or compression=False to split-phase exact")
         codec = None  # scope default yields: exact split-phase wire
+    backend = comm._spmd()
+    explicit = algorithm not in (None, False, "auto")
+    mode_a = hasattr(backend, "allreduce_start")
+    if algo is None and mode_a:
+        # Resolve the selector here so the span names the schedule the
+        # wire takes (the backend treats the pick like its own).
+        from ..ops.spmd import _auto_allreduce_algorithm
+        algo = _auto_allreduce_algorithm(backend._ctx, tensor)
     span = "mpi4torch.Allreduce_start"
     if algo not in (None, "ring"):
         span += f".{algo}"
     with torch.profiler.record_function(span):
+        if mode_a:
+            return SpmdWaitHandle(backend.allreduce_start(
+                tensor, op, algorithm=algo, algorithm_explicit=explicit))
+        if backend is not None:
+            return _start_generic("Allreduce", backend.allreduce(
+                tensor, op, algorithm=algo, algorithm_explicit=explicit))
         val = _eager.allreduce(effective_rank_context(), tensor, op,
                                algorithm=algo)
         return _start_generic("Allreduce", val)
@@ -142,6 +164,13 @@ def reduce_scatter_start(comm, tensor, op: int,
     """Facade body of ``comm.Reduce_scatter_start``."""
     from ..ops import eager as _eager
 
+    backend = comm._spmd()
+    if hasattr(backend, "reduce_scatter_start"):
+        return SpmdWaitHandle(backend.reduce_scatter_start(tensor, op,
+                                                           scatteraxis))
+    if backend is not None:   # a tier stack: raises, Allreduce only
+        return _start_generic("Reduce_scatter", backend.reduce_scatter(
+            tensor, op, scatteraxis))
     return _start_generic("Reduce_scatter", _eager.reduce_scatter(
         effective_rank_context(), tensor, op, scatteraxis))
 
@@ -150,6 +179,12 @@ def allgather_start(comm, tensor, gatheraxis: int) -> SplitWaitHandle:
     """Facade body of ``comm.Allgather_start``."""
     from ..ops import eager as _eager
 
+    backend = comm._spmd()
+    if hasattr(backend, "allgather_start"):
+        return SpmdWaitHandle(backend.allgather_start(tensor, gatheraxis))
+    if backend is not None:   # a tier stack: raises, Allreduce only
+        return _start_generic("Allgather", backend.allgather(tensor,
+                                                             gatheraxis))
     return _start_generic("Allgather", _eager.allgather(
         effective_rank_context(), tensor, gatheraxis))
 

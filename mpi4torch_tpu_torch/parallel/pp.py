@@ -125,8 +125,8 @@ def pipeline_spmd(comm, apply_stage, stage_params, microbatches, loss_fn):
     """The single-program GPipe of the JAX package's mesh backend: not
     ported (raises)."""
     raise NotImplementedError(
-        "pipeline_spmd: the single-program pipeline comes with the "
-        "compiled/device backend (ROADMAP.md, Queue 1 item 4); on rank "
+        "pipeline_spmd: the single-program pipeline under run_spmd is not "
+        "ported yet (ROADMAP.md, Queue 1 item 4.6); on rank "
         "threads use pipeline_step, pipeline_step_1f1b or "
         "pipeline_step_interleaved")
 

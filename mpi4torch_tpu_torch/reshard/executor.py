@@ -209,9 +209,9 @@ def _rank_context(comm, plan: ReshardPlan):
     if not isinstance(comm, MPI_Communicator):
         raise CommError(
             "Reshard needs the rank-thread world (COMM_WORLD inside "
-            "run_ranks, or the size-1 world outside it); the compiled SPMD "
-            "executor comes with the compiled backend (ROADMAP.md, Queue 1 "
-            f"item 4), and {type(comm).__name__} is neither")
+            "run_ranks, or the size-1 world outside it); the SPMD executor "
+            "is not ported yet (ROADMAP.md, Queue 1 item 4.10), and "
+            f"{type(comm).__name__} is neither")
     rctx = effective_rank_context()
     if rctx.world.size != plan.size:
         raise CommError(

@@ -27,8 +27,10 @@ of ranks, and every rank raises the same error with the same ``ranks``.
 package's list form, for the p2p pipeline (where each rank holds its
 own list) and for callers holding a list.
 
-The Mode A guard (:func:`spmd_finite_value`) waits for the compiled
-backend.
+The Mode A guard (:func:`spmd_finite_value`, called on a collective's
+input under ``run_spmd``) hands the same kind of check to a rendezvous of
+its own, so every rank raises or warns alike, with the JAX package's
+message and ledger entry.
 """
 
 from __future__ import annotations
@@ -174,14 +176,43 @@ def clear_violations() -> None:
         _violations.clear()
 
 
+class _SpmdFiniteCheck:
+    """The Mode A finite guard as a rendezvous check, reporting with the
+    JAX package's Mode A message."""
+
+    def __init__(self, where: str, mode: str):
+        self.where, self.mode = where, mode
+
+    def ok(self, payload) -> bool:
+        return _finite_flags([payload])[0]
+
+    def report(self, bad: Sequence[int]) -> None:
+        bad = sorted(bad)
+        _record(self.where, self.mode, bad)
+        msg = (f"non-finite payload entering {self.where} "
+               f"(comm_finite_guard={self.mode!r})")
+        if self.mode == "raise":
+            raise IntegrityError(msg, ranks=bad)
+        warnings.warn(msg, IntegrityWarning, stacklevel=3)
+
+
 def spmd_finite_value(x, where: str):
-    """The JAX package's Mode A finite guard (a host callback inside a
-    compiled lowering).  The port has no compiled backend yet, so this
-    raises."""
-    raise NotImplementedError(
-        "spmd_finite_value guards compiled (Mode A) lowerings, which come "
-        "with the compiled/device backend (ROADMAP.md, Queue 1 item 4); "
-        "the rank-thread collectives are guarded at their rendezvous")
+    """Mode A finite guard hook, called on a collective's input.
+    ``comm_finite_guard="off"`` (default) returns ``x`` untouched: no op,
+    no sync.  "warn"/"raise" check each rank's floating input once, on
+    its own rank, in a rendezvous that shares the verdicts, so every rank
+    warns or raises :class:`IntegrityError` alike (``ranks`` names the
+    corrupt ones) and the ledger (:func:`last_violation`) records it."""
+    mode = _config.comm_finite_guard()
+    if mode == "off" or not x.is_floating_point():
+        return x
+    from ..ops.spmd import current_spmd_context
+    ctx = current_spmd_context()
+    ctx.world.exchange(ctx.rank, ("spmd.finite_guard", where,
+                                  (tuple(x.shape), str(x.dtype))), x,
+                       read=lambda vals: None,
+                       checks=(_SpmdFiniteCheck(where, mode),))
+    return x
 
 
 # ------------------------------------------------------------- checksums

@@ -848,6 +848,34 @@ def _raise_primary(errors: List[Optional[BaseException]],
     raise primary
 
 
+def run_rank_threads(world: World, body: Callable[[int], None]) -> None:
+    """Run ``body(rank)`` on one thread per rank of ``world`` and join
+    them.  A rank that raises fails the world (so its peers' rendezvous
+    end) and tells the comm tracer; after every thread has ended the
+    root-cause error is re-raised, the others attached as a note."""
+    errors: List[Optional[BaseException]] = [None] * world.size
+
+    def worker(rank: int):
+        try:
+            body(rank)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors[rank] = e
+            tracer = _cfg.comm_tracer()
+            if tracer is not None:
+                # The flight recorder also sees failures raised away
+                # from the chokepoints (a guard after a rendezvous).
+                tracer.note_rank_failure(world, rank, e)
+            world.fail(e)
+
+    threads = [threading.Thread(target=worker, args=(r,), name=f"rank{r}")
+               for r in range(world.size)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    _raise_primary(errors, world._first_error)
+
+
 def run_ranks(fn: Callable, nranks: int, timeout: Optional[float] = None,
               return_results: bool = True, backend: Optional[str] = None,
               device=None) -> List[Any]:
@@ -883,10 +911,9 @@ def run_ranks(fn: Callable, nranks: int, timeout: Optional[float] = None,
     dev = resolve_device(device)
     world = World(nranks, timeout=timeout, device=dev)
     results: List[Any] = [None] * nranks
-    errors: List[Optional[BaseException]] = [None] * nranks
     nparams = _fn_nparams(fn)
 
-    def worker(rank: int):
+    def body(rank: int):
         # Backward passes run on this rank's own thread.  By default
         # autograd runs a CUDA backward on one worker thread per device,
         # where the ranks' blocking backward collectives would queue
@@ -894,24 +921,9 @@ def run_ranks(fn: Callable, nranks: int, timeout: Optional[float] = None,
         # nothing outside the rank threads changes.
         with _bind_rank(RankContext(world, rank)), \
                 torch.autograd.set_multithreading_enabled(False):
-            try:
-                if dev.type == "cuda":
-                    torch.cuda.set_device(dev)
-                results[rank] = fn(rank) if nparams >= 1 else fn()
-            except BaseException as e:  # noqa: BLE001 — re-raised below
-                errors[rank] = e
-                tracer = _cfg.comm_tracer()
-                if tracer is not None:
-                    # The flight recorder also sees failures raised away
-                    # from the chokepoints (a guard after a rendezvous).
-                    tracer.note_rank_failure(world, rank, e)
-                world.fail(e)
+            if dev.type == "cuda":
+                torch.cuda.set_device(dev)
+            results[rank] = fn(rank) if nparams >= 1 else fn()
 
-    threads = [threading.Thread(target=worker, args=(r,), name=f"rank{r}")
-               for r in range(nranks)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    _raise_primary(errors, world._first_error)
+    run_rank_threads(world, body)
     return results if return_results else []

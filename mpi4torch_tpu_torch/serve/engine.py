@@ -222,8 +222,8 @@ class _PrefillJob:
 def _refuse_unported(spmd: bool) -> None:
     if spmd:
         raise NotImplementedError(
-            "spmd=True (the compiled SPMD engine) is not ported yet: it "
-            "needs the compiled backend (ROADMAP.md, Queue 1 item 4)")
+            "spmd=True (the SPMD engine) is not ported yet (ROADMAP.md, "
+            "Queue 1 item 4.7)")
 
 
 class Engine:

@@ -457,9 +457,17 @@ def test_unported_options_raise_naming_roadmap():
 
     assert all(_run(2, body))
     from mpi4torch_tpu_torch import comm as pcomm
-    for fn in (pcomm.comm_from_mesh, pcomm.comm_from_mpi4py):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fn(None) if fn is pcomm.comm_from_mpi4py else fn(None, "x")
+    # comm_from_mesh is ported (Mode A, tests/test_torch_spmd.py): a
+    # mesh axis adopts as a communicator of the axis's static size, and
+    # an unknown axis is refused; comm_from_mpi4py still raises.
+    mesh = P.device_mesh({"dp": 2, "tp": 3},
+                         devices=[torch.device("cpu")] * 6)
+    assert pcomm.comm_from_mesh(mesh, "tp").size == 3
+    assert pcomm.comm_from_mesh(mesh, ("dp", "tp")).size == 6
+    with pytest.raises(P.CommError, match="not in mesh axes"):
+        pcomm.comm_from_mesh(mesh, "x")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        pcomm.comm_from_mpi4py(None)
 
 
 @pytest.mark.parametrize("name", ["ragged_alltoall", "ragged_allgather",

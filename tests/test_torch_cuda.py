@@ -1694,3 +1694,107 @@ def test_a_killed_workers_card_memory_comes_back(cuda):
     before = shared_pool().spawned_total
     P.run_ranks(touch, 3, device=cuda, backend="process")
     assert shared_pool().spawned_total == before + 1
+
+
+# ------------------------------------------------------------- Mode A
+
+
+def _mode_a_table(P, n):
+    """The Mode A op table of tests/test_torch_spmd.py, per op ``op(comm,
+    t)``: every Allreduce algorithm that serves ``n`` ranks, the rooted,
+    shard and p2p ops."""
+    S = P.MPI_SUM
+    ops = {f"allreduce_{a}": (lambda a: lambda c, t: c.Allreduce(
+        t, S, algorithm=a))(a)
+        for a in ("ring", "tree", "bidir") + (
+            ("rhd", "hier", "torus") if n == 8 else ())}
+
+    def ring(c, t):
+        h = c.Isend(t, (c.rank + 1) % c.size, 0)
+        b = c.Recv(torch.empty_like(t), (c.rank - 1) % c.size, 0)
+        c.Wait(h)
+        return b * (1.0 + c.rank)
+
+    ops.update({
+        "bcast_tree": lambda c, t: c.Bcast_(t, n - 1, algorithm="tree"),
+        "bcast_ring": lambda c, t: c.Bcast_(t, 1, algorithm="ring"),
+        "reduce_tree": lambda c, t: c.Reduce_(t, S, 2, algorithm="tree"),
+        "allgather": lambda c, t: c.Allgather(t, 0),
+        "gather": lambda c, t: c.Gather(t, 0, 1),
+        "scatter": lambda c, t: c.Scatter(t[:n * 8].reshape(n, 8), 0, 1, 0),
+        "alltoall": lambda c, t: c.Alltoall(t[:n * 8].reshape(n, 8), 1, 0,
+                                            1),
+        "reduce_scatter": lambda c, t: c.Reduce_scatter(
+            t[:n * 8].reshape(n, 8), S, 0),
+        "ring": ring,
+    })
+    return ops
+
+
+def _mode_a_run(P, op, n, x, device, seed):
+    comm = P.COMM_WORLD
+    f = P.run_spmd(lambda v: op(comm, v[comm.rank]), nranks=n,
+                   device=device)
+    xt = x.to(device).requires_grad_()
+    out = f(xt)
+    w = torch.randn(out.shape, generator=torch.Generator().manual_seed(seed))
+    (g,) = torch.autograd.grad(
+        torch.vdot(out.reshape(-1), w.to(device).reshape(-1)), xt)
+    return out.detach().cpu(), g.cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 8])
+@pytest.mark.parametrize("det", [True, False])
+def test_mode_a_op_table_bitwise_the_cpu_run(cuda, n, det):
+    # Every op of the Mode A table under run_spmd on the card: values and
+    # the gradients taken from outside run_spmd bitwise the CPU run's.
+    import mpi4torch_tpu_torch as P
+
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (n, 4096)).astype(np.float32))
+    for i, (name, op) in enumerate(_mode_a_table(P, n).items()):
+        with P.config.deterministic_mode(det):
+            got = _mode_a_run(P, op, n, x, cuda, i)
+            want = _mode_a_run(P, op, n, x, "cpu", i)
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+                name
+
+
+@pytest.mark.cuda
+def test_mode_a_misuse_and_mesh_on_the_card(cuda):
+    import mpi4torch_tpu_torch as P
+
+    comm = P.COMM_WORLD
+
+    def lonely(x):
+        comm.Isend(x, (comm.rank + 1) % comm.size, 0)
+        return x
+
+    with pytest.raises(P.DeadlockError, match="ring shift 1"):
+        P.run_spmd(lonely, nranks=2)(torch.ones(2, device=cuda))
+    # The mesh's default devices repeat the card; the tier stack's hier
+    # Allreduce there is bitwise the CPU mesh's.
+    card = P.device_mesh({"dp": 2, "tp": 4})
+    assert {d.type for d in card.devices.reshape(-1)} == {"cuda"}
+    cpu = P.device_mesh({"dp": 2, "tp": 4}, devices=["cpu"] * 8)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (8, 1000)).astype(np.float32))
+    outs = []
+    for mesh in (card, cpu):
+        tier = P.comm_from_mesh(mesh, ("dp", "tp"))
+        outs.append(P.run_spmd(lambda v: tier.Allreduce(
+            v[tier.rank], P.MPI_SUM), mesh=mesh, axis_name="dp")(
+                x.to(mesh.devices.reshape(-1)[0])).cpu())
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_variable_token_exchange_example_on_the_card(cuda):
+    from mpi4torch_tpu_torch.examples import variable_token_exchange as vte
+
+    card = vte.run(8, device=cuda)
+    cpu = vte.run(8, device="cpu")
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)

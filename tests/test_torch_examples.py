@@ -2,9 +2,10 @@
 ring/Ulysses long-context attention, the expert-parallel MoE, the
 tensor-parallel MLP, and beside the JAX package's own examples the
 compressed DP regression, ResNet, ViT, the pipeline, KV-cache generation,
-the ZeRO-1/3 optimizer and checkpoint/resume.  Each ``run`` drives its
-``main`` on rank threads on the CPU (float64) and checks itself against
-its single-device oracle:
+the ZeRO-1/3 optimizer, checkpoint/resume and the variable token
+exchange under ``run_spmd``.  Each ``run`` drives its ``main`` on rank
+threads on the CPU (float64) and checks itself against its single-device
+oracle:
 ring and Ulysses against dense attention over the full sequence (values
 and gradients, rtol 1e-9), the MoE loss and gradient at every one of 25
 steps against ``moe_ffn_dense`` (rtol 1e-10 / 1e-8), the TP MLP's loss
@@ -28,6 +29,7 @@ from mpi4torch_tpu_torch.examples import pipeline_training as pp_ex
 from mpi4torch_tpu_torch.examples import resnet_cifar_dp as resnet_ex
 from mpi4torch_tpu_torch.examples import ring_attention_longcontext as ring_ex
 from mpi4torch_tpu_torch.examples import tensor_parallel_mlp as tp_ex
+from mpi4torch_tpu_torch.examples import variable_token_exchange as vte_ex
 from mpi4torch_tpu_torch.examples import vit_patch_parallel as vit_ex
 from mpi4torch_tpu_torch.examples import zero_sharded_optimizer as zero_ex
 
@@ -185,3 +187,20 @@ def test_checkpoint_resume_example(n, tmp_path, monkeypatch):
     assert tail == losses[ckpt_ex.CRASH_AFTER:]
     np.testing.assert_allclose(params.numpy(), np.asarray(want),
                                rtol=1e-12)
+
+
+@pytest.mark.parametrize("n", [4, 8])
+def test_variable_token_exchange_example(n):
+    # The butterfly + packed Alltoall under run_spmd: the spans and the
+    # per-rank gradients are checked inside run against the token-id
+    # oracle, and the tokens, spans and gradients equal the JAX example's
+    # (its own run_spmd), bitwise (float64 data movement and integer
+    # sums).
+    jmod = _jax_example("variable_token_exchange")
+    want = [np.asarray(t) for t in jmpi.run_spmd(jmod.main, nranks=n)()]
+    got = [t.numpy() for t in vte_ex.run(n, device="cpu")]
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="even"):
+        vte_ex.run(3, device="cpu")

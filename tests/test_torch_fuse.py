@@ -16,6 +16,13 @@ CPU.
 * The ZeRO pair (``fused_reduce_scatter_tree`` /
   ``fused_allgather_tree``) bitwise against JAX, the degrade/raise rules
   of codecs and overlap, ``fusion_scope`` and the DP lock-step.
+* **Mode A** (``run_spmd``): the SPMD form of the fused Allreduce (the
+  ``Reduce_scatter`` + ``Allgather`` pair a bucket outside deterministic
+  mode, one ``Allreduce`` a bucket under it; the split-phase scheduler
+  with ``overlap=True``), values and in-body gradients bitwise the port's
+  Mode B fused form, bitwise the JAX package's Mode A under
+  deterministic mode and within ``MODE_A_RTOL`` of it outside (where
+  XLA's native collectives fold in their own order).
 """
 
 import jax
@@ -396,3 +403,101 @@ def test_all_average_tree_keeps_ranks_in_lockstep():
     outs = P.run_ranks(body, n, device="cpu")
     for g in outs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(g, outs[0]))
+
+
+# ----------------------------------------------------------------- Mode A
+
+MODE_A_RTOL = 1e-6    # float32 leaves of sums of 8 normals, XLA's order
+
+
+def _stack(trees):
+    return jax.tree.map(lambda *xs: np.stack(xs), *trees)
+
+
+def _jax_mode_a_fused(n, trees, det, **kw):
+    comm = mpi.COMM_WORLD
+
+    def body(st):
+        t = jax.tree.map(lambda a: jax.lax.dynamic_index_in_dim(
+            a, jnp.asarray(comm.rank + 0), 0, keepdims=False), st)
+
+        def loss(tt):
+            y = comm.Allreduce_tree(tt, mpi.MPI_SUM, **kw)
+            return sum(jnp.sum(v * v * (i + 1))
+                       for i, v in enumerate(jax.tree.leaves(y))), y
+
+        (_, y), g = jax.value_and_grad(loss, has_aux=True)(t)
+        return y, g
+
+    with mpi.config.deterministic_mode(det):
+        y, g = mpi.run_spmd(body, nranks=n)(_to_jax(_stack(trees)))
+    return [[np.asarray(v)[r] for v in jax.tree.leaves(y)]
+            for r in range(n)], \
+        [[np.asarray(v)[r] for v in jax.tree.leaves(g)] for r in range(n)]
+
+
+def _torch_mode_a_fused(n, trees, det, **kw):
+    comm = P.COMM_WORLD
+
+    def body(st):
+        t = tree_map(lambda a: a[comm.rank].detach().requires_grad_(), st)
+        y = comm.Allreduce_tree(t, P.MPI_SUM, **kw)
+        loss = sum(torch.sum(v * v * (i + 1))
+                   for i, v in enumerate(tree_leaves(y)))
+        return y, list(torch.autograd.grad(loss, tree_leaves(t)))
+
+    with pconfig.deterministic_mode(det):
+        y, g = P.run_spmd(body, nranks=n, device="cpu")(
+            _to_torch(_stack(trees)))
+    return [[v[r].numpy() for v in tree_leaves(y)] for r in range(n)], \
+        [[v[r].numpy() for v in g] for r in range(n)]
+
+
+@pytest.mark.parametrize("n", [3, 8])
+@pytest.mark.parametrize("det", [True, False])
+@pytest.mark.parametrize("kw", [dict(bucket_bytes=96),
+                                dict(bucket_bytes=1 << 20, mean=True),
+                                dict(bucket_bytes=96, overlap=True,
+                                     mean=True)],
+                         ids=["blocking", "one_bucket_mean",
+                              "overlap_mean"])
+def test_mode_a_fused_vs_mode_b_and_jax(n, det, kw):
+    trees = [_np_tree(40 + r) for r in range(n)]
+    ya, ga = _torch_mode_a_fused(n, trees, det, **kw)
+    mode_b = _torch_fused(n, trees, **kw)
+    for r, (yb, gb) in enumerate(mode_b):
+        for a, b in zip(ya[r], tree_leaves(yb)):
+            assert _bitwise(a, b.detach().numpy()), r
+        for a, b in zip(ga[r], gb):
+            assert _bitwise(a, b.numpy()), r
+    yj, gj = _jax_mode_a_fused(n, trees, det, **kw)
+    # Inside its jit XLA turns the mean's ``/ size`` into a multiply by
+    # the reciprocal, one ulp off a true division when size is not a
+    # power of two; the port divides (the Mode B bits).
+    exact = not kw.get("mean") or not n & (n - 1)
+    for r in range(n):
+        for a, b in zip(ya[r] + ga[r], yj[r] + gj[r]):
+            if det and exact:
+                assert _bitwise(a, b), r
+            else:
+                np.testing.assert_allclose(a, b, rtol=MODE_A_RTOL,
+                                           atol=1e-6)
+
+
+def test_mode_a_fused_takes_the_pair_outside_deterministic_mode():
+    # One Reduce_scatter + one Allgather a bucket (psum_scatter and a
+    # tiled all-gather rendezvous), not an Allreduce; under deterministic
+    # mode one ordered Allreduce a bucket.
+    from mpi4torch_tpu_torch import obs
+
+    trees = [_np_tree(50 + r) for r in range(2)]
+    for det, want in ((False, {"spmd.psum_scatter": 4,
+                               "spmd.all_gather_tiled": 4}),
+                      (True, {"spmd.all_gather": 4})):
+        with obs.trace() as t:
+            _torch_mode_a_fused(2, trees, det, bucket_bytes=96)
+        ops = [e.op for e in t.events if e.rank == 0]
+        nb = pfuse.bucket_layout(_to_torch(trees[0]), 96).num_buckets
+        got = {k: ops.count(k) for k in want}
+        # Forward and backward: twice the buckets.
+        assert got == {k: 2 * nb * v // 4 for k, v in want.items()}

@@ -69,7 +69,8 @@ def test_port_has_modules():
                 "transport/base.py", "transport/thread.py",
                 "transport/wire.py", "transport/_ship.py",
                 "transport/pool.py", "transport/_worker.py",
-                "transport/process.py"):
+                "transport/process.py", "ops/spmd.py",
+                "examples/variable_token_exchange.py"):
         assert f"mpi4torch_tpu_torch/{rel}" in names
     for src in ("flash_fwd.cu", "flash_fwd_tc.cu", "flash_bwd.cu",
                 "flash_bwd_tc.cu", "quant_hop.cu"):

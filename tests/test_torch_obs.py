@@ -514,8 +514,19 @@ def test_world_ordinals_do_not_alias():
 
 
 def test_mode_a_hook_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        obs.spmd_collective_event(torch.ones(1), "Allreduce")
+    # The Mode A hook is ported: it returns its input untouched unless a
+    # mode_a tracer is installed, and then records one step event a
+    # rank's collective entry (tests/test_torch_spmd.py holds it against
+    # the JAX package's events).
+    x = torch.ones(3)
+    assert obs.spmd_collective_event(x, "Allreduce") is x
+    with obs.trace() as t:
+        assert obs.spmd_collective_event(x, "Allreduce") is x
+    assert not t.events
+    with obs.trace(mode_a=True) as t:
+        assert obs.spmd_collective_event(x, "Allreduce") is x
+    assert [(e.channel, e.op, e.payload_bytes) for e in t.events] == \
+        [("spmd", "Allreduce", 12)]
 
 
 def test_profiler_trace_writes_a_trace(tmp_path):

@@ -3,8 +3,7 @@ singleton, as in the JAX package (``tests/test_pickle.py::
 TestCommWorldPickle``), and the restored communicator works on rank
 threads and on process-transport workers, where every shipped rank body
 that captures ``COMM_WORLD`` depends on it.  The JAX package's refusal to
-pickle a mesh communicator waits for the port's meshes (ROADMAP.md,
-Queue 1 item 4)."""
+pickle a mesh communicator is held in ``tests/test_torch_spmd.py``."""
 
 import copy
 import pickle

@@ -494,8 +494,22 @@ def test_wire_checksum_equals_jax_on_the_same_wire(codec, shape):
 
 
 def test_mode_a_guard_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        rz.spmd_finite_value(torch.ones(1), "Allreduce")
+    # The Mode A guard is ported: off, it returns its input untouched;
+    # "raise" under run_spmd raises the same IntegrityError on every rank,
+    # naming the corrupt one.
+    x = torch.ones(1)
+    assert rz.spmd_finite_value(x, "Allreduce") is x
+    comm = mpi.COMM_WORLD
+
+    def body(v):
+        bad = torch.where(comm.rank == 0, torch.tensor(float("inf")),
+                          torch.tensor(1.0))
+        return comm.Allreduce(v * bad, mpi.MPI_SUM)
+
+    config.set_comm_finite_guard("raise")
+    with pytest.raises(mpi.IntegrityError, match="entering Allreduce") as ei:
+        mpi.run_spmd(body, nranks=2, device="cpu")(x)
+    assert ei.value.ranks == frozenset({0})
 
 
 def test_knob_validation():

@@ -31,22 +31,20 @@ from mpi4torch_tpu_torch.constants import divide
 # JAX name -> the ROADMAP.md Queue 1 item it waits for.
 UNPORTED = {
     "": {
-        "device_mesh": 4, "hybrid_mesh": 4, "p2p_scope": 4, "run_spmd": 4,
         "DistributedInfo": 4, "distributed_info": 4,
         "finalize_distributed": 4, "init_distributed": 4,
-        "is_distributed": 4, "local_values": 4, "RankExpr": 4,
-        "PermRank": 4, "SpmdWaitHandle": 4, "comm_from_mesh": 4,
+        "is_distributed": 4, "local_values": 4,
         "comm_from_mpi4py": 4, "algorithm_scope": 5,
         "csched": 5, "elastic": 6, "ctl": 6, "analyze": 7,
     },
     "ops": {},
     "utils": {},
     "reshard": {"peak_live_bytes": 7, "tensor_bytes": 7},
-    "obs": {"spmd_collective_event": 4, "measured_wire_table": 7,
+    "obs": {"measured_wire_table": 7,
             "reconcile": 7, "equivalent_wire": 7,
             "equivalent_tier_wire": 7},
     "transport": {},
-    "resilience": {"spmd_finite_value": 4, "DEGRADE_POLICIES": 6,
+    "resilience": {"DEGRADE_POLICIES": 6,
                    "DegradeController": 6, "DegradeError": 6,
                    "DegradeTransition": 6, "failover_schedule": 6,
                    "rank_wire_bytes": 6, "register_degrade_policy": 6},
