@@ -307,17 +307,59 @@ check fails.  Phases, in order:
     ring program bitwise the CPU run's;
 53. the ``variable_token_exchange`` example under ``run_spmd`` on the card
     against its CPU run;
-54. one JSON line describing each ported kernel (K2, K3 and K4 with
+55. Mode A's users, A: the compressed Allreduce under ``run_spmd`` at
+    phase 12's size (4 rank threads x 2^24 float32, ``value_and_grad`` of
+    ``vdot(y, y)``) for ``q8``/``q8_ef``/``q8_ef_hop`` on ``ring``/
+    ``bidir``/``torus`` and ``bf16``/``bf16r`` on ``ring``: ranks bitwise
+    identical; the q8 family's value and gradient bitwise the same body
+    under ``run_ranks`` (the schedule folded once on rank 0) with K1's
+    hop and requant launches equal to the schedule's; ``bf16``, whose
+    Mode A ring re-encodes every hop where Mode B folds once, within its
+    bound and bitwise its CPU run at 2^20 a rank; ``bf16r`` within its
+    bound with a mean signed error inside 4 standard errors; the
+    compressed Allgather (``q8``, ``bf16``): forward bitwise ``run_ranks``,
+    the adjoint (the quantized ring reduce-scatter) within the codec's
+    bound; ms (the best of three on each side) beside the exact Mode A
+    Allreduce.  Then phase 19's fused q8
+    DP=2 step (4 MiB buckets) under ``run_spmd(nranks=2)``: loss and
+    parameters bitwise the step under ``run_ranks``, K1's launches a step,
+    K2–K4 all ``tc``, step ms and the idle share;
+56. Mode A's users, B: ``Engine(spmd=True, nranks=2)`` at full width on
+    phase 5's requests, dense greedy, paged with phase 23's pages and
+    prefill chunks, and sampled with phase 23's temperature, top-k and
+    keys: tokens equal the ``run_ranks`` TP=2 engine's, and
+    ``generate()``'s but at near ties (phase 23's rule for the sampled
+    form); every K2 launch ``tc``; TTFT, decode tokens/s beside phase 5's,
+    and the stacked cache's bytes, copied twice a decode step, with the
+    device ms of the copy kernels in one profiled decode step and their
+    share of the step;
+57. Mode A's users, C: ``pipeline_spmd`` PP=2 at full width, PP_MB
+    microbatches of PP_ROWS x 2048 embedded tokens, 4 flagship blocks a
+    stage, the LM loss in ``loss_fn``: the loss bitwise across ranks; loss
+    and stage gradients (taken from outside ``run_spmd``) within 5e-2
+    norm-relative per leaf of ``pipeline_step`` on the same inputs; K2–K4
+    launches counted (every step's stage pass and its backward), all
+    ``tc``; step ms and peak beside phase 31's GPipe;
+58. Mode A's users, D: phase 40's flagship tree (8,) -> (2, 4) under
+    ``run_spmd(nranks=8)``, planned and ``gather``: bitwise the eager
+    executor on rank threads, one VJP bitwise the reverse reshard, ms and
+    rendezvous a tree beside phase 40's; the ``q8`` compressed gather hop
+    on the f32 embedding bitwise the eager hop, one K1 requant a rank;
+59. Mode A's users, E: ``python -m mpi4torch_tpu_torch.compress --smoke``
+    and ``python -m mpi4torch_tpu_torch.reshard --smoke`` as subprocesses
+    on the card; both exit 0;
+60. one JSON line describing each ported kernel (K2, K3 and K4 with
     the variant the main path ran; the launches of phases 18–20, 23–27,
     30–31 and of the later slices' phases, ``obs_launches``,
     ``resilience_launches``, ``handoff_launches``,
     ``checkpoint_launches``, ``process_launches`` (counted in the
-    workers) and ``mode_a_launches``; their numbers at the SP and
-    slice-10 shapes, against the plain versions, their bounds and SDPA;
-    K1 with its hop and requant launches, ``reshard_launches`` and
-    ``process_launches`` among them).
+    workers) and ``mode_a_launches`` (phases 51, 55, 56 and 57); their
+    numbers at the SP and slice-10 shapes, against the plain versions,
+    their bounds and SDPA; K1 with its hop and requant launches,
+    ``reshard_launches``, ``process_launches`` and ``mode_a_launches``
+    (phases 55 and 58) among them).
 
-Each phase prints the seconds it took, and each of 28–54 the card's name
+Each phase prints the seconds it took, and each of 28–60 the card's name
 and power limit beside its numbers.  Times on the host clock are host times; event times of the
 comm tracer are host times (a rendezvous returns before the card has
 run its work).
@@ -6625,6 +6667,601 @@ def vte_phase():
     check(diff == 0, "the example's card run differs from its CPU run")
 
 
+# Phases 55-59 (Mode A's users): the compressed SPMD collectives at
+# bench's size, the SPMD engine, pipeline_spmd and the SPMD reshard.
+# Phase 55 holds bf16's Mode A ring bitwise to the same body on the CPU
+# at this many elements a rank (the ring re-encodes every hop, Mode B
+# folds once: the two modes are not one schedule for bf16).
+SPMD_CHECK_NUMEL = 1 << 20
+SPMD_AG_CODECS = ("q8", "bf16")
+# Phase 56's engine forms: the dense greedy engine, the paged engine with
+# phase 23's pages and prefill chunks, and the sampled dense engine with
+# phase 23's temperature and top-k (request i's key PRNGKey(1000 + i)).
+SPMD_SERVE_FORMS = {
+    "dense_greedy": {},
+    "paged_chunked": dict(block_size=PAGED["block_size"], prefix_cache=True,
+                          prefill_chunk=PAGED["prefill_chunk"]),
+    "sampled": dict(temperature=PAGED["temperature"], top_k=PAGED["top_k"]),
+}
+SPMD_RESHARD_REPEATS = 2
+# Phase 55 times each compressed collective this many times on each side
+# and keeps the fastest (the first run of a pair carries its warm-up).
+SPMD_COMP_REPEATS = 3
+
+
+def spmd_value_and_grad(P, stacked, compression, algo):
+    """Under ``run_spmd``: each rank's (y, dL/dx) for L = vdot(y, y),
+    y = Allreduce(x) of its row x: the body of ``q8_value_and_grad``."""
+    comm = P.COMM_WORLD
+
+    def body(v):
+        x = v[comm.rank].clone().requires_grad_()
+        y = comm.Allreduce(x, P.MPI_SUM, compression=compression,
+                           algorithm=algo)
+        (g,) = torch.autograd.grad(torch.vdot(y, y), x)
+        return y.detach(), g
+
+    return P.run_spmd(body, nranks=stacked.shape[0],
+                      device=stacked.device)(stacked)
+
+
+def allgather_value_and_grad(P, x, compression, rank=None):
+    """One rank's (y, dL/dx) for L = vdot(y, y), y = Allgather(x) along 0
+    (``rank`` None: under ``run_spmd``, ``x`` the stacked rows)."""
+    comm = P.COMM_WORLD
+    t = (x[comm.rank] if rank is None else x).clone().requires_grad_()
+    y = comm.Allgather(t, 0, compression=compression)
+    (g,) = torch.autograd.grad(torch.vdot(y, y), t)
+    return y.detach(), g
+
+
+def spmd_compressed_phase(P, T, tree, fuse, kernels, config, cfg, params,
+                          tokens, q8f):
+    """Phase 55: the compressed collectives under ``run_spmd`` at bench's
+    size; then phase 19's fused q8 DP=2 step under ``run_spmd(nranks=2)``
+    against the same step under ``run_ranks``."""
+    n = BENCH_RANKS
+    xs = bench_inputs()
+    stacked = torch.stack(xs)
+    exact = xs[0].clone()
+    for x in xs[1:]:
+        exact += x
+    spmd_value_and_grad(P, stacked, False, None)            # warm-ups
+    spmd_value_and_grad(P, stacked, "q8", "ring")
+    exact_ms = min(sync_ms(lambda: spmd_value_and_grad(
+        P, stacked, False, None))[0] for _ in range(2))
+    k1 = {"q8_hop": 0, "q8_requant": 0}
+    res = {}
+    pairs = [(c, a) for c in Q8_CODECS for a in Q8_ALGOS] + \
+        [("bf16", "ring"), ("bf16r", "ring")]
+    for codec, algo in pairs:
+        kernels.reset_launch_counts()
+        ms, (y, g) = sync_ms(lambda: spmd_value_and_grad(P, stacked, codec,
+                                                         algo))
+        hops = kernels.launch_counts["q8_hop"]
+        reqs = kernels.launch_counts["q8_requant"]
+        k1["q8_hop"] += hops
+        k1["q8_requant"] += reqs
+        ms = min([ms] + [sync_ms(lambda: spmd_value_and_grad(
+            P, stacked, codec, algo))[0]
+            for _ in range(SPMD_COMP_REPEATS - 1)])
+        ranks_ms, ranks = sync_ms(lambda: q8_value_and_grad(P, xs, codec,
+                                                            algo))
+        ranks_ms = min([ranks_ms] + [sync_ms(lambda: q8_value_and_grad(
+            P, xs, codec, algo))[0] for _ in range(SPMD_COMP_REPEATS - 1)])
+        same_ranks = all(torch.equal(y[r], y[0]) and torch.equal(g[r], g[0])
+                         for r in range(n))
+        mism = sum(bits_differ(y[r], ranks[r][0])
+                   + bits_differ(g[r], ranks[r][1]) for r in range(n))
+        rel = norm_rel1(y[0], exact)
+        # Every rank's cotangent is 2y, so the exact backward is 2n y.
+        rel_g = norm_rel1(g[0], 2 * n * y[0])
+        extra = ""
+        if codec in Q8_CODECS:
+            chans = 1 if algo == "ring" else 2
+            rounds = EF_ROUNDS[codec]
+            want_hops = 2 * chans * rounds * n * (n - 1)
+            want_req = 2 * chans * rounds * n
+            bound_rel = CODEC_REL[codec]
+            ok = (same_ranks and mism == 0 and hops == want_hops
+                  and reqs == want_req and rel <= bound_rel
+                  and rel_g <= bound_rel)
+            extra = (f"; K1 hop {hops}/{want_hops} requant {reqs}/"
+                     f"{want_req}")
+        else:
+            # The ring re-encodes every hop's partial sum: n - 1 hops and
+            # the gather encode, each within BF16_REL of what it encodes.
+            bound_rel = n * BF16_REL[codec]
+            ok = same_ranks and rel <= bound_rel and rel_g <= bound_rel
+            if codec == "bf16":
+                small = stacked[:, :SPMD_CHECK_NUMEL].contiguous()
+                card = spmd_value_and_grad(P, small, codec, algo)
+                cpu = spmd_value_and_grad(P, small.cpu(), codec, algo)
+                cmism = sum(bits_differ(a.cpu(), b) for a, b in
+                            zip(card, cpu))
+                ok = ok and cmism == 0
+                extra = (f"; at {SPMD_CHECK_NUMEL} a rank vs the CPU run "
+                         f"mismatched {cmism}")
+            else:
+                err = (y[0].double() - exact.double())
+                se = (err.std() / err.numel() ** 0.5).item()
+                mean = err.mean().item()
+                ok = ok and abs(mean) <= 4 * se
+                extra = f"; mean signed error {mean:.3e} (4 se {4 * se:.3e})"
+        print(f"  {codec:9s} {algo:5s}: fwd+bwd {ms:8.2f} ms under run_spmd "
+              f"({ranks_ms:8.2f} ms run_ranks; each the best of "
+              f"{SPMD_COMP_REPEATS}); ranks identical "
+              f"{same_ranks}; vs run_ranks mismatched {mism}{extra}; err "
+              f"vs exact {rel:.3e}, grad {rel_g:.3e} (bound {bound_rel:g})"
+              f"  {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"compressed Allreduce {codec}/{algo} under run_spmd "
+              "failed a check")
+        res[(codec, algo)] = {"ms": ms, "ranks_ms": ranks_ms, "hops": hops,
+                              "requant": reqs, "mismatch_mode_b": mism}
+        del y, g, ranks
+        if (codec, algo) == ("q8", "bidir"):
+            # Where Mode A's time goes: one q8 bidir fwd+bwd profiled.
+            wall, busy, _ = profile_top(
+                lambda: spmd_value_and_grad(P, stacked, codec, algo),
+                "one q8 bidir fwd+bwd under run_spmd", n_top=4)
+            res[(codec, algo)]["idle_pct"] = 100 - 100 * busy / wall
+    print(f"  exact Allreduce under run_spmd, same world and size: fwd+bwd "
+          f"{exact_ms:.2f} ms")
+    ag = {}
+    for codec in SPMD_AG_CODECS:
+        def ag_spmd():
+            return P.run_spmd(lambda v: allgather_value_and_grad(P, v, codec),
+                              nranks=n)(stacked)
+
+        kernels.reset_launch_counts()
+        ms, (y, g) = sync_ms(ag_spmd)
+        reqs = kernels.launch_counts["q8_requant"]
+        k1["q8_requant"] += reqs
+        ms = min([ms] + [sync_ms(ag_spmd)[0]
+                         for _ in range(SPMD_COMP_REPEATS - 1)])
+        ranks = P.run_ranks(lambda r: allgather_value_and_grad(
+            P, xs[r], codec, r), n, device="cuda")
+        m = xs[0].numel()
+        fwd_mism = sum(bits_differ(y[r], ranks[r][0]) for r in range(n))
+        same = all(torch.equal(y[r], y[0]) for r in range(n))
+        # The adjoint, a compressed reduce-scatter of the cotangents 2y:
+        # the quantized ring here, the rendezvous fold under run_ranks.
+        rel_g = max(norm_rel1(g[r], 2 * n * y[0][r * m:(r + 1) * m])
+                    for r in range(n))
+        rel_b = max(norm_rel1(g[r], ranks[r][1]) for r in range(n))
+        bound_rel = CODEC_REL["q8"] if codec == "q8" \
+            else n * BF16_REL[codec]
+        want_req = n * n if codec == "q8" else 0
+        ok = fwd_mism == 0 and same and rel_g <= bound_rel and \
+            reqs == want_req
+        print(f"  Allgather[{codec}] fwd+bwd {ms:.2f} ms (the best of "
+              f"{SPMD_COMP_REPEATS}): forward vs "
+              f"run_ranks mismatched {fwd_mism}, ranks identical {same}; "
+              f"adjoint vs exact {rel_g:.3e} (bound {bound_rel:g}), vs "
+              f"run_ranks' rendezvous fold {rel_b:.3e}; K1 requant {reqs}/"
+              f"{want_req}  {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"the compressed Allgather[{codec}] under run_spmd failed")
+        ag[codec] = {"ms": ms, "requant": reqs}
+        del y, g, ranks
+    del stacked, xs, exact
+    torch.cuda.empty_cache()
+
+    # Phase 19's fused q8 DP=2 step at 4 MiB buckets under run_spmd.
+    rows = TRAIN_BATCH // 2
+    comm = P.COMM_WORLD
+    bb = config.DEFAULT_BUCKET_BYTES
+    nbk = fuse.bucket_layout(params, bb).num_buckets
+
+    def dp_body(p, x):
+        loss, g = tree.value_and_grad(lambda q: T.lm_loss(cfg, q, x), p)
+        synced = comm.Allreduce_tree(g, P.MPI_SUM, mean=True,
+                                     compression="q8", bucket_bytes=bb)
+        with torch.no_grad():
+            return loss, tree.tree_map(lambda a, s: a - LR * s, p, synced)
+
+    def spmd_body(p, toks):
+        idx = comm.rank * rows + torch.arange(rows, device=toks.device)
+        return dp_body(p, toks.index_select(0, idx))
+
+    def spmd_step():
+        return P.run_spmd(spmd_body, nranks=2)(params, tokens)
+
+    kernels.reset_launch_counts()
+    loss, new = spmd_step()
+    launches = dict(kernels.launch_counts)
+    (l0, p0), (l1, p1) = P.run_ranks(
+        lambda r: dp_body(params, tokens[r * rows:(r + 1) * rows]), 2,
+        device="cuda")
+    same = torch.equal(loss[0], l0) and torch.equal(loss[1], l1) and \
+        leaves_equal(tree, tree.tree_map(lambda t: t[0], new), p0) and \
+        leaves_equal(tree, tree.tree_map(lambda t: t[1], new), p1)
+    del new, p0, p1
+    tc = attention_all_tc(kernels, launches)
+    att = all(launches[k] == 2 * cfg.n_layers
+              for k in kernels.ATTENTION_KERNELS)
+    ok = same and tc and att and launches["q8_hop"] == 2 * nbk and \
+        launches["q8_requant"] == 2 * nbk
+    t = [sync_ms(spmd_step)[0] for _ in range(2)]
+    wall, busy, _ = profile_top(spmd_step, "one fused q8 DP=2 step under "
+                                "run_spmd", n_top=4)
+    idle = 100 - 100 * busy / wall
+    print(f"  fused q8 DP=2 step under run_spmd ({nbk} buckets of "
+          f"<= {bb} bytes): loss and parameters bitwise run_ranks' {same}; "
+          f"K1 a step: hop {launches['q8_hop']} requant "
+          f"{launches['q8_requant']} (expected 2 x {nbk} each); K2/K3/K4 "
+          f"{[launches[k] for k in kernels.ATTENTION_KERNELS]} (expected "
+          f"{2 * cfg.n_layers} each), all tc {tc}; step "
+          f"{[round(x, 1) for x in t]} ms (phase 19 under run_ranks "
+          f"{q8f['4MiB']['ms']:.1f} ms); device idle {idle:.1f}%  "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "the fused q8 DP=2 step under run_spmd failed a check")
+    torch.cuda.empty_cache()
+    return {"allreduce": res, "exact_ms": exact_ms, "allgather": ag,
+            "k1": k1, "dp2": {"launches": launches, "ms": min(t),
+                              "idle_pct": idle, "buckets": nbk}}
+
+
+# The device kernels that copy memory: ``clone``/``copy_`` (the SPMD
+# engine's private row copies) and ``torch.stack``/``cat`` (``run_spmd``'s
+# restacking of the outputs), and the runtime's copies.
+COPY_KERNELS = ("direct_copy_kernel", "CatArrayBatchedCopy", "Memcpy")
+
+
+def drive_engine(eng, reqs, keys, profile=False):
+    """Submit ``reqs`` (with ``keys``), run the engine to the end timing
+    every step, and keep a reference to every logits table it chose from.
+    Returns (results, logits rows per request, decode ms and tokens over
+    decode-only steps, the decode-only step ms, TTFT p50 s, and with
+    ``profile`` the copy kernels of one decode-only step run under
+    torch.profiler: {copy_ms, copies, busy_ms, wall_ms}, else None).  The
+    profiled step is left out of the decode time and tokens."""
+    for p, k in zip(reqs, keys):
+        eng.submit(p, key=k)
+    rows = {}
+    select = eng._select
+
+    def keep_rows(reqs_, logits):
+        for r, lrow in zip(reqs_, logits):
+            if r is not None:
+                rows.setdefault(r.rid, []).append(lrow)
+        return select(reqs_, logits)
+
+    eng._select = keep_rows
+    decode_ms, decode_tok, step_ms = 0.0, 0, []
+    copies = None
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    while eng.pending():
+        before = eng.stats.counters["prefill_tokens"]
+        # After two decode-only steps the next is most likely one too.
+        prof = profile and copies is None and len(step_ms) >= 2
+        if prof:
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as pr:
+                t0 = time.perf_counter()
+                ev = eng.step()
+                dt = (time.perf_counter() - t0) * 1e3
+        else:
+            t0 = time.perf_counter()
+            ev = eng.step()           # ends in a host read of the tokens
+            dt = (time.perf_counter() - t0) * 1e3
+        if ev["admitted"] or \
+                eng.stats.counters["prefill_tokens"] != before:
+            continue
+        if prof:
+            dev = [e for e in pr.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation
+                   and e.self_device_time_total > 0]
+            cp = [e for e in dev if any(k in e.key for k in COPY_KERNELS)]
+            copies = {"copy_ms": sum(e.self_device_time_total
+                                     for e in cp) / 1e3,
+                      "copies": sum(e.count for e in cp),
+                      "busy_ms": sum(e.self_device_time_total
+                                     for e in dev) / 1e3,
+                      "wall_ms": dt}
+            continue
+        decode_ms += dt
+        decode_tok += len(ev["emitted"])
+        step_ms.append(dt)
+    ttft = eng.stats.snapshot().get("ttft_s", {}).get("p50", float("nan"))
+    return eng.results(), rows, decode_ms, decode_tok, step_ms, ttft, copies
+
+
+def sampled_divergences(T, threefry, cfg, params, reqs, results, rows):
+    """Sampled tokens against each request's sampled ``generate()`` loop:
+    equal but at a near tie, by phase 23's rule (``sampled_tie``)."""
+    divergences = 0
+    for rid, prompt in enumerate(reqs):
+        got = results[rid][len(prompt):].tolist()
+        want, subs, grows = sampled_oracle(
+            T, threefry, cfg, params, prompt, TP2_MAX_NEW,
+            threefry.PRNGKey(1000 + rid))
+        first = next((i for i, (a, b) in enumerate(zip(got, want))
+                      if a != b), None)
+        if first is not None:
+            m = sampled_tie(T, rows[rid][first], grows[first], subs[first],
+                            got[first], want[first])
+            check(m and min(m.values()) <= 1.0,
+                  f"sampled request {rid}: token {first} differs from "
+                  f"generate() without a near tie ({m})")
+            divergences += 1
+    return divergences
+
+
+def spmd_engine_phase(P, T, serve, kernels, threefry, tree, cfg, params,
+                      prompts, tp2_rate):
+    """Phase 56: ``Engine(spmd=True, nranks=2)`` at full width on phase 5's
+    requests, dense greedy, paged with chunked prefill, and sampled: tokens
+    equal the ``run_ranks`` TP=2 engine's and ``generate()``'s (near ties
+    excepted), every K2 launch ``tc``; TTFT, decode tokens/s, and the
+    device time of the copies in one profiled decode step (the body's
+    private copy of its row of the stacked state, then ``run_spmd``'s
+    restack)."""
+    reqs = prompts[:TP2_REQUESTS]
+    out = {}
+    k2 = {"flash_fwd": 0, "flash_fwd.tc": 0}
+    for form, extra in SPMD_SERVE_FORMS.items():
+        scfg = serve.ServeConfig(slots=SLOTS, max_new=TP2_MAX_NEW, **extra)
+        keys = [threefry.PRNGKey(1000 + i) for i in range(len(reqs))] \
+            if scfg.temperature > 0 else [None] * len(reqs)
+        with torch.no_grad():
+            eng = serve.Engine(cfg, params, scfg, spmd=True, nranks=2)
+            kernels.reset_launch_counts()
+            res, rows, dec_ms, dec_tok, step_ms, ttft, cp = drive_engine(
+                eng, reqs, keys, profile=True)
+            launches = (kernels.launch_counts["flash_fwd"],
+                        kernels.launch_counts["flash_fwd.tc"])
+            k2["flash_fwd"] += launches[0]
+            k2["flash_fwd.tc"] += launches[1]
+            state = sum(t.numel() * t.element_size()
+                        for t in tree.tree_leaves(eng._cache))
+            got = [res[i].tolist() for i in range(len(reqs))]
+
+            def ranks_body():
+                with torch.inference_mode():
+                    e = serve.Engine(cfg, params, scfg, device="cuda")
+                    r, _, d_ms, d_tok, _, t, _ = drive_engine(e, reqs,
+                                                              keys)
+                    return [r[i].tolist() for i in range(len(reqs))], \
+                        d_tok / (d_ms / 1e3) if d_ms else float("nan"), t
+
+            ranks = P.run_ranks(ranks_body, 2, device="cuda")
+            same = ranks[0][0] == ranks[1][0] == got
+            b_rate, b_ttft = ranks[0][1], ranks[0][2]
+            if scfg.temperature > 0:
+                div = sampled_divergences(T, threefry, cfg, params, reqs,
+                                          res, rows)
+                ties = None
+            else:
+                div, ties = tie_rule_tokens(T, cfg, params, reqs, res,
+                                            TP2_MAX_NEW)
+        step = float(np.mean(step_ms)) if step_ms else float("nan")
+        rate = dec_tok / (dec_ms / 1e3) if dec_ms else float("nan")
+        ok = same and launches[0] == launches[1] > 0 and cp is not None
+        cp = cp or {"copy_ms": float("nan"), "copies": 0,
+                    "busy_ms": float("nan"), "wall_ms": float("nan")}
+        print(f"  {form:13s}: tokens equal the run_ranks TP=2 engine's "
+              f"{same}; near-tie divergences from generate() {div}"
+              + ("" if ties is None else f" (oracle near-tie steps {ties})")
+              + f"; flash_fwd launches {launches[0]}, tc {launches[1]}; "
+              f"TTFT p50 {ttft * 1e3:.1f} ms (the run_ranks engine "
+              f"{b_ttft * 1e3:.1f}); decode {rate:.1f} tokens/s (the "
+              f"run_ranks engine {b_rate:.1f}, phase 5's TP=2 engine "
+              f"{tp2_rate:.1f}); stacked cache "
+              f"{state / 1e9:.3f} GB, copied twice a decode step (the "
+              f"body's private row copies, then run_spmd's stack); one "
+              f"profiled decode step: copy kernels {cp['copy_ms']:.2f} ms "
+              f"({cp['copies']} launches) of {cp['busy_ms']:.2f} ms device "
+              f"busy in a {cp['wall_ms']:.1f} ms step, "
+              f"{100 * cp['copy_ms'] / step:.1f}% of the mean "
+              f"{step:.1f} ms step  {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"the SPMD engine ({form}) failed a check")
+        out[form] = {"launches": launches[0], "ttft_s": ttft,
+                     "decode_tok_s": rate, "ranks_ttft_s": b_ttft,
+                     "ranks_decode_tok_s": b_rate, "step_ms": step,
+                     "state_bytes": state, "copy_ms": cp["copy_ms"],
+                     "divergences": div}
+        del eng, rows, res
+        torch.cuda.empty_cache()
+    out["k2"] = k2
+    return out
+
+
+def pp_spmd_phase(P, T, pp, kernels, flash, tree, cfg, params, tokens,
+                  pipe):
+    """Phase 57: ``pipeline_spmd`` PP=2 at full width: PP_MB microbatches
+    of PP_ROWS x 2048 embedded tokens, 4 flagship blocks a stage, the LM
+    loss (final norm, unembedding, masked next-token cross entropy) in
+    ``loss_fn``; against ``pipeline_step`` (phase 31's GPipe) on the same
+    inputs."""
+    F = torch.nn.functional
+    n, per = 2, cfg.n_layers // 2
+    mbs = [tokens[i * PP_ROWS:(i + 1) * PP_ROWS] for i in range(PP_MB)]
+    with torch.no_grad():
+        xs = [F.embedding(t, params["embed"])
+              + params["pos"][None, :t.shape[1]] for t in mbs]
+    labels = torch.stack([torch.cat([t[:, 1:], t[:, :1]], dim=1)
+                          for t in mbs])
+    seq = mbs[0].shape[1]
+    mask = (torch.arange(seq, device="cuda") < seq - 1).to(
+        params["embed"].dtype)
+
+    def stage(p, x):
+        for blk in p["blocks"]:
+            y = T._norm(cfg, x, blk["ln1"])
+            q, k, v = T._split_qkv(cfg, blk, y)
+            o = flash.flash_attention(q, k, v, causal=True)
+            x = x + o.reshape(x.shape) @ blk["wo"]
+            x, _ = T._ffn_residual(cfg, blk, x)
+        return x
+
+    def loss_fn(y, i):
+        lab = labels.index_select(
+            0, torch.as_tensor(i, device="cuda").reshape(1))[0]
+        logits = T._norm(cfg, y, params["ln_f"]) @ params["unembed"]
+        ce = -F.log_softmax(logits, dim=-1).gather(-1, lab[..., None])[
+            ..., 0]
+        return torch.sum(ce * mask[None, :]) / (PP_ROWS * (seq - 1))
+
+    stages = [{"blocks": params["blocks"][r * per:(r + 1) * per]}
+              for r in range(n)]
+    stacked = tree.tree_map(lambda a, b: torch.stack([a, b]), *stages)
+    comm = P.COMM_WORLD
+
+    def body(st):
+        local = tree.tree_map(lambda a: a[comm.rank], st)
+        return pp.pipeline_spmd(comm, stage, local, xs, loss_fn)
+
+    def run():
+        leaves = [t.detach().requires_grad_()
+                  for t in tree.tree_leaves(stacked)]
+        out = P.run_spmd(body, nranks=n)(tree.tree_unflatten(stacked,
+                                                             leaves))
+        grads = torch.autograd.grad(out.sum(), leaves)
+        return out.detach(), grads
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = run()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: kernels.launch_counts[k]
+                for k in kernels.ATTENTION_KERNELS}
+    tc = attention_all_tc(kernels, dict(kernels.launch_counts))
+    want = (PP_MB + n - 1) * per * n
+    t = [sync_ms(run)[0] for _ in range(2)]
+    like = torch.zeros_like(xs[0])
+    (l0, g0), (l1, g1) = P.run_ranks(lambda r: pp.pipeline_step(
+        comm, stage, stages[r], xs, loss_fn, recv_like=like), n,
+        device="cuda")
+    # From outside, each rank's unit cotangent sums through the loss
+    # Allreduce's adjoint: every stage gradient is twice the loss's.
+    rows = [tree.tree_unflatten(stacked, [g[r] / 2 for g in grads])
+            for r in range(n)]
+    errs = [norm_rel(tree, rows[r], (g0, g1)[r]) for r in range(n)]
+    loss_rel = abs(loss[0].double().item() - l0.item()) / abs(l0.item())
+    ok = torch.equal(loss[0], loss[1]) and max(errs) <= BF16_GRAD_REL and \
+        loss_rel <= BF16_GRAD_REL and tc and \
+        all(v == want for v in launches.values())
+    print(f"  loss {loss[0].item():.4f} (bitwise across ranks "
+          f"{torch.equal(loss[0], loss[1])}) vs pipeline_step "
+          f"{l0.item():.4f}, rel {loss_rel:.2e}; stage gradients vs "
+          f"pipeline_step worst leaf {max(errs):.2e} (bound "
+          f"{BF16_GRAD_REL:g}); K2/K3/K4 launches {launches} (expected "
+          f"{want}: {PP_MB + n - 1} steps x {per} blocks x {n} ranks), all "
+          f"tc {tc}; step {[round(x, 1) for x in t]} ms, peak {peak:.2f} "
+          f"GiB (phase 31's GPipe under run_ranks {pipe['gpipe']['ms']:.1f}"
+          f" ms, peak {pipe['gpipe']['peak_gib']:.2f} GiB)  "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "pipeline_spmd failed a check")
+    del grads, g0, g1, rows, xs
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": min(t), "peak_gib": peak,
+            "grad_rel": max(errs)}
+
+
+def spmd_reshard_phase(P, tree, rs, config, kernels, params, resharded):
+    """Phase 58: phase 40's flagship tree (8,) -> (2, 4) under
+    ``run_spmd(nranks=8)``, planned and ``gather``: bitwise the eager
+    executor's result on rank threads, one VJP bitwise the reverse
+    reshard, ms and rendezvous a tree; the q8 compressed gather hop on the
+    f32 embedding bitwise the eager one, with its K1 requant launches."""
+    n = RESHARD_RANKS
+    comm = P.COMM_WORLD
+    src, dst = reshard_specs(rs, params, n, RESHARD_MESH)
+    stacked = tree.tree_map(lambda *s: torch.stack(s),
+                            *[rs.shard_of(params, src, r) for r in range(n)])
+    out = {}
+    for strategy in (None, "gather"):
+        label = strategy or "auto"
+
+        def body(st, strategy=strategy):
+            return comm.Reshard(tree.tree_map(lambda a: a[comm.rank], st),
+                                src, dst, strategy=strategy)
+
+        call = P.run_spmd(body, nranks=n)
+        got = call(stacked)
+        eager = P.run_ranks(lambda r: comm.Reshard(
+            rs.shard_of(params, src, r), src, dst, strategy=strategy), n,
+            timeout=300.0, device="cuda")
+        same = all(leaves_equal(tree, tree.tree_map(lambda t: t[r], got),
+                                eager[r]) for r in range(n))
+        del got, eager
+        ms = [sync_ms(lambda: call(stacked))[0]
+              for _ in range(SPMD_RESHARD_REPEATS)]
+        with ExchangeCounter() as cnt:
+            call(stacked)
+        back = None
+        if strategy is None:
+            leaves = [t.detach().requires_grad_()
+                      for t in tree.tree_leaves(stacked)]
+            y = call(tree.tree_unflatten(stacked, leaves))
+            w = tree.tree_map(lambda t: t.detach() * 2, y)
+            g = torch.autograd.grad(tree.tree_leaves(y), leaves,
+                                    tree.tree_leaves(w))
+            rev = P.run_spmd(lambda v: comm.Reshard(
+                tree.tree_map(lambda a: a[comm.rank], v), dst, src),
+                nranks=n)(w)
+            back = all(torch.equal(a, b)
+                       for a, b in zip(g, tree.tree_leaves(rev)))
+            del y, w, g, rev
+        ok = same and back is not False
+        print(f"  {label}: bitwise the eager executor {same}"
+              + ("" if back is None else
+                 f"; the VJP bitwise the reverse reshard {back}")
+              + f"; {np.mean(ms):.1f} ms a tree (runs "
+              f"{[round(x, 1) for x in ms]}), rank 0's rendezvous a tree "
+              f"{cnt.exchanges} (phase 40's eager executor "
+              f"{np.mean(resharded[label]['ms']):.1f} ms)  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"the SPMD reshard ({label}) failed a check")
+        out[label] = {"ms": ms, "rendezvous": cnt.exchanges}
+        torch.cuda.empty_cache()
+    del stacked
+    emb = params["embed"].float()
+    l8, l24 = rs.layout((n,), 0, None), rs.layout(RESHARD_MESH, 0, 1)
+    shards = torch.stack([rs.slice_shard(emb, l8, r) for r in range(n)])
+    kernels.reset_launch_counts()
+    ms, got = sync_ms(lambda: P.run_spmd(lambda v: comm.Reshard(
+        v[comm.rank], l8, l24, strategy="gather", compression="q8"),
+        nranks=n)(shards))
+    requant = kernels.launch_counts["q8_requant"]
+    eager = P.run_ranks(lambda r: comm.Reshard(
+        rs.slice_shard(emb, l8, r), l8, l24, strategy="gather",
+        compression="q8"), n, device="cuda")
+    bitwise = all(bits_differ(got[r], eager[r]) == 0 for r in range(n))
+    ok = bitwise and requant == n
+    print(f"  compressed wide hop (q8, gather) on the f32 embedding under "
+          f"run_spmd: {requant} q8_requant launches (one a rank), bitwise "
+          f"the eager hop {bitwise}, {ms:.1f} ms  {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, "the SPMD compressed wide hop failed a check")
+    out["wide_hop"] = {"requant": requant, "ms": ms}
+    del emb, shards, got, eager
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli_phase():
+    """Phase 59: the two Mode A smoke CLIs as subprocesses on the card."""
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    for mod in ("mpi4torch_tpu_torch.compress",
+                "mpi4torch_tpu_torch.reshard"):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", mod, "--smoke"],
+                              capture_output=True, text=True, timeout=300,
+                              cwd=root, env=env)
+        for line in proc.stdout.splitlines():
+            print("    " + line)
+        if proc.returncode:
+            print(proc.stderr[-4000:])
+        print(f"  python -m {mod} --smoke: exit {proc.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        check(proc.returncode == 0, f"python -m {mod} --smoke failed")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU",
@@ -7112,7 +7749,36 @@ def main():
     phase(53, "the variable_token_exchange example under run_spmd")
     vte_phase()
 
-    phase(54, "kernels")
+    phase(55, f"Mode A's users (A): the compressed collectives under "
+          f"run_spmd at {BENCH_RANKS} x 2^24 float32, and phase 19's fused "
+          "q8 DP=2 step under run_spmd(nranks=2)")
+    print(smi)
+    spmd_comp = spmd_compressed_phase(P, T, tree, fuse, kernels, config,
+                                      cfg, params, tokens, q8f)
+
+    phase(56, "Mode A's users (B): Engine(spmd=True, nranks=2) at full "
+          "width, dense, paged with chunked prefill, and sampled")
+    print(smi)
+    spmd_eng = spmd_engine_phase(P, T, serve, kernels, threefry, tree, cfg,
+                                 params, prompts, tp2_rate)
+
+    phase(57, f"Mode A's users (C): pipeline_spmd PP=2 at full width, "
+          f"{PP_MB} microbatches of {PP_ROWS} x 2048")
+    print(smi)
+    pps = pp_spmd_phase(P, T, pp, kernels, flash, tree, cfg, params, tokens,
+                        pipe)
+
+    phase(58, "Mode A's users (D): the SPMD reshard of the flagship tree "
+          "(8,) -> (2, 4) under run_spmd(nranks=8)")
+    print(smi)
+    spmd_rs = spmd_reshard_phase(P, tree, rs, config, kernels, params,
+                                 resharded)
+
+    phase(59, "Mode A's users (E): the compress and reshard smoke CLIs")
+    print(smi)
+    cli_phase()
+
+    phase(60, "kernels")
     print(smi)
     sp_shapes, sp_worst = sp_kernel_numbers(flash, kernels)
     # flash_fwd: launches on the serving path (phase 4), times at the
@@ -7346,16 +8012,42 @@ def main():
     check(all(v > 0 for e in line["kernels"]
               for v in e["process_launches"].values()),
           "a kernel of this slice's paths was launched no time")
-    # This slice's path: each attention kernel's launches in the three
-    # DP=2 steps of the flagship under run_spmd (phase 51, both ranks,
-    # outside deterministic mode).  K1 is not on it: a codec under Mode A
-    # raises (compress/spmd.py is ROADMAP Queue 1 item 4.9).
+    # Mode A: each attention kernel's launches in the three DP=2 steps of
+    # the flagship under run_spmd (phase 51, both ranks, outside
+    # deterministic mode).
     for entry in line["kernels"][:3]:
         entry["mode_a_launches"] = {
             "flagship_dp2_run_spmd": mode_a_dp2["launches"][entry["name"]]}
     check(all(e["mode_a_launches"]["flagship_dp2_run_spmd"] > 0
               for e in line["kernels"][:3]),
           "a kernel of this slice's paths was launched no time")
+    # Mode A's users (phases 55-58): each attention kernel's launches in
+    # the fused q8 DP=2 step under run_spmd (phase 55) and the
+    # pipeline_spmd step (phase 57); flash_fwd's in the SPMD engine's
+    # three runs (phase 56, prefill and chunks); K1's hop and requant
+    # launches in the compressed Allreduces and Allgathers (phase 55,
+    # forward and backward), in the DP=2 step, and its requant launches
+    # in the SPMD reshard's compressed gather hop (phase 58).
+    for entry in line["kernels"][:3]:
+        kname = entry["name"]
+        entry["mode_a_launches"]["fused_q8_dp2_run_spmd"] = \
+            spmd_comp["dp2"]["launches"][kname]
+        entry["mode_a_launches"]["pipeline_spmd_pp2"] = \
+            pps["launches"][kname]
+        if kname == "flash_fwd":
+            entry["mode_a_launches"]["engine_spmd_tp2"] = \
+                spmd_eng["k2"]["flash_fwd"]
+    hop_entry["mode_a_launches"] = {
+        "compressed_collectives_hop": spmd_comp["k1"]["q8_hop"],
+        "compressed_collectives_requant": spmd_comp["k1"]["q8_requant"],
+        "fused_q8_dp2_hop": spmd_comp["dp2"]["launches"]["q8_hop"],
+        "fused_q8_dp2_requant": spmd_comp["dp2"]["launches"]["q8_requant"],
+        "reshard_wide_hop_requant": spmd_rs["wide_hop"]["requant"]}
+    check(all(v > 0 for e in line["kernels"]
+              for v in e["mode_a_launches"].values())
+          and spmd_eng["k2"]["flash_fwd"] == spmd_eng["k2"]["flash_fwd.tc"],
+          "a kernel of Mode A's users was launched no time, or an SPMD "
+          "engine prefill left the tc kernel")
     print(json.dumps(line))
     print(f"  process transport: DP=2 step "
           f"{proc_train['process_ms']:.1f} ms on workers vs "
@@ -7378,7 +8070,15 @@ def main():
           "Allreduce at 4 x 2^26 float32 "
           + ", ".join(f"{k} {v['ms']:.2f} ms" for k, v in
                       mode_a_bench[4].items()))
-    phase(55)
+    print(f"  Mode A's users: fused q8 DP=2 step "
+          f"{spmd_comp['dp2']['ms']:.1f} ms under run_spmd; SPMD engine "
+          "decode "
+          + ", ".join(f"{k} {v['decode_tok_s']:.1f}" for k, v in
+                      spmd_eng.items() if k != "k2")
+          + f" tokens/s; pipeline_spmd step {pps['ms']:.1f} ms; SPMD "
+          f"reshard auto / gather {np.mean(spmd_rs['auto']['ms']):.1f} / "
+          f"{np.mean(spmd_rs['gather']['ms']):.1f} ms a tree")
+    phase(61)
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

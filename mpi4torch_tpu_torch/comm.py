@@ -22,9 +22,10 @@ Inside :func:`~mpi4torch_tpu_torch.ops.spmd.run_spmd` (Mode A)
 ``COMM_WORLD`` and the mesh communicators of :func:`comm_from_mesh`
 route every op to :class:`~mpi4torch_tpu_torch.ops.spmd.SpmdBackend`:
 ``rank`` is then symbolic and ``size`` static.  Under Mode A a codec
-raises ``NotImplementedError`` (``compress/spmd.py``, ROADMAP.md Queue 1
-item 4.9), and so does ``Reshard`` (item 4.10): an exact or Mode B form
-does not stand in for them.
+(explicit or from the compression scope) runs the compressed SPMD
+collectives of ``compress/spmd.py``, and ``Reshard`` the SPMD reshard
+executor; a tier-stack mesh communicator has no compressed pipeline (an
+explicit codec raises, a scope codec degrades to the exact wire).
 
 ``Allreduce`` resolves its codec and algorithm with the JAX package's
 rules: ``compression=None`` defers to the compression scope or process
@@ -143,17 +144,6 @@ def _codec_for(tensor, codec, explicit):
     return codec
 
 
-def _mode_a_codec_refusal(codec):
-    """Under Mode A a codec has no port yet: raise rather than let an
-    exact transfer stand in for it (the bits would differ from the JAX
-    package's)."""
-    return NotImplementedError(
-        f"compression={codec.name!r} under Mode A (run_spmd): the "
-        "compressed SPMD collectives (compress/spmd.py) are not ported "
-        "yet (ROADMAP.md, Queue 1 item 4.9); pass compression=False, or "
-        "run the body under run_ranks")
-
-
 class MPI_Communicator:
     """Communicator wrapper.  ``COMM_WORLD`` resolves to the Mode A axis
     of the calling rank thread inside ``run_spmd``, else to its rank
@@ -244,8 +234,21 @@ class MPI_Communicator:
                     else get_algorithm(algorithm).name)
         else:
             algo = resolve_request(algorithm, nranks=self.size)
-        return _reconcile_codec_algorithm(
+        codec, algo = _reconcile_codec_algorithm(
             codec, algo, codec_explicit=compression is not None)
+        if codec is not None and not getattr(self._spmd(),
+                                             "supports_compression", True):
+            # The tier-stack mesh communicators have no compressed
+            # pipeline: an explicit codec raises, a scope default
+            # degrades to the exact wire.
+            if compression is not None:
+                raise ValueError(
+                    f"compression={codec.name!r} is not supported on "
+                    "this communicator (the mesh-axis tier-stack "
+                    "backend has no compressed pipeline); use a "
+                    "single-axis comm_from_mesh communicator")
+            codec = None
+        return codec, algo
 
     def Allreduce(self, tensor, op: int, compression=None, algorithm=None):
         """Element-wise combine across all ranks, result on every rank.
@@ -269,13 +272,14 @@ class MPI_Communicator:
             + (f".{algo}" if algo not in (None, "ring") else "")
         b = self._spmd()
         if b is not None:
-            if codec is not None:
-                raise _mode_a_codec_refusal(codec)
+            explicit = algorithm not in (None, False, "auto")
             with torch.profiler.record_function(span):
-                return b.allreduce(
-                    tensor, op, algorithm=algo,
-                    algorithm_explicit=algorithm not in (None, False,
-                                                         "auto"))
+                if codec is None:
+                    return b.allreduce(tensor, op, algorithm=algo,
+                                       algorithm_explicit=explicit)
+                return b.allreduce_compressed(
+                    tensor, op, codec, algorithm=algo,
+                    algorithm_explicit=explicit)
         ctx = effective_rank_context()
         with torch.profiler.record_function(span):
             if codec is None:
@@ -334,14 +338,10 @@ class MPI_Communicator:
         :func:`config.default_reshard_strategy`, else the preference
         order).  ``compression`` (explicit only: a state migration never
         inherits the gradient codec scope) rides the full-world gather hop
-        of the ``gather`` strategy."""
+        of the ``gather`` strategy.  Under Mode A (``run_spmd``) the SPMD
+        executor runs the same plan, bitwise the rank-thread replay."""
         from .reshard import reshard_tree
 
-        if self._spmd() is not None:
-            raise NotImplementedError(
-                "Reshard under Mode A (run_spmd): the SPMD reshard executor "
-                "is not ported yet (ROADMAP.md, Queue 1 item 4.10); run "
-                "the redistribution under run_ranks")
         with torch.profiler.record_function("mpi4torch.Reshard"):
             return reshard_tree(self, tree, from_spec, to_spec,
                                 strategy=strategy, compression=compression)
@@ -448,10 +448,10 @@ class MPI_Communicator:
         span = "mpi4torch.Allgather" + (f".{codec.name}" if codec else "")
         b = self._spmd()
         if b is not None:
-            if codec is not None:
-                raise _mode_a_codec_refusal(codec)
             with torch.profiler.record_function(span):
-                return b.allgather(tensor, gatheraxis)
+                if codec is None:
+                    return b.allgather(tensor, gatheraxis)
+                return b.allgather_compressed(tensor, gatheraxis, codec)
         ctx = effective_rank_context()
         with torch.profiler.record_function(span):
             if codec is None:

@@ -1,9 +1,9 @@
 """Compressed collectives: the block-scaled quantized and bf16 wires.
 
 Port of ``mpi4torch_tpu/compress``: the codec registry
-(:mod:`.codecs`), the compressed eager Allreduce and Allgather
-(:mod:`.eager`) and cross-step error feedback for training loops
-(:mod:`.ef`).  Pick a codec per call, per scope, or process-wide::
+(:mod:`.codecs`), the compressed Allreduce and Allgather on the rank
+threads (:mod:`.eager`, Mode B) and under ``run_spmd`` (:mod:`.spmd`,
+Mode A), and cross-step error feedback for training loops (:mod:`.ef`).  Pick a codec per call, per scope, or process-wide::
 
     y = comm.Allreduce(g, MPI_SUM, compression="q8")
     full = comm.Allgather(shard, 0, compression="bf16")

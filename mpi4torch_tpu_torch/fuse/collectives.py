@@ -303,8 +303,9 @@ def _mode_a_allreduce(comm, buckets, layout, op: int, codec, algo, *,
                       explicit: bool, mean: bool, overlap, size: int):
     """The SPMD form of the fused Allreduce.  ``size`` is the rank count
     on a single-axis communicator, 0 on a tier stack (whose buckets are
-    each one Allreduce).  A codec raises in the facade under Mode A
-    (ROADMAP.md Queue 1 item 4.9)."""
+    each one Allreduce).  A compressed bucket is one Allreduce through the
+    facade, which runs the compressed SPMD collective
+    (``compress/spmd.py``)."""
     from ..overlap import overlap_allreduce_tree, overlap_depth
 
     nb = len(buckets)

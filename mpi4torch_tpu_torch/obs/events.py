@@ -105,7 +105,7 @@ _SHAPE_AT = {"Allreduce": 3, "Allreduce.q8hop": 4, "Allreduce.c": 3,
              "Reduce_scatter.bwd": 2,
              "spmd.ppermute": 3, "spmd.all_gather": 3,
              "spmd.all_gather_tiled": 4, "spmd.psum": 4,
-             "spmd.psum_scatter": 5, "spmd.all_to_all": 4,
+             "spmd.psum_scatter": 5, "spmd.all_to_all": 5,
              "spmd.finite_guard": 2}
 _ALGO_AT = {"Allreduce": 2, "Allreduce.q8hop": 2}
 _CODEC_AT = {"Allreduce.q8hop": 1, "Allreduce.c": 1, "Allgather.c": 1,

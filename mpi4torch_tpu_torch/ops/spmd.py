@@ -40,9 +40,9 @@ another op into :class:`~mpi4torch_tpu_torch.runtime.
 CollectiveMismatchError`.
 
 Nothing is compiled: ``run_spmd(jit=True)`` runs eagerly (a compiled
-step is ROADMAP Queue 1 item 4.12).  The codecs (``compress/spmd.py``,
-item 4.9) and the SPMD reshard executor (item 4.10) are not ported; the
-facade raises for them under Mode A.
+step is ROADMAP Queue 1 item 4.12).  The compressed collectives live in
+``compress/spmd.py`` and the SPMD reshard executor in
+``reshard/executor.py``; :class:`SpmdBackend` routes to them.
 """
 
 from __future__ import annotations
@@ -197,6 +197,19 @@ def _current_region() -> Optional[_Region]:
     return getattr(_tls, "region", None)
 
 
+def world_rank() -> "RankExpr":
+    """This rank's position in the whole ``run_spmd`` world (row-major over
+    the mesh axes), symbolic: the row of a :func:`run_spmd` output that
+    this rank produces, since outputs stack over every mesh position.  On
+    a one-axis world it is ``COMM_WORLD.rank``."""
+    region = _current_region()
+    if region is None:
+        raise CommError("world_rank is defined inside a run_spmd region "
+                        "only")
+    names = region.names[0] if len(region.names) == 1 else region.names
+    return RankExpr(names, region.world.size)
+
+
 def current_spmd_context() -> Optional[SpmdContext]:
     """The context of the axis ``COMM_WORLD`` resolves to on this rank
     thread, or None outside a :func:`run_spmd` region."""
@@ -236,6 +249,12 @@ class _Symbolic:
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if func is torch.Tensor.__getitem__ and not kwargs \
+                and isinstance(args[1], RankExpr):
+            # ``x[comm.rank]``: this rank's row, a view, as indexing by
+            # the materialized 0-d tensor gives, without reading the
+            # index back from the device.
+            return args[0][args[1]._concrete()]
         return func(*_materialize_args(args),
                     **_materialize_args(kwargs or {}))
 
@@ -307,6 +326,17 @@ class RankExpr(_Symbolic):
             out = idx + self.offset
             return out % self.size if self.wrapped else out
         return idx
+
+    def _concrete(self) -> int:
+        """The value :meth:`_materialize` holds, for the runtime's own
+        indexing (never handed to a user body as a Python int)."""
+        region = _current_region()
+        if region is None:
+            raise CommError(
+                f"a symbolic rank of axis {self.axis_name!r} was used "
+                "outside its run_spmd region")
+        out = region.ctx(self.axis_name).index + self.offset
+        return out % self.size if self.wrapped else out
 
     def __mul__(self, other):
         return self._materialize() * other
@@ -542,19 +572,25 @@ def _psum_scatter(ctx: SpmdContext, v, op: int, dim: int, groups=None):
         (op, dim, groups and tuple(map(tuple, groups))))
 
 
-def _all_to_all(ctx: SpmdContext, v, split_axis: int, concat_axis: int):
-    """``lax.all_to_all(tiled=True)``: split along ``split_axis``,
-    exchange, concatenate along ``concat_axis``."""
-    n, pos = ctx.size, ctx.index
+def _all_to_all(ctx: SpmdContext, v, split_axis: int, concat_axis: int,
+                groups=None):
+    """``lax.all_to_all(tiled=True)``: split along ``split_axis`` into one
+    piece per group member, exchange within the group
+    (``axis_index_groups``), concatenate along ``concat_axis`` in group
+    order."""
+    members, pos = _members(ctx, groups)
+    n = len(members)
     chunk = v.shape[split_axis] // n
 
     def read(vals):
         if n == 1:
             return v.clone()
         return torch.cat([vals[m].narrow(split_axis, pos * chunk, chunk)
-                          for m in ctx.group], dim=concat_axis)
+                          for m in members], dim=concat_axis)
 
-    return _xchg(ctx, "all_to_all", v, read, (split_axis, concat_axis))
+    return _xchg(ctx, "all_to_all", v, read,
+                 (split_axis, concat_axis,
+                  groups and tuple(map(tuple, groups))))
 
 
 def _mask_to_root(ctx: SpmdContext, x, root: int):
@@ -1599,6 +1635,17 @@ class SpmdBackend:
     def allreduce(self, x, op, algorithm=None, algorithm_explicit=False):
         return allreduce(self._ctx, x, op, algorithm,
                          algorithm_explicit=algorithm_explicit)
+
+    def allreduce_compressed(self, x, op, codec, algorithm=None,
+                             algorithm_explicit=False):
+        from ..compress import spmd as _cspmd
+        return _cspmd.allreduce(self._ctx, x, op, codec,
+                                algorithm=algorithm,
+                                algorithm_explicit=algorithm_explicit)
+
+    def allgather_compressed(self, x, gatheraxis, codec):
+        from ..compress import spmd as _cspmd
+        return _cspmd.allgather(self._ctx, x, gatheraxis, codec)
 
     def bcast_(self, x, root, algorithm=None):
         return bcast_(self._ctx, x, root, algorithm)

@@ -13,8 +13,7 @@ Port of ``mpi4torch_tpu/parallel``:
                  Isend/Irecv/Wait
     zero       — ZeRO-1/3 sharded optimizer steps
 
-``pp.pipeline_spmd`` needs the compiled backend (ROADMAP.md, Queue 1
-item 4) and raises.
+``pp.pipeline_spmd`` is the single-program GPipe under ``run_spmd``.
 """
 
 from . import attention, dp, moe, pp, ring, tp, zero

@@ -27,9 +27,10 @@ rank as a float64 scalar, the total over microbatches ``Bcast_`` from
 the last stage (the other stages cannot know the loss's dtype); on one
 rank it keeps the loss's dtype.
 
-:func:`pipeline_spmd`, the single-program form for a device mesh, needs
-the compiled backend and raises ``NotImplementedError`` (ROADMAP.md,
-Queue 1 item 4).
+:func:`pipeline_spmd` is the single-program GPipe of Mode A
+(:func:`~mpi4torch_tpu_torch.ops.spmd.run_spmd`): one uniform program on
+every rank, rank-dependent behaviour as masked selects on the symbolic
+rank, one ring shift per step.
 """
 
 from __future__ import annotations
@@ -121,14 +122,55 @@ def pipeline_step(comm, apply_stage: Callable[[Any, Any], Any], params,
     return comm.Bcast_(loss, size - 1), grads
 
 
-def pipeline_spmd(comm, apply_stage, stage_params, microbatches, loss_fn):
-    """The single-program GPipe of the JAX package's mesh backend: not
-    ported (raises)."""
-    raise NotImplementedError(
-        "pipeline_spmd: the single-program pipeline under run_spmd is not "
-        "ported yet (ROADMAP.md, Queue 1 item 4.6); on rank "
-        "threads use pipeline_step, pipeline_step_1f1b or "
-        "pipeline_step_interleaved")
+def pipeline_spmd(comm, apply_stage: Callable[[Any, Any], Any],
+                  stage_params, microbatches: List,
+                  loss_fn: Callable[[Any, Any], Any]):
+    """Single-program GPipe under :func:`~mpi4torch_tpu_torch.ops.spmd.
+    run_spmd`: returns the total pipeline loss, the same on every rank.
+
+    The fill-drain schedule of :func:`pipeline_step` as one uniform
+    program: every rank holds its stage's params (``stage_params``, already
+    this rank's, e.g. a stacked ``(size, ...)`` tree indexed by
+    ``comm.rank``), activations advance one hop a step over the
+    differentiable ring (one :func:`~.ring.ring_shift` a step, the only
+    traffic), rank 0 injects the microbatches, and the last rank's masked
+    contributions sum into the loss.  The JAX package's ``lax.scan`` of
+    ``n_mb + size - 1`` steps is a Python loop here, with the same masked
+    selects (``torch.where`` on the symbolic rank): every rank computes
+    its stage once a step, masked lanes included, so each rank keeps
+    ``n_mb + size - 1`` stage passes for autograd.
+
+    ``loss_fn(y, i)`` receives the microbatch index as a 0-d int32
+    tensor, as the JAX package passes a traced i32, so it must use ``i``
+    arithmetically (a weight, a gather), not as a list index.  Gradients
+    need no token plumbing: the ring's adjoint is the reverse ring.  Take
+    them from outside ``run_spmd`` or with ``torch.autograd.grad`` inside
+    the body."""
+    from ..constants import MPI_SUM
+    from .ring import ring_shift
+
+    size = comm.size
+    n_mb = len(microbatches)
+    mbs = torch.stack(list(microbatches))               # (n_mb, ...)
+    dev = mbs.device
+    first = torch.as_tensor(comm.rank == 0, device=dev)
+    last = torch.as_tensor(comm.rank == size - 1, device=dev)
+    x = torch.zeros_like(mbs[0])
+    total = torch.zeros((), dtype=torch.get_default_dtype(), device=dev)
+    for step in range(n_mb + size - 1):
+        x = torch.where(first & (step < n_mb), mbs[min(step, n_mb - 1)], x)
+        y = apply_stage(stage_params, x)
+        mb_idx = step - (size - 1)
+        i = torch.full((), max(mb_idx, 0), dtype=torch.int32, device=dev)
+        total = total + torch.where(last & (mb_idx >= 0), loss_fn(y, i),
+                                    0.0)
+        # The last step's shift carries no live data but keeps the body
+        # uniform: one ring shift a step.
+        x = ring_shift(comm, y, 1, tag=0)
+    if size > 1:
+        # compression=False: the loss total is internal (exact parity).
+        total = comm.Allreduce(total, MPI_SUM, compression=False)
+    return total
 
 
 def _pullback(out, leaves, x, ct):

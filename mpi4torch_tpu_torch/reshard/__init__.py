@@ -15,10 +15,11 @@ steps whose peak live bytes stay ``O(shard + chunk)``; the executor
 (:mod:`.executor`) replays it through the rendezvous; the backward runs
 the reverse plan, so cotangents redistribute spec' -> spec.
 
-Not ported yet: the compiled SPMD executor and the ``python -m
-mpi4torch_tpu.reshard`` sweep (ROADMAP.md, Queue 1 item 4), and the
-StableHLO census (``peak_live_bytes``, ``tensor_bytes``; item 7), which
-raise here.
+Under :func:`~mpi4torch_tpu_torch.ops.spmd.run_spmd` (Mode A) the same
+plans run on the SPMD exchange primitives, bitwise the rank-thread
+replay; ``python -m mpi4torch_tpu_torch.reshard --smoke`` sweeps them.
+Not ported yet: the StableHLO census (``peak_live_bytes``,
+``tensor_bytes``; ROADMAP.md Queue 1 item 7), which raises here.
 """
 
 from .executor import (apply_plan, execute_plan, gather_then_slice,

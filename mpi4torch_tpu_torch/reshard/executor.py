@@ -1,9 +1,10 @@
-"""The reshard executor: a plan replayed on the rank-thread world.
+"""The reshard executor: one plan, two backends, the same bits.
 
-Port of the eager half of ``mpi4torch_tpu/reshard/executor.py``.  Each
-step of a :class:`~.plan.ReshardPlan` runs through the rendezvous
-(``World.exchange``), so reshard traffic is traced by ``obs`` and rides
-the fault grammar of ``resilience`` like every other collective:
+Port of ``mpi4torch_tpu/reshard/executor.py``.  Mode B (the rank-thread
+world of ``run_ranks``) replays each step of a
+:class:`~.plan.ReshardPlan` through the rendezvous (``World.exchange``),
+so reshard traffic is traced by ``obs`` and rides the fault grammar of
+``resilience`` like every other collective:
 
 * move steps (``slice``, ``pad``, ``permute``, ``alltoall``) write the
   chunks they place into one fresh output buffer by slice assignment
@@ -20,19 +21,32 @@ element for element: ``("Reshard.<kind>", step, group_size, shape,
 dtype)`` with the dtype named as JAX names it, so a traced reshard's
 event stream equals the JAX package's.
 
+Mode A (:func:`~mpi4torch_tpu_torch.ops.spmd.run_spmd`) runs the same
+plan as the JAX package's SPMD lowering does: a permute round is one
+``ppermute`` (self-pairs kept local), an exchange step one grouped
+all-to-all, a coarsening or replication step one (grouped) all-gather or
+reduce-scatter, and the local moves read this rank's row of the plan's
+static per-rank tables.  Under ``deterministic_mode`` the reduce-scatter
+is the gather and ordered fold of the JAX package (its bits are then the
+Mode B fold's); outside it, the port's native reduce-scatter, which
+folds in ascending group order too.  The compressed wide hop rides
+``compress/spmd.allgather``.
+
 The facade (:func:`reshard_value`, :func:`reshard_tree`, surfaced as
 ``comm.Reshard``) runs a whole plan inside one
 ``torch.autograd.Function`` whose backward runs
-:meth:`~.plan.ReshardPlan.adjoint`, the reverse plan, on the cotangents.
-The compiled SPMD executor of the JAX package comes with the compiled
-backend (ROADMAP.md, Queue 1 item 4).
+:meth:`~.plan.ReshardPlan.adjoint`, the reverse plan, on the cotangents,
+on either backend.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import config as _config
 from ..compress import eager as _ceager
+from ..constants import MPI_SUM
+from ..ops import spmd as _spmd
 from ..ops.eager import _check_payload
 from ..runtime import CommError, effective_rank_context
 from ..utils.tree import tree_map
@@ -83,13 +97,18 @@ def _esig(st, i, v):
             dtype_name(v.dtype))
 
 
-def _eager_local(rctx, i, st, v, out):
+def _local_moves(st, moves, v, out):
+    """The valid moves of one rank's row of a ``slice``/``pad`` step."""
     accumulate = st.kind == "pad"
-    for valid, src, dst in st.moves[rctx.rank]:
+    for valid, src, dst in moves:
         if valid:
             chunk = _region(v, src, st.src_chunk).reshape(st.dst_chunk)
             _put(out, dst, chunk, accumulate)
     return out
+
+
+def _eager_local(rctx, i, st, v, out):
+    return _local_moves(st, st.moves[rctx.rank], v, out)
 
 
 def _eager_permute(rctx, i, st, v, out):
@@ -171,7 +190,7 @@ _EAGER_EXEC = {
 }
 
 
-def _exec_eager(rctx, plan: ReshardPlan, x, codec=None):
+def _run(plan: ReshardPlan, x, move_fn, transform_fn):
     """Thread the value through the step program: move steps fill a zeros
     output buffer; transform steps map value -> value; a transform after
     a move phase consumes that phase's buffer."""
@@ -187,15 +206,134 @@ def _exec_eager(rctx, plan: ReshardPlan, x, codec=None):
                 if st.kind in _MOVE_KINDS:
                     if out is None:
                         out = x.new_zeros(st.out_shape)
-                    out = _EAGER_EXEC[st.kind](rctx, i, st, v, out)
+                    out = move_fn(i, st, v, out)
                 else:
                     if out is not None:
                         v, out = out, None
-                    if st.kind == "allgather":
-                        v = _eager_allgather(rctx, i, st, v, codec)
-                    else:
-                        v = _EAGER_EXEC[st.kind](rctx, i, st, v)
+                    v = transform_fn(i, st, v)
     return out if out is not None else v
+
+
+def _exec_eager(rctx, plan: ReshardPlan, x, codec=None):
+    def move(i, st, v, out):
+        return _EAGER_EXEC[st.kind](rctx, i, st, v, out)
+
+    def transform(i, st, v):
+        if st.kind == "allgather":
+            return _eager_allgather(rctx, i, st, v, codec)
+        return _EAGER_EXEC[st.kind](rctx, i, st, v)
+
+    return _run(plan, x, move, transform)
+
+
+# ---------------------------------------------------------------------------
+# Mode A: the plan on the SPMD exchange primitives
+# ---------------------------------------------------------------------------
+
+
+def _rank_row(ctx, table):
+    """This rank's row of a static per-rank table of the plan (the JAX
+    package's masked ``where(valid, ...)`` placements then reduce to
+    skipping the moves that are not valid)."""
+    return table[ctx.index]
+
+
+def _spmd_local(ctx, st, v, out):
+    return _local_moves(st, _rank_row(ctx, st.moves), v, out)
+
+
+def _spmd_permute(ctx, st, v, out):
+    sv, ss = _rank_row(ctx, st.send)
+    buf = _region(v, ss, st.chunk) if sv else v.new_zeros(st.chunk)
+    n = len(st.table)
+    pairs = tuple((i, st.table[i]) for i in range(n) if st.table[i] != i)
+    got = buf
+    if pairs:
+        got = _spmd._ppermute(ctx, buf.contiguous(), pairs)
+        if st.table[ctx.index] == ctx.index:
+            # A self-pair is a local hand-off (the permute carries only
+            # the real moves): this rank keeps its own chunk.
+            got = buf
+    rv, rs = _rank_row(ctx, st.recv)
+    if rv:
+        _put(out, rs, got, st.accumulate)
+    return out
+
+
+def _spmd_alltoall(ctx, st, v, out):
+    buf = torch.stack([_region(v, s, st.chunk)
+                       for s in _rank_row(ctx, st.send)])
+    got = _spmd._all_to_all(ctx, buf, 0, 0, groups=st.groups)
+    for t, dst in enumerate(_rank_row(ctx, st.recv)):
+        _put(out, dst, got[t], st.accumulate)
+    return out
+
+
+def _spmd_allgather(ctx, st, v, codec=None):
+    if st.axis is None:
+        if codec is not None:
+            from ..compress import spmd as _cspmd
+
+            return _cspmd.allgather(ctx, v[None], 0, codec)
+        return _spmd._all_gather(ctx, v)
+    return _spmd._all_gather_tiled(ctx, v, st.axis, groups=st.groups)
+
+
+def _group_pos(groups, size):
+    pos = [0] * size
+    for g in groups:
+        for p, r in enumerate(g):
+            pos[r] = p
+    return tuple(pos)
+
+
+def _spmd_reduce_scatter(ctx, st, v):
+    """The replication adjoint.  Under ``deterministic_mode`` the JAX
+    package's ordered form: gather the group's values and fold them left
+    to right in group order, then keep this rank's segment; outside it
+    the native reduce-scatter (whose port folds in the same order)."""
+    det = _config.deterministic_reductions()
+    if st.axis is None:
+        n = ctx.size
+        if det:
+            stacked = _spmd._all_gather(ctx, v)
+            acc = stacked[0]
+            for i in range(1, n):
+                acc = acc + stacked[i]
+            return acc[ctx.index]
+        part = _spmd._psum_scatter(ctx, v.reshape(n, -1), MPI_SUM, 0)
+        return part.reshape(st.out_shape)
+    if det:
+        stacked = _spmd._all_gather(ctx, v, groups=st.groups)
+        acc = stacked[0]
+        for i in range(1, stacked.shape[0]):
+            acc = acc + stacked[i]
+        pos = _rank_row(ctx, _group_pos(st.groups, ctx.size))
+        seg = st.out_shape[st.axis]
+        return acc.narrow(st.axis, pos * seg, seg)
+    return _spmd._psum_scatter(ctx, v, MPI_SUM, st.axis, groups=st.groups)
+
+
+_SPMD_EXEC = {
+    "slice": _spmd_local,
+    "pad": _spmd_local,
+    "permute": _spmd_permute,
+    "alltoall": _spmd_alltoall,
+    "allgather": _spmd_allgather,
+    "reduce_scatter": _spmd_reduce_scatter,
+}
+
+
+def _exec_spmd(ctx, plan: ReshardPlan, x, codec=None):
+    def move(i, st, v, out):
+        return _SPMD_EXEC[st.kind](ctx, st, v, out)
+
+    def transform(i, st, v):
+        if st.kind == "allgather":
+            return _spmd_allgather(ctx, st, v, codec)
+        return _SPMD_EXEC[st.kind](ctx, st, v)
+
+    return _run(plan, x, move, transform)
 
 
 # ---------------------------------------------------------------------------
@@ -203,35 +341,46 @@ def _exec_eager(rctx, plan: ReshardPlan, x, codec=None):
 # ---------------------------------------------------------------------------
 
 
-def _rank_context(comm, plan: ReshardPlan):
+def _bind(comm, plan: ReshardPlan, x):
+    """``(executor, context)`` of ``comm``'s backend for ``plan``, the
+    input checked: the SPMD executor under Mode A, the rendezvous replay
+    on the rank threads.  A tier-stack communicator is refused: the
+    virtual mesh lives in the Layouts."""
     from ..comm import MPI_Communicator
 
     if not isinstance(comm, MPI_Communicator):
         raise CommError(
             "Reshard needs the rank-thread world (COMM_WORLD inside "
-            "run_ranks, or the size-1 world outside it); the SPMD executor "
-            "is not ported yet (ROADMAP.md, Queue 1 item 4.10), and "
-            f"{type(comm).__name__} is neither")
-    rctx = effective_rank_context()
-    if rctx.world.size != plan.size:
+            "run_ranks, or the size-1 world outside it) or a run_spmd "
+            f"communicator; {type(comm).__name__} is neither")
+    backend = comm._spmd()
+    if isinstance(backend, _spmd.TierStackBackend):
+        raise CommError(
+            "Reshard needs a flat communicator (the virtual mesh lives "
+            "in the Layouts); use comm_from_mesh with ONE axis name or "
+            "COMM_WORLD")
+    if isinstance(backend, _spmd.SpmdBackend):
+        ctx, size, run = backend._ctx, backend.size, _exec_spmd
+        _spmd._check_payload(ctx, x, "Reshard")
+    else:
+        ctx = effective_rank_context()
+        size, run = ctx.world.size, _exec_eager
+    if size != plan.size:
         raise CommError(
             f"plan for {plan.transition} spans {plan.size} ranks, but "
-            f"this communicator has {rctx.world.size}")
-    return rctx
-
-
-def _check_input(rctx, x):
-    _check_payload(rctx, x, "Reshard")
-    rctx.world.check_not_consumed(rctx.rank, x)
+            f"this communicator has {size}")
+    if run is _exec_eager:
+        _check_payload(ctx, x, "Reshard")
+        ctx.world.check_not_consumed(ctx.rank, x)
+    return run, ctx
 
 
 def execute_plan(comm, plan: ReshardPlan, x, codec=None):
-    """Run a compiled plan on ``comm`` (no autograd: use
+    """Run a compiled plan on ``comm``'s backend (no autograd: use
     :func:`reshard_value` or :func:`apply_plan` for the differentiable
     form)."""
-    rctx = _rank_context(comm, plan)
-    _check_input(rctx, x)
-    return _exec_eager(rctx, plan, x, codec)
+    run, ctx = _bind(comm, plan, x)
+    return run(ctx, plan, x, codec)
 
 
 class _ApplyPlan(torch.autograd.Function):
@@ -240,16 +389,16 @@ class _ApplyPlan(torch.autograd.Function):
     a transport of the forward only)."""
 
     @staticmethod
-    def forward(fctx, x, rctx, plan, codec):
-        fctx.rctx, fctx.plan = rctx, plan
-        out = _exec_eager(rctx, plan, x, codec)
+    def forward(fctx, x, run, ctx, plan, codec):
+        fctx.run, fctx.ctx, fctx.plan = run, ctx, plan
+        out = run(ctx, plan, x, codec)
         return x.view_as(x) if out is x else out
 
     @staticmethod
     def backward(fctx, g):
         with torch.profiler.record_function("mpi4torch.ReshardBackward"):
-            return (_exec_eager(fctx.rctx, fctx.plan.adjoint(), g, None),
-                    None, None, None)
+            return (fctx.run(fctx.ctx, fctx.plan.adjoint(), g.contiguous(),
+                             None), None, None, None, None)
 
 
 def _resolve_reshard_codec(compression, dtype, plan):
@@ -282,9 +431,8 @@ def _resolve_reshard_codec(compression, dtype, plan):
 
 
 def _apply(comm, plan: ReshardPlan, x, codec):
-    rctx = _rank_context(comm, plan)
-    _check_input(rctx, x)
-    return _ApplyPlan.apply(x, rctx, plan, codec)
+    run, ctx = _bind(comm, plan, x)
+    return _ApplyPlan.apply(x, run, ctx, plan, codec)
 
 
 def apply_plan(comm, plan: ReshardPlan, x, *, differentiable=True):

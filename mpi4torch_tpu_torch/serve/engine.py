@@ -34,12 +34,25 @@ own engine; the decode collectives run through the rendezvous, and every
 rank makes the same host decisions and selects the same tokens.
 ``ServeConfig.overlap`` runs every decode collective as a window of
 split-phase chunks, and ``ServeConfig.algorithm`` names their schedule.
-The compiled SPMD mode (``spmd=True``) is not ported yet: it raises
-``NotImplementedError`` naming the ROADMAP.md item that brings it.
+
+``Engine(..., spmd=True, nranks=n)`` (or ``mesh=``/``axis_name=``) is the
+SPMD engine of Mode A: one engine drives every rank.  The TP shards are
+made once under :func:`~mpi4torch_tpu_torch.ops.spmd.run_spmd` and kept,
+like the KV cache or page pool, as stacked state with one row per rank
+of the world; each prefill, chunk prefill and decode step is one
+``run_spmd`` call whose body takes this rank's row
+(:func:`~mpi4torch_tpu_torch.ops.spmd.world_rank`).  The body keeps the
+JAX package's functional contract: it decodes into a private copy of its
+cache row and returns it, and ``run_spmd`` stacks the rows into the next
+state, so a step copies the cache twice.  Admission, page copies, row
+installs, the past gather and release act on every row of the stacked
+state on the host side.  ``lower_step`` reads a lowered program: not
+ported (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
 
+import math
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -53,6 +66,7 @@ from ..models.transformer import TransformerConfig, select_token
 from ..ops.ragged import block_gather, live_cells, write_cells
 from ..runtime import CommError, resolve_device
 from ..utils import threefry
+from ..utils.tree import tree_map
 from ..utils.profiling import ServeStats, _register_serve_stats
 from . import kv as _kv
 from . import paging as _paging
@@ -219,13 +233,6 @@ class _PrefillJob:
     done: int = 0
 
 
-def _refuse_unported(spmd: bool) -> None:
-    if spmd:
-        raise NotImplementedError(
-            "spmd=True (the SPMD engine) is not ported yet (ROADMAP.md, "
-            "Queue 1 item 4.7)")
-
-
 class Engine:
     """Continuous-batching inference engine over a fixed slot table.
 
@@ -239,7 +246,10 @@ class Engine:
     parameters are moved there.  ``shards`` (a port extension) hands the
     engine this rank's serving shards in :func:`serve.kv.shard_params_tp`'s
     layout, e.g. from :func:`serve.kv.admit_zero3`, in place of sharding
-    full ``params`` (which may then be None)."""
+    full ``params`` (which may then be None).  ``spmd=True`` with
+    ``nranks`` (or ``mesh`` and ``axis_name``) is the SPMD engine (module
+    docstring); it shards ``params`` itself, so ``shards`` is refused
+    there."""
 
     def __init__(self, cfg: TransformerConfig, params,
                  serve_cfg: ServeConfig = None, *, spmd: bool = False,
@@ -248,26 +258,61 @@ class Engine:
                  shards=None):
         self.cfg = cfg
         self.serve_cfg = serve_cfg or ServeConfig()
-        # nranks / mesh / axis_name configure the compiled SPMD mode.
-        _refuse_unported(spmd or any(
-            x is not None for x in (nranks, mesh, axis_name)))
-        self.device = resolve_device(device)
+        self._spmd = bool(spmd)
+        if self._spmd and shards is not None:
+            raise ValueError(
+                "Engine(spmd=True) makes its TP shards from params under "
+                "run_spmd; shards= (one rank's serving shards) is a "
+                "rank-thread extension with no SPMD form — pass params")
         # The deadline clock (monotonic seconds), injectable so tests
         # drive expiry deterministically.  Multi-rank serving must give
         # every rank the same deterministic clock, or the ranks' slot
         # tables (and so their collectives) could diverge.
         self._clock = clock if clock is not None else time.monotonic
         self._comm = COMM_WORLD
-        self._size = self._comm.size
+        self._paged = self.serve_cfg.block_size > 0
+        if self._spmd:
+            from ..ops.spmd import _device_count, _mesh_device, run_spmd
+
+            if mesh is not None:
+                if axis_name is None:
+                    raise ValueError(
+                        "Engine(spmd=True, mesh=...) needs axis_name= — the "
+                        "mesh axis the TP collectives run over (other axes "
+                        "replicate)")
+                self.device = _mesh_device(mesh, device)
+                self._size = int(mesh.shape[axis_name])
+                self._rows_n = math.prod(int(mesh.shape[a])
+                                         for a in mesh.axis_names)
+                kw = {"mesh": mesh, "axis_name": axis_name}
+            else:
+                self.device = resolve_device(device)
+                self._size = int(nranks or _device_count(self.device))
+                self._rows_n = self._size
+                kw = {"nranks": self._size, "device": self.device}
+        else:
+            self.device = resolve_device(device)
+            self._size = self._comm.size
         _kv.validate_tp(cfg, self._size)
-        if shards is None:
+        if self._spmd:
+            full = _to_device(params, self.device)
+            # Shard once: the stacked (rows, ...) shards ride as engine
+            # state, like the cache.
+            self._shards = run_spmd(
+                lambda: _kv.shard_params_tp(cfg, full, COMM_WORLD), **kw)()
+            self._step_call = run_spmd(
+                self._traced_step_paged if self._paged
+                else self._traced_step, **kw)
+            self._prefill_call = run_spmd(self._traced_prefill, **kw)
+            self._chunk_call = run_spmd(self._traced_prefill_chunk, **kw) \
+                if self._paged else None
+        elif shards is None:
             self._shards = _kv.shard_params_tp(
                 cfg, _to_device(params, self.device), self._comm)
         else:
             self._shards = _to_device(shards, self.device)
         compute_dtype = self._shards["embed"].dtype
         self._dtype = self.serve_cfg.cache_dtype or compute_dtype
-        self._paged = self.serve_cfg.block_size > 0
         # Prefix sharing and chunked prefill splice cache-dtype rows into
         # prefill attention: exact only when the cache has the compute
         # dtype.
@@ -304,6 +349,10 @@ class Engine:
             self._mgr = None
             self._table = None
             self._chunk = None
+        if self._spmd:
+            # One row per rank of the world: run_spmd's stacked layout, so
+            # the state round-trips step to step.
+            self._cache = self._stacked(self._cache)
         self._tokens = np.zeros((slots,), np.int64)
         self._pos = np.zeros((slots,), np.int64)
         self._slot_req: List[Optional[Request]] = [None] * slots
@@ -446,6 +495,68 @@ class Engine:
         return select_token(logits, keys, scfg.temperature,
                             scfg.top_k).tolist()
 
+    # --------------------------------------------------------------- SPMD
+
+    @staticmethod
+    def _rank_slice(stacked):
+        """This rank's leaves off a stacked ``(rows, ...)`` state tree:
+        views of the row of :func:`~mpi4torch_tpu_torch.ops.spmd.
+        world_rank`."""
+        from ..ops.spmd import world_rank
+
+        row = world_rank()
+        return tree_map(lambda a: a[row], stacked)
+
+    def _traced_step(self, shards, cache, tokens, pos, active):
+        """Mode A decode step: this rank's shards and cache row off the
+        stacked state, the decode into a private copy of the row (the body
+        must not write its inputs), and ``(logits, cache row)``, which
+        ``run_spmd`` stacks into the next state."""
+        own = tree_map(torch.clone, self._rank_slice(cache))
+        return _kv.decode_step_tp(
+            self.cfg, self._rank_slice(shards), own, tokens, pos,
+            COMM_WORLD, overlap=self.serve_cfg.overlap,
+            algorithm=self.serve_cfg.algorithm, active=active)
+
+    def _traced_prefill(self, shards, prompt):
+        """Mode A prefill of one prompt: a full ``max_seq`` row (dense) or
+        an exact-length one (paged), filled by ``prefill_tp``."""
+        rows = self._rows(prompt.shape[1]) if self._paged else \
+            _kv.init_kv_cache_tp(self.cfg, 1, self._size, self._dtype,
+                                 prompt.device)
+        return _kv.prefill_tp(self.cfg, self._rank_slice(shards), rows,
+                              prompt, COMM_WORLD)
+
+    def _traced_step_paged(self, shards, pool, table, tokens, pos, active):
+        """Mode A paged decode step: shards and pool stacked per rank, the
+        host's block table, positions and live mask passed as host arrays
+        (the step picks its write cells on the host)."""
+        own = tree_map(torch.clone, self._rank_slice(pool))
+        return _kv.decode_step_paged(
+            self.cfg, self._rank_slice(shards), own, table, tokens, pos,
+            COMM_WORLD, overlap=self.serve_cfg.overlap,
+            algorithm=self.serve_cfg.algorithm, active=active)
+
+    def _traced_prefill_chunk(self, shards, past, chunk):
+        """Mode A chunk or suffix prefill against the stacked exact-length
+        prefix rows gathered from the pool."""
+        return _kv.prefill_chunk_tp(self.cfg, self._rank_slice(shards),
+                                    self._rank_slice(past), chunk,
+                                    COMM_WORLD)
+
+    def _stacked(self, tree):
+        """``tree`` repeated on a new leading axis, one row per rank."""
+        return tree_map(lambda a: a.unsqueeze(0).expand(
+            (self._rows_n,) + tuple(a.shape)).contiguous(), tree)
+
+    def lower_step(self):
+        """The JAX package's lowered decode-step program (its StableHLO
+        census surface): the port has no lowered-program reader yet."""
+        raise NotImplementedError(
+            "Engine.lower_step: the decode-step census reads a lowered "
+            "StableHLO program, which the port has no reader for yet "
+            "(ROADMAP.md, Queue 1 item 7)")
+
     # ---------------------------------------------------------- lifecycle
 
     def _admit(self, events: dict) -> None:
@@ -464,10 +575,14 @@ class Engine:
             self._queue.remove(req)
             prompt = torch.as_tensor(req.prompt, dtype=torch.int64,
                                      device=self.device)[None, :]
-            rows = _kv.init_kv_cache_tp(self.cfg, 1, self._size,
-                                        self._dtype, self.device)
-            logits, rows = _kv.prefill_tp(self.cfg, self._shards, rows,
-                                          prompt, self._comm)
+            if self._spmd:
+                logits, rows = self._prefill_call(self._shards, prompt)
+                logits = logits[0]
+            else:
+                rows = _kv.init_kv_cache_tp(self.cfg, 1, self._size,
+                                            self._dtype, self.device)
+                logits, rows = _kv.prefill_tp(self.cfg, self._shards, rows,
+                                              prompt, self._comm)
             self.stats.mark(req.rid, "admitted")
             self.stats.count("admitted")
             tok = self._select([req], logits)[0]
@@ -484,8 +599,11 @@ class Engine:
             j = self._free_slots()[0]
             self.slot_log.append((req.rid, j))
             for c, r in zip(self._cache, rows):
-                c["k"][j].copy_(r["k"][0])
-                c["v"][j].copy_(r["v"][0])
+                for name in ("k", "v"):
+                    if self._spmd:
+                        c[name][:, j].copy_(r[name][:, 0])
+                    else:
+                        c[name][j].copy_(r[name][0])
             self._slot_req[j] = req
             self._tokens[j] = tok
             self._pos[j] = int(req.prompt.size)
@@ -508,8 +626,11 @@ class Engine:
         partly shared tail page is duplicated before a new suffix lands
         in it)."""
         for c in self._cache:
-            c["k"][dst].copy_(c["k"][src])
-            c["v"][dst].copy_(c["v"][src])
+            for name in ("k", "v"):
+                if self._spmd:
+                    c[name][:, dst].copy_(c[name][:, src])
+                else:
+                    c[name][dst].copy_(c[name][src])
         self.stats.count("cow_copies")
 
     def _install_rows(self, j: int, rows, lo: int, hi: int) -> None:
@@ -520,22 +641,35 @@ class Engine:
         targets are private pages by the copy-on-write rule."""
         bs = self.serve_cfg.block_size
         at = np.arange(lo, hi)
+        pool0 = self._cache[0]["k"]
         cells = live_cells(self._table[j, at // bs], at % bs,
-                           self._cache[0]["k"])
+                           pool0[0] if self._spmd else pool0)
         for c, r in zip(self._cache, rows):
             for name in ("k", "v"):
-                write_cells(c[name], cells, r[name][0, :hi - lo])
+                if self._spmd:
+                    for w in range(self._rows_n):
+                        write_cells(c[name][w], cells,
+                                    r[name][w, 0, :hi - lo])
+                else:
+                    write_cells(c[name], cells, r[name][0, :hi - lo])
 
     def _gather_past(self, j: int, n: int):
         """Exact-length past K/V (positions ``0..n-1``) of slot ``j``, the
         input of a suffix or chunk prefill: one gather per layer and leaf
         of the pages the host's table names."""
         if n == 0:
-            return self._rows(0)
+            return self._stacked(self._rows(0)) if self._spmd \
+                else self._rows(0)
         nblk = -(-n // self.serve_cfg.block_size)
         ids = torch.as_tensor(self._table[j:j + 1, :nblk], device=self.device)
-        return [{"k": block_gather(c["k"], ids)[:, :n],
-                 "v": block_gather(c["v"], ids)[:, :n]} for c in self._cache]
+
+        def take(pool):
+            if self._spmd:
+                return torch.stack([block_gather(p, ids)[:, :n]
+                                    for p in pool.unbind(0)])
+            return block_gather(pool, ids)[:, :n]
+
+        return [{"k": take(c["k"]), "v": take(c["v"])} for c in self._cache]
 
     def _admit_paged(self, req: Request, events: dict) -> bool:
         """Paged admission: match the prompt against the prefix index,
@@ -582,8 +716,13 @@ class Engine:
             # of the dense engine and of generate().
             pj = torch.as_tensor(prompt, dtype=torch.int64,
                                  device=self.device)[None, :]
-            logits, rows = _kv.prefill_tp(self.cfg, self._shards,
-                                          self._rows(p_len), pj, self._comm)
+            if self._spmd:
+                logits, rows = self._prefill_call(self._shards, pj)
+                logits = logits[0]
+            else:
+                logits, rows = _kv.prefill_tp(self.cfg, self._shards,
+                                              self._rows(p_len), pj,
+                                              self._comm)
             self._install_rows(j, rows, 0, p_len)
             self.stats.count("prefill_tokens", p_len)
             job.done = p_len
@@ -607,8 +746,12 @@ class Engine:
         past = self._gather_past(j, job.done)
         chunk = torch.as_tensor(job.seq[job.done:job.done + c_len],
                                 dtype=torch.int64, device=self.device)[None]
-        logits, rows = _kv.prefill_chunk_tp(self.cfg, self._shards, past,
-                                            chunk, self._comm)
+        if self._spmd:
+            logits, rows = self._chunk_call(self._shards, past, chunk)
+            logits = logits[0]
+        else:
+            logits, rows = _kv.prefill_chunk_tp(self.cfg, self._shards, past,
+                                                chunk, self._comm)
         self._install_rows(j, rows, job.done, job.done + c_len)
         self.stats.count("prefill_tokens", c_len)
         job.done += c_len
@@ -760,8 +903,9 @@ class Engine:
         if not self._paged and self._dtype.is_floating_point:
             for c in self._cache:
                 for j in idxs:
-                    c["k"][j].fill_(float("nan"))
-                    c["v"][j].fill_(float("nan"))
+                    for name in ("k", "v"):
+                        (c[name][:, j] if self._spmd
+                         else c[name][j]).fill_(float("nan"))
 
     def _evict(self, j: int, status: str = STATUS_OK) -> None:
         req = self._slot_req[j]
@@ -808,7 +952,17 @@ class Engine:
         live = np.zeros((self.serve_cfg.slots,), bool)
         live[active] = True
         tokens = torch.as_tensor(self._tokens, device=self.device)
-        if self._paged:
+        if self._spmd:
+            if self._paged:
+                logits, self._cache = self._step_call(
+                    self._shards, self._cache, self._table, tokens,
+                    self._pos, live)
+            else:
+                logits, self._cache = self._step_call(
+                    self._shards, self._cache, tokens,
+                    torch.as_tensor(self._pos), torch.as_tensor(live))
+            logits = logits[0]
+        elif self._paged:
             logits, self._cache = _kv.decode_step_paged(
                 self.cfg, self._shards, self._cache, self._table, tokens,
                 self._pos, self._comm, overlap=self.serve_cfg.overlap,

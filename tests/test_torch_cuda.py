@@ -1798,3 +1798,102 @@ def test_variable_token_exchange_example_on_the_card(cuda):
     cpu = vte.run(8, device="cpu")
     for a, b in zip(card, cpu):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["q8", "q8_ef", "q8_ef_hop"])
+@pytest.mark.parametrize("algo", ["ring", "bidir", "torus"])
+def test_mode_a_compressed_k1_bitwise_plain(cuda, codec, algo):
+    # The compressed Allreduce under run_spmd on the card: every rank runs
+    # its own hops on K1, whose output is bitwise its plain version
+    # (config.set_quant_hop_impl("torch") on the same card) and the CPU
+    # run, values and gradients; K1's launches are the schedule's.
+    import mpi4torch_tpu_torch as P
+
+    n = 4
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (n, 5000)).astype(np.float32))
+
+    def op(c, t):
+        return c.Allreduce(t, P.MPI_SUM, compression=codec, algorithm=algo)
+
+    _kernels.reset_launch_counts()
+    got = _mode_a_run(P, op, n, x, cuda, 0)
+    hops = _kernels.launch_counts["q8_hop"]
+    enc = _kernels.launch_counts["q8_requant"]
+    P.config.set_quant_hop_impl("torch")
+    try:
+        plain = _mode_a_run(P, op, n, x, cuda, 0)
+    finally:
+        P.config.set_quant_hop_impl("auto")
+    cpu = _mode_a_run(P, op, n, x, "cpu", 0)
+    for a, b, c in zip(got, plain, cpu):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+    # Forward and backward; per channel and round n first encodes and
+    # n (n - 1) hops.
+    chans = 1 if algo == "ring" else 2
+    rounds = 2 if codec == "q8_ef" else 1
+    assert (hops, enc) == (2 * chans * rounds * n * (n - 1),
+                           2 * chans * rounds * n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["q8", "bf16"])
+def test_mode_a_compressed_allgather_and_reshard_on_the_card(cuda, codec):
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch import reshard as rs
+
+    n = 8
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (n, 96)).astype(np.float32))
+
+    def op(c, t):
+        return c.Allgather(t, 0, compression=codec)
+
+    _kernels.reset_launch_counts()
+    got = _mode_a_run(P, op, n, x, cuda, 1)
+    if codec == "q8":
+        # One encode a rank forward; the backward's ring encodes n - 1
+        # hops a rank.
+        assert _kernels.launch_counts["q8_requant"] == n * n
+    want = _mode_a_run(P, op, n, x, "cpu", 1)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    # The SPMD reshard's compressed wide hop on the card: bitwise the CPU.
+    fl, tl = rs.layout((8,), 0, None), rs.layout((2, 4), 0, 1)
+    full = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (32, 8)).astype(np.float32))
+    shards = torch.stack([rs.slice_shard(full, fl, r) for r in range(n)])
+    outs = [P.run_spmd(lambda v: P.COMM_WORLD.Reshard(
+        v[P.COMM_WORLD.rank], fl, tl, strategy="gather", compression=codec),
+        nranks=n, device=dev)(shards.to(dev)).cpu()
+        for dev in (cuda, "cpu")]
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_spmd_engine_k2_launches_tc(cuda):
+    # Engine(spmd=True) on two ranks of run_spmd on the card: the tokens
+    # of the rank-thread engine, and every K2 launch (prefill, one per
+    # layer and rank) the tensor-core variant.
+    import mpi4torch_tpu_torch as P
+
+    cfg = T.TransformerConfig(vocab=512, d_model=256, n_heads=4,
+                              n_layers=2, d_ff=512, max_seq=256)
+    params = T.init_transformer(0, cfg, torch.bfloat16, device=cuda)
+    prompts = [np.arange(1, 40) % 500, np.arange(7, 100) % 500]
+    scfg = serve.ServeConfig(slots=2, max_new=6)
+
+    def drive(eng):
+        for p in prompts:
+            eng.submit(p)
+        return {k: v.tolist() for k, v in eng.run().items()}
+
+    _kernels.reset_launch_counts()
+    got = drive(serve.Engine(cfg, params, scfg, spmd=True, nranks=2))
+    assert _kernels.launch_counts["flash_fwd.tc"] == \
+        len(prompts) * cfg.n_layers * 2
+    assert _kernels.launch_counts["flash_fwd.simt"] == 0
+    want = P.run_ranks(lambda: drive(serve.Engine(cfg, params, scfg)), 2)
+    assert got == want[0]

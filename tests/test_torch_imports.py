@@ -70,7 +70,9 @@ def test_port_has_modules():
                 "transport/wire.py", "transport/_ship.py",
                 "transport/pool.py", "transport/_worker.py",
                 "transport/process.py", "ops/spmd.py",
-                "examples/variable_token_exchange.py"):
+                "examples/variable_token_exchange.py",
+                "compress/spmd.py", "compress/__main__.py",
+                "reshard/__main__.py"):
         assert f"mpi4torch_tpu_torch/{rel}" in names
     for src in ("flash_fwd.cu", "flash_fwd_tc.cu", "flash_bwd.cu",
                 "flash_bwd_tc.cu", "quant_hop.cu"):

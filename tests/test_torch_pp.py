@@ -252,8 +252,22 @@ def test_missing_recv_like_and_pipeline_spmd_raise():
         return True
 
     assert all(P.run_ranks(body, 2, device="cpu", timeout=LIMIT))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ppar.pipeline_spmd(P.COMM_WORLD, t_apply, {}, [], loss_fn)
+    # pipeline_spmd is ported (ROADMAP.md Queue 1 item 4.6): on two ranks
+    # under run_spmd it gives the sequential composition's loss on every
+    # rank, and needs no recv_like.
+    stages, mbs = make_stages(2, 2, seed=5)
+    stacked = {k: torch.from_numpy(np.stack([s_[k] for s_ in stages]))
+               for k in ("w", "b")}
+    out = P.run_spmd(lambda st: ppar.pipeline_spmd(
+        P.COMM_WORLD, t_apply, {k: v[P.COMM_WORLD.rank]
+                                for k, v in st.items()},
+        [torch.from_numpy(m) for m in mbs], loss_fn), nranks=2,
+        device="cpu")(stacked)
+    want = sum(loss_fn(t_apply(_t(stages[1]), t_apply(_t(stages[0]),
+                                                       torch.from_numpy(m))),
+                       i) for i, m in enumerate(mbs))
+    assert torch.equal(out[0], out[1])
+    assert torch.allclose(out[0], want, rtol=1e-12, atol=0)
 
 
 def test_gpipe_training_converges_and_ranks_agree():
@@ -274,3 +288,98 @@ def test_gpipe_training_converges_and_ranks_agree():
     outs = P.run_ranks(body, n, device="cpu", timeout=LIMIT)
     assert all(o == outs[0] for o in outs)
     assert outs[0][-1] < outs[0][0]
+
+
+class TestPipelineSPMD:
+    """``pipeline_spmd`` under ``run_spmd`` against the JAX package's
+    ``pipeline_spmd`` under its ``run_spmd`` and against the sequential
+    composition (f64, the same numpy stages): the loss within 1e-12 and
+    the stacked stage gradients within 1e-9 relative, 1e-12 absolute
+    (the JAX test's tolerances); the loss bitwise the same on every
+    rank."""
+
+    @pytest.mark.parametrize("n,n_mb", [(4, 3), (8, 5)])
+    def test_spmd_pipeline_matches_sequential(self, n, n_mb):
+        stages, mbs = make_stages(n, n_mb, seed=21 + n)
+        stacked = {k: np.stack([s_[k] for s_ in stages]) for k in ("w", "b")}
+
+        def total_seq(st):
+            tot = 0.0
+            for i, mb in enumerate(mbs):
+                x = jnp.asarray(mb)
+                for r in range(n):
+                    x = j_apply({k: v[r] for k, v in st.items()}, x)
+                tot = tot + loss_fn(x, i)
+            return tot
+
+        jst = {k: jnp.asarray(v) for k, v in stacked.items()}
+        val_d = float(total_seq(jst))
+        g_d = _np(jax.grad(total_seq)(jst))
+
+        def jfn(st):
+            local = {k: v[jnp.asarray(mpi.COMM_WORLD.rank + 0)]
+                     for k, v in st.items()}
+            return jpar.pipeline_spmd(mpi.COMM_WORLD, j_apply, local,
+                                      [jnp.asarray(m) for m in mbs],
+                                      loss_fn)
+
+        jout = np.asarray(mpi.run_spmd(jfn, nranks=n)(jst))
+        jg = _np(jax.grad(lambda st: mpi.run_spmd(jfn, nranks=n)(st).sum())(
+            jst))
+
+        def pfn(st):
+            local = {k: v[P.COMM_WORLD.rank] for k, v in st.items()}
+            return ppar.pipeline_spmd(P.COMM_WORLD, t_apply, local,
+                                      [torch.from_numpy(m) for m in mbs],
+                                      loss_fn)
+
+        pst = {k: torch.from_numpy(v).requires_grad_()
+               for k, v in stacked.items()}
+        out = P.run_spmd(pfn, nranks=n, device="cpu")(pst)
+        pg = torch.autograd.grad(out.sum(), [pst["w"], pst["b"]])
+        pout = out.detach().numpy()
+        for r in range(n):
+            assert pout[r] == pout[0]
+        np.testing.assert_allclose(pout, jout, rtol=1e-12, atol=0)
+        np.testing.assert_allclose(pout[0], val_d, rtol=1e-12, atol=0)
+        for k, g in zip(("w", "b"), pg):
+            # out stacks n identical losses; summing scales grads by n.
+            np.testing.assert_allclose(g.numpy(), jg[k], rtol=1e-9,
+                                       atol=1e-12, err_msg=k)
+            np.testing.assert_allclose(g.numpy(), n * g_d[k], rtol=1e-9,
+                                       atol=1e-12, err_msg=k)
+
+    def test_gradient_inside_the_body(self):
+        # torch.autograd.grad inside the body: each rank gets its own
+        # stage's gradient, the rows of the stacked gradient from outside.
+        n, n_mb = 4, 3
+        stages, mbs = make_stages(n, n_mb, seed=77)
+        stacked = {k: torch.from_numpy(np.stack([s_[k] for s_ in stages]))
+                   for k in ("w", "b")}
+
+        def inner(st):
+            local = {k: v[P.COMM_WORLD.rank].clone().requires_grad_()
+                     for k, v in st.items()}
+            loss = ppar.pipeline_spmd(P.COMM_WORLD, t_apply, local,
+                                      [torch.from_numpy(m) for m in mbs],
+                                      loss_fn)
+            gw, gb = torch.autograd.grad(loss, [local["w"], local["b"]])
+            return loss.detach(), gw, gb
+
+        loss, gw, gb = P.run_spmd(inner, nranks=n, device="cpu")(stacked)
+        pst = {k: v.clone().requires_grad_() for k, v in stacked.items()}
+
+        def outer(st):
+            local = {k: v[P.COMM_WORLD.rank] for k, v in st.items()}
+            return ppar.pipeline_spmd(P.COMM_WORLD, t_apply, local,
+                                      [torch.from_numpy(m) for m in mbs],
+                                      loss_fn)
+
+        out = P.run_spmd(outer, nranks=n, device="cpu")(pst)
+        # Inside, the loss Allreduce's adjoint sums every rank's unit
+        # cotangent; outside, the stacked sum seeds each rank with one:
+        # both give n times the stage gradient.
+        ow, ob = torch.autograd.grad(out.sum(), [pst["w"], pst["b"]])
+        assert torch.equal(loss, out.detach())
+        torch.testing.assert_close(gw, ow, rtol=1e-12, atol=1e-14)
+        torch.testing.assert_close(gb, ob, rtol=1e-12, atol=1e-14)

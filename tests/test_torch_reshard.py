@@ -562,6 +562,146 @@ def test_compressed_wide_hop_bitwise_jax(codec):
         np.testing.assert_array_equal(got[r][1], exact[r][1])
 
 
+# ------------------------------------------------------- Mode A (run_spmd)
+
+def _stack(fl, src=FULL):
+    return np.stack([np_shard(fl, r, src) for r in range(NR)])
+
+
+def _jax_spmd(fl, tl, w, strategy=None, det=False, codec=None, src=FULL):
+    """The JAX package's Mode A: each rank reads its own row of the stacked
+    shards and takes the cotangent of ``vdot(out, w[rank])`` inside the
+    body (its Reshard's backward resolves the communicator when it is
+    traced, which a VJP from outside ``run_spmd`` does out of the region);
+    the stacked outputs and cotangents."""
+    def body(xs, ws):
+        c = jmpi.COMM_WORLD
+        r = jnp.asarray(c.rank + 0)
+        x = jax.lax.dynamic_index_in_dim(xs, r, 0, keepdims=False)
+        wr = jax.lax.dynamic_index_in_dim(ws, r, 0, keepdims=False)
+        y, vjp = jax.vjp(lambda v: c.Reshard(
+            v, lay(jrs, fl), lay(jrs, tl), strategy=strategy,
+            compression=codec), x)
+        return y, vjp(wr)[0]
+
+    with jmpi.config.deterministic_mode(det):
+        out, g = jmpi.run_spmd(body, nranks=NR)(
+            jnp.asarray(_stack(fl, src)), jnp.asarray(w))
+    return np.asarray(out), np.asarray(g)
+
+
+def _port_spmd(fl, tl, w, strategy=None, det=False, codec=None, src=FULL):
+    def body(xs):
+        c = mpi.COMM_WORLD
+        return c.Reshard(xs[c.rank], lay(rs, fl), lay(rs, tl),
+                         strategy=strategy, compression=codec)
+
+    xs = torch.from_numpy(_stack(fl, src)).requires_grad_()
+    with config.deterministic_mode(det):
+        out = mpi.run_spmd(body, nranks=NR, device="cpu")(xs)
+        (g,) = torch.autograd.grad(out, xs, torch.from_numpy(w))
+    return out.detach().numpy(), g.numpy()
+
+
+class TestSpmdParity:
+    """The SPMD executor (``run_spmd``) on 8 rank threads: every transition
+    of ``CASES``, auto and ``gather``, values equal to the numpy reference
+    and BITWISE the JAX package's Mode A and the port's Mode B, cotangents
+    (from outside ``run_spmd``) bitwise the port's Mode B and, under
+    ``deterministic_mode``, bitwise the JAX package's Mode A.  Outside it
+    XLA's native reduce-scatter folds a replication adjoint in its own
+    order: within 1e-13 (f64) there."""
+
+    @pytest.mark.parametrize("strategy,det", [(None, True), (None, False),
+                                              ("gather", True)])
+    @pytest.mark.parametrize("case", CASES, ids=IDS)
+    def test_transition_and_vjp_bitwise(self, case, strategy, det):
+        _, fl, tl, _ = case
+        w = weights(tl, 3)
+        po, pg = _port_spmd(fl, tl, w, strategy, det)
+        jo, jg = _jax_spmd(fl, tl, w, strategy, det)
+        b = _port_move(fl, tl, w, strategy, det)
+        np.testing.assert_array_equal(po, jo)
+        if det:
+            np.testing.assert_array_equal(pg, jg)
+        else:
+            np.testing.assert_allclose(pg, jg, rtol=1e-13, atol=1e-13)
+        for r in range(NR):
+            np.testing.assert_array_equal(po[r], np_shard(tl, r))
+            np.testing.assert_array_equal(po[r], b[r][0])
+            np.testing.assert_array_equal(pg[r], b[r][1])
+
+    def test_rounds_strategy(self):
+        w = weights(L24, 4)
+        po, pg = _port_spmd(L8, L24, w, "rounds", det=True)
+        jo, jg = _jax_spmd(L8, L24, w, "rounds", det=True)
+        np.testing.assert_array_equal(po, jo)
+        np.testing.assert_array_equal(pg, jg)
+
+    @pytest.mark.parametrize("codec", ["q8", "bf16"])
+    def test_compressed_wide_hop(self, codec):
+        # The gather hop rides compress/spmd.allgather: bitwise the JAX
+        # package's Mode A and the port's Mode B; the backward is exact.
+        src = FULL.astype(np.float32)
+        w = weights(L24, 9).astype(np.float32)
+        po, pg = _port_spmd(L8, L24, w, "gather", codec=codec, src=src)
+        jo, jg = _jax_spmd(L8, L24, w, "gather", codec=codec, src=src)
+        np.testing.assert_array_equal(po, jo)
+        np.testing.assert_array_equal(pg, jg)
+
+        def pbody(rank):
+            c = mpi.COMM_WORLD
+            x = torch.from_numpy(np_shard(L8, rank, src).copy())
+            return c.Reshard(x, lay(rs, L8), lay(rs, L24), strategy="gather",
+                             compression=codec).numpy()
+
+        eager = mpi.run_ranks(pbody, NR, device="cpu")
+        _, exact = _port_spmd(L8, L24, w.astype(np.float64))
+        for r in range(NR):
+            np.testing.assert_array_equal(po[r], eager[r])
+            assert not np.array_equal(po[r], np_shard(L24, r, src))
+        np.testing.assert_array_equal(pg, exact.astype(np.float32))
+
+    def test_tree_specs_and_mesh_communicator(self):
+        # A tree of layouts, on a single-axis mesh communicator.
+        mesh = mpi.device_mesh({"w": NR}, devices=["cpu"] * NR)
+        wc = mpi.comm_from_mesh(mesh, "w")
+        fl, tl = lay(rs, L8), lay(rs, L24)
+
+        def body(xs):
+            x = xs[wc.rank]
+            out = wc.Reshard({"a": x, "b": [x * 2.0]}, fl,
+                             {"a": tl, "b": [fl]})
+            return out["a"], out["b"][0]
+
+        a, b = mpi.run_spmd(body, mesh=mesh, axis_name="w")(
+            torch.from_numpy(_stack(L8)))
+        for r in range(NR):
+            np.testing.assert_array_equal(a[r].numpy(), np_shard(L24, r))
+            np.testing.assert_array_equal(b[r].numpy(), 2.0 * np_shard(L8, r))
+
+    def test_tier_stack_and_size_refused(self):
+        mesh = mpi.device_mesh({"dp": 2, "tp": 4}, devices=["cpu"] * 8)
+        hc = mpi.comm_from_mesh(mesh, ("dp", "tp"))
+        with pytest.raises(CommError, match="flat communicator"):
+            mpi.run_spmd(lambda x: hc.Reshard(x, lay(rs, L8), lay(rs, L24)),
+                         mesh=mesh, axis_name="dp")(torch.zeros(2, 8))
+        with pytest.raises(CommError, match="spans 8 ranks"):
+            mpi.run_spmd(lambda x: mpi.COMM_WORLD.Reshard(
+                x, lay(rs, L8), lay(rs, L24)), nranks=4, device="cpu")(
+                    torch.zeros(2, 8))
+
+
+def test_cli_smoke_exits_zero(capsys):
+    from mpi4torch_tpu_torch.reshard.__main__ import main, registry_problems
+
+    assert registry_problems() == []
+    assert main(["--smoke", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("bitwise=ok") == 11 and "reshard-smoke: OK" in out
+    assert "item 7" in out
+
+
 # --------------------------------------------------- faults and tracing
 
 def _migrate(rank):

@@ -189,15 +189,21 @@ def _sampled_oracle(jcfg, jparams, eos, temperature, top_k, seed0):
     dict(spmd=True),
 ])
 def test_unported_engine_options_raise(weights, kw):
-    # Only the SPMD engine still raises.  Sampling (each request with its
-    # own key), paging, the overlap window and the decode schedule are
-    # ported: on two ranks their engines emit the JAX generate() tokens
-    # of every request, as the blocking ring's dense greedy engine does.
+    # Every option is ported now.  Sampling (each request with its own
+    # key), paging, the overlap window and the decode schedule on two rank
+    # threads, and the SPMD engine (spmd=True, ROADMAP.md Queue 1 item
+    # 4.7) on two ranks of run_spmd, emit the JAX generate() tokens of
+    # every request, as the blocking ring's dense greedy engine does; only
+    # the SPMD engine's lowered-program census still raises (item 7).
     jcfg, jparams, pcfg, pparams, eos, oracle = weights
     scfg = kw.get("serve_cfg")
     if scfg is None:
+        eng = pserve.Engine(pcfg, pparams,
+                            pserve.ServeConfig(slots=2, max_new=8, eos=eos),
+                            nranks=2, device="cpu", **kw)
+        assert _drive(eng)[0] == oracle
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            pserve.Engine(pcfg, pparams, device="cpu", **kw)
+            eng.lower_step()
         return
     scfg = dataclasses.replace(scfg, slots=2, max_new=8, eos=eos)
     keys = None

@@ -1052,22 +1052,32 @@ class TestModeAContract:
             [0, 0, 1, 0]
 
     def test_codec_raises_naming_its_item(self):
+        # Ported (ROADMAP.md Queue 1 item 4.9): a codec under Mode A runs
+        # the compressed SPMD collectives, explicit or from the scope, for
+        # the fused path as well; an integer payload has no codec.
+        x = torch.from_numpy(_data(2, 600, seed=3).astype(np.float32))
+        mode_b = P.run_ranks(lambda r: pcomm.Allreduce(
+            x[r].clone(), P.MPI_SUM, compression="q8"), 2, device="cpu")
         for kw in (dict(compression="q8"), dict(compression="bf16")):
-            with pytest.raises(NotImplementedError, match="item 4.9"):
-                run(lambda x: pcomm.Allreduce(x, P.MPI_SUM, **kw), 2)(
-                    torch.ones(4))
-        with pytest.raises(NotImplementedError, match="item 4.9"):
-            run(lambda x: pcomm.Allgather(x, 0, compression="q8"), 2)(
-                torch.ones(4))
-        # A scope codec raises too (an exact transfer must not stand in),
-        # for the fused path as well; an integer payload has no codec.
+            out = run(lambda v: pcomm.Allreduce(v[pcomm.rank], P.MPI_SUM,
+                                                **kw), 2)(x)
+            assert torch.equal(out[0], out[1])
+            assert not torch.equal(out[0], x.sum(0))
+        assert torch.equal(out[0], run(lambda v: pcomm.Allreduce(
+            v[pcomm.rank], P.MPI_SUM, compression="bf16"), 2)(x)[1])
+        q8 = run(lambda v: pcomm.Allreduce(v[pcomm.rank], P.MPI_SUM,
+                                           compression="q8"), 2)(x)
+        assert torch.equal(q8[0], mode_b[0])
+        gathered = run(lambda v: pcomm.Allgather(v, 0, compression="q8"),
+                       2)(x[0])
+        assert gathered.shape == (2, 1200)
         with P.config.compression_scope("q8"):
-            with pytest.raises(NotImplementedError, match="item 4.9"):
-                run(lambda x: pcomm.Allreduce(x, P.MPI_SUM), 2)(
-                    torch.ones(4))
-            with pytest.raises(NotImplementedError, match="item 4.9"):
-                run(lambda x: pcomm.Allreduce_tree({"a": x}, P.MPI_SUM), 2)(
-                    torch.ones(4))
+            assert torch.equal(run(lambda v: pcomm.Allreduce(
+                v[pcomm.rank], P.MPI_SUM), 2)(x), q8)
+            tree = run(lambda v: pcomm.Allreduce_tree(
+                {"a": v[pcomm.rank]}, P.MPI_SUM)["a"], 2)(x)
+            assert torch.equal(tree[0], tree[1])
+            assert not torch.equal(tree[0], x.sum(0))
             ints = run(lambda x: pcomm.Allreduce(x, P.MPI_SUM), 2)(
                 torch.ones(4, dtype=torch.int32))
             assert (_np(ints) == 2).all()
@@ -1080,10 +1090,14 @@ class TestModeAContract:
     def test_reshard_and_health_refused(self):
         from mpi4torch_tpu_torch import reshard
 
+        # Reshard under Mode A is ported (ROADMAP.md Queue 1 item 4.10):
+        # the SPMD executor replicates the two shards on every rank.
         lay = reshard.layout((2,), 0)
-        with pytest.raises(NotImplementedError, match="item 4.10"):
-            run(lambda x: pcomm.Reshard(x, lay, reshard.layout((2,), None)),
-                2)(torch.ones(4))
+        x = torch.arange(8.0).reshape(2, 4)
+        out = run(lambda v: pcomm.Reshard(v[pcomm.rank], lay,
+                                          reshard.layout((2,), None)), 2)(x)
+        assert torch.equal(out[0], x.reshape(-1))
+        assert torch.equal(out[1], x.reshape(-1))
         with pytest.raises(P.CommError, match="host-level"):
             run(lambda x: pcomm.check_health(), 2)(torch.ones(1))
 
