@@ -348,18 +348,45 @@ check fails.  Phases, in order:
 59. Mode A's users, E: ``python -m mpi4torch_tpu_torch.compress --smoke``
     and ``python -m mpi4torch_tpu_torch.reshard --smoke`` as subprocesses
     on the card; both exit 0;
-60. one JSON line describing each ported kernel (K2, K3 and K4 with
+60. the schedule IR (``csched``) on the card, at phase 49's sizes: every
+    Mode A ``Allreduce`` (each algorithm serving the world x default and
+    deterministic x SUM/MAX/PROD on (3,) and (8,) worlds, and per axis of
+    the (2, 4) mesh), ``Bcast_`` and ``Reduce_`` at every root through
+    the IR, against the hand-written dispatch of ``ops/spmd.py``: values
+    and gradients from outside bitwise, rank 0's exchange sequence equal;
+    ``csched.interpret_allreduce`` on the card's rows bitwise the
+    deterministic Mode A value; the q8 family on ``ring``/``bidir``/
+    ``torus`` through ``lower_q8_allreduce`` against the hand-composed
+    ``_fused_allreduce_value`` on 4 x 2^20, bitwise, with K1's hop and
+    requant launches equal to each other and to the schedule's; the IR's
+    host cost: bench's Allreduce body at 4 x 2^26 float32 (default and
+    deterministic, 20 rounds) and phase 55's q8 bidir body at 4 x 2^24
+    (10 rounds) with only the lowering swapped, the op's autograd
+    Function on the IR route against the hand-written one in alternating
+    order, medians and rendezvous a step, beside phases 50 and 55;
+61. the flagship on a 2-D mesh under ``run_spmd(mesh=)``, four rank
+    threads: DP=2 x SP=2 ``train_step`` (ring, Ulysses) and ZeRO-1 (the
+    port's Adam) with SP on the same mesh, each rank slicing the tokens
+    by the axes' symbolic ranks; f32 at 2 layers against the one-rank
+    full-batch step on the card (loss and every updated leaf within
+    1e-5), every mesh position bitwise alike; bf16 at full width a warm
+    step and a timed one (ms, tokens/s), the idle share of a profiled
+    one, K2-K4 launches all ``tc`` beside phase 24's SP=2 and phase 9's
+    DP=2 steps; DP=2 x EP=2 with the MoE at 2 layers (f32 against the
+    replicated dense-expert form, then a bf16 step);
+62. one JSON line describing each ported kernel (K2, K3 and K4 with
     the variant the main path ran; the launches of phases 18–20, 23–27,
     30–31 and of the later slices' phases, ``obs_launches``,
     ``resilience_launches``, ``handoff_launches``,
     ``checkpoint_launches``, ``process_launches`` (counted in the
-    workers) and ``mode_a_launches`` (phases 51, 55, 56 and 57); their
-    numbers at the SP and slice-10 shapes, against the plain versions,
-    their bounds and SDPA; K1 with its hop and requant launches,
-    ``reshard_launches``, ``process_launches`` and ``mode_a_launches``
-    (phases 55 and 58) among them).
+    workers), ``mode_a_launches`` (phases 51, 55, 56 and 57) and
+    ``mesh_2d_launches`` (phase 61); their numbers at the SP and
+    slice-10 shapes, against the plain versions, their bounds and SDPA;
+    K1 with its hop and requant launches, ``reshard_launches``,
+    ``process_launches``, ``mode_a_launches`` (phases 55 and 58) and
+    ``csched_launches`` (phase 60) among them).
 
-Each phase prints the seconds it took, and each of 28–60 the card's name
+Each phase prints the seconds it took, and each of 28–62 the card's name
 and power limit beside its numbers.  Times on the host clock are host times; event times of the
 comm tracer are host times (a rendezvous returns before the card has
 run its work).
@@ -2059,21 +2086,25 @@ def examples_phase(linreg, ringex):
 class ExchangeCounter:
     """Counts rank 0's rendezvous (``World.exchange``) and point-to-point
     sends (``World.p2p_send``) while it is entered: one count per
-    collective or message of the rank."""
+    collective or message of the rank.  ``seq`` keeps the signatures of
+    rank 0's rendezvous in order: the exchange sequence of a schedule."""
 
     def __init__(self):
         from mpi4torch_tpu_torch import runtime
 
         self._world = runtime.World
         self.exchanges = self.sends = 0
+        self.seq = []
 
     def __enter__(self):
         world, counter = self._world, self
         self._saved = world.exchange, world.p2p_send
 
-        def exchange(w, rank, *a, **kw):
-            counter.exchanges += rank == 0
-            return counter._saved[0](w, rank, *a, **kw)
+        def exchange(w, rank, signature, *a, **kw):
+            if rank == 0:
+                counter.exchanges += 1
+                counter.seq.append(signature)
+            return counter._saved[0](w, rank, signature, *a, **kw)
 
         def p2p_send(w, src, *a, **kw):
             counter.sends += src == 0
@@ -6219,11 +6250,7 @@ def mode_a_table(P, n):
     self-send)."""
     S = P.MPI_SUM
     ops = {}
-    for algo in MODE_A_ALGOS:
-        if algo == "rhd" and n & (n - 1):
-            continue
-        if algo in ("hier", "torus") and all(n % g for g in range(2, n)):
-            continue
+    for algo in algos_for(n):
         ops[f"allreduce_{algo}"] = (
             lambda a: lambda c, t: c.Allreduce(t, S, algorithm=a))(algo)
 
@@ -7262,6 +7289,702 @@ def cli_phase():
         check(proc.returncode == 0, f"python -m {mod} --smoke failed")
 
 
+# ---------------------------------------------------------------------------
+# Phase 60: the schedule IR on the card
+# ---------------------------------------------------------------------------
+
+IR_WORLDS = MODE_A_WORLDS       # (3,) and (8,) rank-thread worlds
+IR_NUMEL = MODE_A_NUMEL         # a rank's row, float32 (phase 49's size)
+IR_MESH = {"dp": 2, "tp": 4}
+IR_Q8_RANKS = 4                 # the q8 family (torus's inner group 2)
+IR_BENCH_RANKS = 4              # bench's Allreduce body, as phase 50
+IR_Q8_ROUNDS = 10               # alternating rounds of the q8 bidir A/B
+
+
+class HandWrittenAllreduce(torch.autograd.Function):
+    """The hand-written Allreduce dispatch of ``ops/spmd.py``
+    (``_handwritten_allreduce_value``), forward and adjoint (``bidir``'s
+    halves swapped): the reference phase 60 holds the IR route to."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, op, algo):
+        from mpi4torch_tpu_torch.ops import spmd
+
+        fctx.ctx, fctx.algo = ctx, algo
+        return spmd._handwritten_allreduce_value(ctx, x, op, algo)
+
+    @staticmethod
+    def backward(fctx, g):
+        from mpi4torch_tpu_torch import constants as C
+        from mpi4torch_tpu_torch.ops import spmd
+
+        return (spmd._handwritten_allreduce_value(
+            fctx.ctx, g.contiguous(), C.MPI_SUM, fctx.algo, reverse=True),
+            None, None, None)
+
+
+def hand_written_bcast(ctx, x, root, algo):
+    """The hand-written Bcast_ dispatch: the binomial tree, or the
+    root-masked psum, by ``algo`` and ``config.bcast_tree_max_bytes``."""
+    from mpi4torch_tpu_torch import config
+    from mpi4torch_tpu_torch import constants as C
+    from mpi4torch_tpu_torch.ops import spmd
+
+    if ctx.size == 1:
+        return x
+    nbytes = x.numel() * x.element_size()
+    if algo == "tree" or (algo != "ring"
+                          and nbytes <= config.bcast_tree_max_bytes()):
+        return spmd._tree_bcast_value(ctx, x, root)
+    return spmd._psum(ctx, spmd._mask_to_root(ctx, x, root), C.MPI_SUM)
+
+
+def hand_written_reduce(ctx, x, op, root, algo):
+    """The hand-written Reduce_ dispatch: the binomial reduce, or the ring
+    allreduce with a root mask."""
+    from mpi4torch_tpu_torch.ops import spmd
+
+    if algo == "tree":
+        return spmd._tree_reduce_value(ctx, x, op, root)
+    return spmd._mask_to_root(
+        ctx, spmd._handwritten_allreduce_value(ctx, x, op, "ring"), root)
+
+
+class HandWrittenRooted(torch.autograd.Function):
+    """Bcast_ / Reduce_ by the hand-written dispatch, each the other's
+    adjoint."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, kind, op, root, algo):
+        fctx.args = (ctx, kind, root, algo)
+        if kind == "bcast":
+            return hand_written_bcast(ctx, x, root, algo)
+        return hand_written_reduce(ctx, x, op, root, algo)
+
+    @staticmethod
+    def backward(fctx, g):
+        from mpi4torch_tpu_torch import constants as C
+
+        ctx, kind, root, algo = fctx.args
+        g = g.contiguous()
+        out = (hand_written_reduce(ctx, g, C.MPI_SUM, root, algo)
+               if kind == "bcast" else hand_written_bcast(ctx, g, root,
+                                                          algo))
+        return out, None, None, None, None, None
+
+
+class HandComposedQ8(torch.autograd.Function):
+    """The hand-composed block-q8 Allreduce
+    (``compress/spmd._fused_allreduce_value``), forward and adjoint: the
+    reference of the codec-rewritten IR route."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, codec, algo):
+        from mpi4torch_tpu_torch.compress import spmd as cspmd
+
+        fctx.args = (ctx, codec, algo)
+        return cspmd._fused_allreduce_value(ctx, x, codec, algo, False)
+
+    @staticmethod
+    def backward(fctx, g):
+        from mpi4torch_tpu_torch.compress import spmd as cspmd
+
+        ctx, codec, algo = fctx.args
+        return (cspmd._fused_allreduce_value(ctx, g.contiguous(), codec,
+                                             algo, True), None, None, None)
+
+
+def ir_run(P, fn, x, w, **kw):
+    """``run_spmd(fn)`` on the stacked rows ``x`` (moved to the run's
+    device): ``(out, grad of vdot(out, w) from outside or None, rank 0's
+    exchanges forward, backward)``, tensors on the CPU."""
+    dev = kw["mesh"].devices.reshape(-1)[0] if "mesh" in kw else "cuda"
+    f = P.run_spmd(fn, **kw)
+    xt = x.to(dev).requires_grad_(w is not None)
+    with ExchangeCounter() as fwd:
+        out = f(xt)
+    if w is None:
+        return out.detach().cpu(), None, fwd.seq, []
+    with ExchangeCounter() as bwd:
+        (g,) = torch.autograd.grad(
+            torch.vdot(out.reshape(-1), w.to(dev).reshape(-1)), xt)
+    return out.detach().cpu(), g.cpu(), fwd.seq, bwd.seq
+
+
+def ir_differs(a, b):
+    """Bytes differing between two ``ir_run`` results (values and
+    gradients), or -1 when their exchange sequences differ."""
+    if a[2] != b[2] or a[3] != b[3]:
+        return -1
+    n = bits_differ(a[0], b[0])
+    if a[1] is not None:
+        n += bits_differ(a[1], b[1])
+    return n
+
+
+def algos_for(n):
+    return [a for a in MODE_A_ALGOS
+            if not (a == "rhd" and n & (n - 1))
+            and not (a in ("hier", "torus")
+                     and all(n % g for g in range(2, n)))]
+
+
+def csched_phase(P, tree, config, kernels, mode_a_bench, spmd_comp):
+    """Phase 60: every Mode A Allreduce, Bcast_ and Reduce_ through the
+    schedule IR against its hand-written form on the card, bitwise, with
+    the same exchanges; the interpreter against deterministic Mode A; the
+    q8 family's IR route against the hand-composed pipeline with K1's
+    launches equal; bench's Allreduce body timed on both routes."""
+    from mpi4torch_tpu_torch import csched
+    from mpi4torch_tpu_torch.compress import get_codec
+    from mpi4torch_tpu_torch.ops import spmd
+
+    comm = P.COMM_WORLD
+    ops = {"SUM": P.MPI_SUM, "MAX": P.MPI_MAX, "PROD": P.MPI_PROD}
+    out = {"bodies": 0, "exchanges": 0, "bad": []}
+
+    def compare(label, a, b):
+        diff = ir_differs(a, b)
+        out["bodies"] += 1
+        out["exchanges"] += len(a[2]) + len(a[3])
+        if diff:
+            out["bad"].append((label, diff))
+
+    def interp_check(label, a, x, prog, op, groups):
+        """The interpreter on the card's rows of each group against every
+        member's deterministic Mode A value."""
+        xs = x.to("cuda")
+        for grp in groups:
+            ref = csched.interpret_allreduce(
+                prog, op, [xs[r] for r in grp]).cpu()
+            if any(bits_differ(a[0][r], ref) for r in grp):
+                out["bad"].append((label + " interpreter", 1))
+                return
+
+    t0 = time.perf_counter()
+    for n in IR_WORLDS:
+        rng = np.random.default_rng(60 + n)
+        x = torch.from_numpy(rng.standard_normal(
+            (n, IR_NUMEL)).astype(np.float32))
+        w = torch.from_numpy(rng.standard_normal(
+            (n, IR_NUMEL)).astype(np.float32))
+        for algo in algos_for(n):
+            for det in (False, True):
+                for opname, op in ops.items():
+                    ww = w if op == P.MPI_SUM else None
+                    with config.deterministic_mode(det):
+                        a = ir_run(P, lambda v: comm.Allreduce(
+                            v[comm.rank], op, algorithm=algo), x, ww,
+                            nranks=n)
+                        b = ir_run(P, lambda v: HandWrittenAllreduce.apply(
+                            v[comm.rank], spmd.current_spmd_context(), op,
+                            algo), x, ww, nranks=n)
+                    label = f"({n},) {algo} {opname} det={det}"
+                    compare(label, a, b)
+                    if det:
+                        prog = csched.allreduce_program(
+                            algo, n, op, deterministic=True,
+                            nelems=IR_NUMEL, itemsize=4)
+                        interp_check(label, a, x, prog, op, [range(n)])
+        for root in range(n):
+            for algo in (None, "ring", "tree"):
+                for kind, opname in (("bcast", "SUM"), ("reduce", "SUM"),
+                                     ("reduce", "MAX"), ("reduce", "PROD")):
+                    if opname != "SUM" and root != 1:
+                        continue
+                    op = ops[opname]
+                    for det in (False, True):
+                        ww = w if op == P.MPI_SUM else None
+
+                        def ir(v):
+                            t = v[comm.rank]
+                            if kind == "bcast":
+                                return comm.Bcast_(t, root, algorithm=algo)
+                            return comm.Reduce_(t, op, root, algorithm=algo)
+
+                        def hw(v):
+                            return HandWrittenRooted.apply(
+                                v[comm.rank], spmd.current_spmd_context(),
+                                kind, op, root, algo)
+
+                        with config.deterministic_mode(det):
+                            a = ir_run(P, ir, x, ww, nranks=n)
+                            b = ir_run(P, hw, x, ww, nranks=n)
+                        compare(f"({n},) {kind} root {root} {algo} "
+                                f"{opname} det={det}", a, b)
+        print(f"  ({n},): {out['bodies']} bodies so far; bytes differing "
+              f"or exchange sequences apart: {out['bad'] or 0}", flush=True)
+    # The (2, 4) mesh, per axis.
+    mesh = P.device_mesh(IR_MESH)
+    dp_c, tp_c = P.comm_from_mesh(mesh, "dp"), P.comm_from_mesh(mesh, "tp")
+    rng = np.random.default_rng(68)
+    x = torch.from_numpy(rng.standard_normal((8, IR_NUMEL)).astype(
+        np.float32))
+    w = torch.from_numpy(rng.standard_normal((8, IR_NUMEL)).astype(
+        np.float32))
+    tp_n = IR_MESH["tp"]
+    for axis, c in (("dp", dp_c), ("tp", tp_c)):
+        groups = ([[i * tp_n + j for j in range(tp_n)]
+                   for i in range(IR_MESH["dp"])] if axis == "tp" else
+                  [[j + i * tp_n for i in range(IR_MESH["dp"])]
+                   for j in range(tp_n)])
+        for algo in algos_for(c.size):
+            for det in (False, True):
+                def ir(v):
+                    return c.Allreduce(v[dp_c.rank * tp_n + tp_c.rank],
+                                       P.MPI_SUM, algorithm=algo)
+
+                def hw(v):
+                    return HandWrittenAllreduce.apply(
+                        v[dp_c.rank * tp_n + tp_c.rank],
+                        spmd._current_region().ctx(axis), P.MPI_SUM, algo)
+
+                with config.deterministic_mode(det):
+                    a = ir_run(P, ir, x, w, mesh=mesh, axis_name="dp")
+                    b = ir_run(P, hw, x, w, mesh=mesh, axis_name="dp")
+                label = f"(2, 4) {axis} {algo} det={det}"
+                compare(label, a, b)
+                if det:
+                    prog = csched.allreduce_program(
+                        algo, c.size, P.MPI_SUM, deterministic=True,
+                        nelems=IR_NUMEL, itemsize=4)
+                    interp_check(label, a, x, prog, P.MPI_SUM, groups)
+    ops_s = time.perf_counter() - t0
+    print(f"  exact route: {out['bodies']} bodies (Allreduce on every "
+          f"algorithm x default/deterministic x SUM/MAX/PROD on "
+          f"{IR_WORLDS} worlds, Bcast_/Reduce_ at every root, the (2, 4) "
+          f"mesh per axis) in {ops_s:.1f} s, {out['exchanges']} exchanges "
+          f"on rank 0 for the IR forms; bytes differing from the "
+          f"hand-written forms, exchange sequences apart, or the "
+          f"interpreter apart from deterministic Mode A: "
+          f"{out['bad'] or 0}", flush=True)
+    check(not out["bad"], f"the IR route differs on the card: {out['bad']}")
+
+    # The q8 family: the codec-rewritten program against the hand-composed
+    # pipeline, with K1's launches.
+    n = IR_Q8_RANKS
+    rng = np.random.default_rng(69)
+    x = torch.from_numpy(rng.standard_normal((n, IR_NUMEL)).astype(
+        np.float32))
+    w = torch.from_numpy(rng.standard_normal((n, IR_NUMEL)).astype(
+        np.float32))
+    k1 = {"q8_hop": 0, "q8_requant": 0}
+    q8_bad = []
+    for codec in Q8_CODECS:
+        cobj = get_codec(codec)
+        for algo in Q8_ALGOS:
+            runs, counts = [], []
+            for route in ("ir", "hand"):
+                kernels.reset_launch_counts()
+                if route == "ir":
+                    runs.append(ir_run(P, lambda v: comm.Allreduce(
+                        v[comm.rank], P.MPI_SUM, compression=codec,
+                        algorithm=algo), x, w, nranks=n))
+                else:
+                    runs.append(ir_run(P, lambda v: HandComposedQ8.apply(
+                        v[comm.rank], spmd.current_spmd_context(), cobj,
+                        algo), x, w, nranks=n))
+                counts.append((kernels.launch_counts["q8_hop"],
+                               kernels.launch_counts["q8_requant"]))
+            chans = 1 if algo == "ring" else 2
+            rounds = EF_ROUNDS[codec]
+            want = (2 * chans * rounds * n * (n - 1),
+                    2 * chans * rounds * n)
+            diff = ir_differs(runs[0], runs[1])
+            k1["q8_hop"] += counts[0][0]
+            k1["q8_requant"] += counts[0][1]
+            ok = diff == 0 and counts[0] == counts[1] == want
+            if not ok:
+                q8_bad.append((codec, algo, diff, counts))
+            print(f"  {codec:9s} {algo:5s}: IR route vs hand-composed, bytes"
+                  f" differing {diff} (-1: exchanges apart), "
+                  f"{len(runs[0][2]) + len(runs[0][3])} exchanges; K1 "
+                  f"(hop, requant) {counts[0]} vs {counts[1]} (the "
+                  f"schedule's {want})  {'ok' if ok else 'FAIL'}",
+                  flush=True)
+    check(not q8_bad, f"the q8 IR route differs on the card: {q8_bad}")
+
+    # The IR's host cost: bench's Allreduce body at 2^26 f32 on 4 ranks
+    # (default and deterministic) and phase 55's q8 bidir body at 2^24,
+    # each with only the lowering swapped: the op's autograd Function on
+    # the IR route against the hand-written one, both called past the
+    # facade's checks, in alternating order (ABBA).
+    from mpi4torch_tpu_torch.compress import spmd as cspmd
+
+    n = IR_BENCH_RANKS
+    xb = torch.ones(MODE_A_BENCH_NUMEL, device="cuda")
+    q8 = get_codec("q8")
+
+    def exact_body(route):
+        def loss(v):
+            ctx = spmd.current_spmd_context()
+            fn = spmd._Allreduce if route == "ir" else HandWrittenAllreduce
+            y = fn.apply(v, ctx, P.MPI_SUM, "ring")
+            return torch.vdot(y, y)
+        return lambda v: tree.value_and_grad(loss, v)
+
+    def q8_body(route):
+        def body(v):
+            x = v[comm.rank].clone().requires_grad_()
+            ctx = spmd.current_spmd_context()
+            fn = cspmd._CompressedAllreduce if route == "ir" \
+                else HandComposedQ8
+            y = fn.apply(x, ctx, q8, "bidir")
+            (g,) = torch.autograd.grad(torch.vdot(y, y), x)
+            return y.detach(), g
+        return body
+
+    def exact_run(route, det):
+        with config.deterministic_mode(det):
+            return P.run_spmd(exact_body(route), nranks=n)(xb)
+
+    stacked = torch.stack(bench_inputs())
+    forms = {"exact": {r: (lambda r=r: exact_run(r, False))
+                       for r in ("ir", "hand_written")},
+             "exact_deterministic": {r: (lambda r=r: exact_run(r, True))
+                                     for r in ("ir", "hand_written")},
+             "q8_bidir": {r: (lambda r=r: P.run_spmd(
+                 q8_body(r), nranks=BENCH_RANKS)(stacked))
+                 for r in ("ir", "hand_written")}}
+    rounds = {"exact": MODE_A_STEPS, "exact_deterministic": MODE_A_STEPS,
+              "q8_bidir": IR_Q8_ROUNDS}
+    bench, same, rdv_ok = {}, {}, True
+    for body, pair in forms.items():
+        same[body] = tree_bytes_differ(tree, pair["ir"](),
+                                       pair["hand_written"]()) == 0
+        rdv = {}
+        for route, f in pair.items():
+            with ExchangeCounter() as cnt:
+                f()
+            rdv[route] = cnt.exchanges
+        rdv_ok = rdv_ok and rdv["ir"] == rdv["hand_written"]
+        times = {route: [] for route in pair}
+        order = list(pair)
+        for r in range(rounds[body]):
+            for route in (order if r % 2 == 0 else order[::-1]):
+                times[route].append(sync_ms(pair[route])[0])
+        bench[body] = {}
+        for route in pair:
+            t = times[route]
+            bench[body][route] = {
+                "ms": float(np.median(t)), "min_ms": min(t),
+                "max_ms": max(t), "rendezvous": rdv[route]}
+        a, b = bench[body]["ir"], bench[body]["hand_written"]
+        print(f"  {body:19s}: IR route median {a['ms']:8.2f} ms (min "
+              f"{a['min_ms']:.2f}, max {a['max_ms']:.2f}), hand-written "
+              f"{b['ms']:8.2f} ms (min {b['min_ms']:.2f}, max "
+              f"{b['max_ms']:.2f}) of {rounds[body]} alternating rounds; "
+              f"IR / hand-written {a['ms'] / b['ms']:.3f}; rendezvous a step"
+              f" {rdv['ir']} / {rdv['hand_written']}; bitwise alike "
+              f"{same[body]}", flush=True)
+    del stacked
+    p50 = mode_a_bench[n]
+    q8b = spmd_comp["allreduce"][("q8", "bidir")]
+    print(f"  through the facade in this run (IR route): phase 50's bench "
+          f"body {p50['run_spmd']['ms']:.2f} ms, deterministic "
+          f"{p50['run_spmd_deterministic']['ms']:.2f} ms; phase 55's q8 "
+          f"bidir {q8b['ms']:.2f} ms (run_ranks {q8b['ranks_ms']:.2f}); "
+          "the hand-written route's earlier card readings (PERF.md): "
+          "12.74-13.05 ms, 132.06-154.16 ms and 59.29 ms (run_ranks "
+          "10.67)")
+    check(all(same.values()) and rdv_ok,
+          "a timed body differs between the IR route and the hand-written "
+          "one")
+    return {"bodies": out["bodies"], "k1": k1, "bench": bench,
+            "q8_bidir_ms": q8b["ms"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 61: the flagship on a 2-D mesh
+# ---------------------------------------------------------------------------
+
+MESH2D = {"dp": 2, "sp": 2}
+MESH2D_ATTNS = ("ring", "ulysses")
+MESH2D_F32_LAYERS = 2
+# f32 at 2 layers against the one-rank full-batch step on the card: the
+# relative error of the loss and the norm-relative error of every updated
+# leaf.  The steps take lr = GRAD_LR, so each new parameter is dominated
+# by lr * g and the leaf check holds the gradient.
+MESH2D_F32_RTOL = 1e-5
+# ZeRO-1 with SP against one-rank Adam on the full batch: Adam's first
+# update is lr * g / (|g| + eps), about lr * sign(g), so an element whose
+# gradient sums to near zero may flip sign between two summation orders.
+# The update (new - p, in f64) is held at MESH2D_F32_RTOL norm-relative
+# only where the one-rank |g| is above this share of its leaf's largest.
+MESH2D_ADAM_G_FLOOR = 1e-3
+# DP x EP (phase 61): the MoE at 2 layers, 4 experts, capacity 1.25 x a
+# rank's tokens / experts (batch 2 x 2048 a rank).
+MESH2D_EP_LAYERS = 2
+MESH2D_EP_CAPACITY = 1280
+
+
+def mesh_local(P, cd, cs, ce, toks):
+    """This mesh position's tokens: rows by the dp (and ep) rank, the
+    sequence by the sp rank, each through its axis's symbolic rank."""
+    dp, ep = cd.size, (ce.size if ce is not None else 1)
+    sp = cs.size if cs is not None else 1
+    bl, sl = toks.shape[0] // (dp * ep), toks.shape[1] // sp
+    r_b = cd.rank * ep + ce.rank if ce is not None else cd.rank
+    rows = toks.narrow(0, r_b * bl, bl)
+    return rows.narrow(1, cs.rank * sl, sl) if cs is not None else rows
+
+
+def mesh_step(P, T, cfg, params, tokens, attn, axes, lr, zero_opt=None):
+    """One step on every position of the mesh ``axes``: ``train_step``, or
+    with ``zero_opt`` a ZeRO-1 step from a fresh state; returns the
+    stacked ``(loss, new_params)``."""
+    from mpi4torch_tpu_torch.parallel.zero import zero_init
+
+    mesh = P.device_mesh(axes)
+    cd = P.comm_from_mesh(mesh, "dp")
+    cs = P.comm_from_mesh(mesh, "sp") if "sp" in axes else None
+    ce = P.comm_from_mesh(mesh, "ep") if "ep" in axes else None
+
+    def body(p, toks):
+        local = mesh_local(P, cd, cs, ce, toks)
+        if zero_opt is None:
+            return T.train_step(cfg, p, local, comm_sp=cs, comm_dp=cd,
+                                comm_ep=ce, attn=attn, lr=lr)
+        loss, new, _ = T.zero_train_step(
+            cfg, p, local, zero_opt, zero_init(cd, zero_opt, p), cd,
+            comm_sp=cs, attn=attn, comm_ep=ce)
+        return loss, new
+
+    return P.run_spmd(body, mesh=mesh, axis_name="dp")(params, tokens)
+
+
+def mesh_replicated_adam(P, T, tree, cfg, params, tokens, attn, axes,
+                         opt):
+    """Replicated-DP Adam on every position of the mesh ``axes`` (dp x
+    sp): each rank's gradient of its sp-averaged local loss, the dp mean
+    through ``Allreduce_tree(mean=True)``, one Adam update from a fresh
+    state; the form ZeRO-1 is bitwise equal to (phase 20).  Returns the
+    stacked ``(loss, new_params)``."""
+    from mpi4torch_tpu_torch.constants import divide
+    from mpi4torch_tpu_torch.parallel import dp as dp_mod
+
+    mesh = P.device_mesh(axes)
+    cd = P.comm_from_mesh(mesh, "dp")
+    cs = P.comm_from_mesh(mesh, "sp")
+
+    def body(p, toks):
+        local = mesh_local(P, cd, cs, None, toks)
+        loss, g = tree.value_and_grad(lambda q: T.lm_loss(
+            cfg, dp_mod.all_average_tree(cs, q), local, cs, attn), p)
+        g = cd.Allreduce_tree(g, P.MPI_SUM, mean=True)
+        with torch.no_grad():
+            upd, _ = opt.update(g, opt.init(p), p)
+            new = tree.tree_map(torch.add, p, upd)
+        return divide(cd.Allreduce(loss, P.MPI_SUM, compression=False),
+                      cd.size), new
+
+    return P.run_spmd(body, mesh=mesh, axis_name="dp")(params, tokens)
+
+
+def held_update_rel(tree, p, new, ref_new, g):
+    """The worst leaf's ||(new - p) - (ref_new - p)|| / ||ref_new - p||
+    in f64 over the elements whose |g| is above MESH2D_ADAM_G_FLOOR of
+    the leaf's largest, and the share of all elements held."""
+    worst, held, total = 0.0, 0, 0
+    for q, x, r, gl in zip(*(tree.tree_leaves(t)
+                             for t in (p, new, ref_new, g))):
+        a = gl.abs()
+        m = a > MESH2D_ADAM_G_FLOOR * a.max()
+        q64 = q.double()[m]
+        d = x.double()[m] - r.double()[m]
+        u = r.double()[m] - q64
+        worst = max(worst, (d.norm() / u.norm().clamp_min(1e-300)).item())
+        held += int(m.sum().item())
+        total += m.numel()
+    return worst, held / total
+
+
+def positions_identical(tree, loss, new):
+    n = loss.shape[0]
+    return all(torch.equal(loss[i], loss[0]) for i in range(n)) and all(
+        torch.equal(t[i], t[0]) for t in tree.tree_leaves(new)
+        for i in range(n))
+
+
+def mesh2d_phase(P, T, tree, kernels, cfg, params, tokens, sp, dp_ms,
+                 ep_ms):
+    """Phase 61: the flagship's train_step on DP=2 x SP=2 (ring, Ulysses)
+    and ZeRO-1 with SP on the same mesh, four rank threads under
+    ``run_spmd(mesh=)``: f32 at 2 layers against the one-rank full-batch
+    step, then full width bf16 (a warm step, a timed one, a profiled
+    one), K2-K4 launches; DP=2 x EP=2 with the MoE at 2 layers."""
+    import dataclasses
+
+    from mpi4torch_tpu_torch.utils import optim
+
+    n_ranks = MESH2D["dp"] * MESH2D["sp"]
+    res = {"launches": {}, "ms": {}, "tokens_s": {}, "idle_pct": {},
+           "f32_rel": {}, "rendezvous": {}}
+    # f32 at 2 layers against one rank.
+    c2 = dataclasses.replace(cfg, n_layers=MESH2D_F32_LAYERS)
+    p32 = tree.tree_map(lambda t: t.float(), dict(
+        params, blocks=params["blocks"][:MESH2D_F32_LAYERS]))
+    ref_l, ref_p = T.train_step(c2, p32, tokens, lr=GRAD_LR)
+    for form in MESH2D_ATTNS:
+        loss, new = mesh_step(P, T, c2, p32, tokens, form, MESH2D, GRAD_LR)
+        same = positions_identical(tree, loss, new)
+        rel_l = abs(loss[0].item() - ref_l.item()) / abs(ref_l.item())
+        worst = norm_rel(tree, tree.tree_map(lambda t: t[0], new), ref_p)
+        res["f32_rel"][form] = max(rel_l, worst)
+        ok = same and rel_l <= MESH2D_F32_RTOL and worst <= MESH2D_F32_RTOL
+        print(f"  f32, {MESH2D_F32_LAYERS} layers, DP=2 x SP=2 {form:10s}: "
+              f"loss {loss[0].item():.6f} vs one rank at batch "
+              f"{TRAIN_BATCH} {ref_l.item():.6f} (rel {rel_l:.2e}); worst "
+              f"updated leaf's norm-relative error {worst:.2e} (tol "
+              f"{MESH2D_F32_RTOL:g}, lr {GRAD_LR:g}); the {n_ranks} mesh "
+              f"positions bitwise identical {same}  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"the f32 2-D mesh step ({form}) disagrees with one rank")
+        del loss, new
+    del ref_p
+    # ZeRO-1 with SP: bitwise replicated-DP Adam on the same mesh, and
+    # one-rank Adam on the full batch where |g| is well above rounding
+    # (MESH2D_ADAM_G_FLOOR); the loss against the one-rank step's.
+    adam = optim.adam(ADAM_LR)
+    loss, new = mesh_step(P, T, c2, p32, tokens, "ring", MESH2D, None,
+                          zero_opt=adam)
+    r_loss, r_new = mesh_replicated_adam(P, T, tree, c2, p32, tokens,
+                                         "ring", MESH2D, adam)
+    same = positions_identical(tree, loss, new)
+    rel_l = abs(loss[0].item() - ref_l.item()) / abs(ref_l.item())
+    diff = tree_bytes_differ(tree, (loss, new), (r_loss, r_new))
+    del r_loss, r_new
+    _, g1 = tree.value_and_grad(lambda q: T.lm_loss(c2, q, tokens), p32)
+    with torch.no_grad():
+        upd, _ = adam.update(g1, adam.init(p32), p32)
+        one_new = tree.tree_map(torch.add, p32, upd)
+    del upd
+    worst, held = held_update_rel(
+        tree, p32, tree.tree_map(lambda t: t[0], new), one_new, g1)
+    del g1, one_new
+    res["f32_rel"]["zero1_ring"] = max(rel_l, worst)
+    ok = (same and rel_l <= MESH2D_F32_RTOL and diff == 0
+          and worst <= MESH2D_F32_RTOL)
+    print(f"  f32, {MESH2D_F32_LAYERS} layers, DP=2 x SP=2 ZeRO-1 (Adam, lr "
+          f"{ADAM_LR:g}): loss {loss[0].item():.6f} vs one rank "
+          f"{ref_l.item():.6f} (rel {rel_l:.2e}); loss and parameters, bytes "
+          f"differing from replicated-DP Adam on the mesh: {diff}; the "
+          f"update against one-rank Adam on the full batch, worst leaf's "
+          f"norm-relative error {worst:.2e} (tol {MESH2D_F32_RTOL:g}) over "
+          f"the {100 * held:.2f}% of elements whose |g| is above "
+          f"{MESH2D_ADAM_G_FLOOR:g} of its leaf's largest; positions "
+          f"bitwise identical {same}  {'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "the f32 2-D mesh ZeRO-1 step disagrees")
+    del loss, new, p32
+
+    # Full width, bf16.
+    adam_bf16 = optim.adam(ADAM_LR)
+    for form in MESH2D_ATTNS + ("zero1_ring",):
+        attn = "ring" if form == "zero1_ring" else form
+        opt = adam_bf16 if form == "zero1_ring" else None
+
+        def step():
+            return mesh_step(P, T, cfg, params, tokens, attn, MESH2D, LR,
+                             zero_opt=opt)
+
+        sync_ms(step)                                   # warm
+        kernels.reset_launch_counts()
+        with ExchangeCounter() as cnt:
+            ms, (loss, new) = sync_ms(step)
+        counts, all_tc = attention_counts(kernels, kernels.launch_counts)
+        res["rendezvous"][form] = (cnt.exchanges, cnt.sends)
+        same = positions_identical(tree, loss, new)
+        if opt is not None:
+            # ZeRO-1 at full width: bitwise replicated-DP Adam.
+            r_out = mesh_replicated_adam(P, T, tree, cfg, params, tokens,
+                                         attn, MESH2D, opt)
+            same = same and tree_bytes_differ(tree, (loss, new), r_out) == 0
+            del r_out
+        del new
+        wall, busy, _ = profile_top(step, f"one DP=2 x SP=2 {form} step",
+                                    n_top=4)
+        idle = 100 - 100 * busy / wall
+        blocks, off, masked = SP_BLOCKS[attn]
+        want = (MESH2D["dp"] * cfg.n_layers * blocks,
+                MESH2D["dp"] * cfg.n_layers * off,
+                MESH2D["dp"] * cfg.n_layers * masked)
+        counts_ok = all_tc and all(c == want for c in counts.values())
+        res["launches"][form] = counts
+        res["ms"][form] = ms
+        res["tokens_s"][form] = TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3)
+        res["idle_pct"][form] = idle
+        sp_ms = sp["ms"].get(attn)
+        ok = same and counts_ok and np.isfinite(loss[0].float().item())
+        print(f"  bf16 full width, DP=2 x SP=2 {form:10s}: step {ms:.1f} ms "
+              f"({res['tokens_s'][form]:.0f} tokens/s at {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ}); rank 0's rendezvous and p2p sends a step "
+              f"{res['rendezvous'][form]}; device idle {idle:.1f}% of the "
+              f"profiled step;"
+              f" phase 24's SP=2 {attn} step {sp_ms:.1f} ms and phase 9's "
+              f"DP=2 step {dp_ms:.1f} ms in this run; loss "
+              f"{loss[0].float().item():.4f}; launches (all, offset, "
+              f"masked) {counts} (expected {want} each), all tc {all_tc}; "
+              f"the {n_ranks} mesh positions bitwise identical"
+              + (" and bitwise replicated-DP Adam" if opt is not None
+                 else "") + f" {same}  {'ok' if ok else 'FAIL'}",
+              flush=True)
+        check(ok, f"the 2-D mesh step ({form}) failed a check")
+        del loss
+
+    # DP=2 x EP=2 with the MoE at 2 layers: f32 against the replicated
+    # dense-expert form, then bf16 steps.
+    mcfg = dataclasses.replace(cfg, n_layers=MESH2D_EP_LAYERS,
+                               n_experts=EP_EXPERTS,
+                               capacity=MESH2D_EP_CAPACITY)
+    mparams = T.init_transformer(0, mcfg, torch.bfloat16, device="cuda")
+    axes = {"dp": 2, "ep": 2}
+    shards = 4
+    bl = TRAIN_BATCH // shards
+    m32 = tree.tree_map(lambda t: t.float(), mparams)
+    rl, rg = tree.value_and_grad(lambda q: sum(
+        T.lm_loss(mcfg, q, tokens[r * bl:(r + 1) * bl])
+        for r in range(shards)) / shards, m32)
+    with torch.no_grad():
+        rp = tree.tree_map(lambda p, g: p - GRAD_LR * g, m32, rg)
+    del rg
+    loss, new = mesh_step(P, T, mcfg, m32, tokens, "ring", axes, GRAD_LR)
+    same32 = positions_identical(tree, loss, new)
+    rel_l = abs(loss[0].item() - rl.item()) / rl.item()
+    worst = norm_rel(tree, tree.tree_map(lambda t: t[0], new), rp)
+    res["f32_rel"]["dp_ep"] = max(rel_l, worst)
+    del new, rp, m32
+    ok32 = same32 and rel_l <= SP_F32_REL and worst <= SP_F32_REL
+    print(f"  f32, {MESH2D_EP_LAYERS} layers, DP=2 x EP=2 MoE ("
+          f"{EP_EXPERTS} experts, capacity {MESH2D_EP_CAPACITY}): loss "
+          f"{loss[0].item():.6f} vs the replicated dense-expert mean over "
+          f"{shards} shards {rl.item():.6f} (rel {rel_l:.2e}); worst updated "
+          f"leaf's norm-relative error {worst:.2e} (tol {SP_F32_REL:g}, "
+          f"phase 26's bound); positions bitwise identical {same32}  "
+          f"{'ok' if ok32 else 'FAIL'}", flush=True)
+    check(ok32, "the f32 DP x EP step disagrees with the replicated form")
+
+    def ep_step():
+        return mesh_step(P, T, mcfg, mparams, tokens, "ring", axes, LR)
+
+    sync_ms(ep_step)
+    kernels.reset_launch_counts()
+    ms, (loss, new) = sync_ms(ep_step)
+    counts, all_tc = attention_counts(kernels, kernels.launch_counts)
+    same = positions_identical(tree, loss, new)
+    del new, mparams
+    want = (shards * MESH2D_EP_LAYERS, 0, 0)
+    ok = same and all_tc and all(c == want for c in counts.values())
+    res["launches"]["dp_ep"] = counts
+    res["ms"]["dp_ep"] = ms
+    print(f"  bf16 full width at {MESH2D_EP_LAYERS} layers, DP=2 x EP=2 "
+          f"MoE: step {ms:.1f} ms (phase 26's EP=2 step at "
+          f"{cfg.n_layers} layers {ep_ms:.1f} ms); launches {counts} "
+          f"(expected {want} each), all tc {all_tc}; positions bitwise "
+          f"identical {same}  {'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "the DP x EP step failed a check")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU",
@@ -7778,7 +8501,20 @@ def main():
     print(smi)
     cli_phase()
 
-    phase(60, "kernels")
+    phase(60, "the schedule IR on the card: every Mode A Allreduce, "
+          "Bcast_, Reduce_ and the q8 family through csched against the "
+          "hand-written forms")
+    print(smi)
+    ir = csched_phase(P, tree, config, kernels, mode_a_bench, spmd_comp)
+
+    phase(61, "the flagship on a 2-D mesh: DP=2 x SP=2 (ring, ulysses), "
+          "ZeRO-1 with SP and DP=2 x EP=2 on four rank threads under "
+          "run_spmd(mesh=)")
+    print(smi)
+    mesh2d = mesh2d_phase(P, T, tree, kernels, cfg, params, tokens, sp,
+                          dp_ms, ep["ms"])
+
+    phase(62, "kernels")
     print(smi)
     sp_shapes, sp_worst = sp_kernel_numbers(flash, kernels)
     # flash_fwd: launches on the serving path (phase 4), times at the
@@ -8048,6 +8784,22 @@ def main():
           and spmd_eng["k2"]["flash_fwd"] == spmd_eng["k2"]["flash_fwd.tc"],
           "a kernel of Mode A's users was launched no time, or an SPMD "
           "engine prefill left the tc kernel")
+    # The schedule IR and the 2-D mesh (phases 60-61): K1's hop and
+    # requant launches on the q8 IR route (forward and backward, the nine
+    # codec x algorithm pairs), each attention kernel's launches in the
+    # timed full-width step of each 2-D form.
+    for entry in line["kernels"][:3]:
+        entry["mesh_2d_launches"] = {
+            form: counts[entry["name"]][0]
+            for form, counts in mesh2d["launches"].items()}
+    hop_entry["csched_launches"] = {
+        "q8_ir_route_hop": ir["k1"]["q8_hop"],
+        "q8_ir_route_requant": ir["k1"]["q8_requant"]}
+    check(all(v > 0 for e in line["kernels"][:3]
+              for v in e["mesh_2d_launches"].values())
+          and all(v > 0 for v in hop_entry["csched_launches"].values()),
+          "a kernel of the schedule IR or 2-D mesh paths was launched no "
+          "time")
     print(json.dumps(line))
     print(f"  process transport: DP=2 step "
           f"{proc_train['process_ms']:.1f} ms on workers vs "
@@ -8078,7 +8830,14 @@ def main():
           + f" tokens/s; pipeline_spmd step {pps['ms']:.1f} ms; SPMD "
           f"reshard auto / gather {np.mean(spmd_rs['auto']['ms']):.1f} / "
           f"{np.mean(spmd_rs['gather']['ms']):.1f} ms a tree")
-    phase(61)
+    print("  schedule IR, IR route / hand-written (median ms): "
+          + ", ".join(f"{k} {v['ir']['ms']:.2f} / "
+                      f"{v['hand_written']['ms']:.2f}"
+                      for k, v in ir["bench"].items())
+          + f"; phase 55's q8 bidir {ir['q8_bidir_ms']:.2f} ms; 2-D mesh "
+          "steps " + ", ".join(f"{k} {v:.1f} ms"
+                               for k, v in mesh2d["ms"].items()))
+    phase(63)
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -41,7 +41,10 @@ program on every rank thread under the JAX package's Mode A contract
 (``ops/spmd.py``: a symbolic ``comm.rank``, static p2p permutations,
 every Allreduce algorithm as its explicit schedule, the stacked outputs
 differentiable from outside), with ``device_mesh``/``hybrid_mesh`` and
-the mesh communicators of ``comm_from_mesh``.
+the mesh communicators of ``comm_from_mesh``; its Allreduce, Bcast_,
+Reduce_ and block-q8 Allreduce build and lower programs of the
+collective-schedule IR (``csched``: programs, transposition, the fold
+interpreter, the census).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device and no such request they raise.  The package imports
@@ -84,8 +87,8 @@ from .runtime import (
     resolve_device,
     run_ranks,
 )
-from . import (compress, config, fuse, obs, overlap, reshard, resilience,
-               serve, transport, tune)
+from . import (compress, config, csched, fuse, obs, overlap, reshard,
+               resilience, serve, transport, tune)
 from .config import compression_scope, fusion_scope, overlap_scope
 from .mesh import device_mesh, hybrid_mesh
 from .ops.spmd import PermRank, RankExpr, p2p_scope, run_spmd
@@ -102,7 +105,8 @@ __all__ = [
     "CommError", "CollectiveMismatchError", "DeadlockError",
     "RankFailedError", "InPlaceReuseError", "BifurcationError",
     "IntegrityError", "HealthReport", "resolve_device", "run_ranks",
-    "config", "compress", "fuse", "tune", "overlap", "resilience",
+    "config", "compress", "csched", "fuse", "tune", "overlap",
+    "resilience",
     "reshard", "serve", "obs", "transport", "device_mesh", "hybrid_mesh",
     "FaultPlan", "FaultSpec", "fault_scope", "compression_scope",
     "fusion_scope", "overlap_scope", "run_spmd", "p2p_scope", "RankExpr",

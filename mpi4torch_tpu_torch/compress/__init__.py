@@ -55,6 +55,14 @@ def codec_applicable(codec, dtype, algorithm=None) -> bool:
     return True
 
 
+def int8_rotation_census(lowered, nranks):
+    """The both-rotations census of a lowered q8 dual-ring program: not
+    ported yet (raises)."""
+    raise NotImplementedError(
+        "int8_rotation_census: the census reads StableHLO through analyze "
+        "(ROADMAP.md, Queue 1 item 7)")
+
+
 __all__ = [
     "codec_applicable", "codec_rides_algorithm", "HopEFQ8Codec", "Codec",
     "BlockQ8Codec", "BF16Codec", "BF16StochasticCodec", "ErrorFeedbackCodec",

@@ -23,15 +23,16 @@ dequantize-accumulate-requantize pass
 card, its plain version on the CPU), over the multipath channels of
 ``ring``, ``bidir`` or ``torus`` and the codec's error-feedback rounds.
 A channel costs each rank one requantize (its first encode) and
-``n - 1`` hops.  The JAX package sends these codecs through its schedule
-IR (``csched.q8_allreduce_program`` / ``lower_q8_allreduce``, ROADMAP.md
-Queue 1 item 5) and pins that route bitwise to the hand-composed
-``_fused_allreduce_value``; the port computes
-:func:`_fused_allreduce_value` directly, and its tests hold it bitwise
-against the JAX package's public Mode A ``Allreduce``, which takes the
-IR route.  The same schedule folded on one rank is Mode B's
-``constants.reduce_q8_hop``, so Mode A and Mode B agree bitwise per
-algorithm and codec.
+``n - 1`` hops.  As in the JAX package the Allreduce takes the schedule
+IR: the exact program of the algorithm, rewritten so each multipath
+channel is one ``q8_ring_channel`` step (``csched.q8_allreduce_program``;
+the backward is its transpose), lowered by ``csched.lower_q8_allreduce``
+onto :func:`_fused_channel`.  The hand-composed
+:func:`_fused_allreduce_value` stays as the reference the tests and the
+card smoke hold that route to, bitwise and launch for launch.  The same
+schedule folded on one rank is Mode B's ``constants.reduce_q8_hop`` (and
+``csched.interpret_allreduce`` of the program), so Mode A and Mode B
+agree bitwise per algorithm and codec.
 
 Stochastic codecs outside the hop schedule (``bf16r``, and ``q8_ef_hop``
 as a plain encode) key every encode with :func:`_hop_key`: the salt, the
@@ -244,7 +245,12 @@ def _allreduce_value(ctx: SpmdContext, x, codec: Codec,
         return x
     base = codec.base()
     if base.hop_fused:
-        return _fused_allreduce_value(ctx, x, codec, algorithm, reverse)
+        from .. import csched
+
+        prog = csched.programs.cached(
+            csched.q8_allreduce_program, algorithm, ctx.size, codec.name,
+            base.block, reverse=reverse)
+        return csched.lower_q8_allreduce(prog, ctx, x, codec)
     if codec.ef_rounds <= 1:
         return _allreduce_round(ctx, x, base, salt=0)
     # In-call error feedback: round 1 tracks every residual this rank

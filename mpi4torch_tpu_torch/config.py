@@ -9,8 +9,9 @@ of the serving decode collectives (:data:`SERVE_DECODE_BUCKETS`), the
 deadlock timeout of rank worlds,
 and the knobs of the compressed Allreduce: the default codec
 (:func:`set_default_compression`, :func:`compression_scope`), the
-bandwidth crossover of the algorithm selector, the ``torus`` group
-size and the implementation of the quantized hop
+bandwidth crossover of the algorithm selector, the ``hier``/``torus``
+group size, the tier stack (:func:`set_tier_stack`) and the
+implementation of the quantized hop
 (:func:`quant_hop_impl`), the reshard planner's default strategy
 (:func:`set_default_reshard_strategy`), and the fault-tolerance and
 observability knobs: comm retries and backoff, the finite guard, the
@@ -271,6 +272,38 @@ def set_hier_group_size(g) -> None:
     _hier_group_size = (None if g is None else
                         _validated_threshold(g, "hier_group_size",
                                              minimum=2))
+
+
+# --- the tier stack ---------------------------------------------------------
+
+# The flat-axis tier-stack factorization (innermost first) of the
+# ``hier`` schedule: None derives it (hier_group_size, else the
+# square-root 2-level split; tune.resolve_tier_stack).
+_tier_stack = None
+
+
+def tier_stack():
+    """The configured tier-stack factorization (innermost first), or
+    None to derive.  Each factor must be >= 2 and the product must equal
+    the communicator size (validated where it is resolved)."""
+    return _tier_stack
+
+
+def set_tier_stack(stack) -> None:
+    global _tier_stack
+    if stack is None:
+        _tier_stack = None
+        return
+    try:
+        stack = tuple(int(g) for g in stack)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"tier_stack must be a tuple of ints >= 2 or None, got "
+            f"{stack!r}") from None
+    if not stack or any(g < 2 for g in stack):
+        raise ValueError(
+            f"tier_stack factors must all be >= 2, got {stack!r}")
+    _tier_stack = stack
 
 
 # --- the quantized hop -----------------------------------------------------
@@ -674,6 +707,7 @@ def snapshot_process_state() -> dict:
         "overlap": _process_overlap,
         "bandwidth_crossover_bytes": _bandwidth_crossover_bytes,
         "hier_group_size": _hier_group_size,
+        "tier_stack": _tier_stack,
         "quant_hop_impl": _quant_hop_impl,
         "ordered_fold_gather_max_bytes": _ordered_fold_gather_max_bytes,
         "ordered_ring_chunk_bytes": _ordered_ring_chunk_bytes,
@@ -697,6 +731,7 @@ def apply_process_state(state: dict) -> None:
     set_default_overlap(state["overlap"])
     set_bandwidth_crossover_bytes(state["bandwidth_crossover_bytes"])
     set_hier_group_size(state["hier_group_size"])
+    set_tier_stack(state["tier_stack"])
     set_quant_hop_impl(state["quant_hop_impl"])
     set_ordered_fold_gather_max_bytes(
         state["ordered_fold_gather_max_bytes"])

@@ -168,45 +168,25 @@ def reduce_tree(op: int, values):
     return vals[0] if vals else None
 
 
-def _hier_groups(n: int, g: int):
-    """The 2-level grouping of ``n`` ranks with intra-group size ``g``:
-    the ``n // g`` blocks of consecutive ranks, and the ``g`` strided
-    groups ``{i, i + g, i + 2g, ...}`` across them."""
-    blocks = tuple(tuple(b * g + i for i in range(g)) for b in range(n // g))
-    strided = tuple(tuple(i + b * g for b in range(n // g))
-                    for i in range(g))
-    return blocks, strided
-
-
-def _level_fold(groups, op: int, vals):
-    """One tier of a grouped fold: every group folds its members' values
-    in ascending rank order and each member adopts the partial.  Groups
-    whose members hold the same value objects fold once."""
-    out = list(vals)
-    memo = {}
-    for group in groups:
-        key = tuple(id(vals[r]) for r in group)
-        p = memo.get(key)
-        if p is None:
-            p = reduce_ordered(op, [vals[r] for r in group])
-            memo[key] = p
-        for r in group:
-            out[r] = p
-    return out
-
-
 def reduce_grouped(op: int, values, group: int):
     """Reduce per-rank tensors in the 2-level hierarchical association:
     the ascending fold within each block of ``group`` consecutive ranks,
-    then the ascending fold of the block partials."""
+    then the ascending fold of the block partials.  The fold body is the
+    schedule-IR interpreter's ``level_fold`` path
+    (``csched.interp.level_fold_groups``), the one that folds the
+    ``hier`` program, so the two cannot drift apart."""
     vals = list(values)
     n = len(vals)
     if group < 1 or n % group:
         raise ValueError(
             f"reduce_grouped needs group ({group}) to divide the rank "
             f"count ({n})")
-    blocks, strided = _hier_groups(n, group)
-    return _level_fold(strided, op, _level_fold(blocks, op, vals))[0]
+    from .csched.interp import level_fold_groups
+    from .csched.programs import _hier_groups
+
+    inner, outer, _ = _hier_groups(n, group)
+    return level_fold_groups(
+        outer, op, level_fold_groups(inner, op, vals))[0]
 
 
 def reduce_torus(op: int, values, inner: int):
@@ -225,18 +205,21 @@ def reduce_torus(op: int, values, inner: int):
             f"count ({n})")
     if n == 1:
         return vals[0]
-    blocks, strided = _hier_groups(n, inner)
-    shape = vals[0].shape
-    flats = [v.reshape(-1) for v in vals]
-    total = flats[0].numel()
-    m = multipath_split(total)
-    halves = [_level_fold(strided, op, _level_fold(
-        blocks, op, [f[:m] for f in flats]))[0]]
-    if m < total:
-        halves.append(_level_fold(blocks, op, _level_fold(
-            strided, op, [f[m:] for f in flats]))[0])
-    out = halves[0] if len(halves) == 1 else torch.cat(halves)
-    return out.reshape(shape)
+    # The fold is the torus program's interpretation: the deterministic
+    # channels (half 0 inner tier first, half 1 the transposed grid)
+    # executed by the schedule-IR interpreter's one level_fold path.
+    from .csched.interp import interpret_allreduce
+    from .csched.ir import Phase, Program, Step
+    from .csched.programs import _hier_groups
+
+    inner_groups, outer_groups, outer_n = _hier_groups(n, inner)
+    ch0 = (Step("level_fold", (inner_groups, inner), span=("half", 0)),
+           Step("level_fold", (outer_groups, outer_n), span=("half", 0)))
+    ch1 = (Step("level_fold", (outer_groups, outer_n), span=("half", 1)),
+           Step("level_fold", (inner_groups, inner), span=("half", 1)))
+    prog = Program("allreduce", "torus", n,
+                   (Phase("multipath", ch0 + ch1),))
+    return interpret_allreduce(prog, op, vals)
 
 
 def multipath_split(total: int) -> int:

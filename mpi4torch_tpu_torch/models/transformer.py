@@ -21,8 +21,11 @@ Training shards the sequence over ``comm_sp`` (``attn="ring"``,
 and K3/K4 backward per block on a CUDA device) and, with ``n_experts >
 0``, runs every block's FFN as the expert-parallel MoE over ``comm_ep``
 (``parallel/moe.py``); ``comm_dp`` averages data-parallel replicas.
-Each of the three axes is its own communicator; on rank threads, which
-have no sub-communicators, one of them spans the world at a time.
+Each of the three axes is its own communicator.  Under ``run_ranks`` one
+of them spans the world at a time; under ``run_spmd(mesh=)`` they are the
+axes of one mesh at once (``comm_from_mesh(mesh, "dp")``, ``"sp"``,
+``"ep"``), each rank taking its token slice by the axes' symbolic ranks,
+and every mesh position ends a step with the same loss and parameters.
 Decoding an MoE configuration runs the dense-expert form
 (``moe_ffn_dense``).  Besides the SGD ``train_step`` there are the
 ZeRO-1 and ZeRO-3 steps (``zero_train_step``, ``zero3_train_step``) over

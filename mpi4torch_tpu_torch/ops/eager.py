@@ -128,12 +128,30 @@ def _rendezvous_fold(world_size: int, algorithm):
     if algorithm == "tree":
         return "tree", C.reduce_tree
     if algorithm in ("hier", "torus"):
-        from ..tune import resolve_hier_group
+        from ..tune import resolve_hier_group, resolve_tier_stack
 
         g = resolve_hier_group(world_size)
-        if algorithm == "hier":
-            return "hier", lambda op, vals: C.reduce_grouped(op, vals, g)
-        return "torus", lambda op, vals: C.reduce_torus(op, vals, g)
+        if algorithm == "torus":
+            return "torus", lambda op, vals: C.reduce_torus(op, vals, g)
+        stack = resolve_tier_stack(world_size)
+        if len(stack) > 2:
+            # An N-level config.tier_stack folds in the per-tier grouped
+            # chain Mode A's tier-labelled level_fold program lowers
+            # (csched.programs, hier branch); the 2-level association
+            # would differ from it.
+            from ..csched.interp import level_fold_groups
+            from ..csched.programs import chain_groups
+
+            levels = chain_groups(world_size, stack)
+
+            def _chain_fold(op, vals):
+                vals = list(vals)
+                for groups, _f in levels:
+                    vals = level_fold_groups(groups, op, vals)
+                return vals[0]
+
+            return "hier", _chain_fold
+        return "hier", lambda op, vals: C.reduce_grouped(op, vals, g)
     if algorithm == "bidir":
         # The two rings carry disjoint element ranges of an elementwise
         # fold, so bidir's association is the ascending-rank one.

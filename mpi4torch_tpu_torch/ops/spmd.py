@@ -17,14 +17,16 @@ under JAX's Mode A contract:
   Unmatched sends and receives and un-waited split-phase handles raise
   :class:`DeadlockError` when the region ends; a double Wait and a
   spliced handle raise at once.
-* Every Allreduce algorithm runs as its explicit schedule, the
-  hand-written forms the JAX package lowers through its IR: each
-  ``lax.ppermute`` is one exchange round of the world, each ``lax.scan``
-  a Python loop with the same masked selects, and every rank does the
-  work of every step.  The XLA-native collectives (``psum``,
-  ``psum_scatter``, ``all_gather``, ``all_to_all``) are one exchange
-  each, folding in ascending rank order within the axis group, so they
-  give the bits of the port's Mode B.
+* Every Allreduce, Bcast_ and Reduce_ builds its schedule program in
+  the collective-schedule IR (:mod:`mpi4torch_tpu_torch.csched`) and
+  lowers it at the call site, as the JAX package does; the backward
+  lowers the transposed program.  The emitters are the hand-written
+  schedule bodies below: each ``lax.ppermute`` is one exchange round of
+  the world, each ``lax.scan`` a Python loop with the same masked
+  selects, and every rank does the work of every step.  The XLA-native
+  collectives (``psum``, ``psum_scatter``, ``all_gather``,
+  ``all_to_all``) are one exchange each, folding in ascending rank order
+  within the axis group, so they give the bits of the port's Mode B.
 * Every op is one ``torch.autograd.Function`` whose backward is the
   adjoint collective, and :func:`run_spmd` stacks the per-rank outputs
   along a leading axis whose gradient, taken from outside, runs every
@@ -59,6 +61,7 @@ import torch
 
 from .. import config as _config
 from .. import constants as C
+from .. import csched as _csched
 from ..runtime import (BifurcationError, CommError, DeadlockError, World,
                        resolve_device, run_rank_threads)
 from ..utils.tree import tree_flatten, tree_from_structure
@@ -1007,14 +1010,14 @@ def _torus_allreduce_value(ctx: SpmdContext, x, op: int):
     return torch.cat([o0, o1]).reshape(shape)
 
 
-def _allreduce_fwd_value(ctx: SpmdContext, x, op: int,
-                         algorithm: Optional[str] = "ring",
-                         reverse: bool = False):
-    """ONE dispatch for every allreduce schedule: the algorithm's
-    hand-written form, branch for branch what the JAX package's program
-    builder (``csched.allreduce_program``) emits for it.  ``reverse``
-    gives the transposed program (the SUM adjoint): ``bidir``'s halves
-    swap directions, every other schedule runs again as it is."""
+def _handwritten_allreduce_value(ctx: SpmdContext, x, op: int,
+                                 algorithm: Optional[str] = "ring",
+                                 reverse: bool = False):
+    """The hand-written dispatch over the schedules above, the reference
+    the IR route (:func:`_allreduce_fwd_value`) is held to bitwise, in
+    values, gradients and exchanges, by the tests and the card smoke.
+    ``reverse`` is the SUM adjoint: ``bidir``'s halves swap directions,
+    every other schedule runs again as it is."""
     algorithm = algorithm or "ring"
     n = ctx.size
     det = _config.deterministic_reductions()
@@ -1039,6 +1042,38 @@ def _allreduce_fwd_value(ctx: SpmdContext, x, op: int,
     raise CommError(
         f"no Mode A schedule for collective algorithm {algorithm!r} "
         "(registered: ring, rhd, tree, hier, bidir, torus)")
+
+
+def _csched_args(x):
+    """The static call data the IR program constructors key on."""
+    return x.numel(), x.element_size()
+
+
+def _allreduce_program(ctx: SpmdContext, x, op: int, algorithm):
+    nelems, itemsize = _csched_args(x)
+    return _csched.programs.cached(
+        _csched.allreduce_program, algorithm, ctx.size, op,
+        deterministic=_config.deterministic_reductions(), nelems=nelems,
+        itemsize=itemsize)
+
+
+def _allreduce_fwd_value(ctx: SpmdContext, x, op: int,
+                         algorithm: Optional[str] = "ring"):
+    """ONE dispatch for every allreduce schedule: build the algorithm's
+    IR program (:mod:`mpi4torch_tpu_torch.csched`; the hand-written
+    forms above are its emitter bodies) and lower it at the call site."""
+    return _csched.lower_allreduce(
+        _allreduce_program(ctx, x, op, algorithm), ctx, x, op)
+
+
+def _allreduce_bwd_value(ctx: SpmdContext, g, algorithm):
+    """The SUM-allreduce adjoint: the TRANSPOSED program of the forward
+    (``bidir``'s halves swap directions, every other schedule re-runs as
+    it is)."""
+    prog = _allreduce_program(ctx, g, C.MPI_SUM, algorithm)
+    return _csched.lower_allreduce(
+        _csched.programs.cached(_csched.transpose, prog), ctx, g,
+        C.MPI_SUM)
 
 
 def _bwd_scope(opname: str):
@@ -1085,9 +1120,8 @@ class _Allreduce(torch.autograd.Function):
     def backward(fctx, g):
         _sum_only(fctx.op, "Allreduce")
         with _bwd_scope("Allreduce"):
-            return (_allreduce_fwd_value(fctx.sctx, g.contiguous(),
-                                         C.MPI_SUM, fctx.algorithm,
-                                         reverse=True), None, None, None)
+            return (_allreduce_bwd_value(fctx.sctx, g.contiguous(),
+                                         fctx.algorithm), None, None, None)
 
 
 def allreduce(ctx: SpmdContext, x, op: int, algorithm=None,
@@ -1122,24 +1156,27 @@ def allreduce(ctx: SpmdContext, x, op: int, algorithm=None,
 
 
 def _bcast_value(ctx: SpmdContext, x, root: int, algorithm=None):
-    """Bcast_: ``tree`` is the binomial form, ``ring`` the root-masked
-    psum; ``None`` the size dispatch (``config.bcast_tree_max_bytes``)."""
+    """Bcast_ through the IR: ``tree`` is the binomial program (whose
+    transpose is the tree Reduce_ program), ``ring`` the mask + psum
+    pair, ``None`` the size dispatch (``config.bcast_tree_max_bytes``)."""
     if ctx.size == 1:
         return x
-    nbytes = x.numel() * x.element_size()
-    if algorithm == "tree" or (algorithm != "ring"
-                               and nbytes <= _config.bcast_tree_max_bytes()):
-        return _tree_bcast_value(ctx, x, root)
-    return _psum(ctx, _mask_to_root(ctx, x, root), C.MPI_SUM)
+    nelems, itemsize = _csched_args(x)
+    prog = _csched.programs.cached(_csched.bcast_program, algorithm,
+                                   ctx.size, root, nbytes=nelems * itemsize)
+    return _csched.lower_value(prog, ctx, x, C.MPI_SUM)
 
 
 def _reduce_value(ctx: SpmdContext, x, op: int, root: int, algorithm=None):
-    """Reduce_: ``tree`` is the binomial reduce; everything else the ring
-    allreduce with a root mask appended (non-root results zeroed)."""
-    if algorithm == "tree":
-        return _tree_reduce_value(ctx, x, op, root)
-    return _mask_to_root(ctx, _allreduce_fwd_value(ctx, x, op, "ring"),
-                         root)
+    """Reduce_ through the IR: ``tree`` is the binomial reduce program;
+    everything else the ring allreduce program with a root mask appended
+    (non-root results zeroed)."""
+    nelems, itemsize = _csched_args(x)
+    prog = _csched.programs.cached(
+        _csched.reduce_program, algorithm, ctx.size, op, root,
+        deterministic=_config.deterministic_reductions(), nelems=nelems,
+        itemsize=itemsize)
+    return _csched.lower_value(prog, ctx, x, op)
 
 
 def _check_root(ctx: SpmdContext, root: int) -> None:

@@ -42,6 +42,21 @@ from ..comm import WaitHandle
 from ..ops.eager import join_dummies as _join_dummies
 from ..runtime import BifurcationError, effective_rank_context
 
+def tier_window_depth():
+    """The tier-stack overlap widening: not ported yet (raises)."""
+    raise NotImplementedError(
+        "tier_window_depth: the tier-stack window comes with the tier "
+        "knobs' readers (ROADMAP.md, Queue 1 item 4.8, with item 5)")
+
+
+def scheduled_exposure(lowered_or_text):
+    """The scheduled-exposure census of a lowering: not ported yet
+    (raises)."""
+    raise NotImplementedError(
+        "scheduled_exposure: the census reads StableHLO through analyze "
+        "(ROADMAP.md, Queue 1 item 7)")
+
+
 __all__ = [
     "SplitWaitHandle",
     "SpmdWaitHandle",

@@ -20,6 +20,21 @@ __all__ = [
     "reset_stats", "admit_zero3",
 ]
 
+def decode_message_bytes(cfg, serve_cfg, dtype=None):
+    """Bytes of one decode collective payload: not ported yet (raises)."""
+    raise NotImplementedError(
+        "decode_message_bytes: latency-tier selection comes with the "
+        "autotuner (ROADMAP.md, Queue 1 item 5)")
+
+
+def latency_report(cfg, serve_cfg, nranks, dtype=None):
+    """Latency-tier evidence for an engine's decode traffic: not ported
+    yet (raises)."""
+    raise NotImplementedError(
+        "latency_report: latency-tier selection comes with the autotuner "
+        "(ROADMAP.md, Queue 1 item 5)")
+
+
 # Process-wide aggregate of every live engine's ServeStats, and its reset.
 stats = serve_stats
 reset_stats = reset_serve_stats

@@ -1897,3 +1897,160 @@ def test_spmd_engine_k2_launches_tc(cuda):
     assert _kernels.launch_counts["flash_fwd.simt"] == 0
     want = P.run_ranks(lambda: drive(serve.Engine(cfg, params, scfg)), 2)
     assert got == want[0]
+
+
+# ------------------------------------------------------- the schedule IR
+
+
+class _HandWrittenAllreduce(torch.autograd.Function):
+    """The hand-written Allreduce dispatch of ops/spmd.py, forward and
+    adjoint: the reference the IR route is held to."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, op, algo):
+        from mpi4torch_tpu_torch.ops import spmd
+
+        fctx.ctx, fctx.algo = ctx, algo
+        return spmd._handwritten_allreduce_value(ctx, x, op, algo)
+
+    @staticmethod
+    def backward(fctx, g):
+        from mpi4torch_tpu_torch.ops import spmd
+
+        return (spmd._handwritten_allreduce_value(
+            fctx.ctx, g.contiguous(), 3, fctx.algo, reverse=True),
+            None, None, None)
+
+
+def _ir_run(P, fn, x, device, n, seed):
+    """run_spmd(fn) on the stacked rows x: (out, grad of vdot(out, w) from
+    outside, rank 0's exchanges), on the CPU."""
+    from mpi4torch_tpu_torch import runtime
+
+    seen = []
+    saved = runtime.World.exchange
+
+    def exchange(w, rank, signature, *a, **kw):
+        if rank == 0:
+            seen.append(signature)
+        return saved(w, rank, signature, *a, **kw)
+
+    runtime.World.exchange = exchange
+    try:
+        out, g = _mode_a_run(P, fn, n, x, device, seed)
+    finally:
+        runtime.World.exchange = saved
+    return out, g, seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["bidir", "hier"])
+@pytest.mark.parametrize("det", [False, True])
+def test_csched_lowered_bitwise_hand_written_on_the_card(cuda, algo, det):
+    # The Allreduce through the schedule IR on the card: values and
+    # gradients bitwise the hand-written dispatch's and the CPU run's,
+    # with the same exchanges.
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch.ops import spmd
+
+    n = 8
+    x = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        (n, 4099)).astype(np.float32))
+
+    def ir(c, t):
+        return c.Allreduce(t, P.MPI_SUM, algorithm=algo)
+
+    def hw(c, t):
+        return _HandWrittenAllreduce.apply(
+            t, spmd.current_spmd_context(), P.MPI_SUM, algo)
+
+    with P.config.deterministic_mode(det):
+        a = _ir_run(P, ir, x, cuda, n, 0)
+        b = _ir_run(P, hw, x, cuda, n, 0)
+        c = _ir_run(P, ir, x, "cpu", n, 0)
+    assert a[2] == b[2] and len(a[2]) > 0
+    for u, v, w in zip(a[:2], b[:2], c[:2]):
+        assert torch.equal(u.view(torch.int32), v.view(torch.int32))
+        assert torch.equal(u.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_csched_q8_ir_route_launches_k1_as_the_hand_composed(cuda):
+    # compress/spmd's q8 Allreduce lowers its codec-rewritten program:
+    # bitwise the hand-composed pipeline, with K1's hop and requant
+    # launches equal to it and to the schedule's.
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch.compress import get_codec
+    from mpi4torch_tpu_torch.compress import spmd as cspmd
+    from mpi4torch_tpu_torch.ops import spmd
+
+    class HandComposed(torch.autograd.Function):
+        @staticmethod
+        def forward(fctx, t, ctx, codec):
+            fctx.args = (ctx, codec)
+            return cspmd._fused_allreduce_value(ctx, t, codec, "bidir",
+                                                False)
+
+        @staticmethod
+        def backward(fctx, g):
+            ctx, codec = fctx.args
+            return (cspmd._fused_allreduce_value(ctx, g.contiguous(),
+                                                 codec, "bidir", True),
+                    None, None)
+
+    n = 4
+    x = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        (n, 20000)).astype(np.float32))
+    runs, counts = [], []
+    for fn in (lambda c, t: c.Allreduce(t, P.MPI_SUM, compression="q8_ef",
+                                        algorithm="bidir"),
+               lambda c, t: HandComposed.apply(
+                   t, spmd.current_spmd_context(), get_codec("q8_ef"))):
+        _kernels.reset_launch_counts()
+        runs.append(_ir_run(P, fn, x, cuda, n, 1))
+        counts.append((_kernels.launch_counts["q8_hop"],
+                       _kernels.launch_counts["q8_requant"]))
+    assert runs[0][2] == runs[1][2]
+    for u, v in zip(runs[0][:2], runs[1][:2]):
+        assert torch.equal(u.view(torch.int32), v.view(torch.int32))
+    # Forward and backward x 2 channels x 2 rounds.
+    assert counts[0] == counts[1] == (8 * n * (n - 1), 8 * n)
+
+
+@pytest.mark.cuda
+def test_csched_dp_sp_step_on_the_card(cuda):
+    # train_step on a 2 x 2 dp x sp mesh under run_spmd at a small width:
+    # f32 against the one-rank full-batch step, every mesh position
+    # bitwise alike; bf16 at head dim 64 with every attention launch tc.
+    import dataclasses
+
+    import mpi4torch_tpu_torch as P
+
+    cfg = T.TransformerConfig(vocab=512, d_model=256, n_heads=4,
+                              n_layers=2, d_ff=512, max_seq=256)
+    tokens = torch.from_numpy(np.random.default_rng(18).integers(
+        0, cfg.vocab, (4, 256))).to(cuda)
+    mesh = P.device_mesh({"dp": 2, "sp": 2})
+    cd, cs = P.comm_from_mesh(mesh, "dp"), P.comm_from_mesh(mesh, "sp")
+
+    def body(p, toks):
+        local = toks.narrow(0, cd.rank * 2, 2).narrow(1, cs.rank * 128, 128)
+        return T.train_step(cfg, p, local, comm_sp=cs, comm_dp=cd,
+                            attn="ring", lr=2.0 ** 20)
+
+    p32 = T.init_transformer(0, cfg, torch.float32, device=cuda)
+    loss, new = P.run_spmd(body, mesh=mesh, axis_name="dp")(p32, tokens)
+    ref_loss, ref = T.train_step(cfg, p32, tokens, lr=2.0 ** 20)
+    assert all(torch.equal(loss[i], loss[0]) for i in range(4))
+    assert abs(loss[0].item() - ref_loss.item()) <= 1e-5 * ref_loss.item()
+    for a, b in zip(tree_leaves(new), tree_leaves(ref)):
+        assert all(torch.equal(a[i], a[0]) for i in range(4))
+        assert ((a[0] - b).norm() / b.norm()).item() <= 1e-5
+    pb = T.init_transformer(0, cfg, torch.bfloat16, device=cuda)
+    _kernels.reset_launch_counts()
+    loss, new = P.run_spmd(body, mesh=mesh, axis_name="dp")(pb, tokens)
+    assert all(torch.equal(loss[i], loss[0]) for i in range(4))
+    for k in _kernels.ATTENTION_KERNELS:
+        # 2 dp groups x 2 layers x the ring's 4 blocks over two sp ranks.
+        assert _kernels.launch_counts[k] == \
+            _kernels.launch_counts[f"{k}.tc"] == 16

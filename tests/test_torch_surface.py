@@ -1,11 +1,10 @@
 """The port's package surface and its rank means.
 
 Surface: every name the JAX package exports in the ``__all__`` of the
-package, ``ops``, ``utils``, ``reshard``, ``obs``, ``resilience`` and
-``transport``
-exists in the port, or is listed in ``UNPORTED`` under the ROADMAP.md Queue 1 item it
-waits for; a listed name the port keeps as a stub raises
-``NotImplementedError`` naming that item.
+package and of every subpackage that has one exists in the port, or is
+listed in ``UNPORTED`` under the ROADMAP.md Queue 1 item it waits for; a
+listed name the port keeps as a stub raises ``NotImplementedError``
+naming that item.
 
 Means: a rank mean divides by a 0-d tensor on the operand's device
 (``constants.divide``), which is a true division on every device.  At a
@@ -35,7 +34,7 @@ UNPORTED = {
         "finalize_distributed": 4, "init_distributed": 4,
         "is_distributed": 4, "local_values": 4,
         "comm_from_mpi4py": 4, "algorithm_scope": 5,
-        "csched": 5, "elastic": 6, "ctl": 6, "analyze": 7,
+        "elastic": 6, "ctl": 6, "analyze": 7,
     },
     "ops": {},
     "utils": {},
@@ -48,6 +47,25 @@ UNPORTED = {
                    "DegradeController": 6, "DegradeError": 6,
                    "DegradeTransition": 6, "failover_schedule": 6,
                    "rank_wire_bytes": 6, "register_degrade_policy": 6},
+    "compress": {"int8_rotation_census": 7},
+    "overlap": {"SPLIT_PHASE_FORMS": "4.8", "tier_window_depth": "4.8",
+                "scheduled_exposure": 7},
+    "serve": {"latency_report": 5, "decode_message_bytes": 5},
+    "tune": {name: 5 for name in (
+        "available_algorithms", "register_algorithm",
+        "autotune_allreduce", "bucket_nbytes", "ensure_tuned_allreduce",
+        "lookup", "lookup_algorithm", "entry_from_disk", "record",
+        "make_key", "cache_path", "generation", "clear")},
+    "csched": {name: 5 for name in (
+        "synthesize", "fold_program", "factorization_chains",
+        "autotune_synthesis", "install", "installed_program",
+        "is_synth_name", "synth_applicable", "synthesize_tiers",
+        "autotune_tier_synthesis", "rewrite_fold_codec",
+        "TIER_COMPOSITIONS")},
+    "fuse": {},
+    "models": {},
+    "parallel": {},
+    "mesh": {},
 }
 
 
