@@ -374,19 +374,42 @@ check fails.  Phases, in order:
     one, K2-K4 launches all ``tc`` beside phase 24's SP=2 and phase 9's
     DP=2 steps; DP=2 x EP=2 with the MoE at 2 layers (f32 against the
     replicated dense-expert form, then a bf16 step);
-62. one JSON line describing each ported kernel (K2, K3 and K4 with
+62. algorithm selection, under a cache file in ``smoke_out/tune`` with
+    the process state saved before and restored after: A, the
+    autotuner's sweep (``tune.autotune_allreduce``, 4 rank threads,
+    float32, 1 KiB to 64 MiB, exact and q8) with its winners, crossovers
+    and K1's hop launches during the q8 leg; B, a fresh process serving
+    the same winners from the file with no rendezvous, and ``python -m
+    mpi4torch_tpu_torch.tune --show``; C, bench's Allreduce body under
+    auto selection bitwise its explicit pick with the same rendezvous,
+    the flagship's fused DP=2 step under ``run_spmd`` tuned against
+    untuned (picks per bucket size, ms, ranks bitwise alike, loss within
+    phase 9's tolerance, K2-K4 all ``tc``), ``algorithm_scope`` in the
+    rank body taking effect on 4 ranks and degrading on 3 where
+    ``algorithm="rhd"`` raises; D, ``csched.autotune_synthesis`` on 8
+    ranks and a deterministic auto Allreduce taking each recorded winner,
+    value and gradient bitwise ``csched.interpret_allreduce`` and
+    ``run_ranks``, its rendezvous the census's; E, tier synthesis on a
+    skewed (2, 2, 2) stack, the exact and q8-slow winners bitwise their
+    interpretation, K1's requant launches those of the q8-slow program's
+    ``q8_level_fold`` steps, ``overlap.tier_window_depth()``; F, serving's
+    ``latency_report`` and the SPMD TP=2 dense engine's tokens tuned
+    against untuned;
+63. one JSON line describing each ported kernel (K2, K3 and K4 with
     the variant the main path ran; the launches of phases 18–20, 23–27,
     30–31 and of the later slices' phases, ``obs_launches``,
     ``resilience_launches``, ``handoff_launches``,
     ``checkpoint_launches``, ``process_launches`` (counted in the
     workers), ``mode_a_launches`` (phases 51, 55, 56 and 57) and
-    ``mesh_2d_launches`` (phase 61); their numbers at the SP and
+    ``mesh_2d_launches`` (phase 61) and ``tune_launches`` (phase 62);
+    their numbers at the SP and
     slice-10 shapes, against the plain versions, their bounds and SDPA;
     K1 with its hop and requant launches, ``reshard_launches``,
     ``process_launches``, ``mode_a_launches`` (phases 55 and 58) and
-    ``csched_launches`` (phase 60) among them).
+    ``csched_launches`` (phase 60) and ``tune_launches`` (phase 62)
+    among them).
 
-Each phase prints the seconds it took, and each of 28–62 the card's name
+Each phase prints the seconds it took, and each of 28–63 the card's name
 and power limit beside its numbers.  Times on the host clock are host times; event times of the
 comm tracer are host times (a rendezvous returns before the card has
 run its work).
@@ -7985,6 +8008,514 @@ def mesh2d_phase(P, T, tree, kernels, cfg, params, tokens, sp, dp_ms,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 62: algorithm selection, the autotuner and schedule synthesis
+# ---------------------------------------------------------------------------
+
+# The phase's tune cache (git-ignored), never the user's ~/.cache.
+TUNE_OUT = os.path.join("smoke_out", "tune")
+TUNE_RANKS = 4                  # the sweep's rank threads
+TUNE_DEVICE = "cuda"            # B's fresh process tunes for the card
+TUNE_ITERS = 5                  # min of 5 a size and algorithm
+SYNTH_RANKS = 8
+SYNTH_SIZES = (1 << 10, 1 << 14, 1 << 18)
+# E: a skewed three-tier stack, the outer tier 32x slower than the inner.
+TIER_STACK, TIER_BANDWIDTHS = (2, 2, 2), (100.0, 25.0, 3.125)
+TIER_NUMEL = 1 << 12            # 16 KiB of float32 a rank: a swept bucket
+# C: bench's Allreduce body at phase 50's size (past the swept sizes: the
+# crossovers decide) and at the largest swept size (the cache decides).
+TUNE_BENCH_NUMELS = (MODE_A_BENCH_NUMEL, 1 << 24)
+
+
+class SelectorLog:
+    """Records every ``tune.select_auto`` pick while entered:
+    ``{(nbytes, nranks, deterministic, codec): algorithm}``."""
+
+    def __init__(self, tune):
+        self._tune = tune
+        self.picks = {}
+
+    def __enter__(self):
+        tune, picks = self._tune, self.picks
+        self._saved = saved = tune.select_auto
+
+        def select_auto(**kw):
+            algo = saved(**kw)
+            codec = kw.get("codec")
+            picks[(kw["nbytes"], kw["nranks"], kw.get("deterministic"),
+                   None if codec is None else codec.name)] = algo
+            return algo
+
+        tune.select_auto = select_auto
+        return self
+
+    def __exit__(self, *exc):
+        self._tune.select_auto = self._saved
+        return False
+
+
+def spmd_value_grad(P, n, rows, w, **kw):
+    """Value and gradient from outside of one Allreduce under
+    ``run_spmd(nranks=n)``: each rank reduces its row of ``rows``; the
+    loss is ``sum(out * w)``.  Returns (value, gradient, forward
+    exchanges)."""
+    x = rows.detach().clone().requires_grad_()
+
+    def body(v):
+        return P.COMM_WORLD.Allreduce(v[P.COMM_WORLD.rank], P.MPI_SUM, **kw)
+
+    with ExchangeCounter() as cnt:
+        out = P.run_spmd(body, nranks=n)(x)
+    (g,) = torch.autograd.grad((out * w).sum(), x)
+    return out.detach(), g, cnt.exchanges
+
+
+def ranks_value_grad(P, n, rows, w, **kw):
+    """The same Allreduce and gradient on ``run_ranks`` (Mode B)."""
+    def body(r):
+        x = rows[r].detach().clone().requires_grad_()
+        y = P.COMM_WORLD.Allreduce(x, P.MPI_SUM, **kw)
+        (g,) = torch.autograd.grad((y * w[r]).sum(), x)
+        return y.detach(), g
+
+    res = P.run_ranks(body, n, device="cuda")
+    return torch.stack([r[0] for r in res]), torch.stack([r[1] for r in res])
+
+
+def tune_sweep(P, tune, kernels, config):
+    """A: the sweep, with K1's launches during its q8 leg held to the
+    count the per-call launches of each q8 candidate imply."""
+    from mpi4torch_tpu_torch.compress import codec_applicable, get_codec
+
+    q8 = get_codec("q8")
+    sizes = tune.autotuner.DEFAULT_SIZES
+    q8_algos = [a for a in tune.available_algorithms()
+                if tune.get_algorithm(a).applicable(TUNE_RANKS)
+                and codec_applicable(q8, torch.float32, algorithm=a)]
+    per_call = {}
+    for nbytes in sizes:
+        x = torch.ones(nbytes // 4, device="cuda")
+        for a in q8_algos:
+            kernels.reset_launch_counts()
+            P.run_spmd(lambda v, a=a: P.COMM_WORLD.Allreduce(
+                v, P.MPI_SUM, compression="q8", algorithm=a),
+                nranks=TUNE_RANKS)(x)
+            per_call[(nbytes, a)] = kernels.launch_counts["q8_hop"]
+        del x
+    want = (2 + TUNE_ITERS) * sum(per_call.values())
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = tune.autotune_allreduce(nranks=TUNE_RANKS, codecs=(None, "q8"),
+                                  iters=TUNE_ITERS)
+    secs = time.perf_counter() - t0
+    hops = kernels.launch_counts["q8_hop"]
+    for size, ent in rep["entries"].items():
+        for label, e in (("exact", ent), ("q8", ent["codecs"]["q8"])):
+            cells = ", ".join(
+                f"{a} {v['seconds_per_step'] * 1e3:.3f}"
+                if "seconds_per_step" in v else f"{a} {v['error']}"
+                for a, v in e["algorithms"].items())
+            print(f"  {int(size):>9d} B {label:5s}: min ms of {TUNE_ITERS}: "
+                  f"{cells}; winner {e.get('winner')}", flush=True)
+    print(f"  latency crossover {rep['crossover_bytes']}, bandwidth "
+          f"crossover {rep['bandwidth_crossover_bytes']} (applied to the "
+          f"config); sweep {secs:.1f} s on {TUNE_RANKS} rank threads of one "
+          f"card; K1 q8_hop launches during the q8 sweep {hops} (the "
+          f"candidates' per-call launches x {2 + TUNE_ITERS} calls: {want})")
+    errors = [(s, a) for s, ent in rep["entries"].items()
+              for e in (ent, ent["codecs"]["q8"])
+              for a, v in e["algorithms"].items() if "error" in v]
+    check(not errors, f"sweep candidates failed: {errors}")
+    check(hops == want > 0, "the q8 sweep's K1 launches differ from the "
+          "count its calls imply")
+    check(config.latency_crossover_bytes() == rep["crossover_bytes"]
+          and config.bandwidth_crossover_bytes()
+          == rep["bandwidth_crossover_bytes"],
+          "the sweep did not apply its crossovers")
+    return rep, secs, hops
+
+
+def tune_round_trip(rep, cache):
+    """B: a fresh process with the same cache serves the sweep's winners
+    from the file, with no rendezvous; the cache CLI prints them."""
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    sizes = tuple(int(k) for k in rep["entries"])
+    code = (
+        "import json\n"
+        "from mpi4torch_tpu_torch import runtime, tune\n"
+        "n = [0]\n"
+        "saved = runtime.World.exchange\n"
+        "def exchange(w, rank, sig, *a, **k):\n"
+        "    n[0] += 1\n"
+        "    return saved(w, rank, sig, *a, **k)\n"
+        "runtime.World.exchange = exchange\n"
+        f"rep = tune.ensure_tuned_allreduce(sizes={sizes!r}, "
+        f"nranks={TUNE_RANKS}, device={TUNE_DEVICE!r})\n"
+        "print(json.dumps({'tuned_from_cache': rep['tuned_from_cache'],"
+        " 'from_disk': rep.get('from_disk'), 'rendezvous': n[0],"
+        " 'winners': {k: v['winner'] for k, v in rep['entries'].items()},"
+        " 'crossover_bytes': rep['crossover_bytes'],"
+        " 'bandwidth_crossover_bytes': rep['bandwidth_crossover_bytes']}))\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=root, env=env)
+    if proc.returncode:
+        print(proc.stderr[-4000:])
+    check(proc.returncode == 0, "the cache round trip's process failed")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = {k: v["winner"] for k, v in rep["entries"].items()}
+    ok = (got["tuned_from_cache"] and got["from_disk"]
+          and got["winners"] == want and got["rendezvous"] == 0
+          and got["crossover_bytes"] == rep["crossover_bytes"]
+          and got["bandwidth_crossover_bytes"]
+          == rep["bandwidth_crossover_bytes"])
+    print(f"  a fresh process on {cache}: {got} in "
+          f"{time.perf_counter() - t0:.1f} s  {'ok' if ok else 'FAIL'}")
+    check(ok, "the fresh process did not serve the sweep's winners from "
+          "the file without rendezvous")
+    proc = subprocess.run([sys.executable, "-m", "mpi4torch_tpu_torch.tune",
+                           "--show"], capture_output=True, text=True,
+                          timeout=120, cwd=root, env=env)
+    for line in proc.stdout.splitlines():
+        print("    " + line)
+    print(f"  python -m mpi4torch_tpu_torch.tune --show: exit "
+          f"{proc.returncode}")
+    check(proc.returncode == 0, "the cache CLI failed")
+
+
+def tune_selection(P, T, tree, dp, tune, kernels, config, cfg, params,
+                   tokens, rep):
+    """C: auto selection on the main path: bench's Allreduce body bitwise
+    its explicit pick with the same exchanges; the flagship's fused DP=2
+    step under run_spmd tuned against untuned; scopes in the rank body."""
+    comm = P.COMM_WORLD
+    res = {}
+    for numel in TUNE_BENCH_NUMELS:
+        x = torch.ones(numel, device="cuda")
+        pick = tune.select_auto(nbytes=numel * 4, dtype=torch.float32,
+                                nranks=TUNE_RANKS)
+
+        def body(v, algo=None):
+            def loss(u):
+                y = comm.Allreduce(u, P.MPI_SUM, algorithm=algo)
+                return torch.vdot(y, y)
+            return tree.value_and_grad(loss, v)
+
+        runs = {}
+        for label, algo in (("auto", None), ("explicit", pick)):
+            def call(algo=algo):
+                return P.run_spmd(lambda v: body(v, algo),
+                                  nranks=TUNE_RANKS)(x)
+            call()      # warm: the first call grows the allocator
+            with ExchangeCounter() as cnt:
+                ms, out = sync_ms(call)
+            runs[label] = (out, cnt.exchanges, ms)
+        same = tree_bytes_differ(tree, runs["auto"][0],
+                                 runs["explicit"][0]) == 0
+        winner = rep["entries"].get(str(numel * 4), {}).get("winner")
+        ok = same and runs["auto"][1] == runs["explicit"][1] and (
+            winner is None or winner == pick)
+        print(f"  bench's Allreduce body at {TUNE_RANKS} x {numel} float32: "
+              f"auto picks {pick!r} (the sweep's winner at this size: "
+              f"{winner}); value and gradient bitwise algorithm={pick!r}: "
+              f"{same}; rendezvous {runs['auto'][1]} / "
+              f"{runs['explicit'][1]}; ms {runs['auto'][2]:.2f} / "
+              f"{runs['explicit'][2]:.2f}  {'ok' if ok else 'FAIL'}",
+              flush=True)
+        check(ok, f"auto selection at {numel} float32 differs from its "
+              "explicit pick")
+        res[numel] = {"pick": pick, "rendezvous": runs["auto"][1]}
+        del runs, x
+
+    rows = TRAIN_BATCH // 2
+
+    def step(p, x):
+        loss, g = dp.dp_value_and_grad(
+            comm, lambda p_, x_: T.lm_loss(cfg, p_, x_))(p, x)
+        with torch.no_grad():
+            return loss, tree.tree_map(lambda a, b: a - LR * b, p, g)
+
+    def spmd_body(p, toks):
+        idx = comm.rank * rows + torch.arange(rows, device=toks.device)
+        return step(p, toks.index_select(0, idx))
+
+    tuned_x = (config.latency_crossover_bytes(),
+               config.bandwidth_crossover_bytes())
+
+    def dp2(tuned):
+        x = tuned_x if tuned else (None, None)
+        config.set_latency_crossover_bytes(x[0])
+        config.set_bandwidth_crossover_bytes(x[1])
+        t, (loss, new) = sync_ms(lambda: P.run_spmd(
+            spmd_body, nranks=2)(params, tokens))
+        same = torch.equal(loss[0], loss[1]) and leaves_equal(
+            tree, tree.tree_map(lambda t: t[0], new),
+            tree.tree_map(lambda t: t[1], new))
+        return float(loss[0]), t, same
+
+    # Untuned (no crossovers; the cache holds no 2-rank winner) and tuned
+    # steps in the order U T T U after a warm untuned step; the tuned
+    # steps' attention launches and selector picks are recorded.
+    runs = {False: [], True: []}
+    launches = {}
+    log = SelectorLog(tune)
+    dp2(False)
+    for tuned in (False, True, True, False):
+        kernels.reset_launch_counts()
+        if tuned:
+            with log:
+                runs[True].append(dp2(True))
+            for k, v in kernels.launch_counts.items():
+                launches[k] = launches.get(k, 0) + v
+        else:
+            runs[False].append(dp2(False))
+    config.set_latency_crossover_bytes(tuned_x[0])
+    config.set_bandwidth_crossover_bytes(tuned_x[1])
+    base, tuned = ((r[0][0], min(x[1] for x in r), all(x[2] for x in r))
+                   for r in (runs[False], runs[True]))
+    picks = {}
+    for (nbytes, n, _det, codec), algo in sorted(log.picks.items()):
+        if n == 2 and codec is None:
+            picks.setdefault(algo, []).append(nbytes)
+    want = 2 * 2 * cfg.n_layers
+    ok = (base[2] and tuned[2] and abs(tuned[0] - base[0]) <= LOSS_TOL
+          and all(launches[k] == launches[f"{k}.tc"] == want
+                  for k in kernels.ATTENTION_KERNELS))
+    print(f"  the flagship's fused DP=2 step under run_spmd (4 MiB "
+          f"buckets, bf16): tuned picks by payload bytes "
+          + "; ".join(f"{a}: {len(v)} sizes {min(v)}-{max(v)} B"
+                      for a, v in picks.items())
+          + f"; step {tuned[1]:.1f} ms tuned vs {base[1]:.1f} ms untuned "
+          f"(the faster of two each, U T T U); "
+          f"ranks bitwise alike {tuned[2]} / {base[2]}; loss "
+          f"{tuned[0]:.4f} vs {base[0]:.4f} (tol {LOSS_TOL}); attention "
+          f"launches of the two tuned steps "
+          + ", ".join(f"{k} {launches[k]} (tc {launches[k + '.tc']})"
+                      for k in kernels.ATTENTION_KERNELS)
+          + f" (expected {want} each)  {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, "the tuned DP=2 step failed a check")
+    res["dp2"] = {"ms": tuned[1], "untuned_ms": base[1],
+                  "launches": launches,
+                  "picks": {a: sorted(v) for a, v in picks.items()}}
+
+    def scoped(n, scope=None, algo=None):
+        def body(v):
+            if scope is None:
+                return comm.Allreduce(v, P.MPI_SUM, algorithm=algo)
+            with config.algorithm_scope(scope):
+                return comm.Allreduce(v, P.MPI_SUM, algorithm=algo)
+
+        with ExchangeCounter() as cnt:
+            out = P.run_spmd(body, nranks=n)(torch.ones(1024,
+                                                        device="cuda"))
+        return out, cnt.exchanges
+
+    c = {"auto": scoped(4)[1], "rhd": scoped(4, algo="rhd")[1],
+         "scope_rhd": scoped(4, scope="rhd")[1],
+         "auto_3": scoped(3)[1], "scope_rhd_3": scoped(3, scope="rhd")[1],
+         "scope_tree": scoped(4, scope="tree")[1],
+         "tree": scoped(4, algo="tree")[1]}
+    try:
+        scoped(3, algo="rhd")
+        raised = None
+    except P.CommError as e:
+        raised = str(e)[:60]
+    ok = (c["scope_rhd"] == c["rhd"] and c["scope_tree"] == c["tree"]
+          and c["scope_rhd_3"] == c["auto_3"] and raised is not None)
+    print(f"  algorithm_scope in the rank body, rendezvous on 4 / 3 ranks: "
+          f"{c}; algorithm='rhd' on 3 ranks raises CommError: "
+          f"{raised!r}  {'ok' if ok else 'FAIL'}")
+    check(ok, "an algorithm scope did not take, or did not degrade")
+    return res
+
+
+def tune_synthesis(P, tune, csched, kernels, config):
+    """D: the synthesis leg; a deterministic auto Allreduce on eight rank
+    threads takes the recorded winner at each size, bitwise the
+    interpreter and Mode B in value and gradient, with its census's
+    exchanges."""
+    rep = csched.autotune_synthesis(nranks=SYNTH_RANKS, sizes=SYNTH_SIZES)
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(62)
+    for nbytes in SYNTH_SIZES:
+        ent = rep["entries"][str(nbytes)]
+        name = ent["winner"]
+        prog = csched.installed_program(name, SYNTH_RANKS)
+        numel = nbytes // 4
+        rows = torch.randn(SYNTH_RANKS, numel, device="cuda", generator=g)
+        w = torch.randn(SYNTH_RANKS, numel, device="cuda", generator=g)
+        with config.deterministic_mode(True), SelectorLog(tune) as log:
+            val, grad, fwd = spmd_value_grad(P, SYNTH_RANKS, rows, w)
+        picks = set(log.picks.values())
+        oracle = csched.interpret_allreduce(prog, P.MPI_SUM, list(rows))
+        goracle = csched.interpret_allreduce(csched.transpose(prog),
+                                             P.MPI_SUM, list(w))
+        bval, bgrad = ranks_value_grad(P, SYNTH_RANKS, rows, w,
+                                       algorithm=name)
+        census = sum(csched.program_census(prog, numel, 4)["hlo"].values())
+        ok = (ent.get("recorded") and picks == {name}
+              and all(torch.equal(val[r], oracle)
+                      and torch.equal(grad[r], goracle)
+                      and torch.equal(bval[r], oracle)
+                      and torch.equal(bgrad[r], goracle)
+                      for r in range(SYNTH_RANKS))
+              and fwd == census)
+        print(f"  {nbytes:>7d} B: recorded {name} (chain {ent['chain']}, "
+              f"wire {ent['census']['wire_bytes_per_rank']} B a rank vs the "
+              f"ordered ring's {ent['ring_census']['wire_bytes_per_rank']}); "
+              f"deterministic auto picked {sorted(picks)}; value and "
+              f"gradient bitwise the interpreter and run_ranks; forward "
+              f"rendezvous {fwd} (census {census})  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"the synthesized Allreduce at {nbytes} B failed a check")
+        out[nbytes] = {"winner": name, "rendezvous": fwd}
+    return out
+
+
+def tune_tiers(P, tune, csched, overlap, kernels, config):
+    """E: tier synthesis on a skewed stack: the exact and the q8-slow
+    winners, each named explicitly, bitwise their interpretation; K1's
+    requant launches those of the q8-slow program's q8_level_fold steps;
+    the tier window."""
+    config.set_tier_stack(TIER_STACK)
+    config.set_tier_bandwidths(TIER_BANDWIDTHS)
+    rep = csched.autotune_tier_synthesis(nranks=SYNTH_RANKS)
+    ent = rep["entries"][str(TIER_NUMEL * 4)]
+    g = torch.Generator(device="cuda").manual_seed(63)
+    rows = torch.randn(SYNTH_RANKS, TIER_NUMEL, device="cuda", generator=g)
+    w = torch.randn(SYNTH_RANKS, TIER_NUMEL, device="cuda", generator=g)
+    out = {}
+    for label, name in (("exact", ent["exact_winner"]),
+                        ("q8-slow", ent["winner"])):
+        prog = csched.installed_program(name, SYNTH_RANKS)
+        q8_steps = sum(s.kind == "q8_level_fold" for ph in prog.phases
+                       for s in ph.steps)
+        kernels.reset_launch_counts()
+        val, grad, fwd = spmd_value_grad(P, SYNTH_RANKS, rows, w,
+                                         algorithm=name)
+        requant = kernels.launch_counts["q8_requant"]
+        oracle = csched.interpret_allreduce(prog, P.MPI_SUM, list(rows))
+        goracle = csched.interpret_allreduce(csched.transpose(prog),
+                                             P.MPI_SUM, list(w))
+        want = 2 * SYNTH_RANKS * q8_steps
+        ok = (all(torch.equal(val[r], oracle) and torch.equal(grad[r],
+                                                               goracle)
+                  for r in range(SYNTH_RANKS)) and requant == want)
+        print(f"  {label:7s} {name}: q8_level_fold steps {q8_steps}; "
+              f"value and gradient "
+              f"bitwise the interpreter; K1 q8_requant launches {requant} "
+              f"(2 x {SYNTH_RANKS} ranks x {q8_steps}: {want}); forward "
+              f"rendezvous {fwd}  {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"the {label} tier winner failed a check")
+        out[label] = {"winner": name, "requant": requant}
+    depth = overlap.tier_window_depth()
+    want = int(-(-max(TIER_BANDWIDTHS) // min(TIER_BANDWIDTHS))) + 1
+    print(f"  weighted cost {ent['weighted_cost']:.1f} ({ent['composition']}"
+          f") and {ent['exact_weighted_cost']:.1f} (exact) against flat "
+          f"bidir's {ent['bidir_weighted_cost']:.1f}, tier wire "
+          f"{ent['tier_wire']} vs {ent['bidir_tier_wire']}; "
+          f"overlap.tier_window_depth() = {depth} (ceil(max/min) + 1 = "
+          f"{want})")
+    check(ent["beats_bidir"] and ent["composition"] == "q8-slow"
+          and depth == want, "the tier synthesis verdict or the tier "
+          "window is off")
+    config.set_tier_stack(None)
+    config.set_tier_bandwidths(None)
+    return out
+
+
+def tune_serving(P, serve, tune, kernels, config, cfg, params, prompts):
+    """F: serving's latency report and the SPMD TP=2 dense greedy engine
+    under tuned selection against the untuned run."""
+    scfg = serve.ServeConfig(slots=SLOTS, max_new=TP2_MAX_NEW)
+    report = serve.latency_report(cfg, scfg, 2, dtype=torch.bfloat16)
+    print(f"  latency_report at TP=2: {report}")
+    reqs = prompts[:TP2_REQUESTS]
+
+    def run():
+        with torch.no_grad():
+            eng = serve.Engine(cfg, params, scfg, spmd=True, nranks=2)
+            res, _, dec_ms, dec_tok, _, _, _ = drive_engine(
+                eng, reqs, [None] * len(reqs))
+        return ([res[i].tolist() for i in range(len(reqs))],
+                dec_tok / (dec_ms / 1e3) if dec_ms else float("nan"))
+
+    with SelectorLog(tune) as log:
+        tuned, rate = run()
+    picks = sorted({a for (_b, n, _d, _c), a in log.picks.items() if n == 2})
+    x = (config.latency_crossover_bytes(), config.bandwidth_crossover_bytes())
+    config.set_latency_crossover_bytes(None)
+    config.set_bandwidth_crossover_bytes(None)
+    base, base_rate = run()
+    config.set_latency_crossover_bytes(x[0])
+    config.set_bandwidth_crossover_bytes(x[1])
+    ok = tuned == base
+    print(f"  Engine(spmd=True, nranks=2) dense greedy, {len(reqs)} "
+          f"requests: tuned picks {picks}; tokens identical to the "
+          f"untuned run {ok}; decode {rate:.1f} tokens/s tuned, "
+          f"{base_rate:.1f} untuned  {'ok' if ok else 'FAIL'}")
+    check(ok, "tuned selection changed the served tokens")
+    return {"report": report, "tok_s": rate, "untuned_tok_s": base_rate,
+            "picks": picks}
+
+
+def tune_phase(P, T, tree, dp, serve, kernels, config, cfg, params, tokens,
+               prompts):
+    """Phase 62 (A-F) under its own cache file, the process state saved
+    before and restored after, so later phases see the default knobs."""
+    from mpi4torch_tpu_torch import csched, overlap, tune
+    from mpi4torch_tpu_torch.csched import synth
+
+    state = config.snapshot_process_state()
+    installed = synth.installed()
+    env = tune.autotuner.CACHE_ENV
+    saved_env = os.environ.get(env)
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, TUNE_OUT), exist_ok=True)
+    cache = os.path.join(root, TUNE_OUT, "tune_cache.json")
+    for f in (cache, cache + ".lock"):
+        if os.path.exists(f):
+            os.remove(f)
+    os.environ[env] = cache
+    tune.clear()
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        print("  A. the sweep", flush=True)
+        rep, out["sweep_s"], out["q8_hop"] = tune_sweep(P, tune, kernels,
+                                                        config)
+        print("  B. the cache round trip", flush=True)
+        tune_round_trip(rep, cache)
+        print("  C. selection on the main path", flush=True)
+        out["selection"] = tune_selection(P, T, tree, dp, tune, kernels,
+                                          config, cfg, params, tokens, rep)
+        print("  D. synthesis in deterministic mode", flush=True)
+        out["synth"] = tune_synthesis(P, tune, csched, kernels, config)
+        print("  E. tier synthesis", flush=True)
+        out["tiers"] = tune_tiers(P, tune, csched, overlap, kernels, config)
+        print("  F. serving", flush=True)
+        out["serve"] = tune_serving(P, serve, tune, kernels, config, cfg,
+                                    params, prompts)
+        out["winners"] = {k: v.get("winner")
+                          for k, v in rep["entries"].items()}
+        out["crossovers"] = (rep["crossover_bytes"],
+                             rep["bandwidth_crossover_bytes"])
+        print(f"  phase 62 A-F in {time.perf_counter() - t0:.1f} s")
+    finally:
+        config.apply_process_state(state)
+        synth.restore_installed(installed)
+        if saved_env is None:
+            os.environ.pop(env, None)
+        else:
+            os.environ[env] = saved_env
+        tune.clear()
+    return out
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU",
@@ -8514,7 +9045,14 @@ def main():
     mesh2d = mesh2d_phase(P, T, tree, kernels, cfg, params, tokens, sp,
                           dp_ms, ep["ms"])
 
-    phase(62, "kernels")
+    phase(62, "algorithm selection on the card: the autotuner's sweep "
+          "and cache, auto selection and scopes on the main path, schedule "
+          "synthesis, tier synthesis and the tier window, serving")
+    print(smi)
+    tuned = tune_phase(P, T, tree, dp, serve, kernels, config, cfg, params,
+                       tokens, prompts)
+
+    phase(63, "kernels")
     print(smi)
     sp_shapes, sp_worst = sp_kernel_numbers(flash, kernels)
     # flash_fwd: launches on the serving path (phase 4), times at the
@@ -8800,6 +9338,20 @@ def main():
           and all(v > 0 for v in hop_entry["csched_launches"].values()),
           "a kernel of the schedule IR or 2-D mesh paths was launched no "
           "time")
+    # Algorithm selection (phase 62): each attention kernel's launches in
+    # the two tuned DP=2 steps under run_spmd; K1's hop launches during
+    # the q8 sweep and its requant launches on the q8-slow tier program.
+    for entry in line["kernels"][:3]:
+        entry["tune_launches"] = {
+            "tuned_dp2": tuned["selection"]["dp2"]["launches"][
+                entry["name"]]}
+    hop_entry["tune_launches"] = {
+        "q8_sweep_hop": tuned["q8_hop"],
+        "q8_slow_tier_requant": tuned["tiers"]["q8-slow"]["requant"]}
+    check(all(v > 0 for e in line["kernels"][:3]
+              for v in e["tune_launches"].values())
+          and all(v > 0 for v in hop_entry["tune_launches"].values()),
+          "a kernel of the algorithm-selection path was launched no time")
     print(json.dumps(line))
     print(f"  process transport: DP=2 step "
           f"{proc_train['process_ms']:.1f} ms on workers vs "
@@ -8837,7 +9389,13 @@ def main():
           + f"; phase 55's q8 bidir {ir['q8_bidir_ms']:.2f} ms; 2-D mesh "
           "steps " + ", ".join(f"{k} {v:.1f} ms"
                                for k, v in mesh2d["ms"].items()))
-    phase(63)
+    print(f"  algorithm selection: sweep {tuned['sweep_s']:.1f} s, "
+          f"crossovers {tuned['crossovers']}; tuned DP=2 step under "
+          f"run_spmd {tuned['selection']['dp2']['ms']:.1f} ms vs "
+          f"{tuned['selection']['dp2']['untuned_ms']:.1f} ms untuned; SPMD "
+          f"TP=2 decode {tuned['serve']['tok_s']:.1f} tokens/s tuned vs "
+          f"{tuned['serve']['untuned_tok_s']:.1f} untuned")
+    phase(64)
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

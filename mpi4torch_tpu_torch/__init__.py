@@ -89,7 +89,8 @@ from .runtime import (
 )
 from . import (compress, config, csched, fuse, obs, overlap, reshard,
                resilience, serve, transport, tune)
-from .config import compression_scope, fusion_scope, overlap_scope
+from .config import (algorithm_scope, compression_scope, fusion_scope,
+                     overlap_scope)
 from .mesh import device_mesh, hybrid_mesh
 from .ops.spmd import PermRank, RankExpr, p2p_scope, run_spmd
 from .overlap import SpmdWaitHandle
@@ -108,7 +109,8 @@ __all__ = [
     "config", "compress", "csched", "fuse", "tune", "overlap",
     "resilience",
     "reshard", "serve", "obs", "transport", "device_mesh", "hybrid_mesh",
-    "FaultPlan", "FaultSpec", "fault_scope", "compression_scope",
+    "FaultPlan", "FaultSpec", "fault_scope", "algorithm_scope",
+    "compression_scope",
     "fusion_scope", "overlap_scope", "run_spmd", "p2p_scope", "RankExpr",
     "PermRank", "SpmdWaitHandle",
 ]

@@ -29,13 +29,16 @@ explicit codec raises, a scope codec degrades to the exact wire).
 
 ``Allreduce`` resolves its codec and algorithm with the JAX package's
 rules: ``compression=None`` defers to the compression scope or process
-default, and ``algorithm=None`` to the selector.  An explicit argument
-that cannot serve the call raises; a scope default degrades to the
-exact wire (for integer tensors, non-sum ops, and an explicit algorithm
-the codec does not ride).  The block-q8 codecs run on ``ring``,
-``bidir`` and ``torus``; the exact wire on ``ring``, ``rhd``, ``tree``,
-``hier``, ``bidir`` and ``torus``.  What is not ported raises
-``NotImplementedError`` naming its ROADMAP.md item.
+default, and ``algorithm=None`` to the algorithm scope or process
+default, then to the selector (``tune.select_auto``).  An explicit
+argument that cannot serve the call raises; a scope default degrades (a
+codec to the exact wire for integer tensors, non-sum ops and an explicit
+algorithm the codec does not ride; an algorithm to auto selection, or to
+``ring`` under a codec that does not ride it).  The block-q8 codecs run
+on ``ring``, ``bidir`` and ``torus``; the exact wire on ``ring``,
+``rhd``, ``tree``, ``hier``, ``bidir``, ``torus`` and synthesized
+schedules (``"synth:<digest>"``, installed by ``csched.synth``).  What is
+not ported raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from .compress import eager as _ceager
 from .ops import eager as _eager
 from .runtime import CommError, HealthReport, effective_rank_context
 from .tune import codec_algorithms, resolve_request
+from .tune import get_algorithm as _get_algorithm
 
 
 class WaitHandle:
@@ -113,19 +117,48 @@ def _resolve_compression(compression):
     return get_codec(compression)
 
 
-def _reconcile_codec_algorithm(codec, algo, codec_explicit: bool):
-    """Resolve a codec and an explicit algorithm that do not compose: an
-    explicit codec raises; a scope-provided one yields to the exact
-    wire."""
+def _resolve_algorithm(algorithm, nranks, collective="allreduce"):
+    """A facade ``algorithm=`` argument as a concrete name, or None for
+    the selector: ``None`` defers to the scope/process default
+    (:func:`config.default_algorithm`); ``False``/``"auto"`` ask for the
+    selector even inside an ``algorithm_scope``.  An explicit request
+    that cannot serve the call raises; a default degrades to auto
+    (``tune.resolve_request``)."""
+    explicit = algorithm is not None
+    requested = algorithm if explicit else _cfg.default_algorithm()
+    return resolve_request(requested, collective=collective,
+                           nranks=nranks, explicit=explicit)
+
+
+def _reconcile_codec_algorithm(codec, algo, codec_explicit: bool,
+                               algo_explicit: bool):
+    """Resolve a codec and an algorithm that do not compose
+    (``compress.codec_rides_algorithm``): both explicit raises; otherwise
+    the scope-provided half yields (an explicit algorithm takes the exact
+    wire; a codec takes ``ring``)."""
     if codec is None or algo is None or codec_rides_algorithm(codec, algo):
         return codec, algo
-    if codec_explicit:
+    if codec_explicit and algo_explicit:
         raise ValueError(
             f"compression={codec.name!r} composes with the "
             f"{'/'.join(codec_algorithms(codec))} wire algorithm(s) "
             f"only; algorithm={algo!r} cannot carry this codec — drop "
             "one of the two")
-    return None, algo
+    if algo_explicit:
+        return None, algo
+    return codec, "ring"
+
+
+def _mesh_algorithm(algorithm):
+    """The algorithm of a call on a tier-stack mesh communicator, which
+    keys its tiers off the mesh axes: the name is validated only (the
+    backend enforces what it can lower: explicit raises, a default
+    yields to its native schedule)."""
+    requested = (algorithm if algorithm not in (None, False, "auto")
+                 else None if algorithm is not None
+                 else _cfg.default_algorithm())
+    return (None if requested in (None, "auto")
+            else _get_algorithm(requested).name)
 
 
 def _codec_for(tensor, codec, explicit):
@@ -223,19 +256,16 @@ class MPI_Communicator:
             # A non-sum reduction inside a compression scope never asked
             # for compression; an explicit one raises in the collective.
             codec = None
-        # There is no algorithm scope in this package yet: only an
-        # explicit argument names an algorithm, and None is the selector.
+        if algorithm is False:
+            algorithm = "auto"
+        algo_explicit = algorithm not in (None, "auto")
         if getattr(self._spmd(), "owns_algorithm_resolution", False):
-            # The tier-stack backend keys its tiers off the mesh axes,
-            # so the flat-world gates do not apply: validate the name
-            # only; the backend enforces what it can lower.
-            from .tune import get_algorithm
-            algo = (None if algorithm in (None, False, "auto")
-                    else get_algorithm(algorithm).name)
+            algo = _mesh_algorithm(algorithm)
         else:
-            algo = resolve_request(algorithm, nranks=self.size)
+            algo = _resolve_algorithm(algorithm, self.size)
         codec, algo = _reconcile_codec_algorithm(
-            codec, algo, codec_explicit=compression is not None)
+            codec, algo, codec_explicit=compression is not None,
+            algo_explicit=algo_explicit)
         if codec is not None and not getattr(self._spmd(),
                                              "supports_compression", True):
             # The tier-stack mesh communicators have no compressed
@@ -271,8 +301,8 @@ class MPI_Communicator:
         span = "mpi4torch.Allreduce" + (f".{codec.name}" if codec else "") \
             + (f".{algo}" if algo not in (None, "ring") else "")
         b = self._spmd()
+        explicit = algorithm not in (None, False, "auto")
         if b is not None:
-            explicit = algorithm not in (None, False, "auto")
             with torch.profiler.record_function(span):
                 if codec is None:
                     return b.allreduce(tensor, op, algorithm=algo,
@@ -283,9 +313,11 @@ class MPI_Communicator:
         ctx = effective_rank_context()
         with torch.profiler.record_function(span):
             if codec is None:
-                return _eager.allreduce(ctx, tensor, op, algorithm=algo)
+                return _eager.allreduce(ctx, tensor, op, algorithm=algo,
+                                        algorithm_explicit=explicit)
             return _ceager.allreduce(ctx, tensor, op, codec,
-                                     algorithm=algo)
+                                     algorithm=algo,
+                                     algorithm_explicit=explicit)
 
     def Allreduce_tree(self, tree, op: int, compression=None,
                        bucket_bytes=None, mean: bool = False, overlap=None,
@@ -373,8 +405,7 @@ class MPI_Communicator:
         """Broadcast ``root``'s tensor; every rank gets its own copy.
         ``algorithm`` (``"ring"``, ``"tree"``) shapes the adjoint, a
         ``Reduce_`` to ``root`` in that association."""
-        algo = resolve_request(algorithm, collective="bcast",
-                               nranks=self.size)
+        algo = _resolve_algorithm(algorithm, self.size, collective="bcast")
         b = self._spmd()
         if b is not None:
             return b.bcast_(tensor, root, algorithm=algo)
@@ -389,8 +420,8 @@ class MPI_Communicator:
         ``algorithm``: ``"tree"`` folds in the binomial-tree association
         relative to the root, ``"ring"``/None in ascending rank order.
         Only ``MPI_SUM`` is differentiable; the adjoint is a ``Bcast_``."""
-        algo = resolve_request(algorithm, collective="reduce",
-                               nranks=self.size)
+        algo = _resolve_algorithm(algorithm, self.size,
+                                  collective="reduce")
         b = self._spmd()
         if b is not None:
             return b.reduce_(tensor, op, root, algorithm=algo)

@@ -111,7 +111,8 @@ def resolve_algorithm(nranks: int, x, codec: Codec, algorithm) -> str:
         return "ring"
     if algorithm is None:
         return tune.select_auto(
-            nbytes=x.numel() * x.element_size(), nranks=nranks,
+            collective="allreduce", nbytes=x.numel() * x.element_size(),
+            dtype=x.dtype, nranks=nranks,
             deterministic=_config.deterministic_reductions(), codec=codec)
     if algorithm == "torus" and nranks > 1:
         tune.resolve_hier_group(nranks)
@@ -221,17 +222,25 @@ class _RendezvousAllreduce(torch.autograd.Function):
             None, None
 
 
-def allreduce(ctx: RankContext, x, op: int, codec: Codec, algorithm=None):
+def allreduce(ctx: RankContext, x, op: int, codec: Codec, algorithm=None,
+              algorithm_explicit: bool = False):
     """Compressed, differentiable Allreduce over ``ctx``'s world:
     ``MPI_SUM`` only; the backward is the same compressed Allreduce of the
     gradient.  Every rank gets the same bits.  The block-q8 codecs take
     the quantized fold oracle on ``algorithm``'s channels; the others
-    fold the decoded payloads at the rendezvous."""
+    fold the decoded payloads at the rendezvous.  A ``torus`` this world
+    cannot factor raises when ``algorithm_explicit`` and takes ``ring``
+    otherwise."""
     if op != C.MPI_SUM:
         raise CommError(
             f"compressed Allreduce supports MPI_SUM only; got "
             f"{C.op_name(op)} — drop compression= for non-sum reductions")
-    algo = resolve_algorithm(ctx.world.size, x, codec, algorithm)
+    try:
+        algo = resolve_algorithm(ctx.world.size, x, codec, algorithm)
+    except CommError:
+        if algorithm_explicit:
+            raise
+        algo = "ring"
     if codec.base().hop_fused:
         return _HopOracleAllreduce.apply(x, ctx, codec, algo)
     ctx.world.check_not_consumed(ctx.rank, x)

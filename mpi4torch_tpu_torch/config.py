@@ -5,12 +5,16 @@ Port of the part of ``mpi4torch_tpu/config.py`` this package reads:
 fused tree collectives (:func:`set_default_bucket_bytes`,
 :func:`fusion_scope`), the split-phase overlap policy
 (:func:`set_default_overlap`, :func:`overlap_scope`) and the split count
-of the serving decode collectives (:data:`SERVE_DECODE_BUCKETS`), the
+of the serving decode collectives (:func:`set_serve_decode_buckets`), the
 deadlock timeout of rank worlds,
+the collective-algorithm default (:func:`set_default_algorithm`,
+:func:`algorithm_scope`) and the selector's measured crossovers
+(:func:`set_latency_crossover_bytes`,
+:func:`set_bandwidth_crossover_bytes`),
 and the knobs of the compressed Allreduce: the default codec
 (:func:`set_default_compression`, :func:`compression_scope`), the
-bandwidth crossover of the algorithm selector, the ``hier``/``torus``
-group size, the tier stack (:func:`set_tier_stack`) and the
+``hier``/``torus`` group size, the tier stack (:func:`set_tier_stack`)
+with its relative bandwidths (:func:`set_tier_bandwidths`) and the
 implementation of the quantized hop
 (:func:`quant_hop_impl`), the reshard planner's default strategy
 (:func:`set_default_reshard_strategy`), and the fault-tolerance and
@@ -173,22 +177,35 @@ def overlap_scope(value):
             _state.overlap = prev
 
 
-# Split count of the serving decode step's per-layer collectives: with the
-# overlap policy on, each decode payload is split into this many windowed
-# split-phase chunks (the JAX package's default; its setter is not ported,
-# no caller here sets another value).
-SERVE_DECODE_BUCKETS = 2
-
-
-def _validated_threshold(nbytes, what: str, minimum: int = 0) -> int:
+def _validated_threshold(nbytes, what: str, minimum: int = 0,
+                         unit: str = "byte count") -> int:
     try:
         nbytes = int(nbytes)
     except (TypeError, ValueError):
-        raise ValueError(f"{what} must be an integer byte count, got "
+        raise ValueError(f"{what} must be an integer {unit}, got "
                          f"{nbytes!r}") from None
     if nbytes < minimum:
         raise ValueError(f"{what} must be >= {minimum}, got {nbytes}")
     return nbytes
+
+
+# Split count of the serving decode step's per-layer collectives: with the
+# overlap policy on, each decode payload is split into this many windowed
+# split-phase chunks.
+DEFAULT_SERVE_DECODE_BUCKETS = 2
+_serve_decode_buckets = DEFAULT_SERVE_DECODE_BUCKETS
+
+
+def serve_decode_buckets() -> int:
+    """How many windowed split-phase chunk buckets one serving decode
+    collective is split into (:mod:`mpi4torch_tpu_torch.serve`; >= 1)."""
+    return _serve_decode_buckets
+
+
+def set_serve_decode_buckets(n) -> None:
+    global _serve_decode_buckets
+    _serve_decode_buckets = _validated_threshold(
+        n, "serve_decode_buckets", minimum=1, unit="bucket count")
 
 
 # --- wire compression ------------------------------------------------------
@@ -238,10 +255,77 @@ def compression_scope(codec):
 
 # --- algorithm selection ---------------------------------------------------
 
-# Measured crossover of the selector's bandwidth tier (tune.select_auto).
-# None = not measured: auto selection deviates from `ring` only on
-# evidence.
+_process_algorithm = None
+
+
+def default_algorithm():
+    """The collective algorithm facade ops use when no explicit
+    ``algorithm=`` is passed: the innermost active :func:`algorithm_scope`
+    on this thread, else the process-wide :func:`set_default_algorithm`
+    value.  ``None`` defers to the :mod:`mpi4torch_tpu_torch.tune`
+    selector."""
+    scoped = getattr(_state, "algorithm", _UNSET)
+    return _process_algorithm if scoped is _UNSET else scoped
+
+
+def _validated_algorithm(name):
+    if name is None or name == "auto":
+        return None
+    from .tune import get_algorithm
+
+    return get_algorithm(name).name  # raises on unknown names
+
+
+def set_default_algorithm(name) -> None:
+    """Set the process-wide default collective algorithm (a registered
+    name, or ``None``/``"auto"`` for the selector).  Rank threads see it
+    unless their own :func:`algorithm_scope` overrides it.  A default is
+    a preference: a collective it cannot serve (``rhd`` on a world that
+    is not a power of two, an algorithm the codec does not ride) falls
+    back to auto selection, where an explicit ``algorithm=`` raises."""
+    global _process_algorithm
+    _process_algorithm = _validated_algorithm(name)
+
+
+@contextmanager
+def algorithm_scope(name):
+    """Lexically scoped collective-algorithm default on this thread::
+
+        with mpi.config.algorithm_scope("rhd"):
+            y = comm.Allreduce(x, mpi.MPI_SUM)   # the butterfly
+
+    The degrade rule of :func:`set_default_algorithm` applies."""
+    prev = getattr(_state, "algorithm", _UNSET)
+    _state.algorithm = _validated_algorithm(name)
+    try:
+        yield
+    finally:
+        if prev is _UNSET:
+            del _state.algorithm
+        else:
+            _state.algorithm = prev
+
+
+# Measured crossovers of the selector's latency and bandwidth tiers
+# (tune.select_auto), set from measurement by tune.autotune_allreduce or
+# by hand.  None = not measured: auto selection deviates from `ring`
+# only on evidence.
+_latency_crossover_bytes = None
 _bandwidth_crossover_bytes = None
+
+
+def latency_crossover_bytes():
+    """Payload bytes at or below which the selector prefers a
+    latency-optimal algorithm (``rhd``, else ``tree``); None:
+    unmeasured."""
+    return _latency_crossover_bytes
+
+
+def set_latency_crossover_bytes(nbytes) -> None:
+    global _latency_crossover_bytes
+    _latency_crossover_bytes = (
+        None if nbytes is None
+        else _validated_threshold(nbytes, "latency_crossover_bytes"))
 
 
 def bandwidth_crossover_bytes():
@@ -280,6 +364,12 @@ def set_hier_group_size(g) -> None:
 # ``hier`` schedule: None derives it (hier_group_size, else the
 # square-root 2-level split; tune.resolve_tier_stack).
 _tier_stack = None
+# Relative bandwidth of each tier's links, aligned with the tier stack
+# (innermost first): the weights of the bandwidth-weighted census
+# (csched.weighted_cost) that tier synthesis ranks by, and the skew the
+# split-phase tier window is derived from (overlap.tier_window_depth).
+# None = uniform.
+_tier_bandwidths = None
 
 
 def tier_stack():
@@ -304,6 +394,29 @@ def set_tier_stack(stack) -> None:
         raise ValueError(
             f"tier_stack factors must all be >= 2, got {stack!r}")
     _tier_stack = stack
+
+
+def tier_bandwidths():
+    """Per-tier relative bandwidths (innermost first), or None for
+    uniform weights.  Aligned with the resolved tier stack."""
+    return _tier_bandwidths
+
+
+def set_tier_bandwidths(bws) -> None:
+    global _tier_bandwidths
+    if bws is None:
+        _tier_bandwidths = None
+        return
+    try:
+        bws = tuple(float(b) for b in bws)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"tier_bandwidths must be a tuple of positive numbers or "
+            f"None, got {bws!r}") from None
+    if not bws or any(b <= 0 for b in bws):
+        raise ValueError(
+            f"tier_bandwidths must all be > 0, got {bws!r}")
+    _tier_bandwidths = bws
 
 
 # --- the quantized hop -----------------------------------------------------
@@ -705,9 +818,13 @@ def snapshot_process_state() -> dict:
         "compression": codec,
         "bucket_bytes": _process_bucket_bytes,
         "overlap": _process_overlap,
+        "algorithm": _process_algorithm,
+        "latency_crossover_bytes": _latency_crossover_bytes,
         "bandwidth_crossover_bytes": _bandwidth_crossover_bytes,
         "hier_group_size": _hier_group_size,
         "tier_stack": _tier_stack,
+        "tier_bandwidths": _tier_bandwidths,
+        "serve_decode_buckets": _serve_decode_buckets,
         "quant_hop_impl": _quant_hop_impl,
         "ordered_fold_gather_max_bytes": _ordered_fold_gather_max_bytes,
         "ordered_ring_chunk_bytes": _ordered_ring_chunk_bytes,
@@ -729,9 +846,13 @@ def apply_process_state(state: dict) -> None:
     set_default_compression(state["compression"])
     set_default_bucket_bytes(state["bucket_bytes"])
     set_default_overlap(state["overlap"])
+    set_default_algorithm(state["algorithm"])
+    set_latency_crossover_bytes(state["latency_crossover_bytes"])
     set_bandwidth_crossover_bytes(state["bandwidth_crossover_bytes"])
     set_hier_group_size(state["hier_group_size"])
     set_tier_stack(state["tier_stack"])
+    set_tier_bandwidths(state["tier_bandwidths"])
+    set_serve_decode_buckets(state["serve_decode_buckets"])
     set_quant_hop_impl(state["quant_hop_impl"])
     set_ordered_fold_gather_max_bytes(
         state["ordered_fold_gather_max_bytes"])

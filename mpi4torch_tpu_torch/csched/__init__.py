@@ -1,22 +1,21 @@
 """The collective-schedule IR (GC3-style, arXiv:2201.11840).
 
-Port of ``mpi4torch_tpu/csched`` without its synthesis half: algorithms
-are typed IR programs (:mod:`.ir`, :mod:`.programs`), ONE lowering emits
-the Mode A schedule of a ``run_spmd`` rank thread (:mod:`.lower`), ONE
-transposition rule derives every backward (:func:`.ir.transpose`), ONE
-interpreter is the Mode B / deterministic-mode fold oracle
-(:mod:`.interp`), and ONE census generator accounts for wire bytes,
-steps and collective counts (:mod:`.census`).  Every Mode A
+Port of ``mpi4torch_tpu/csched``: algorithms are typed IR programs
+(:mod:`.ir`, :mod:`.programs`), ONE lowering emits the Mode A schedule of
+a ``run_spmd`` rank thread (:mod:`.lower`), ONE transposition rule
+derives every backward (:func:`.ir.transpose`), ONE interpreter is the
+Mode B / deterministic-mode fold oracle (:mod:`.interp`), ONE census
+generator accounts for wire bytes, steps and collective counts
+(:mod:`.census`), and schedule synthesis is a search over programs
+(:mod:`.synth`) whose winners the tune cache persists.  Every Mode A
 ``Allreduce``, ``Bcast_`` and ``Reduce_`` builds its program and lowers
 it at the call site (``ops/spmd.py``), the block-q8 compressed Allreduce
 lowers its codec-rewritten program (``compress/spmd.py``), and the
-rank-thread grouped folds run through the interpreter
-(``constants.reduce_grouped``/``reduce_torus``).  Programs, their JSON
-and their digests are the JAX package's.
-
-Schedule synthesis and its autotuner (``synthesize``, ``install``,
-``autotune_synthesis`` and the rest of JAX's ``csched/synth.py``) and
-the ``--smoke`` CLI are ROADMAP.md Queue 1 item 5's second half.
+rank-thread grouped folds and synthesized schedules run through the
+interpreter (``constants.reduce_grouped``/``reduce_torus``,
+``ops/eager.py``).  Programs, their JSON and their digests are the JAX
+package's.  The ``--smoke`` CLI reads ``analyze`` and waits for
+ROADMAP.md Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -34,6 +33,11 @@ from .programs import (NATIVE_EXEMPT, PROGRAM_ALGORITHMS,
                        allreduce_program, bcast_program, has_program,
                        q8_allreduce_program, reduce_program,
                        rewrite_codec)
+from .synth import (TIER_COMPOSITIONS, autotune_synthesis,
+                    autotune_tier_synthesis, factorization_chains,
+                    fold_program, install, installed_program,
+                    is_synth_name, rewrite_fold_codec,
+                    synth_applicable, synthesize, synthesize_tiers)
 
 __all__ = [
     "Program", "Phase", "Step", "STEP_KINDS", "transpose",
@@ -44,30 +48,15 @@ __all__ = [
     "interpret_allreduce", "level_fold_groups",
     "program_census", "program_tier_census", "tier_of_group",
     "tier_of_groups", "weighted_cost",
+    "synthesize", "fold_program", "factorization_chains",
+    "autotune_synthesis", "install", "installed_program",
+    "is_synth_name", "synth_applicable",
+    "synthesize_tiers", "autotune_tier_synthesis",
+    "rewrite_fold_codec", "TIER_COMPOSITIONS",
     "lowering_covers", "interpreter_covers", "transposition_covers",
     "census_covers",
     "declared_vjp_census",
 ]
-
-
-def _item5(name):
-    def stub(*args, **kwargs):
-        raise NotImplementedError(
-            f"csched.{name}: schedule synthesis is not ported yet "
-            "(ROADMAP.md, Queue 1 item 5)")
-    stub.__name__ = stub.__qualname__ = name
-    stub.__doc__ = f"``csched.{name}``: not ported yet (raises)."
-    return stub
-
-
-# Schedule synthesis (JAX csched/synth.py), kept as stubs that name their
-# item; TIER_COMPOSITIONS, a table, is absent until then.
-for _name in ("synthesize", "fold_program", "factorization_chains",
-              "autotune_synthesis", "install", "installed_program",
-              "is_synth_name", "synth_applicable", "synthesize_tiers",
-              "autotune_tier_synthesis", "rewrite_fold_codec"):
-    globals()[_name] = _item5(_name)
-del _name
 
 
 def declared_vjp_census(algorithm: str, nranks: int = 8):

@@ -96,10 +96,9 @@ def allreduce_program(algorithm, n: int, op: int, *, deterministic: bool,
     factorization, MINLOC/MAXLOC everywhere)."""
     algorithm = algorithm or "ring"
     if isinstance(algorithm, str) and algorithm.startswith("synth:"):
-        raise NotImplementedError(
-            f"algorithm={algorithm!r}: synthesized schedules come with "
-            "schedule synthesis and its autotuner (ROADMAP.md, Queue 1 "
-            "item 5)")
+        from . import synth as _synth
+
+        return _synth.installed_program(algorithm, n)
 
     if algorithm == "rhd":
         if n == 1:
@@ -336,10 +335,17 @@ _CACHE_MAX = 4096
 
 def _knobs():
     """Every config knob a constructor reads (the deterministic flag is
-    one of its arguments)."""
+    one of its arguments), and the selection state: the tune cache's
+    generation (a tuning run installs and records synthesized programs),
+    the process default algorithm and both crossovers."""
+    from ..tune import generation
+
     return (_config.ordered_fold_gather_max_bytes(),
             _config.hier_group_size(), _config.tier_stack(),
-            _config.bcast_tree_max_bytes())
+            _config.bcast_tree_max_bytes(), generation(),
+            _config.default_algorithm(),
+            _config.latency_crossover_bytes(),
+            _config.bandwidth_crossover_bytes())
 
 
 def cached(build, *args, **kwargs):
@@ -347,6 +353,10 @@ def cached(build, *args, **kwargs):
     and knob values.  Programs are immutable, so rank threads share
     them; a constructor that raises is not cached and raises on every
     call."""
+    if args and isinstance(args[0], str) and args[0].startswith("synth:"):
+        # A synthesized program is a lookup in the installed registry,
+        # which can change without a generation bump: never cached.
+        return build(*args, **kwargs)
     key = (build, args, tuple(sorted(kwargs.items())), _knobs())
     prog = _CACHE.get(key)
     if prog is None:

@@ -30,8 +30,11 @@ package's SPMD form: outside deterministic mode an exact ring (or auto)
 SUM bucket becomes the ``Reduce_scatter`` + ``Allgather`` pair, padded
 to the rank count, with the mean applied once per bucket; every other
 bucket is one ``Allreduce``; ``overlap`` truthy runs the split-phase
-scheduler (:mod:`mpi4torch_tpu_torch.overlap`).  The tier-stack window
-and the split-phase form table are ROADMAP.md Queue 1 item 4.8.
+scheduler (:mod:`mpi4torch_tpu_torch.overlap`), its window widened on
+a tier stack with a slow outer tier (``tier_window``).  With auto
+selection each bucket takes the selector's pick for its own byte size,
+so a small tail bucket can ride the latency algorithm while the body
+buckets keep the ring pair or, past the bandwidth crossover, ``bidir``.
 
 The finite guard (``config.comm_finite_guard``) runs on the pipeline's
 per-peer contributions, as in the JAX package: each rank checks the list
@@ -79,26 +82,41 @@ def _resolve_bucket_bytes(bucket_bytes) -> int:
 
 
 def _plan_bucket(bucket, op: int, codec, algo, *, explicit: bool,
-                 mode_a_size: int = 0):
+                 algo_explicit: bool, owns_resolution: bool, size: int,
+                 mode_a: bool):
     """Per-bucket codec/algorithm resolution, shared by the blocking path
     and the overlap scheduler: the facade's per-tensor compression rules
     on this bucket's dtype (a scope default degrades non-float buckets
     and non-SUM ops to exact; an explicit codec on a non-float bucket
-    raises), then the codec/algorithm reconcile; under Mode A
-    (``mode_a_size``, the rank count) an unresolved bucket takes the
-    selector's pick for its byte size."""
+    raises), the codec/algorithm reconcile (explicit conflicts raise,
+    scope halves yield), the backend's degrades for a default algorithm
+    (a tier stack yields what it does not lower to its native schedule;
+    a ``config.hier_group_size`` that does not split this world sends
+    ``hier``/``torus`` to ``ring``), then under Mode A the selector's
+    pick for this bucket's byte size on ``size`` ranks."""
     from ..comm import _codec_for, _reconcile_codec_algorithm
 
     bcodec = _codec_for(bucket, codec, explicit)
     if bcodec is not None and op != C.MPI_SUM and not explicit:
         bcodec = None
-    bcodec, balgo = _reconcile_codec_algorithm(bcodec, algo,
-                                               codec_explicit=explicit)
-    if balgo is None and mode_a_size:
+    bcodec, balgo = _reconcile_codec_algorithm(
+        bcodec, algo, codec_explicit=explicit, algo_explicit=algo_explicit)
+    if not algo_explicit:
+        if owns_resolution:
+            if balgo not in (None, "ring", "hier", "torus"):
+                balgo = None
+        elif balgo in ("hier", "torus"):
+            from ..tune import resolve_hier_group
+            try:
+                resolve_hier_group(size)
+            except CommError:
+                balgo = "ring"
+    if balgo is None and mode_a:
         from ..tune import select_auto
         balgo = select_auto(
+            collective="allreduce",
             nbytes=bucket.numel() * bucket.element_size(),
-            nranks=mode_a_size,
+            dtype=bucket.dtype, nranks=size,
             deterministic=_config.deterministic_reductions(), codec=bcodec)
     return bcodec, balgo
 
@@ -187,7 +205,8 @@ def _pipeline_allreduce(comm, buckets: Sequence, op: int, *,
 def fused_allreduce_tree(comm, tree, op: int = C.MPI_SUM, *,
                          compression=None, bucket_bytes=None,
                          mean: bool = False,
-                         overlap: Optional[bool] = None, algorithm=None):
+                         overlap: Optional[bool] = None, algorithm=None,
+                         tier_window=None):
     """Allreduce every leaf of ``tree`` through dtype-homogeneous flat
     buckets — one collective per bucket instead of per leaf.
 
@@ -201,10 +220,15 @@ def fused_allreduce_tree(comm, tree, op: int = C.MPI_SUM, *,
     association only).  An explicit ``overlap=`` with a codec, another
     reduction or another algorithm raises; a scope default degrades to
     the blocking path.  ``algorithm`` follows the facade's Allreduce
-    contract, applied per bucket."""
-    from ..comm import _resolve_compression
+    contract, applied per bucket: an explicit name pins every bucket;
+    with auto selection each bucket takes the selector's pick for its
+    byte size.  ``tier_window`` widens the split-phase window on a tier
+    stack (:func:`~mpi4torch_tpu_torch.overlap.overlap_allreduce_tree`);
+    ``None`` derives it from ``config.tier_bandwidths``
+    (:func:`~mpi4torch_tpu_torch.overlap.tier_window_depth`)."""
+    from ..comm import (_mesh_algorithm, _resolve_algorithm,
+                        _resolve_compression)
     from ..overlap import overlap_depth, resolve_overlap
-    from ..tune import resolve_request
 
     if mean and op != C.MPI_SUM:
         raise CommError(
@@ -220,14 +244,12 @@ def fused_allreduce_tree(comm, tree, op: int = C.MPI_SUM, *,
     codec = _resolve_compression(compression)
     backend = comm._spmd()
     mode_a = isinstance(backend, SpmdBackend)
-    if getattr(backend, "owns_algorithm_resolution", False):
-        # A tier-stack mesh communicator: validate the name only; the
-        # backend enforces what it can lower.
-        from ..tune import get_algorithm
-        algo = (None if algorithm in (None, False, "auto")
-                else get_algorithm(algorithm).name)
+    algo_explicit = algorithm not in (None, False, "auto")
+    owns_resolution = getattr(backend, "owns_algorithm_resolution", False)
+    if owns_resolution:
+        algo = _mesh_algorithm(algorithm)
     else:
-        algo = resolve_request(algorithm, nranks=size)
+        algo = _resolve_algorithm(algorithm, size)
 
     if overlap and backend is None:
         # The pipeline is exact-SUM on the ring association only.  An
@@ -257,9 +279,11 @@ def fused_allreduce_tree(comm, tree, op: int = C.MPI_SUM, *,
             if algo not in (None, "ring"):
                 raise CommError(
                     "the fused overlap pipeline's gather-fold IS the ring "
-                    f"association; algorithm={algo!r} cannot ride it — "
-                    "pass overlap=False for per-bucket rendezvous "
-                    "collectives on that algorithm")
+                    f"association; algorithm={algo!r}"
+                    + ("" if algorithm is not None else " (from the active "
+                       "algorithm_scope/process default)") +
+                    " cannot ride it — pass overlap=False for per-bucket "
+                    "rendezvous collectives on that algorithm")
 
     if bb <= 0:
         out = tree_map(lambda p: comm.Allreduce(
@@ -272,9 +296,12 @@ def fused_allreduce_tree(comm, tree, op: int = C.MPI_SUM, *,
     nb = layout.num_buckets
     if backend is not None:
         return _mode_a_allreduce(comm, buckets, layout, op, codec, algo,
-                                 explicit=explicit, mean=mean,
-                                 overlap=overlap,
-                                 size=size if mode_a else 0)
+                                 explicit=explicit,
+                                 algo_explicit=algo_explicit,
+                                 owns_resolution=owns_resolution,
+                                 mean=mean, overlap=overlap,
+                                 size=size if mode_a else 0,
+                                 tier_window=tier_window)
 
     if overlap:
         reduced = _pipeline_allreduce(comm, buckets, op,
@@ -285,7 +312,10 @@ def fused_allreduce_tree(comm, tree, op: int = C.MPI_SUM, *,
 
     reduced = []
     for i, b in enumerate(buckets):
-        bcodec, balgo = _plan_bucket(b, op, codec, algo, explicit=explicit)
+        bcodec, balgo = _plan_bucket(
+            b, op, codec, algo, explicit=explicit,
+            algo_explicit=algo_explicit, owns_resolution=False, size=size,
+            mode_a=False)
         # Re-resolution guard: the degrade decision was made here, so the
         # facade gets the resolved codec, or False to pin exact
         # (compression=None would re-read the scope default and re-apply
@@ -300,25 +330,32 @@ def fused_allreduce_tree(comm, tree, op: int = C.MPI_SUM, *,
 
 
 def _mode_a_allreduce(comm, buckets, layout, op: int, codec, algo, *,
-                      explicit: bool, mean: bool, overlap, size: int):
+                      explicit: bool, algo_explicit: bool,
+                      owns_resolution: bool, mean: bool, overlap, size: int,
+                      tier_window=None):
     """The SPMD form of the fused Allreduce.  ``size`` is the rank count
     on a single-axis communicator, 0 on a tier stack (whose buckets are
     each one Allreduce).  A compressed bucket is one Allreduce through the
     facade, which runs the compressed SPMD collective
     (``compress/spmd.py``)."""
-    from ..overlap import overlap_allreduce_tree, overlap_depth
+    from ..overlap import (overlap_allreduce_tree, overlap_depth,
+                           tier_window_depth)
 
     nb = len(buckets)
     n = comm.size
 
     def plan(i, b):
         return _plan_bucket(b, op, codec, algo, explicit=explicit,
-                            mode_a_size=size)
+                            algo_explicit=algo_explicit,
+                            owns_resolution=owns_resolution,
+                            size=n, mode_a=size > 0)
 
     if overlap:
-        return overlap_allreduce_tree(comm, buckets, layout, op,
-                                      depth=overlap_depth(overlap),
-                                      mean=mean, plan=plan)
+        return overlap_allreduce_tree(
+            comm, buckets, layout, op, depth=overlap_depth(overlap),
+            mean=mean, plan=plan,
+            tier_window=(tier_window_depth() if tier_window is None
+                         else tier_window))
     # Phase 1: every bucket's reduction.  Exact SUM buckets outside
     # deterministic mode take the reduce-scatter half of the ring pair
     # (the all-gather half is phase 2); everything else is one Allreduce.

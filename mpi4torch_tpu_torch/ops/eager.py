@@ -113,14 +113,21 @@ def _own(t, rank: int, owner: int):
 # =========================================================================
 
 
-def _rendezvous_fold(world_size: int, algorithm):
+def _rendezvous_fold(world_size: int, algorithm, explicit: bool = False):
     """``(name, fold)`` of an Allreduce ``algorithm``: the reduction
-    association of the schedule of that name, ``fold(op, values)``.  The
-    facade has already checked that the algorithm serves this world."""
-    if algorithm in (None, "ring"):
-        return "ring", C.reduce_ordered
+    association of the schedule of that name, ``fold(op, values)``, which
+    keeps Mode A and the rank threads bitwise alike per algorithm.  What
+    only this world can decide (a ``config.hier_group_size`` that does
+    not divide it, a synthesized schedule not installed for it) follows
+    the facade's rule: an explicit request raises, a default degrades to
+    the ascending-rank fold."""
+    ring = ("ring", C.reduce_ordered)
+    if algorithm in (None, "auto", "ring"):
+        return ring
     if algorithm == "rhd":
         if world_size & (world_size - 1):
+            if not explicit:
+                return ring
             raise CommError(
                 f"the 'rhd' schedule needs a power-of-two world; got "
                 f"{world_size} ranks — use 'tree' or 'ring'")
@@ -130,10 +137,15 @@ def _rendezvous_fold(world_size: int, algorithm):
     if algorithm in ("hier", "torus"):
         from ..tune import resolve_hier_group, resolve_tier_stack
 
-        g = resolve_hier_group(world_size)
+        try:
+            g = resolve_hier_group(world_size)
+            stack = resolve_tier_stack(world_size)
+        except CommError:
+            if not explicit:
+                return ring
+            raise
         if algorithm == "torus":
             return "torus", lambda op, vals: C.reduce_torus(op, vals, g)
-        stack = resolve_tier_stack(world_size)
         if len(stack) > 2:
             # An N-level config.tier_stack folds in the per-tier grouped
             # chain Mode A's tier-labelled level_fold program lowers
@@ -156,6 +168,22 @@ def _rendezvous_fold(world_size: int, algorithm):
         # The two rings carry disjoint element ranges of an elementwise
         # fold, so bidir's association is the ascending-rank one.
         return "bidir", C.reduce_ordered
+    if isinstance(algorithm, str) and algorithm.startswith("synth:"):
+        # A synthesized IR schedule: the fold is the program's
+        # interpretation, the oracle its Mode A lowering is held to, so
+        # synthesized winners keep the per-algorithm bitwise contract.
+        from .. import csched
+        if not csched.synth_applicable(algorithm, world_size):
+            if not explicit:
+                return ring
+            raise CommError(
+                f"synthesized schedule {algorithm!r} is not installed "
+                f"for a {world_size}-rank world (run the synthesis "
+                "autotuner or load its tune-cache entry)")
+        prog = csched.installed_program(algorithm, world_size)
+        return algorithm, (
+            lambda op, vals: csched.interpret_allreduce(prog, op,
+                                                        list(vals)))
     raise CommError(f"unknown collective algorithm {algorithm!r} for the "
                     "rank-thread backend")
 
@@ -193,13 +221,18 @@ class _Allreduce(torch.autograd.Function):
                                 fctx.algorithm), None, None, None
 
 
-def allreduce(ctx: RankContext, x, op: int, algorithm=None):
+def allreduce(ctx: RankContext, x, op: int, algorithm=None,
+              algorithm_explicit: bool = False):
     """Differentiable Allreduce over ``ctx``'s world, folding in the
     association of ``algorithm`` (``ring``/``bidir``: ascending rank;
     ``rhd``, ``tree``, ``hier``, ``torus``: ``constants.reduce_*``).  The
     backward is the Allreduce of the gradient with the same algorithm, so
-    every rank's backward must run (it is a collective)."""
+    every rank's backward must run (it is a collective).
+    ``algorithm_explicit`` carries the facade's degrade/raise rule into
+    what only this world can decide (:func:`_rendezvous_fold`)."""
     ctx.world.check_not_consumed(ctx.rank, x)
+    algorithm, _ = _rendezvous_fold(ctx.world.size, algorithm,
+                                    explicit=algorithm_explicit)
     return _Allreduce.apply(x, ctx, op, algorithm)
 
 

@@ -1092,12 +1092,16 @@ def _sum_only(op: int, what: str) -> None:
 
 
 def _auto_allreduce_algorithm(ctx: SpmdContext, x) -> str:
-    """Auto selection (``tune.select_auto``): a pure function of the
-    call's bytes, the rank count and the config knobs."""
+    """Auto selection (``tune.select_auto``), three tiers: the measured
+    cache winner for this (dtype, size bucket, rank count, platform) key,
+    a latency algorithm at or below the measured latency crossover, the
+    multipath tier at or above the bandwidth crossover, else ``ring``; a
+    pure function of the call, the knobs and the tune cache."""
     from .. import tune as _tune
 
     return _tune.select_auto(
-        nbytes=x.numel() * x.element_size(), nranks=ctx.size,
+        collective="allreduce", nbytes=x.numel() * x.element_size(),
+        dtype=x.dtype, nranks=ctx.size,
         deterministic=_config.deterministic_reductions())
 
 
@@ -1791,8 +1795,8 @@ class TierStackBackend:
     reduce-scatter, recursing outward, innermost all-gather (or the
     deterministic grouped-fold chain).  Every other op needs a
     single-axis communicator and raises a :class:`CommError` saying so.
-    The tier sizes come from the mesh (``resolve_tier_stack`` and the
-    tier bandwidths are ROADMAP Queue 1 item 5)."""
+    The tier sizes come from the mesh axes, not from
+    ``config.tier_stack``."""
 
     supports_compression = False
     owns_algorithm_resolution = True
@@ -2158,7 +2162,7 @@ class _SpmdRun:
 
     @contextlib.contextmanager
     def _rank_scope(self, rank: int):
-        det, comp, bb, ovl = self.scopes
+        det, comp, bb, ovl, algo = self.scopes
         region = _Region(self.world, rank, self.names, self.shape,
                          self.axis_name)
         prev = _current_region()
@@ -2170,6 +2174,7 @@ class _SpmdRun:
             with _config.deterministic_mode(det), \
                     _config.compression_scope(comp), \
                     _config.fusion_scope(bb), _config.overlap_scope(ovl), \
+                    _config.algorithm_scope(algo), \
                     torch.autograd.set_multithreading_enabled(False):
                 if self.device.type == "cuda":
                     torch.cuda.set_device(self.device)
@@ -2334,7 +2339,8 @@ def run_spmd(fn, nranks: Optional[int] = None, mesh=None,
         scopes = (_config.deterministic_reductions(),
                   _config.default_compression(),
                   _config.default_bucket_bytes(),
-                  _config.default_overlap())
+                  _config.default_overlap(),
+                  _config.default_algorithm())
         flat, adef = tree_flatten(list(args))
         slots = [i for i, a in enumerate(flat) if isinstance(a, torch.Tensor)]
         tensors = [flat[i].to(dev) for i in slots]

@@ -24,10 +24,11 @@ region's context) must be waited on before the region ends.
 
 ``overlap=True`` means a window of 2 collectives in flight, an
 ``int >= 1`` sets the window depth (``config.overlap_scope``,
-``config.set_default_overlap``).  The tier-stack window
-(``tier_window_depth``) and ``SPLIT_PHASE_FORMS`` are ROADMAP.md Queue 1
-item 4.8; ``scheduled_exposure`` reads lowered StableHLO and goes with
-``analyze/`` (item 7).
+``config.set_default_overlap``); on a tier stack with a slow outer tier
+(``config.tier_bandwidths``) :func:`tier_window_depth` widens it.
+:data:`SPLIT_PHASE_FORMS` lists the facade's ``<Form>_start`` methods.
+``scheduled_exposure`` reads lowered StableHLO and goes with
+``analyze/`` (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -41,13 +42,6 @@ from .. import config as _config
 from ..comm import WaitHandle
 from ..ops.eager import join_dummies as _join_dummies
 from ..runtime import BifurcationError, effective_rank_context
-
-def tier_window_depth():
-    """The tier-stack overlap widening: not ported yet (raises)."""
-    raise NotImplementedError(
-        "tier_window_depth: the tier-stack window comes with the tier "
-        "knobs' readers (ROADMAP.md, Queue 1 item 4.8, with item 5)")
-
 
 def scheduled_exposure(lowered_or_text):
     """The scheduled-exposure census of a lowering: not ported yet
@@ -70,7 +64,13 @@ __all__ = [
     "overlap_reduce_scatter_tree",
     "overlap_split_allreduce",
     "prefetch_allgather_tree",
+    "tier_window_depth",
+    "SPLIT_PHASE_FORMS",
 ]
+
+# Every split-phase collective form the facade exposes (as
+# ``<Form>_start`` methods).
+SPLIT_PHASE_FORMS = ("Allreduce", "Reduce_scatter", "Allgather")
 
 _DESC_LEN = 8
 
@@ -170,7 +170,7 @@ def allreduce_start(comm, tensor, op: int, compression=None,
             return _start_generic("Allreduce", backend.allreduce(
                 tensor, op, algorithm=algo, algorithm_explicit=explicit))
         val = _eager.allreduce(effective_rank_context(), tensor, op,
-                               algorithm=algo)
+                               algorithm=algo, algorithm_explicit=explicit)
         return _start_generic("Allreduce", val)
 
 
@@ -217,6 +217,24 @@ def overlap_depth(value, default: int = 2) -> int:
     """Window depth of a truthy overlap value (``True`` → the
     double-buffered default of 2)."""
     return default if value is True else max(int(value), 1)
+
+
+def tier_window_depth():
+    """The tier-stack widening of the split-phase window, or ``None`` when
+    the config declares no bandwidth skew: with ``config.tier_stack`` and
+    ``config.tier_bandwidths`` set and the slowest tier strictly slower
+    than the fastest, a bucket's collective spends about
+    ``max(bw) / min(bw)`` of its time on the slow tier, so the window
+    holds that many buckets plus the double-buffer slot:
+    ``ceil(max / min) + 1``."""
+    stack = _config.tier_stack()
+    bws = _config.tier_bandwidths()
+    if stack is None or bws is None or len(bws) != len(stack):
+        return None
+    lo, hi = min(bws), max(bws)
+    if not lo < hi:
+        return None
+    return int(-(-hi // lo)) + 1
 
 
 # Scheduler entry points (the fused tree collectives, the ZeRO helpers

@@ -113,16 +113,23 @@ def overlap_split_allreduce(comm, x, op: int, *, nsplits: int = 2,
 
 
 def overlap_allreduce_tree(comm, buckets: Sequence, layout, op: int, *,
-                           depth: int = 2, mean: bool = False, plan=None):
+                           depth: int = 2, mean: bool = False, plan=None,
+                           tier_window=None):
     """Windowed split-phase allreduce over pre-flattened buckets.
     ``plan(i, bucket) -> (codec, algorithm)`` is the per-bucket
     resolution of the fused tree path; compressed buckets take the
     blocking codec pipeline in their start slot, exact buckets ride
     start/wait pairs.  Returns the reduced tree (``mean`` folds the
-    rank-mean into one post-wait scale per bucket)."""
+    rank-mean into one post-wait scale per bucket).
+
+    ``tier_window`` is the tier-stack widening (a slow outer tier keeps a
+    bucket's collective in flight for longer): a truthy value widens the
+    window to ``min(tier_window, nb)`` buckets, never below ``depth``."""
     from ..fuse.bucketing import unflatten_buckets
 
     nb = len(buckets)
+    if tier_window:
+        depth = max(int(depth), min(int(tier_window), nb))
     size = comm.size
     win = _Window(comm, "Allreduce_tree", nb)
 

@@ -31,11 +31,11 @@ gathering everything and slicing:
   gather     the baseline: gather everything, slice            1 gather
   ========== ================================================= ==========
 
-  ``gather`` is never auto-selected; it is the explicit baseline.  Auto
-  selection takes the first applicable strategy in the order above.  The
-  JAX package lets a measured autotuner winner override that order; the
-  autotuner is not ported (ROADMAP.md, Queue 1 item 5), and with an
-  empty cache the JAX package picks exactly as here.
+  Auto selection takes the measured tune-cache winner of the transition
+  when it names an applicable strategy (the ``|transition=`` key
+  dimension of :mod:`mpi4torch_tpu_torch.tune.autotuner`), else the
+  first applicable strategy in the order above; ``gather``, the
+  baseline, wins only through the cache.
 * :meth:`ReshardPlan.adjoint` — the reverse plan.  Every step kind's
   adjoint is a step kind of the same grammar (permute -> inverse
   permute, all-to-all -> table-swapped all-to-all, all-gather ->
@@ -64,6 +64,7 @@ import torch
 from .. import config as _config
 from ..mesh import mesh_coords
 from ..runtime import CommError
+from ..tune import generation as _tune_generation
 
 # Registered plan-step kinds.  The registry guard of
 # tests/test_torch_reshard.py fails when a kind exists without an
@@ -76,12 +77,6 @@ STRATEGIES = ("local", "permute", "allgather", "alltoall", "rounds",
               "gather")
 
 _MOVE_KINDS = ("slice", "pad", "permute", "alltoall")
-
-# The JAX package keys its plan caches on the autotuner's cache
-# generation; the autotuner is ROADMAP.md Queue 1 item 5, so the
-# generation is constant here.
-_TUNE_GENERATION = 0
-
 
 def dtype_name(dtype) -> str:
     """A torch or numpy dtype as the JAX package names it
@@ -782,11 +777,16 @@ def _candidates(src_lay, dst_lay, global_shape, routes,
 
 
 def _pick(cands, dtype, nbytes, size, transition):
-    """Auto selection: the first (cheapest-peak) applicable candidate
-    other than ``gather``: the JAX package's pick when its autotuner
-    cache holds no winner for the transition (the autotuner is
-    ROADMAP.md Queue 1 item 5)."""
+    """Auto selection: the measured tune-cache winner for this transition
+    when one names an applicable strategy, else the first (cheapest-peak)
+    applicable candidate.  ``gather`` only ever wins through the cache."""
     names = [n for n, _ in cands]
+    from ..tune import lookup_algorithm
+
+    winner = lookup_algorithm("reshard", dtype, nbytes, size,
+                              transition=transition)
+    if winner in names:
+        return winner
     for n in names:
         if n != "gather":
             return n
@@ -840,7 +840,7 @@ def plan_reshard(from_layout: Layout, to_layout: Layout, global_shape,
     return _plan_cached(from_layout, to_layout,
                         tuple(int(s) for s in global_shape),
                         dtype_name(dtype), _resolve_strategy(strategy),
-                        _TUNE_GENERATION)
+                        _tune_generation())
 
 
 @functools.lru_cache(maxsize=256)
@@ -875,7 +875,7 @@ def plan_permutation(lay: Layout, axis: int, perm, global_shape, dtype,
     return _perm_plan_cached(lay, int(axis), tuple(int(p) for p in perm),
                              tuple(int(s) for s in global_shape),
                              dtype_name(dtype),
-                             _resolve_strategy(strategy), _TUNE_GENERATION)
+                             _resolve_strategy(strategy), _tune_generation())
 
 
 # ---------------------------------------------------------------------------
@@ -1011,4 +1011,4 @@ def plan_resize(n: int, row_shape, from_size: int, to_size: int, dtype,
     return _resize_plan_cached(
         n, tuple(int(s) for s in row_shape), from_size, to_size,
         embed_from, embed_to, exec_size, dtype_name(dtype),
-        _resolve_strategy(strategy), _TUNE_GENERATION)
+        _resolve_strategy(strategy), _tune_generation())

@@ -262,7 +262,7 @@ def _decode_allreduce(comm, x, *, site: int, nsites: int, overlap,
     if comm is None:
         return x
     if overlap:
-        k = _config.SERVE_DECODE_BUCKETS
+        k = _config.serve_decode_buckets()
         return overlap_split_allreduce(
             comm, x, MPI_SUM, nsplits=k, index_base=site * k,
             index_total=nsites * k, op_name="ServeDecode",

@@ -1,21 +1,33 @@
 """Size- and topology-aware collective algorithm selection.
 
-Port of ``mpi4torch_tpu/tune/__init__.py`` as far as the facade and
-the schedule IR read it: the request resolver (:func:`resolve_request`),
-the 2-level group rule of ``hier`` and ``torus``
-(:func:`resolve_hier_group`), the tier-stack factorization
-(:func:`resolve_tier_stack`), the selector (:func:`select_auto`) and a
-codec's declared algorithms (:func:`codec_algorithms`).
+Port of ``mpi4torch_tpu/tune``.  Which schedule an Allreduce takes is
+decided
 
-The JAX package's selector first asks its persisted autotuner cache for
-a measured winner, and its latency tier picks ``rhd``/``tree`` for small
-payloads.  The autotuner is not ported (ROADMAP.md, Queue 1 item 5) and
-no latency crossover is measured, so here selection is the deterministic
-pin and the bandwidth tier.  The port has no algorithm scope: an
-algorithm is named per call, explicitly, so a request that cannot serve
-the call raises (the JAX package's rule for explicit requests).  The
-autotuner's names (its cache, the registry's listing and registration)
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+* **per call** — ``comm.Allreduce(x, op, algorithm="rhd")``;
+* **per scope** — ``with mpi.config.algorithm_scope("tree"): ...`` (or
+  process-wide with :func:`mpi4torch_tpu_torch.config.
+  set_default_algorithm`);
+* **by default** — the selector (:func:`select_auto`), in three tiers:
+  the persisted autotuner cache's measured winner for the ``(collective,
+  dtype, nbytes-bucket, nranks, platform)`` key when there is one; at or
+  below the measured latency crossover
+  (:func:`~mpi4torch_tpu_torch.config.latency_crossover_bytes`) the
+  latency-optimal algorithm (``rhd``, else ``tree``); at or above the
+  measured bandwidth crossover the multipath tier (``bidir``); ``ring``
+  otherwise or when nothing is measured.  Deterministic mode pins
+  ``ring`` unless a synthesized schedule (:mod:`mpi4torch_tpu_torch.
+  csched.synth`) won the bucket on the census sweep and is installed.
+
+Degrade/raise rule (:func:`resolve_request`): a scope or process
+default that cannot serve a call (``rhd`` on a world that is not a power
+of two, ``hier`` on a prime world, an algorithm the codec does not ride,
+a synthesized schedule not installed for this world) falls back to auto
+selection; an explicit per-call ``algorithm=`` raises with the reason.
+
+The measurement is :func:`autotune_allreduce` (``python -m
+mpi4torch_tpu_torch.tune.autotuner``); its winners persist in a
+versioned JSON file (:mod:`.autotuner`), which ``python -m
+mpi4torch_tpu_torch.tune --show`` prints.
 """
 
 from __future__ import annotations
@@ -25,12 +37,20 @@ from typing import Optional
 
 from .. import config as _config
 from ..runtime import CommError
-from .registry import AlgorithmSpec, best_group, get_algorithm
+from .autotuner import (autotune_allreduce, bucket_nbytes, cache_path,
+                        clear, ensure_tuned_allreduce, entry_from_disk,
+                        generation, lookup, lookup_algorithm, make_key,
+                        record)
+from .registry import (AlgorithmSpec, available_algorithms, best_group,
+                       get_algorithm, register_algorithm)
 
 __all__ = [
-    "AlgorithmSpec", "best_group", "codec_algorithms", "get_algorithm",
-    "resolve_request", "resolve_hier_group", "resolve_tier_stack",
-    "select_auto",
+    "AlgorithmSpec", "available_algorithms", "best_group", "get_algorithm",
+    "register_algorithm", "resolve_request", "resolve_hier_group",
+    "resolve_tier_stack", "select_auto", "codec_algorithms",
+    "autotune_allreduce", "bucket_nbytes", "ensure_tuned_allreduce",
+    "lookup", "lookup_algorithm", "entry_from_disk", "record", "make_key",
+    "cache_path", "generation", "clear",
 ]
 
 
@@ -41,20 +61,46 @@ def codec_algorithms(codec) -> tuple:
 
 
 def resolve_request(requested, *, collective: str = "allreduce",
-                    nranks: int = 1) -> Optional[str]:
+                    nranks: int = 1,
+                    explicit: bool = False) -> Optional[str]:
     """Resolve an ``algorithm=`` request for ``collective``
     (``"allreduce"``, ``"reduce"`` or ``"bcast"``) to a concrete name, or
     ``None`` for selector-driven choice (``None``/``False``/``"auto"``).
-    Unknown names raise ``ValueError``, synthesized ones
-    ``NotImplementedError``, and an algorithm that cannot serve this
-    collective on this world :class:`CommError`."""
+
+    ``requested`` is the per-call argument when ``explicit``, else the
+    scope/process default.  Unknown names always raise ``ValueError``; an
+    algorithm that cannot serve this collective on this world raises
+    :class:`CommError` when explicit and degrades to auto selection
+    (None, not a pinned ``"ring"``) when it is a default."""
     if requested is None or requested is False or requested == "auto":
         return None
-    spec = get_algorithm(requested)
+    if isinstance(requested, str) and requested.startswith("synth:"):
+        # A synthesized IR schedule serves allreduce only, and only when
+        # its program is installed for this world.
+        from ..csched import synth as _synth
+
+        if collective != "allreduce":
+            if explicit:
+                raise CommError(
+                    f"synthesized schedule {requested!r} serves "
+                    f"allreduce, not {collective}")
+            return None
+        if _synth.synth_applicable(requested, nranks):
+            return requested
+        if explicit:
+            raise CommError(
+                f"synthesized schedule {requested!r} is not installed "
+                f"for a {nranks}-rank world (run "
+                "csched.synth.autotune_synthesis or load its "
+                "tune-cache entry)")
+        return None
+    spec = get_algorithm(requested)  # raises on unknown names
     reason = spec.why_not(nranks, collective)
-    if reason is not None:
+    if reason is None:
+        return spec.name
+    if explicit:
         raise CommError(reason)
-    return spec.name
+    return None
 
 
 def resolve_hier_group(nranks: int) -> int:
@@ -108,40 +154,80 @@ def resolve_tier_stack(nranks: int):
     return (g, nranks // g)
 
 
-def select_auto(*, nbytes: int, nranks: int, deterministic: bool = False,
+def select_auto(*, collective: str = "allreduce", nbytes: int,
+                dtype, nranks: int, deterministic: bool = False,
                 codec=None) -> str:
-    """The selector: the algorithm of an auto-selected Allreduce, a pure
-    function of the call and the config knobs.  Deterministic mode pins
-    ``ring``; at or above the bandwidth crossover ``bidir``, when
-    ``codec`` (if any) rides it (``compress.codec_rides_algorithm``);
-    otherwise ``ring``."""
-    if nranks <= 1 or deterministic:
+    """The selector: the algorithm of an auto-selected collective call, a
+    pure function of the call, the config knobs and the autotuner cache.
+
+    Deterministic mode pins ``ring`` unless the cache's ``codec="synth"``
+    slot names a synthesized schedule installed for this world; a
+    measured cache winner wins (synthesized winners never steer the
+    wall-clock tiers); at or below the latency crossover the latency
+    algorithm (``rhd`` on power-of-two worlds, else ``tree``); at or
+    above the bandwidth crossover ``bidir``; otherwise ``ring``.  A
+    codec restricts candidates to the algorithms it rides and reads its
+    own codec-keyed winners.  ``dtype`` is the payload's torch dtype."""
+    if nranks <= 1:
         return "ring"
+    if deterministic:
+        from ..csched import synth as _synth
+
+        if codec is None:
+            w = lookup_algorithm(collective, dtype, nbytes, nranks,
+                                 codec="synth")
+            if (_synth.is_synth_name(w)
+                    and _synth.synth_applicable(w, nranks)):
+                return w
+        return "ring"
+
+    def ok(name: str) -> bool:
+        if not get_algorithm(name).applicable(nranks, collective):
+            return False
+        if name in ("hier", "torus"):
+            # A set config.hier_group_size can void the registry's static
+            # gate for this world: never pick what the backend rejects.
+            try:
+                resolve_hier_group(nranks)
+            except CommError:
+                return False
+        if codec is None:
+            return True
+        from ..compress import codec_applicable
+
+        return codec_applicable(codec, dtype, algorithm=name)
+
+    # Codec-keyed winners: compressed traffic reads its own measurements
+    # and never hijacks (or is hijacked by) exact selection.
+    winner = lookup_algorithm(collective, dtype, nbytes, nranks,
+                              codec=codec)
+    if winner is not None and winner.startswith("synth:"):
+        # Census verdicts serve deterministic mode only.
+        winner = None
+    crossover = _config.latency_crossover_bytes()
+    if winner is not None and ok(winner):
+        if (codec is None and crossover is not None
+                and nbytes <= crossover
+                and get_algorithm(winner).bandwidth_optimal):
+            # Latency-tier guard: decode-sized messages share power-of-two
+            # buckets with training tail buckets, so a bandwidth-tier
+            # winner recorded under such a key never applies at or below
+            # the measured latency crossover; the tiers below decide.
+            # Exact traffic only: decode payloads are exact, and voiding
+            # a codec-keyed winner would strand it on ring.
+            winner = None
+        else:
+            return winner
+    if crossover is not None and nbytes <= crossover:
+        if ok("rhd"):
+            return "rhd"
+        if ok("tree"):
+            return "tree"
     bandwidth = _config.bandwidth_crossover_bytes()
     if bandwidth is not None and nbytes >= bandwidth:
-        from ..compress import codec_rides_algorithm
-
-        if codec is None or codec_rides_algorithm(codec, "bidir"):
+        # The multipath tier: `bidir` is the any-world pick; `torus` wins
+        # only through a measured cache entry.
+        if ok("bidir"):
             return "bidir"
     return "ring"
 
-
-def _item5(name):
-    def stub(*args, **kwargs):
-        raise NotImplementedError(
-            f"tune.{name}: the autotuner and its cache are not ported yet "
-            "(ROADMAP.md, Queue 1 item 5)")
-    stub.__name__ = stub.__qualname__ = name
-    stub.__doc__ = f"``tune.{name}``: not ported yet (raises)."
-    return stub
-
-
-# The autotuner's surface (JAX tune/autotuner.py and the registry's
-# listing and registration), kept as stubs that name their item.
-for _name in ("available_algorithms", "register_algorithm",
-              "autotune_allreduce", "bucket_nbytes",
-              "ensure_tuned_allreduce", "lookup", "lookup_algorithm",
-              "entry_from_disk", "record", "make_key", "cache_path",
-              "generation", "clear"):
-    globals()[_name] = _item5(_name)
-del _name

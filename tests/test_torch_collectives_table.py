@@ -418,7 +418,9 @@ def test_indivisible_reduce_scatter_and_numelem_mismatch_raise():
 def test_unported_options_raise_naming_roadmap():
     def body():
         t = torch.ones(4)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        # A synthesized schedule not installed for this world raises
+        # when named explicitly (the JAX package's rule).
+        with pytest.raises(P.CommError, match="not installed"):
             comm.Allreduce(t, P.MPI_SUM, algorithm="synth:deadbeef")
         # The compressed Allgather is ported: q8 carries integer-valued
         # blocks exactly.

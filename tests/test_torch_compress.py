@@ -458,7 +458,9 @@ def test_knob_validation():
     assert pconfig.bandwidth_crossover_bytes() is None
     for name in ("rhd", "tree", "hier"):
         assert ptune.get_algorithm(name).name == name
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # Synthesized names resolve through csched.synth, not the registry,
+    # which names them unknown as the JAX package's does.
+    with pytest.raises(ValueError, match="unknown collective algorithm"):
         ptune.get_algorithm("synth:deadbeef00")
     with pytest.raises(ValueError, match="unknown collective algorithm"):
         ptune.get_algorithm("nope")
@@ -691,10 +693,11 @@ def test_bf16_rides_ring_only():
     pconfig.set_bandwidth_crossover_bytes(1 << 10)
     try:
         x = torch.zeros(1 << 12)
-        assert ptune.select_auto(nbytes=1 << 14, nranks=4,
-                                 codec=codec) == "ring"
+        assert ptune.select_auto(nbytes=1 << 14, dtype=torch.float32,
+                                 nranks=4, codec=codec) == "ring"
         assert peager.resolve_algorithm(4, x, codec, None) == "ring"
-        assert ptune.select_auto(nbytes=1 << 14, nranks=4) == "bidir"
+        assert ptune.select_auto(nbytes=1 << 14, dtype=torch.float32,
+                                 nranks=4) == "bidir"
     finally:
         pconfig.set_bandwidth_crossover_bytes(None)
 

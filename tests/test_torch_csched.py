@@ -1,7 +1,8 @@
 """The port's collective-schedule IR against the JAX package's, on the CPU.
 
 Follows JAX ``tests/test_csched.py`` class by class, without what reads
-StableHLO and without synthesis (ROADMAP.md Queue 1 items 7 and 5).
+StableHLO (ROADMAP.md Queue 1 item 7); synthesis is
+``tests/test_torch_synth.py``.
 The port's counterpart of JAX's lowered text is the exchange sequence:
 the signatures rank 0 deposits through ``World.exchange``, in order.
 
@@ -250,7 +251,7 @@ class TestPrograms:
             pcs.allreduce_program("nope", 8, C.MPI_SUM,
                                   deterministic=False, nelems=8,
                                   itemsize=4)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        with pytest.raises(P.CommError, match="not installed"):
             pcs.allreduce_program("synth:0123456789", 8, C.MPI_SUM,
                                   deterministic=True, nelems=8, itemsize=4)
         for name in ALGOS + ("synth:ab", "nope", "auto"):

@@ -2054,3 +2054,89 @@ def test_csched_dp_sp_step_on_the_card(cuda):
         # 2 dp groups x 2 layers x the ring's 4 blocks over two sp ranks.
         assert _kernels.launch_counts[k] == \
             _kernels.launch_counts[f"{k}.tc"] == 16
+
+
+@pytest.mark.cuda
+def test_tune_sweep_q8_leg_against_the_plain_hop(cuda, tmp_path,
+                                                 monkeypatch):
+    # The autotuner's q8 leg on the card: every candidate it times runs
+    # K1, and each candidate's Allreduce is bitwise the plain hop's
+    # (config.set_quant_hop_impl("torch")) on the same inputs.
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch import config, tune
+
+    monkeypatch.setenv(tune.autotuner.CACHE_ENV, str(tmp_path / "c.json"))
+    tune.clear()
+    try:
+        _kernels.reset_launch_counts()
+        rep = tune.autotune_allreduce(sizes=(1 << 14,), nranks=4, iters=1,
+                                      persist=False, apply_crossover=False,
+                                      codecs=(None, "q8"))
+        q8 = rep["entries"][str(1 << 14)]["codecs"]["q8"]
+        assert set(q8["algorithms"]) == {"ring", "bidir", "torus"}
+        assert all("seconds_per_step" in v
+                   for v in q8["algorithms"].values())
+        assert _kernels.launch_counts["q8_hop"] > 0
+        x = torch.from_numpy(np.random.default_rng(62).standard_normal(
+            4096).astype(np.float32)).to(cuda)
+        for algo in q8["algorithms"]:
+            def run():
+                return P.run_spmd(lambda v: P.COMM_WORLD.Allreduce(
+                    v, P.MPI_SUM, compression="q8", algorithm=algo),
+                    nranks=4)(x)
+            _kernels.reset_launch_counts()
+            got = run()
+            assert _kernels.launch_counts["q8_hop"] > 0
+            config.set_quant_hop_impl("torch")
+            try:
+                want = run()
+            finally:
+                config.set_quant_hop_impl("auto")
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32))
+    finally:
+        tune.clear()
+
+
+@pytest.mark.cuda
+def test_tier_q8_slow_program_requant_launches(cuda):
+    # A q8-slow tier program named explicitly: bitwise its interpretation
+    # and the plain requant's run, with one K1 requant launch per rank
+    # per q8_level_fold step, forward and backward.
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch import config, csched
+
+    res = csched.synthesize_tiers(8, 1 << 14, 4, tiers=(2, 2, 2),
+                                  tier_bandwidths=(100.0, 25.0, 3.125))
+    assert res["composition"] == "q8-slow"
+    prog = res["program"]
+    name = csched.install(prog)
+    steps = sum(s.kind == "q8_level_fold" for ph in prog.phases
+                for s in ph.steps)
+    rows = torch.from_numpy(np.random.default_rng(63).standard_normal(
+        (8, 4096)).astype(np.float32)).to(cuda)
+
+    def run():
+        x = rows.clone().requires_grad_()
+        out = P.run_spmd(lambda v: P.COMM_WORLD.Allreduce(
+            v[P.COMM_WORLD.rank], P.MPI_SUM, algorithm=name), nranks=8)(x)
+        (g,) = torch.autograd.grad(out.sum(), x)
+        return out.detach(), g
+
+    try:
+        _kernels.reset_launch_counts()
+        out, g = run()
+        assert _kernels.launch_counts["q8_requant"] == 2 * 8 * steps > 0
+        config.set_quant_hop_impl("torch")
+        try:
+            pout, pg = run()
+        finally:
+            config.set_quant_hop_impl("auto")
+        oracle = csched.interpret_allreduce(prog, P.MPI_SUM, list(rows))
+        for r in range(8):
+            assert torch.equal(out[r], oracle)
+        assert torch.equal(out.view(torch.int32), pout.view(torch.int32))
+        assert torch.equal(g.view(torch.int32), pg.view(torch.int32))
+    finally:
+        from mpi4torch_tpu_torch.csched import synth
+        synth.clear_installed()

@@ -33,7 +33,7 @@ UNPORTED = {
         "DistributedInfo": 4, "distributed_info": 4,
         "finalize_distributed": 4, "init_distributed": 4,
         "is_distributed": 4, "local_values": 4,
-        "comm_from_mpi4py": 4, "algorithm_scope": 5,
+        "comm_from_mpi4py": 4,
         "elastic": 6, "ctl": 6, "analyze": 7,
     },
     "ops": {},
@@ -48,20 +48,10 @@ UNPORTED = {
                    "DegradeTransition": 6, "failover_schedule": 6,
                    "rank_wire_bytes": 6, "register_degrade_policy": 6},
     "compress": {"int8_rotation_census": 7},
-    "overlap": {"SPLIT_PHASE_FORMS": "4.8", "tier_window_depth": "4.8",
-                "scheduled_exposure": 7},
-    "serve": {"latency_report": 5, "decode_message_bytes": 5},
-    "tune": {name: 5 for name in (
-        "available_algorithms", "register_algorithm",
-        "autotune_allreduce", "bucket_nbytes", "ensure_tuned_allreduce",
-        "lookup", "lookup_algorithm", "entry_from_disk", "record",
-        "make_key", "cache_path", "generation", "clear")},
-    "csched": {name: 5 for name in (
-        "synthesize", "fold_program", "factorization_chains",
-        "autotune_synthesis", "install", "installed_program",
-        "is_synth_name", "synth_applicable", "synthesize_tiers",
-        "autotune_tier_synthesis", "rewrite_fold_codec",
-        "TIER_COMPOSITIONS")},
+    "overlap": {"scheduled_exposure": 7},
+    "serve": {},
+    "tune": {},
+    "csched": {},
     "fuse": {},
     "models": {},
     "parallel": {},

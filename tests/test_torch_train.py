@@ -256,7 +256,7 @@ def test_params_to_numpy_round_trips():
 @pytest.mark.parametrize("kw, err", [
     ({"overlap": True}, None),
     ({"compression": "q8"}, None),
-    ({"algorithm": "synth:deadbeef00"}, NotImplementedError),
+    ({"algorithm": "synth:deadbeef00"}, P.CommError),
     ({"bucket_bytes": -1}, ValueError),
 ])
 def test_allreduce_tree_unported_options_raise(kw, err):
