@@ -395,21 +395,36 @@ check fails.  Phases, in order:
     ``q8_level_fold`` steps, ``overlap.tier_window_depth()``; F, serving's
     ``latency_report`` and the SPMD TP=2 dense engine's tokens tuned
     against untuned;
-63. one JSON line describing each ported kernel (K2, K3 and K4 with
+63. the elastic runtime, degraded mode, the chaos matrix and the
+    self-tuning controller: A, a ZeRO-1 Adam drain (4,) -> (2,) of the
+    flagship, the drained shards and the next step bitwise a fresh DP=2
+    start; B, a hot spare beside DP=2 adding no rendezvous or bytes, a
+    ``rank_death``, consensus and ``takeover_shard``, the redone step
+    bitwise; C, paged TP=4 -> TP=2 serving through drain tickets and
+    ``readmit`` against ``generate()``; D, ``codec_escalate``,
+    ``schedule_failover`` and ``spare_demote`` under gray faults; E, the
+    closed loop on 8 CUDA rank threads (its watermarks from the wire's
+    measured healthy q8/exact goodput) and, escalated, the installed tier
+    winner bitwise its interpreter with its K1 requants counted alone; F,
+    the fast matrix cells against their CPU records and the process
+    reruns on CUDA workers (a killed worker's replacement spawned
+    mid-cell);
+64. one JSON line describing each ported kernel (K2, K3 and K4 with
     the variant the main path ran; the launches of phases 18–20, 23–27,
     30–31 and of the later slices' phases, ``obs_launches``,
     ``resilience_launches``, ``handoff_launches``,
     ``checkpoint_launches``, ``process_launches`` (counted in the
     workers), ``mode_a_launches`` (phases 51, 55, 56 and 57) and
-    ``mesh_2d_launches`` (phase 61) and ``tune_launches`` (phase 62);
+    ``mesh_2d_launches`` (phase 61), ``tune_launches`` (phase 62) and
+    ``item6_launches`` (phase 63);
     their numbers at the SP and
     slice-10 shapes, against the plain versions, their bounds and SDPA;
     K1 with its hop and requant launches, ``reshard_launches``,
     ``process_launches``, ``mode_a_launches`` (phases 55 and 58) and
-    ``csched_launches`` (phase 60) and ``tune_launches`` (phase 62)
-    among them).
+    ``csched_launches`` (phase 60), ``tune_launches`` (phase 62) and
+    ``item6_launches`` (phase 63) among them).
 
-Each phase prints the seconds it took, and each of 28–63 the card's name
+Each phase prints the seconds it took, and each of 28–64 the card's name
 and power limit beside its numbers.  Times on the host clock are host times; event times of the
 comm tracer are host times (a rendezvous returns before the card has
 run its work).
@@ -8516,6 +8531,943 @@ def tune_phase(P, T, tree, dp, serve, kernels, config, cfg, params, tokens,
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 63: the elastic runtime, degraded mode, the chaos matrix and the
+# self-tuning controller on the card (legs A-F).
+# ---------------------------------------------------------------------------
+
+ELASTIC_PROBE_S = 0.6           # consensus probe timeout (JAX's matrix)
+ELASTIC_W, ELASTIC_M = 4, 2     # leg A: (4,) -> (2,) ZeRO-1 drain
+SPARE_DATA = 2                  # leg B: 2 data ranks + 1 hot spare
+SERVE_W = 4                     # leg C: TP=4 -> TP=2 serving
+SERVE_NEW = 16                  # leg C: tokens a request
+SERVE_STEPS = 3                 # leg C: steps before the preemption
+DETECT_MIN_FLOOR_S = 2e-3       # leg D: the detector's floor, at least
+FAILOVER_RANKS, FAILOVER_SLOW = 4, 2    # leg D: bench.py's Allreduce size
+ELASTIC_FAST = [("preempt", "plain", "shrink"),
+                ("rank_death", "plain", "spare"),
+                ("preempt", "zero", "shrink"),
+                ("rank_death", "moe", "shrink")]
+CHAOS_FAST = [("slow_rank", "plain"), ("jitter", "plain"),
+              ("flaky_link", "overlap"), ("flaky_link", "plain")]
+RECORD_KEYS = ("kind", "subsystem", "action", "expected", "status", "fired",
+               "fallback", "epoch", "algorithm", "slots")
+
+
+class WireCounter(ExchangeCounter):
+    """:class:`ExchangeCounter` that also sums the payload bytes rank 0
+    deposits at its rendezvous (``obs.events.payload_nbytes``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __enter__(self):
+        from mpi4torch_tpu_torch.obs.events import payload_nbytes
+
+        super().__enter__()
+        counted = self._world.exchange
+        counter = self
+
+        def exchange(w, rank, signature, payload, *a, **kw):
+            if rank == 0:
+                counter.bytes += payload_nbytes(payload)
+            return counted(w, rank, signature, payload, *a, **kw)
+
+        self._world.exchange = exchange
+        return self
+
+
+def rank_rows(tokens, pos, n):
+    rows = TRAIN_BATCH // n
+    return tokens[pos * rows:(pos + 1) * rows]
+
+
+def to_host(x):
+    """``x`` with every tensor copied to the host (dicts, lists, tuples
+    and named tuples such as ``AdamState`` kept)."""
+    if torch.is_tensor(x):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: to_host(v) for k, v in x.items()}
+    if hasattr(x, "_fields"):
+        return type(x)(*(to_host(v) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_host(v) for v in x)
+    return x
+
+
+def adam_state_equal(tree, a, b):
+    return a.count == b.count and leaves_equal(tree, a.mu, b.mu) \
+        and leaves_equal(tree, a.nu, b.nu)
+
+
+def gathered_slice(tree, shards, template, size, pos):
+    """The ZeRO flat shard ``pos`` of a ``size``-way deal of the state
+    gathered from ``shards`` (one shard tree a rank, any world size)."""
+    def one(tmpl, *parts):
+        n = tmpl.numel()
+        flat = torch.cat(parts)[:n]
+        per = -(-n // size)
+        flat = torch.nn.functional.pad(flat, (0, per * size - n))
+        return flat[pos * per:(pos + 1) * per].clone()
+    return tree.tree_map(one, template, *shards)
+
+
+def elastic_drain_leg(P, T, tree, kernels, cfg, params, tokens):
+    """A. Preempt -> planned drain of ZeRO-1 training: one step on (4,),
+    a preempt notice on id 3, ``drain(leaving=[2, 3])`` re-laying the Adam
+    shards with ``replan_zero``, one step on (2,): the drained shards are
+    bitwise the slices of the gathered pre-drain state, and the next step
+    bitwise a fresh ZeRO-1 DP=2 step from that state."""
+    from mpi4torch_tpu_torch import elastic as E
+    from mpi4torch_tpu_torch.parallel import zero as Z
+    from mpi4torch_tpu_torch.reshard import plan_resize
+    from mpi4torch_tpu_torch.resilience import FaultSpec, fault_scope
+    from mpi4torch_tpu_torch.utils import optim
+
+    opt = optim.adam(ADAM_LR)
+    rt = E.ElasticRuntime(ELASTIC_W, probe_timeout=ELASTIC_PROBE_S,
+                          device="cuda")
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step1(pos, rid):
+        st = Z.zero_init(P.COMM_WORLD, opt, params)
+        _, p, st = T.zero_train_step(cfg, params, rank_rows(
+            tokens, pos, ELASTIC_W), opt, st, P.COMM_WORLD)
+        return (p if pos == 0 else tree.tree_leaves(p)[0].clone()), st
+
+    spec = FaultSpec("preempt", rank=3, op=None, index=0, count=100_000)
+    with fault_scope([spec]) as plan:
+        res1 = rt.run_phase(step1)
+        notices = rt.pending_preemptions()
+        p1, states = res1[0][0], [r[1] for r in res1]
+        same1 = all(torch.equal(r[0], tree.tree_leaves(p1)[0])
+                    for r in res1[1:])
+        del res1
+        # The expected post-drain shards, from the gathered state.
+        want = [optim.AdamState(states[0].count,
+                                gathered_slice(tree, [s.mu for s in states],
+                                               params, ELASTIC_M, j),
+                                gathered_slice(tree, [s.nu for s in states],
+                                               params, ELASTIC_M, j))
+                for j in range(ELASTIC_M)]
+        times = {}
+        t_drain = time.perf_counter()
+
+        def replan(pos, rid, old, new):
+            torch.cuda.synchronize()
+            times.setdefault("consensus_ms",
+                             (time.perf_counter() - t_drain) * 1e3)
+            t0 = time.perf_counter()
+            st = states[pos]
+            mu = E.replan_zero(P.COMM_WORLD, st.mu, params, old, new,
+                               mode="drain")
+            nu = E.replan_zero(P.COMM_WORLD, st.nu, params, old, new,
+                               mode="drain")
+            torch.cuda.synchronize()
+            times.setdefault("replan_ms", []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return optim.AdamState(st.count, mu, nu)
+
+        drained = rt.drain(replan, leaving=[2, 3])
+    times["drain_ms"] = (time.perf_counter() - t_drain) * 1e3
+    view = rt.view
+    del states
+    new_states = [drained[0], drained[1]]
+    del drained
+    torch.cuda.empty_cache()
+    sliced = all(adam_state_equal(tree, new_states[j], want[j])
+                 for j in range(ELASTIC_M))
+
+    def step2(pos, rid):
+        _, p, st = T.zero_train_step(cfg, p1, rank_rows(
+            tokens, pos, ELASTIC_M), opt, new_states[pos], P.COMM_WORLD)
+        return p, st
+
+    res2 = rt.run_phase(step2, view=view)
+    launches = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del new_states
+    torch.cuda.empty_cache()
+    oracle = P.run_ranks(lambda pos: T.zero_train_step(
+        cfg, p1, rank_rows(tokens, pos, ELASTIC_M), opt, want[pos],
+        P.COMM_WORLD)[1:], ELASTIC_M, device="cuda")
+    ranks_alike = leaves_equal(tree, res2[0][0], res2[1][0])
+    fresh = all(leaves_equal(tree, res2[j][0], oracle[j][0])
+                and adam_state_equal(tree, res2[j][1], oracle[j][1])
+                for j in range(ELASTIC_M))
+    del res2, oracle, want, p1
+    torch.cuda.empty_cache()
+    # The plan's census for the Adam state (mu and nu, bf16) against the
+    # gather baseline.
+    census = {"auto": [0, 0], "gather": [0, 0]}
+    for leaf in tree.tree_leaves(params):
+        for strategy in ("auto", "gather"):
+            pl = plan_resize(leaf.numel(), (), ELASTIC_W, ELASTIC_M,
+                             leaf.dtype, embed_from=tuple(range(ELASTIC_W)),
+                             embed_to=(0, 1), exec_size=ELASTIC_W,
+                             strategy=None if strategy == "auto"
+                             else "gather")
+            census[strategy][0] += 2 * pl.wire_bytes
+            census[strategy][1] = max(census[strategy][1], pl.peak_bytes)
+    tc = attention_all_tc(kernels, launches)
+    ok = (same1 and 3 in notices and view.alive == (0, 1)
+          and view.epoch == 1 and sliced and ranks_alike and fresh and tc
+          and "preempt" in plan.fired_kinds())
+    print(f"  A. ZeRO-1 Adam, batch {TRAIN_BATCH} x {TRAIN_SEQ}: step on "
+          f"(4,) (ranks identical {same1}); notice board {notices}; "
+          f"drain(leaving=[2, 3]) -> {view.describe()}: consensus "
+          f"{times['consensus_ms']:.1f} ms, replan "
+          f"{max(times['replan_ms']):.1f} ms, drain {times['drain_ms']:.1f} "
+          f"ms; shards bitwise the gathered slices {sliced}; step on (2,): "
+          f"ranks identical {ranks_alike}, bitwise the fresh-start DP=2 "
+          f"oracle {fresh}; plan wire {census['auto'][0]} B (gather "
+          f"{census['gather'][0]} B), largest leaf peak "
+          f"{census['auto'][1]} B (gather {census['gather'][1]} B); peak "
+          f"{peak:.2f} GiB; K2/K3/K4 launches "
+          f"{[launches[k] for k in kernels.ATTENTION_KERNELS]} all tc {tc}  "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "leg A: the planned drain or the next step is not bitwise its "
+          "oracle")
+    return {"launches": launches, "peak_gib": peak, "census": census,
+            **times}
+
+
+def spare_leg(P, T, tree, kernels, cfg, params, tokens):
+    """B. Rank death -> hot-spare takeover: a (3,) world of 2 data ranks
+    and a spare (zero_spare_step) against a DP=2 world without one (the
+    data ranks' parameters bitwise, rank 0's rendezvous and bytes equal);
+    a rank_death on data rank 1 in step 2, consensus, takeover_shard, the
+    redone step bitwise the unfaulted one."""
+    from mpi4torch_tpu_torch import elastic as E
+    from mpi4torch_tpu_torch.resilience import FaultSpec, fault_scope
+    from mpi4torch_tpu_torch.utils import optim
+
+    opt = optim.adam(ADAM_LR)
+    world = SPARE_DATA + 1
+
+    def grads(pos, p, slot):
+        if slot is None:
+            return tree.tree_map(torch.zeros_like, p)
+        _, g = tree.value_and_grad(lambda q: T.lm_loss(
+            cfg, q, rank_rows(tokens, slot, SPARE_DATA)), p)
+        return g
+
+    def run(n, p, states, slots, steps=1):
+        def body(pos, rid=None):
+            slot = slots[pos]
+            q, st = p, states[pos]
+            for _ in range(steps):
+                q, st = E.zero_spare_step(
+                    P.COMM_WORLD, opt, q, grads(pos, q, slot), st,
+                    n_data=SPARE_DATA, slot=slot, slots=slots)
+            return q, st
+        return body
+
+    slots3, slots2 = (0, 1, None), (0, 1)
+    kernels.reset_launch_counts()
+    init3 = [E.zero_spare_init(opt, params, SPARE_DATA, s) for s in slots3]
+    init2 = init3[:SPARE_DATA]
+    # The spare's cost: two steps with and without it.
+    with WireCounter() as c3:
+        with_spare = P.run_ranks(run(world, params, init3, slots3, 2), world,
+                                 device="cuda")
+    with WireCounter() as c2:
+        without = P.run_ranks(run(2, params, init2, slots2, 2), 2,
+                              device="cuda")
+    free = (all(leaves_equal(tree, with_spare[j][0], without[j][0])
+                for j in range(SPARE_DATA))
+            and (c3.exchanges, c3.bytes) == (c2.exchanges, c2.bytes))
+    mirror_ok = all(leaves_equal(tree, E.takeover_shard(
+        with_spare[2][1].mu, s, SPARE_DATA, params), without[s][1].mu)
+        for s in range(SPARE_DATA))
+    del with_spare
+    torch.cuda.empty_cache()
+    # Step 1 on the spare world, then step 2 with a death on data rank 1.
+    rt = E.ElasticRuntime(world, probe_timeout=ELASTIC_PROBE_S,
+                          device="cuda")
+    step1 = rt.run_phase(run(world, params, init3, slots3))
+    p1, st1 = step1[0][0], [s[1] for s in step1]
+    del step1
+    ops = c2.exchanges // 2          # rank 0's rendezvous a step
+    err, attributed = None, False
+    # The death lands mid-step: data rank 1's (ops // 2)-th wire op of
+    # step 2.
+    spec = FaultSpec("rank_death", rank=1, op=None, index=ops // 2)
+    with fault_scope([spec]) as plan:
+        t_death = time.perf_counter()
+        try:
+            rt.run_phase(run(world, p1, st1, slots3))
+        except P.RankFailedError as e:
+            err, attributed = e, 1 in e.ranks
+        t_caught = time.perf_counter()
+        view = rt.consensus()
+        t_view = time.perf_counter()
+    mu = E.takeover_shard(st1[2].mu, 1, SPARE_DATA, params)
+    nu = E.takeover_shard(st1[2].nu, 1, SPARE_DATA, params)
+    taken = optim.AdamState(st1[2].count, mu, nu)
+    torch.cuda.synchronize()
+    t_take = time.perf_counter()
+    redo = rt.run_phase(run(2, p1, [st1[0], taken], slots2), view=view)
+    resume_ms = (t_take - t_caught) * 1e3
+    # The unfaulted step 2 is the no-spare world's second step.
+    bitwise = all(leaves_equal(tree, redo[j][0], without[j][0])
+                  and adam_state_equal(tree, redo[j][1], without[j][1])
+                  for j in range(SPARE_DATA))
+    launches = dict(kernels.launch_counts)
+    del redo, st1, taken, p1, init3, init2
+    # Leg D's spare_demote compares against the unfaulted steps: kept on
+    # the host, off the card's memory.
+    without = to_host(without)
+    torch.cuda.empty_cache()
+    tc = attention_all_tc(kernels, launches)
+    ok = (free and mirror_ok and err is not None and attributed
+          and view.alive == (0, 2) and bitwise and tc
+          and "rank_death" in plan.fired_kinds())
+    print(f"  B. hot spare (2 data ranks + 1 spare, Adam): data ranks "
+          f"bitwise the DP=2 run without a spare with the same rank-0 "
+          f"rendezvous and bytes ({c3.exchanges} / {c3.bytes} B vs "
+          f"{c2.exchanges} / {c2.bytes} B) {free}; the spare's mirror "
+          f"slices bitwise the owners' state {mirror_ok}; rank_death on "
+          f"data rank 1 at op {ops // 2} of {ops}: RankFailedError naming "
+          f"{sorted(err.ranks) if err else None} after "
+          f"{(t_caught - t_death) * 1e3:.1f} ms; death-to-resume "
+          f"{resume_ms:.1f} ms (consensus {(t_view - t_caught) * 1e3:.1f} "
+          f"ms, of it the probe timeout {ELASTIC_PROBE_S * 1e3:.0f} ms = "
+          f"{100 * ELASTIC_PROBE_S * 1e3 / resume_ms:.0f}%; takeover "
+          f"{(t_take - t_view) * 1e3:.1f} ms) -> {view.describe()}; the "
+          f"redone step bitwise the unfaulted step {bitwise}; attention all "
+          f"tc {tc}  {'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "leg B: the spare cost wire, or the takeover step is not "
+          "bitwise the unfaulted step")
+    return {"launches": launches, "resume_ms": resume_ms,
+            "consensus_ms": (t_view - t_caught) * 1e3,
+            "takeover_ms": (t_take - t_view) * 1e3, "without": without}
+
+
+def elastic_serve_leg(P, T, serve, kernels, cfg, params, prompts):
+    """C. Elastic serving: a paged TP=4 engine on four rank threads, a
+    preempt on id 1 after 3 steps, ``consensus(leaving=[1, 3])``,
+    ``drain_tickets``, ``readmit`` on a TP=2 engine, ``stitched_results``
+    against generate() under the near-tie rule; a ticket's pages found
+    again through the prefix index of its own pool; a disabled controller
+    changes neither tokens nor rendezvous."""
+    from mpi4torch_tpu_torch import ctl
+    from mpi4torch_tpu_torch import elastic as E
+    from mpi4torch_tpu_torch.resilience import FaultSpec, fault_scope
+
+    scfg = serve.ServeConfig(slots=SLOTS, max_new=SERVE_NEW, block_size=16)
+    rt = E.ElasticRuntime(SERVE_W, probe_timeout=ELASTIC_PROBE_S,
+                          device="cuda")
+    kernels.reset_launch_counts()
+
+    def decode_rate(eng, steps):
+        """Run ``steps`` steps (all while pending when None): decode
+        tokens/s over the steps that admitted nothing, and the seconds
+        of those that did."""
+        dec_s, dec_n, adm_s, n = 0.0, 0, 0.0, 0
+        while eng.pending() and (steps is None or n < steps):
+            t0 = time.perf_counter()
+            ev = eng.step()
+            dt = time.perf_counter() - t0
+            n += 1
+            if ev["admitted"]:
+                adm_s += dt
+            else:
+                dec_s += dt
+                dec_n += sum(len(v) for v in ev["emitted"].values())
+        return dec_n / dec_s if dec_s else float("nan"), adm_s
+
+    def phase1(pos, rid):
+        eng = serve.Engine(cfg, params, scfg, device="cuda")
+        for i, p in enumerate(prompts):
+            eng.submit(p, rid=i)
+        rate, _ = decode_rate(eng, SERVE_STEPS)
+        t0 = time.perf_counter()
+        tickets, done = E.drain_tickets(eng)
+        drain_s = time.perf_counter() - t0
+        # A ticket's pages come back through the prefix index of its own
+        # pool: re-admit one ticket here and take one step.
+        tk = next(t_ for t_ in tickets if t_.pages and t_.pages["block_ids"])
+        E.readmit(eng, [tk])
+        eng.step()
+        j = next(j for j, r in enumerate(eng._slot_req)
+                 if r is not None and r.rid == tk.rid)
+        full = tk.pages["n_tokens"] // scfg.block_size
+        reused = full > 0 and eng._table[j, :full].tolist() == \
+            tk.pages["block_ids"][:full]
+        eng.drain()
+        return tickets, done, reused, rate, drain_s
+
+    with fault_scope([FaultSpec("preempt", rank=1, op=None, index=0,
+                                count=100_000)]) as plan:
+        res1 = rt.run_phase(phase1)
+        notices = rt.pending_preemptions()
+        tickets, done, reused, rate_before, drain_s = res1[0]
+        t0 = time.perf_counter()
+        view = rt.consensus(leaving=[1, 3])
+        consensus_ms = (time.perf_counter() - t0) * 1e3
+    alike = all([t.emitted for t in r[0]] == [t.emitted for t in tickets]
+                and r[2] for r in res1)
+    del res1
+    k2_before = kernels.launch_counts["flash_fwd"]
+
+    def phase2(pos, rid):
+        eng = serve.Engine(cfg, params, scfg, device="cuda")
+        t0 = time.perf_counter()
+        E.readmit(eng, tickets)
+        readmit_s = time.perf_counter() - t0
+        rate, reprefill_s = decode_rate(eng, None)
+        res = E.stitched_results({**done, **eng.results()}, tickets)
+        return res, rate, readmit_s, reprefill_s, eng.stats.snapshot()
+
+    res2 = rt.run_phase(phase2, view=view)
+    k2_readmit = kernels.launch_counts["flash_fwd"] - k2_before
+    launches = dict(kernels.launch_counts)
+    results, rate_after, readmit_s, reprefill_s, snap = res2[0]
+    same_ranks = all(all(np.array_equal(results[i], r[0][i])
+                         for i in range(len(prompts))) for r in res2)
+    del res2
+    divergences, tie_steps = tie_rule_tokens(T, cfg, params, prompts,
+                                             results, SERVE_NEW)
+
+    # A disabled controller attached: tokens and rendezvous unchanged
+    # (phase 5's TP=2 requests).
+    def tp2(attach):
+        def body(rank):
+            eng = serve.Engine(cfg, params, serve.ServeConfig(
+                slots=SLOTS, max_new=TP2_MAX_NEW), device="cuda")
+            if attach:
+                eng.attach_controller(ctl.SelfTuningController(
+                    n_ranks=2, tiers=(2,), device="cuda"))
+            for p in prompts[:TP2_REQUESTS]:
+                eng.submit(p)
+            return {k: v.tolist() for k, v in eng.run().items()}
+        with ExchangeCounter() as c:
+            out = P.run_ranks(body, 2, device="cuda")
+        return out, c.exchanges
+    off, on = tp2(False), tp2(True)
+    inert = off == on
+    f32_bitwise = elastic_serve_f32(P, T, serve, prompts)
+    ttft = snap.get("ttft_s", {}).get("p50", float("nan"))
+    ok = (1 in notices and view.alive == (0, 2) and view.epoch == 1
+          and alike and reused and same_ranks and inert and f32_bitwise
+          and launches["flash_fwd"] == launches["flash_fwd.tc"]
+          and k2_readmit > 0 and "preempt" in plan.fired_kinds())
+    print(f"  C. paged TP=4 serving, {len(prompts)} requests x {SERVE_NEW} "
+          f"tokens, {SERVE_STEPS} steps (decode {rate_before:.1f} tokens/s)"
+          f"; notice board {notices}; consensus(leaving=[1, 3]) "
+          f"{consensus_ms:.1f} ms -> {view.describe()}; {len(tickets)} "
+          f"tickets ({sum(len(t.emitted) for t in tickets)} tokens emitted "
+          f"before the drain); drain {drain_s * 1e3:.1f} ms + readmit "
+          f"{readmit_s * 1e3:.1f} ms; a ticket's pages found again in its "
+          f"pool {reused}; TP=2 re-prefill {reprefill_s * 1e3:.1f} ms with "
+          f"{k2_readmit} K2 launches, TTFT p50 of the re-admitted "
+          f"{ttft * 1e3:.1f} ms, decode {rate_after:.1f} tokens/s after; "
+          f"stitched streams vs generate(): near-tie divergences "
+          f"{divergences} (oracle near ties {tie_steps}); at 2 layers in "
+          f"f32 bitwise generate()'s {f32_bitwise}; ranks identical "
+          f"{same_ranks}; disabled controller: tokens and rank-0 "
+          f"rendezvous ({off[1]}) unchanged {inert}; K2 launches "
+          f"{launches['flash_fwd']} all tc  {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, "leg C: elastic serving failed a check")
+    return {"launches": launches, "k2_readmit": k2_readmit,
+            "consensus_ms": consensus_ms, "drain_ms": drain_s * 1e3,
+            "readmit_ms": readmit_s * 1e3, "reprefill_ms": reprefill_s * 1e3,
+            "ttft_p50_ms": ttft * 1e3, "decode_tok_s": (rate_before,
+                                                          rate_after)}
+
+
+def elastic_serve_f32(P, T, serve, prompts):
+    """Leg C's drain and re-admission at 2 layers in f32 (the flagship's
+    widths): TP=4 -> TP=2 stitched streams bitwise generate()'s."""
+    from mpi4torch_tpu_torch import elastic as E
+
+    cfg = T.TransformerConfig(vocab=32768, d_model=2048, n_heads=16,
+                              n_layers=2, d_ff=8192, max_seq=2048)
+    params = T.init_transformer(0, cfg, torch.float32, device="cuda")
+    reqs, n_new = prompts[:TP2_REQUESTS], TP2_MAX_NEW
+    scfg = serve.ServeConfig(slots=SLOTS, max_new=n_new, block_size=16)
+    rt = E.ElasticRuntime(SERVE_W, probe_timeout=ELASTIC_PROBE_S,
+                          device="cuda")
+
+    def phase1(pos, rid):
+        eng = serve.Engine(cfg, params, scfg, device="cuda")
+        for i, p in enumerate(reqs):
+            eng.submit(p, rid=i)
+        for _ in range(SERVE_STEPS):
+            eng.step()
+        return E.drain_tickets(eng)
+
+    tickets, done = rt.run_phase(phase1)[0]
+    view = rt.consensus(leaving=[1, 3])
+
+    def phase2(pos, rid):
+        eng = serve.Engine(cfg, params, scfg, device="cuda")
+        E.readmit(eng, tickets)
+        return E.stitched_results({**done, **eng.run()}, tickets)
+
+    got = rt.run_phase(phase2, view=view)[0]
+    same = all(np.array_equal(got[i], T.generate(
+        cfg, params, torch.as_tensor(p, device="cuda")[None],
+        n_new)[0].cpu().numpy()) for i, p in enumerate(reqs))
+    del params
+    torch.cuda.empty_cache()
+    return same
+
+
+def local_latency_spread(report):
+    """The largest per-rank mean local latency of an unfaulted report
+    (the noise the detector's floor must clear)."""
+    return max(s.local_s for s in report.stats)
+
+
+def degrade_leg(P, T, tree, kernels, qk, fuse, config, cfg, params, tokens,
+                spare):
+    """D. Degraded mode under gray faults: codec_escalate on the fused
+    DP=2 step at 4 MiB buckets (brownout on rank 1), schedule_failover at
+    4 x 2^24 float32 (slow_rank on rank 2), spare_demote on leg B's
+    world (slow_rank on data rank 1)."""
+    from mpi4torch_tpu_torch import obs
+    from mpi4torch_tpu_torch import elastic as E
+    from mpi4torch_tpu_torch.resilience import (DegradeController,
+                                                FaultSpec,
+                                                GrayFailureDetector,
+                                                fault_scope)
+    from mpi4torch_tpu_torch.resilience import degrade
+    from mpi4torch_tpu_torch.utils import optim
+
+    bb = config.DEFAULT_BUCKET_BYTES
+    nbk = fuse.bucket_layout(params, bb).num_buckets
+    out = {}
+
+    def step(pos, rid=None, keep=False):
+        x = rank_rows(tokens, pos, 2)
+        _, g = tree.value_and_grad(lambda q: T.lm_loss(cfg, q, x), params)
+        synced = P.COMM_WORLD.Allreduce_tree(g, P.MPI_SUM, mean=True,
+                                             bucket_bytes=bb)
+        codec = config.default_compression()
+        return (getattr(codec, "name", codec), (g if keep else None),
+                synced)
+
+    # Warm every path (exact and q8) before any timed detector window.
+    exact = P.run_ranks(step, 2, device="cuda")
+    with config.compression_scope("q8"):
+        P.run_ranks(step, 2, device="cuda")
+    def two(pos, rid=None):
+        return [step(pos) for _ in range(2)][-1]
+
+    # A zero-rate brownout on rank 1 censuses the bytes the throttle will
+    # see, without sleeping.
+    with obs.trace() as tr, fault_scope([FaultSpec(
+            "brownout", rank=1, op=None, per_byte_s=0.0,
+            count=10 ** 6)]) as census:
+        P.run_ranks(two, 2, device="cuda")
+        calm = GrayFailureDetector(tr).report()
+    spread = local_latency_spread(calm)
+    floor = max(5 * spread, DETECT_MIN_FLOOR_S)
+    step_bytes = sum(f.info["bytes"] for f in census.fired) // 2
+    # The throttle adds about a second to an exact step.
+    per_byte_s = 1.0 / step_bytes
+    ctl = DegradeController(n_ranks=2, device="cuda")
+    stale = ctl.runtime.view
+    spec = FaultSpec("brownout", rank=1, op=None, per_byte_s=per_byte_s,
+                     count=10 ** 6)
+    kernels.reset_launch_counts()
+    try:
+        with fault_scope([spec]) as plan, obs.trace() as tr:
+            t0 = time.perf_counter()
+            ctl.runtime.run_phase(two)
+            exact_s = (time.perf_counter() - t0) / 2
+            report = GrayFailureDetector(tr, floor_s=floor).check()
+            n_exact = len(plan.fired)
+            tr_ = ctl.apply("codec_escalate", report)
+            launches0 = dict(kernels.launch_counts)
+            t0 = time.perf_counter()
+            q8 = ctl.runtime.run_phase(
+                lambda pos, rid: step(pos, keep=True), view=ctl.runtime.view)
+            q8_s = time.perf_counter() - t0
+            fired = plan.fired
+        hops = kernels.launch_counts["q8_hop"] - launches0["q8_hop"]
+        try:
+            ctl.runtime.run_phase(step, view=stale)
+            fenced = False
+        except E.StaleEpochError:
+            fenced = True
+    finally:
+        ctl.reset()
+    launches = dict(kernels.launch_counts)
+    after = P.run_ranks(step, 2, device="cuda")
+    reset_exact = all(leaves_equal(tree, a[2], b[2])
+                      for a, b in zip(after, exact))
+    del exact
+    lockstep = {(c, ctl.runtime.epoch) for c, _g, _s in q8} == \
+        {("q8", tr_.epoch)}
+    (_, g0, y0), (_, g1, y1) = q8
+    errs, same, _ = bucket_q8_bounds(qk, fuse, g0, g1, y0, y1, bb)
+    tight = max(e / b for e, b in errs)
+    del q8, g0, g1, y0, y1, after
+    torch.cuda.empty_cache()
+    sleep_exact = sum(f.info.get("sleep_s", 0.0) for f in fired[:n_exact]
+                      if f.kind == "brownout") / 2
+    sleep_q8 = sum(f.info.get("sleep_s", 0.0) for f in fired[n_exact:]
+                   if f.kind == "brownout")
+    ok = (report is not None and 1 in report.slow and tr_.epoch == 1
+          and lockstep and hops == 2 * nbk and same and tight <= 1.0
+          and fenced and reset_exact and config.default_compression() is None
+          and sleep_exact > 0 and sleep_q8 > 0)
+    print(f"  D. codec_escalate, fused DP=2 at {bb} B buckets ({nbk}): the "
+          f"unfaulted step's largest per-rank local latency {spread * 1e3:.3f}"
+          f" ms a call -> detector floor {floor * 1e3:.3f} ms; brownout "
+          f"per_byte_s {per_byte_s:.3e} on rank 1 ({step_bytes} B of its "
+          f"wire a step); detector names {sorted(report.slow) if report else None}; "
+          f"escalated at epoch {tr_.epoch}, ranks report "
+          f"{{('q8', {tr_.epoch})}} {lockstep}; q8_hop launches {hops} "
+          f"(expected 2 x {nbk}); ranks bitwise alike {same}; largest "
+          f"bucket error / q8 bound {tight:.3f}; stale phase fenced "
+          f"{fenced}; reset bitwise exact {reset_exact}; throttled "
+          f"{sleep_exact:.3f} s a step exact vs {sleep_q8:.3f} s q8 (steps "
+          f"{exact_s:.2f} s vs {q8_s:.2f} s; the rank-thread q8 Allreduce "
+          "deposits full-width rows, as JAX's Mode B does, so its "
+          f"censused bytes do not shrink)  {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, "leg D: codec_escalate failed a check")
+    out["codec_escalate"] = {"hops": hops, "launches": launches,
+                             "floor_s": floor, "spread_s": spread,
+                             "per_byte_s": per_byte_s,
+                             "sleep_s": (sleep_exact, sleep_q8)}
+
+    # schedule_failover at bench.py's size.
+    nbytes = BENCH_NUMEL * 4
+    xs = [torch.randn(BENCH_NUMEL, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(70 + r)) for r in range(FAILOVER_RANKS)]
+
+    def allreduce(pos, rid=None, algorithm=None):
+        return P.COMM_WORLD.Allreduce(xs[pos], P.MPI_SUM,
+                                      algorithm=algorithm)
+
+    def three(pos, rid=None):
+        return [allreduce(pos) for _ in range(3)][-1]
+
+    P.run_ranks(three, FAILOVER_RANKS, device="cuda")
+    with obs.trace() as tr:
+        P.run_ranks(three, FAILOVER_RANKS, device="cuda")
+        calm = GrayFailureDetector(tr).report()
+    floor = max(5 * local_latency_spread(calm), DETECT_MIN_FLOOR_S)
+    ctl = DegradeController(n_ranks=FAILOVER_RANKS, device="cuda")
+    try:
+        with fault_scope([FaultSpec("slow_rank", rank=FAILOVER_SLOW,
+                                    op="Allreduce", seconds=2 * floor,
+                                    count=10 ** 6)]), \
+                obs.trace() as tr:
+            ctl.runtime.run_phase(three)
+            report = GrayFailureDetector(tr, floor_s=floor).check()
+        tr_ = ctl.apply("schedule_failover", report, nbytes=nbytes)
+        pick = tr_.action["algorithm"]
+        auto = ctl.runtime.run_phase(lambda pos, rid: allreduce(pos),
+                                     view=ctl.runtime.view)
+    finally:
+        ctl.reset()
+    explicit = P.run_ranks(lambda pos: allreduce(pos, algorithm=pick),
+                           FAILOVER_RANKS, device="cuda")
+    win, table = degrade.failover_schedule(FAILOVER_SLOW, FAILOVER_RANKS,
+                                           nbytes)
+    bitwise = all(torch.equal(a, b) for a, b in zip(auto, explicit))
+    sb = tr_.action["slow_rank_bytes"]
+    ok = (report is not None and FAILOVER_SLOW in report.slow
+          and pick == win and bitwise and sb[pick] < sb["ring"])
+    print(f"  D. schedule_failover, {FAILOVER_RANKS} x {BENCH_NUMEL} "
+          f"float32, slow_rank on rank {FAILOVER_SLOW} (detector floor "
+          f"{floor * 1e3:.3f} ms, names {sorted(report.slow) if report else None}): pick "
+          f"{pick} (failover_schedule {win}); bytes through rank "
+          f"{FAILOVER_SLOW}: ring {sb['ring']} vs {pick} {sb[pick]}; "
+          f"{ {a: t[FAILOVER_SLOW] for a, t in table.items()} }; the next "
+          f"Allreduce bitwise its explicit pick {bitwise}  "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "leg D: schedule_failover failed a check")
+    out["schedule_failover"] = {"pick": pick, "slow_rank_bytes": sb}
+    del xs, auto, explicit
+    torch.cuda.empty_cache()
+
+    # spare_demote on leg B's world: a slow data rank 1 hands its slot to
+    # the spare; the next step's data ranks bitwise the unfaulted step.
+    opt = optim.adam(ADAM_LR)
+    init3 = [E.zero_spare_init(opt, params, SPARE_DATA, s)
+             for s in (0, 1, None)]
+
+    def zbody(slots, states, p):
+        def body(pos, rid):
+            slot = slots[pos]
+            if slot is None:
+                g = tree.tree_map(torch.zeros_like, p)
+            else:
+                _, g = tree.value_and_grad(lambda q: T.lm_loss(
+                    cfg, q, rank_rows(tokens, slot, SPARE_DATA)), p)
+            q, st = E.zero_spare_step(P.COMM_WORLD, opt, p, g,
+                                      states[pos], n_data=SPARE_DATA,
+                                      slot=slot, slots=slots)
+            # The parameters are replicated: rank 0's copy is kept.
+            return (q if pos == 0 else None), st
+        return body
+
+    ctl = DegradeController(n_ranks=SPARE_DATA + 1, device="cuda")
+    slots_a = (0, 1, None)
+    with obs.trace() as tr:
+        ctl.runtime.run_phase(zbody(slots_a, init3, params))
+        calm = GrayFailureDetector(tr).report()
+    floor = max(5 * local_latency_spread(calm), DETECT_MIN_FLOOR_S)
+    try:
+        with fault_scope([FaultSpec("slow_rank", rank=1, op=None,
+                                    seconds=2 * floor, count=10 ** 6)]), \
+                obs.trace() as tr:
+            res = ctl.runtime.run_phase(zbody(slots_a, init3, params))
+            report = GrayFailureDetector(tr, floor_s=floor).check()
+        tr_ = ctl.apply("spare_demote", report, n_data=SPARE_DATA,
+                        slots=slots_a)
+        slots_b = tr_.action["slots"]
+        st = [r[1] for r in res]
+        taken = optim.AdamState(
+            st[tr_.action["promoted"]].count,
+            E.takeover_shard(st[tr_.action["promoted"]].mu,
+                             tr_.action["slot"], SPARE_DATA, params),
+            E.takeover_shard(st[tr_.action["promoted"]].nu,
+                             tr_.action["slot"], SPARE_DATA, params))
+        states_b = [taken if p == tr_.action["promoted"] else
+                    E.zero_spare_init(opt, params, SPARE_DATA, None)
+                    if p == tr_.action["demoted"] else st[p]
+                    for p in range(SPARE_DATA + 1)]
+        del st
+        outs = ctl.runtime.run_phase(zbody(slots_b, states_b, res[0][0]),
+                                     view=ctl.runtime.view)
+    finally:
+        ctl.reset()
+    want = spare["without"]
+    host = to_host(outs)
+    del outs
+    bitwise = leaves_equal(tree, host[0][0], want[0][0]) and all(
+        adam_state_equal(tree, host[p][1], want[s][1])
+        for p, s in enumerate(slots_b) if s is not None)
+    ok = (report is not None and 1 in report.slow and tr_.epoch == 1
+          and slots_b == (0, None, 1) and bitwise)
+    print(f"  D. spare_demote on leg B's world (slow_rank on data rank 1, "
+          f"detector floor {floor * 1e3:.3f} ms, names "
+          f"{sorted(report.slow) if report else None}): slots {slots_a} -> "
+          f"{slots_b} at epoch {tr_.epoch}; the next step's data ranks "
+          f"bitwise the unfaulted step {bitwise}  {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, "leg D: spare_demote failed a check")
+    del res, host, states_b, taken, init3
+    torch.cuda.empty_cache()
+    return out
+
+
+def controller_leg(P, kernels, config):
+    """E. The controller: closed_loop_episode(n=8, tiers=(2, 2, 2)) on CUDA
+    rank threads, its watermarks derived from this wire's healthy q8/exact
+    goodput; the escalation installs the synth_q8 winner at a consensus
+    epoch; in the escalated configuration one Allreduce of that winner at
+    its bucket, bitwise the interpreter of the installed program, its K1
+    requants counted alone; escalated and recovered runs bitwise their
+    oracles, the pre-switch view fenced, the ledger's tier wire and
+    winners the CPU run's, its weighted costs the census of the live
+    vector it ratified."""
+    import numpy as np
+
+    from mpi4torch_tpu_torch import csched
+    from mpi4torch_tpu_torch.ctl import __main__ as cmain
+
+    probe = {}
+
+    def on_escalated(ctl):
+        # The counts from the episode's start are kept aside: this
+        # Allreduce's launches alone, then the episode's total goes on
+        # (the interpreter's, the oracle, are not counted).
+        before = dict(kernels.launch_counts)
+        kernels.reset_launch_counts()
+        run = cmain.installed_allreduce(ctl)
+        torch.cuda.synchronize()
+        probe.update(kernels.launch_counts)
+        if run is not None:
+            run["oracle"] = cmain.installed_oracle(run)
+        for k, v in before.items():
+            kernels.launch_counts[k] = v + probe[k]
+        return run
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ev = cmain.closed_loop_episode(n=8, tiers=(2, 2, 2), backend="thread",
+                                   device="cuda", on_escalated=on_escalated)
+    episode_s = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    probs = cmain.closed_loop_problems(ev)
+    esc = ev["escalation"]
+    inst = ev.get("on_escalated")
+    cpu = cmain.closed_loop_episode(n=8, tiers=(2, 2, 2), backend="thread",
+                                    device="cpu")
+    cesc = cpu["escalation"]
+    census = False
+    if esc is not None and cesc is not None:
+        res = csched.synthesize_tiers(
+            8, 4096, 4, tiers=(2, 2, 2),
+            tier_bandwidths=(1.0, 1.0, max(esc.ratio, 1e-6)), codec="q8")
+        census = (esc.new.get("installed") == res["winner"]
+                  == cesc.new.get("installed")
+                  and esc.new["tier_wire"] == tuple(res["tier_wire"])
+                  == cesc.new["tier_wire"]
+                  and esc.old["tier_wire"] == cesc.old["tier_wire"]
+                  and esc.new["weighted_cost"] == res["weighted_cost"]
+                  and esc.old["weighted_cost"]
+                  == res["exact_weighted_cost"])
+    # Below the fold-once size every rank folds all 8 contributions, one
+    # K1 requant each, at each q8_level_fold step.
+    want_requant = 8 * 8 * inst["q8_steps"] if inst else None
+    inst_ok = (inst is not None and esc is not None
+               and inst["name"] == esc.new.get("installed")
+               and inst["slot"] == "synth_q8"
+               and all(np.array_equal(r, inst["oracle"])
+                       for r in inst["results"])
+               and probe.get("q8_requant") == want_requant)
+    h = ev["healthy"]
+    ok = not probs and census and inst_ok
+    print(f"  E. closed loop on 8 CUDA rank threads, tiers (2, 2, 2): "
+          f"healthy exact / q8 event {h['exact']['duration_ms']:.3f} / "
+          f"{h['q8']['duration_ms']:.3f} ms (barrier wait "
+          f"{h['exact']['wait_ms']:.3f} / {h['q8']['wait_ms']:.3f} ms; q8 "
+          f"encode {h['codec']['encode_ms']:.3f} ms, decode "
+          f"{h['codec']['decode_ms']:.3f} ms a rank), "
+          f"q8/exact goodput {h['ratio']:.3f} -> watermarks "
+          f"({h['watermarks'][0]:.4f}, {h['watermarks'][1]:.4f}); brownout "
+          f"per_byte_s {ev['per_byte_s']:.3e} ({cmain.BROWNOUT_S} s an exact "
+          f"run); {ev['ledger'].triggers()} at epochs {ev['epochs']}; "
+          f"installed {esc.new.get('installed') if esc else None}; weighted "
+          f"cost {esc.old.get('weighted_cost') if esc else None} -> "
+          f"{esc.new.get('weighted_cost') if esc else None}, tier wire "
+          f"{esc.old.get('tier_wire') if esc else None} -> "
+          f"{esc.new.get('tier_wire') if esc else None}; winners and wire "
+          f"the CPU run's, costs the census of the ratified live vector "
+          f"{census}; episode {episode_s:.1f} s, K1 q8_requant launches "
+          f"{launches['q8_requant']}; problems {probs}  "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    print(f"  E. escalated: one Allreduce of the installed "
+          f"{inst['name'] if inst else None} ({inst['slot'] if inst else None}"
+          f" slot, named: auto selection never reads it) at 4096 B on 8 "
+          f"ranks bitwise the interpreter of the installed program, K1 "
+          f"q8_requant launches {probe.get('q8_requant')} (8 ranks x 8 "
+          f"contributions x {inst['q8_steps'] if inst else None} "
+          f"q8_level_fold: {want_requant})  {'ok' if inst_ok else 'FAIL'}",
+          flush=True)
+    check(ok, f"leg E: the closed loop failed: {probs}")
+    return {"launches": launches, "installed_launches": probe,
+            "thresholds": h["watermarks"], "healthy": h,
+            "episode_s": episode_s, "per_byte_s": ev["per_byte_s"],
+            "installed": esc.new.get("installed")}
+
+
+def matrices_leg(P):
+    """F. The matrices on the card: the fast elastic and chaos subsets,
+    both consensus cells, the three degrade cells and one storm on CUDA,
+    each record equal to the same cell's on the CPU; the process-backend
+    reruns on CUDA worker processes (a killed worker's replacement spawned
+    mid-cell), each record equal to the cell's on CPU rank threads."""
+    from mpi4torch_tpu_torch.elastic import matrix as em
+    from mpi4torch_tpu_torch.resilience import chaos
+
+    def rec(r):
+        return {k: r.get(k) for k in RECORD_KEYS}
+
+    cells = [("elastic", c) for c in ELASTIC_FAST] + \
+        [("consensus", (k,)) for k in ("disagree", "second_failure")] + \
+        [("chaos", c) for c in CHAOS_FAST] + \
+        [("chaos", c) for c in sorted(chaos.DEGRADE_COVERED)
+         if c not in CHAOS_FAST] + [("storm", (1,))]
+    rows, ok = [], True
+    for kind, args in cells:
+        fn = {"elastic": em.run_cell, "consensus": em.run_consensus_cell,
+              "chaos": chaos.run_chaos_cell, "storm": chaos.run_storm}[kind]
+        t0 = time.perf_counter()
+        card = fn(*args, device="cuda")
+        dt = time.perf_counter() - t0
+        cpu = fn(*args, device="cpu")
+        keys = ("status", "fired") if kind == "storm" else RECORD_KEYS
+        same = {k: card.get(k) for k in keys} == \
+            {k: cpu.get(k) for k in keys}
+        good = card["status"] == "ok" and same
+        ok = ok and good
+        rows.append((kind, args, card["status"], same, dt))
+        print(f"  F. {kind} {args}: card {card['status']} "
+              f"({card.get('detail', '')[:70]}), equal to the CPU record "
+              f"{same}, {dt:.1f} s  {'ok' if good else 'FAIL'}", flush=True)
+    from mpi4torch_tpu_torch import transport
+    from mpi4torch_tpu_torch.transport.pool import shared_pool
+
+    # The rank_death cell's SIGKILL leaves the pool one worker short: the
+    # consensus after it runs on a worker spawned in its place.
+    for kind, args in [("elastic", ("rank_death", "plain", "shrink")),
+                       ("elastic", ("preempt", "plain", "shrink")),
+                       ("chaos", ("slow_rank", "plain"))]:
+        fn = em.run_cell if kind == "elastic" else chaos.run_chaos_cell
+        with P.config.transport_scope("process"):
+            spawned = shared_pool().spawned_total
+            t0 = time.perf_counter()
+            r = fn(*args, device="cuda")
+            dt = time.perf_counter() - t0
+            spawned = shared_pool().spawned_total - spawned
+        cpu = fn(*args, device="cpu")
+        same = {k: r.get(k) for k in RECORD_KEYS} == \
+            {k: cpu.get(k) for k in RECORD_KEYS}
+        good = r["status"] == "ok" and same and (
+            kind == "chaos" or args[0] in r["fired"])
+        ok = ok and good
+        rows.append((f"{kind}/process", args, r["status"], same, dt))
+        print(f"  F. {kind} {args} on CUDA worker processes: "
+              f"{r['status']} ({r.get('detail', '')[:70]}), equal to the "
+              f"CPU record {same}, workers spawned {spawned}, {dt:.1f} s  "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+    transport.shutdown()
+    check(ok, "leg F: a matrix cell failed on the card or differs from its "
+          "CPU record")
+    return rows
+
+
+def item6_phase(P, T, tree, serve, kernels, qk, fuse, config, cfg, params,
+                tokens, prompts, smi):
+    """Phase 63 (A-F), the process state saved before and restored after."""
+    from mpi4torch_tpu_torch.csched import synth
+
+    state = config.snapshot_process_state()
+    installed = synth.installed()
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        out["drain"] = elastic_drain_leg(P, T, tree, kernels, cfg, params,
+                                         tokens)
+        torch.cuda.empty_cache()
+        out["spare"] = spare_leg(P, T, tree, kernels, cfg, params, tokens)
+        torch.cuda.empty_cache()
+        with torch.inference_mode():
+            out["serve"] = elastic_serve_leg(P, T, serve, kernels, cfg,
+                                             params, prompts)
+        torch.cuda.empty_cache()
+        out["degrade"] = degrade_leg(P, T, tree, kernels, qk, fuse, config,
+                                     cfg, params, tokens, out["spare"])
+        out["spare"].pop("without")
+        torch.cuda.empty_cache()
+        out["ctl"] = controller_leg(P, kernels, config)
+        # The process reruns' workers each take a CUDA context.
+        torch.cuda.empty_cache()
+        print(smi)
+        out["matrices"] = matrices_leg(P)
+        print(f"  phase 63 A-F in {time.perf_counter() - t0:.1f} s")
+    finally:
+        config.apply_process_state(state)
+        synth.restore_installed(installed)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU",
@@ -9052,7 +10004,15 @@ def main():
     tuned = tune_phase(P, T, tree, dp, serve, kernels, config, cfg, params,
                        tokens, prompts)
 
-    phase(63, "kernels")
+    phase(63, "the elastic runtime, degraded mode, the chaos matrix and "
+          "the self-tuning controller: a ZeRO-1 drain (4,) -> (2,), a "
+          "hot-spare takeover, elastic TP=4 -> TP=2 serving, the degrade "
+          "policies under gray faults, the closed loop, the matrices")
+    print(smi)
+    item6 = item6_phase(P, T, tree, serve, kernels, qk, fuse, config, cfg,
+                        params, tokens, prompts, smi)
+
+    phase(64, "kernels")
     print(smi)
     sp_shapes, sp_worst = sp_kernel_numbers(flash, kernels)
     # flash_fwd: launches on the serving path (phase 4), times at the
@@ -9352,6 +10312,31 @@ def main():
               for v in e["tune_launches"].values())
           and all(v > 0 for v in hop_entry["tune_launches"].values()),
           "a kernel of the algorithm-selection path was launched no time")
+    # The elastic runtime, degraded mode and the controller (phase 63):
+    # each attention kernel's launches in leg A's two ZeRO-1 steps, leg
+    # B's spare and takeover steps and leg D's escalated fused DP=2 steps;
+    # flash_fwd's in leg C's TP=4 and TP=2 serving; K1's hop launches in
+    # the q8 step after codec_escalate and its requant launches in the
+    # controller's escalated runs.
+    for entry in line["kernels"][:3]:
+        kname = entry["name"]
+        entry["item6_launches"] = {
+            "zero1_drain": item6["drain"]["launches"][kname],
+            "spare_takeover": item6["spare"]["launches"][kname],
+            "codec_escalate_dp2": item6["degrade"]["codec_escalate"][
+                "launches"][kname]}
+        if kname == "flash_fwd":
+            entry["item6_launches"]["elastic_serving"] = \
+                item6["serve"]["launches"][kname]
+    hop_entry["item6_launches"] = {
+        "codec_escalate_hop": item6["degrade"]["codec_escalate"]["hops"],
+        "controller_requant": item6["ctl"]["launches"]["q8_requant"],
+        "controller_installed_requant":
+            item6["ctl"]["installed_launches"]["q8_requant"]}
+    check(all(v > 0 for e in line["kernels"]
+              for v in e["item6_launches"].values()),
+          "a kernel of the elastic, degrade or controller paths was "
+          "launched no time")
     print(json.dumps(line))
     print(f"  process transport: DP=2 step "
           f"{proc_train['process_ms']:.1f} ms on workers vs "
@@ -9395,7 +10380,14 @@ def main():
           f"{tuned['selection']['dp2']['untuned_ms']:.1f} ms untuned; SPMD "
           f"TP=2 decode {tuned['serve']['tok_s']:.1f} tokens/s tuned vs "
           f"{tuned['serve']['untuned_tok_s']:.1f} untuned")
-    phase(64)
+    print(f"  elastic: drain consensus {item6['drain']['consensus_ms']:.1f}"
+          f" ms, drain {item6['drain']['drain_ms']:.1f} ms; spare "
+          f"death-to-resume {item6['spare']['resume_ms']:.1f} ms; serving "
+          f"drain + readmit {item6['serve']['drain_ms']:.1f} + "
+          f"{item6['serve']['readmit_ms']:.1f} ms, re-prefill "
+          f"{item6['serve']['reprefill_ms']:.1f} ms; closed loop "
+          f"{item6['ctl']['episode_s']:.1f} s")
+    phase(65)
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

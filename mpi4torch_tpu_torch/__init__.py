@@ -44,7 +44,11 @@ differentiable from outside), with ``device_mesh``/``hybrid_mesh`` and
 the mesh communicators of ``comm_from_mesh``; its Allreduce, Bcast_,
 Reduce_ and block-q8 Allreduce build and lower programs of the
 collective-schedule IR (``csched``: programs, transposition, the fold
-interpreter, the census).
+interpreter, the census).  ``elastic`` resizes a live world (membership
+consensus with epoch fencing, the planned drain and grow, hot-spare
+takeover), ``resilience.degrade`` adapts the configuration to a gray
+failure, and ``ctl`` is the online controller that measures, retunes and
+switches, every switch ratified by one consensus round.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device and no such request they raise.  The package imports
@@ -89,6 +93,7 @@ from .runtime import (
 )
 from . import (compress, config, csched, fuse, obs, overlap, reshard,
                resilience, serve, transport, tune)
+from . import elastic, ctl
 from .config import (algorithm_scope, compression_scope, fusion_scope,
                      overlap_scope)
 from .mesh import device_mesh, hybrid_mesh
@@ -108,7 +113,8 @@ __all__ = [
     "IntegrityError", "HealthReport", "resolve_device", "run_ranks",
     "config", "compress", "csched", "fuse", "tune", "overlap",
     "resilience",
-    "reshard", "serve", "obs", "transport", "device_mesh", "hybrid_mesh",
+    "reshard", "serve", "obs", "transport", "elastic", "ctl",
+    "device_mesh", "hybrid_mesh",
     "FaultPlan", "FaultSpec", "fault_scope", "algorithm_scope",
     "compression_scope",
     "fusion_scope", "overlap_scope", "run_spmd", "p2p_scope", "RankExpr",

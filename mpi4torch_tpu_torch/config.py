@@ -641,6 +641,136 @@ def set_comm_wire_checksum(value: bool) -> None:
     _comm_wire_checksum = bool(value)
 
 
+# ---------------------------------------------------------------------------
+# The online self-tuning controller (ctl/)
+# ---------------------------------------------------------------------------
+
+# Master switch: False (default) keeps SelfTuningController.poll to ONE
+# knob read and guarantees the controller changes nothing — the
+# fault-plan/obs off-path discipline.
+_ctl_enabled = False
+# EWMA half-life of the bandwidth estimates, in SAMPLES (after this
+# many events a value's weight has decayed to 1/2) — a deterministic
+# unit: the smoke/test cells drive the estimator with known event
+# counts, never wall-clock.
+_ctl_halflife = 4.0
+# Hysteresis watermarks on the live/baseline per-tier ratio: a tier
+# degrades below `low`, recovers above `high`, and the band between
+# them resets both patience counters — scheduler noise oscillating
+# inside the band can never flap a switch.
+_ctl_drift_low = 0.5
+_ctl_drift_high = 0.8
+# Consecutive monitor checks past a watermark before the state flips.
+_ctl_drift_patience = 2
+# Minimum consensus epochs between ratified switches (a second
+# anti-flap leg, counted in the currency switches themselves advance).
+_ctl_min_switch_epochs = 1
+# Ratio below which the escalation is a CODEC escalation (exact ->
+# compressed wire, the EQuARX regime) rather than an exact re-rank: at
+# a quarter of baseline bandwidth the ~4x smaller q8 wire breaks even
+# on the sagged tier.
+_ctl_codec_crossover = 0.25
+
+
+def ctl_enabled() -> bool:
+    """Whether the online self-tuning controller acts
+    (:mod:`mpi4torch_tpu_torch.ctl`).  Off (default): ``poll`` is one
+    attribute read and the program runs exactly as without a
+    controller."""
+    return _ctl_enabled
+
+
+def set_ctl_enabled(value: bool) -> None:
+    global _ctl_enabled
+    _ctl_enabled = bool(value)
+
+
+def ctl_halflife() -> float:
+    """EWMA half-life (in samples) of the controller's live bandwidth
+    estimates (ctl.estimate)."""
+    return _ctl_halflife
+
+
+def set_ctl_halflife(halflife) -> None:
+    global _ctl_halflife
+    try:
+        halflife = float(halflife)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"ctl_halflife must be a number of samples, got "
+            f"{halflife!r}") from None
+    if not halflife > 0:
+        raise ValueError(f"ctl_halflife must be > 0, got {halflife}")
+    _ctl_halflife = halflife
+
+
+def ctl_drift_thresholds():
+    """The ``(low, high)`` hysteresis watermarks on the live/baseline
+    bandwidth ratio (ctl.drift): degrade below ``low``, recover above
+    ``high``, never flap inside the band."""
+    return (_ctl_drift_low, _ctl_drift_high)
+
+
+def set_ctl_drift_thresholds(low, high) -> None:
+    global _ctl_drift_low, _ctl_drift_high
+    try:
+        low, high = float(low), float(high)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"ctl_drift_thresholds must be numbers, got "
+            f"({low!r}, {high!r})") from None
+    if not (0.0 < low < high):
+        raise ValueError(
+            f"ctl_drift_thresholds need 0 < low < high, got "
+            f"({low}, {high})")
+    _ctl_drift_low, _ctl_drift_high = low, high
+
+
+def ctl_drift_patience() -> int:
+    """Consecutive monitor checks past a watermark before a tier's
+    drift state flips (ctl.drift)."""
+    return _ctl_drift_patience
+
+
+def set_ctl_drift_patience(n) -> None:
+    global _ctl_drift_patience
+    _ctl_drift_patience = _validated_threshold(
+        n, "ctl_drift_patience", minimum=1, unit="check count")
+
+
+def ctl_min_switch_epochs() -> int:
+    """Minimum consensus epochs between ratified controller switches
+    (ctl.controller) — the anti-flap leg counted in epochs."""
+    return _ctl_min_switch_epochs
+
+
+def set_ctl_min_switch_epochs(n) -> None:
+    global _ctl_min_switch_epochs
+    _ctl_min_switch_epochs = _validated_threshold(
+        n, "ctl_min_switch_epochs", minimum=0, unit="epoch count")
+
+
+def ctl_codec_crossover() -> float:
+    """Live/baseline ratio below which the controller escalates the
+    CODEC (exact -> q8) instead of only re-ranking the exact winner
+    (ctl.controller)."""
+    return _ctl_codec_crossover
+
+
+def set_ctl_codec_crossover(ratio) -> None:
+    global _ctl_codec_crossover
+    try:
+        ratio = float(ratio)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"ctl_codec_crossover must be a ratio in (0, 1], got "
+            f"{ratio!r}") from None
+    if not (0.0 < ratio <= 1.0):
+        raise ValueError(
+            f"ctl_codec_crossover must be in (0, 1], got {ratio}")
+    _ctl_codec_crossover = ratio
+
+
 # The active fault-injection plan (resilience.FaultPlan) or None: the
 # chokepoints read it once per call.
 _fault_plan = None
@@ -835,6 +965,12 @@ def snapshot_process_state() -> dict:
         "comm_backoff": _comm_backoff,
         "comm_finite_guard": _comm_finite_guard,
         "comm_wire_checksum": _comm_wire_checksum,
+        "ctl_enabled": _ctl_enabled,
+        "ctl_halflife": _ctl_halflife,
+        "ctl_drift_thresholds": (_ctl_drift_low, _ctl_drift_high),
+        "ctl_drift_patience": _ctl_drift_patience,
+        "ctl_min_switch_epochs": _ctl_min_switch_epochs,
+        "ctl_codec_crossover": _ctl_codec_crossover,
         "world_timeout": os.environ.get(WORLD_TIMEOUT_ENV),
         "torch": _torch_numeric_state(),
     }
@@ -864,6 +1000,12 @@ def apply_process_state(state: dict) -> None:
     set_comm_backoff(state["comm_backoff"])
     set_comm_finite_guard(state["comm_finite_guard"])
     set_comm_wire_checksum(state["comm_wire_checksum"])
+    set_ctl_enabled(state["ctl_enabled"])
+    set_ctl_halflife(state["ctl_halflife"])
+    set_ctl_drift_thresholds(*state["ctl_drift_thresholds"])
+    set_ctl_drift_patience(state["ctl_drift_patience"])
+    set_ctl_min_switch_epochs(state["ctl_min_switch_epochs"])
+    set_ctl_codec_crossover(state["ctl_codec_crossover"])
     if state["world_timeout"] is None:
         os.environ.pop(WORLD_TIMEOUT_ENV, None)
     else:

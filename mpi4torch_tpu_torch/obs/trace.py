@@ -58,11 +58,15 @@ _FAILURE_TYPES = None
 def _failure_types():
     global _FAILURE_TYPES
     if _FAILURE_TYPES is None:
+        from ..elastic.membership import ConsensusError
         from ..resilience.health import SlowRankError
         from ..runtime import DeadlockError, IntegrityError, RankFailedError
 
+        # A failed membership consensus (a failed resize) gets its
+        # postmortem through the same reaper entry point as every other
+        # attributed failure.
         _FAILURE_TYPES = (RankFailedError, DeadlockError, IntegrityError,
-                          SlowRankError)
+                          ConsensusError, SlowRankError)
     return _FAILURE_TYPES
 
 

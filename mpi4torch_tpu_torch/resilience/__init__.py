@@ -24,10 +24,14 @@ Port of the core of ``mpi4torch_tpu.resilience``:
   newest checkpoint that loads, past torn saves, with the skipped steps
   in its ledger;
 * the fault matrix (:mod:`.matrix`): every kind against one collective
-  per subsystem, with its typed expected outcome.
-
-Not ported yet: ``degrade`` (ROADMAP.md, Queue 1 item 6, with the
-controller and ``elastic``) and ``chaos`` (item 6).
+  per subsystem, with its typed expected outcome;
+* degraded mode (:mod:`.degrade`): the policies that adapt the running
+  configuration to a gray failure (``codec_escalate``,
+  ``schedule_failover``, ``spare_demote``), each switch ratified by one
+  epoch-fenced consensus round of ``elastic``;
+* the chaos matrix (:mod:`.chaos`): every gray kind against every
+  subsystem and seeded multi-fault storms
+  (``python -m mpi4torch_tpu_torch.resilience --chaos``).
 """
 
 from __future__ import annotations
@@ -37,6 +41,9 @@ from ..runtime import (DeadlockError, HealthReport, IntegrityError,
 from .faults import (FAULT_KINDS, FaultKind, FaultPlan, FaultSpec,
                      as_plan, fault_scope, pending_preemptions,
                      register_fault_kind)
+from .degrade import (DEGRADE_POLICIES, DegradeController, DegradeError,
+                      DegradeTransition, failover_schedule,
+                      rank_wire_bytes, register_degrade_policy)
 from .guards import (IntegrityWarning, check_contributions,
                      clear_violations, last_violation, spmd_finite_value,
                      verify_wire, wire_checksum)
@@ -65,6 +72,13 @@ __all__ = [
     "SlowRankError",
     "SlowRankReport",
     "detect_slow_ranks",
+    "DEGRADE_POLICIES",
+    "DegradeController",
+    "DegradeError",
+    "DegradeTransition",
+    "failover_schedule",
+    "rank_wire_bytes",
+    "register_degrade_policy",
     "restore_or_init",
     "RestoreResult",
     "SkippedStep",

@@ -146,7 +146,8 @@ class HealthReport:
     and who did not, ``probe_duration_s`` is this caller's wall time in
     the probe, and ``arrival_s`` maps each arrived rank to its arrival
     time after the round's first arrival (a slow rank shows a large
-    offset; a dead one is missing)."""
+    offset; a dead one is missing).  :meth:`slow_ranks` applies a
+    threshold."""
     ok: bool
     size: int
     arrived: FrozenSet[int]
@@ -156,6 +157,15 @@ class HealthReport:
 
     def __bool__(self) -> bool:
         return self.ok
+
+    def slow_ranks(self, threshold_s: float) -> FrozenSet[int]:
+        """Arrived ranks whose arrival latency (behind the round's first
+        arrival) is at least ``threshold_s``: slow but alive, the gray
+        counterpart of ``missing``."""
+        if not self.arrival_s:
+            return frozenset()
+        return frozenset(r for r, dt in self.arrival_s.items()
+                         if dt >= threshold_s)
 
 
 def _fnv1a(parts) -> int:

@@ -370,6 +370,9 @@ class Engine:
         # Logits table of the most recent decode step (a device tensor,
         # kept for inspection; the engine reads back only the tokens).
         self.last_logits = None
+        # The self-tuning controller consulted before every step
+        # (:meth:`attach_controller`), or None.
+        self._controller = None
 
     # -------------------------------------------------------------- public
 
@@ -935,7 +938,15 @@ class Engine:
         slot table, then evictions.  Returns ``{"admitted": [...],
         "emitted": {rid: [tokens]}, "finished": [...], "expired":
         [...]}``; a request admitted this step may emit two tokens (its
-        first and its first decoded one)."""
+        first and its first decoded one).
+
+        An attached controller is consulted first: a step boundary is the
+        one safe switch point (no collective in flight), so a ratified
+        codec or schedule switch takes effect on this step's traffic as a
+        whole.  Disabled (the default) or detached, the consult is one
+        attribute read."""
+        if self._controller is not None:
+            self._controller.poll()
         events = {"admitted": [], "emitted": {}, "finished": [],
                   "expired": []}
         self._expire_sweep(events)
@@ -1058,6 +1069,14 @@ class Engine:
                  "key": r.key,
                  "deadline": r.deadline,
                  "pages": pages.get(id(r))} for r in recs]
+
+    def attach_controller(self, controller) -> None:
+        """Attach a :class:`mpi4torch_tpu_torch.ctl.SelfTuningController`:
+        every later :meth:`step` calls ``controller.poll()`` first (the
+        between-steps switch point).  With ``config.ctl_enabled()`` False
+        (the default) the engine's behaviour is unchanged;
+        ``attach_controller(None)`` detaches."""
+        self._controller = controller
 
     def snapshot_inflight(self) -> List[dict]:
         """:meth:`drain`'s records with the engine untouched."""

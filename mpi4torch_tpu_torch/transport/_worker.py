@@ -1,8 +1,9 @@
 """Transport worker: one pooled process, one rank body at a time.
 
 Port of ``mpi4torch_tpu/transport/_worker.py``.  Launched by the pool as
-``python -m mpi4torch_tpu_torch.transport._worker <socket>``: it
-connects back, says ``hello`` with its PID, then serves ``run`` frames.
+``python -m mpi4torch_tpu_torch.transport._worker <socket> [<device>]``:
+it makes the device's context when the device is CUDA, connects back,
+says ``hello`` with its PID, then serves ``run`` frames.
 For each it applies the shipped state (the configuration and torch's
 numeric state, the fault plan's specs and counters, a fresh tracer),
 makes the world's device current, runs the rank body on a fresh thread
@@ -314,8 +315,18 @@ def _run(client: _Client, f: dict) -> None:
         _cfg.set_comm_tracer(None)
 
 
+def _warm(device: str) -> None:
+    """Make a CUDA device's context (and load the kernel of one op) so
+    that the first rank body starts as promptly as on a reused worker."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.ones(1, device=dev).add_(1).cpu()
+
+
 def main(argv=None) -> int:
     argv = sys.argv if argv is None else argv
+    if len(argv) > 2:
+        _warm(argv[2])
     sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
     tune_socket(sock)
     sock.connect(argv[1])

@@ -11,8 +11,12 @@ The workers connect back to an ``AF_UNIX`` listener in a private
 temporary directory and introduce themselves with a ``hello`` frame
 carrying their PID, by which a socket is matched to its ``Popen``
 (connections arrive in any order).  A worker is
-``python -m mpi4torch_tpu_torch.transport._worker <socket>`` with this
-checkout on ``PYTHONPATH`` and the parent's environment otherwise.  A
+``python -m mpi4torch_tpu_torch.transport._worker <socket> [<device>]``
+with this checkout on ``PYTHONPATH`` and the parent's environment
+otherwise.  A worker spawned for a CUDA world makes its context before it
+says hello, so a replacement for a killed worker starts its first body as
+promptly as the reused ones (a consensus probe's timeout is shorter than
+a context).  A
 worker that does not say hello within the spawn timeout
 (``MPI4TORCH_TPU_TRANSPORT_SPAWN_TIMEOUT``, 300 s) is a
 :class:`TimeoutError`; nothing falls back to threads.
@@ -93,12 +97,12 @@ class WorkerPool:
             os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
         return env
 
-    def _spawn(self, n: int) -> List[Worker]:
+    def _spawn(self, n: int, device: Optional[str] = None) -> List[Worker]:
         env = self._spawn_env()
-        procs = [subprocess.Popen(
-            [sys.executable, "-m", "mpi4torch_tpu_torch.transport._worker",
-             self.addr], env=env, stdin=subprocess.DEVNULL)
-            for _ in range(n)]
+        argv = [sys.executable, "-m", "mpi4torch_tpu_torch.transport._worker",
+                self.addr] + ([] if device is None else [str(device)])
+        procs = [subprocess.Popen(argv, env=env, stdin=subprocess.DEVNULL)
+                 for _ in range(n)]
         by_pid: Dict[int, subprocess.Popen] = {p.pid: p for p in procs}
         out: List[Worker] = []
         timeout = _spawn_timeout()
@@ -143,15 +147,16 @@ class WorkerPool:
 
     # ------------------------------------------------------------ lease
 
-    def lease(self, n: int) -> List[Worker]:
-        """``n`` live workers, spawning only the deficit."""
+    def lease(self, n: int, device: Optional[str] = None) -> List[Worker]:
+        """``n`` live workers, spawning only the deficit; a spawned
+        worker makes ``device``'s context first when it is CUDA."""
         with self._lock:
             if self._closed:
                 raise RuntimeError("the worker pool is shut down")
             self._prune_dead()
             deficit = n - len(self._workers)
             if deficit > 0:
-                self._workers.extend(self._spawn(deficit))
+                self._workers.extend(self._spawn(deficit, device))
             return self._workers[:n]
 
     def _prune_dead(self) -> None:

@@ -532,7 +532,7 @@ class ProcessTransport(Transport):
         with self._run_lock:
             pool = shared_pool()
             t0 = time.perf_counter()
-            workers = pool.lease(nranks)
+            workers = pool.lease(nranks, device=dev)
             sb = _Switchboard(nranks, timeout, workers,
                               on_preempt=note_external_preemption)
             st = _RunState(nranks)

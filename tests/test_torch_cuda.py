@@ -2140,3 +2140,154 @@ def test_tier_q8_slow_program_requant_launches(cuda):
     finally:
         from mpi4torch_tpu_torch.csched import synth
         synth.clear_installed()
+
+
+import mpi4torch_tpu_torch as mpi  # noqa: E402
+
+
+def _small_flagship(cuda, dtype):
+    cfg = T.TransformerConfig(vocab=32768, d_model=2048, n_heads=16,
+                              n_layers=2, d_ff=8192, max_seq=2048)
+    return cfg, T.init_transformer(0, cfg, dtype, device=cuda)
+
+
+@pytest.mark.cuda
+def test_elastic_zero_drain_bitwise_fresh_start(cuda):
+    """Leg A of the elastic smoke phase at 2 layers: one ZeRO-1 Adam step
+    on (4,), drain(leaving=[2, 3]) re-laying the Adam shards with
+    replan_zero, one step on (2,): the drained shards are the slices of
+    the gathered state and the step bitwise a fresh DP=2 step from it;
+    every attention launch tc."""
+    from mpi4torch_tpu_torch import elastic as E
+    from mpi4torch_tpu_torch.parallel import zero as Z
+    from mpi4torch_tpu_torch.utils import optim
+
+    cfg, params = _small_flagship(cuda, torch.bfloat16)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (8, 512))).to(cuda)
+    opt = optim.adam(1e-4)
+
+    def rows(pos, n):
+        return tokens[pos * (8 // n):(pos + 1) * (8 // n)]
+
+    rt = E.ElasticRuntime(4, probe_timeout=0.6, device=cuda)
+    _kernels.reset_launch_counts()
+    res1 = rt.run_phase(lambda pos, rid: T.zero_train_step(
+        cfg, params, rows(pos, 4), opt, Z.zero_init(
+            mpi.COMM_WORLD, opt, params), mpi.COMM_WORLD)[1:])
+    p1, states = res1[0][0], [r[1] for r in res1]
+
+    def sliced(j):
+        def one(tmpl, *parts):
+            n = tmpl.numel()
+            flat = torch.cat(parts)[:n]
+            per = -(-n // 2)
+            return torch.nn.functional.pad(
+                flat, (0, 2 * per - n))[j * per:(j + 1) * per]
+        return optim.AdamState(
+            states[0].count,
+            tree_map(one, params, *[s.mu for s in states]),
+            tree_map(one, params, *[s.nu for s in states]))
+
+    want = [sliced(0), sliced(1)]
+    drained = rt.drain(lambda pos, rid, old, new: optim.AdamState(
+        states[pos].count,
+        E.replan_zero(mpi.COMM_WORLD, states[pos].mu, params, old, new,
+                      mode="drain"),
+        E.replan_zero(mpi.COMM_WORLD, states[pos].nu, params, old, new,
+                      mode="drain")), leaving=[2, 3])
+    assert rt.view.alive == (0, 1) and rt.view.epoch == 1
+    for j in range(2):
+        for a, b in zip(tree_leaves((drained[j].mu, drained[j].nu)),
+                        tree_leaves((want[j].mu, want[j].nu))):
+            assert torch.equal(a, b)
+    got = rt.run_phase(lambda pos, rid: T.zero_train_step(
+        cfg, p1, rows(pos, 2), opt, drained[pos], mpi.COMM_WORLD)[1:],
+        view=rt.view)
+    oracle = mpi.run_ranks(lambda pos: T.zero_train_step(
+        cfg, p1, rows(pos, 2), opt, want[pos], mpi.COMM_WORLD)[1:], 2,
+        device=cuda)
+    for j in range(2):
+        for a, b in zip(tree_leaves(got[j]), tree_leaves(oracle[j])):
+            assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                    else a == b)
+    counts = _kernels.launch_counts
+    for k in _kernels.ATTENTION_KERNELS:
+        assert counts[k] == counts[f"{k}.tc"] > 0
+
+
+@pytest.mark.cuda
+def test_codec_escalate_lockstep_k1_launches(cuda):
+    """Leg D of the elastic smoke phase at 2 layers: codec_escalate
+    through one consensus round flips the fused DP=2 step at 4 MiB buckets
+    to q8 on both ranks at epoch 1, each bucket's two hops on K1 (bitwise
+    an explicit q8 step), a stale phase fenced, reset bitwise exact."""
+    from mpi4torch_tpu_torch import config, fuse
+    from mpi4torch_tpu_torch.elastic import StaleEpochError
+    from mpi4torch_tpu_torch.resilience import DegradeController
+    from mpi4torch_tpu_torch.utils import tree
+
+    cfg, params = _small_flagship(cuda, torch.bfloat16)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (4, 512))).to(cuda)
+    bb = config.DEFAULT_BUCKET_BYTES
+    nbk = fuse.bucket_layout(params, bb).num_buckets
+
+    def step(pos, rid=None, compression=None):
+        x = tokens[2 * pos:2 * pos + 2]
+        _, g = tree.value_and_grad(lambda q: T.lm_loss(cfg, q, x), params)
+        out = mpi.COMM_WORLD.Allreduce_tree(
+            g, mpi.MPI_SUM, mean=True, bucket_bytes=bb,
+            compression=compression)
+        codec = config.default_compression()
+        return getattr(codec, "name", codec), out
+
+    exact = mpi.run_ranks(step, 2, device=cuda)
+    q8 = mpi.run_ranks(lambda p: step(p, compression="q8"), 2, device=cuda)
+    ctl = DegradeController(n_ranks=2, device=cuda)
+    stale = ctl.runtime.view
+    try:
+        tr = ctl.apply("codec_escalate", None)
+        _kernels.reset_launch_counts()
+        got = ctl.runtime.run_phase(step, view=ctl.runtime.view)
+        hops = _kernels.launch_counts["q8_hop"]
+        with pytest.raises(StaleEpochError):
+            ctl.runtime.run_phase(step, view=stale)
+    finally:
+        ctl.reset()
+    assert tr.epoch == 1 and {c for c, _ in got} == {"q8"}
+    assert hops == 2 * nbk
+    for (_c, a), (_q, b) in zip(got, q8):
+        assert all(torch.equal(x, y) for x, y in
+                   zip(tree_leaves(a), tree_leaves(b)))
+    after = mpi.run_ranks(step, 2, device=cuda)
+    for (c, a), (_e, b) in zip(after, exact):
+        assert c is None
+        assert all(torch.equal(x, y) for x, y in
+                   zip(tree_leaves(a), tree_leaves(b)))
+
+
+@pytest.mark.cuda
+def test_rank_death_rerun_on_a_cold_cuda_pool(cuda):
+    """The elastic rank_death x plain x shrink cell over CUDA worker
+    processes, from an empty pool of exactly the world's size: the
+    SIGKILL's replacement is spawned for the consensus after it and makes
+    its CUDA context before it says hello, so its probe meets the
+    survivors' within the 0.6 s probe timeout; the record is the CPU's."""
+    from mpi4torch_tpu_torch import transport
+    from mpi4torch_tpu_torch.elastic.matrix import run_cell
+    from mpi4torch_tpu_torch.transport.pool import shared_pool
+
+    keys = ("kind", "subsystem", "action", "expected", "status", "fired",
+            "fallback", "epoch", "algorithm", "slots")
+    transport.shutdown()
+    try:
+        with mpi.config.transport_scope("process"):
+            rec = run_cell("rank_death", "plain", "shrink", device=cuda)
+            spawned = shared_pool().spawned_total
+        cpu = run_cell("rank_death", "plain", "shrink", device="cpu")
+    finally:
+        transport.shutdown()
+    assert rec["status"] == "ok", rec["detail"]
+    assert spawned == 9, "eight workers and one replacement"
+    assert {k: rec.get(k) for k in keys} == {k: cpu.get(k) for k in keys}

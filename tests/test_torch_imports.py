@@ -72,7 +72,14 @@ def test_port_has_modules():
                 "transport/process.py", "ops/spmd.py",
                 "examples/variable_token_exchange.py",
                 "compress/spmd.py", "compress/__main__.py",
-                "reshard/__main__.py"):
+                "reshard/__main__.py", "elastic/__init__.py",
+                "elastic/__main__.py", "elastic/membership.py",
+                "elastic/runtime.py", "elastic/replan.py",
+                "elastic/spare.py", "elastic/matrix.py",
+                "ctl/__init__.py", "ctl/__main__.py", "ctl/ledger.py",
+                "ctl/estimate.py", "ctl/drift.py", "ctl/controller.py",
+                "resilience/degrade.py", "resilience/chaos.py",
+                "resilience/__main__.py"):
         assert f"mpi4torch_tpu_torch/{rel}" in names
     for src in ("flash_fwd.cu", "flash_fwd_tc.cu", "flash_bwd.cu",
                 "flash_bwd_tc.cu", "quant_hop.cu"):

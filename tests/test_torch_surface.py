@@ -34,7 +34,7 @@ UNPORTED = {
         "finalize_distributed": 4, "init_distributed": 4,
         "is_distributed": 4, "local_values": 4,
         "comm_from_mpi4py": 4,
-        "elastic": 6, "ctl": 6, "analyze": 7,
+        "analyze": 7,
     },
     "ops": {},
     "utils": {},
@@ -43,10 +43,7 @@ UNPORTED = {
             "reconcile": 7, "equivalent_wire": 7,
             "equivalent_tier_wire": 7},
     "transport": {},
-    "resilience": {"DEGRADE_POLICIES": 6,
-                   "DegradeController": 6, "DegradeError": 6,
-                   "DegradeTransition": 6, "failover_schedule": 6,
-                   "rank_wire_bytes": 6, "register_degrade_policy": 6},
+    "resilience": {},
     "compress": {"int8_rotation_census": 7},
     "overlap": {"scheduled_exposure": 7},
     "serve": {},
@@ -56,6 +53,8 @@ UNPORTED = {
     "models": {},
     "parallel": {},
     "mesh": {},
+    "elastic": {},
+    "ctl": {},
 }
 
 

@@ -13,7 +13,7 @@ switchboard that only moves bytes, and workers without JAX.
 
 Rank bodies are closures: a function defined at module level here does
 not ship (the workers cannot import a test file).  JAX's ``slow``
-cross-matrix class needs ``elastic`` and ``chaos``, not ported yet.
+cross-matrix class reruns elastic and chaos cells on worker processes.
 """
 
 import os
@@ -436,6 +436,17 @@ class TestWorkerPoolReuse:
             "a fault-free rerun respawned workers"
         assert {r[1] for r in a} == {r[1] for r in b}
 
+    @pytest.mark.parametrize("device", [None, "cpu"])
+    def test_lease_hands_the_device_to_spawned_workers(self, device):
+        pool = WorkerPool()
+        try:
+            (w,) = pool.lease(1, device=device)
+            want = [pool.addr] if device is None else [pool.addr, device]
+            assert w.proc.args[-len(want):] == want
+            assert w.is_live()
+        finally:
+            pool.shutdown()
+
     def test_respawn_only_after_kill(self):
         xs = _inputs()
         _run(_plain_body(xs), 3, "process")     # the pool is warm
@@ -575,3 +586,25 @@ class TestObsOverTheWire:
                                for r in range(3)}
         assert counts["process"] == counts["thread"]
         assert all(n > 0 for n in counts["process"].values())
+
+
+@pytest.mark.slow
+class TestCrossMatrixProcessReruns:
+    """The elastic matrix's rank_death and preempt cells and one chaos
+    cell, rerun over worker processes through ``transport_scope``."""
+
+    @pytest.mark.parametrize("kind", ["rank_death", "preempt"])
+    def test_elastic_shrink_cells(self, kind):
+        from mpi4torch_tpu_torch.elastic.matrix import run_cell as ecell
+
+        with mpi.config.transport_scope("process"):
+            rec = ecell(kind, "plain", "shrink", device="cpu")
+        assert rec["status"] == "ok", rec["detail"]
+        assert kind in rec["fired"]
+
+    def test_chaos_slow_rank_cell(self):
+        from mpi4torch_tpu_torch.resilience.chaos import run_chaos_cell
+
+        with mpi.config.transport_scope("process"):
+            rec = run_chaos_cell("slow_rank", "plain", device="cpu")
+        assert rec["status"] == "ok", rec["detail"]
