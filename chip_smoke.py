@@ -409,22 +409,46 @@ check fails.  Phases, in order:
     the fast matrix cells against their CPU records and the process
     reruns on CUDA workers (a killed worker's replacement spawned
     mid-cell);
-64. one JSON line describing each ported kernel (K2, K3 and K4 with
+64. the multi-process runtime: this script runs again as two worker
+    processes on the card (``--dist-worker``), which rendezvous through
+    ``init_distributed`` (gloo over loopback) and run ``run_spmd``
+    across each other: A, JAX's ``_WORKER`` shape (the Allreduce
+    forward and backward, values 3 and gradient 2, ``local_values``
+    giving each worker its rank, ``comm_from_mpi4py`` through an mpi4py
+    stand-in on the initialized runtime); B, phase 51's DP=2 step at
+    full width, its two ranks in the two processes, three steps (two
+    outside deterministic mode, one inside): the seeded parameters'
+    digests alike first, then every step's loss and parameters bitwise
+    the same steps under ``run_spmd(nranks=2)`` in this process (SHA-256
+    digests from the workers), 8 launches a step of each attention
+    kernel in each worker, all ``tc``, step ms, the bytes that cross
+    processes a step and worker 0's idle share; C, the q8 ``ring``
+    Allreduce of 4 x 2^20 float32 a rank, forward and backward, bitwise
+    the one-process run, K1's launches counted in each worker; D, JAX's
+    ``_HYBRID_WORKER`` shape at 2 processes x 2 ranks
+    (``hybrid_mesh({"tp": 2}, {"dp": 2})`` with each tp row inside one
+    process, the tp and dp sums and the dp gradient, the deterministic
+    fold on ``gather`` and ``ring`` bitwise ``run_ranks(4)``); E, a
+    worker that leaves before its next Allreduce: the survivor raises
+    ``RankFailedError`` naming its ranks within the world timeout;
+65. one JSON line describing each ported kernel (K2, K3 and K4 with
     the variant the main path ran; the launches of phases 18–20, 23–27,
     30–31 and of the later slices' phases, ``obs_launches``,
     ``resilience_launches``, ``handoff_launches``,
     ``checkpoint_launches``, ``process_launches`` (counted in the
     workers), ``mode_a_launches`` (phases 51, 55, 56 and 57) and
-    ``mesh_2d_launches`` (phase 61), ``tune_launches`` (phase 62) and
-    ``item6_launches`` (phase 63);
+    ``mesh_2d_launches`` (phase 61), ``tune_launches`` (phase 62),
+    ``item6_launches`` (phase 63) and ``dist_launches`` (phase 64,
+    counted in the workers);
     their numbers at the SP and
     slice-10 shapes, against the plain versions, their bounds and SDPA;
     K1 with its hop and requant launches, ``reshard_launches``,
     ``process_launches``, ``mode_a_launches`` (phases 55 and 58) and
-    ``csched_launches`` (phase 60), ``tune_launches`` (phase 62) and
-    ``item6_launches`` (phase 63) among them).
+    ``csched_launches`` (phase 60), ``tune_launches`` (phase 62),
+    ``item6_launches`` (phase 63) and ``dist_launches`` (phase 64) among
+    them).
 
-Each phase prints the seconds it took, and each of 28–64 the card's name
+Each phase prints the seconds it took, and each of 28–65 the card's name
 and power limit beside its numbers.  Times on the host clock are host times; event times of the
 comm tracer are host times (a rendezvous returns before the card has
 run its work).
@@ -435,14 +459,17 @@ card stays float32-exact like the JAX reference.
 """
 
 import contextlib
+import hashlib
 import itertools
 import json
 import os
 import signal
+import socket
 import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -6568,17 +6595,13 @@ def mode_a_dp2_phase(P, T, tree, dp, kernels, config, cfg, params,
     rows = TRAIN_BATCH // 2
     comm = P.COMM_WORLD
 
-    def loss_fn(p, x):
-        return T.lm_loss(cfg, p, x)
-
     def step(p, x):
-        loss, g = dp.dp_value_and_grad(comm, loss_fn)(p, x)
+        loss, g = dp.dp_value_and_grad(
+            comm, lambda q, b: T.lm_loss(cfg, q, b))(p, x)
         with torch.no_grad():
             return loss, tree.tree_map(lambda a, b: a - LR * b, p, g)
 
-    def spmd_body(p, toks):
-        idx = comm.rank * rows + torch.arange(rows, device=toks.device)
-        return step(p, toks.index_select(0, idx))
+    spmd_body = dp2_spmd_body(P, T, tree, dp, cfg)
 
     def spmd_step(p, det):
         with config.deterministic_mode(det):
@@ -9468,6 +9491,438 @@ def item6_phase(P, T, tree, serve, kernels, qk, fuse, config, cfg, params,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 64: the multi-process runtime.  Two OS processes on the one card
+# rendezvous through init_distributed (gloo over loopback) and run
+# run_spmd across them; this script is their program, run again with
+# --dist-worker.  Launch "abc" has one rank a process (legs A-C), launch
+# "de" two (legs D and E).
+# ---------------------------------------------------------------------------
+
+# Leg B: deterministic mode of each of the flagship's DP=2 steps.
+DIST_STEPS = (False, False, True)
+# Leg C: float32 per rank of the q8 ring Allreduce (4 x 2^20).
+DIST_Q8_NUMEL = 4 << 20
+# Leg D: the deterministic fold's rows (JAX's sin rows of 513 float32).
+DIST_FOLD_NUMEL = 513
+# The workers' world timeout (gloo's), which bounds leg E, and each
+# launch's wall-clock limit.
+DIST_TIMEOUT_S = 30
+DIST_LAUNCH_S = 300
+
+
+def digest(*tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().contiguous().reshape(-1)
+        t = t.to(torch.uint8) if t.dtype == torch.bool \
+            else t.view(torch.uint8)
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp2_spmd_body(P, T, tree, dp, cfg):
+    """Phase 51's DP=2 step as a run_spmd body: ``dp_value_and_grad`` and
+    the SGD update, each rank taking its ``TRAIN_BATCH // 2`` rows by
+    ``comm.rank``."""
+    rows = TRAIN_BATCH // 2
+    comm = P.COMM_WORLD
+
+    def body(p, toks):
+        idx = comm.rank * rows + torch.arange(rows, device=toks.device)
+        loss, g = dp.dp_value_and_grad(
+            comm, lambda q, x: T.lm_loss(cfg, q, x))(
+                p, toks.index_select(0, idx))
+        with torch.no_grad():
+            return loss, tree.tree_map(lambda a, b: a - LR * b, p, g)
+    return body
+
+
+def q8_spmd_body(P):
+    """Leg C: the q8 ``ring`` Allreduce, value and gradient of
+    ``vdot(y, y)``, each rank on its row."""
+    comm = P.COMM_WORLD
+
+    def body(xs):
+        x = xs[comm.rank].detach().requires_grad_()
+        y = comm.Allreduce(x, P.MPI_SUM, compression="q8", algorithm="ring")
+        (g,) = torch.autograd.grad(torch.vdot(y, y), x)
+        return y, g
+    return body
+
+
+def q8_rows():
+    g = torch.Generator(device="cuda").manual_seed(5)
+    return torch.randn(2, DIST_Q8_NUMEL, generator=g, device="cuda")
+
+
+def fold_rows(n):
+    return torch.from_numpy(np.stack([
+        np.sin(np.arange(DIST_FOLD_NUMEL, dtype=np.float32) * (r + 1))
+        for r in range(n)]).astype(np.float32)).to("cuda")
+
+
+def dist_worker_abc(P, T, tree, dp, kernels, config, tdist, pid):
+    """Legs A-C in one worker process (one rank)."""
+    comm = P.COMM_WORLD
+    out = {}
+    # A: JAX's _WORKER shape.
+    def body():
+        x = ((comm.rank + 1.0) * torch.ones(4, device="cuda")
+             ).requires_grad_()
+        y = comm.Allreduce(x, P.MPI_SUM)
+        (g,) = torch.autograd.grad(torch.vdot(y, torch.ones_like(y)), x)
+        return y, g
+    y, g = P.run_spmd(body)()
+    ranks, yv = P.local_values(y)
+    _, gv = P.local_values(g)
+    fake = types.ModuleType("mpi4py")
+    fake.MPI = types.SimpleNamespace()
+    sys.modules["mpi4py"] = fake
+
+    class FakeComm:
+        def Get_rank(self):
+            return pid
+
+        def Get_size(self):
+            return 2
+
+        def bcast(self, v, root=0):
+            raise AssertionError("the runtime is initialized: no rendezvous")
+    c = P.comm_from_mpi4py(FakeComm())
+    inside = P.run_spmd(lambda: c.Allreduce(torch.ones(3, device="cuda"),
+                                            P.MPI_SUM))()
+    out["a"] = {"ranks": ranks.tolist(), "y": yv.tolist(), "g": gv.tolist(),
+                "mpi4py": [c.rank, c.size, inside.tolist()]}
+
+    # B: phase 51's DP=2 step, its two ranks in two processes.
+    cfg = flagship_config(T)
+    params = T.init_transformer(0, cfg, torch.bfloat16, device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ))).to("cuda")
+    out["params0"] = digest(*tree.tree_leaves(params))
+    out["tokens"] = digest(tokens)
+    step = P.run_spmd(dp2_spmd_body(P, T, tree, dp, cfg))
+    p, steps = params, []
+    del params
+    kernels.reset_launch_counts()
+    for i, det in enumerate(DIST_STEPS):
+        tdist.reset_stats()
+        with config.deterministic_mode(det):
+            if i == 1 and pid == 0:
+                # Worker 0's second step runs under the profiler, for its
+                # idle share; worker 1's is timed alike without one.
+                got = {}
+                ms, busy, _ = profile_top(
+                    lambda: got.update(r=step(p, tokens)),
+                    "worker 0's DP=2 step", n_top=4)
+                loss, new = got.pop("r")
+                idle = 100 - 100 * busy / ms
+            else:
+                ms, (loss, new) = sync_ms(lambda: step(p, tokens))
+        p = tree.tree_map(lambda t: t[0], new)
+        del new
+        steps.append({"det": det, "ms": ms, "loss": float(loss[0]),
+                      "loss_digest": digest(loss[0]),
+                      "params_digest": digest(*tree.tree_leaves(p)),
+                      "wire": tdist.stats()})
+    out["b"] = {"steps": steps,
+                "launches": {k: v for k, v in kernels.launch_counts.items()
+                             if k.startswith("flash")}}
+    if pid == 0:
+        out["b"]["idle_pct"] = idle
+    del p
+    torch.cuda.empty_cache()
+
+    # C: K1 on the new path.
+    xs = q8_rows()
+    kernels.reset_launch_counts()
+    ms, (y, g) = sync_ms(lambda: P.run_spmd(q8_spmd_body(P))(xs))
+    out["c"] = {"ms": ms, "y": digest(y[0]), "g": digest(g[0]),
+                "launches": {k: kernels.launch_counts[k]
+                             for k in ("q8_hop", "q8_requant")}}
+    return out
+
+
+def dist_worker_de(P, config, pid):
+    """Legs D and E in one worker process (two ranks)."""
+    out = {}
+    # D: JAX's _HYBRID_WORKER shape at 2 processes x 2 ranks.
+    m = P.hybrid_mesh({"tp": 2}, {"dp": 2})
+    ctp = P.comm_from_mesh(m, "tp")
+    cdp = P.comm_from_mesh(m, "dp")
+
+    def body():
+        one = torch.ones((), device="cuda")
+        tp_sum = ctp.Allreduce(one * (ctp.rank + 1.0), P.MPI_SUM)
+        dp_sum = cdp.Allreduce(one * (cdp.rank + 1.0), P.MPI_SUM)
+        x = ((cdp.rank + 1.0) * torch.ones(2, device="cuda")
+             ).requires_grad_()
+        y = cdp.Allreduce(x, P.MPI_SUM)
+        (g,) = torch.autograd.grad(torch.vdot(y, torch.ones_like(y)), x)
+        return tp_sum, dp_sum, g
+    tp_sum, dp_sum, g = P.run_spmd(body, mesh=m, axis_name="dp")()
+    data = fold_rows(4)
+    comm = P.COMM_WORLD
+    folds = {}
+    prev = (config.ordered_fold_gather_max_bytes(),
+            config.ordered_ring_chunk_bytes())
+    try:
+        for fold in ("gather", "ring"):
+            if fold == "ring":
+                config.set_ordered_fold_gather_max_bytes(0)
+                config.set_ordered_ring_chunk_bytes(256)
+            with config.deterministic_mode(True):
+                o = P.run_spmd(lambda d: comm.Allreduce(d[comm.rank],
+                                                        P.MPI_SUM))(data)
+            ranks, vals = P.local_values(o)
+            folds[fold] = {int(r): digest(v) for r, v in zip(ranks, vals)}
+    finally:
+        config.set_ordered_fold_gather_max_bytes(prev[0])
+        config.set_ordered_ring_chunk_bytes(prev[1])
+    out["d"] = {"axis_names": list(m.axis_names),
+                "process_rows": m.process_index.tolist(),
+                "tp_sum": tp_sum.tolist(), "dp_sum": dp_sum.tolist(),
+                "dp_grad": g.tolist(), "folds": folds}
+    # E: worker 1 leaves before its next Allreduce.
+    if pid == 1:
+        out["e"] = "left"
+        return out
+    t0 = time.perf_counter()
+    try:
+        P.run_spmd(lambda: comm.Allreduce(torch.ones(2, device="cuda"),
+                                          P.MPI_SUM))()
+        out["e"] = {"error": None}
+    except P.CommError as e:
+        out["e"] = {"error": type(e).__name__,
+                    "ranks": sorted(getattr(e, "ranks", ()) or ()),
+                    "s": time.perf_counter() - t0, "message": str(e)[:200]}
+    return out
+
+
+def dist_worker(argv) -> int:
+    """``chip_smoke.py --dist-worker LEG PID NPROC PORT``: one worker of
+    phase 64.  Prints its result as a JSON object on its last line; leg
+    E's leaving worker exits without finalizing."""
+    leg, pid, nproc, port = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch import config
+    from mpi4torch_tpu_torch.models import transformer as T
+    from mpi4torch_tpu_torch.ops import _kernels as kernels
+    from mpi4torch_tpu_torch.parallel import dp
+    from mpi4torch_tpu_torch.transport import dist as tdist
+    from mpi4torch_tpu_torch.utils import tree
+
+    t0 = time.perf_counter()
+    info = P.init_distributed(
+        coordinator_address=f"127.0.0.1:{port}", num_processes=nproc,
+        process_id=pid, local_device_ids=[0] if leg == "abc" else [0, 0])
+    res = {"pid": os.getpid(), "info": [info.process_id, info.process_count,
+                                        info.n_devices, info.n_local_devices],
+           "init_s": time.perf_counter() - t0}
+    if leg == "abc":
+        res.update(dist_worker_abc(P, T, tree, dp, kernels, config, tdist,
+                                   pid))
+    else:
+        res.update(dist_worker_de(P, config, pid))
+    res["s"] = time.perf_counter() - t0
+    print(json.dumps(res), flush=True)
+    if res.get("e") == "left":
+        os._exit(0)
+    if leg == "abc":
+        # Launch "de"'s world is torn by leg E: nothing to finalize.
+        P.finalize_distributed()
+    return 0
+
+
+def dist_launch(leg, nproc=2):
+    """Run ``nproc`` workers of ``leg`` on the card; print their output
+    and return each one's JSON result.  Any worker failure fails."""
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ, MPI4TORCH_TPU_WORLD_TIMEOUT=str(DIST_TIMEOUT_S))
+    script = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, script, "--dist-worker", leg, str(pid), str(nproc),
+         str(port)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env, cwd=os.path.dirname(script))
+        for pid in range(nproc)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=DIST_LAUNCH_S)
+            outs.append(out)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"phase 64 launch {leg!r} did not end within "
+                           f"{DIST_LAUNCH_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        lines = out.strip().splitlines()
+        for line in lines[:-1]:
+            if "hostname of the client socket" not in line:
+                print(f"    [{leg} worker {pid}] {line}")
+        check(p.returncode == 0 and lines,
+              f"phase 64 worker {pid} of launch {leg!r} failed "
+              f"(exit {p.returncode}):\n" + "\n".join(lines[-30:]))
+        results.append(json.loads(lines[-1]))
+    print(f"  launch {leg!r}: {nproc} workers in "
+          f"{time.perf_counter() - t0:.1f} s (spawn, imports, CUDA "
+          "contexts and seeding included)", flush=True)
+    return results
+
+
+def dist_phase(P, T, tree, dp, kernels, config, cfg, params, tokens, smi):
+    """Phase 64: the references in this process (phase 51's DP=2 steps
+    and the q8 ring Allreduce under ``run_spmd(nranks=2)``, the
+    ``run_ranks(4)`` fold oracle), then launches "abc" and "de"."""
+    torch.cuda.empty_cache()
+    body = P.run_spmd(dp2_spmd_body(P, T, tree, dp, cfg), nranks=2)
+    ref = {"params0": digest(*tree.tree_leaves(params)),
+           "tokens": digest(tokens), "steps": []}
+    p = params
+    for det in DIST_STEPS:
+        with config.deterministic_mode(det):
+            ms, (loss, new) = sync_ms(lambda: body(p, tokens))
+        p = tree.tree_map(lambda t: t[0], new)
+        del new
+        ref["steps"].append({"ms": ms, "loss_digest": digest(loss[0]),
+                             "params_digest": digest(*tree.tree_leaves(p))})
+    del p
+    torch.cuda.empty_cache()
+    xs = q8_rows()
+    kernels.reset_launch_counts()
+    y, g = P.run_spmd(q8_spmd_body(P), nranks=2)(xs)
+    ref["q8"] = [(digest(y[r]), digest(g[r])) for r in range(2)]
+    ref["q8_launches"] = {k: kernels.launch_counts[k]
+                          for k in ("q8_hop", "q8_requant")}
+    del xs, y, g
+    data = fold_rows(4)
+    oracle = P.run_ranks(lambda r: P.COMM_WORLD.Allreduce(data[r],
+                                                          P.MPI_SUM),
+                         4, device="cuda")
+    ref["fold"] = {r: digest(o) for r, o in enumerate(oracle)}
+    del data, oracle
+    torch.cuda.empty_cache()
+    print(f"  references: run_spmd(nranks=2) DP=2 step ms "
+          f"{[round(s['ms'], 1) for s in ref['steps']]}; q8 K1 launches "
+          f"{ref['q8_launches']}", flush=True)
+
+    abc = dist_launch("abc")
+    de = dist_launch("de")
+
+    # A.
+    for pid, w in enumerate(abc):
+        a = w["a"]
+        print(f"  A worker {pid}: info {w['info']} (init {w['init_s']:.2f} "
+              f"s); local_values ranks {a['ranks']}, y {a['y']}, grad "
+              f"{a['g']}; comm_from_mpi4py rank/size {a['mpi4py'][:2]}, its "
+              f"Allreduce {a['mpi4py'][2]}")
+        check(w["info"] == [pid, 2, 2, 1], "leg A: wrong layout")
+        check(a["ranks"] == [pid] and a["y"] == [[3.0] * 4]
+              and a["g"] == [[2.0] * 4], "leg A: Allreduce values wrong")
+        check(a["mpi4py"] == [pid, 2, [[2.0] * 3]],
+              "leg A: comm_from_mpi4py on the initialized runtime")
+    # B.
+    want = len(DIST_STEPS) * cfg.n_layers
+    same_seed = all(w["params0"] == ref["params0"]
+                    and w["tokens"] == ref["tokens"] for w in abc)
+    print(f"  B: parameters and tokens from the seed identical in both "
+          f"workers and here: {same_seed}")
+    check(same_seed, "leg B: the workers' seeded parameters differ")
+    bitwise = []
+    print(smi)
+    for i, r in enumerate(ref["steps"]):
+        got = [w["b"]["steps"][i] for w in abc]
+        ok = all(s["loss_digest"] == r["loss_digest"]
+                 and s["params_digest"] == r["params_digest"] for s in got)
+        bitwise.append(ok)
+        wire = got[0]["wire"]
+        print(f"  B step {i + 1} ("
+              f"{'deterministic' if DIST_STEPS[i] else 'default'}): loss "
+              f"{got[0]['loss']:.4f}; ms per worker "
+              f"{[round(s['ms'], 1) for s in got]} (one process "
+              f"{r['ms']:.1f}); worker 0 sent {wire['sent_bytes'] / 1e9:.3f}"
+              f" GB and received {wire['received_bytes'] / 1e9:.3f} GB in "
+              f"{wire['rounds']} gloo all-gathers; loss and parameters "
+              f"bitwise phase 51's run_spmd(nranks=2): {ok}", flush=True)
+    launches = [{k: w["b"]["launches"].get(k, 0)
+                 for k in kernels.ATTENTION_KERNELS
+                 + tuple(f"{k}.tc" for k in kernels.ATTENTION_KERNELS)}
+                for w in abc]
+    wires = [w["b"]["steps"][1]["wire"] for w in abc]
+    # Step 1 is timed alike in both workers; worker 0's step 2 runs under
+    # the profiler, and worker 1's reading of it includes the profiler's
+    # start in worker 0.
+    step_ms = [w["b"]["steps"][0]["ms"] for w in abc]
+    idle = abc[0]["b"]["idle_pct"]
+    print(f"  B: step 1 ms {[round(x, 1) for x in step_ms]}; worker 0's "
+          f"step 2 under the profiler {abc[0]['b']['steps'][1]['ms']:.1f} "
+          f"ms, device idle {idle:.1f}%; attention launches per worker "
+          f"{launches} (expected {want} each, all tc: 8 a step on its one "
+          "rank)", flush=True)
+    check(all(bitwise), "leg B: a step is not bitwise phase 51's")
+    check(all(v == want for w in launches for v in w.values()),
+          "leg B: a worker ran an attention launch off the tc kernels")
+    # C.
+    c_ok = all(w["c"]["y"] == ref["q8"][pid][0]
+               and w["c"]["g"] == ref["q8"][pid][1]
+               for pid, w in enumerate(abc))
+    k1 = {k: sum(w["c"]["launches"][k] for w in abc)
+          for k in ("q8_hop", "q8_requant")}
+    print(f"  C: q8 ring Allreduce of {DIST_Q8_NUMEL} float32 a rank, fwd + "
+          f"bwd: ms per worker {[round(w['c']['ms'], 1) for w in abc]}; "
+          f"value and gradient bitwise run_spmd(nranks=2): {c_ok}; K1 "
+          f"launches per worker {[w['c']['launches'] for w in abc]} (one "
+          f"process, both ranks: {ref['q8_launches']})", flush=True)
+    check(c_ok, "leg C: the q8 Allreduce is not bitwise the one-process run")
+    check(all(w["c"]["launches"][k] > 0 for w in abc for k in k1)
+          and k1 == ref["q8_launches"],
+          "leg C: K1's launches are missing or differ from the one-process "
+          "run's")
+    # D.
+    folds_ok = {}
+    for fold in ("gather", "ring"):
+        got = {int(r): d for w in de for r, d in w["d"]["folds"][fold].items()}
+        folds_ok[fold] = got == ref["fold"]
+    for pid, w in enumerate(de):
+        d = w["d"]
+        print(f"  D worker {pid}: info {w['info']}; mesh {d['axis_names']} "
+              f"processes by row {d['process_rows']}; tp sums {d['tp_sum']}, "
+              f"dp sums {d['dp_sum']}, dp grads {d['dp_grad']}")
+        check(w["info"] == [pid, 2, 4, 2], "leg D: wrong layout")
+        check(d["axis_names"] == ["dp", "tp"]
+              and d["process_rows"] == [[0, 0], [1, 1]],
+              "leg D: a tp row crosses processes")
+        check(d["tp_sum"] == [3.0, 3.0] and d["dp_sum"] == [3.0, 3.0]
+              and d["dp_grad"] == [[2.0, 2.0]] * 2,
+              "leg D: the tp or dp sum or the dp gradient is wrong")
+    print(f"  D: deterministic fold bitwise run_ranks(4): {folds_ok}")
+    check(all(folds_ok.values()), "leg D: a deterministic fold differs")
+    # E.
+    e = de[0]["e"]
+    print(f"  E: worker 1 left; worker 0 raised {e.get('error')} naming ranks "
+          f"{e.get('ranks')} after {e.get('s', float('nan')):.3f} s (world "
+          f"timeout {DIST_TIMEOUT_S} s): {e.get('message')}", flush=True)
+    check(de[1]["e"] == "left" and e.get("error") == "RankFailedError"
+          and e.get("ranks") == [2, 3] and e["s"] < DIST_TIMEOUT_S,
+          "leg E: the survivor did not raise its typed error in time")
+    return {"launches": {k: sum(w[k] for w in launches)
+                         for k in kernels.ATTENTION_KERNELS},
+            "k1": k1, "step_ms": step_ms, "wire": wires[0],
+            "idle_pct": idle, "one_process_ms": ref["steps"][0]["ms"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU",
@@ -10012,7 +10467,15 @@ def main():
     item6 = item6_phase(P, T, tree, serve, kernels, qk, fuse, config, cfg,
                         params, tokens, prompts, smi)
 
-    phase(64, "kernels")
+    phase(64, "the multi-process runtime: init_distributed and run_spmd "
+          "across two worker processes on the card (A, JAX's worker "
+          "shape; B, phase 51's DP=2 step; C, the q8 ring Allreduce; D, "
+          "hybrid_mesh over process granules; E, a worker that leaves)")
+    print(smi)
+    dist = dist_phase(P, T, tree, dp, kernels, config, cfg, params, tokens,
+                      smi)
+
+    phase(65, "kernels")
     print(smi)
     sp_shapes, sp_worst = sp_kernel_numbers(flash, kernels)
     # flash_fwd: launches on the serving path (phase 4), times at the
@@ -10337,6 +10800,19 @@ def main():
               for v in e["item6_launches"].values()),
           "a kernel of the elastic, degrade or controller paths was "
           "launched no time")
+    # The multi-process runtime (phase 64): each attention kernel's
+    # launches in the two workers of leg B's three DP=2 steps under
+    # run_spmd across processes; K1's hop and requant launches in leg C's
+    # two workers.
+    for entry in line["kernels"][:3]:
+        entry["dist_launches"] = {
+            "flagship_dp2_two_processes": dist["launches"][entry["name"]]}
+    hop_entry["dist_launches"] = {
+        "q8_ring_two_processes_hop": dist["k1"]["q8_hop"],
+        "q8_ring_two_processes_requant": dist["k1"]["q8_requant"]}
+    check(all(v > 0 for e in line["kernels"]
+              for v in e["dist_launches"].values()),
+          "a kernel of the multi-process path was launched no time")
     print(json.dumps(line))
     print(f"  process transport: DP=2 step "
           f"{proc_train['process_ms']:.1f} ms on workers vs "
@@ -10387,7 +10863,12 @@ def main():
           f"{item6['serve']['readmit_ms']:.1f} ms, re-prefill "
           f"{item6['serve']['reprefill_ms']:.1f} ms; closed loop "
           f"{item6['ctl']['episode_s']:.1f} s")
-    phase(65)
+    print(f"  multi-process: DP=2 step across two processes "
+          f"{max(dist['step_ms']):.1f} ms vs {dist['one_process_ms']:.1f} ms "
+          f"in one process; {dist['wire']['sent_bytes'] / 1e9:.3f} GB sent "
+          f"and {dist['wire']['received_bytes'] / 1e9:.3f} GB received a "
+          f"step by worker 0; its device idle {dist['idle_pct']:.1f}%")
+    phase(66)
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -10397,4 +10878,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(sys.argv[2:]))
     sys.exit(main())

@@ -36,7 +36,12 @@ resume), the reshard planner (``reshard``, ``comm.Reshard``: the
 ZeRO-3 -> TP serving handoff, the planned MoE rebalance) and
 training-state checkpoints (``utils.checkpoint``).  ``run_ranks`` runs
 its ranks on threads of this process or, with ``backend="process"``, in
-pooled worker processes (``transport``).  ``run_spmd`` runs one
+pooled worker processes (``transport``).  ``init_distributed`` joins N
+OS processes over ``torch.distributed`` (gloo), after which ``run_spmd``
+spans them, each process running its block of global ranks
+(``distributed``, ``transport/dist.py``; ``local_values`` names a
+process's rows, and ``comm_from_mpi4py`` bootstraps the same from an
+mpi4py world).  ``run_spmd`` runs one
 program on every rank thread under the JAX package's Mode A contract
 (``ops/spmd.py``: a symbolic ``comm.rank``, static p2p permutations,
 every Allreduce algorithm as its explicit schedule, the stacked outputs
@@ -96,6 +101,9 @@ from . import (compress, config, csched, fuse, obs, overlap, reshard,
 from . import elastic, ctl
 from .config import (algorithm_scope, compression_scope, fusion_scope,
                      overlap_scope)
+from .distributed import (DistributedInfo, distributed_info,
+                          finalize_distributed, init_distributed,
+                          is_distributed, local_values)
 from .mesh import device_mesh, hybrid_mesh
 from .ops.spmd import PermRank, RankExpr, p2p_scope, run_spmd
 from .overlap import SpmdWaitHandle
@@ -115,6 +123,8 @@ __all__ = [
     "resilience",
     "reshard", "serve", "obs", "transport", "elastic", "ctl",
     "device_mesh", "hybrid_mesh",
+    "DistributedInfo", "init_distributed", "finalize_distributed",
+    "is_distributed", "distributed_info", "local_values",
     "FaultPlan", "FaultSpec", "fault_scope", "algorithm_scope",
     "compression_scope",
     "fusion_scope", "overlap_scope", "run_spmd", "p2p_scope", "RankExpr",

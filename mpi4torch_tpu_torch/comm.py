@@ -232,7 +232,9 @@ class MPI_Communicator:
             axes = getattr(self, "_spmd_axis", None)
             if axes is not None:
                 return axes[1]
-            return math.prod(self._hier_axes[1])
+            hier = getattr(self, "_hier_axes", None)
+            if hier is not None:
+                return math.prod(hier[1])
         b = self._spmd()
         return effective_rank_context().world.size if b is None else b.size
 
@@ -636,11 +638,137 @@ def comm_from_mesh(mesh, axis_name):
     return _from_mesh(mesh, axis_name)
 
 
-def comm_from_mpi4py(comm):
-    """A communicator from an mpi4py one: not ported yet (raises)."""
-    raise NotImplementedError(
-        "comm_from_mpi4py: multi-process worlds come with the "
-        "compiled/device backend (ROADMAP.md, Queue 1 item 4)")
+class _ProcessWorldBackend:
+    """Top-level backend of an mpi4py-derived communicator under an MPI
+    launch of more than one process: rank/size report the MPI layout;
+    collective ops require an SPMD region (each OS process runs its own
+    ranks; only ``run_spmd`` over the global world spans them)."""
+
+    def __init__(self, rank: int, size: int):
+        self.rank = rank
+        self.size = size
+
+    def __getattr__(self, name):
+        raise CommError(
+            "this mpi4py-derived communicator spans OS processes; run its "
+            "collectives inside run_spmd (the SPMD program over the global "
+            "world), not at the top level of one process")
+
+
+def comm_from_mpi4py(comm, device=None) -> MPI_Communicator:
+    """Convert an mpi4py communicator (mpi4torch's ``comm_from_mpi4py``;
+    there via the Fortran handle, here via the ``torch.distributed``
+    rendezvous).
+
+    Under an MPI launch (``mpirun -np N python prog.py`` with mpi4py),
+    this bootstraps the multi-process runtime *from the MPI world*: rank
+    0 picks a free ``host:port`` and broadcasts it over the mpi4py
+    communicator, every rank joins via
+    :func:`~mpi4torch_tpu_torch.init_distributed`, and the returned
+    communicator reports the MPI rank/size at the top level while its
+    collectives run over the global world inside ``run_spmd`` regions.
+    The host is ``MPI4TORCH_TPU_COORDINATOR_HOST`` when set (the JAX
+    package's variable), else this host's routable address.  With a
+    single MPI process the default world already matches, so the
+    returned communicator is immediately usable.  ``device`` is the
+    rendezvous's (``init_distributed``'s: CUDA unless the caller passes
+    ``"cpu"``).  Raises ``RuntimeError`` when mpi4py is absent and
+    :class:`CommError` when the established process layout disagrees
+    with the MPI world."""
+    try:
+        from mpi4py import MPI as _MPI  # noqa: F401
+    except ModuleNotFoundError:
+        raise RuntimeError("mpi4py is not available!")
+
+    from . import distributed as _dist
+
+    rank, size = comm.Get_rank(), comm.Get_size()
+    if size == 1:
+        info = _dist.distributed_info()
+        if info is not None and info.process_count > 1:
+            # COMM_SELF (or another size-1 subcommunicator) inside a
+            # multi-process launch: the default world spans ALL
+            # processes, so returning it would silently widen rank-local
+            # collectives across the launch.
+            raise CommError(
+                "a size-1 mpi4py communicator inside a "
+                f"{info.process_count}-process launch is a "
+                "subcommunicator; only world-spanning communicators map "
+                "onto the global world — split the mesh with "
+                "comm_from_mesh for subgroup collectives")
+        # One process: the contextual world (size-1 eager, or whatever
+        # world a surrounding run_spmd region provides) is already the
+        # MPI world; ops work immediately.
+        return MPI_Communicator()
+
+    if not _dist.is_distributed():
+        if rank == 0:
+            addr = f"{_routable_ip()}:{_free_port()}"
+        else:
+            addr = None
+        addr = comm.bcast(addr, root=0)
+        _dist.init_distributed(coordinator_address=addr,
+                               num_processes=size, process_id=rank,
+                               device=device)
+    info = _dist.distributed_info()
+    if info.process_count != size:
+        raise CommError(
+            f"mpi4py world has {size} processes but the runtime was "
+            f"initialized with {info.process_count}; launch both with the "
+            "same layout")
+    if info.process_id != rank:
+        raise CommError(
+            f"mpi4py rank {rank} does not match the process_id "
+            f"{info.process_id}; a rank-reordered communicator would "
+            "silently misattribute SPMD ranks — pass the communicator "
+            "whose ordering matches the launch (usually MPI.COMM_WORLD)")
+    backend = _ProcessWorldBackend(rank, size)
+
+    def resolver():
+        from .ops import spmd as _spmd
+        ctx = _spmd.current_spmd_context()
+        return backend if ctx is None else _spmd.SpmdBackend(ctx)
+
+    return MPI_Communicator(resolver)
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _routable_ip() -> str:
+    """Best-effort address other hosts can reach for the rendezvous.
+
+    ``MPI4TORCH_TPU_COORDINATOR_HOST`` overrides.  The UDP-connect trick
+    learns the egress interface without sending a packet;
+    ``gethostbyname(hostname)`` often maps to 127.0.0.1 in containers,
+    which would hang a multi-host rendezvous, so it is the last resort
+    (fine for single-host launches)."""
+    import os
+    import socket
+
+    override = os.environ.get("MPI4TORCH_TPU_COORDINATOR_HOST")
+    if override:
+        return override
+    try:
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        try:
+            s.connect(("8.8.8.8", 80))
+            return s.getsockname()[0]
+        finally:
+            s.close()
+    except OSError:
+        pass
+    try:
+        return socket.gethostbyname(socket.gethostname())
+    except OSError:
+        return "127.0.0.1"
 
 
 def deactivate_cuda_aware_mpi_support() -> None:

@@ -38,9 +38,17 @@ a corrupt scale raises an ``IntegrityError`` naming its contributor on
 every rank.  ``config.comm_finite_guard`` checks each rank's raw
 contribution to the hop oracle and each decoded contribution of the
 rendezvous codecs and of the compressed Allgather.
+
+The compressed Allgather and its adjoint decode every gathered payload
+once per rendezvous for all the ranks of this process
+(:func:`_decode_each_once`), not once on every rank: the ranks read the
+same payloads, so they share the decoded tensors, with no rendezvous of
+their own (the traced event stream stays the JAX package's).
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -248,6 +256,43 @@ def allreduce(ctx: RankContext, x, op: int, codec: Codec, algorithm=None,
     return _RendezvousAllreduce.apply(x, ctx, codec)
 
 
+_memo_lock = threading.Lock()
+
+
+def _decode_each_once(ctx: RankContext, vals, decode):
+    """``[decode(item) for item in vals]`` for one rendezvous, each item
+    decoded once for all the ranks of ``ctx.world`` that run in this
+    process: the first rank to need an item decodes it and the others
+    take the same tensor (rank ``r`` starts at item ``r``, so the ranks
+    decode in parallel).  The tensors are shared, so callers only read
+    them.  Every rank of the world calls this once per rendezvous, in
+    the same order, between the rendezvous's barriers: the call's
+    sequence number keys the memo, and the last local reader drops it."""
+    world = ctx.world
+    k = len(vals)
+    with _memo_lock:
+        seq = world.__dict__.setdefault("_decode_seq", {})
+        n = seq.get(ctx.rank, 0)
+        seq[ctx.rank] = n + 1
+        memo = world.__dict__.setdefault("_decode_memo", {})
+        ent = memo.get(n)
+        if ent is None:
+            ent = memo[n] = {"items": [None] * k, "done": 0,
+                             "locks": [threading.Lock() for _ in range(k)]}
+    out = [None] * k
+    for j in range(k):
+        q = (ctx.rank + j) % k
+        with ent["locks"][q]:
+            if ent["items"][q] is None:
+                ent["items"][q] = decode(vals[q])
+            out[q] = ent["items"][q]
+    with _memo_lock:
+        ent["done"] += 1
+        if ent["done"] == len(world.local_ranks):
+            del memo[n]
+    return out
+
+
 def _gather_round(ctx: RankContext, v, codec: Codec, ax: int, salt: int):
     """One round of the compressed Allgather: every rank's decoded
     shard, in rank order."""
@@ -257,7 +302,8 @@ def _gather_round(ctx: RankContext, v, codec: Codec, ax: int, salt: int):
     sig = ("Allgather.c", codec.name, salt, ax, othershape, str(v.dtype))
     return _wire_exchange(
         ctx.world, ctx.rank, sig, meta, payload, f"Allgather[{codec.name}]",
-        lambda vals: [base.decode(p, m) for (m, p) in vals],
+        lambda vals: _decode_each_once(
+            ctx, vals, lambda it: base.decode(it[1], it[0])),
         decode=base.decode)
 
 
@@ -274,8 +320,9 @@ def _scatter_round(ctx: RankContext, g, codec: Codec, ax: int, counts,
     seg = _wire_exchange(
         world, rank, sig, meta, payload, f"Allgather.bwd[{codec.name}]",
         lambda vals: C.reduce_ordered(C.MPI_SUM, [
-            base.decode(p, m).narrow(ax, offset, counts[rank])
-            for (m, p) in vals]))
+            d.narrow(ax, offset, counts[rank])
+            for d in _decode_each_once(
+                ctx, vals, lambda it: base.decode(it[1], it[0]))]))
     return seg, base.decode(payload, meta)
 
 

@@ -7,10 +7,13 @@ it, so a world of 8 rank threads reads as the ``(2, 4)`` mesh the same
 way in both packages.
 
 :func:`device_mesh` and :func:`hybrid_mesh` build the port's
-:class:`Mesh` (axis names, sizes and the device of each rank) for
-``run_spmd(mesh=...)`` and ``comm_from_mesh``.  One recorded difference
-from the JAX package: without ``devices=`` every rank of the mesh gets
-the world's one device, since rank threads share a card.
+:class:`Mesh` (axis names, sizes, the device of each rank and the
+process that runs it) for ``run_spmd(mesh=...)`` and ``comm_from_mesh``.
+One recorded difference from the JAX package: without ``devices=``
+every rank of the mesh gets the world's one device, since rank threads
+share a card.  Under ``init_distributed`` the default devices are the
+global ranks', in process order, and :func:`hybrid_mesh`'s granules are
+the processes.
 """
 
 from __future__ import annotations
@@ -57,13 +60,17 @@ def rank_of_coords(coords: Sequence[int], mesh_shape: Sequence[int]) -> int:
 
 class Mesh:
     """A named device mesh: ``axis_names`` (outermost first), ``shape``
-    (axis name -> size) and ``devices``, an object array of
-    ``torch.device`` of that shape (row-major, the last axis fastest).
-    The port's counterpart of ``jax.sharding.Mesh``, for
+    (axis name -> size), ``devices``, an object array of
+    ``torch.device`` of that shape (row-major, the last axis fastest),
+    and ``process_index``, an int array of the same shape naming the
+    process that runs each position (the counterpart of JAX's
+    ``device.process_index``; all 0 outside ``init_distributed``).  The
+    port's counterpart of ``jax.sharding.Mesh``, for
     :func:`~mpi4torch_tpu_torch.ops.spmd.run_spmd` and
     :func:`~mpi4torch_tpu_torch.comm_from_mesh`."""
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str],
+                 process_index=None):
         arr = np.asarray(devices, dtype=object)
         names = tuple(axis_names)
         if arr.ndim != len(names):
@@ -74,6 +81,10 @@ class Mesh:
         self.axis_names = names
         self.devices = flat.reshape(arr.shape)
         self.shape = dict(zip(names, arr.shape))
+        if process_index is None:
+            process_index = np.zeros(arr.shape, dtype=np.int64)
+        self.process_index = np.asarray(process_index,
+                                        dtype=np.int64).reshape(arr.shape)
 
     @property
     def size(self) -> int:
@@ -95,9 +106,24 @@ def _check_sizes(shape: Mapping[str, int], n: int, what: str) -> None:
 def _default_devices(n: int) -> list:
     """One device repeated for every rank: every rank of a mesh without
     ``devices=`` is a thread on the world's device (CUDA; the JAX package
-    gives each rank its own device)."""
+    gives each rank its own device).  Under ``init_distributed`` a mesh
+    covers the global ranks, each on its process's device (checked by
+    the caller's size check)."""
+    from . import distributed as _dist
     from .runtime import resolve_device
-    return [resolve_device(None)] * n
+    lay = _dist.layout()
+    if lay is None:
+        return [resolve_device(None)] * n
+    return [lay[2]] * sum(lay[1])
+
+
+def _default_process_index(devices_given: bool, n: int):
+    """Each position's process: the global ranks' under
+    ``init_distributed`` when the devices were not given, else all 0."""
+    from . import distributed as _dist
+    if devices_given or _dist.layout() is None:
+        return np.zeros(n, dtype=np.int64)
+    return _dist.process_of_ranks()
 
 
 def device_mesh(axes: Mapping[str, int], *,
@@ -110,13 +136,19 @@ def device_mesh(axes: Mapping[str, int], *,
     With ``devices=`` the sizes must multiply to their number (the JAX
     package's check); without, every rank gets the world's one device
     (rank threads share a card), a deliberate difference from the JAX
-    package, which needs distinct devices."""
-    if devices is None:
+    package, which needs distinct devices.  Under ``init_distributed``
+    the mesh covers the global ranks (the sizes must multiply to their
+    count), each position on its process's device."""
+    given = devices is not None
+    if not given:
         devices = _default_devices(math.prod(axes.values()))
     _check_sizes(axes, len(devices), "device_mesh")
     arr = np.empty(len(devices), dtype=object)
     arr[:] = [torch.device(d) for d in devices]
-    return Mesh(arr.reshape(tuple(axes.values())), tuple(axes.keys()))
+    shape = tuple(axes.values())
+    procs = _default_process_index(given, len(devices))
+    return Mesh(arr.reshape(shape), tuple(axes.keys()),
+                process_index=procs.reshape(shape))
 
 
 def hybrid_mesh(ici_axes: Mapping[str, int], dcn_axes: Mapping[str, int],
@@ -127,22 +159,42 @@ def hybrid_mesh(ici_axes: Mapping[str, int], dcn_axes: Mapping[str, int],
     DCN axes first, then the ICI axes: ``hybrid_mesh({"tp": 4},
     {"dp": 2})`` has axis names ``("dp", "tp")``.
 
-    Rank threads of one process are one granule, so every ``dcn_axes``
-    size must be 1 and the call degrades to :func:`device_mesh`, as the
-    JAX package does on one slice."""
+    The granules are the processes: rank threads of one process are one
+    granule, and under ``init_distributed`` (without ``devices=``) each
+    process is one.  On one granule every ``dcn_axes`` size must be 1 and
+    the call degrades to :func:`device_mesh`, as the JAX package does on
+    one slice.  On several, ``dcn_axes`` must multiply to their number
+    and every process must hold one ICI block: then the global ranks, in
+    process order, laid out row-major with the DCN axes first, keep each
+    ICI block inside one process."""
     both = {**dcn_axes, **ici_axes}
     if len(both) != len(dcn_axes) + len(ici_axes):
         raise ValueError(
             f"axis names must be disjoint between tiers; got ICI "
             f"{tuple(ici_axes)} and DCN {tuple(dcn_axes)}")
-    if devices is None:
+    given = devices is not None
+    if not given:
         devices = _default_devices(math.prod(both.values()))
     _check_sizes(both, len(devices), "hybrid_mesh")
+    procs = _default_process_index(given, len(devices))
+    n_granules = len(set(procs.tolist()))
     dcn_total = math.prod(dcn_axes.values())
-    if dcn_total != 1:
+    if n_granules == 1:
+        if dcn_total != 1:
+            raise ValueError(
+                f"dcn axes {dict(dcn_axes)} require {dcn_total} "
+                "slices/processes but all devices are in one granule — "
+                "move those factors to ici_axes (single-slice) or launch "
+                "multi-process (init_distributed)")
+        return device_mesh(both, devices=devices)
+    if dcn_total != n_granules:
         raise ValueError(
-            f"dcn axes {dict(dcn_axes)} require {dcn_total} "
-            "slices/processes but all devices are in one granule — "
-            "move those factors to ici_axes (single-slice) or launch "
-            "multi-process (init_distributed)")
-    return device_mesh(both, devices=devices)
+            f"dcn axes {dict(dcn_axes)} multiply to {dcn_total}, but the "
+            f"devices span {n_granules} slices/granules")
+    ici_total = math.prod(ici_axes.values())
+    per = np.bincount(procs)
+    if any(int(c) != ici_total for c in per):
+        raise ValueError(
+            f"ici axes {dict(ici_axes)} hold {ici_total} devices a "
+            f"granule, but the processes hold {per.tolist()}")
+    return device_mesh(both)

@@ -2130,10 +2130,13 @@ def _device_count(dev: torch.device) -> int:
     return torch.cuda.device_count() if dev.type == "cuda" else 1
 
 
-def _mesh_device(mesh, device):
-    """The one device of a mesh's ranks: rank threads of one world share
-    one device."""
-    devs = {torch.device(d) for d in mesh.devices.reshape(-1)}
+def _mesh_device(mesh, device, lay=None):
+    """The one device of a mesh's ranks (of this process's ranks, under
+    ``init_distributed``): rank threads of one world share one device."""
+    devs = mesh.devices.reshape(-1)
+    if lay is not None:
+        devs = devs[mesh.process_index.reshape(-1) == lay[0]]
+    devs = {torch.device(d) for d in devs}
     if len(devs) != 1:
         raise CommError(
             f"run_spmd runs every rank of the mesh as a thread on one "
@@ -2145,17 +2148,40 @@ def _mesh_device(mesh, device):
     return dev
 
 
+def _dist_device(lay, device):
+    """The device of this process's ranks under ``init_distributed``."""
+    dev = lay[2]
+    if device is not None and resolve_device(device) != dev:
+        raise CommError(f"device {device!r} differs from the device {dev} "
+                        "this process was initialized with")
+    return dev
+
+
+def _check_mesh_layout(mesh, lay) -> None:
+    """A mesh under ``init_distributed`` covers every global rank, each
+    process's positions its contiguous block in row-major order."""
+    want = [q for q, c in enumerate(lay[1]) for _ in range(c)]
+    got = [int(q) for q in mesh.process_index.reshape(-1)]
+    if got != want:
+        raise CommError(
+            f"this mesh places its positions on processes {got}; under "
+            f"init_distributed a run_spmd mesh covers the {len(want)} "
+            f"global ranks in process order ({want}) — build it with "
+            "device_mesh or hybrid_mesh")
+
+
 class _SpmdRun:
     """One call of a :func:`run_spmd` function: the world, every rank's
     detached input leaves and outputs (kept for the backward), and the
     configuration captured from the caller."""
 
     def __init__(self, fn, names, shape, axis_name, device, scopes,
-                 args_flat, args_def, tensor_slots):
+                 args_flat, args_def, tensor_slots, distributed=False):
         self.fn, self.names, self.shape = fn, names, shape
         self.axis_name, self.device, self.scopes = axis_name, device, scopes
         self.args_flat, self.args_def = args_flat, args_def
         self.tensor_slots = tensor_slots
+        self.distributed = distributed
         self.world = None
         self.leaves = self.outs = None
         self.out_def = None
@@ -2182,9 +2208,21 @@ class _SpmdRun:
         finally:
             _tls.region = prev
 
+    def _make_world(self, n: int) -> None:
+        """The run's world: every rank on threads of this process, or,
+        under ``init_distributed``, the distributed world of which this
+        process runs its block of ranks."""
+        if not self.distributed:
+            self.world = World(n, device=self.device)
+            return
+        from .. import distributed as _dist
+        from ..transport.dist import DistWorld
+        self.world = DistWorld(n, _dist.local_ranks(),
+                               _dist.process_of_ranks(), device=self.device)
+
     def forward(self, tensors, track: bool) -> List[torch.Tensor]:
         n = math.prod(self.shape)
-        self.world = World(n, device=self.device)
+        self._make_world(n)
         leaves: List[Any] = [None] * n
         outs: List[Any] = [None] * n
         defs: List[Any] = [None] * n
@@ -2202,11 +2240,14 @@ class _SpmdRun:
             leaves[rank] = mine
             outs[rank], defs[rank] = tree_flatten(out)
 
+        ranks = self.world.local_ranks
         run_rank_threads(self.world, body)
+        outs = [outs[r] for r in ranks]
+        defs = [defs[r] for r in ranks]
         if any(d != defs[0] for d in defs):
             raise CommError(
                 "run_spmd: the ranks returned differently structured "
-                f"outputs ({defs[0]} on rank 0)")
+                f"outputs ({defs[0]} on rank {ranks[0]})")
         self.out_def = defs[0]
         stacked = []
         for k in range(len(outs[0])):
@@ -2222,17 +2263,22 @@ class _SpmdRun:
             stacked.append(torch.stack([c.detach() for c in col]))
         self.present = [s is not None for s in stacked]
         if track:
-            self.leaves, self.outs = leaves, [
-                [c if isinstance(c, torch.Tensor) else None for c in o]
-                for o in outs]
+            self.leaves = leaves
+            self.outs = [None] * n
+            for r, o in zip(ranks, outs):
+                self.outs[r] = [c if isinstance(c, torch.Tensor) else None
+                                for c in o]
         return stacked
 
     def backward(self, gouts) -> List[Optional[torch.Tensor]]:
         n = self.world.size
         grads: List[Any] = [None] * n
+        ranks = self.world.local_ranks
 
         def body(rank):
-            pairs = [(o, g[rank]) for o, g in zip(self.outs[rank], gouts)
+            # Row of this rank in the stacked outputs of this process.
+            row = rank - ranks[0]
+            pairs = [(o, g[row]) for o, g in zip(self.outs[rank], gouts)
                      if o is not None and o.requires_grad and g is not None]
             wanted = [i for i, t in enumerate(self.leaves[rank])
                       if t.requires_grad]
@@ -2250,6 +2296,14 @@ class _SpmdRun:
             grads[rank] = out
 
         run_rank_threads(self.world, body)
+        if self.distributed:
+            # Every process's per-rank cotangents, so that each sums all
+            # of them in the one-process order (partial sums per process
+            # would change the bits).
+            from ..transport.dist import allgather_objects
+            every = allgather_objects([grads[r] for r in ranks],
+                                      self.device)
+            grads = [g for block in every for g in block]
         result = []
         for i in range(len(self.tensor_slots)):
             total = None
@@ -2314,21 +2368,44 @@ def run_spmd(fn, nranks: Optional[int] = None, mesh=None,
     are reached through :func:`comm_from_mesh`.  Every rank is a thread
     on one device (``device``: CUDA unless the caller passes ``"cpu"``).
 
+    Under :func:`~mpi4torch_tpu_torch.init_distributed` the world spans
+    the processes: with no ``mesh`` it holds every global rank
+    (``nranks`` must be None or their count), a ``mesh`` must cover them
+    in the processes' order (``device_mesh``/``hybrid_mesh`` build one),
+    each process runs its own block of ranks on the device it was
+    initialized with, and every collective crosses the processes
+    (``transport/dist.py``).  Outputs stack this process's rows
+    (:func:`~mpi4torch_tpu_torch.local_values` names their ranks), and a
+    gradient from outside is collective: every process takes it, and a
+    replicated input's cotangent sums every global rank's.
+
     The caller's deterministic mode, compression, fusion and overlap
     scopes are read at call time and bound in every rank thread.  Inputs
     are shared across the ranks, not copied: a body must not modify them
     in place.  Nothing is compiled: ``jit`` is accepted for the JAX
     package's signature and the call runs eagerly either way (a compiled
     step is ROADMAP Queue 1 item 4.12)."""
+    from .. import distributed as _dist
+    lay = _dist.layout()
     if mesh is None:
-        dev = resolve_device(device)
-        n = nranks or _device_count(dev)
+        if lay is None:
+            dev = resolve_device(device)
+            n = nranks or _device_count(dev)
+        else:
+            dev = _dist_device(lay, device)
+            n = sum(lay[1])
+            if nranks is not None and nranks != n:
+                raise CommError(
+                    f"nranks={nranks} under init_distributed: the world "
+                    f"holds every global rank ({n})")
         names, shape = (axis_name,), (int(n),)
     else:
         if axis_name not in mesh.axis_names:
             raise CommError(
                 f"axis {axis_name!r} not in mesh axes {mesh.axis_names}")
-        dev = _mesh_device(mesh, device)
+        if lay is not None:
+            _check_mesh_layout(mesh, lay)
+        dev = _mesh_device(mesh, device, lay)
         names = tuple(mesh.axis_names)
         shape = tuple(int(mesh.shape[a]) for a in names)
         if nranks is not None and nranks != math.prod(shape):
@@ -2345,7 +2422,7 @@ def run_spmd(fn, nranks: Optional[int] = None, mesh=None,
         slots = [i for i, a in enumerate(flat) if isinstance(a, torch.Tensor)]
         tensors = [flat[i].to(dev) for i in slots]
         run = _SpmdRun(fn, names, shape, axis_name, dev, scopes, flat, adef,
-                       slots)
+                       slots, distributed=lay is not None)
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in tensors):
             live = iter(_SpmdCall.apply(run, *tensors))

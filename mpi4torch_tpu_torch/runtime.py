@@ -358,6 +358,9 @@ class World:
         if size < 1:
             raise ValueError("World size must be >= 1")
         self.size = size
+        # Ranks of this world whose threads run in this process (a
+        # transport's or a distributed world runs fewer than ``size``).
+        self.local_ranks = range(size)
         self.timeout = _cfg.world_timeout() if timeout is None \
             else float(timeout)
         self.device = device
@@ -859,8 +862,8 @@ def _raise_primary(errors: List[Optional[BaseException]],
 
 
 def run_rank_threads(world: World, body: Callable[[int], None]) -> None:
-    """Run ``body(rank)`` on one thread per rank of ``world`` and join
-    them.  A rank that raises fails the world (so its peers' rendezvous
+    """Run ``body(rank)`` on one thread per rank of ``world`` that runs in
+    this process (``world.local_ranks``) and join them.  A rank that raises fails the world (so its peers' rendezvous
     end) and tells the comm tracer; after every thread has ended the
     root-cause error is re-raised, the others attached as a note."""
     errors: List[Optional[BaseException]] = [None] * world.size
@@ -878,7 +881,7 @@ def run_rank_threads(world: World, body: Callable[[int], None]) -> None:
             world.fail(e)
 
     threads = [threading.Thread(target=worker, args=(r,), name=f"rank{r}")
-               for r in range(world.size)]
+               for r in world.local_ranks]
     for t in threads:
         t.start()
     for t in threads:

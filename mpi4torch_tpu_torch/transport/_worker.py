@@ -102,6 +102,7 @@ def _make_world(size: int, rank: int, timeout: float, device,
 
         def __init__(self):
             super().__init__(size, timeout=timeout, device=device)
+            self.local_ranks = range(rank, rank + 1)
             self._rank = rank
             self._client = client
 

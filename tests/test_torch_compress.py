@@ -782,3 +782,59 @@ def test_bf16_payloads_fold_bitwise_vs_jax(n, numel, codec):
     got = P.run_ranks(torch_body, n, device="cpu")
     for r in range(n):
         assert _same_bits(got[r], want[r]) and _same_bits(got[r], got[0])
+
+
+@pytest.mark.parametrize("codec", ["q8", "bf16"])
+def test_allgather_decode_once_under_thread_stress(codec):
+    # The compressed Allgather decodes each gathered payload once for all
+    # the rank threads (compress/eager.py _decode_each_once).  With more
+    # ranks than cores and a short switch interval, every rank's output
+    # and gradient must still be the per-rank plain recomputation (each
+    # payload decoded on its own), and the memo must be empty once the
+    # rendezvous is over.
+    import sys
+
+    from mpi4torch_tpu_torch.compress import get_codec
+    from mpi4torch_tpu_torch.runtime import effective_rank_context
+
+    n, rounds = 12, 3
+    base = get_codec(codec).base()
+    xs = [torch.from_numpy(np.random.default_rng(r).standard_normal(
+        40 + r).astype(np.float32)) for r in range(n)]
+    total = sum(x.numel() for x in xs)
+    ws = [torch.from_numpy(np.random.default_rng(100 + r).standard_normal(
+        total).astype(np.float32)) for r in range(n)]
+
+    def roundtrip(t):
+        payload, meta = base.encode(t, None)
+        return base.decode(payload, meta)
+
+    want_out = torch.cat([roundtrip(x) for x in xs])
+    decoded_w = [roundtrip(w) for w in ws]
+    offs = np.cumsum([0] + [x.numel() for x in xs])
+
+    def body(rank):
+        out, grads, left = [], [], []
+        for _ in range(rounds):
+            x = xs[rank].clone().requires_grad_()
+            y = P.COMM_WORLD.Allgather(x, 0, compression=codec)
+            (g,) = torch.autograd.grad(torch.dot(y, ws[rank]), x)
+            out.append(y.detach())
+            grads.append(g)
+            world = effective_rank_context().world
+            left.append(len(world.__dict__.get("_decode_memo", {})))
+        return out, grads, left
+
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        got = P.run_ranks(body, n, timeout=60.0, device="cpu")
+    finally:
+        sys.setswitchinterval(prev)
+    for rank, (out, grads, left) in enumerate(got):
+        seg = PC.reduce_ordered(P.MPI_SUM, [
+            d[offs[rank]:offs[rank + 1]] for d in decoded_w])
+        for y, g in zip(out, grads):
+            assert torch.equal(y, want_out)
+            assert torch.equal(g, seg)
+        assert left == [0] * rounds

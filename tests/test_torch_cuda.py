@@ -2291,3 +2291,87 @@ def test_rank_death_rerun_on_a_cold_cuda_pool(cuda):
     assert rec["status"] == "ok", rec["detail"]
     assert spawned == 9, "eight workers and one replacement"
     assert {k: rec.get(k) for k in keys} == {k: cpu.get(k) for k in keys}
+
+
+# ------------------------------------------------ the multi-process runtime
+
+_DIST_WORKER = """
+import os, sys
+import torch
+import mpi4torch_tpu_torch as mpi
+
+pid, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.backends.cuda.matmul.allow_tf32 = False
+mpi.init_distributed(coordinator_address=f"127.0.0.1:{port}",
+                     num_processes=2, process_id=pid)
+comm = mpi.COMM_WORLD
+xs = torch.load(os.path.join(out, "xs.pt")).to("cuda")
+
+
+def body(xs, codec):
+    x = xs[comm.rank].detach().requires_grad_()
+    y = comm.Allreduce(x, mpi.MPI_SUM, compression=codec,
+                       algorithm="ring" if codec else None)
+    (g,) = torch.autograd.grad(torch.vdot(y, y), x)
+    return y, g
+
+
+res = {codec: [t.cpu() for t in mpi.run_spmd(body)(xs, codec)]
+       for codec in (None, "q8")}
+torch.save(res, os.path.join(out, f"res{pid}.pt"))
+mpi.finalize_distributed()
+"""
+
+
+@pytest.mark.cuda
+def test_two_processes_on_the_card_bitwise_rank_threads(cuda, tmp_path):
+    """Two processes on the one card, each one rank of ``run_spmd`` under
+    ``init_distributed``: the exact Allreduce and the q8 ``ring``
+    Allreduce, value and gradient of ``vdot(y, y)``, bitwise the same
+    body on two rank threads of one process."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    import mpi4torch_tpu_torch as P
+
+    g = torch.Generator().manual_seed(0)
+    xs = torch.randn(2, 1 << 20, generator=g)
+    torch.save(xs, tmp_path / "xs.pt")
+    (tmp_path / "worker.py").write_text(_DIST_WORKER)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, str(tmp_path / "worker.py"), str(pid), port,
+         str(tmp_path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env) for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+
+    comm = P.COMM_WORLD
+
+    def body(xs, codec):
+        x = xs[comm.rank].detach().requires_grad_()
+        y = comm.Allreduce(x, P.MPI_SUM, compression=codec,
+                           algorithm="ring" if codec else None)
+        (g,) = torch.autograd.grad(torch.vdot(y, y), x)
+        return y, g
+
+    for codec in (None, "q8"):
+        y, g = P.run_spmd(body, nranks=2, device=cuda)(xs.to(cuda), codec)
+        for pid in range(2):
+            got = torch.load(tmp_path / f"res{pid}.pt")[codec]
+            assert torch.equal(got[0][0], y[pid].cpu()), (codec, pid)
+            assert torch.equal(got[1][0], g[pid].cpu()), (codec, pid)

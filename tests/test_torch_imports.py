@@ -78,6 +78,7 @@ def test_port_has_modules():
                 "elastic/spare.py", "elastic/matrix.py",
                 "ctl/__init__.py", "ctl/__main__.py", "ctl/ledger.py",
                 "ctl/estimate.py", "ctl/drift.py", "ctl/controller.py",
+                "distributed.py", "transport/dist.py",
                 "resilience/degrade.py", "resilience/chaos.py",
                 "resilience/__main__.py"):
         assert f"mpi4torch_tpu_torch/{rel}" in names

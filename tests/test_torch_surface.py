@@ -30,10 +30,6 @@ from mpi4torch_tpu_torch.constants import divide
 # JAX name -> the ROADMAP.md Queue 1 item it waits for.
 UNPORTED = {
     "": {
-        "DistributedInfo": 4, "distributed_info": 4,
-        "finalize_distributed": 4, "init_distributed": 4,
-        "is_distributed": 4, "local_values": 4,
-        "comm_from_mpi4py": 4,
         "analyze": 7,
     },
     "ops": {},
