@@ -431,24 +431,38 @@ check fails.  Phases, in order:
     fold on ``gather`` and ``ring`` bitwise ``run_ranks(4)``); E, a
     worker that leaves before its next Allreduce: the survivor raises
     ``RankFailedError`` naming its ranks within the world timeout;
-65. one JSON line describing each ported kernel (K2, K3 and K4 with
+65. the collective-schedule verifier (``analyze``) on the card: A, the
+    registry-wide sweep and the seeded-defect corpus recorded on CUDA
+    rank threads over the (8,), (3,), (1,) and (2, 4) worlds, no
+    violation and every defect caught by its named lint; B, phase 51's
+    full-width DP=2 step lowered: clean lints, its collectives and
+    payload bytes those ``ExchangeCounter`` counts in one step, K2-K4
+    ``custom_call`` events 8 a rank and equal to the launches, the
+    recording's seconds against the step's, ``peak_live_bytes`` beside
+    ``max_memory_allocated``; C, the fused q8 DP=2 step lowered: K1's
+    events equal its launches, both rotations in
+    ``int8_rotation_census``; D, ``Engine(spmd=True, nranks=2)``'s
+    ``lower_step()`` at full width: exposure below 1.0 with overlap, 1.0
+    blocking, the tokens unchanged by lowering before every step;
+66. one JSON line describing each ported kernel (K2, K3 and K4 with
     the variant the main path ran; the launches of phases 18–20, 23–27,
     30–31 and of the later slices' phases, ``obs_launches``,
     ``resilience_launches``, ``handoff_launches``,
     ``checkpoint_launches``, ``process_launches`` (counted in the
     workers), ``mode_a_launches`` (phases 51, 55, 56 and 57) and
     ``mesh_2d_launches`` (phase 61), ``tune_launches`` (phase 62),
-    ``item6_launches`` (phase 63) and ``dist_launches`` (phase 64,
-    counted in the workers);
+    ``item6_launches`` (phase 63), ``dist_launches`` (phase 64,
+    counted in the workers) and ``analyze_launches`` (phase 65, the
+    custom_call events of the recorded programs);
     their numbers at the SP and
     slice-10 shapes, against the plain versions, their bounds and SDPA;
     K1 with its hop and requant launches, ``reshard_launches``,
     ``process_launches``, ``mode_a_launches`` (phases 55 and 58) and
     ``csched_launches`` (phase 60), ``tune_launches`` (phase 62),
-    ``item6_launches`` (phase 63) and ``dist_launches`` (phase 64) among
-    them).
+    ``item6_launches`` (phase 63), ``dist_launches`` (phase 64) and
+    ``analyze_launches`` (phase 65) among them).
 
-Each phase prints the seconds it took, and each of 28–65 the card's name
+Each phase prints the seconds it took, and each of 28–66 the card's name
 and power limit beside its numbers.  Times on the host clock are host times; event times of the
 comm tracer are host times (a rendezvous returns before the card has
 run its work).
@@ -462,6 +476,7 @@ import contextlib
 import hashlib
 import itertools
 import json
+import math
 import os
 import signal
 import socket
@@ -9923,6 +9938,228 @@ def dist_phase(P, T, tree, dp, kernels, config, cfg, params, tokens, smi):
             "idle_pct": idle, "one_process_ms": ref["steps"][0]["ms"]}
 
 
+ANALYZE_MAX_NEW = 4            # phase 65 D's decode budget a request
+
+
+def fused_q8_spmd_body(P, T, tree, cfg, bucket_bytes):
+    """Phase 19's fused q8 DP=2 step as a run_spmd body: the local loss's
+    gradient, ``Allreduce_tree(compression="q8", mean=True)`` at
+    ``bucket_bytes`` buckets, and the SGD update, each rank taking its
+    ``TRAIN_BATCH // 2`` rows by ``comm.rank``."""
+    rows = TRAIN_BATCH // 2
+    comm = P.COMM_WORLD
+
+    def body(p, toks):
+        idx = comm.rank * rows + torch.arange(rows, device=toks.device)
+        x = toks.index_select(0, idx)
+        loss, g = tree.value_and_grad(lambda q: T.lm_loss(cfg, q, x), p)
+        synced = comm.Allreduce_tree(g, P.MPI_SUM, mean=True,
+                                     compression="q8",
+                                     bucket_bytes=bucket_bytes)
+        with torch.no_grad():
+            return loss, tree.tree_map(lambda a, s: a - LR * s, p, synced)
+    return body
+
+
+def signature_bytes(sig):
+    """Payload bytes of a Mode A exchange signature (its last element is
+    the payload's ``(shape, dtype)``)."""
+    shape, dtype = sig[-1]
+    return math.prod(shape) * getattr(torch, str(dtype).split(".")[-1]) \
+        .itemsize
+
+
+def analyze_phase(P, T, tree, dp, serve, kernels, config, fuse, cfg,
+                  params, tokens, prompts):
+    """Phase 65: the collective-schedule verifier on the card.  A: the
+    registry-wide sweep and the seeded-defect corpus recorded on CUDA rank
+    threads over the (8,), (3,), (1,) and (2, 4) worlds: no violation, no
+    registry drift, every defect caught by its named lint.  B: phase 51's
+    full-width DP=2 step lowered: clean lints, its collectives and their
+    payload bytes those ``ExchangeCounter`` counts in one step, K2-K4
+    ``custom_call`` events 8 a rank and equal to the launches; the
+    recording's seconds against the step's, ``peak_live_bytes`` beside
+    ``max_memory_allocated``.  C: the fused q8 DP=2 step lowered: its
+    ``q8_hop``/``q8_requant`` events equal the launches and
+    ``int8_rotation_census`` sees both rotations.  D:
+    ``Engine(spmd=True, nranks=2)`` at full width: ``lower_step``'s
+    exposure below 1.0 with overlap, 1.0 blocking, and lowering before
+    every step leaves the tokens as they were."""
+    from mpi4torch_tpu_torch import analyze
+    from mpi4torch_tpu_torch.analyze.__main__ import _corpus_programs
+
+    out = {}
+    # A: the sweep and the defect corpus.
+    t0 = time.perf_counter()
+    cases = skipped = 0
+    for world in analyze.sweep_worlds(8):
+        t1 = time.perf_counter()
+        res = analyze.run_sweep(world, include_serve=(world == (8,)),
+                                device="cuda")
+        torch.cuda.synchronize()
+        cases += res["n_cases"]
+        skipped += res["n_skipped"]
+        exposure = {r["case"]: r["scheduled_exposure"]
+                    for r in res["records"] if "scheduled_exposure" in r}
+        print(f"  sweep {world}: {res['n_cases']} cases, "
+              f"{res['n_skipped']} skipped, {len(res['violations'])} "
+              f"violations, {len(res['problems'])} registry problems; "
+              f"exposure {exposure}; {time.perf_counter() - t1:.1f} s",
+              flush=True)
+        check(not res["violations"] and not res["problems"],
+              f"the sweep of {world} on the card: {res['violations'][:3]} "
+              f"{res['problems'][:3]}")
+    sweep_s = time.perf_counter() - t0
+    records = analyze.run_defect_corpus(_corpus_programs(8, "cuda"))
+    caught = sum(r["clean_ok"] and r["fired"] for r in records)
+    corpus_s = time.perf_counter() - t0 - sweep_s
+    print(f"  defect corpus on 8 CUDA rank threads: {caught} of "
+          f"{len(records)} defects caught by their named lint "
+          f"({', '.join(r['defect'] + ' -> ' + r['lint'] for r in records)}"
+          f"); sweep {sweep_s:.1f} s, corpus {corpus_s:.1f} s", flush=True)
+    check(caught == len(records) == len(analyze.DEFECTS)
+          and not analyze.defect_ledger_problems(records),
+          "a seeded defect was not caught on the card")
+    out["sweep"] = {"s": sweep_s, "corpus_s": corpus_s, "cases": cases,
+                    "skipped": skipped, "defects": caught}
+
+    # B: phase 51's DP=2 step, lowered.
+    call = P.run_spmd(dp2_spmd_body(P, T, tree, dp, cfg), nranks=2)
+    step_ms = [sync_ms(lambda: call(params, tokens))[0]]
+    with ExchangeCounter() as cnt:
+        step_ms.append(sync_ms(lambda: call(params, tokens))[0])
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    prog = analyze.lower(call, params, tokens)
+    torch.cuda.synchronize()
+    lower_s = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    max_alloc = torch.cuda.max_memory_allocated()
+    parsed = analyze.parse_program(prog)
+    mine = parsed.kernel_events()
+    lints = analyze.run_lints(parsed)
+    peak = analyze.peak_live_bytes(parsed)
+    wire, census = analyze.wire_bytes_per_device(parsed)
+    rec_bytes = sum(op.payload_bytes for op in parsed.collectives)
+    cnt_bytes = sum(signature_bytes(sig) for sig in cnt.seq)
+    # Rank 0's recorded events (one a layer) are the evidence; that both
+    # ranks' events equal ``launch_counts`` is bookkeeping, since one
+    # line of ``_launch`` counts both.
+    events_ok = all(mine.get(k) == cfg.n_layers
+                    and prog.kernels().get(k) == launches[k]
+                    == 2 * cfg.n_layers for k in kernels.ATTENTION_KERNELS)
+    ok = not lints and len(parsed.collectives) == cnt.exchanges \
+        and rec_bytes == cnt_bytes and events_ok
+    print(f"  phase 51's DP=2 step lowered: {len(parsed.events)} events on "
+          f"rank 0, {len(parsed.collectives)} collectives {census} "
+          f"(ExchangeCounter: {cnt.exchanges} exchanges a step), payload "
+          f"{rec_bytes} B (ExchangeCounter {cnt_bytes} B), wire "
+          f"{wire} B a device; lints {[str(v) for v in lints][:3]}; "
+          f"custom_call events on rank 0 "
+          f"{ {k: mine.get(k, 0) for k in kernels.ATTENTION_KERNELS} }, "
+          f"on both {prog.kernels()}, launches "
+          f"{ {k: launches[k] for k in kernels.ATTENTION_KERNELS} }; "
+          f"lowering {lower_s:.2f} s against the step's "
+          f"{[round(t, 1) for t in step_ms]} ms "
+          f"({1e3 * lower_s / min(step_ms):.1f}x); peak_live_bytes "
+          f"{peak / 2**30:.3f} GiB (rank 0's program) beside "
+          f"max_memory_allocated {max_alloc / 2**30:.3f} GiB ("
+          f"{(max_alloc - base) / 2**30:.3f} GiB above the allocation "
+          f"before the step, both ranks)  {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, "the lowered DP=2 step failed a check")
+    out["dp2"] = {"launches": prog.kernels(), "lower_s": lower_s,
+                  "step_ms": min(step_ms), "peak_live_bytes": peak,
+                  "max_memory_allocated": max_alloc,
+                  "above_base": max_alloc - base,
+                  "collectives": len(parsed.collectives), "wire": wire,
+                  "events": len(parsed.events)}
+    del prog, parsed, call
+    torch.cuda.empty_cache()
+
+    # C: the fused q8 DP=2 step, lowered.
+    bb = config.DEFAULT_BUCKET_BYTES
+    nbk = fuse.bucket_layout(params, bb).num_buckets
+    kernels.reset_launch_counts()
+    prog = analyze.lower(P.run_spmd(
+        fused_q8_spmd_body(P, T, tree, cfg, bb), nranks=2), params, tokens)
+    launches = dict(kernels.launch_counts)
+    parsed = analyze.parse_program(prog)
+    mine = parsed.kernel_events()
+    seen, fwd, bwd = P.compress.int8_rotation_census(prog, 2)
+    lints = analyze.run_lints(parsed)
+    # As in B: rank 0's events (one a bucket) are the evidence, the
+    # equality with ``launch_counts`` bookkeeping.
+    ok = not lints and fwd in seen and bwd in seen and all(
+        prog.kernels().get(k) == launches[k] == 2 * nbk
+        and mine.get(k) == nbk for k in ("q8_hop", "q8_requant"))
+    print(f"  fused q8 DP=2 step lowered ({nbk} buckets): q8_hop / "
+          f"q8_requant events {prog.kernels().get('q8_hop')} / "
+          f"{prog.kernels().get('q8_requant')} (launches "
+          f"{launches['q8_hop']} / {launches['q8_requant']}, rank 0 "
+          f"{mine.get('q8_hop')} / {mine.get('q8_requant')}); int8 permute "
+          f"tables {sorted(seen)}, forward {fwd} and backward {bwd} "
+          f"rotations seen {fwd in seen and bwd in seen}; wire "
+          f"{analyze.wire_bytes_per_device(parsed)}; lints "
+          f"{[str(v) for v in lints][:3]}  {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, "the lowered fused q8 DP=2 step failed a check")
+    out["q8"] = {"hop": prog.kernels().get("q8_hop"),
+                 "requant": prog.kernels().get("q8_requant"),
+                 "buckets": nbk}
+    del prog, parsed
+    torch.cuda.empty_cache()
+
+    # D: the SPMD engine's decode step.
+    reqs = prompts[:SLOTS]
+
+    def drive(overlap, lower_each_step):
+        scfg = serve.ServeConfig(slots=SLOTS, max_new=ANALYZE_MAX_NEW,
+                                 overlap=overlap)
+        with torch.no_grad():
+            eng = serve.Engine(cfg, params, scfg, spmd=True, nranks=2)
+            for p in reqs:
+                eng.submit(p, max_new=ANALYZE_MAX_NEW)
+            eng.step()
+            first = eng.lower_step()
+            progs = [first]
+            while eng.pending():
+                if lower_each_step and eng.occupancy():
+                    progs.append(eng.lower_step())
+                eng.step()
+            res = eng.results()
+        return {i: res[i].tolist() for i in res}, progs
+
+    plain, _ = drive(True, False)
+    lowered, progs = drive(True, True)
+    blocking, bprogs = drive(False, False)
+    ov = analyze.scheduled_exposure(progs[0])
+    bl = analyze.scheduled_exposure(bprogs[0])
+    lints = [v for p in progs + bprogs for v in analyze.run_lints(p)]
+    wire = {name: analyze.wire_bytes_per_device(p)
+            for name, p in (("overlap", progs[0]),
+                            ("blocking", bprogs[0]))}
+    ok = not lints and plain == lowered == blocking \
+        and bl["exposed_fraction"] == 1.0 \
+        and ov["exposed_fraction"] < 1.0 \
+        and wire["overlap"][0] == wire["blocking"][0]
+    print(f"  Engine(spmd=True, nranks=2) decode step: exposure overlap "
+          f"({ov['n_buckets']} buckets) {ov['exposed_fraction']}, "
+          f"blocking ({bl['n_buckets']}) {bl['exposed_fraction']}; wire "
+          f"{wire}; {len(progs)} lowerings, one before every step, leave "
+          f"the tokens as they were {plain == lowered} (blocking's the "
+          f"same {plain == blocking}); lints {len(lints)}  "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "the SPMD engine's lowered decode step failed a check")
+    out["serve"] = {"overlap": ov["exposed_fraction"],
+                    "blocking": bl["exposed_fraction"],
+                    "buckets": (ov["n_buckets"], bl["n_buckets"]),
+                    "wire": wire["overlap"][0]}
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU",
@@ -10475,7 +10712,15 @@ def main():
     dist = dist_phase(P, T, tree, dp, kernels, config, cfg, params, tokens,
                       smi)
 
-    phase(65, "kernels")
+    phase(65, "the collective-schedule verifier on the card: the sweep "
+          "and the defect corpus on (8,), (3,), (1,) and (2, 4) worlds, "
+          "phase 51's DP=2 step and the fused q8 DP=2 step lowered, "
+          "Engine(spmd=True, nranks=2).lower_step()")
+    print(smi)
+    verifier = analyze_phase(P, T, tree, dp, serve, kernels, config, fuse,
+                             cfg, params, tokens, prompts)
+
+    phase(66, "kernels")
     print(smi)
     sp_shapes, sp_worst = sp_kernel_numbers(flash, kernels)
     # flash_fwd: launches on the serving path (phase 4), times at the
@@ -10813,6 +11058,21 @@ def main():
     check(all(v > 0 for e in line["kernels"]
               for v in e["dist_launches"].values()),
           "a kernel of the multi-process path was launched no time")
+    # The verifier (phase 65): each kernel's custom_call events, on both
+    # ranks, in the recorded programs (equal to its launches during the
+    # recording): the attention kernels' in phase 51's lowered DP=2 step,
+    # K1's in the lowered fused q8 DP=2 step.
+    for entry in line["kernels"][:3]:
+        entry["analyze_launches"] = {
+            "flagship_dp2_lowered": verifier["dp2"]["launches"][
+                entry["name"]]}
+    hop_entry["analyze_launches"] = {
+        "fused_q8_dp2_lowered_hop": verifier["q8"]["hop"],
+        "fused_q8_dp2_lowered_requant": verifier["q8"]["requant"]}
+    check(all(v > 0 for e in line["kernels"]
+              for v in e["analyze_launches"].values()),
+          "a kernel of the verifier's recorded programs was launched no "
+          "time")
     print(json.dumps(line))
     print(f"  process transport: DP=2 step "
           f"{proc_train['process_ms']:.1f} ms on workers vs "
@@ -10868,7 +11128,17 @@ def main():
           f"in one process; {dist['wire']['sent_bytes'] / 1e9:.3f} GB sent "
           f"and {dist['wire']['received_bytes'] / 1e9:.3f} GB received a "
           f"step by worker 0; its device idle {dist['idle_pct']:.1f}%")
-    phase(66)
+    print(f"  verifier: the card sweep {verifier['sweep']['s']:.1f} s "
+          f"({verifier['sweep']['cases']} cases) and the defect corpus "
+          f"{verifier['sweep']['corpus_s']:.1f} s; lowering phase 51's "
+          f"DP=2 step {verifier['dp2']['lower_s']:.2f} s against its "
+          f"{verifier['dp2']['step_ms']:.1f} ms step; peak_live_bytes "
+          f"{verifier['dp2']['peak_live_bytes'] / 2**30:.3f} GiB beside "
+          f"max_memory_allocated "
+          f"{verifier['dp2']['max_memory_allocated'] / 2**30:.3f} GiB; "
+          f"decode exposure overlap {verifier['serve']['overlap']} vs "
+          f"blocking {verifier['serve']['blocking']}")
+    phase(67)
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -53,7 +53,12 @@ interpreter, the census).  ``elastic`` resizes a live world (membership
 consensus with epoch fencing, the planned drain and grow, hot-spare
 takeover), ``resilience.degrade`` adapts the configuration to a gray
 failure, and ``ctl`` is the online controller that measures, retunes and
-switches, every switch ratified by one consensus round.
+switches, every switch ratified by one consensus round.  ``analyze`` is
+the static schedule verifier: ``analyze.lower`` records a ``run_spmd``
+program as it runs once (every exchange a typed collective, every aten
+op and kernel launch an event), and its lints, wire/liveness/exposure
+accounting, seeded-defect corpus and registry-wide sweep read the
+record.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device and no such request they raise.  The package imports
@@ -98,7 +103,7 @@ from .runtime import (
 )
 from . import (compress, config, csched, fuse, obs, overlap, reshard,
                resilience, serve, transport, tune)
-from . import elastic, ctl
+from . import analyze, ctl, elastic
 from .config import (algorithm_scope, compression_scope, fusion_scope,
                      overlap_scope)
 from .distributed import (DistributedInfo, distributed_info,
@@ -121,7 +126,7 @@ __all__ = [
     "IntegrityError", "HealthReport", "resolve_device", "run_ranks",
     "config", "compress", "csched", "fuse", "tune", "overlap",
     "resilience",
-    "reshard", "serve", "obs", "transport", "elastic", "ctl",
+    "reshard", "serve", "obs", "transport", "elastic", "ctl", "analyze",
     "device_mesh", "hybrid_mesh",
     "DistributedInfo", "init_distributed", "finalize_distributed",
     "is_distributed", "distributed_info", "local_values",

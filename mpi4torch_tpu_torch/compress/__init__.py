@@ -56,15 +56,29 @@ def codec_applicable(codec, dtype, algorithm=None) -> bool:
 
 
 def int8_rotation_census(lowered, nranks):
-    """The both-rotations census of a lowered q8 dual-ring program: not
-    ported yet (raises)."""
-    raise NotImplementedError(
-        "int8_rotation_census: the census reads StableHLO through analyze "
-        "(ROADMAP.md, Queue 1 item 7)")
+    """Both-rotations census of a recorded q8 dual-ring program
+    (``analyze.lower``): returns ``(seen, fwd, bwd)``, where ``seen`` is
+    the set of ``source_target_pairs`` tables of the int8
+    ``collective_permute`` ops and ``fwd``/``bwd`` are the forward and
+    backward full-ring tables for ``nranks``, each written as the JAX
+    package writes them (``[[0,1],[1,2],...]``, no spaces), so ``fwd in
+    seen and bwd in seen`` is the census criterion."""
+    from ..analyze.parse import parse_program
+
+    def table(pairs):
+        return str([list(p) for p in pairs]).replace(" ", "")
+
+    seen = {table(op.source_target_pairs)
+            for op in parse_program(lowered).ops("collective_permute",
+                                                 dtype="i8")}
+    fwd = table((i, (i + 1) % nranks) for i in range(nranks))
+    bwd = table((i, (i - 1) % nranks) for i in range(nranks))
+    return seen, fwd, bwd
 
 
 __all__ = [
-    "codec_applicable", "codec_rides_algorithm", "HopEFQ8Codec", "Codec",
+    "codec_applicable", "codec_rides_algorithm", "int8_rotation_census",
+    "HopEFQ8Codec", "Codec",
     "BlockQ8Codec", "BF16Codec", "BF16StochasticCodec", "ErrorFeedbackCodec",
     "available_codecs", "get_codec", "register_codec",
     "compression_scope", "default_compression",

@@ -11,9 +11,10 @@ divergence:
    per-hop-EF ``q8_ef_hop``.  On a card the hop kernel K1's launches are
    counted against the schedule's: each rank's first encode and ``n - 1``
    hops per channel;
-2. the StableHLO census of the JAX package (int8 permutes on both
-   rotations of the dual ring) reads a lowered program, which the port
-   has no reader for yet: the lane says so (ROADMAP.md Queue 1 item 7);
+2. the JAX package's census of int8 permutes on both rotations of the
+   dual ring: the port's ``int8_rotation_census`` reads a recorded
+   program, and this lane is not ported yet: the lane says so
+   (ROADMAP.md Queue 1 item 7);
 3. **kernel**: K1 (``ops/csrc/quant_hop.cu``) against its plain version,
    bit for bit, round-to-nearest and stochastic with the residual.  On
    the CPU the plain version would be held against itself, which is no
@@ -123,8 +124,8 @@ def smoke(device=None) -> int:
     print(f"quant-smoke: {NRANKS} rank threads, device "
           f"{device or 'cuda'}")
     _parity_lane(failures, device, NRANKS)
-    print("census: waits for ROADMAP.md Queue 1 item 7 (the int8 "
-          "rotation census reads a lowered StableHLO program)")
+    print("census: waits for ROADMAP.md Queue 1 item 7 (this lane of "
+          "int8_rotation_census on recorded programs)")
     _kernel_lane(failures, device)
     if failures:
         print(f"quant-smoke: {len(failures)} FAILURE(S)")

@@ -522,6 +522,29 @@ def set_phase_pipelined_ring(value: bool) -> None:
     _phase_pipelined_ring = bool(value)
 
 
+# Rank-count ceiling up to which the JAX package unrolls the ``bidir``
+# ring chains hop by hop (distinct permute ops); larger worlds roll each
+# phase into a ``lax.scan`` of two permutes.  The port's rank threads run
+# every hop either way, so the knob moves no bit and no exchange: the
+# schedule census (``csched.census``) reads it to predict the JAX
+# package's op count, and a worker process, which runs and predicts
+# nothing, is not sent it.  The JAX package's default and validation.
+DEFAULT_CHAIN_UNROLL_MAX = 32
+_chain_unroll_max = DEFAULT_CHAIN_UNROLL_MAX
+
+
+def chain_unroll_max() -> int:
+    """Rank-count ceiling up to which the ``bidir`` ring chains count as
+    unrolled hop by hop in the schedule census."""
+    return _chain_unroll_max
+
+
+def set_chain_unroll_max(n) -> None:
+    global _chain_unroll_max
+    _chain_unroll_max = _validated_threshold(
+        n, "chain_unroll_max", minimum=1, unit="rank count")
+
+
 # --- the reshard planner -----------------------------------------------------
 
 # Default strategy of mpi4torch_tpu_torch.reshard: None ("auto") walks
@@ -809,6 +832,52 @@ def set_comm_tracer(tracer) -> None:
     to turn tracing off."""
     global _comm_tracer
     _comm_tracer = tracer
+
+
+# The program recorder of ``analyze.record`` or None: process-wide while
+# a lowering runs; each rank thread of the recorded region holds its own
+# stream, which the exchange chokepoint and the kernel launches read.
+_program_recorder = None
+
+
+def program_recorder():
+    """The active program recorder (``analyze.lower``), or None."""
+    return _program_recorder
+
+
+def set_program_recorder(recorder) -> None:
+    global _program_recorder
+    _program_recorder = recorder
+
+
+def program_stream():
+    """This thread's recording stream, or None: set on the rank threads
+    of a region that ``analyze.lower`` records."""
+    return getattr(_state, "program_stream", None)
+
+
+def set_program_stream(stream) -> None:
+    _state.program_stream = stream
+
+
+def thresholds_fingerprint():
+    """Hashable snapshot of every schedule threshold and selection knob,
+    in the JAX package's order, with the ``mode_a`` tracer flag last.
+    No cache reads it in the port (nothing is compiled); it names the
+    knob state a recorded program was lowered under, and the process
+    transport's shipped state covers the same knobs."""
+    return (_ordered_fold_gather_max_bytes, _ordered_ring_chunk_bytes,
+            _bcast_tree_max_bytes, _latency_crossover_bytes,
+            _bandwidth_crossover_bytes, _phase_pipelined_ring,
+            _hier_group_size, _tier_stack, _tier_bandwidths,
+            _chain_unroll_max, _quant_hop_impl,
+            _comm_finite_guard, _reshard_strategy,
+            _serve_decode_buckets,
+            _ctl_enabled, _ctl_halflife,
+            (_ctl_drift_low, _ctl_drift_high), _ctl_drift_patience,
+            _ctl_min_switch_epochs, _ctl_codec_crossover,
+            bool(_comm_tracer is not None
+                 and getattr(_comm_tracer, "mode_a", False)))
 
 
 # --- the transport -----------------------------------------------------------

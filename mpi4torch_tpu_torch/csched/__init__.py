@@ -14,8 +14,10 @@ lowers its codec-rewritten program (``compress/spmd.py``), and the
 rank-thread grouped folds and synthesized schedules run through the
 interpreter (``constants.reduce_grouped``/``reduce_torus``,
 ``ops/eager.py``).  Programs, their JSON and their digests are the JAX
-package's.  The ``--smoke`` CLI reads ``analyze`` and waits for
-ROADMAP.md Queue 1 item 7.
+package's.  The port's recorded programs (:mod:`mpi4torch_tpu_torch.
+analyze`) hold the exchanges these programs lower to; the JAX package's
+``--smoke`` CLI, which holds the census's ``hlo`` counts against a
+lowering, is not ported (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations

@@ -7,11 +7,11 @@ tables:
 * ``wire_bytes_per_rank`` — bytes received per rank over the schedule;
 * ``seq_steps`` — sequential wire rounds (the latency proxy);
 * ``hlo`` — the per-kind collective-op counts the JAX package's lowering
-  of the program holds, honoring the knobs its emitters honor (its
-  chain-unroll ceiling, ``unroll_max=``, and
-  ``config.phase_pipelined_ring``).  Here it is the prediction alone:
-  checking it against a lowering waits for the port's ``analyze``
-  (ROADMAP.md Queue 1 item 7).
+  of the program holds, honoring the knobs its emitters honor
+  (``config.chain_unroll_max`` and ``config.phase_pipelined_ring``).
+  The port's own recorded programs (:mod:`mpi4torch_tpu_torch.analyze`)
+  hold the executed exchanges, which equal it wherever the JAX program
+  has no loop (a ``lax.scan`` body counts once there).
 
 Also the tier attribution (:func:`tier_of_group`), the per-tier census
 (:func:`program_tier_census`) and the bandwidth-weighted cost
@@ -26,12 +26,6 @@ from .. import config as _config
 from .. import constants as C
 from ..runtime import CommError
 from .ir import Program, Step
-
-# Rank-count ceiling up to which the JAX package unrolls the ``bidir``
-# ring chains hop by hop (its ``config.chain_unroll_max`` default; larger
-# worlds take a ``lax.scan``, two permutes).  The port's rank threads run
-# the same hops either way, so only the predicted ``hlo`` count reads it.
-CHAIN_UNROLL_MAX = 32
 
 _HLO_KINDS = ("all_reduce", "all_gather", "reduce_scatter",
               "collective_permute", "all_to_all")
@@ -97,11 +91,15 @@ def _census_mask_root(step, n, elems, itemsize):
     return 0.0, 0, {}
 
 
-def _census_ring_chain(step, n, elems, itemsize,
-                       unroll_max=CHAIN_UNROLL_MAX):
+def _census_ring_chain(step, n, elems, itemsize):
+    """The ``bidir`` chains: ``2(n - 1)`` hops, counted as that many
+    permutes up to ``config.chain_unroll_max()`` ranks (the JAX package
+    unrolls them; larger worlds take a ``lax.scan`` of two permutes).
+    The port's rank threads run every hop either way, so only the
+    predicted ``hlo`` count reads the knob."""
     s = elems * itemsize
     hops = 2 * (n - 1)
-    permutes = hops if n <= unroll_max else 2
+    permutes = hops if n <= _config.chain_unroll_max() else 2
     return 2.0 * s * (n - 1) / n, hops, {"collective_permute": permutes}
 
 
@@ -172,12 +170,10 @@ def _span_elems(step: Step, nelems: int) -> int:
     return m if step.span[1] == 0 else max(0, nelems - m)
 
 
-def program_census(program: Program, nelems: int, itemsize: int,
-                   unroll_max: int = CHAIN_UNROLL_MAX) -> Dict:
+def program_census(program: Program, nelems: int, itemsize: int) -> Dict:
     """Wire/step/collective census of a program at a payload size.
     Multipath channels are concurrent: their wire bytes add, their
-    sequential rounds take the maximum.  ``unroll_max`` is the JAX
-    lowering's chain-unroll ceiling the ``hlo`` counts assume."""
+    sequential rounds take the maximum."""
     if program is None:
         return {"wire_bytes_per_rank": 0, "seq_steps": 0,
                 "hlo": _zero_counts(), "nsteps": 0}
@@ -194,11 +190,7 @@ def program_census(program: Program, nelems: int, itemsize: int,
             elems = _span_elems(step, nelems)
             if elems == 0:
                 continue
-            if step.kind == "ring_chain":
-                w, s, h = fn(step, program.nranks, elems, itemsize,
-                             unroll_max)
-            else:
-                w, s, h = fn(step, program.nranks, elems, itemsize)
+            w, s, h = fn(step, program.nranks, elems, itemsize)
             wire += w
             for k, v in h.items():
                 hlo[k] = hlo.get(k, 0) + v

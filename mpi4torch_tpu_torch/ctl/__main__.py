@@ -39,42 +39,14 @@ from __future__ import annotations
 import sys
 from typing import List
 
+# The guard's one home is the analyze registry (which reads
+# LEDGER_COVERED below when it runs).
+from ..analyze.registry import ctl_problems
+
 #: The trigger kinds the cells below actually drive through the ledger;
 #: :func:`ctl_problems` compares this against ``ledger.TRIGGER_KINDS``
 #: — add a trigger, add a cell.
 LEDGER_COVERED = ("drift", "crossover", "recovery", "fault")
-
-
-def ctl_problems() -> List[str]:
-    """Self-tuning controller registry sync: the decision ledger's
-    trigger vocabulary (``ledger.TRIGGER_KINDS``), this lane's coverage
-    literal (:data:`LEDGER_COVERED`) and the degrade-policy delegation
-    map (``controller.POLICY_TRIGGER``) must move together — a new
-    trigger kind cannot ship without a smoke cell that records it, and
-    a new degrade policy cannot ship outside the controller's ONE
-    switching mechanism."""
-    from ..resilience.__main__ import set_drift
-    from ..resilience.degrade import DEGRADE_POLICIES
-    from .controller import POLICY_TRIGGER
-    from .ledger import TRIGGER_KINDS
-
-    problems = set_drift(
-        TRIGGER_KINDS, LEDGER_COVERED,
-        "ledger trigger kinds {registered} out of sync with the "
-        "ctl-smoke coverage literal {covered} — every trigger kind "
-        "needs a smoke cell that records a ledgered switch")
-    problems += set_drift(
-        DEGRADE_POLICIES, POLICY_TRIGGER,
-        "degrade-policy registry {registered} out of sync with the "
-        "controller's delegation map {covered} — every policy must "
-        "route through the controller's ratified switch "
-        "(ctl.controller.POLICY_TRIGGER)")
-    stray = sorted(set(POLICY_TRIGGER.values()) - set(TRIGGER_KINDS))
-    if stray:
-        problems.append(
-            f"POLICY_TRIGGER delegates to unregistered trigger "
-            f"kind(s) {stray} — the ledger would refuse the record")
-    return problems
 
 
 def _fail(failures: list, msg: str) -> None:

@@ -24,7 +24,7 @@ then the process-wide mutation, then the decision-ledger record.
 measurement-triggered path are the same code with different triggers —
 the delegation map :data:`POLICY_TRIGGER` is registry-sync guarded
 against ``DEGRADE_POLICIES`` and the ledger's trigger vocabulary
-(``ctl.__main__.ctl_problems``).
+(``analyze.registry.ctl_problems``).
 
 Off path: ``config.ctl_enabled()`` is False by default and ``poll``
 is one knob read — a controller constructed but disabled changes
@@ -57,7 +57,7 @@ class CtlError(CommError):
 # Which ledger trigger kind each registered degrade policy delegates
 # to — the "one switching mechanism" contract made structural: every
 # DEGRADE_POLICIES entry must appear here, and every value must be a
-# ledger TRIGGER_KIND (ctl.__main__.ctl_problems guards both
+# ledger TRIGGER_KIND (analyze.registry.ctl_problems guards both
 # directions, so adding a policy without routing it through the
 # controller's ledger fails the ctl smoke lane).
 POLICY_TRIGGER: Dict[str, str] = {

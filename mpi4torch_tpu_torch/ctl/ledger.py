@@ -9,7 +9,7 @@ WHICH consensus epoch.  One :class:`Decision` per ratified switch:
 
 * ``trigger`` — one of :data:`TRIGGER_KINDS` (registry-sync guarded
   against the smoke lane's coverage literal and the degrade-policy
-  delegation map by ``ctl.__main__.ctl_problems``);
+  delegation map by ``analyze.registry.ctl_problems``);
 * ``epoch`` — the consensus epoch every rank ratified BEFORE the
   switch (the lock-step guarantee);
 * ``tier`` / ``ratio`` / ``estimates`` — the triggering measurement
@@ -40,7 +40,7 @@ __all__ = [
 
 # The closed trigger vocabulary (the ledger owns it; the controller's
 # delegation map and the smoke lane's coverage literal are guarded
-# against it by ctl.__main__.ctl_problems):
+# against it by analyze.registry.ctl_problems):
 #   drift     — a tier's estimate sagged below the low watermark for
 #               `patience` checks, winner re-ranked under the live
 #               bandwidth vector (exact wire);

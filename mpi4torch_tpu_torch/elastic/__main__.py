@@ -16,50 +16,9 @@ worlds' device (default: CUDA).
 from __future__ import annotations
 
 import sys
-from typing import List
 
-
-def elastic_problems() -> List[str]:
-    """Elastic matrix coverage vs its declared dimensions, and the
-    bridge into the resilience registry: every failure kind the elastic
-    matrix composes must itself be a registered fault kind with a plain
-    fault-matrix row."""
-    from ..resilience.__main__ import set_drift
-    from ..resilience.faults import FAULT_KINDS
-    from ..resilience.matrix import COVERAGE as FAULT_COVERAGE
-    from .matrix import (ACTIONS, CONSENSUS_COVERAGE, COVERAGE,
-                         EXPECTED_CONSENSUS_ERROR, KINDS, SUBSYSTEMS)
-
-    declared = {(k, s, a) for k in KINDS for s in SUBSYSTEMS
-                for a in ACTIONS}
-    problems = set_drift(
-        declared, set(COVERAGE),
-        "elastic coverage drift: declared cells {registered} vs "
-        "COVERAGE table {covered} — every (kind x subsystem x action) "
-        "needs a cell and vice versa")
-    for kind in KINDS:
-        if kind not in FAULT_KINDS:
-            problems.append(
-                f"elastic kind {kind!r} is not a registered fault kind "
-                "— register it (resilience.faults) so the injection "
-                "grammar covers it")
-        elif kind not in FAULT_COVERAGE:
-            problems.append(
-                f"elastic kind {kind!r} has no plain fault-matrix row — "
-                "the resilience matrix must pin its unhandled "
-                "(raise) behavior before the elastic matrix composes "
-                "its handled one")
-    problems += set_drift(
-        CONSENSUS_COVERAGE, {(k, "membership", "consensus")
-                             for k in EXPECTED_CONSENSUS_ERROR},
-        "consensus-cell drift: coverage {registered} vs expected-error "
-        "table {covered}")
-    bad = [v for v in list(COVERAGE.values())
-           + list(CONSENSUS_COVERAGE.values())
-           if v not in ("recover", "raise")]
-    if bad:
-        problems.append(f"unknown elastic cell outcomes {sorted(set(bad))}")
-    return problems
+# The guard's one home is the analyze registry.
+from ..analyze.registry import elastic_problems
 
 
 def _smoke(device) -> int:

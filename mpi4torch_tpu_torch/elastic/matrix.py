@@ -8,7 +8,7 @@ fault specs and verdict records, on the port's rank threads (or worker
 processes under ``config.transport_scope("process")``) on the device
 ``run_cell`` is given (CUDA unless ``"cpu"`` is asked for).
 :data:`COVERAGE` is the literal table the registry-sync guard
-(``elastic.__main__.elastic_problems``) checks against the fault
+(``analyze.registry.elastic_problems``) checks against the fault
 registry and the declared subsystem/action sets.
 
 Dimensions:

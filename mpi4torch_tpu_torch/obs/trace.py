@@ -412,9 +412,11 @@ def spmd_collective_event(x, where: str):
     With no tracer installed, or ``mode_a=False`` (the default), returns
     ``x`` untouched: no op, no sync.  With ``mode_a=True`` it records one
     step-level event for this rank's entry, carrying the payload bytes
-    (from the shape; nothing is read from the device)."""
+    (from the shape; nothing is read from the device).  A rank thread
+    that ``analyze.lower`` records serves no step, so it records none."""
     tracer = _config.comm_tracer()
-    if tracer is None or not tracer.mode_a:
+    if tracer is None or not tracer.mode_a \
+            or _config.program_stream() is not None:
         return x
     tracer.record_spmd(where, x.numel() * x.element_size())
     return x

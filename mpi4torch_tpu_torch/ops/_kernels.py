@@ -48,6 +48,8 @@ import time
 
 import torch
 
+from .. import config as _config
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")
@@ -290,10 +292,14 @@ def _strides(*tensors):
 
 
 def _launch(kernel: str, lib: str, fn_name: str, device, *args,
-            variant: str = None, also: tuple = ()) -> None:
+            variant: str = None, also: tuple = (), ins: tuple = (),
+            outs: tuple = ()) -> None:
     """Call ``fn_name`` of library ``lib`` with ``args`` and the current
     stream; raise on a CUDA error, else count the launch under ``kernel``
-    (and ``kernel.variant`` when given, and each name of ``also``)."""
+    (and ``kernel.variant`` when given, and each name of ``also``).
+    ``ins``/``outs`` are the tensors the kernel reads and writes: a
+    program that ``analyze.lower`` records gets one ``custom_call`` event
+    of them, named ``kernel``."""
     fn = getattr(load(lib), fn_name)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
@@ -302,6 +308,9 @@ def _launch(kernel: str, lib: str, fn_name: str, device, *args,
         raise RuntimeError(f"{kernel} kernel launch failed with CUDA error "
                            f"{err}")
     _count(kernel, *([f"{kernel}.{variant}"] if variant else []), *also)
+    recording = _config.program_stream()
+    if recording is not None:
+        recording.kernel(kernel, ins, outs)
 
 
 def fwd_variant(dtype, d: int) -> str:
@@ -391,7 +400,7 @@ def _attention_launch(kernel, variant, ins, outs, q_off, kv_off, causal,
             *(t.data_ptr() for t in ins + outs), *dtype, b, h, k.shape[2],
             sq, k.shape[1], d, _strides(*ins), int(q_off), int(kv_off),
             int(bool(causal)), int(window), int(dh), variant=variant,
-            also=tuple(also))
+            also=tuple(also), ins=ins, outs=outs)
 
 
 def flash_fwd(q, k, v, q_off: int, kv_off: int, causal: bool,
@@ -560,5 +569,7 @@ def quant_hop(q, scale, mine, noise=None, want_resid: bool = False):
     _launch("q8_requant" if q is None else "q8_hop", "quant_hop",
             "mpi4torch_quant_hop", mine.device, ptr(q), ptr(scale),
             mine.data_ptr(), ptr(noise), q_out.data_ptr(), s_out.data_ptr(),
-            ptr(resid), nb, block, vec)
+            ptr(resid), nb, block, vec,
+            ins=tuple(t for t in (q, scale, mine, noise) if t is not None),
+            outs=tuple(t for t in (q_out, s_out, resid) if t is not None))
     return q_out, s_out, resid

@@ -41,8 +41,11 @@ sub-communicators); the world's signature check turns a rank that runs
 another op into :class:`~mpi4torch_tpu_torch.runtime.
 CollectiveMismatchError`.
 
-Nothing is compiled: ``run_spmd(jit=True)`` runs eagerly (a compiled
-step is ROADMAP Queue 1 item 4.12).  The compressed collectives live in
+Nothing is compiled: ``run_spmd(jit=True)`` runs eagerly, since ``jit``
+has no counterpart the port needs (PyTorch runs eagerly; where launch
+overhead dominates, a CUDA graph is the tool).  A program's record for
+the analyzer comes from one recorded run (``analyze.lower``).  The
+compressed collectives live in
 ``compress/spmd.py`` and the SPMD reshard executor in
 ``reshard/executor.py``; :class:`SpmdBackend` routes to them.
 """
@@ -2193,6 +2196,10 @@ class _SpmdRun:
                          self.axis_name)
         prev = _current_region()
         _tls.region = region
+        # A lowering in progress (analyze.lower) records this rank thread.
+        rec = _config.program_recorder()
+        recording = rec.rank_stream(self, rank) if rec is not None \
+            else contextlib.nullcontext()
         try:
             # Backward passes run on this rank's own thread: autograd's
             # CUDA worker thread would queue the ranks' blocking adjoint
@@ -2201,7 +2208,8 @@ class _SpmdRun:
                     _config.compression_scope(comp), \
                     _config.fusion_scope(bb), _config.overlap_scope(ovl), \
                     _config.algorithm_scope(algo), \
-                    torch.autograd.set_multithreading_enabled(False):
+                    torch.autograd.set_multithreading_enabled(False), \
+                    recording:
                 if self.device.type == "cuda":
                     torch.cuda.set_device(self.device)
                 yield region
@@ -2383,8 +2391,8 @@ def run_spmd(fn, nranks: Optional[int] = None, mesh=None,
     scopes are read at call time and bound in every rank thread.  Inputs
     are shared across the ranks, not copied: a body must not modify them
     in place.  Nothing is compiled: ``jit`` is accepted for the JAX
-    package's signature and the call runs eagerly either way (a compiled
-    step is ROADMAP Queue 1 item 4.12)."""
+    package's signature and the call runs eagerly either way; ``jit``
+    has no counterpart the port needs (PyTorch runs eagerly)."""
     from .. import distributed as _dist
     lay = _dist.layout()
     if mesh is None:

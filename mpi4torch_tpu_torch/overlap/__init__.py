@@ -27,8 +27,8 @@ region's context) must be waited on before the region ends.
 ``config.set_default_overlap``); on a tier stack with a slow outer tier
 (``config.tier_bandwidths``) :func:`tier_window_depth` widens it.
 :data:`SPLIT_PHASE_FORMS` lists the facade's ``<Form>_start`` methods.
-``scheduled_exposure`` reads lowered StableHLO and goes with
-``analyze/`` (ROADMAP.md Queue 1 item 7).
+:func:`scheduled_exposure` censuses a recorded program's split-phase
+windows (:mod:`mpi4torch_tpu_torch.analyze`).
 """
 
 from __future__ import annotations
@@ -43,12 +43,13 @@ from ..comm import WaitHandle
 from ..ops.eager import join_dummies as _join_dummies
 from ..runtime import BifurcationError, effective_rank_context
 
-def scheduled_exposure(lowered_or_text):
-    """The scheduled-exposure census of a lowering: not ported yet
-    (raises)."""
-    raise NotImplementedError(
-        "scheduled_exposure: the census reads StableHLO through analyze "
-        "(ROADMAP.md, Queue 1 item 7)")
+def scheduled_exposure(program):
+    """The scheduled-exposure census of a recorded program
+    (``analyze.lower``, ``Engine.lower_step``):
+    :func:`mpi4torch_tpu_torch.analyze.scheduled_exposure`."""
+    from ..analyze.accounting import scheduled_exposure as _exposure
+
+    return _exposure(program)
 
 
 __all__ = [
@@ -64,6 +65,7 @@ __all__ = [
     "overlap_reduce_scatter_tree",
     "overlap_split_allreduce",
     "prefetch_allgather_tree",
+    "scheduled_exposure",
     "tier_window_depth",
     "SPLIT_PHASE_FORMS",
 ]

@@ -18,8 +18,8 @@ the reverse plan, so cotangents redistribute spec' -> spec.
 Under :func:`~mpi4torch_tpu_torch.ops.spmd.run_spmd` (Mode A) the same
 plans run on the SPMD exchange primitives, bitwise the rank-thread
 replay; ``python -m mpi4torch_tpu_torch.reshard --smoke`` sweeps them.
-Not ported yet: the StableHLO census (``peak_live_bytes``,
-``tensor_bytes``; ROADMAP.md Queue 1 item 7), which raises here.
+The census of a recorded reshard (``peak_live_bytes``, ``tensor_bytes``)
+delegates to :mod:`mpi4torch_tpu_torch.analyze`.
 """
 
 from .executor import (apply_plan, execute_plan, gather_then_slice,
@@ -51,18 +51,22 @@ __all__ = [
     "global_template",
     "match_partition_rules",
     "tree_paths",
+    "peak_live_bytes",
+    "tensor_bytes",
 ]
 
 
-def peak_live_bytes(program_text):
-    """Peak live bytes of a lowered program: not ported yet (raises)."""
-    raise NotImplementedError(
-        "peak_live_bytes: the census reads StableHLO through analyze "
-        "(ROADMAP.md, Queue 1 item 7)")
+def peak_live_bytes(program):
+    """Peak live bytes of a recorded program (``analyze.lower`` of a
+    reshard): :func:`mpi4torch_tpu_torch.analyze.peak_live_bytes`."""
+    from ..analyze.accounting import peak_live_bytes as _peak
+
+    return _peak(program)
 
 
 def tensor_bytes(type_text):
-    """Bytes of a StableHLO tensor type: not ported yet (raises)."""
-    raise NotImplementedError(
-        "tensor_bytes: the census reads StableHLO through analyze "
-        "(ROADMAP.md, Queue 1 item 7)")
+    """Bytes of a tensor type description (``8x128xf32``):
+    :func:`mpi4torch_tpu_torch.analyze.tensor_bytes`."""
+    from ..analyze.parse import tensor_bytes as _bytes
+
+    return _bytes(type_text)

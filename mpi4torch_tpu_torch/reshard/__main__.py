@@ -9,8 +9,9 @@ world.  Every cell:
    assemble-and-slice reference and the executed gather-then-slice
    strategy;
 2. the JAX package also censuses each planned program's peak live bytes
-   in its lowered StableHLO; the port has no lowered-program reader yet,
-   so the lane says it waits (ROADMAP.md Queue 1 item 7);
+   in its lowered StableHLO; the port's counterpart reads a recorded
+   program (``reshard.peak_live_bytes``), and this lane is not ported
+   yet, so it says it waits (ROADMAP.md Queue 1 item 7);
 3. one cell re-runs under ``deterministic_mode`` and one runs its VJP
    under Mode A (the cotangents must land as the reverse
    redistribution).
@@ -24,6 +25,9 @@ divergence.  The device is CUDA unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import sys
+
+# The guard's one home is the analyze registry.
+from ..analyze.registry import reshard_step_problems
 
 #: World size of the sweep (the JAX CLI's 8 host devices).
 NRANKS = 8
@@ -57,25 +61,6 @@ def _cases(n: int, factors):
              layout((a, b), None, 1), None),
         ]
     return cases
-
-
-def registry_problems(exercised=None):
-    """Step-kind registry vs both executors' dispatch tables, plus, when
-    the sweep passes the kinds its forward and adjoint plans exercised,
-    sweep coverage (which also closes the adjoints over the registry)."""
-    from . import STEP_KINDS
-    from .executor import _EAGER_EXEC, _SPMD_EXEC
-
-    kinds = set(STEP_KINDS)
-    probs = []
-    if set(_SPMD_EXEC) != kinds:
-        probs.append(f"SPMD executor serves {sorted(_SPMD_EXEC)}")
-    if set(_EAGER_EXEC) != kinds:
-        probs.append(f"eager executor serves {sorted(_EAGER_EXEC)}")
-    if exercised is not None and set(exercised) != kinds:
-        probs.append(
-            f"sweep exercised {sorted(exercised)} of {sorted(kinds)}")
-    return probs
 
 
 def smoke(device=None) -> int:
@@ -128,8 +113,8 @@ def smoke(device=None) -> int:
             continue
         print(f"cell {name:14s} strategy={plan.strategy:9s} "
               f"steps={[st.kind for st in plan.steps]} bitwise=ok")
-    print("peak-live-bytes: waits for ROADMAP.md Queue 1 item 7 (the "
-          "census reads a lowered StableHLO program)")
+    print("peak-live-bytes: waits for ROADMAP.md Queue 1 item 7 (this "
+          "lane of reshard.peak_live_bytes on recorded programs)")
 
     if factors is not None:
         fl = _cases(n, factors)[3][1]
@@ -157,7 +142,7 @@ def smoke(device=None) -> int:
             failures += 1
             print("FAIL: VJP cotangents did not redistribute spec' -> spec")
 
-    probs = registry_problems(exercised)
+    probs = reshard_step_problems(exercised)
     if probs:
         failures += 1
         print("FAIL registry-sync: " + "; ".join(probs))

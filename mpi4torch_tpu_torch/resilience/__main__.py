@@ -25,100 +25,10 @@ acted somewhere, and the degrade-policy registry guard
 from __future__ import annotations
 
 import sys
-from typing import Iterable, List
 
-
-def set_drift(registered: Iterable, covered: Iterable,
-              message: str) -> List[str]:
-    """The shared core of the registry-sync guards: ``[message]`` when
-    the two name sets differ, else ``[]``.  ``message`` may reference
-    ``{registered}`` and ``{covered}`` (each the sorted list)."""
-    r, c = set(registered), set(covered)
-    if r == c:
-        return []
-    return [message.format(registered=sorted(r), covered=sorted(c))]
-
-
-def resilience_problems() -> List[str]:
-    """Fault-kind registry vs the censused matrix coverage."""
-    from .faults import FAULT_KINDS
-    from .matrix import COMM_SUBSYSTEMS, COVERAGE
-
-    problems = set_drift(
-        FAULT_KINDS, COVERAGE,
-        "registry/coverage drift: registered={registered} "
-        "covered={covered} — every fault kind needs a "
-        "matrix row and vice versa")
-    for kind, rows in COVERAGE.items():
-        if kind not in FAULT_KINDS:
-            continue
-        sites = FAULT_KINDS[kind].sites
-        if "checkpoint" in sites:
-            if "checkpoint" not in rows:
-                problems.append(f"{kind}: checkpoint-site kind without a "
-                                "checkpoint cell")
-        else:
-            missing = set(COMM_SUBSYSTEMS) - set(rows)
-            if missing:
-                problems.append(f"{kind}: no cell for subsystem(s) "
-                                f"{sorted(missing)}")
-        if rows and all(v == "inert" for v in rows.values()):
-            problems.append(f"{kind}: inert in EVERY subsystem — the "
-                            "kind is effectively untested")
-    return problems
-
-
-def degrade_problems() -> List[str]:
-    """Gray-failure registry sync: the chaos matrix's coverage table vs
-    the gray fault kinds (each of which must also be a registered fault
-    kind WITH a plain fault-matrix row), and the degrade-policy registry
-    vs the chaos matrix's degrade cells — a policy without a cell, or a
-    covered cell whose policy is unregistered, fails the chaos lane."""
-    from .chaos import (CHAOS_COVERAGE, CHAOS_SUBSYSTEMS, DEGRADE_COVERED,
-                        GRAY_KINDS)
-    from .degrade import DEGRADE_POLICIES
-    from .faults import FAULT_KINDS
-    from .matrix import COVERAGE as FAULT_COVERAGE
-
-    problems = set_drift(
-        GRAY_KINDS, CHAOS_COVERAGE,
-        "gray-kind/chaos-coverage drift: kinds={registered} "
-        "covered={covered} — every gray kind needs a chaos row and "
-        "vice versa")
-    for kind in GRAY_KINDS:
-        if kind not in FAULT_KINDS:
-            problems.append(
-                f"gray kind {kind!r} is not a registered fault kind — "
-                "register it (resilience.faults) so the injection "
-                "grammar covers it")
-        elif kind not in FAULT_COVERAGE:
-            problems.append(
-                f"gray kind {kind!r} has no plain fault-matrix row — "
-                "the resilience matrix must pin its transient behavior "
-                "before the chaos matrix composes the gray one")
-        missing = set(CHAOS_SUBSYSTEMS) - set(CHAOS_COVERAGE.get(kind,
-                                                                 {}))
-        if missing:
-            problems.append(f"{kind}: no chaos cell for subsystem(s) "
-                            f"{sorted(missing)}")
-    problems += set_drift(
-        DEGRADE_POLICIES, set(DEGRADE_COVERED.values()),
-        "degrade-policy registry {registered} != chaos-covered "
-        "policies {covered} — every registered policy needs a degrade "
-        "cell exercising it (DEGRADE_COVERED) and vice versa")
-    for (kind, subsystem), policy in DEGRADE_COVERED.items():
-        if CHAOS_COVERAGE.get(kind, {}).get(subsystem) != "degrade":
-            problems.append(
-                f"DEGRADE_COVERED names ({kind} x {subsystem}) for "
-                f"policy {policy!r}, but the chaos coverage table does "
-                "not declare that cell 'degrade'")
-    bad = sorted({v for rows in CHAOS_COVERAGE.values()
-                  for v in rows.values()
-                  if v not in ("recover", "degrade", "escalate",
-                               "inert")})
-    if bad:
-        problems.append(f"unknown chaos cell outcomes {bad}")
-    return problems
+# The guards' one home is the analyze registry; this lane and its tests
+# read them from here.
+from ..analyze.registry import degrade_problems, resilience_problems
 
 
 def _report(tag: str, rec: dict) -> int:

@@ -72,7 +72,7 @@ CHAOS_SUBSYSTEMS = ("plain", "fused", "compressed", "overlap", "serve",
                     "elastic")
 
 # The literal coverage table (registry-sync guarded against GRAY_KINDS,
-# CHAOS_SUBSYSTEMS and DEGRADE_POLICIES by resilience.__main__.
+# CHAOS_SUBSYSTEMS and DEGRADE_POLICIES by analyze.registry.
 # degrade_problems).
 CHAOS_COVERAGE: Dict[str, Dict[str, str]] = {
     "slow_rank": {"plain": "degrade", "fused": "recover",

@@ -256,7 +256,7 @@ def _policy_spare_demote(ctl: "DegradeController",
 
 # The closed policy registry (registry-sync guarded: a policy without a
 # chaos-matrix degrade cell — or a covered name that is not registered
-# — fails the chaos smoke lane; see resilience.__main__.degrade_problems).
+# — fails the chaos smoke lane; see analyze.registry.degrade_problems).
 DEGRADE_POLICIES = {
     "codec_escalate": _policy_codec_escalate,
     "schedule_failover": _policy_schedule_failover,

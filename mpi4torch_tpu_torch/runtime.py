@@ -444,8 +444,17 @@ class World:
         ``check.report(bad_ranks)`` on every rank alike.
 
         This is the collective chokepoint: with a comm tracer installed
-        it records a ``CommEvent``, and a fault plan may delay, kill or
-        corrupt this rank's contribution here."""
+        it records a ``CommEvent``, a fault plan may delay, kill or
+        corrupt this rank's contribution here.  On a rank thread that
+        ``analyze.lower`` records, the exchange becomes one collective op
+        of the recorded program and goes straight to the wire: a lowering
+        records a program, it does not serve one, so no tracer sees it
+        and no fault plan fires on it."""
+        stream = _cfg.program_stream()
+        if stream is not None:
+            self._check_failed()
+            return stream.exchange(self._exchange_wire, rank, signature,
+                                   payload, read, checks)
         tracer = _cfg.comm_tracer()
         if tracer is None:
             return self._exchange(rank, signature, payload, read, checks,

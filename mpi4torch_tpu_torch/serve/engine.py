@@ -46,8 +46,8 @@ JAX package's functional contract: it decodes into a private copy of its
 cache row and returns it, and ``run_spmd`` stacks the rows into the next
 state, so a step copies the cache twice.  Admission, page copies, row
 installs, the past gather and release act on every row of the stacked
-state on the host side.  ``lower_step`` reads a lowered program: not
-ported (ROADMAP.md Queue 1 item 7).
+state on the host side.  :meth:`Engine.lower_step` records the decode
+step over the current slot state (:mod:`mpi4torch_tpu_torch.analyze`).
 """
 
 from __future__ import annotations
@@ -553,12 +553,27 @@ class Engine:
             (self._rows_n,) + tuple(a.shape)).contiguous(), tree)
 
     def lower_step(self):
-        """The JAX package's lowered decode-step program (its StableHLO
-        census surface): the port has no lowered-program reader yet."""
-        raise NotImplementedError(
-            "Engine.lower_step: the decode-step census reads a lowered "
-            "StableHLO program, which the port has no reader for yet "
-            "(ROADMAP.md, Queue 1 item 7)")
+        """The recorded (Mode A) decode-step program over the current
+        slot state, dense or paged (``analyze.lower`` of the step call):
+        the census surface ``overlap.scheduled_exposure`` and
+        ``analyze.wire_bytes_per_device`` read.  The step runs once for
+        the recording and its outputs are dropped, so neither the cache
+        nor the next step's tokens change; no comm tracer sees its
+        exchanges, so an attached controller polls no phantom step (its
+        kernels do launch and count in ``launch_counts``)."""
+        if not self._spmd:
+            raise CommError(
+                "lower_step records the SPMD decode program; construct "
+                "the engine with spmd=True")
+        from ..analyze import lower
+
+        live = np.asarray([r is not None for r in self._slot_req])
+        tokens = torch.as_tensor(self._tokens, device=self.device)
+        if self._paged:
+            return lower(self._step_call, self._shards, self._cache,
+                         self._table, tokens, self._pos, live)
+        return lower(self._step_call, self._shards, self._cache, tokens,
+                     torch.as_tensor(self._pos), torch.as_tensor(live))
 
     # ---------------------------------------------------------- lifecycle
 

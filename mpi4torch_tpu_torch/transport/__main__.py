@@ -16,13 +16,16 @@ any divergence:
   with its fired-fault ledger.
 
 The JAX lane that reconciles a traced process run against a compiled
-lowering waits for the port's lowering reader (ROADMAP.md, Queue 1
-item 7).  The device is CUDA unless ``--device cpu`` is given.
+lowering waits for ``obs.reconcile`` (ROADMAP.md, Queue 1 item 7).  The device is CUDA unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import sys
+
+# The guard's one home is the analyze registry (which reads
+# TESTED_BACKENDS below when it runs).
+from ..analyze.registry import transport_problems
 
 #: The backends the parity lanes exercise; the registry must not hold
 #: another (register a backend, test a backend).
@@ -36,15 +39,6 @@ def _fail(failures: list, msg: str) -> None:
 
 def _ok(msg: str) -> None:
     print(f"ok  : {msg}", flush=True)
-
-
-def registry_problems() -> list:
-    from . import TRANSPORTS
-
-    return [f"backend {name!r} is registered but no parity lane tests it"
-            for name in sorted(set(TRANSPORTS) - set(TESTED_BACKENDS))] + [
-        f"tested backend {name!r} is not registered"
-        for name in sorted(set(TESTED_BACKENDS) - set(TRANSPORTS))]
 
 
 def bitwise_equal(a, b) -> bool:
@@ -181,7 +175,7 @@ def smoke(device=None) -> int:
     from . import shutdown
 
     failures: list = []
-    for p in registry_problems():
+    for p in transport_problems():
         _fail(failures, f"[registry] {p}")
     if not failures:
         _ok(f"registry: TRANSPORTS == tested backends "

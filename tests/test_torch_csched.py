@@ -14,8 +14,8 @@ the signatures rank 0 deposits through ``World.exchange``, in order.
   ``transpose`` equals JAX's; a constructor raises where JAX's raises.
 * The census (``program_census``, ``program_tier_census``, the
   predicted collective counts included) is dict-equal to JAX's at the
-  default knobs, with a lower chain-unroll ceiling (JAX's
-  ``chain_unroll_max``, the port census's ``unroll_max=``),
+  default knobs, with a lower chain-unroll ceiling
+  (``config.chain_unroll_max`` on both sides),
   ``phase_pipelined_ring`` off and a 3-tier ``tier_stack`` set.
 * The interpreter is bitwise JAX's ``interpret_allreduce`` (f32) and the
   port's rendezvous fold; ``reduce_grouped``/``reduce_torus`` are bitwise
@@ -331,7 +331,8 @@ def _reset_both():
     for cfg in (P.config, mpi.config):
         for k, v in _defaults(cfg).items():
             getattr(cfg, f"set_{k}")(v)
-    mpi.config.set_chain_unroll_max(mpi.config.DEFAULT_CHAIN_UNROLL_MAX)
+    for cfg in (P.config, mpi.config):
+        cfg.set_chain_unroll_max(cfg.DEFAULT_CHAIN_UNROLL_MAX)
 
 
 class TestTransposition:
@@ -388,17 +389,16 @@ class TestCensus:
                                     "ordered_ring_chunk_bytes": 64}])
     def test_census_equals_jax(self, knobs):
         knobs = dict(knobs)
-        # JAX's chain-unroll ceiling is a config knob; the port's census
-        # takes it as an argument (its rank threads have no unrolling).
-        default = pcs.census.CHAIN_UNROLL_MAX
+        # The chain-unroll ceiling is a config knob on both sides, with
+        # one default.
+        default = P.config.DEFAULT_CHAIN_UNROLL_MAX
         assert default == mpi.config.DEFAULT_CHAIN_UNROLL_MAX
         unroll = knobs.pop("chain_unroll_max", default)
-        mpi.config.set_chain_unroll_max(unroll)
-        _set_both(**knobs)
+        _set_both(chain_unroll_max=unroll, **knobs)
         for n in (3, 8):
             for what, p, j in _all_programs(n):
                 for nelems in (1, 64, 1000):
-                    assert pcs.program_census(p, nelems, 4, unroll) \
+                    assert pcs.program_census(p, nelems, 4) \
                         == jcs.program_census(j, nelems, 4), what
                 for tiers in ((n,), (2, 4), (4, 2), (2, 2, 2)):
                     if int(np.prod(tiers)) != n:

@@ -25,9 +25,6 @@ JAX package's (``mpi4torch_tpu.ctl``) on the CPU.
   Allreduce's programs, exchanges and values, an eager Allreduce's values
   and an engine's tokens unchanged; the engine consults an attached
   controller once a step.
-
-JAX's ``test_fingerprint_covers_ctl_knobs`` waits for a port jit cache
-(ROADMAP.md, Queue 1 item 4.12).
 """
 
 import json

@@ -7,6 +7,8 @@ on its own, past the suite's JAX-configuring conftest::
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -2375,3 +2377,78 @@ def test_two_processes_on_the_card_bitwise_rank_threads(cuda, tmp_path):
             got = torch.load(tmp_path / f"res{pid}.pt")[codec]
             assert torch.equal(got[0][0], y[pid].cpu()), (codec, pid)
             assert torch.equal(got[1][0], g[pid].cpu()), (codec, pid)
+
+
+@pytest.mark.cuda
+def test_analyze_recorded_q8_bidir_equals_the_cpu_record(cuda):
+    # A recorded q8 bidir Allreduce on the card: the same collective
+    # sequence as the CPU record (kinds, pairs, types, labels), and its
+    # K1 custom_call events equal the launches _kernels counts for the
+    # same run, the program's rank holding its share.
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch import analyze
+
+    n = 4
+    x = torch.from_numpy(np.random.default_rng(23).standard_normal(
+        4096).astype(np.float32))
+
+    def record(device):
+        call = P.run_spmd(lambda v: P.COMM_WORLD.Allreduce(
+            v, P.MPI_SUM, compression="q8", algorithm="bidir"),
+            nranks=n, device=device)
+        return analyze.lower(call, x.to(device))
+
+    cpu = record("cpu")
+    _kernels.reset_launch_counts()
+    card = record(cuda)
+    launches = dict(_kernels.launch_counts)
+    def wire(prog):
+        # Event indices differ: the card's hop is one custom_call where
+        # the CPU runs the plain hop's aten ops.
+        return [dataclasses.replace(op, line=0) for op in prog.collectives]
+
+    assert wire(card) == wire(cpu)
+    assert analyze.wire_bytes_per_device(card) == \
+        analyze.wire_bytes_per_device(cpu)
+    assert analyze.run_lints(card) == []
+    assert card.kernels() == {k: launches[k] for k in ("q8_hop",
+                                                      "q8_requant")
+                              if launches[k]}
+    assert launches["q8_hop"] > 0
+    mine = analyze.parse_program(card).kernel_events()
+    assert mine["q8_hop"] * n == launches["q8_hop"]
+    assert cpu.kernels() == {}
+
+
+@pytest.mark.cuda
+def test_analyze_attention_kernel_events_equal_launches(cuda):
+    # A recorded DP=2 training step of a small bf16 transformer: its K2,
+    # K3 and K4 custom_call events (every rank) equal the launch counts,
+    # n_layers of each on each rank, and the program lints clean.
+    import mpi4torch_tpu_torch as P
+    from mpi4torch_tpu_torch import analyze
+    from mpi4torch_tpu_torch.parallel import dp
+
+    cfg = T.TransformerConfig(vocab=128, d_model=128, n_heads=2,
+                              n_layers=2, d_ff=256, max_seq=128)
+    params = T.init_transformer(0, cfg, torch.bfloat16, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (4, 128), device=cuda,
+                         generator=torch.Generator(device=cuda)
+                         .manual_seed(0))
+    comm = P.COMM_WORLD
+
+    def body(p, t):
+        idx = comm.rank * 2 + torch.arange(2, device=t.device)
+        return dp.dp_value_and_grad(
+            comm, lambda q, x: T.lm_loss(cfg, q, x))(
+                p, t.index_select(0, idx))
+
+    _kernels.reset_launch_counts()
+    prog = analyze.lower(P.run_spmd(body, nranks=2), params, toks)
+    launches = dict(_kernels.launch_counts)
+    mine = analyze.parse_program(prog).kernel_events()
+    for k in _kernels.ATTENTION_KERNELS:
+        assert launches[k] == 2 * cfg.n_layers, k
+        assert prog.kernels()[k] == launches[k]
+        assert mine[k] == cfg.n_layers
+    assert analyze.run_lints(prog) == []

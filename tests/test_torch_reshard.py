@@ -693,9 +693,10 @@ class TestSpmdParity:
 
 
 def test_cli_smoke_exits_zero(capsys):
-    from mpi4torch_tpu_torch.reshard.__main__ import main, registry_problems
+    from mpi4torch_tpu_torch.reshard.__main__ import (main,
+                                                      reshard_step_problems)
 
-    assert registry_problems() == []
+    assert reshard_step_problems() == []
     assert main(["--smoke", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert out.count("bitwise=ok") == 11 and "reshard-smoke: OK" in out

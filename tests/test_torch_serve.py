@@ -193,8 +193,9 @@ def test_unported_engine_options_raise(weights, kw):
     # key), paging, the overlap window and the decode schedule on two rank
     # threads, and the SPMD engine (spmd=True, ROADMAP.md Queue 1 item
     # 4.7) on two ranks of run_spmd, emit the JAX generate() tokens of
-    # every request, as the blocking ring's dense greedy engine does; only
-    # the SPMD engine's lowered-program census still raises (item 7).
+    # every request, as the blocking ring's dense greedy engine does; the
+    # SPMD engine's decode step records as a program that lints clean
+    # (analyze, ROADMAP.md Queue 1 item 7).
     jcfg, jparams, pcfg, pparams, eos, oracle = weights
     scfg = kw.get("serve_cfg")
     if scfg is None:
@@ -202,8 +203,10 @@ def test_unported_engine_options_raise(weights, kw):
                             pserve.ServeConfig(slots=2, max_new=8, eos=eos),
                             nranks=2, device="cpu", **kw)
         assert _drive(eng)[0] == oracle
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            eng.lower_step()
+        from mpi4torch_tpu_torch import analyze
+        prog = eng.lower_step()
+        assert prog.num_partitions == 2 and prog.collectives
+        assert analyze.run_lints(prog) == []
         return
     scfg = dataclasses.replace(scfg, slots=2, max_new=8, eos=eos)
     keys = None

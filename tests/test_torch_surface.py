@@ -29,19 +29,17 @@ from mpi4torch_tpu_torch.constants import divide
 
 # JAX name -> the ROADMAP.md Queue 1 item it waits for.
 UNPORTED = {
-    "": {
-        "analyze": 7,
-    },
+    "": {},
     "ops": {},
     "utils": {},
-    "reshard": {"peak_live_bytes": 7, "tensor_bytes": 7},
+    "reshard": {},
     "obs": {"measured_wire_table": 7,
             "reconcile": 7, "equivalent_wire": 7,
             "equivalent_tier_wire": 7},
     "transport": {},
     "resilience": {},
-    "compress": {"int8_rotation_census": 7},
-    "overlap": {"scheduled_exposure": 7},
+    "compress": {},
+    "overlap": {},
     "serve": {},
     "tune": {},
     "csched": {},

@@ -37,7 +37,7 @@ from mpi4torch_tpu_torch.runtime import (CollectiveMismatchError,
 from mpi4torch_tpu_torch.transport import _ship, process, wire
 from mpi4torch_tpu_torch.transport.__main__ import (bitwise_equal,
                                                     parity_bodies,
-                                                    registry_problems)
+                                                    transport_problems)
 from mpi4torch_tpu_torch.transport.pool import WorkerPool, shared_pool
 
 CPU = "cpu"
@@ -108,7 +108,7 @@ def _first_difference(a, b):
 class TestRegistry:
     def test_both_backends_registered(self):
         assert transport.available_transports() == ["process", "thread"]
-        assert registry_problems() == []
+        assert transport_problems() == []
 
     def test_shadowing_refused(self):
         class Impostor(transport.Transport):
