@@ -444,7 +444,20 @@ check fails.  Phases, in order:
     ``int8_rotation_census``; D, ``Engine(spmd=True, nranks=2)``'s
     ``lower_step()`` at full width: exposure below 1.0 with overlap, 1.0
     blocking, the tokens unchanged by lowering before every step;
-66. one JSON line describing each ported kernel (K2, K3 and K4 with
+66. the runtime census against the recorded programs (``obs.reconcile``)
+    on the card: A, phase 51's exact DP=2 step and the fused q8 DP=2
+    step at full width traced under ``run_ranks`` and reconciled against
+    phase 65's recordings of their ``run_spmd`` twins (wire bytes and
+    per-kind counts exact, every rank consistent, nothing dropped; the
+    q8 buckets priced through equivalent recordings, whose K1 launches
+    are counted), with the seconds of each traced step; B, the TP=2
+    overlap decode step at full width reconciled against
+    ``Engine(spmd=True, nranks=2, overlap=True).lower_step()`` at
+    exposure 0.0, with K2's launches; C, ``overlap --smoke``, ``obs
+    --smoke``, ``csched --smoke``, ``csched --tiers`` and ``serve
+    --smoke`` in this process on the card, each exiting 0, with their
+    seconds;
+67. one JSON line describing each ported kernel (K2, K3 and K4 with
     the variant the main path ran; the launches of phases 18–20, 23–27,
     30–31 and of the later slices' phases, ``obs_launches``,
     ``resilience_launches``, ``handoff_launches``,
@@ -452,17 +465,19 @@ check fails.  Phases, in order:
     workers), ``mode_a_launches`` (phases 51, 55, 56 and 57) and
     ``mesh_2d_launches`` (phase 61), ``tune_launches`` (phase 62),
     ``item6_launches`` (phase 63), ``dist_launches`` (phase 64,
-    counted in the workers) and ``analyze_launches`` (phase 65, the
-    custom_call events of the recorded programs);
+    counted in the workers), ``analyze_launches`` (phase 65, the
+    custom_call events of the recorded programs) and
+    ``reconcile_launches`` (phase 66);
     their numbers at the SP and
     slice-10 shapes, against the plain versions, their bounds and SDPA;
     K1 with its hop and requant launches, ``reshard_launches``,
     ``process_launches``, ``mode_a_launches`` (phases 55 and 58) and
     ``csched_launches`` (phase 60), ``tune_launches`` (phase 62),
-    ``item6_launches`` (phase 63), ``dist_launches`` (phase 64) and
-    ``analyze_launches`` (phase 65) among them).
+    ``item6_launches`` (phase 63), ``dist_launches`` (phase 64),
+    ``analyze_launches`` (phase 65) and ``reconcile_launches`` (phase
+    66) among them).
 
-Each phase prints the seconds it took, and each of 28–66 the card's name
+Each phase prints the seconds it took, and each of 28–67 the card's name
 and power limit beside its numbers.  Times on the host clock are host times; event times of the
 comm tracer are host times (a rendezvous returns before the card has
 run its work).
@@ -10070,12 +10085,13 @@ def analyze_phase(P, T, tree, dp, serve, kernels, config, fuse, cfg,
           f"before the step, both ranks)  {'ok' if ok else 'FAIL'}",
           flush=True)
     check(ok, "the lowered DP=2 step failed a check")
+    # The recording stays for phase 66 (it holds no tensor).
     out["dp2"] = {"launches": prog.kernels(), "lower_s": lower_s,
                   "step_ms": min(step_ms), "peak_live_bytes": peak,
                   "max_memory_allocated": max_alloc,
                   "above_base": max_alloc - base,
                   "collectives": len(parsed.collectives), "wire": wire,
-                  "events": len(parsed.events)}
+                  "events": len(parsed.events), "program": prog}
     del prog, parsed, call
     torch.cuda.empty_cache()
 
@@ -10108,7 +10124,7 @@ def analyze_phase(P, T, tree, dp, serve, kernels, config, fuse, cfg,
     check(ok, "the lowered fused q8 DP=2 step failed a check")
     out["q8"] = {"hop": prog.kernels().get("q8_hop"),
                  "requant": prog.kernels().get("q8_requant"),
-                 "buckets": nbk}
+                 "buckets": nbk, "program": prog}
     del prog, parsed
     torch.cuda.empty_cache()
 
@@ -10157,6 +10173,182 @@ def analyze_phase(P, T, tree, dp, serve, kernels, config, fuse, cfg,
                     "blocking": bl["exposed_fraction"],
                     "buckets": (ov["n_buckets"], bl["n_buckets"]),
                     "wire": wire["overlap"][0]}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 66: the runtime census against the recorded programs, and the CLIs
+# ---------------------------------------------------------------------------
+
+RECONCILE_SLOTS = 2          # phase 66 B: the two requests of JAX's case 1d
+RECONCILE_MAX_NEW = 3        # phase 66 B's decode budget a request
+
+
+def reconcile_report(rep):
+    """One line of an ``obs.reconcile`` report: measured and predicted
+    wire bytes and counts, and the verdicts."""
+    m, p = rep["measured"], rep["predicted"]
+    return (f"measured {m['wire_bytes']} B {m['counts']}, predicted "
+            f"{p['wire_bytes']} B {p['counts']}; {m['logical_events']} "
+            f"logical events a rank, ranks consistent "
+            f"{m['per_rank_consistent']}, dropped {rep['dropped_events']}, "
+            f"excluded {m['excluded']}; exposure "
+            f"{p['scheduled_exposure']}")
+
+
+def reconcile_phase(P, T, tree, dp, kernels, config, cfg, params, tokens,
+                    prompts, verifier):
+    """Phase 66: ``obs.reconcile`` on the card at full width, and the
+    smoke CLIs.  A: phase 51's exact DP=2 step and the fused q8 DP=2 step
+    traced under ``run_ranks`` and reconciled against phase 65's
+    recordings of their ``run_spmd`` twins (B and C; not recorded again):
+    wire bytes and per-kind counts exact, every rank consistent, nothing
+    dropped; the q8 buckets priced through equivalent recordings, whose
+    K1 launches are counted.  B: the TP=2 overlap decode step (JAX's
+    ``obs --smoke`` case 1d at the flagship's width): a traced Mode B
+    engine step after admission, behind a barrier sentinel, reconciled
+    against ``Engine(spmd=True, nranks=2, overlap=True).lower_step()``
+    at exposure 0.0.  C: ``overlap --smoke``, ``obs --smoke``, ``csched
+    --smoke``, ``csched --tiers`` and ``serve --smoke`` in this process
+    on the card, each exiting 0."""
+    import importlib
+    import io
+
+    from mpi4torch_tpu_torch import obs
+    from mpi4torch_tpu_torch.obs.__main__ import serve_decode_reconcile
+
+    # The module (the package's ``reconcile`` is the function): its cache
+    # of equivalent recordings counts them.
+    rec = importlib.import_module("mpi4torch_tpu_torch.obs.reconcile")
+    out = {}
+    rows = TRAIN_BATCH // 2
+    comm = P.COMM_WORLD
+    bb = config.DEFAULT_BUCKET_BYTES
+
+    def exact_step(r):
+        x = tokens[r * rows:(r + 1) * rows]
+        loss, g = dp.dp_value_and_grad(
+            comm, lambda q, b: T.lm_loss(cfg, q, b))(params, x)
+        with torch.no_grad():
+            tree.tree_map(lambda a, b: a - LR * b, params, g)
+        return loss
+
+    def q8_step(r):
+        x = tokens[r * rows:(r + 1) * rows]
+        loss, g = tree.value_and_grad(lambda q: T.lm_loss(cfg, q, x),
+                                      params)
+        synced = comm.Allreduce_tree(g, P.MPI_SUM, mean=True,
+                                     compression="q8", bucket_bytes=bb)
+        with torch.no_grad():
+            tree.tree_map(lambda a, s: a - LR * s, params, synced)
+        return loss
+
+    # A: the two DP=2 steps against phase 65's recordings.
+    for name, body, program, want in (
+            ("exact", exact_step, verifier["dp2"]["program"],
+             kernels.ATTENTION_KERNELS),
+            ("fused_q8", q8_step, verifier["q8"]["program"],
+             kernels.ATTENTION_KERNELS + ("q8_hop", "q8_requant"))):
+        kernels.reset_launch_counts()
+        with obs.trace() as t:
+            step_ms, _ = sync_ms(lambda: P.run_ranks(body, 2,
+                                                     device="cuda"))
+        launches = dict(kernels.launch_counts)
+        n0 = len(rec._equiv_program_cache)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = obs.reconcile(t, program)
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        eq = {"lowerings": len(rec._equiv_program_cache) - n0,
+              "launches": {k: kernels.launch_counts[k]
+                           for k in ("q8_hop", "q8_requant")}}
+        ok = rep["ok"] and rep["dropped_events"] == 0 \
+            and rep["measured"]["per_rank_consistent"] \
+            and all(launches[k] > 0 for k in want)
+        if name == "fused_q8":
+            ok = ok and eq["lowerings"] > 0 \
+                and eq["launches"]["q8_hop"] > 0
+        print(f"  {name} DP=2 step traced on run_ranks: "
+              f"{reconcile_report(rep)}; the traced step {step_ms:.1f} ms, "
+              f"launches { {k: launches[k] for k in want} }; reconcile "
+              f"{rec_s:.2f} s, its {eq['lowerings']} equivalent "
+              f"recordings included (their K1 launches "
+              f"{eq['launches']})  {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"phase 66: the {name} DP=2 step did not reconcile "
+                  f"exactly: {rep['matches']}")
+        out[name] = {"step_ms": step_ms, "reconcile_s": rec_s,
+                     "wire": rep["measured"]["wire_bytes"],
+                     "counts": rep["measured"]["counts"],
+                     "launches": {k: launches[k] for k in want},
+                     "equivalent": eq}
+        del t
+    torch.cuda.empty_cache()
+
+    # B: the TP=2 overlap decode step at full width.
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = serve_decode_reconcile(cfg, params, prompts[:RECONCILE_SLOTS], 2,
+                                 "cuda", max_new=RECONCILE_MAX_NEW)
+    torch.cuda.synchronize()
+    leg_s = time.perf_counter() - t0
+    k2 = {k: kernels.launch_counts[k] for k in ("flash_fwd",
+                                                "flash_fwd.tc")}
+    ok = rep["ok"] and rep["predicted"]["scheduled_exposure"] == 0.0 \
+        and k2["flash_fwd"] > 0
+    print(f"  TP=2 overlap decode step (slots {RECONCILE_SLOTS}, prompts "
+          f"{[len(p) for p in prompts[:RECONCILE_SLOTS]]}): "
+          f"{reconcile_report(rep)}; K2 launches in the leg {k2} (the "
+          f"Mode B prefills on both ranks, the Mode A engine's and its "
+          f"recorded step); {leg_s:.1f} s  {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, "phase 66: the TP=2 decode step did not reconcile exactly "
+              f"at exposure 0.0: {rep['matches']}, exposure "
+              f"{rep['predicted']['scheduled_exposure']}")
+    out["serve"] = {"wire": rep["measured"]["wire_bytes"],
+                    "counts": rep["measured"]["counts"], "k2": k2,
+                    "s": leg_s}
+    torch.cuda.empty_cache()
+
+    # C: the smoke CLIs, in this process on the card.
+    from mpi4torch_tpu_torch.csched import __main__ as csched_cli
+    from mpi4torch_tpu_torch.obs import __main__ as obs_cli
+    from mpi4torch_tpu_torch.overlap import __main__ as overlap_cli
+    from mpi4torch_tpu_torch.serve import __main__ as serve_cli
+
+    out["cli_s"] = {}
+    for name, fn in (("overlap --smoke", overlap_cli.smoke),
+                     ("obs --smoke", obs_cli.smoke),
+                     ("csched --smoke", csched_cli.smoke),
+                     ("csched --tiers", csched_cli.tiers),
+                     ("serve --smoke", serve_cli.smoke)):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = fn("cuda")
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        text = buf.getvalue()
+        if name.startswith("csched"):
+            report = json.loads(text)
+            keep = ("ok", "failures", "synthesis", "reconcile",
+                    "two_level", "registry_problems")
+            lines = [json.dumps({k: report[k] for k in keep
+                                 if k in report and k != "synthesis"})]
+            if name == "csched --smoke":
+                syn = report["synthesis"]
+                lines.append(f"synthesis {syn['winner']} chain "
+                             f"{syn['chain']}: recorded census "
+                             f"{syn['census_recorded']}, predicted "
+                             f"{syn['census_predicted']}")
+        else:
+            lines = text.splitlines()
+        for ln in (text.splitlines() if rc else lines):
+            print("    " + ln)
+        print(f"  python -m mpi4torch_tpu_torch.{name} --device cuda "
+              f"(in process): exit {rc} in {cli_s:.1f} s", flush=True)
+        check(rc == 0, f"phase 66: {name} failed on the card")
+        out["cli_s"][name] = cli_s
     return out
 
 
@@ -10720,7 +10912,16 @@ def main():
     verifier = analyze_phase(P, T, tree, dp, serve, kernels, config, fuse,
                              cfg, params, tokens, prompts)
 
-    phase(66, "kernels")
+    phase(66, "the runtime census against the recorded programs: "
+          "phase 51's exact DP=2 step and the fused q8 DP=2 step traced "
+          "and reconciled with obs.reconcile at full width, the TP=2 "
+          "overlap decode step, and the overlap, obs, csched and serve "
+          "smoke CLIs on the card")
+    print(smi)
+    reconciled = reconcile_phase(P, T, tree, dp, kernels, config, cfg,
+                                 params, tokens, prompts, verifier)
+
+    phase(67, "kernels")
     print(smi)
     sp_shapes, sp_worst = sp_kernel_numbers(flash, kernels)
     # flash_fwd: launches on the serving path (phase 4), times at the
@@ -11073,6 +11274,27 @@ def main():
               for v in e["analyze_launches"].values()),
           "a kernel of the verifier's recorded programs was launched no "
           "time")
+    # The runtime census (phase 66): each attention kernel's launches in
+    # the traced exact and fused q8 DP=2 steps, flash_fwd's in the TP=2
+    # decode leg; K1's hop and requant launches in the traced q8 step and
+    # its hop launches in the equivalent recordings of its buckets.
+    for entry in line["kernels"][:3]:
+        entry["reconcile_launches"] = {
+            f"{leg}_dp2_traced": reconciled[leg]["launches"][entry["name"]]
+            for leg in ("exact", "fused_q8")}
+        if entry["name"] == "flash_fwd":
+            entry["reconcile_launches"]["tp2_decode_leg"] = \
+                reconciled["serve"]["k2"]["flash_fwd"]
+    hop_entry["reconcile_launches"] = {
+        "fused_q8_dp2_traced_hop":
+            reconciled["fused_q8"]["launches"]["q8_hop"],
+        "fused_q8_dp2_traced_requant":
+            reconciled["fused_q8"]["launches"]["q8_requant"],
+        "equivalent_recordings_hop":
+            reconciled["fused_q8"]["equivalent"]["launches"]["q8_hop"]}
+    check(all(v > 0 for e in line["kernels"]
+              for v in e["reconcile_launches"].values()),
+          "a kernel of the reconciled steps was launched no time")
     print(json.dumps(line))
     print(f"  process transport: DP=2 step "
           f"{proc_train['process_ms']:.1f} ms on workers vs "
@@ -11138,7 +11360,17 @@ def main():
           f"{verifier['dp2']['max_memory_allocated'] / 2**30:.3f} GiB; "
           f"decode exposure overlap {verifier['serve']['overlap']} vs "
           f"blocking {verifier['serve']['blocking']}")
-    phase(67)
+    print(f"  runtime census: the traced exact DP=2 step "
+          f"{reconciled['exact']['step_ms']:.1f} ms, reconciled in "
+          f"{reconciled['exact']['reconcile_s']:.2f} s; the fused q8 "
+          f"step {reconciled['fused_q8']['step_ms']:.1f} ms, reconciled "
+          f"in {reconciled['fused_q8']['reconcile_s']:.2f} s with "
+          f"{reconciled['fused_q8']['equivalent']['lowerings']} "
+          f"equivalent recordings; TP=2 decode leg "
+          f"{reconciled['serve']['s']:.1f} s; CLIs "
+          + ", ".join(f"{k} {v:.1f} s"
+                      for k, v in reconciled["cli_s"].items()))
+    phase(68)
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,16 +11,15 @@ divergence:
    per-hop-EF ``q8_ef_hop``.  On a card the hop kernel K1's launches are
    counted against the schedule's: each rank's first encode and ``n - 1``
    hops per channel;
-2. the JAX package's census of int8 permutes on both rotations of the
-   dual ring: the port's ``int8_rotation_census`` reads a recorded
-   program, and this lane is not ported yet: the lane says so
-   (ROADMAP.md Queue 1 item 7);
+2. **census**: the recorded q8 ``bidir`` program (``analyze.lower``)
+   carries int8 ``collective_permute`` ops on BOTH rotations of the dual
+   ring (``int8_rotation_census``);
 3. **kernel**: K1 (``ops/csrc/quant_hop.cu``) against its plain version,
    bit for bit, round-to-nearest and stochastic with the residual.  On
    the CPU the plain version would be held against itself, which is no
    check: the lane runs only where a card is present, and says so.
 
-Lane 1 runs on :data:`NRANKS` rank threads.  The device is CUDA unless
+Lanes 1 and 2 run on :data:`NRANKS` rank threads.  The device is CUDA unless
 ``--device cpu`` is given.
 """
 
@@ -83,6 +82,30 @@ def _parity_lane(failures, device, n) -> None:
         print(line)
 
 
+def _census_lane(failures, device, n) -> None:
+    import torch
+
+    from .. import MPI_SUM
+    from ..analyze.sweep import _flat_lowerer
+    from ..runtime import resolve_device
+    from . import int8_rotation_census
+
+    dev = resolve_device(device)
+    lower, _ = _flat_lowerer(n, dev)
+    program = lower(lambda c, a: c.Allreduce(a, MPI_SUM, compression="q8",
+                                             algorithm="bidir"),
+                    torch.ones((1 << 12,), dtype=torch.float32,
+                               device=dev))
+    perms, fwd, bwd = int8_rotation_census(program, n)
+    if fwd not in perms or bwd not in perms:
+        failures.append("census")
+        print(f"FAIL: int8 permutes must ride both dual-ring rotations; "
+              f"saw {sorted(perms)}")
+        return
+    print("census: int8 collective_permutes on both source_target_pairs "
+          "rotations of the q8-bidir dual ring")
+
+
 def _kernel_lane(failures, device) -> None:
     import numpy as np
     import torch
@@ -124,8 +147,7 @@ def smoke(device=None) -> int:
     print(f"quant-smoke: {NRANKS} rank threads, device "
           f"{device or 'cuda'}")
     _parity_lane(failures, device, NRANKS)
-    print("census: waits for ROADMAP.md Queue 1 item 7 (this lane of "
-          "int8_rotation_census on recorded programs)")
+    _census_lane(failures, device, NRANKS)
     _kernel_lane(failures, device)
     if failures:
         print(f"quant-smoke: {len(failures)} FAILURE(S)")

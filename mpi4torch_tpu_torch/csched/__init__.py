@@ -15,9 +15,9 @@ rank-thread grouped folds and synthesized schedules run through the
 interpreter (``constants.reduce_grouped``/``reduce_torus``,
 ``ops/eager.py``).  Programs, their JSON and their digests are the JAX
 package's.  The port's recorded programs (:mod:`mpi4torch_tpu_torch.
-analyze`) hold the exchanges these programs lower to; the JAX package's
-``--smoke`` CLI, which holds the census's ``hlo`` counts against a
-lowering, is not ported (ROADMAP.md Queue 1 item 7).
+analyze`) hold the exchanges these programs lower to; ``python -m
+mpi4torch_tpu_torch.csched --smoke|--tiers`` holds the IR routes against
+the hand-written ones and the census against the recordings.
 """
 
 from __future__ import annotations

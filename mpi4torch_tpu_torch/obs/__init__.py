@@ -13,12 +13,14 @@ Port of ``mpi4torch_tpu.obs``:
 * a flight recorder (:mod:`.flight`): per-rank rings of recent events,
   written as a rank-attributed postmortem when a rank dies, a rendezvous
   times out or an integrity guard fires;
-* a Chrome-trace / Perfetto export (:mod:`.export`) of the timeline.
+* a Chrome-trace / Perfetto export (:mod:`.export`) of the timeline;
+* static-vs-runtime reconciliation (:mod:`.reconcile`):
+  :func:`reconcile` holds a traced run's wire bytes and collective
+  counts, exactly, against the recorded Mode A program
+  (``analyze.lower``, ``Engine.lower_step``).
 
-Event times are host times.  Not ported: ``reconcile``,
-``measured_wire_table``, ``equivalent_wire`` and
-``equivalent_tier_wire``, which hold the runtime census against the
-static analysis of lowered programs (ROADMAP.md, Queue 1 item 7).
+Event times are host times.  ``python -m mpi4torch_tpu_torch.obs
+--smoke`` runs the four verdict families.
 """
 
 # The module alias comes first: the `trace` attribute below is the
@@ -27,6 +29,8 @@ from . import trace as tracing  # noqa: F401  (module alias)
 from .events import CommEvent, annotate_signature, payload_nbytes
 from .export import chrome_trace, write_chrome_trace
 from .flight import dump_postmortem, format_postmortem
+from .reconcile import (equivalent_tier_wire, equivalent_wire,
+                        measured_wire_table, reconcile)
 from .metrics import (MetricsRegistry, StatsSourceRegistry, metrics_json,
                       percentile, prometheus_text, register_collector,
                       registry, reset_metrics, snapshot)
@@ -56,4 +60,8 @@ __all__ = [
     "dump_postmortem",
     "chrome_trace",
     "write_chrome_trace",
+    "measured_wire_table",
+    "reconcile",
+    "equivalent_wire",
+    "equivalent_tier_wire",
 ]

@@ -81,35 +81,46 @@ _labels = threading.local()
 def push_label(label: str):
     """Context manager pushing ``label`` onto this thread's label stack
     (it does nothing when no tracer is installed)."""
-    return _LabelCtx(label)
+    return _LabelCtx(label, "stack")
+
+
+def push_adjoint_label(label: str):
+    """Context manager naming, for the block, the forward bucket whose
+    adjoint runs in it: its events carry the label in
+    ``extra["adjoint_of"]``, while their ``bucket`` stays None (the
+    backward runs outside the scopes, as in the JAX package)."""
+    return _LabelCtx(label, "adjoint")
 
 
 class _LabelCtx:
-    __slots__ = ("label", "_pushed")
+    __slots__ = ("label", "stack", "_pushed")
 
-    def __init__(self, label: str):
+    def __init__(self, label: str, stack: str):
         self.label = label
+        self.stack = stack
         self._pushed = False
 
     def __enter__(self):
         if _config.comm_tracer() is not None:
-            stack = getattr(_labels, "stack", None)
+            stack = getattr(_labels, self.stack, None)
             if stack is None:
-                stack = _labels.stack = []
+                stack = []
+                setattr(_labels, self.stack, stack)
             stack.append(self.label)
             self._pushed = True
         return self
 
     def __exit__(self, *exc):
         if self._pushed:
-            _labels.stack.pop()
+            getattr(_labels, self.stack).pop()
         return False
 
 
-def current_label() -> Optional[str]:
-    """Innermost label pushed on this thread, or None."""
-    stack = getattr(_labels, "stack", None)
-    return stack[-1] if stack else None
+def current_label(stack: str = "stack") -> Optional[str]:
+    """Innermost label pushed on this thread (``stack="adjoint"``: by
+    :func:`push_adjoint_label`), or None."""
+    got = getattr(_labels, stack, None)
+    return got[-1] if got else None
 
 
 class _Meter:
@@ -120,7 +131,7 @@ class _Meter:
 
     __slots__ = ("tracer", "world_ord", "world_size", "rank", "channel",
                  "signature", "payload_bytes", "peer", "tag", "t0",
-                 "retries", "bucket", "wait_s")
+                 "retries", "bucket", "adjoint", "wait_s")
 
     def __init__(self, tracer, world_ord, world_size, rank, channel,
                  signature, payload_bytes, peer, tag):
@@ -134,6 +145,7 @@ class _Meter:
         self.peer = peer
         self.tag = tag
         self.bucket = current_label()
+        self.adjoint = current_label("adjoint")
         self.retries = 0
         self.wait_s = 0.0
         self.t0 = time.perf_counter()
@@ -220,7 +232,8 @@ class CommTracer:
             algorithm=ann.get("algorithm"), codec=ann.get("codec"),
             bucket=meter.bucket, group_size=ann.get("group_size"),
             shape=ann.get("shape"), dtype=ann.get("dtype"),
-            peer=meter.peer, tag=meter.tag)
+            peer=meter.peer, tag=meter.tag,
+            extra={"adjoint_of": meter.adjoint} if meter.adjoint else {})
         self._append(ev)
         if error is not None and isinstance(error, _failure_types()):
             self._note_failure(ev, error)

@@ -39,6 +39,7 @@ on its own rank, and raises or warns on every rank alike.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import List, Sequence, Tuple
 
 import torch
@@ -211,14 +212,25 @@ def _allreduce_value(ctx: RankContext, x, op: int, algorithm=None):
 class _Allreduce(torch.autograd.Function):
     @staticmethod
     def forward(fctx, x, rctx, op, algorithm):
+        from ..obs.trace import current_label
+
         fctx.rctx, fctx.op, fctx.algorithm = rctx, op, algorithm
+        # The comm tracer's bucket label of the forward: the adjoint's
+        # event names it (obs.reconcile prices a fused bucket's adjoint as
+        # it prices the bucket).
+        fctx.label = current_label()
         return _allreduce_value(rctx, x, op, algorithm)
 
     @staticmethod
     def backward(fctx, g):
+        from ..obs.trace import push_adjoint_label
+
         _sum_only(fctx.op, "Allreduce")
-        return _allreduce_value(fctx.rctx, g.contiguous(), C.MPI_SUM,
-                                fctx.algorithm), None, None, None
+        with push_adjoint_label(fctx.label) if fctx.label \
+                else nullcontext():
+            out = _allreduce_value(fctx.rctx, g.contiguous(), C.MPI_SUM,
+                                   fctx.algorithm)
+        return out, None, None, None
 
 
 def allreduce(ctx: RankContext, x, op: int, algorithm=None,

@@ -27,8 +27,9 @@ region's context) must be waited on before the region ends.
 ``config.set_default_overlap``); on a tier stack with a slow outer tier
 (``config.tier_bandwidths``) :func:`tier_window_depth` widens it.
 :data:`SPLIT_PHASE_FORMS` lists the facade's ``<Form>_start`` methods.
-:func:`scheduled_exposure` censuses a recorded program's split-phase
-windows (:mod:`mpi4torch_tpu_torch.analyze`).
+:func:`scheduled_exposure` (:mod:`.census`) censuses a recorded
+program's split-phase windows (:mod:`mpi4torch_tpu_torch.analyze`);
+``python -m mpi4torch_tpu_torch.overlap --smoke`` drives the scheduler.
 """
 
 from __future__ import annotations
@@ -42,15 +43,7 @@ from .. import config as _config
 from ..comm import WaitHandle
 from ..ops.eager import join_dummies as _join_dummies
 from ..runtime import BifurcationError, effective_rank_context
-
-def scheduled_exposure(program):
-    """The scheduled-exposure census of a recorded program
-    (``analyze.lower``, ``Engine.lower_step``):
-    :func:`mpi4torch_tpu_torch.analyze.scheduled_exposure`."""
-    from ..analyze.accounting import scheduled_exposure as _exposure
-
-    return _exposure(program)
-
+from .census import scheduled_exposure
 
 __all__ = [
     "SplitWaitHandle",

@@ -18,8 +18,8 @@ the reverse plan, so cotangents redistribute spec' -> spec.
 Under :func:`~mpi4torch_tpu_torch.ops.spmd.run_spmd` (Mode A) the same
 plans run on the SPMD exchange primitives, bitwise the rank-thread
 replay; ``python -m mpi4torch_tpu_torch.reshard --smoke`` sweeps them.
-The census of a recorded reshard (``peak_live_bytes``, ``tensor_bytes``)
-delegates to :mod:`mpi4torch_tpu_torch.analyze`.
+The census of a recorded reshard (:mod:`.census`: ``peak_live_bytes``,
+``tensor_bytes``) delegates to :mod:`mpi4torch_tpu_torch.analyze`.
 """
 
 from .executor import (apply_plan, execute_plan, gather_then_slice,
@@ -28,6 +28,7 @@ from .executor import (apply_plan, execute_plan, gather_then_slice,
                        slice_shard)
 from .plan import (STEP_KINDS, STRATEGIES, Layout, ReshardPlan, layout,
                    plan_permutation, plan_reshard, plan_resize)
+from .census import peak_live_bytes, tensor_bytes
 from .rules import match_partition_rules, tree_paths
 
 __all__ = [
@@ -55,18 +56,3 @@ __all__ = [
     "tensor_bytes",
 ]
 
-
-def peak_live_bytes(program):
-    """Peak live bytes of a recorded program (``analyze.lower`` of a
-    reshard): :func:`mpi4torch_tpu_torch.analyze.peak_live_bytes`."""
-    from ..analyze.accounting import peak_live_bytes as _peak
-
-    return _peak(program)
-
-
-def tensor_bytes(type_text):
-    """Bytes of a tensor type description (``8x128xf32``):
-    :func:`mpi4torch_tpu_torch.analyze.tensor_bytes`."""
-    from ..analyze.parse import tensor_bytes as _bytes
-
-    return _bytes(type_text)

@@ -8,10 +8,9 @@ world.  Every cell:
 1. the Mode A result is compared BITWISE against two oracles, the numpy
    assemble-and-slice reference and the executed gather-then-slice
    strategy;
-2. the JAX package also censuses each planned program's peak live bytes
-   in its lowered StableHLO; the port's counterpart reads a recorded
-   program (``reshard.peak_live_bytes``), and this lane is not ported
-   yet, so it says it waits (ROADMAP.md Queue 1 item 7);
+2. the peak live bytes of the planned program's recording
+   (``reshard.peak_live_bytes`` of ``analyze.lower``) must sit strictly
+   below the gather-then-slice program's, unless the plan is the gather;
 3. one cell re-runs under ``deterministic_mode`` and one runs its VJP
    under Mode A (the cotangents must land as the reverse
    redistribution).
@@ -67,9 +66,9 @@ def smoke(device=None) -> int:
     import numpy as np
     import torch
 
-    from .. import COMM_WORLD, config, run_spmd
+    from .. import COMM_WORLD, analyze, config, run_spmd
     from ..runtime import resolve_device
-    from . import plan_reshard, slice_shard
+    from . import peak_live_bytes, plan_reshard, slice_shard
 
     n = NRANKS
     dev = resolve_device(device)
@@ -95,6 +94,14 @@ def smoke(device=None) -> int:
 
         return run_spmd(body, nranks=n, device=dev)(stacked(fl))
 
+    def peak(fl, tl, strategy):
+        call = run_spmd(lambda x: COMM_WORLD.Reshard(x, fl, tl,
+                                                     strategy=strategy),
+                        nranks=n, device=dev)
+        return peak_live_bytes(analyze.lower(
+            call, torch.zeros(fl.shard_shape(G), dtype=torch.float32,
+                              device=dev)))
+
     exercised = set()
     failures = 0
     for name, fl, tl, strategy in _cases(n, factors):
@@ -106,15 +113,17 @@ def smoke(device=None) -> int:
         got = run_mode_a(fl, tl, strategy)
         oracle = stacked(tl)
         gather = run_mode_a(fl, tl, "gather")
-        if not (torch.equal(got, oracle) and torch.equal(gather, oracle)):
+        ok = torch.equal(got, oracle) and torch.equal(gather, oracle)
+        peak_p, peak_g = peak(fl, tl, strategy), peak(fl, tl, "gather")
+        bounded = plan.strategy == "gather" or peak_p < peak_g
+        if not ok or not bounded:
             failures += 1
-            print(f"FAIL {name}: Mode A differs from the oracles "
-                  f"(strategy {plan.strategy})")
+            print(f"FAIL {name}: bitwise={ok} peak {peak_p} vs "
+                  f"gather {peak_g} (strategy {plan.strategy})")
             continue
         print(f"cell {name:14s} strategy={plan.strategy:9s} "
-              f"steps={[st.kind for st in plan.steps]} bitwise=ok")
-    print("peak-live-bytes: waits for ROADMAP.md Queue 1 item 7 (this "
-          "lane of reshard.peak_live_bytes on recorded programs)")
+              f"steps={[st.kind for st in plan.steps]} bitwise=ok "
+              f"peak_live {peak_p} < gather {peak_g}")
 
     if factors is not None:
         fl = _cases(n, factors)[3][1]

@@ -469,6 +469,11 @@ class World:
         tracer.commit(meter)
         return out
 
+    def barrier(self, rank: int) -> None:
+        """A rendezvous that moves nothing: a traced ``Barrier``
+        (bookkeeping, no wire op), e.g. a sentinel between steps."""
+        self.exchange(rank, ("Barrier",), None)
+
     def _exchange(self, rank: int, signature: Tuple, payload: Any, read,
                   checks, meter) -> Any:
         self._check_failed()

@@ -13,10 +13,12 @@ any divergence:
   backends;
 * **SIGKILL attribution**: a ``rank_death`` matrix cell on the process
   backend (a real SIGKILL of a real worker) ends in the attributed raise
-  with its fired-fault ledger.
+  with its fired-fault ledger;
+* **reconcile**: a ring Allreduce traced on 8 process-backend workers
+  reconciles EXACTLY (``obs.reconcile``: wire bytes and collective
+  counts) against its recorded Mode A program.
 
-The JAX lane that reconciles a traced process run against a compiled
-lowering waits for ``obs.reconcile`` (ROADMAP.md, Queue 1 item 7).  The device is CUDA unless ``--device cpu`` is given.
+The device is CUDA unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -171,6 +173,40 @@ def _smoke_sigkill(failures, device) -> None:
         _fail(failures, f"sigkill[rank_death x plain x process]: {msg}")
 
 
+def _smoke_reconcile(failures, device) -> None:
+    import torch
+
+    import mpi4torch_tpu_torch as mpi
+    from mpi4torch_tpu_torch import obs
+    from mpi4torch_tpu_torch.analyze.sweep import _flat_lowerer
+    from mpi4torch_tpu_torch.runtime import resolve_device
+
+    dev = resolve_device(device)
+    comm = mpi.COMM_WORLD
+
+    def body(rank):
+        x = torch.arange(1024, dtype=torch.float32, device=comm.device)
+        return comm.Allreduce(x * (rank + 1), mpi.MPI_SUM,
+                              algorithm="ring")
+
+    lower, _ = _flat_lowerer(8, dev)
+    lowered = lower(lambda c, a: c.Allreduce(a, mpi.MPI_SUM,
+                                             algorithm="ring"),
+                    torch.arange(1024, dtype=torch.float32, device=dev))
+    with obs.trace() as t:
+        mpi.run_ranks(body, 8, backend="process", device=device)
+    rep = obs.reconcile(t.events, lowered, dropped=t.dropped, device=dev)
+    m, p = rep["measured"], rep["predicted"]
+    detail = (f"measured {m['wire_bytes']} B {m['counts']} == "
+              f"predicted {p['wire_bytes']} B {p['counts']}")
+    if rep["ok"]:
+        _ok(f"reconcile[process-wire ring-allreduce]: {detail}")
+    else:
+        _fail(failures, f"reconcile[process-wire ring-allreduce]: "
+                        f"{detail} (matches={rep['matches']}, dropped="
+                        f"{rep['dropped_events']})")
+
+
 def smoke(device=None) -> int:
     from . import shutdown
 
@@ -183,6 +219,7 @@ def smoke(device=None) -> int:
     try:
         _smoke_parity(failures, device)
         _smoke_sigkill(failures, device)
+        _smoke_reconcile(failures, device)
     finally:
         shutdown()
     if failures:

@@ -505,4 +505,5 @@ def test_cli_smoke_exits_zero(capsys):
     assert main(["--smoke", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "q8_ef_hop-on-bidir == reduce_q8_hop oracle" in out
-    assert "item 7" in out and "quant-smoke: OK" in out
+    assert "int8 collective_permutes on both" in out
+    assert "quant-smoke: OK" in out

@@ -1,8 +1,9 @@
 """The port's collective-schedule IR against the JAX package's, on the CPU.
 
-Follows JAX ``tests/test_csched.py`` class by class, without what reads
-StableHLO (ROADMAP.md Queue 1 item 7); synthesis is
-``tests/test_torch_synth.py``.
+Follows JAX ``tests/test_csched.py`` class by class; synthesis is
+``tests/test_torch_synth.py``, and the recorded-program legs of JAX's
+``csched --smoke`` (re-expression, the synthesis census) run in
+``tests/test_torch_cli.py``.
 The port's counterpart of JAX's lowered text is the exchange sequence:
 the signatures rank 0 deposits through ``World.exchange``, in order.
 
@@ -25,8 +26,8 @@ the signatures rank 0 deposits through ``World.exchange``, in order.
   backward) and JAX's Mode A, per algorithm, on (3,), (8,) and per axis
   of the (2, 4) mesh; the q8 IR route is bitwise the hand-composed
   pipeline (with the same exchanges) and JAX's Mode A.
-* The registry-sync guard (the port's stand-in for JAX's
-  ``analyze.registry.csched_problems``, item 7): every registered
+* The registry-sync guard (beside the port's
+  ``analyze.registry.csched_problems``): every registered
   algorithm has a program, and lowering, interpreter, transposition
   and census each cover ``STEP_KINDS``.
 """

@@ -80,7 +80,10 @@ def test_port_has_modules():
                 "ctl/estimate.py", "ctl/drift.py", "ctl/controller.py",
                 "distributed.py", "transport/dist.py",
                 "resilience/degrade.py", "resilience/chaos.py",
-                "resilience/__main__.py"):
+                "resilience/__main__.py", "obs/reconcile.py",
+                "obs/__main__.py", "overlap/__main__.py",
+                "overlap/census.py", "reshard/census.py",
+                "csched/__main__.py", "serve/__main__.py"):
         assert f"mpi4torch_tpu_torch/{rel}" in names
     for src in ("flash_fwd.cu", "flash_fwd_tc.cu", "flash_bwd.cu",
                 "flash_bwd_tc.cu", "quant_hop.cu"):

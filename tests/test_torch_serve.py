@@ -195,7 +195,7 @@ def test_unported_engine_options_raise(weights, kw):
     # 4.7) on two ranks of run_spmd, emit the JAX generate() tokens of
     # every request, as the blocking ring's dense greedy engine does; the
     # SPMD engine's decode step records as a program that lints clean
-    # (analyze, ROADMAP.md Queue 1 item 7).
+    # (analyze).
     jcfg, jparams, pcfg, pparams, eos, oracle = weights
     scfg = kw.get("serve_cfg")
     if scfg is None:

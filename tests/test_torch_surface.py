@@ -33,9 +33,7 @@ UNPORTED = {
     "ops": {},
     "utils": {},
     "reshard": {},
-    "obs": {"measured_wire_table": 7,
-            "reconcile": 7, "equivalent_wire": 7,
-            "equivalent_tier_wire": 7},
+    "obs": {},
     "transport": {},
     "resilience": {},
     "compress": {},
@@ -49,6 +47,7 @@ UNPORTED = {
     "mesh": {},
     "elastic": {},
     "ctl": {},
+    "analyze": {},
 }
 
 

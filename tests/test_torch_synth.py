@@ -18,8 +18,9 @@ Follows JAX ``tests/test_csched.py`` ``TestSynthesis``:
 * a name that is not installed raises when explicit and degrades when a
   default, in both modes.
 
-Left out, waiting for ``analyze`` (ROADMAP.md Queue 1 item 7): the
-checks of a synthesized program's lowered StableHLO.
+A synthesized program's recorded census (its predicted collective
+counts against ``analyze.parse_program`` of its recording) is the
+``csched --smoke`` synthesis leg (``tests/test_torch_cli.py``).
 """
 
 import json

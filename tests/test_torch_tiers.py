@@ -17,10 +17,15 @@ Follows JAX ``tests/test_tiers.py`` class by class:
   skewed config widens the split-phase window (another exchange order,
   the same bits).
 
-Left out, waiting for ``analyze`` (ROADMAP.md Queue 1 item 7): what
-reads lowered StableHLO (``TestReconcileTiers``, ``TestRegistryGuard``,
-the lowering tier tables and text identities); the port's stand-in is
-rank 0's exchange sequence.
+* ``obs.reconcile(..., tiers=)`` (``TestReconcileTiers``): a traced
+  synthesized tier-stack Allreduce prices its per-tier traffic exactly
+  against its recorded program, equal to JAX's split and to the
+  synthesis report's.
+
+The registry guard (``TestRegistryGuard``) is mirrored in
+``tests/test_torch_analyze.py``; the tier tables and identities of
+recorded programs run in ``python -m mpi4torch_tpu_torch.csched --tiers``
+(``tests/test_torch_cli.py``).
 """
 
 import json
@@ -477,3 +482,78 @@ class TestOverlapTierWindow:
         _, one = self._tree(True, 1)
         assert four != none
         assert one == none   # widen-only
+
+
+# ---------------------------------------------------------------------------
+# obs.reconcile prices per-tier traffic exactly
+# ---------------------------------------------------------------------------
+
+
+def _jlower_fwd(name, x, det):
+    from jax.sharding import Mesh, PartitionSpec as JP
+
+    from mpi4torch_tpu import constants as JC
+    from mpi4torch_tpu._compat import shard_map
+    from mpi4torch_tpu.ops import spmd as jspmd
+
+    mesh = Mesh(np.asarray(jax.devices()[:NR]), ("w",))
+    ctx = jspmd.SpmdContext(axis_name="w", size=NR)
+    wrapped = shard_map(
+        lambda v: jspmd._allreduce_fwd_value(ctx, v, JC.MPI_SUM, name),
+        mesh=mesh, in_specs=JP(), out_specs=JP(), check_vma=False)
+    with jmpi.config.deterministic_mode(det):
+        return jax.jit(wrapped).lower(x).as_text()
+
+
+def _plower_fwd(name, x, det):
+    from mpi4torch_tpu_torch import constants as C
+    from mpi4torch_tpu_torch.ops import spmd as pspmd
+
+    call = P.run_spmd(lambda v: pspmd._allreduce_fwd_value(
+        pspmd.current_spmd_context(), v, C.MPI_SUM, name), nranks=NR,
+        device="cpu")
+    with P.config.deterministic_mode(det):
+        return P.analyze.lower(call, x)
+
+
+def _tier_reports(name, nelem, det, tiers):
+    a = np.arange(nelem, dtype=np.float32)
+    jx, px = jnp.asarray(a), torch.from_numpy(a)
+    with jmpi.obs.trace() as jt:
+        jmpi.run_ranks(lambda rank: jmpi.COMM_WORLD.Allreduce(
+            jx * (rank + 1), jmpi.MPI_SUM, algorithm=name), NR)
+    with P.obs.trace() as pt:
+        P.run_ranks(lambda rank: P.COMM_WORLD.Allreduce(
+            px * (rank + 1), P.MPI_SUM, algorithm=name), NR, device="cpu")
+    jrep = jmpi.obs.reconcile(jt.events, _jlower_fwd(name, jx, det),
+                              dropped=jt.dropped, tiers=tiers)
+    prep = P.obs.reconcile(pt, _plower_fwd(name, px, det), tiers=tiers,
+                           device="cpu")
+    return jrep, prep
+
+
+class TestReconcileTiers:
+    def test_measured_tier_wire_matches_predicted_exactly(self):
+        stack = (2, 2, 2)
+        jres = jcs.synthesize_tiers(NR, 4096, 4, tiers=stack,
+                                    tier_bandwidths=SKEW)
+        res = pcs.synthesize_tiers(NR, 4096, 4, tiers=stack,
+                                   tier_bandwidths=SKEW)
+        name = pcs.install(res["program"])
+        assert jcs.install(jres["program"]) == name
+        jrep, prep = _tier_reports(name, 1024, True, stack)
+        assert prep["ok"], prep
+        assert prep["matches"]["tier_wire"]
+        assert prep["measured"]["tier_wire"] \
+            == prep["predicted"]["tier_wire"] == res["tier_wire"]
+        for side in ("measured", "predicted"):
+            for k in ("wire_bytes", "counts", "tier_wire"):
+                assert prep[side][k] == jrep[side][k], (side, k)
+
+    def test_reconcile_without_tiers_is_unchanged(self):
+        jrep, prep = _tier_reports("ring", 256, False, None)
+        assert prep["ok"], prep
+        assert "tier_wire" not in prep["measured"]
+        assert "tier_wire" not in prep["matches"]
+        assert prep["measured"]["wire_bytes"] \
+            == jrep["measured"]["wire_bytes"]

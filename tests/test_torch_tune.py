@@ -21,15 +21,21 @@ cache:
   the knobs (``TestFusePerBucket``, ``TestConfigKnobs``), and serving's
   ``latency_report``.
 
-Left out, waiting for ``analyze`` (ROADMAP.md Queue 1 item 7): what
-reads lowered StableHLO (``TestAlgorithmCensus``,
-``TestCodecAlgorithmCensus``, ``TestRegistryGuard``).  The port's
-stand-in for a census is rank 0's exchange sequence.
+* the census (``TestAlgorithmCensus``, ``TestCodecAlgorithmCensus``):
+  each algorithm's and each (algorithm x codec) pair's recorded program
+  (``analyze.lower``) parses to JAX's collective counts and permute
+  widths, tables and dtypes, forward and with the gradient, and meets
+  JAX's structural expectations (the int8 dual-ring rotations
+  included).
+
+The registry guard (``TestRegistryGuard``) is mirrored in
+``tests/test_torch_analyze.py``.
 """
 
 import json
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -921,3 +927,207 @@ class TestServingLatencyReport:
                 pcfg, PSC(slots=slots), torch.bfloat16) == \
                 jmpi.serve.decode_message_bytes(jcfg, JSC(slots=slots),
                                                 jnp.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# The census of each algorithm's schedule, forward and backward, on
+# recorded programs (JAX's TestAlgorithmCensus / TestCodecAlgorithmCensus
+# read the lowered StableHLO; both packages' parses are held equal here)
+# ---------------------------------------------------------------------------
+
+CENSUS_NR = 4
+_KINDS = ("all_reduce", "all_gather", "reduce_scatter",
+          "collective_permute", "all_to_all")
+
+
+def _only(**expected):
+    out = {k: 0 for k in _KINDS}
+    out.update(expected)
+    return out
+
+
+def _jparse(fn, x):
+    """JAX's parse of ``fn(comm, x)`` lowered on CENSUS_NR devices."""
+    from jax.sharding import Mesh, PartitionSpec as JP
+
+    from mpi4torch_tpu import analyze as ja
+    from mpi4torch_tpu._compat import shard_map
+
+    mesh = Mesh(np.asarray(jax.devices()[:CENSUS_NR]), ("w",))
+    c = jmpi.comm_from_mesh(mesh, "w")
+    txt = jax.jit(shard_map(lambda a: fn(c, a), mesh=mesh, in_specs=JP(),
+                            out_specs=JP(), check_vma=False)).lower(x) \
+        .as_text()
+    return ja.parse_program(txt)
+
+
+def _pparse(fn, x, grad=False):
+    """The port's parse of ``fn(comm, x)`` recorded on CENSUS_NR rank
+    threads (``grad``: with its gradient taken from outside)."""
+    from mpi4torch_tpu_torch import analyze as pa
+    from mpi4torch_tpu_torch.analyze.sweep import _flat_lowerer
+
+    lower, lower_grad = _flat_lowerer(CENSUS_NR, "cpu")
+    return pa.parse_program((lower_grad if grad else lower)(fn, x))
+
+
+def _jgrad(fn):
+    return lambda c, v: jax.value_and_grad(
+        lambda u: jnp.vdot(fn(c, u), u))(v)
+
+
+def _permutes(parsed):
+    """``(width in elements, pairs, dtype)`` of each permute."""
+    return sorted((int(op.operand_types[0].split("x")[0]),
+                   tuple(map(tuple, op.source_target_pairs)), op.dtype)
+                  for op in parsed.ops("collective_permute"))
+
+
+def _census_pair(algo, grad=False, codec=None, x=None):
+    """The port's and JAX's parse of the same Allreduce."""
+    x = np.ones(16) if x is None else x
+
+    def jbody(c, v):
+        return c.Allreduce(v, jmpi.MPI_SUM, algorithm=algo,
+                           compression=codec or False)
+
+    def pbody(c, v):
+        return c.Allreduce(v, P.MPI_SUM, algorithm=algo,
+                           compression=codec or False)
+
+    jp = _jparse(_jgrad(jbody) if grad else jbody, jnp.asarray(x))
+    pp = _pparse(pbody, torch.from_numpy(x), grad=grad)
+    assert pp.census() == jp.census()
+    assert _permutes(pp) == _permutes(jp)
+    return pp
+
+
+class TestAlgorithmCensus:
+    FWD_RING = tuple((i, (i + 1) % CENSUS_NR) for i in range(CENSUS_NR))
+    REV_RING = tuple((i, (i - 1) % CENSUS_NR) for i in range(CENSUS_NR))
+
+    def test_ring_is_one_all_reduce(self):
+        assert _census_pair("ring").census() == _only(all_reduce=1)
+
+    def test_rhd_is_log_permutes_of_shrinking_width(self):
+        pp = _census_pair("rhd")
+        assert pp.census() == _only(collective_permute=4)
+        assert {w for w, _, _ in _permutes(pp)} == {8, 4}
+
+    def test_tree_is_log_permutes_full_width(self):
+        pp = _census_pair("tree")
+        assert pp.census() == _only(collective_permute=4)
+        assert {w for w, _, _ in _permutes(pp)} == {16}
+
+    def test_hier_is_rs_ar_ag_triple(self):
+        assert _census_pair("hier").census() == _only(
+            reduce_scatter=1, all_reduce=1, all_gather=1)
+
+    def test_bidir_is_two_counter_rotating_half_payload_chains(self):
+        pp = _census_pair("bidir")
+        n = CENSUS_NR
+        assert pp.census() == _only(collective_permute=4 * (n - 1))
+        tables = [t for _, t, _ in _permutes(pp)]
+        assert tables.count(self.FWD_RING) == 2 * (n - 1)
+        assert tables.count(self.REV_RING) == 2 * (n - 1)
+        assert {w for w, _, _ in _permutes(pp)} == {16 // 2 // n}
+
+    def test_bidir_backward_rides_swapped_channels(self):
+        pp = _census_pair("bidir", grad=True)
+        n = CENSUS_NR
+        assert pp.census() == _only(collective_permute=8 * (n - 1))
+        tables = [t for _, t, _ in _permutes(pp)]
+        assert tables.count(self.FWD_RING) == 4 * (n - 1)
+        assert tables.count(self.REV_RING) == 4 * (n - 1)
+
+    def test_torus_is_one_grouped_channel_per_axis(self):
+        pp = _census_pair("torus")
+        assert pp.census() == _only(reduce_scatter=2, all_reduce=2,
+                                    all_gather=2)
+        assert {op.replica_groups for op in pp.ops("reduce_scatter")} \
+            == {((0, 1), (2, 3)), ((0, 2), (1, 3))}
+
+    def test_torus_backward_census_doubles(self):
+        assert _census_pair("torus", grad=True).census() == _only(
+            reduce_scatter=4, all_reduce=4, all_gather=4)
+
+    def test_backward_census_matches_forward_per_algorithm(self):
+        assert _census_pair("ring", grad=True).census() \
+            == _only(all_reduce=2)
+        for algo in ("rhd", "tree"):
+            assert _census_pair(algo, grad=True).census() \
+                == _only(collective_permute=8), algo
+        assert _census_pair("hier", grad=True).census() == _only(
+            reduce_scatter=2, all_reduce=2, all_gather=2)
+
+
+def _codec_algorithm_pairs():
+    """Every (codec-capable algorithm x codec declaring it) pair, from the
+    port's registries (held equal to JAX's by ``TestKeys`` and the
+    registry guards)."""
+    from mpi4torch_tpu_torch.compress import available_codecs, get_codec
+
+    return [(algo, name) for algo in ptune.available_algorithms()
+            if ptune.get_algorithm(algo).codec_capable
+            for name in available_codecs()
+            if algo in get_codec(name).algorithms]
+
+
+class TestCodecAlgorithmCensus:
+    X = np.ones(4096, np.float32)
+
+    def test_pairs_equal_jax(self):
+        from mpi4torch_tpu.compress import available_codecs, get_codec
+
+        assert _codec_algorithm_pairs() == [
+            (algo, name) for algo in jtune.available_algorithms()
+            if jtune.get_algorithm(algo).codec_capable
+            for name in available_codecs()
+            if algo in get_codec(name).algorithms]
+
+    @pytest.mark.parametrize("algo,codec", _codec_algorithm_pairs())
+    def test_pair_census(self, algo, codec):
+        from mpi4torch_tpu.compress import get_codec as jget
+
+        cobj = jget(codec)
+        leaves = len(jax.tree_util.tree_leaves(
+            cobj.base().encode(jnp.ones(64, jnp.float32))[0]))
+        channels = 2 if algo in ("bidir", "torus") else 1
+        rounds = cobj.ef_rounds
+        got = _census_pair(algo, codec=codec, x=self.X)
+        n = CENSUS_NR
+        census = got.census()
+        assert census["all_reduce"] == 0
+        assert census["collective_permute"] == \
+            rounds * channels * (n - 1) * leaves
+        assert census["all_gather"] == rounds * channels * leaves
+        if cobj.base().hop_fused:
+            # the quantized payload rides int8 end to end
+            assert got.ops("collective_permute", dtype="i8")
+            assert got.ops("all_gather", dtype="i8")
+
+    @pytest.mark.parametrize("codec", ["q8", "q8_ef_hop"])
+    def test_bidir_int8_permutes_on_both_rotations(self, codec):
+        from mpi4torch_tpu.compress import int8_rotation_census as jrot
+        from mpi4torch_tpu_torch.analyze.sweep import _flat_lowerer
+        from mpi4torch_tpu_torch.compress import int8_rotation_census
+
+        lower, _ = _flat_lowerer(CENSUS_NR, "cpu")
+        prog = lower(lambda c, v: c.Allreduce(
+            v, P.MPI_SUM, compression=codec, algorithm="bidir"),
+            torch.from_numpy(self.X))
+        seen, fwd, bwd = int8_rotation_census(prog, CENSUS_NR)
+        assert fwd in seen and bwd in seen, sorted(seen)
+        jtxt = _jparse(lambda c, v: c.Allreduce(
+            v, jmpi.MPI_SUM, compression=codec, algorithm="bidir"),
+            jnp.asarray(self.X))
+        jseen, jfwd, jbwd = jrot(jtxt.text, CENSUS_NR)
+        assert (fwd, bwd) == (jfwd, jbwd) and seen == jseen
+
+    def test_bidir_fwd_bwd_census_doubles_with_swapped_rotations(self):
+        got = _census_pair("bidir", grad=True, codec="q8", x=self.X)
+        n = CENSUS_NR
+        census = got.census()
+        assert census["collective_permute"] == 2 * 2 * 2 * (n - 1)
+        assert census["all_gather"] == 2 * 2 * 2
+        assert census["all_reduce"] == 0
