@@ -52,6 +52,7 @@ from ..parallel.moe import init_moe, moe_ffn, moe_ffn_dense
 from ..parallel.ring import ring_shift
 from ..runtime import resolve_device
 from ..utils import threefry
+from ..obs.trace import step_phase
 from ..utils.tree import tree_map, value_and_grad
 
 
@@ -701,7 +702,7 @@ def train_step(cfg: TransformerConfig, params, tokens, comm_sp=None,
         return _mean_over(comm_ep, _mean_over(comm_dp, loss))
 
     loss, grads = value_and_grad(global_loss, params)
-    with torch.no_grad():
+    with step_phase("update"), torch.no_grad():
         new_params = tree_map(lambda p, g: p - lr * g, params, grads)
     return loss, new_params
 

@@ -25,6 +25,7 @@ from ..constants import MPI_SUM, divide
 from ..ops.flash import flash_attention
 from ..parallel.attention import ring_attention
 from ..runtime import resolve_device
+from ..obs.trace import step_phase
 from ..utils.tree import tree_map, value_and_grad
 from .transformer import _layer_norm
 from .transformer import params_from_jax as _tree_from_jax
@@ -176,9 +177,10 @@ def dp_grad_train_step(comm, cfg: ViTConfig, params, batch,
     ``(global_loss, new_params)``."""
     loss, grads = value_and_grad(lambda p: local_loss(cfg, p, batch), params)
     size = comm.size
-    grads = tree_map(lambda g: divide(comm.Allreduce(g, MPI_SUM), size),
-                     grads)
-    global_loss = divide(comm.Allreduce(loss, MPI_SUM), size)
-    with torch.no_grad():
+    with step_phase("exchange"):
+        grads = tree_map(lambda g: divide(comm.Allreduce(g, MPI_SUM), size),
+                         grads)
+        global_loss = divide(comm.Allreduce(loss, MPI_SUM), size)
+    with step_phase("update"), torch.no_grad():
         new_params = tree_map(lambda p, g: p - lr * g, params, grads)
     return global_loss, new_params

@@ -28,10 +28,9 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.tree import tree_leaves
-
 __all__ = [
     "CommEvent",
+    "StepSpan",
     "FAMILY_OF",
     "annotate_signature",
     "payload_nbytes",
@@ -44,6 +43,10 @@ def payload_nbytes(payload: Any) -> int:
     tensor's bytes come from its shape and dtype: nothing is read from
     the device, so a CUDA payload is counted without a sync or a
     copy."""
+    # Imported here: ``utils.tree`` opens this package's step-phase
+    # spans, so it imports the package.
+    from ..utils.tree import tree_leaves
+
     total = 0
     for leaf in tree_leaves(payload):
         if isinstance(leaf, torch.Tensor):
@@ -209,3 +212,19 @@ class CommEvent:
             d["shape"] = list(self.shape)
             d["dtype"] = self.dtype
         return d
+
+
+@dataclass(frozen=True)
+class StepSpan:
+    """One step phase of one rank thread (``obs.step_phase``):
+    ``phase`` is ``"forward"``, ``"backward"``, ``"exchange"`` or
+    ``"update"``; ``step`` counts the rank's ``forward`` phases under
+    the tracer (-1 before its first); ``t_start`` / ``t_end`` are host
+    times (``time.perf_counter``), as a :class:`CommEvent`'s are."""
+
+    world: int                       # tracer-assigned world ordinal
+    rank: int
+    step: int
+    phase: str
+    t_start: float
+    t_end: float

@@ -21,6 +21,20 @@ On the process transport each worker traces its own rank and ships its
 events back; :meth:`CommTracer.absorb` merges them into the parent's
 tracer under the transport's world.
 
+Step phases and rendezvous waits: :func:`step_phase` spans the phases
+of a training step (``utils.tree.value_and_grad``'s forward and
+backward, the DP entries' exchange and update) and the rendezvous
+barrier spans each wait on the peers (``mpi4torch.exchange.wait``).
+Both are profiler ranges, recorded as ``record_function`` ranges are, so
+the profiling thread's land in a profiler trace, and the tracer keeps
+every rank's:
+the phases as :class:`StepSpan` records (:meth:`CommTracer.spans_for`),
+each barrier's ``(start, end)`` in its event's ``extra["waits"]``, and
+each event's phase and step in ``extra["phase"]`` / ``extra["step"]``.
+They open only while a tracer is installed and no program is being
+recorded (``analyze.lower``): off, a phase costs one attribute read.
+:mod:`.clock` puts them on the profiler's clock.
+
 Mode A (``run_spmd``) has the JAX package's step-event hook too:
 :func:`spmd_collective_event`, with ``mode_a=True``, records one event a
 collective entry (``where``, payload bytes); its exchanges are traced at
@@ -38,8 +52,10 @@ import weakref
 from contextlib import contextmanager
 from typing import Dict, List, Optional
 
+import torch
+
 from .. import config as _config
-from .events import CommEvent, annotate_signature, payload_nbytes
+from .events import CommEvent, StepSpan, annotate_signature, payload_nbytes
 
 __all__ = [
     "CommTracer",
@@ -48,6 +64,8 @@ __all__ = [
     "spmd_collective_event",
     "push_label",
     "current_label",
+    "step_phase",
+    "current_phase",
 ]
 
 # Errors that snapshot a postmortem, resolved on first use (runtime and
@@ -72,9 +90,10 @@ def _failure_types():
 
 # ------------------------------------------------------- label context
 
-# Thread-local label stack the bucket and step scopes push
+# Thread-local label stacks: the bucket and step scopes push theirs
 # (utils/profiling.py), so that chokepoint events carry the bucket or
-# serving-step label.  Pushed only while a tracer is installed.
+# serving-step label, and step_phase its (phase, step).  Pushed only
+# while a tracer is installed.
 _labels = threading.local()
 
 
@@ -123,6 +142,75 @@ def current_label(stack: str = "stack") -> Optional[str]:
     return got[-1] if got else None
 
 
+# ------------------------------------------------------- step phases
+
+# The profiler range of the step phases and rendezvous waits: recorded
+# like a ``record_function`` range, but without a dispatcher call, so it
+# costs about a twentieth of one and keeps the GIL (whose release would
+# hand it to the other rank thread at every span), and a recording
+# ``analyze.lower`` would not see it.
+profiler_range = torch._C._profiler._RecordFunctionFast
+
+
+def step_phase(phase: str):
+    """Context manager spanning one phase of a training step on this
+    rank thread: a profiler range ``mpi4torch.step.<phase>`` and a
+    :class:`StepSpan` in the installed tracer, and the phase and step of
+    the chokepoint events inside it.  A ``"forward"`` phase starts the
+    rank's next step.  It does nothing while no tracer is installed, or
+    on a rank thread that ``analyze.lower`` records (its span paths stay
+    the JAX package's ``named_scope`` paths)."""
+    return _StepPhase(phase)
+
+
+class _StepPhase:
+    __slots__ = ("phase", "_tracer", "_rf", "_key", "_step", "_t0")
+
+    def __init__(self, phase: str):
+        self.phase = phase
+        self._tracer = None
+
+    def __enter__(self):
+        tracer = _config.comm_tracer()
+        if tracer is None or _config.program_stream() is not None:
+            return self
+        from ..runtime import effective_rank_context
+
+        ctx = effective_rank_context()
+        self._key = (tracer._world_ord(ctx.world), ctx.rank)
+        self._step = tracer._step_of(self._key, self.phase == "forward")
+        stack = getattr(_labels, "phase", None)
+        if stack is None:
+            stack = _labels.phase = []
+        stack.append((self.phase, self._step))
+        self._tracer = tracer
+        self._rf = profiler_range(f"mpi4torch.step.{self.phase}")
+        # Next to the profiler's own start: ``clock.clock_offset`` pairs
+        # the two.
+        self._t0 = time.perf_counter()
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        tracer = self._tracer
+        if tracer is None:
+            return False
+        t1 = time.perf_counter()
+        self._rf.__exit__(*exc)
+        _labels.phase.pop()
+        self._tracer = None
+        tracer._add_span(StepSpan(world=self._key[0], rank=self._key[1],
+                                  step=self._step, phase=self.phase,
+                                  t_start=self._t0, t_end=t1))
+        return False
+
+
+def current_phase() -> Optional[tuple]:
+    """This thread's innermost open ``(phase, step)``, or None."""
+    got = getattr(_labels, "phase", None)
+    return got[-1] if got else None
+
+
 class _Meter:
     """Measurement state of one operation, handed through the
     chokepoint: the runtime's retry loops add to ``retries`` and its
@@ -131,7 +219,8 @@ class _Meter:
 
     __slots__ = ("tracer", "world_ord", "world_size", "rank", "channel",
                  "signature", "payload_bytes", "peer", "tag", "t0",
-                 "retries", "bucket", "adjoint", "wait_s")
+                 "retries", "bucket", "adjoint", "phase", "wait_s",
+                 "waits")
 
     def __init__(self, tracer, world_ord, world_size, rank, channel,
                  signature, payload_bytes, peer, tag):
@@ -146,17 +235,20 @@ class _Meter:
         self.tag = tag
         self.bucket = current_label()
         self.adjoint = current_label("adjoint")
+        self.phase = current_phase()
         self.retries = 0
         self.wait_s = 0.0
+        self.waits = []
         self.t0 = time.perf_counter()
 
     def add_retries(self, n: int) -> None:
         self.retries += n
 
-    def add_wait(self, seconds: float) -> None:
-        """Time blocked on peers at a rendezvous barrier (both barriers
-        of an exchange add in)."""
-        self.wait_s += seconds
+    def add_wait(self, t0: float, t1: float) -> None:
+        """One wait blocked on peers at a rendezvous barrier, from ``t0``
+        to ``t1`` (both barriers of an exchange add in)."""
+        self.wait_s += t1 - t0
+        self.waits.append((t0, t1))
 
 
 class CommTracer:
@@ -166,6 +258,8 @@ class CommTracer:
       (the oldest go first; ``dropped`` counts them).
     * a ring of the last ``ring`` events per ``(world, rank)``: the
       flight recorder's tails (:meth:`tails`).
+    * ``spans``: the :class:`StepSpan` records of :func:`step_phase`,
+      bounded by ``max_events`` too.
     * ``postmortems``: rank-attributed failure snapshots, the first
       failure per world; later observers of the same tear add to its
       ``observers`` count.
@@ -180,6 +274,9 @@ class CommTracer:
         self.events: collections.deque = collections.deque(
             maxlen=self.max_events)
         self.dropped = 0
+        self.spans: collections.deque = collections.deque(
+            maxlen=self.max_events)
+        self._steps: Dict[tuple, int] = {}   # (world, rank) -> step
         self.postmortems: List[dict] = []
         self._rings: Dict[tuple, collections.deque] = {}
         # id(world) -> (weak reference, ordinal); the reference tells a
@@ -219,6 +316,13 @@ class CommTracer:
         if result_payload is not None:
             meter.payload_bytes += payload_nbytes(result_payload)
         ann = annotate_signature(meter.signature)
+        extra = {}
+        if meter.adjoint:
+            extra["adjoint_of"] = meter.adjoint
+        if meter.phase is not None:
+            extra["phase"], extra["step"] = meter.phase
+        if meter.waits:
+            extra["waits"] = tuple(meter.waits)
         ev = CommEvent(
             seq=next(self._seq), rank=meter.rank, world=meter.world_ord,
             world_size=meter.world_size, channel=meter.channel,
@@ -232,8 +336,7 @@ class CommTracer:
             algorithm=ann.get("algorithm"), codec=ann.get("codec"),
             bucket=meter.bucket, group_size=ann.get("group_size"),
             shape=ann.get("shape"), dtype=ann.get("dtype"),
-            peer=meter.peer, tag=meter.tag,
-            extra={"adjoint_of": meter.adjoint} if meter.adjoint else {})
+            peer=meter.peer, tag=meter.tag, extra=extra)
         self._append(ev)
         if error is not None and isinstance(error, _failure_types()):
             self._note_failure(ev, error)
@@ -259,9 +362,18 @@ class CommTracer:
                 ring = self._rings[key] = collections.deque(
                     maxlen=self.ring)
             ring.append(ev)
-        from . import metrics as _metrics
-        _metrics.inc("obs_events_total",
-                     help="CommEvents recorded by the comm tracer")
+
+    def _step_of(self, key: tuple, new: bool) -> int:
+        """The step ordinal of ``key``'s phase (``new``: it starts the
+        next step)."""
+        with self._lock:
+            step = self._steps.get(key, -1) + (1 if new else 0)
+            self._steps[key] = step
+            return step
+
+    def _add_span(self, span: StepSpan) -> None:
+        with self._lock:
+            self.spans.append(span)
 
     def _note_failure(self, ev: CommEvent, error: BaseException) -> None:
         from .flight import build_postmortem
@@ -321,13 +433,14 @@ class CommTracer:
         parent's half of the transport's tracing contract.
 
         ``shards[rank]`` is the worker's shipped dump (``{"events",
-        "postmortems", "dropped"}``) or None.  The events are merged in
-        the order of their start times (``time.perf_counter`` is the
-        host's monotonic clock, shared by processes) and re-sequenced in
-        that order under this tracer's ordinal for ``world`` (the
-        transport's switchboard); the postmortems merge as concurrent
-        observers of one tear do (the first snapshot stays, later ones
-        add their observers and their own ranks' tails)."""
+        "spans", "postmortems", "dropped"}``) or None.  The events are
+        merged in the order of their start times (``time.perf_counter``
+        is the host's monotonic clock, shared by processes) and
+        re-sequenced in that order under this tracer's ordinal for
+        ``world`` (the transport's switchboard), the step-phase spans
+        join under the same ordinal, and the postmortems merge as
+        concurrent observers of one tear do (the first snapshot stays,
+        later ones add their observers and their own ranks' tails)."""
         ord_ = self._world_ord(world)
         merged: List[CommEvent] = []
         for sh in shards:
@@ -341,6 +454,8 @@ class CommTracer:
             self._append(dataclasses.replace(ev, seq=next(self._seq),
                                              world=ord_))
         for sh in shards:
+            for span in (sh or {}).get("spans") or ():
+                self._add_span(dataclasses.replace(span, world=ord_))
             for pm in (sh or {}).get("postmortems") or ():
                 self._absorb_postmortem(ord_, pm)
 
@@ -373,6 +488,14 @@ class CommTracer:
             evs = [e for e in evs if e.channel == channel]
         return evs
 
+    def spans_for(self, rank: Optional[int] = None) -> List[StepSpan]:
+        """The step-phase spans in the order they closed (of ``rank``
+        alone when given)."""
+        with self._lock:
+            spans = list(self.spans)
+        return spans if rank is None else [s for s in spans
+                                           if s.rank == rank]
+
     def tails(self) -> Dict[tuple, List[CommEvent]]:
         """The flight recorder's ring per (world, rank), newest last."""
         with self._lock:
@@ -385,6 +508,8 @@ class CommTracer:
     def clear(self) -> None:
         with self._lock:
             self.events.clear()
+            self.spans.clear()
+            self._steps.clear()
             self.dropped = 0
             self._rings.clear()
             self.postmortems.clear()

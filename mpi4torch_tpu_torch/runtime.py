@@ -534,9 +534,26 @@ class World:
                           "waits that eventually completed")
 
     def _wait_barrier(self, rank: int, meter=None) -> None:
-        t0 = time.perf_counter() if meter is not None else 0.0
+        if meter is None:
+            used = self._barrier_wait(rank)
+        else:
+            from .obs.trace import profiler_range
+
+            # Time blocked on peers, a span of its own on the profiler's
+            # timeline; the event's duration minus the waits is the
+            # rank's own local latency, the gray-failure signal.
+            with profiler_range("mpi4torch.exchange.wait"):
+                t0 = time.perf_counter()
+                used = self._barrier_wait(rank)
+                t1 = time.perf_counter()
+            meter.add_wait(t0, t1)
+        if used:
+            self._count_retries(used, meter)
+
+    def _barrier_wait(self, rank: int) -> int:
+        """The barrier of the rendezvous; returns the retries it used."""
         try:
-            used = self._barrier.wait(rank, self.timeout,
+            return self._barrier.wait(rank, self.timeout,
                                       retries=_cfg.comm_retries(),
                                       backoff=_cfg.comm_backoff())
         except _BarrierTimeout as t:
@@ -553,12 +570,6 @@ class World:
                     "collective aborted because another rank failed"
                 ) from self._first_error
             raise self._deadlock_error(b.arrived) from None
-        if meter is not None:
-            # Time blocked on peers; the event's duration minus this is
-            # the rank's own local latency, the gray-failure signal.
-            meter.add_wait(time.perf_counter() - t0)
-        if used:
-            self._count_retries(used, meter)
 
     def _deadlock_error(self, arrived: Optional[FrozenSet[int]]
                         ) -> DeadlockError:

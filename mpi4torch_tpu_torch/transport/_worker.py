@@ -127,7 +127,7 @@ def _make_world(size: int, rank: int, timeout: float, device,
                 "timeout": self.timeout, "retries": _cfg.comm_retries(),
                 "backoff": _cfg.comm_backoff()})
             if meter is not None:
-                meter.add_wait(time.perf_counter() - t0)
+                meter.add_wait(t0, time.perf_counter())
             if rep["retries_used"]:
                 self._count_retries(rep["retries_used"], meter)
             self._check_sig_agreement(rep["sigs"])
@@ -231,6 +231,7 @@ def _epilogue(rank: int) -> dict:
     tracer = _cfg.comm_tracer()
     if tracer is not None:
         ep["trace"] = {"events": list(tracer.events),
+                       "spans": list(tracer.spans),
                        "postmortems": list(tracer.postmortems),
                        "dropped": tracer.dropped}
     return ep

@@ -231,7 +231,7 @@ class DistWorld(_rt.World):
             return self._wire_error(e), None, None, None
         finally:
             if meter is not None:
-                meter.add_wait(time.perf_counter() - t0)
+                meter.add_wait(t0, time.perf_counter())
         me = self.process_of[self._leader]
         sigs: List[Any] = [None] * self.size
         verdicts: List[Any] = [()] * self.size

@@ -14,6 +14,8 @@ from typing import Any, Callable, List
 
 import torch
 
+from ..obs.trace import step_phase
+
 
 def tree_leaves(tree) -> List[Any]:
     """The leaves of ``tree`` in traversal order."""
@@ -86,11 +88,15 @@ def value_and_grad(fn: Callable, params, *args, has_aux: bool = False):
     like ``params``, zero for a leaf ``fn`` does not read (as in JAX);
     the value is detached.  With ``has_aux``, ``fn`` returns ``(scalar,
     aux)`` and the result is ``((value, aux), grads)``, aux's tensors
-    detached."""
+    detached.  With a comm tracer installed, the call of ``fn`` and the
+    backward are the step's ``forward`` and ``backward`` phases
+    (``obs.step_phase``)."""
     leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
-    out = fn(tree_unflatten(params, leaves), *args)
+    with step_phase("forward"):
+        out = fn(tree_unflatten(params, leaves), *args)
     value = out[0] if has_aux else out
-    grads = torch.autograd.grad(value, leaves, allow_unused=True)
+    with step_phase("backward"):
+        grads = torch.autograd.grad(value, leaves, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g
              for t, g in zip(leaves, grads)]
     grads = tree_unflatten(params, grads)
