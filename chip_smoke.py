@@ -618,10 +618,11 @@ SYS_LEN, SYS_SUFFIXES = 600, (40, 150, 400, 700)
 BWD_F32_TOL = (1e-3, 1e-4)           # (rtol, atol)
 BWD_BF16_REL = 2e-2
 # (name, dtype, b, sq, sk, h, h_kv, d, q_off, kv_off, window, causal,
-#  the loss also reads lse).  The tc tiles are 64 rows (K3's q tiles and
-# K4's KV tiles) and 32 rows (K4's q tiles): "ragged_133_37" has neither
-# edge on a tile and fewer keys than one tile; "d72_window_64" is
-# zero-padded to 128 in shared memory; "d256_simt" takes the simt route.
+#  the loss also reads lse).  The tc tiles are 128 rows (K3's q tiles and
+# K4's KV tiles) and 64 rows (K3's KV tiles and K4's q tiles):
+# "ragged_133_37" has neither edge on a tile and fewer keys than one tile;
+# "d72_window_64" is zero-padded to 128 in shared memory (by TMA's zero
+# fill); "d256_simt" takes the simt route.
 BWD_CASES = [
     ("seq_2048_b2", torch.bfloat16, 2, 2048, 2048, 16, 16, 128, 0, 0, 0,
      True, False),
@@ -10414,7 +10415,9 @@ def main():
             if "registers" in line or "spill" in line:
                 print("    " + line.strip())
     # The tensor-core attention kernels, as the card reports them: no
-    # local memory (no spills) and two blocks (eight MMA warps) per SM.
+    # local memory (no spills); the forward fits two blocks (eight MMA
+    # warps) per SM, each backward block (a producer warpgroup and two
+    # wgmma consumer warpgroups that take its registers) one.
     spills = [line for lib in ("flash_fwd_tc", "flash_bwd_tc")
               for line in log[lib]["output"].splitlines()
               if "spill" in line
@@ -10427,8 +10430,10 @@ def main():
                   f"{pr['dynamic_smem']} B dynamic + {pr['static_smem']} B "
                   f"static shared memory, {pr['local_bytes']} B local "
                   f"(spill) memory, {pr['blocks_per_sm']} blocks per SM")
-            check(pr["local_bytes"] == 0 and pr["blocks_per_sm"] >= 2,
-                  f"{kname} tc spills or fits fewer than two blocks per SM")
+            want = 2 if kname == "flash_fwd" else 1
+            check(pr["local_bytes"] == 0 and pr["blocks_per_sm"] >= want,
+                  f"{kname} tc spills or fits fewer than {want} blocks per "
+                  "SM")
     check(not spills, f"ptxas reports spills in the tc kernels: {spills}")
     # The simt kernels at their widest instantiation (DMAX 512: head dims
     # above 256, 32-row tiles forward, 16/32-row tiles backward): what

@@ -345,11 +345,14 @@ def _resolve_variant(fn: str, q, variant) -> str:
 
 def _rows_aligned(t) -> torch.Tensor:
     """``t`` itself if every (batch, seq, head) row starts on a 16-byte
-    boundary (the tc kernels copy rows 16 bytes at a time), else a
-    contiguous copy, whose rows do (head_dim is a multiple of 8)."""
+    boundary and each stride that is stepped is a positive multiple of 16
+    bytes (the tc kernels copy rows 16 bytes at a time, the backward's
+    through TMA maps, which take no other strides), else a contiguous
+    copy, whose rows do (head_dim is a multiple of 8)."""
     step = 16 // t.element_size()
     if t.data_ptr() % 16 == 0 and all(
-            t.stride(i) % step == 0 for i in range(3) if t.shape[i] > 1):
+            t.stride(i) > 0 and t.stride(i) % step == 0
+            for i in range(3) if t.shape[i] > 1):
         return t
     return torch.empty(t.shape, dtype=t.dtype,
                        device=t.device).copy_(t)

@@ -1,7 +1,8 @@
-// Block attention backward on Hopper's tensor cores (sm_90a), behind a
-// plain C interface: dq (K3) and dk/dv (K4) for bfloat16 operands with a
-// head dim d that is a multiple of 8 up to 128 (the variant "tc"; float32,
-// and bfloat16 with d > 128, take flash_bwd.cu, the variant "simt").
+// Block attention backward on Hopper's warpgroup tensor cores (sm_90a),
+// behind a plain C interface: dq (K3) and dk/dv (K4) for bfloat16 operands
+// with a head dim d that is a multiple of 8 up to 128 (the variant "tc";
+// float32, and bfloat16 with d > 128, take flash_bwd.cu, the variant
+// "simt").
 //
 // Replaces: the TPU kernels `_bwd_dq_kernel` (mpi4torch_tpu/ops/flash.py:444,
 // launched at :585) and `_bwd_dkv_kernel` (:485, launched at :611).  Same
@@ -9,7 +10,7 @@
 //
 //     p  = exp(s * scale - lse),   s  = q . k
 //     ds = p * (do . v - dd)
-//     dq = scale * sum_k ds k      (K3: one block per q tile)
+//     dq = scale * sum_k ds k      (K3: a block per q tile or two)
 //     dv = sum_q p do,  dk = scale * sum_q ds q   (K4: one block per KV tile)
 //
 // with dd = sum(do * out) - dlse computed outside the kernels.  Rounding is
@@ -23,55 +24,71 @@
 // (s, dp, dq) and K4 8 d (s, dp, dv, dk).  At the training shape (8, 2048,
 // 16, 128) bf16 causal that is 206 and 275 GFLOP against 0.34 and 0.41 GB
 // of operands, so both are operations-bound on the bf16 tensor cores (989
-// TFLOP/s): 0.21 and 0.28 ms.
+// TFLOP/s): 0.21 and 0.28 ms.  At ViT-B/16's 196 keys (d 64) they are
+// bytes-bound.  Warp-level mma.sync fed by ldmatrix reaches about a fifth
+// of that rate; only warpgroup MMA (wgmma) reaches the full one.
 //
 // What this design does about it:
 //
-// * All five products of a tile run on the tensor cores as bf16 x bf16 ->
-//   f32 `mma.sync.aligned.m16n8k16`, operands read from shared memory with
-//   `ldmatrix` (`.trans` where the product contracts over rows).  mma.sync
-//   rather than wgmma: each warp owns 16 rows of its block's own tile, so
-//   the score tile a warp computes is exactly the A operand (16 rows) of
-//   its next product, and P / dS go from accumulators to A fragments in
-//   registers with no shared-memory round trip.  A wgmma design would need
-//   64-row warpgroup tiles and P / dS in the wgmma register layout; that is
-//   later work (and wgmma is the only way to the full 989 TFLOP/s).
-//     K3, warp w, per KV tile:  S = Q_w K^T and dP = dO_w V^T (ldmatrix),
-//       dS in registers -> dQ_w += dS K (K by ldmatrix.trans).
-//     K4, warp w, per q tile:   S^T = K_w Q^T and dP^T = V_w dO^T, so P^T
-//       and dS^T already sit in the accumulator layout with KV rows as M;
-//       packed to bf16 they are the A operands of dV_w += P^T dO and
-//       dK_w += dS^T Q (dO, Q by ldmatrix.trans).
-// * Operands stay bf16 in shared memory (half the bytes of flash_bwd.cu's
-//   f32 staging), copied with 16-byte `cp.async` (zero-filled past d and past
-//   the ragged sq / sk edges), double-buffered on the looped-over operand:
-//   K/V tiles in K3; Q/dO tiles and their lse/dd rows (4-byte cp.async) in
-//   K4.  The block's own tile (Q/dO in K3, K/V in K4) is loaded once.  Rows
-//   are padded by 16 bytes (LD = DMAX + 8), so the eight 16-byte rows of an
-//   ldmatrix fall in eight distinct bank groups: no conflicts.  A d that is
-//   not a multiple of 16 (72, say) is zero-padded to DMAX (64 or 128).
-// * Tiles: K3 64 q rows x 64 keys, K4 64 keys x 32 q rows, four warps
-//   (128 threads) each.  At DMAX = 128 shared memory is 104 KB (K3) and
-//   69 KB (K4), so two blocks (eight MMA warps) fit an SM.  The f32
-//   accumulators take 64 (K3) and 128 (K4) registers a thread; each kernel
-//   fits the 255 that __launch_bounds__(128, 2) allows without spilling
-//   (chip_smoke.py phase 2 reads the registers and local memory back).
-// * Causal and window tile cuts as in flash_bwd.cu; the per-element mask
-//   runs only on tiles that straddle the diagonal, the window edge or a
-//   ragged edge, interior tiles skip it.  K3 takes its q tiles in reverse
-//   under a causal mask and both kernels put the tile index on the slow
-//   grid axis, so the heaviest blocks (the last q tiles of K3, the first KV
-//   tiles of K4) are scheduled first and the light ones fill the tail.
-// * Nothing is atomic.  K3 is one block per q tile, K4 one block per KV
-//   tile that walks its group's q heads in a fixed order, so the same
-//   inputs give the same bits.
+// * Every product runs as `wgmma.mma_async` m64nNk16 (bf16 in, f32
+//   accumulators in registers), one 64-row slice per warpgroup.  The score
+//   products read both operands from shared memory; the gradient products
+//   take P or dS as the A operand from registers: the f32 accumulator
+//   layout of a score tile is, per warp, the A-fragment layout of the next
+//   product, so P and dS are rounded to bf16 and packed in place and never
+//   touch shared or device memory.
+//     K3, warpgroup of 64 q rows, per KV tile:  S = Q K^T, dP = dO V^T,
+//       dQ += dS K (K read transposed from its row-major tile).
+//     K4, warpgroup of 64 keys, per q tile:  S^T = K Q^T, dP^T = V dO^T,
+//       so P^T and dS^T sit with keys as rows; dV += P^T dO, dK += dS^T Q.
+//   S and dP are committed apart, so the exponentials of S run while dP is
+//   still on the tensor cores; K3 leaves its dQ product in flight while
+//   it issues the next tile's score products.
+// * Operands are brought in by the Tensor Memory Accelerator: one thread
+//   issues `cp.async.bulk.tensor` for a whole [rows x 64 columns] box of one
+//   head, 128-byte swizzled (the layout wgmma's descriptors read without
+//   bank conflicts), completion counted on an `mbarrier`.  TMA fills zeros
+//   past the ragged sq / sk edges and past d (a d of 72 runs in two boxes
+//   of 64 columns).  The block's own tile (Q/dO in K3, K/V in K4) is loaded
+//   once; the looped-over tiles go through a ring of NS stages with a full
+//   and an empty barrier each.
+// * Warp specialisation: a block is three warpgroups.  Warp 0 is the
+//   producer (K4's producer lanes also stage each q tile's lse and dd rows,
+//   read a tile ahead, beside its TMA boxes); the two others are consumers
+//   of 64 rows each, sharing every loaded tile.  `setmaxnreg` moves
+//   registers from the producer warpgroup (40 a thread) to the consumers
+//   (232): each holds one or two 64 x DMAX f32 gradient accumulators and
+//   two score tiles.  Descriptors are formed where they are used (64 bits
+//   each, hoisted out of the loop they spilled K4).
+// * Tiles: K3 128 q rows against KV tiles of 64 keys, K4 128 keys against
+//   q tiles of 64 rows (wider tiles serialise the wgmmas for want of
+//   registers); 3 or 4 stages.  One block of 384
+//   threads fills an SM's registers, so a block's fixed cost (its first
+//   loads, its last product and its stores) is not hidden by another
+//   block: K3 takes two q tiles a block and loads the second's Q/dO into a
+//   second buffer while it works on the first.
+// * Causal and window tile cuts as in flash_bwd.cu, per block and again per
+//   warpgroup (a warpgroup whose 64 rows see none of a tile skips its
+//   products and only releases the stage).  Only tiles that straddle the
+//   diagonal, the window edge or a ragged edge are masked per element, as
+//   one compare of each column against a per-row range.
+// * Blocks run in chunks of heads (`block_order`), within a chunk the
+//   heaviest tiles first: the blocks in flight share few heads, so the
+//   tiles they share stay in L2 (at the training shape a wave over 132
+//   heads would stream 134 MB of K/V from device memory for every q tile),
+//   and the heavy blocks of the last heads do not end alone.
+// * Nothing is atomic.  K3 sums each q tile's dQ in one block, K4 each KV
+//   tile's dK/dV in one block that walks its group's q heads in a fixed
+//   order, so the same inputs give the same bits.
 //
 // Layout: q and do (b, sq, h, d); k and v (b, sk, h_kv, d); lse and dd
 // (b, sq, h) f32.  The last dimension of q/k/v/do is contiguous and every
-// (batch, seq, head) row starts on a 16-byte boundary (the wrapper
-// guarantees it); strides are passed in elements.  dq is written
-// contiguous (b, sq, h, d), dk and dv contiguous (b, sk, h_kv, d), bf16.
+// (batch, seq, head) row starts on a 16-byte boundary with strides that
+// are multiples of 16 bytes (the wrapper guarantees it; TMA needs it);
+// strides are passed in elements.  dq is written contiguous (b, sq, h, d),
+// dk and dv contiguous (b, sk, h_kv, d), bf16.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,9 +97,16 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int NW = 4;         // warps per block
-constexpr int NT = 32 * NW;   // threads per block
+constexpr int NT = 384;       // threads per block: producer + 2 consumers
+constexpr int ROWS = 64;      // rows of one consumer warpgroup's slice
+constexpr int REG_PRODUCER = 40, REG_CONSUMER = 232;
 constexpr float LOG2E = 1.4426950408889634f;
+
+// Tiles: K3 takes 128 q rows (two consumer slices) against KV tiles of 64
+// keys, K4 128 keys against q tiles of 64 rows, at either padded head dim;
+// NS stages in each ring.
+constexpr int DQ_BQ = 2 * ROWS, DQ_BK = 64, DQ_NS = 3;
+constexpr int DKV_BK = 2 * ROWS, DKV_BQ = 64, DKV_NS = 4;
 
 struct Strides {
   long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h,
@@ -98,12 +122,6 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-__device__ __forceinline__ bool pair_live(int qpos, int kpos, int causal,
-                                          int window) {
-  if (!causal) return true;
-  return qpos >= kpos && (window <= 0 || qpos - kpos < window);
-}
-
 // Every pair of q rows [q_lo, q_hi] x keys [k_lo, k_hi] (positions) is
 // unmasked: the tile needs no per-element mask.
 __device__ __forceinline__ bool tile_interior(int q_lo, int q_hi, int k_lo,
@@ -113,62 +131,23 @@ __device__ __forceinline__ bool tile_interior(int q_lo, int q_hi, int k_lo,
   return q_lo >= k_hi && (window <= 0 || q_hi - k_lo < window);
 }
 
+// No pair of q rows [q_lo, q_hi] x keys [k_lo, k_hi] is unmasked.
+__device__ __forceinline__ bool tile_dead(int q_lo, int q_hi, int k_lo,
+                                          int k_hi, int causal, int window) {
+  return causal && (q_hi < k_lo || (window > 0 && q_lo - k_hi >= window));
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, asynchronously; `bytes` (0 or 16) are read
-// from src and the rest of the 16 is zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// 2^x on the SFU (`ex2.approx`, relative error below 2^-22), as K2 takes
+// it: the library's exp2f wraps the same instruction in a slower path for
+// accuracy that p and ds, rounded to bf16, have no use for.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -176,299 +155,531 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Copy ROWS rows of one head of a (batch, seq, head, d) bf16 operand, from
-// sequence row r0 on, into shared memory [ROWS][DMAX + 8]; rows at or
-// beyond n and columns at or beyond d are zero.
-template <int ROWS, int DMAX>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long ss, int r0, int n,
-                                          int d) {
-  constexpr int CPR = DMAX / 8;  // 16-byte chunks per row
-  constexpr int LD = DMAX + 8;
-  static_assert((ROWS * CPR) % NT == 0, "tile chunks must split evenly");
-#pragma unroll
-  for (int i = 0; i < ROWS * CPR / NT; ++i) {
-    const int idx = threadIdx.x + i * NT;
-    const int r = idx / CPR, c = (idx % CPR) * 8;
-    const int row = r0 + r;
-    const bool ok = row < n && c < d;
-    cp_async16(dst + r * LD + c, ok ? src + (long long)row * ss + c : src,
-               ok ? 16 : 0);
-  }
+// The (head, tile) of work item `blk` of `heads` heads (batch x head) of
+// `tiles` tiles each, items taken in order.  Heads go in chunks of
+// `chunk`, and within a chunk tile by tile (tile 0 first: the kernels
+// number their tiles heaviest first), so that the items in flight share few
+// heads while the heavy tiles of every head still come early (a head run
+// whole, heavy to light, leaves the last head's heaviest block running
+// alone at the end).
+__device__ __forceinline__ void block_order(int blk, int heads, int tiles,
+                                            int chunk, int* head,
+                                            int* tile) {
+  const int per = chunk * tiles;
+  const int c = blk / per, r = blk % per;
+  const int n = min(chunk, heads - c * chunk);  // heads in this chunk
+  *tile = r / n;
+  *head = c * chunk + r % n;
 }
 
-// One row statistic (lse or dd) per q row of a tile, rows r0 .. r0 + ROWS;
-// zero past n.
-template <int ROWS>
-__device__ __forceinline__ void load_stats(float* dst, const float* src,
-                                           long long ss, int r0, int n) {
-  for (int i = threadIdx.x; i < ROWS; i += NT) {
-    const int row = r0 + i;
-    const bool ok = row < n;
-    cp_async4(dst + i, ok ? src + (long long)row * ss : src, ok ? 4 : 0);
-  }
+// ---- mbarrier and TMA ------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-// acc = A B^T for one warp: A is 16 rows of shared memory [.][LD], B is
-// NTILE * 8 rows [.][LD], both contracted over their first 16 * KSTEPS
-// columns.  acc[j] is the C fragment of columns 8 j .. 8 j + 7.
-template <int NTILE, int KSTEPS, int LD>
-__device__ __forceinline__ void gemm_abt(float (&acc)[NTILE][4],
-                                         const bf16* A, const bf16* B,
-                                         int lane) {
-  static_assert(NTILE % 2 == 0, "n tiles come in pairs");
-#pragma unroll
-  for (int j = 0; j < NTILE; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const bf16* a_row = A + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                      (lane >> 4) * 8;
-  const bf16* b_row = B + ((lane & 7) + ((lane >> 4) << 3)) * LD +
-                      ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    uint32_t a[4];
-    ldsm_x4(a, a_row + ks * 16);
-#pragma unroll
-    for (int j = 0; j < NTILE; j += 2) {
-      uint32_t b[4];
-      ldsm_x4(b, b_row + j * 8 * LD + ks * 16);
-      mma16816(acc[j], a, b[0], b[1]);
-      mma16816(acc[j + 1], a, b[2], b[3]);
-    }
-  }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
-// acc += A B for one warp: A (16 x 16 KSTEPS) is in registers as bf16 A
-// fragments, B is 16 KSTEPS rows of shared memory [.][LD] (the contracted
-// dimension runs down the rows; read with ldmatrix.trans), NTILE * 8
-// columns wide.
-template <int NTILE, int KSTEPS, int LD>
-__device__ __forceinline__ void gemm_ab(float (&acc)[NTILE][4],
-                                        const uint32_t (&a)[KSTEPS][4],
-                                        const bf16* B, int lane) {
-  static_assert(NTILE % 2 == 0, "n tiles come in pairs");
-  const bf16* b_row = B + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                      (lane >> 4) * 8;
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-#pragma unroll
-    for (int j = 0; j < NTILE; j += 2) {
-      uint32_t b[4];
-      ldsm_x4_t(b, b_row + ks * 16 * LD + j * 8);
-      mma16816(acc[j], a[ks], b[0], b[1]);
-      mma16816(acc[j + 1], a[ks], b[2], b[3]);
-    }
-  }
+// Arrive, and expect `bytes` more from TMA before the phase completes.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
 }
 
-// The C fragments of 16 KSTEPS columns, rounded to bf16 as A fragments of
-// the next product (columns become its contracted dimension).
-template <int KSTEPS>
-__device__ __forceinline__ void to_a_frags(uint32_t (&a)[KSTEPS][4],
-                                           const float (&c)[2 * KSTEPS][4]) {
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    a[ks][0] = pack_bf16(c[2 * ks][0], c[2 * ks][1]);
-    a[ks][1] = pack_bf16(c[2 * ks][2], c[2 * ks][3]);
-    a[ks][2] = pack_bf16(c[2 * ks + 1][0], c[2 * ks + 1][1]);
-    a[ks][3] = pack_bf16(c[2 * ks + 1][2], c[2 * ks + 1][3]);
-  }
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
-// Write one warp's 16 x DMAX f32 accumulator times `mul` as bf16 rows
-// r_lo and r_lo + 8 (those below n) of a contiguous (., n, heads, d)
-// output at `base` (row 0 of this batch and head; row stride `rs`).
-template <int NTILE>
+// One box of a 4-d tensor map (coordinates innermost first) into shared
+// memory at `dst`, its bytes counted on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---- wgmma -----------------------------------------------------------------
+
+// A shared-memory matrix descriptor for a 128-byte swizzled tile (atoms of
+// 8 rows x 128 bytes, 1024-byte aligned).  K-major operands (the
+// contracted dimension along the 128-byte rows): `addr` steps 32 bytes
+// per 16-element k step inside an atom, `sbo` 1024 to the next 8 rows.
+// MN-major operands (contracted along the rows): `sbo` 1024 to the next 8
+// rows of the contracted dimension, `lbo` to the next 64 columns.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The k-step `ks` (16 columns) of a K-major tile of `rows` rows whose 64
+// column blocks lie `rows` x 128 bytes apart, from row `row`.
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows, int row,
+                                           int ks) {
+  return sw128_desc(tile + (ks >> 2) * rows * 128 + row * 128 + (ks & 3) * 32,
+                    16);
+}
+
+// The k-step `ks` (16 rows) of an MN-major tile of `rows` rows.
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows, int ks) {
+  return sw128_desc(tile + ks * 16 * 128, rows * 128);
+}
+
+// `x`, opaque to the compiler: what is derived from it (wgmma descriptors,
+// 64 bits each) is formed where it is used and not hoisted out of a loop,
+// where it would hold registers for the whole loop.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of `r` across this point
+// (accumulators in flight in an asynchronous wgmma).
+template <int R>
+__device__ __forceinline__ void reg_fence(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+#define WG_D8(i)                                                          \
+  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_D32 WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+#define WG_D64 WG_D32, WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
+
+// d (64 x 64) = [d +] A B^T: A 64 x 16 and B 64 x 16 both K-major in
+// shared memory; `acc` 0 ignores d's old value.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_D32
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x N) = [d +] A B: A 64 x 16 bf16 fragments in registers, B 16 x N
+// MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, "
+      "1, 1, 1;\n"
+      "}\n"
+      : WG_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : WG_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+#undef WG_D64
+#undef WG_D32
+#undef WG_D8
+
+// Write one warpgroup's 64 x DMAX f32 accumulator times `mul` as bf16:
+// this thread's rows r_lo and r_lo + 8 (those below n) of a contiguous
+// (., n, heads, d) output at `base` (row 0 of this batch and head; row
+// stride `rs`).
+template <int R>
 __device__ __forceinline__ void store_rows(bf16* base, long long rs,
-                                           const float (&acc)[NTILE][4],
-                                           float mul, int r_lo, int n, int d,
+                                           const float (&acc)[R], float mul,
+                                           int r_lo, int n, int d,
                                            int lane) {
 #pragma unroll
-  for (int j = 0; j < NTILE; ++j) {
+  for (int j = 0; j < R / 4; ++j) {
     const int col = j * 8 + 2 * (lane & 3);
     if (col >= d) continue;
     if (r_lo < n)
       *reinterpret_cast<uint32_t*>(base + r_lo * rs + col) =
-          pack_bf16(acc[j][0] * mul, acc[j][1] * mul);
+          pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
     if (r_lo + 8 < n)
       *reinterpret_cast<uint32_t*>(base + (r_lo + 8) * rs + col) =
-          pack_bf16(acc[j][2] * mul, acc[j][3] * mul);
+          pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
   }
 }
 
-template <int DMAX, int BQ, int BK>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(bf16) * (size_t)(2 * BQ + 4 * BK) * (DMAX + 8);
-}
+// Shared memory of K3 at head dim DMAX: byte offsets from a 1024-byte
+// aligned base.  Every tile is DMAX / 64 blocks of [rows][64] bf16.  Q and
+// dO are double-buffered: a block's next q tile arrives while it works on
+// the current one.
+template <int DMAX>
+struct DqSmem {
+  static constexpr int NS = DQ_NS;
+  static constexpr int QB = DQ_BQ * DMAX * 2, KB = DQ_BK * DMAX * 2;
+  static constexpr int Q = 0;  // [2] x {Q tile, dO tile}
+  static constexpr int K = 4 * QB, V = K + NS * KB;
+  // q_full[2], q_empty[2], then the ring's full[NS], empty[NS]
+  static constexpr int BAR = V + NS * KB;
+  static constexpr int BYTES = BAR + 8 * (4 + 2 * NS) + 1024;
+};
 
-template <int DMAX, int BK, int BQ>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(bf16) * (size_t)(2 * BK + 4 * BQ) * (DMAX + 8) +
-         sizeof(float) * 4 * BQ;
-}
+template <int DMAX>
+struct DkvSmem {
+  static constexpr int NS = DKV_NS, BQ = DKV_BQ;
+  static constexpr int KB = DKV_BK * DMAX * 2, QB = BQ * DMAX * 2;
+  static constexpr int K = 0, V = KB, Q = 2 * KB, DO = Q + NS * QB;
+  static constexpr int LSE = DO + NS * QB, DD = LSE + 4 * NS * BQ;
+  static constexpr int BAR = DD + 4 * NS * BQ;  // k/v, full[NS], empty[NS]
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * NS) + 1024;
+};
 
-// K3: one block per (BQ-row q tile, batch x q head); warp w owns q rows
-// 16 w .. 16 w + 15 of the tile.  A loop over KV tiles, double-buffered.
-template <int DMAX, int BQ, int BK>
-__global__ void __launch_bounds__(NT, 2)
-flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
+// K3: one block per `per_block` consecutive (128-row q tile, batch x q
+// head) items of block_order.  Warpgroup 0's first thread loads each
+// item's Q and dO once, into the buffer the item before last used, and
+// streams its K/V tiles through the ring; warpgroups 1 and 2 own q rows
+// 0..63 and 64..127 of the tile.
+template <int DMAX>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
                        const float* __restrict__ lse,
                        const float* __restrict__ dd, bf16* __restrict__ dq,
                        int h, int h_kv, int sq, int sk, int d, Strides st,
                        int q_off, int kv_off, int causal, int window,
-                       float scale) {
-  static_assert(BQ == 16 * NW, "one 16-row slice of the q tile per warp");
-  constexpr int LD = DMAX + 8;
-  constexpr int KD = DMAX / 16;  // k steps over the head dim
-  constexpr int NK = BK / 8;     // key columns of S, in n tiles
-  constexpr int ND = DMAX / 8;   // head-dim columns of dQ, in n tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
-  bf16* Ds = Qs + BQ * LD;                       // [BQ][LD]  do
-  bf16* Ks = Ds + BQ * LD;                       // [2][BK][LD]
-  bf16* Vs = Ks + 2 * BK * LD;                   // [2][BK][LD]
+                       float scale, int heads, int chunk, int per_block) {
+  using L = DqSmem<DMAX>;
+  constexpr int BQ = DQ_BQ, BK = DQ_BK, NS = DQ_NS, NB = DMAX / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  auto q_full = [&](int qb) { return base + L::BAR + 8 * qb; };
+  auto q_empty = [&](int qb) { return base + L::BAR + 8 * (2 + qb); };
+  auto full = [&](int s) { return base + L::BAR + 8 * (4 + s); };
+  auto empty = [&](int s) { return base + L::BAR + 8 * (4 + NS + s); };
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x / h;
-  const int hh = blockIdx.x % h;
-  const int hk = hh / (h / h_kv);
-  // Under a causal mask the last q tiles walk the most KV tiles: take
-  // them first.
-  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int row0 = qt * BQ;
-
-  const bf16* qb = q + b * st.q_b + hh * st.q_h;
-  const bf16* dob = dout + b * st.o_b + hh * st.o_h;
-  const bf16* kb = k + b * st.k_b + hk * st.k_h;
-  const bf16* vb = v + b * st.v_b + hk * st.v_h;
-
-  // Live KV tiles for this q tile: [j_begin, j_end).
+  const int n_q = (sq + BQ - 1) / BQ;
+  const int first = blockIdx.x * per_block;
+  const int n_items = min(per_block, heads * n_q - first);
   const int n_tiles = (sk + BK - 1) / BK;
-  int j_begin = 0, j_end = n_tiles;
-  if (causal) {
-    const int q_hi = q_off + min(sq, row0 + BQ) - 1;
-    j_end = clampi(floordiv(q_hi - kv_off, BK) + 1, 0, n_tiles);
-    if (window > 0)
-      j_begin = clampi(floordiv(q_off + row0 - window + 1 - kv_off, BK), 0,
-                       n_tiles);
-  }
-
-  load_tile<BQ, DMAX>(Qs, qb, st.q_s, row0, sq, d);
-  load_tile<BQ, DMAX>(Ds, dob, st.o_s, row0, sq, d);
-  if (j_begin < j_end) {
-    load_tile<BK, DMAX>(Ks, kb, st.k_s, j_begin * BK, sk, d);
-    load_tile<BK, DMAX>(Vs, vb, st.v_s, j_begin * BK, sk, d);
-  }
-  cp_async_commit();
-
-  // This thread's two q rows (C-fragment rows g and g + 8 of its warp).
-  const int r_lo = row0 + warp * 16 + (lane >> 2);
-  float lse2[2], ddv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r_lo + 8 * i;
-    lse2[i] = row < sq ? lse[b * st.l_b + row * st.l_s + hh * st.l_h] * LOG2E
-                       : 0.f;
-    ddv[i] = row < sq ? dd[b * st.d_b + row * st.d_s + hh * st.d_h] : 0.f;
-  }
-  const float sl2 = scale * LOG2E;
-  const bool full_rows = row0 + BQ <= sq;
-
-  float acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (int j = j_begin; j < j_end; ++j) {
-    const int stage = (j - j_begin) & 1;
-    if (j + 1 < j_end) {
-      const int nxt = stage ^ 1;
-      load_tile<BK, DMAX>(Ks + nxt * BK * LD, kb, st.k_s, (j + 1) * BK, sk,
-                          d);
-      load_tile<BK, DMAX>(Vs + nxt * BK * LD, vb, st.v_s, (j + 1) * BK, sk,
-                          d);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  // Item m of this block: batch, q head, KV head, first q row, and its live
+  // KV tiles [j_begin, j_end).  Under a causal mask the last q tiles walk
+  // the most KV tiles: they come first.
+  struct Item {
+    int b, hh, hk, row0, j_begin, j_end;
+  };
+  auto item = [&](int m) {
+    Item it;
+    int bh, tile;
+    block_order(first + m, heads, n_q, chunk, &bh, &tile);
+    it.b = bh / h;
+    it.hh = bh % h;
+    it.hk = it.hh / (h / h_kv);
+    it.row0 = (causal ? n_q - 1 - tile : tile) * BQ;
+    it.j_begin = 0;
+    it.j_end = n_tiles;
+    if (causal) {
+      const int q_hi = q_off + min(sq, it.row0 + BQ) - 1;
+      it.j_end = clampi(floordiv(q_hi - kv_off, BK) + 1, 0, n_tiles);
+      if (window > 0)
+        it.j_begin = clampi(
+            floordiv(q_off + it.row0 - window + 1 - kv_off, BK), 0, n_tiles);
     }
-    __syncthreads();
-    const bf16* Kt = Ks + stage * BK * LD;
-    const bf16* Vt = Vs + stage * BK * LD;
+    return it;
+  };
 
-    float s[NK][4], dp[NK][4];
-    gemm_abt<NK, KD, LD>(s, Qs + warp * 16 * LD, Kt, lane);
-    gemm_abt<NK, KD, LD>(dp, Ds + warp * 16 * LD, Vt, lane);
-
-    const int c0 = j * BK;
-    const bool interior =
-        full_rows && c0 + BK <= sk &&
-        tile_interior(q_off + row0, q_off + row0 + BQ - 1, kv_off + c0,
-                      kv_off + c0 + BK - 1, causal, window);
-#pragma unroll
-    for (int jj = 0; jj < NK; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(fmaf(s[jj][e], sl2, -lse2[e >> 1]));
-        if (!interior) {
-          const int row = r_lo + 8 * (e >> 1);
-          const int col = c0 + jj * 8 + 2 * (lane & 3) + (e & 1);
-          if (!(row < sq && col < sk &&
-                pair_live(q_off + row, kv_off + col, causal, window)))
-            p = 0.f;
-        }
-        s[jj][e] = p * (dp[jj][e] - ddv[e >> 1]);  // ds
-      }
-    uint32_t ds_a[BK / 16][4];
-    to_a_frags<BK / 16>(ds_a, s);
-    gemm_ab<ND, BK / 16, LD>(acc, ds_a, Kt, lane);
-    __syncthreads();  // this stage is refilled two tiles on
+  if (threadIdx.x == 0) {
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(q_full(qb), 1);
+      mbar_init(q_empty(qb), 8);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  store_rows<ND>(dq + ((long long)b * sq * h + hh) * d, (long long)h * d,
-                 acc, scale, r_lo, sq, d, lane);
+  if (threadIdx.x < 128) {
+    // Producer.  `ring` counts K/V tiles over the block's items, `nq` its
+    // items with live tiles.
+    setmaxnreg_dec<REG_PRODUCER>();
+    if (threadIdx.x == 0) {
+      int ring = 0, nq = 0;
+      for (int m = 0; m < n_items; ++m) {
+        const Item it = item(m);
+        if (it.j_begin >= it.j_end) continue;
+        const int qb = nq & 1;
+        mbar_wait(q_empty(qb), ((nq >> 1) & 1) ^ 1);
+        mbar_expect_tx(q_full(qb), 2 * L::QB);
+        const uint32_t qt = base + L::Q + qb * 2 * L::QB;
+        for (int c = 0; c < NB; ++c) {
+          tma_load(qt + c * BQ * 128, &tq, q_full(qb), 64 * c, it.hh, it.row0,
+                   it.b);
+          tma_load(qt + L::QB + c * BQ * 128, &tdo, q_full(qb), 64 * c, it.hh,
+                   it.row0, it.b);
+        }
+        ++nq;
+        for (int j = it.j_begin; j < it.j_end; ++j, ++ring) {
+          const int s = ring % NS;
+          mbar_wait(empty(s), ((ring / NS) & 1) ^ 1);
+          mbar_expect_tx(full(s), 2 * L::KB);
+          for (int c = 0; c < NB; ++c) {
+            tma_load(base + L::K + s * L::KB + c * BK * 128, &tk, full(s),
+                     64 * c, it.hk, j * BK, it.b);
+            tma_load(base + L::V + s * L::KB + c * BK * 128, &tv, full(s),
+                     64 * c, it.hk, j * BK, it.b);
+          }
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup w owns q rows 64 w .. 64 w + 63 of each tile.
+    setmaxnreg_inc<REG_CONSUMER>();
+    const int w = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x & 31;
+    const float sl2 = scale * LOG2E;
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // lse (times log2 e) and dd of this thread's two q rows of an item
+    // (accumulator rows g and g + 8 of its warp), read an item ahead.
+    auto stats = [&](const Item& it, float (&l)[2], float (&e)[2]) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = it.row0 + ROWS * w + warp * 16 + (lane >> 2) + 8 * i;
+        const bool ok = row < sq;
+        l[i] = ok ? lse[it.b * st.l_b + row * st.l_s + it.hh * st.l_h] * LOG2E
+                  : 0.f;
+        e[i] = ok ? dd[it.b * st.d_b + row * st.d_s + it.hh * st.d_h] : 0.f;
+      }
+    };
+    float lse2[2], ddv[2], next_lse2[2], next_ddv[2];
+    stats(item(0), lse2, ddv);
+    int ring = 0, nq = 0;
+    for (int m = 0; m < n_items; ++m) {
+      const Item it = item(m);
+      const int wrow0 = it.row0 + ROWS * w;
+      const int r_lo = wrow0 + warp * 16 + (lane >> 2);
+      const int wq_lo = q_off + wrow0, wq_hi = wq_lo + ROWS - 1;
+      const bool full_rows = wrow0 + ROWS <= sq;
+
+      float acc[DMAX / 2];
+#pragma unroll
+      for (int i = 0; i < DMAX / 2; ++i) acc[i] = 0.f;
+      if (it.j_begin < it.j_end) {
+        const int qb = nq & 1;
+        mbar_wait(q_full(qb), (nq >> 1) & 1);
+        const uint32_t qa = base + L::Q + qb * 2 * L::QB, da = qa + L::QB;
+        // The dQ product of a KV tile stays in flight while the next
+        // tile's score products are issued; its stage is released when
+        // both are done.
+        int held = -1;  // the stage the dQ product in flight reads
+        uint32_t ds_a[BK / 16][4];
+        for (int j = it.j_begin; j < it.j_end; ++j, ++ring) {
+          const int s = ring % NS;
+          mbar_wait(full(s), (ring / NS) & 1);
+          const uint32_t kt = base + L::K + s * L::KB;
+          const uint32_t vt = base + L::V + s * L::KB;
+          const int c0 = j * BK;
+          const int k_lo = kv_off + c0, k_hi = k_lo + BK - 1;
+          if (tile_dead(wq_lo, wq_hi, k_lo, k_hi, causal, window)) {
+            wg_wait<0>();
+            reg_fence(acc);
+            if (held >= 0) release(empty(held));
+            held = -1;
+            release(empty(s));
+            continue;
+          }
+          const uint32_t qw = opaque(qa), dw = opaque(da);
+          float sc[BK / 2], dp[BK / 2];
+          wg_fence();
+#pragma unroll
+          for (int ks = 0; ks < DMAX / 16; ++ks)
+            wgmma_ss(sc, kmajor(qw, BQ, ROWS * w, ks), kmajor(kt, BK, 0, ks),
+                     ks);
+          wg_commit();
+#pragma unroll
+          for (int ks = 0; ks < DMAX / 16; ++ks)
+            wgmma_ss(dp, kmajor(dw, BQ, ROWS * w, ks), kmajor(vt, BK, 0, ks),
+                     ks);
+          wg_commit();
+          // S (and the dQ product before it) done; dP may still run while
+          // the exponentials are taken.
+          wg_wait<1>();
+          reg_fence(sc);
+          reg_fence(acc);
+          if (held >= 0) release(empty(held));
+
+          const bool interior = full_rows && c0 + BK <= sk &&
+                                tile_interior(wq_lo, wq_hi, k_lo, k_hi,
+                                              causal, window);
+          // Off the interior, each of this thread's rows keeps the columns
+          // [lo, hi] of its own (offsets from its first column, c0 + 2 *
+          // (lane % 4)): below sk, at or before the row's position, within
+          // the window, and none on a row at or past sq.
+          int lo[2] = {0, 0}, hi[2] = {BK, BK};
+          if (!interior) {
+            const int cb = c0 + 2 * (lane & 3);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int row = r_lo + 8 * r;
+              const int diag = q_off + row - kv_off - cb;
+              hi[r] = row < sq ? min(sk - 1 - cb, causal ? diag : BK) : -1;
+              lo[r] = causal && window > 0 ? diag - window + 1 : 0;
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i) {
+            const int r = (i & 3) >> 1, col = (i >> 2) * 8 + (i & 1);
+            const float p = ex2(fmaf(sc[i], sl2, -lse2[r]));
+            sc[i] = col >= lo[r] && col <= hi[r] ? p : 0.f;
+          }
+          wg_wait<0>();
+          reg_fence(dp);
+          // ds = p (dp - dd), rounded to bf16 and packed as the A
+          // fragments of dQ += dS K.
+#pragma unroll
+          for (int ks = 0; ks < BK / 16; ++ks)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              const int i = 8 * ks + 2 * jj, r = jj & 1;
+              ds_a[ks][jj] = pack_bf16(sc[i] * (dp[i] - ddv[r]),
+                                       sc[i + 1] * (dp[i + 1] - ddv[r]));
+            }
+          reg_fence(ds_a);
+          wg_fence();
+#pragma unroll
+          for (int ks = 0; ks < BK / 16; ++ks)
+            wgmma_rs(acc, ds_a[ks], mnmajor(kt, BK, ks), 1);
+          wg_commit();
+          held = s;
+        }
+        if (m + 1 < n_items) stats(item(m + 1), next_lse2, next_ddv);
+        wg_wait<0>();
+        reg_fence(acc);
+        if (held >= 0) release(empty(held));
+        release(q_empty(qb));
+        ++nq;
+      } else if (m + 1 < n_items) {
+        stats(item(m + 1), next_lse2, next_ddv);
+      }
+      store_rows(dq + ((long long)it.b * sq * h + it.hh) * d,
+                 (long long)h * d, acc, scale, r_lo, sq, d, lane);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        lse2[i] = next_lse2[i];
+        ddv[i] = next_ddv[i];
+      }
+    }
+  }
 }
 
-// K4: one block per (BK-row KV tile, batch x KV head); warp w owns key
-// rows 16 w .. 16 w + 15.  A loop over the q heads of the KV head's group
-// and, inside, over q tiles, flattened into one double-buffered sequence.
-template <int DMAX, int BK, int BQ>
-__global__ void __launch_bounds__(NT, 2)
-flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
-                        const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
+// K4: one block per (128-key KV tile, batch x KV head).  Warp 0 loads the
+// block's K/V once and streams, for each q head of the KV head's group
+// and each live q tile, Q/dO boxes and their lse/dd rows through the ring;
+// warpgroups 1 and 2 own keys 0..63 and 64..127 of the tile.
+template <int DMAX>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
                         const float* __restrict__ lse,
                         const float* __restrict__ dd, bf16* __restrict__ dk,
                         bf16* __restrict__ dv, int h, int h_kv, int sq,
                         int sk, int d, Strides st, int q_off, int kv_off,
-                        int causal, int window, float scale) {
-  static_assert(BK == 16 * NW, "one 16-row slice of the KV tile per warp");
-  constexpr int LD = DMAX + 8;
-  constexpr int KD = DMAX / 16;  // k steps over the head dim
-  constexpr int NQ = BQ / 8;     // q columns of S^T, in n tiles
-  constexpr int ND = DMAX / 8;   // head-dim columns of dK / dV, in n tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][LD]
-  bf16* Vs = Ks + BK * LD;                       // [BK][LD]
-  bf16* Qs = Vs + BK * LD;                       // [2][BQ][LD]
-  bf16* Ds = Qs + 2 * BQ * LD;                   // [2][BQ][LD]  do
-  float* Ls = reinterpret_cast<float*>(Ds + 2 * BQ * LD);  // [2][BQ] lse
-  float* Es = Ls + 2 * BQ;                                 // [2][BQ] dd
+                        int causal, int window, float scale, int chunk) {
+  using L = DkvSmem<DMAX>;
+  constexpr int BK = DKV_BK, BQ = DKV_BQ, NS = DKV_NS, NB = DMAX / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
+  float* lse_s = reinterpret_cast<float*>(gbase + L::LSE);  // [NS][BQ]
+  float* dd_s = reinterpret_cast<float*>(gbase + L::DD);    // [NS][BQ]
+  const uint32_t bar_kv = base + L::BAR;
+  auto full = [&](int s) { return bar_kv + 8 * (1 + s); };
+  auto empty = [&](int s) { return bar_kv + 8 * (1 + NS + s); };
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x / h_kv;
-  const int hk = blockIdx.x % h_kv;
+  // Under a causal mask the first KV tiles walk the most q tiles: they
+  // come first.
+  const int n_k = (sk + BK - 1) / BK;
+  int bh, tile;
+  block_order(blockIdx.x, gridDim.x / n_k, n_k, chunk, &bh, &tile);
+  const int b = bh / h_kv;
+  const int hk = bh % h_kv;
   const int g = h / h_kv;
-  // Under a causal mask the first KV tiles walk the most q tiles; they
-  // come first in blockIdx.y order.
-  const int col0 = blockIdx.y * BK;
+  const int col0 = tile * BK;
 
   // Live q tiles for this KV tile: [i_begin, i_end).
   const int n_q = (sq + BQ - 1) / BQ;
@@ -483,121 +694,204 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
   const int n_live = max(i_end - i_begin, 0);
   const int n_iter = g * n_live;
 
-  // Stage the operands of iteration t (q head hk g + t / n_live, q tile
-  // i_begin + t % n_live) into buffer `buf`.
-  auto issue = [&](int t, int buf) {
-    const int hh = hk * g + t / n_live;
-    const int r0 = (i_begin + t % n_live) * BQ;
-    load_tile<BQ, DMAX>(Qs + buf * BQ * LD, q + b * st.q_b + hh * st.q_h,
-                        st.q_s, r0, sq, d);
-    load_tile<BQ, DMAX>(Ds + buf * BQ * LD, dout + b * st.o_b + hh * st.o_h,
-                        st.o_s, r0, sq, d);
-    load_stats<BQ>(Ls + buf * BQ, lse + b * st.l_b + hh * st.l_h, st.l_s, r0,
-                   sq);
-    load_stats<BQ>(Es + buf * BQ, dd + b * st.d_b + hh * st.d_h, st.d_s, r0,
-                   sq);
-  };
-
-  load_tile<BK, DMAX>(Ks, k + b * st.k_b + hk * st.k_h, st.k_s, col0, sk, d);
-  load_tile<BK, DMAX>(Vs, v + b * st.v_b + hk * st.v_h, st.v_s, col0, sk, d);
-  if (n_iter > 0) issue(0, 0);
-  cp_async_commit();
-
-  // This thread's two key rows (C-fragment rows g and g + 8 of its warp).
-  const int k_lo = col0 + warp * 16 + (lane >> 2);
-  const float sl2 = scale * LOG2E;
-  const bool full_keys = col0 + BK <= sk;
-
-  float acc_k[ND][4], acc_v[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
-
-  for (int t = 0; t < n_iter; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_iter) {
-      issue(t + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full(s), 32);  // the producer warp's lanes
+      mbar_init(empty(s), 8);  // one arrival per consumer warp
     }
-    __syncthreads();
-    const bf16* Qt = Qs + buf * BQ * LD;
-    const bf16* Dt = Ds + buf * BQ * LD;
-    const float* Lt = Ls + buf * BQ;
-    const float* Et = Es + buf * BQ;
-    const int r0 = (i_begin + t % n_live) * BQ;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    float s[NQ][4], dp[NQ][4];  // S^T and dP^T: key rows, q columns
-    gemm_abt<NQ, KD, LD>(s, Ks + warp * 16 * LD, Qt, lane);
-    gemm_abt<NQ, KD, LD>(dp, Vs + warp * 16 * LD, Dt, lane);
-
-    const bool interior =
-        full_keys && r0 + BQ <= sq &&
-        tile_interior(q_off + r0, q_off + r0 + BQ - 1, kv_off + col0,
-                      kv_off + col0 + BK - 1, causal, window);
-#pragma unroll
-    for (int jj = 0; jj < NQ; ++jj) {
-      const int qi = jj * 8 + 2 * (lane & 3);
-      const float2 l2 = *reinterpret_cast<const float2*>(Lt + qi);
-      const float2 e2 = *reinterpret_cast<const float2*>(Et + qi);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float lv = (e & 1) ? l2.y : l2.x;
-        const float ev = (e & 1) ? e2.y : e2.x;
-        float p = exp2f(fmaf(s[jj][e], sl2, -lv * LOG2E));
-        if (!interior) {
-          const int key = k_lo + 8 * (e >> 1);
-          const int row = r0 + qi + (e & 1);
-          if (!(row < sq && key < sk &&
-                pair_live(q_off + row, kv_off + key, causal, window)))
-            p = 0.f;
+  if (threadIdx.x < 128) {
+    // Producer: warp 0.  Iteration t is q head hk g + t / n_live, q tile
+    // i_begin + t % n_live.
+    setmaxnreg_dec<REG_PRODUCER>();
+    const int lane = threadIdx.x;
+    if (threadIdx.x < 32 && n_iter > 0) {
+      if (lane == 0) {
+        mbar_expect_tx(bar_kv, 2 * L::KB);
+        for (int c = 0; c < NB; ++c) {
+          tma_load(base + L::K + c * BK * 128, &tk, bar_kv, 64 * c, hk, col0,
+                   b);
+          tma_load(base + L::V + c * BK * 128, &tv, bar_kv, 64 * c, hk, col0,
+                   b);
         }
-        dp[jj][e] = p * (dp[jj][e] - ev);  // ds^T
-        s[jj][e] = p;                      // p^T
+      }
+      // Each lane's lse and dd rows of iteration t are read one iteration
+      // ahead, so that their latency overlaps the wait for a free stage.
+      constexpr int PER = BQ / 32;
+      float lv[PER], ev[PER];
+      auto fetch = [&](int t) {
+        const int hh = hk * g + t / n_live;
+        const int r0 = (i_begin + t % n_live) * BQ;
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          const int row = r0 + lane + 32 * i;
+          const bool ok = row < sq;
+          lv[i] = ok ? lse[b * st.l_b + row * st.l_s + hh * st.l_h] * LOG2E
+                     : 0.f;
+          ev[i] = ok ? dd[b * st.d_b + row * st.d_s + hh * st.d_h] : 0.f;
+        }
+      };
+      fetch(0);
+      for (int t = 0; t < n_iter; ++t) {
+        const int s = t % NS;
+        const int hh = hk * g + t / n_live;
+        const int r0 = (i_begin + t % n_live) * BQ;
+        mbar_wait(empty(s), ((t / NS) & 1) ^ 1);
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          lse_s[s * BQ + lane + 32 * i] = lv[i];
+          dd_s[s * BQ + lane + 32 * i] = ev[i];
+        }
+        if (lane == 0) {
+          mbar_expect_tx(full(s), 2 * L::QB);
+          for (int c = 0; c < NB; ++c) {
+            tma_load(base + L::Q + s * L::QB + c * BQ * 128, &tq, full(s),
+                     64 * c, hh, r0, b);
+            tma_load(base + L::DO + s * L::QB + c * BQ * 128, &tdo, full(s),
+                     64 * c, hh, r0, b);
+          }
+        } else {
+          mbar_arrive(full(s));
+        }
+        if (t + 1 < n_iter) fetch(t + 1);
       }
     }
-    uint32_t p_a[BQ / 16][4], ds_a[BQ / 16][4];
-    to_a_frags<BQ / 16>(p_a, s);
-    to_a_frags<BQ / 16>(ds_a, dp);
-    gemm_ab<ND, BQ / 16, LD>(acc_v, p_a, Dt, lane);
-    gemm_ab<ND, BQ / 16, LD>(acc_k, ds_a, Qt, lane);
-    __syncthreads();  // this buffer is refilled two iterations on
+  } else {
+    // Consumers: warpgroup w owns keys 64 w .. 64 w + 63 of the tile.
+    setmaxnreg_inc<REG_CONSUMER>();
+    const int w = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x & 31;
+    const int wcol0 = col0 + ROWS * w;
+    // This thread's two keys (accumulator rows g and g + 8 of its warp).
+    const int k_lo = wcol0 + warp * 16 + (lane >> 2);
+    const float sl2 = scale * LOG2E;
+    const int wk_lo = kv_off + wcol0, wk_hi = wk_lo + ROWS - 1;
+    const bool full_keys = wcol0 + ROWS <= sk;
+    const uint32_t ka = base + L::K, va = base + L::V;
+
+    float acc_k[DMAX / 2], acc_v[DMAX / 2];
+#pragma unroll
+    for (int i = 0; i < DMAX / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+    if (n_iter > 0) mbar_wait(bar_kv, 0);
+
+    for (int t = 0; t < n_iter; ++t) {
+      const int s = t % NS;
+      mbar_wait(full(s), (t / NS) & 1);
+      const int r0 = (i_begin + t % n_live) * BQ;
+      const int q_lo = q_off + r0, q_hi = q_lo + BQ - 1;
+      if (!tile_dead(q_lo, q_hi, wk_lo, wk_hi, causal, window)) {
+        const uint32_t qt = base + L::Q + s * L::QB;
+        const uint32_t dt = base + L::DO + s * L::QB;
+        const float* lt = lse_s + s * BQ;
+        const float* et = dd_s + s * BQ;
+        const uint32_t kw = opaque(ka), vw = opaque(va);
+        float sc[BQ / 2], dp[BQ / 2];  // S^T and dP^T: key rows, q columns
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < DMAX / 16; ++ks)
+          wgmma_ss(sc, kmajor(kw, BK, ROWS * w, ks), kmajor(qt, BQ, 0, ks),
+                   ks);
+        wg_commit();
+#pragma unroll
+        for (int ks = 0; ks < DMAX / 16; ++ks)
+          wgmma_ss(dp, kmajor(vw, BK, ROWS * w, ks), kmajor(dt, BQ, 0, ks),
+                   ks);
+        wg_commit();
+        // S^T done; dP^T may still run while the exponentials are taken.
+        wg_wait<1>();
+        reg_fence(sc);
+
+        const bool interior = full_keys && r0 + BQ <= sq &&
+                              tile_interior(q_lo, q_hi, wk_lo, wk_hi, causal,
+                                            window);
+        // Off the interior, each of this thread's keys keeps the q columns
+        // [lo, hi] of its own (offsets from its first column, r0 + 2 *
+        // (lane % 4)): below sq, at or after the key's position, within
+        // the window, and none for a key at or past sk.
+        int lo[2] = {0, 0}, hi[2] = {BQ, BQ};
+        if (!interior) {
+          const int qb = r0 + 2 * (lane & 3);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int key = k_lo + 8 * r;
+            const int diag = kv_off + key - q_off - qb;
+            lo[r] = causal ? diag : 0;
+            hi[r] = key < sk ? min(sq - 1 - qb, causal && window > 0
+                                                    ? diag + window - 1
+                                                    : BQ)
+                             : -1;
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < BQ / 8; ++jj) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(lt + jj * 8 + 2 * (lane & 3));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * jj + e, r = e >> 1, col = jj * 8 + (e & 1);
+            const float p = ex2(fmaf(sc[i], sl2, -((e & 1) ? l2.y : l2.x)));
+            sc[i] = col >= lo[r] && col <= hi[r] ? p : 0.f;
+          }
+        }
+        wg_wait<0>();
+        reg_fence(dp);
+        // p^T and ds^T = p^T (dp^T - dd), rounded to bf16 and packed as
+        // the A fragments of dV += P^T dO and dK += dS^T Q.
+        uint32_t p_a[BQ / 16][4], ds_a[BQ / 16][4];
+#pragma unroll
+        for (int ks = 0; ks < BQ / 16; ++ks)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int i = 8 * ks + 2 * j;
+            const float2 e2 = *reinterpret_cast<const float2*>(
+                et + (i >> 2) * 8 + 2 * (lane & 3));
+            p_a[ks][j] = pack_bf16(sc[i], sc[i + 1]);
+            ds_a[ks][j] = pack_bf16(sc[i] * (dp[i] - e2.x),
+                                    sc[i + 1] * (dp[i + 1] - e2.y));
+          }
+        reg_fence(p_a);
+        reg_fence(ds_a);
+        reg_fence(acc_v);
+        reg_fence(acc_k);
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < BQ / 16; ++ks)
+          wgmma_rs(acc_v, p_a[ks], mnmajor(dt, BQ, ks), 1);
+#pragma unroll
+        for (int ks = 0; ks < BQ / 16; ++ks)
+          wgmma_rs(acc_k, ds_a[ks], mnmajor(qt, BQ, ks), 1);
+        wg_commit();
+        wg_wait<0>();
+        reg_fence(acc_v);
+        reg_fence(acc_k);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));  // this stage is refilled
+    }
+
+    const long long o = ((long long)b * sk * h_kv + hk) * d;
+    const long long rs = (long long)h_kv * d;
+    store_rows(dk + o, rs, acc_k, scale, k_lo, sk, d, lane);
+    store_rows(dv + o, rs, acc_v, 1.f, k_lo, sk, d, lane);
   }
-  cp_async_wait<0>();
-
-  const long long o = ((long long)b * sk * h_kv + hk) * d;
-  const long long rs = (long long)h_kv * d;
-  store_rows<ND>(dk + o, rs, acc_k, scale, k_lo, sk, d, lane);
-  store_rows<ND>(dv + o, rs, acc_v, 1.f, k_lo, sk, d, lane);
 }
 
-// Tile shapes: K3 (BQ, BK) = (64, 64), K4 (BK, BQ) = (64, 32), at DMAX 64
-// (d <= 64) and 128.
-constexpr int DQ_BQ = 64, DQ_BK = 64, DKV_BK = 64, DKV_BQ = 32;
-
-template <int DMAX>
-const void* dq_fn() {
-  return (const void*)flash_bwd_dq_tc_kernel<DMAX, DQ_BQ, DQ_BK>;
-}
-template <int DMAX>
-const void* dkv_fn() {
-  return (const void*)flash_bwd_dkv_tc_kernel<DMAX, DKV_BK, DKV_BQ>;
-}
-
-// The kernel of `part` (0 = dq, 1 = dk/dv) for head dim d, and its dynamic
+// The kernel of `part` (0 = dq, 1 = dk/dv) for head dim d and its dynamic
 // shared memory; sets the attribute that allows that much.
 cudaError_t pick(int part, int d, const void** fn, size_t* smem) {
   if (part == 0) {
-    *fn = d <= 64 ? dq_fn<64>() : dq_fn<128>();
-    *smem = d <= 64 ? dq_smem_bytes<64, DQ_BQ, DQ_BK>()
-                    : dq_smem_bytes<128, DQ_BQ, DQ_BK>();
+    *fn = d <= 64 ? (const void*)flash_bwd_dq_tc_kernel<64>
+                  : (const void*)flash_bwd_dq_tc_kernel<128>;
+    *smem = d <= 64 ? DqSmem<64>::BYTES : DqSmem<128>::BYTES;
   } else {
-    *fn = d <= 64 ? dkv_fn<64>() : dkv_fn<128>();
-    *smem = d <= 64 ? dkv_smem_bytes<64, DKV_BK, DKV_BQ>()
-                    : dkv_smem_bytes<128, DKV_BK, DKV_BQ>();
+    *fn = d <= 64 ? (const void*)flash_bwd_dkv_tc_kernel<64>
+                  : (const void*)flash_bwd_dkv_tc_kernel<128>;
+    *smem = d <= 64 ? DkvSmem<64>::BYTES : DkvSmem<128>::BYTES;
   }
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)*smem);
@@ -612,6 +906,109 @@ Strides unpack(const long long* p) {
   return Strides{p[0],  p[1],  p[2],  p[3],  p[4],  p[5],
                  p[6],  p[7],  p[8],  p[9],  p[10], p[11],
                  p[12], p[13], p[14], p[15], p[16], p[17]};
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime's
+// entry-point query (the library does not link libcuda); null where the
+// installed CUDA has none.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+    return (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A TMA map over one (batch, seq, head, d) bf16 operand with element
+// strides (sb, ss, sh): boxes of `rows` rows x 64 columns of one head,
+// 128-byte swizzled, zero past every edge.  A dimension of size 1 is never
+// stepped, so its stride is set as if the operand were packed.
+cudaError_t tile_map(CUtensorMap* map, const void* ptr, int b, int s,
+                     int heads, int d, long long sb, long long ss,
+                     long long sh, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)s, (cuuint64_t)b};
+  const long long given[3] = {sh, ss, sb};
+  cuuint64_t strides[3];
+  long long span = d;
+  for (int i = 0; i < 3; ++i) {
+    const long long el = dims[i + 1] > 1 ? given[i] : span;
+    strides[i] = (cuuint64_t)el * sizeof(bf16);
+    span = el * (long long)dims[i + 1];
+  }
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The SMs of the current device.
+int device_sms() {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// Heads per chunk of block_order for `heads` heads of `tiles` tiles, run
+// `per_block` tiles to a block: about two blocks for every SM, the chunks
+// of one size as near as can be (a last chunk of a head or two would end
+// alone).
+int head_chunk(int heads, int tiles, int per_block) {
+  const int want = (2 * device_sms() * per_block + tiles - 1) / tiles;
+  const int n = (heads + want - 1) / want;  // chunks
+  return (heads + n - 1) / n;
+}
+
+// Items (q tiles of K3, KV tiles of K4) per block: two, so that a block
+// loads its second item's own tile while it works on the first and the
+// fixed cost of a block (its first loads, its last product and stores) is
+// paid once for both, where that leaves at least two blocks for every SM;
+// else one.
+int items_per_block(long long items) {
+  return items >= 4LL * device_sms() ? 2 : 1;
+}
+
+// The four operand maps: q and do in `q_rows`-row boxes, k and v in
+// `k_rows`-row boxes.
+cudaError_t operand_maps(CUtensorMap (&m)[4], const void* q, const void* k,
+                         const void* v, const void* dout, int b, int h,
+                         int h_kv, int sq, int sk, int d, const Strides& st,
+                         int q_rows, int k_rows) {
+  cudaError_t e;
+  if ((e = tile_map(&m[0], q, b, sq, h, d, st.q_b, st.q_s, st.q_h,
+                    q_rows)) != cudaSuccess ||
+      (e = tile_map(&m[1], k, b, sk, h_kv, d, st.k_b, st.k_s, st.k_h,
+                    k_rows)) != cudaSuccess ||
+      (e = tile_map(&m[2], v, b, sk, h_kv, d, st.v_b, st.v_s, st.v_h,
+                    k_rows)) != cudaSuccess ||
+      (e = tile_map(&m[3], dout, b, sq, h, d, st.o_b, st.o_s, st.o_h,
+                    q_rows)) != cudaSuccess)
+    return e;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -631,19 +1028,29 @@ extern "C" int mpi4torch_flash_bwd_tc_dq(const void* q, const void* k,
                                          int kv_off, int causal, int window,
                                          int dh, void* stream) {
   const int n_q = (sq + DQ_BQ - 1) / DQ_BQ;
-  if (bad_shape(b, h, h_kv, sq, sk, d) || dh < 1 || dh > d || n_q > 65535)
+  const long long items = (long long)b * h * n_q;
+  if (bad_shape(b, h, h_kv, sq, sk, d) || dh < 1 || dh > d ||
+      items > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const void* fn;
   size_t smem;
   cudaError_t e = pick(0, d, &fn, &smem);
   if (e != cudaSuccess) return (int)e;
   Strides st = unpack(strides);
+  CUtensorMap maps[4];
+  e = operand_maps(maps, q, k, v, dout, b, h, h_kv, sq, sk, d, st, DQ_BQ,
+                   DQ_BK);
+  if (e != cudaSuccess) return (int)e;
   const float scale = 1.0f / sqrtf((float)dh);
-  void* args[] = {&q,  &k,  &v,    &dout,   &lse,    &dd,     &dq,
-                  &h,  &h_kv, &sq, &sk,     &d,      &st,     &q_off,
-                  &kv_off, &causal, &window, (void*)&scale};
-  return (int)cudaLaunchKernel(fn, dim3(b * h, n_q), dim3(NT), args, smem,
-                               static_cast<cudaStream_t>(stream));
+  int heads = b * h, per_block = items_per_block(items);
+  int chunk = head_chunk(heads, n_q, per_block);
+  const long long blocks = (items + per_block - 1) / per_block;
+  void* args[] = {&maps[0], &maps[1], &maps[2], &maps[3], &lse,
+                  &dd,      &dq,      &h,       &h_kv,    &sq,
+                  &sk,      &d,       &st,      &q_off,   &kv_off,
+                  &causal,  &window,  (void*)&scale, &heads, &chunk, &per_block};
+  return (int)cudaLaunchKernel(fn, dim3((unsigned)blocks), dim3(NT), args,
+                               smem, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mpi4torch_flash_bwd_tc_dkv(const void* q, const void* k,
@@ -654,26 +1061,35 @@ extern "C" int mpi4torch_flash_bwd_tc_dkv(const void* q, const void* k,
                                           const long long* strides,
                                           int q_off, int kv_off, int causal,
                                           int window, int dh, void* stream) {
-  const int n_k = (sk + DKV_BK - 1) / DKV_BK;
-  if (bad_shape(b, h, h_kv, sq, sk, d) || dh < 1 || dh > d || n_k > 65535)
+  const long long blocks =
+      (long long)b * h_kv * ((sk + DKV_BK - 1) / DKV_BK);
+  if (bad_shape(b, h, h_kv, sq, sk, d) || dh < 1 || dh > d ||
+      blocks > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const void* fn;
   size_t smem;
   cudaError_t e = pick(1, d, &fn, &smem);
   if (e != cudaSuccess) return (int)e;
   Strides st = unpack(strides);
+  CUtensorMap maps[4];
+  e = operand_maps(maps, q, k, v, dout, b, h, h_kv, sq, sk, d, st, DKV_BQ,
+                   DKV_BK);
+  if (e != cudaSuccess) return (int)e;
   const float scale = 1.0f / sqrtf((float)dh);
-  void* args[] = {&q,  &k,  &v,    &dout,   &lse,   &dd,     &dk,
-                  &dv, &h,  &h_kv, &sq,     &sk,    &d,      &st,
-                  &q_off, &kv_off, &causal, &window, (void*)&scale};
-  return (int)cudaLaunchKernel(fn, dim3(b * h_kv, n_k), dim3(NT), args, smem,
-                               static_cast<cudaStream_t>(stream));
+  int chunk = head_chunk(b * h_kv, (sk + DKV_BK - 1) / DKV_BK, 1);
+  void* args[] = {&maps[0], &maps[1], &maps[2], &maps[3], &lse,
+                  &dd,      &dk,      &dv,      &h,       &h_kv,
+                  &sq,      &sk,      &d,       &st,      &q_off,
+                  &kv_off,  &causal,  &window,  (void*)&scale, &chunk};
+  return (int)cudaLaunchKernel(fn, dim3((unsigned)blocks), dim3(NT), args,
+                               smem, static_cast<cudaStream_t>(stream));
 }
 
 // What the compiler and the card made of a kernel: part 0 = dq, 1 = dk/dv,
-// at head dim d.  Writes registers per thread, local-memory bytes per
-// thread (spills), static and dynamic shared memory per block, and the
-// blocks that fit on one SM, to out[0..4].
+// at head dim d.  Writes registers per thread (as launched, before
+// setmaxnreg moves them to the consumers), local-memory bytes per thread
+// (spills), static and dynamic shared memory per block, and the blocks
+// that fit on one SM, to out[0..4].
 extern "C" int mpi4torch_flash_bwd_tc_props(int part, int d, int* out) {
   const void* fn;
   size_t smem;

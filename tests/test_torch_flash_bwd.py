@@ -228,7 +228,10 @@ def test_tc_operands_get_16_byte_rows():
     # A head stride of 12 elements, or storage one element off: copied.
     wide = torch.randn((1, 8, 2, 12)).to(bf)[..., :8]
     flat = torch.randn(1 * 8 * 2 * 8 + 1).to(bf)[1:].view(1, 8, 2, 8)
-    for t in (wide, flat):
+    # A KV head broadcast over the group (stride 0), which no TMA map
+    # takes: copied too.
+    shared = torch.randn((1, 8, 1, 8)).to(bf).expand(1, 8, 2, 8)
+    for t in (wide, flat, shared):
         c = _kernels._rows_aligned(t)
         assert c is not t and torch.equal(c, t) and c.is_contiguous()
         assert c.data_ptr() % 16 == 0
