@@ -12,6 +12,17 @@ that the distributed loss and gradient equal the single-device oracle
 on the full batch, while the router itself learns.  float64 on the CPU,
 float32 on a GPU.
 
+Two forms.  :func:`main` is the JAX package's: top-1 routing with a
+capacity (tokens past it are dropped), gelu experts with biases, and
+every rank holding every expert's leaves, which ``moe_ffn`` slices.
+:func:`main_topk` is the dropless top-k form (``moe_topk_ffn``): each
+token goes to its ``K`` most probable SwiGLU experts with renormalised
+gates and none is dropped, and each rank holds only its own experts'
+leaves (``expert_shard``).  Those leaves are not averaged: their
+gradient, from every rank's tokens, arrives whole over the ragged
+``Alltoall``'s adjoint, while the replicated router's gradient is the
+rank mean.
+
 Run:  python -m mpi4torch_tpu_torch.examples.expert_parallel_moe
       [nranks] [--cpu]
 """
@@ -22,7 +33,10 @@ import numpy as np
 import torch
 
 import mpi4torch_tpu_torch as mpi
-from mpi4torch_tpu_torch.parallel import init_moe, moe_ffn, moe_ffn_dense
+from mpi4torch_tpu_torch.parallel import (expert_shard, init_moe,
+                                          init_moe_topk, moe_ffn,
+                                          moe_ffn_dense, moe_topk_ffn,
+                                          moe_topk_ffn_dense)
 from mpi4torch_tpu_torch.utils.tree import tree_map, value_and_grad
 
 comm = mpi.COMM_WORLD
@@ -87,6 +101,60 @@ def main():
     return losses
 
 
+K = 2   # experts a token in the dropless form
+
+
+def main_topk():
+    """The dropless top-k form: the same regressor, each rank holding
+    ``N_EXP_PER_RANK`` experts' leaves of its own."""
+    rank, size = comm.rank, comm.size
+    _, x, y = make_problem(size, comm.device)
+    full = init_moe_topk(1, N_EXP_PER_RANK * size, D, D_FF, dtype=x.dtype,
+                         device=comm.device)
+    rtol = RTOL[x.dtype]
+    xs, ys = (t[rank * T_LOCAL:(rank + 1) * T_LOCAL] for t in (x, y))
+    mine = expert_shard(comm, full)
+    lo, hi = rank * N_EXP_PER_RANK, (rank + 1) * N_EXP_PER_RANK
+
+    def dense_loss(p):
+        return torch.sum((moe_topk_ffn_dense(x, p, K) + x - y) ** 2) \
+            / x.shape[0]
+
+    def ep_loss(p):
+        local = torch.sum((moe_topk_ffn(comm, xs, p, K) + xs - ys) ** 2)
+        return comm.Allreduce(local, mpi.MPI_SUM) / x.shape[0]
+
+    losses = []
+    for _ in range(N_STEPS):
+        ref_l, ref_g = value_and_grad(dense_loss, full)
+        loss, g = value_and_grad(ep_loss, mine)
+        np.testing.assert_allclose(loss.item(), ref_l.item(), rtol=rtol)
+        # Every rank seeds 1, so each gradient comes out size x the
+        # oracle's: the replicated router is averaged over the ranks
+        # (the sum / size), the rank's own experts are divided by size.
+        g["router"] = comm.Allreduce(g["router"], mpi.MPI_SUM) / size
+        g["w1"], g["w2"] = g["w1"] / size, g["w2"] / size
+        for name in ("w1", "w2"):
+            np.testing.assert_allclose(
+                g[name].cpu().numpy(), ref_g[name][lo:hi].cpu().numpy(),
+                rtol=rtol * 100, atol=rtol)
+        np.testing.assert_allclose(g["router"].cpu().numpy(),
+                                   ref_g["router"].cpu().numpy(),
+                                   rtol=rtol * 100, atol=rtol)
+        mine = tree_map(lambda a, b: a - LR * b, mine, g)
+        full = tree_map(lambda a, b: a - LR * b, full, ref_g)
+        losses.append(loss.item())
+    assert losses[-1] < 0.9 * losses[0], (losses[0], losses[-1])
+    return losses
+
+
+def run_topk(nranks: int = 4, device=None):
+    """Run :func:`main_topk` on ``nranks`` rank threads."""
+    outs = mpi.run_ranks(main_topk, nranks, device=device)
+    assert all(o == outs[0] for o in outs), "ranks diverged"
+    return outs[0]
+
+
 def run(nranks: int = 4, device=None):
     """Run :func:`main` on ``nranks`` rank threads; every rank must see
     the same loss trajectory."""
@@ -98,6 +166,11 @@ def run(nranks: int = 4, device=None):
 if __name__ == "__main__":
     args = [a for a in sys.argv[1:] if a != "--cpu"]
     n = int(args[0]) if args else 4
-    losses = run(n, device="cpu" if "--cpu" in sys.argv else None)
+    dev = "cpu" if "--cpu" in sys.argv else None
+    losses = run(n, device=dev)
     print(f"OK: {n} ranks, EP == dense oracle each step, loss "
           f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    losses = run_topk(n, device=dev)
+    print(f"OK: {n} ranks, dropless top-{K} EP with sharded experts == "
+          f"dense oracle each step, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}")

@@ -27,7 +27,24 @@ axes of one mesh at once (``comm_from_mesh(mesh, "dp")``, ``"sp"``,
 ``"ep"``), each rank taking its token slice by the axes' symbolic ranks,
 and every mesh position ends a step with the same loss and parameters.
 Decoding an MoE configuration runs the dense-expert form
-(``moe_ffn_dense``).  Besides the SGD ``train_step`` there are the
+(``moe_ffn_dense``).
+
+Two MoE forms.  ``moe="capacity"`` is the JAX package's top-1 gelu MoE,
+kept for its parity tests: every rank holds every expert's leaves,
+``moe_ffn`` slices them, and ``train_step`` averages them over
+``comm_ep`` like any replicated leaf.  ``moe="dropless"`` is the form of
+today's large open MoE models (Mellum2, Qwen-MoE): a float32 softmax
+router, ``experts_per_token`` experts a token with renormalised gates,
+SwiGLU experts, no token dropped (``parallel.moe.moe_topk_ffn``: sorted
+assignments, the ragged ``Alltoall`` there and back, grouped expert
+products).  Its expert leaves are sharded: each ep rank passes
+:func:`shard_experts` of the whole tree, holding ``E / ep`` experts, and
+``train_step`` leaves them out of the ``comm_ep`` average; their
+gradient arrives whole over the ``Alltoall``'s adjoint.  Per-layer
+attention kinds (``layer_types``: sliding layers with ``attn_window``
+and the default rope, full layers without a window and with YaRN) and
+a ``head_dim`` apart from ``d_model // n_heads`` serve the same
+models.  Besides the SGD ``train_step`` there are the
 ZeRO-1 and ZeRO-3 steps (``zero_train_step``, ``zero3_train_step``) over
 the port's functional optimizers (``utils/optim.py``).
 """
@@ -48,7 +65,8 @@ from ..ops.flash import flash_attention, flash_block_attention
 from ..parallel.attention import (ring_attention, ulysses_attention,
                                   zigzag_ring_attention, zigzag_slice)
 from ..parallel.dp import all_average_tree
-from ..parallel.moe import init_moe, moe_ffn, moe_ffn_dense
+from ..parallel.moe import (expert_shard, init_moe, init_moe_topk, moe_ffn,
+                            moe_ffn_dense, moe_topk_ffn)
 from ..parallel.ring import ring_shift
 from ..runtime import resolve_device
 from ..utils import threefry
@@ -56,12 +74,35 @@ from ..obs.trace import step_phase
 from ..utils.tree import tree_map, value_and_grad
 
 
+_LAYER_KINDS = ("sliding", "full")
+_MOE_FORMS = ("capacity", "dropless")
+# YaRN's rotation counts bounding the blended frequencies (its defaults,
+# which Hugging Face transformers also takes).
+YARN_BETA_FAST = 32.0
+YARN_BETA_SLOW = 1.0
+
+
 @dataclass(frozen=True)
 class TransformerConfig:
     """Static model hyperparameters, validated as in the JAX package.
-    ``n_experts > 0`` makes every block's FFN a top-1 MoE with that many
+    ``n_experts > 0`` makes every block's FFN a MoE with that many
+    experts.  ``moe="capacity"`` (the JAX package's form) is top-1 over
     gelu experts: ``capacity`` slots per (expert, source rank), and the
-    load-balancing loss weighted by ``aux_coef`` in :func:`lm_loss`."""
+    load-balancing loss weighted by ``aux_coef`` in :func:`lm_loss`.
+    ``moe="dropless"`` routes each token to its ``experts_per_token``
+    most probable SwiGLU experts (gates renormalised, nothing dropped, no
+    auxiliary loss; ``parallel.moe.moe_topk_ffn``), and needs
+    ``ffn="swiglu"``.
+
+    The port's own fields, whose defaults keep the JAX package's model:
+    ``head_dim`` (0: ``d_model // n_heads``; otherwise q is ``n_heads *
+    head_dim`` wide against the ``d_model`` residual), ``norm_eps``,
+    ``layer_types`` (one ``"sliding"`` or ``"full"`` a layer; empty: every
+    layer sliding; a sliding layer takes ``attn_window``, a full one sees
+    every earlier key) and the full layers' YaRN rope (``yarn_factor`` >
+    0 over ``yarn_original_max`` positions, with YaRN's defaults: beta
+    32 and 1, attention factor ``0.1 ln factor + 1``), as Hugging Face
+    transformers computes it."""
     vocab: int
     d_model: int
     n_heads: int
@@ -78,9 +119,44 @@ class TransformerConfig:
     capacity: int = 0
     aux_coef: float = 0.01
     remat: bool = False
+    head_dim: int = 0
+    norm_eps: float = 1e-5
+    layer_types: tuple = ()
+    yarn_factor: float = 0.0
+    yarn_original_max: int = 0
+    moe: str = "capacity"
+    experts_per_token: int = 1
 
     def __post_init__(self):
-        if self.n_experts > 0 and self.capacity <= 0:
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
+        if self.moe not in _MOE_FORMS:
+            raise ValueError(f"unknown moe form {self.moe!r}")
+        if self.moe == "dropless":
+            if self.n_experts <= 0 or self.ffn != "swiglu":
+                raise ValueError(
+                    "moe='dropless' needs n_experts > 0 and ffn='swiglu' "
+                    "(its experts are SwiGLU)")
+            if not 1 <= self.experts_per_token <= self.n_experts:
+                raise ValueError(
+                    f"experts_per_token={self.experts_per_token} must lie "
+                    f"in [1, n_experts={self.n_experts}]")
+        elif self.experts_per_token != 1:
+            raise ValueError("the capacity form routes top-1; "
+                             "experts_per_token > 1 needs moe='dropless'")
+        if self.head_dim < 0:
+            raise ValueError(f"head_dim must be >= 0, got {self.head_dim}")
+        if self.layer_types and (
+                len(self.layer_types) != self.n_layers
+                or any(t not in _LAYER_KINDS for t in self.layer_types)):
+            raise ValueError(
+                f"layer_types must give one of {_LAYER_KINDS} for each of "
+                f"the {self.n_layers} layers, got {self.layer_types}")
+        if self.yarn_factor and (self.yarn_factor <= 1.0 or not self.rope
+                                 or self.yarn_original_max <= 0):
+            raise ValueError(
+                "yarn_factor > 1 needs rope=True and yarn_original_max > 0")
+        if self.moe == "capacity" and self.n_experts > 0 and \
+                self.capacity <= 0:
             raise ValueError(
                 f"n_experts={self.n_experts} requires capacity > 0, got "
                 f"{self.capacity}")
@@ -93,15 +169,16 @@ class TransformerConfig:
             raise ValueError(
                 f"attn_window must be >= 0 (0 = full causal attention), "
                 f"got {self.attn_window}")
-        if self.rope and (self.d_model // self.n_heads) % 2 != 0:
+        if self.rope and self.head_size % 2 != 0:
             raise ValueError(
-                f"rope requires an even head_dim, got "
-                f"{self.d_model // self.n_heads}")
+                f"rope requires an even head_dim, got {self.head_size}")
         if self.norm not in ("layernorm", "rmsnorm"):
             raise ValueError(f"unknown norm {self.norm!r}")
         if self.ffn not in ("gelu", "swiglu"):
             raise ValueError(f"unknown ffn {self.ffn!r}")
-        if self.ffn == "swiglu" and self.n_experts > 0:
+        if self.ffn == "swiglu" and self.n_experts > 0 and \
+                self.moe == "capacity":
+            # The JAX package's message: its one MoE is the capacity form.
             raise ValueError(
                 "ffn='swiglu' applies to the dense FFN; the MoE experts "
                 "(n_experts > 0) keep their own gelu expert MLPs")
@@ -109,6 +186,24 @@ class TransformerConfig:
     @property
     def kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
+
+    @property
+    def head_size(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def q_width(self) -> int:
+        """Width of the queries and of the attention output: ``n_heads *
+        head_size`` (``d_model`` unless ``head_dim`` says otherwise)."""
+        return self.n_heads * self.head_size
+
+    def layer_kind(self, i: int) -> str:
+        return self.layer_types[i] if self.layer_types else "sliding"
+
+    def layer_window(self, i: int) -> int:
+        """Layer ``i``'s attention window: ``attn_window`` on a sliding
+        layer, 0 (every earlier key) on a full one."""
+        return self.attn_window if self.layer_kind(i) == "sliding" else 0
 
 
 def init_transformer(generator, cfg: TransformerConfig,
@@ -121,8 +216,10 @@ def init_transformer(generator, cfg: TransformerConfig,
     in the JAX package's key order (embed, pos — drawn even under rope,
     so the stream does not shift — unembed, then per layer wqkv, wo, and
     w1, w2 or, with ``n_experts > 0``, the MoE leaves ``blk["moe"]``:
-    gate, w1, w2); the numbers differ from JAX's, since the generators
-    do."""
+    gate, w1, w2, or router, w1, w2 in the dropless form); the numbers
+    differ from JAX's, since the generators do.  The dropless form's
+    ``blk["moe"]`` holds every expert: an expert-parallel rank keeps its
+    :func:`shard_experts`."""
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
@@ -147,14 +244,17 @@ def init_transformer(generator, cfg: TransformerConfig,
         params["pos"] = pos
     params["ln_f"] = norm_p()
     params["unembed"] = dense(d_model, cfg.vocab)
-    hd = d_model // cfg.n_heads
+    hd = cfg.head_size
     blocks = []
     for _ in range(cfg.n_layers):
         blk = {"ln1": norm_p(),
-               "wqkv": dense(d_model, d_model + 2 * cfg.kv_heads * hd),
-               "wo": dense(d_model, d_model),
+               "wqkv": dense(d_model, cfg.q_width + 2 * cfg.kv_heads * hd),
+               "wo": dense(cfg.q_width, d_model),
                "ln2": norm_p()}
-        if cfg.n_experts > 0:
+        if cfg.moe == "dropless":
+            blk["moe"] = init_moe_topk(generator, cfg.n_experts, d_model,
+                                       d_ff, dtype, dev)
+        elif cfg.n_experts > 0:
             blk["moe"] = init_moe(generator, cfg.n_experts, d_model, d_ff,
                                   dtype, dev)
         else:
@@ -191,30 +291,78 @@ def params_to_numpy(tree):
     return tree_map(leaf, tree)
 
 
+def shard_experts(cfg: TransformerConfig, params, comm_ep):
+    """This rank's parameters for dropless expert-parallel training over
+    ``comm_ep``: every block's ``moe`` cut to the rank's ``E / size``
+    experts (``parallel.moe.expert_shard``), the rest as it is."""
+    if cfg.moe != "dropless":
+        raise ValueError("only the dropless MoE keeps its experts sharded")
+    return {**params, "blocks": [{**blk, "moe": expert_shard(comm_ep,
+                                                             blk["moe"])}
+                                 for blk in params["blocks"]]}
+
+
 def _layer_norm(x, p):
     mu = x.mean(dim=-1, keepdim=True)
     var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
     return (x - mu) / torch.sqrt(var + 1e-5) * p["scale"] + p["bias"]
 
 
-def _rms_norm(x, p):
+def _rms_norm(x, p, eps=1e-5):
     ms = (x * x).mean(dim=-1, keepdim=True)
-    return x / torch.sqrt(ms + 1e-5) * p["scale"]
+    return x / torch.sqrt(ms + eps) * p["scale"]
 
 
 def _norm(cfg: TransformerConfig, x, p):
-    return _rms_norm(x, p) if cfg.norm == "rmsnorm" else _layer_norm(x, p)
+    return _rms_norm(x, p, cfg.norm_eps) if cfg.norm == "rmsnorm" \
+        else _layer_norm(x, p)
 
 
-def _rope_rotate(cfg: TransformerConfig, x, positions):
-    """Rotary position embedding (half-split convention).  ``positions``
-    is ``(s,)``, or ``(b, s)`` for per-row positions (continuous-batching
-    decode)."""
+def yarn_ramp(cfg: TransformerConfig, hd: int, dtype=torch.float32,
+              device=None):
+    """YaRN's blend of each rotary pair ``i < hd / 2``: 0 keeps the
+    frequency, 1 divides it by ``yarn_factor``.  The correction range
+    of Hugging Face transformers' ``_compute_yarn_parameters``: ``low =
+    floor(d(YARN_BETA_FAST))``, ``high = ceil(d(YARN_BETA_SLOW))``, clamped to
+    ``[0, hd - 1]``, with ``d(r) = hd ln(L / (2 pi r)) / (2 ln theta)``
+    at the original context ``L``; the ramp ``(i - low) / (high - low)``
+    clamped to ``[0, 1]``."""
+    def dim(rot):
+        return hd * math.log(cfg.yarn_original_max / (rot * 2 * math.pi)) \
+            / (2 * math.log(cfg.rope_theta))
+
+    low = max(math.floor(dim(YARN_BETA_FAST)), 0)
+    high = min(math.ceil(dim(YARN_BETA_SLOW)), hd - 1)
+    if low == high:
+        high += 0.001
+    i = torch.arange(hd // 2, dtype=dtype, device=device)
+    return ((i - low) / (high - low)).clamp(0, 1)
+
+
+def rope_inv_freq(cfg: TransformerConfig, hd: int, kind: str = "sliding",
+                  dtype=torch.float32, device=None):
+    """``(inv_freq (hd / 2,), scale)`` of a layer of ``kind``: the default
+    rope ``theta^(-2 i / hd)`` and scale 1, or on a full layer under
+    YaRN the blend ``inv / factor * ramp + inv * (1 - ramp)``
+    (:func:`yarn_ramp`) and the attention factor, by which cos and sin
+    are multiplied."""
+    inv = cfg.rope_theta ** (
+        -torch.arange(hd // 2, dtype=dtype, device=device) * 2.0 / hd)
+    if kind != "full" or not cfg.yarn_factor:
+        return inv, 1.0
+    ramp = yarn_ramp(cfg, hd, dtype, device)
+    inv = inv / cfg.yarn_factor * ramp + inv * (1 - ramp)
+    return inv, 0.1 * math.log(cfg.yarn_factor) + 1.0
+
+
+def _rope_rotate(cfg: TransformerConfig, x, positions, kind="sliding"):
+    """Rotary position embedding (half-split convention) of a layer of
+    ``kind`` (:func:`rope_inv_freq`).  ``positions`` is ``(s,)``, or
+    ``(b, s)`` for per-row positions (continuous-batching decode)."""
     hd = x.shape[-1]
     half = hd // 2
     ct = torch.promote_types(x.dtype, torch.float32)
-    inv = cfg.rope_theta ** (
-        -torch.arange(half, dtype=ct, device=x.device) * 2.0 / hd)
+    inv, scale = rope_inv_freq(cfg, hd, kind, ct, x.device)
     positions = torch.as_tensor(positions, device=x.device)
     if positions.dim() == 1:
         ang = positions.to(ct)[:, None] * inv[None, :]
@@ -224,17 +372,21 @@ def _rope_rotate(cfg: TransformerConfig, x, positions):
         ang = positions.to(ct)[..., None] * inv
         cos = torch.cos(ang)[:, :, None, :]
         sin = torch.sin(ang)[:, :, None, :]
+    if scale != 1.0:
+        cos, sin = cos * scale, sin * scale
     x1, x2 = x[..., :half].to(ct), x[..., half:].to(ct)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
 
 
-def _split_qkv(cfg: TransformerConfig, blk, y, positions=None):
+def _split_qkv(cfg: TransformerConfig, blk, y, positions=None,
+               kind="sliding"):
     """Project ``y`` (b, s, d) through the fused qkv matrix into ``q``
-    (b, s, h, hd) and ``k``/``v`` (b, s, kv_heads, hd)."""
+    (b, s, h, hd) and ``k``/``v`` (b, s, kv_heads, hd), rotated as a
+    layer of ``kind``."""
     b, s = y.shape[0], y.shape[1]
     h, h_kv = cfg.n_heads, cfg.kv_heads
-    hd = cfg.d_model // h
+    hd = cfg.head_size
     qkv = y @ blk["wqkv"]
     q = qkv[..., :h * hd].reshape(b, s, h, hd)
     k = qkv[..., h * hd:(h + h_kv) * hd].reshape(b, s, h_kv, hd)
@@ -242,8 +394,8 @@ def _split_qkv(cfg: TransformerConfig, blk, y, positions=None):
     if cfg.rope:
         if positions is None:
             raise ValueError("cfg.rope requires the caller's positions")
-        q = _rope_rotate(cfg, q, positions)
-        k = _rope_rotate(cfg, k, positions)
+        q = _rope_rotate(cfg, q, positions, kind)
+        k = _rope_rotate(cfg, k, positions, kind)
     return q, k, v
 
 
@@ -256,7 +408,8 @@ def _ffn_local(cfg: TransformerConfig, blk, y):
     return F.gelu(y @ blk["w1"], approximate="tanh") @ blk["w2"]
 
 
-def _ffn_residual(cfg: TransformerConfig, blk, x, comm_ep=None):
+def _ffn_residual(cfg: TransformerConfig, blk, x, comm_ep=None,
+                  layer: int = 0):
     """Post-attention FFN with pre-LN and residual; returns ``(x, aux)``.
     With ``n_experts > 0`` the FFN is the MoE over the flattened tokens:
     expert-parallel over ``comm_ep`` of size > 1, else all experts local
@@ -264,8 +417,14 @@ def _ffn_residual(cfg: TransformerConfig, blk, x, comm_ep=None):
     FFN's ``aux`` is None.  Capacity competes over exactly the tokens in
     ``x`` (a whole batch x sequence in training and prefill, one
     position's batch in decode), so the two can drop different tokens
-    when capacity binds."""
+    when capacity binds.  The dropless form (``moe_topk_ffn``, whose
+    ``aux`` is None) drops nothing; ``layer`` labels its counters."""
     y = _norm(cfg, x, blk["ln2"])
+    if cfg.moe == "dropless":
+        comm = comm_ep if _sharded(comm_ep) else None
+        ff = moe_topk_ffn(comm, y.reshape(-1, x.shape[-1]), blk["moe"],
+                          cfg.experts_per_token, layer)
+        return x + ff.reshape(x.shape), None
     if cfg.n_experts > 0:
         flat = y.reshape(-1, x.shape[-1])
         if comm_ep is not None and comm_ep.size > 1:
@@ -278,21 +437,22 @@ def _ffn_residual(cfg: TransformerConfig, blk, x, comm_ep=None):
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, dtype, device):
     """Per-layer K/V cache ``(batch, max_seq, kv_heads, head_dim)``."""
-    hd = cfg.d_model // cfg.n_heads
+    hd = cfg.head_size
     shape = (batch, cfg.max_seq, cfg.kv_heads, hd)
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
             for _ in range(cfg.n_layers)]
 
 
-def _window_bucket(cfg: TransformerConfig) -> int:
+def _window_bucket(cfg: TransformerConfig, window=None) -> int:
     """Length of the cache slice decode attends: the smallest power of
-    two >= the sliding window (capped at max_seq), or the whole buffer
-    without a window."""
-    if not cfg.attn_window:
+    two >= the sliding window (``window``, else ``cfg.attn_window``;
+    capped at max_seq), or the whole buffer without a window."""
+    window = cfg.attn_window if window is None else window
+    if not window:
         return cfg.max_seq
     bucket = 1
-    while bucket < cfg.attn_window:
+    while bucket < window:
         bucket *= 2
     return min(bucket, cfg.max_seq)
 
@@ -313,12 +473,13 @@ def decode_step(cfg: TransformerConfig, params, cache, tokens, pos: int):
     x = params["embed"][tokens]
     if not cfg.rope:
         x = x + params["pos"][pos]
-    win = cfg.attn_window
-    bucket = _window_bucket(cfg)
     positions = torch.tensor([pos], dtype=torch.int32, device=x.device)
-    for blk, c in zip(params["blocks"], cache):
+    for i, (blk, c) in enumerate(zip(params["blocks"], cache)):
+        win = cfg.layer_window(i)
+        bucket = _window_bucket(cfg, win)
         y = _norm(cfg, x, blk["ln1"])
-        q, k_new, v_new = _split_qkv(cfg, blk, y[:, None, :], positions)
+        q, k_new, v_new = _split_qkv(cfg, blk, y[:, None, :], positions,
+                                     cfg.layer_kind(i))
         # The cache dtype is authoritative (a serving cache may be
         # narrower than the parameters).
         c["k"][:, pos] = k_new[:, 0].to(c["k"].dtype)
@@ -333,8 +494,8 @@ def decode_step(cfg: TransformerConfig, params, cache, tokens, pos: int):
         o, _ = flash_block_attention(q, kk, vv, causal=True, q_offset=pos,
                                      kv_offset=start, window=win,
                                      impl="torch")
-        x = x + o.reshape(b, cfg.d_model).to(x.dtype) @ blk["wo"]
-        x, _ = _ffn_residual(cfg, blk, x)
+        x = x + o.reshape(b, cfg.q_width).to(x.dtype) @ blk["wo"]
+        x, _ = _ffn_residual(cfg, blk, x, layer=i)
     x = _norm(cfg, x, params["ln_f"])
     return x @ params["unembed"], cache
 
@@ -349,14 +510,14 @@ def prefill(cfg: TransformerConfig, params, cache, prompt):
     if not cfg.rope:
         x = x + params["pos"][None, :p_len]
     positions = torch.arange(p_len, dtype=torch.int32, device=x.device)
-    for blk, c in zip(params["blocks"], cache):
+    for i, (blk, c) in enumerate(zip(params["blocks"], cache)):
         y = _norm(cfg, x, blk["ln1"])
-        q, k, v = _split_qkv(cfg, blk, y, positions)
+        q, k, v = _split_qkv(cfg, blk, y, positions, cfg.layer_kind(i))
         c["k"][:, :p_len] = k.to(c["k"].dtype)
         c["v"][:, :p_len] = v.to(c["v"].dtype)
-        o = flash_attention(q, k, v, causal=True, window=cfg.attn_window)
-        x = x + o.reshape(b, p_len, cfg.d_model) @ blk["wo"]
-        x, _ = _ffn_residual(cfg, blk, x)
+        o = flash_attention(q, k, v, causal=True, window=cfg.layer_window(i))
+        x = x + o.reshape(b, p_len, cfg.q_width) @ blk["wo"]
+        x, _ = _ffn_residual(cfg, blk, x, layer=i)
     x = _norm(cfg, x, params["ln_f"])
     return x[:, -1] @ params["unembed"], cache
 
@@ -533,21 +694,21 @@ def forward(cfg: TransformerConfig, params, tokens, comm_sp=None,
             x = x + params["pos"].index_select(0, positions)[None]
         else:
             x = x + params["pos"][None, offset:offset + s_local]
-    d = x.shape[-1]
+    width = cfg.q_width
 
-    def block_fn(x, blk):
+    def block_fn(x, blk, i):
         y = _norm(cfg, x, blk["ln1"])
-        q, k, v = _split_qkv(cfg, blk, y, positions)
-        o = _attention(q, k, v, comm_sp, attn, cfg.attn_window)
-        x = x + o.reshape(b, s_local, d) @ blk["wo"]
-        return _ffn_residual(cfg, blk, x, comm_ep)
+        q, k, v = _split_qkv(cfg, blk, y, positions, cfg.layer_kind(i))
+        o = _attention(q, k, v, comm_sp, attn, cfg.layer_window(i))
+        x = x + o.reshape(b, s_local, width) @ blk["wo"]
+        return _ffn_residual(cfg, blk, x, comm_ep, i)
 
     aux_total = None
-    for blk in params["blocks"]:
+    for i, blk in enumerate(params["blocks"]):
         if cfg.remat:
-            x, aux = checkpoint(block_fn, x, blk, use_reentrant=False)
+            x, aux = checkpoint(block_fn, x, blk, i, use_reentrant=False)
         else:
-            x, aux = block_fn(x, blk)
+            x, aux = block_fn(x, blk, i)
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
     x = _norm(cfg, x, params["ln_f"])
@@ -618,12 +779,12 @@ def lm_loss(cfg: TransformerConfig, params, tokens, comm_sp=None,
         raise ValueError(
             f"vocab_chunk={vocab_chunk} must divide vocab={cfg.vocab}")
     want_hidden = bool(vocab_chunk) and vocab_chunk < cfg.vocab
-    if cfg.n_experts > 0:
+    if cfg.n_experts > 0 and cfg.moe == "capacity":
         out, aux = forward(cfg, params, tokens, comm_sp, attn,
                            comm_ep=comm_ep, return_aux=True,
                            return_hidden=want_hidden)
     else:
-        out = forward(cfg, params, tokens, comm_sp, attn,
+        out = forward(cfg, params, tokens, comm_sp, attn, comm_ep=comm_ep,
                       return_hidden=want_hidden)
         aux = None
 
@@ -679,6 +840,52 @@ def _mean_over(comm, loss):
                   comm.size)
 
 
+class _GradScale(torch.autograd.Function):
+    """The identity forward (the same tensor's values, no copy); the
+    backward multiplies the gradient by ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def _split_experts(p):
+    """``(replicated, experts)``: the tree without the dropless experts'
+    ``w1``/``w2``, and those leaves, one dictionary a block."""
+    blocks = [{**blk, "moe": {"router": blk["moe"]["router"]}}
+              for blk in p["blocks"]]
+    experts = [{"w1": blk["moe"]["w1"], "w2": blk["moe"]["w2"]}
+               for blk in p["blocks"]]
+    return {**p, "blocks": blocks}, experts
+
+
+def _join_experts(rep, experts):
+    return {**rep, "blocks": [{**blk, "moe": {**blk["moe"], **e}}
+                              for blk, e in zip(rep["blocks"], experts)]}
+
+
+def _average_params(cfg, p, comm_dp, comm_sp, comm_ep):
+    """The parameters every rank computes with: averaged over
+    ``comm_dp``, ``comm_sp`` and ``comm_ep``, an Allreduce whose adjoint
+    makes each rank's gradient the axis mean.  Dropless experts sharded
+    over ``comm_ep`` are not averaged over it: their gradient reaches
+    them whole over the Alltoall's adjoint, from every rank's tokens,
+    and is scaled by ``1 / ep`` to the gradient of the ep-mean loss."""
+    if cfg.moe != "dropless" or not _sharded(comm_ep):
+        return _average(comm_ep, _average(comm_sp, _average(comm_dp, p)))
+    rep, experts = _split_experts(p)
+    rep = _average(comm_ep, _average(comm_sp, _average(comm_dp, rep)))
+    inv = 1.0 / comm_ep.size
+    experts = tree_map(lambda t: _GradScale.apply(t, inv),
+                       _average(comm_sp, _average(comm_dp, experts)))
+    return _join_experts(rep, experts)
+
+
 def train_step(cfg: TransformerConfig, params, tokens, comm_sp=None,
                comm_dp=None, attn: str = "ring", lr: float = 1e-2,
                comm_ep=None):
@@ -691,13 +898,16 @@ def train_step(cfg: TransformerConfig, params, tokens, comm_sp=None,
     (ranks holding other data).  Over sp the loss is already the
     sp-summed global loss: each rank's cotangents come out ``sp`` times
     too large and the parameter average's ``1/sp`` cancels it.  Over ep
-    the experts, sliced per rank inside ``moe_ffn``, are logically
-    replicated leaves like the rest.  The gradient comes from
+    the capacity form's experts, sliced per rank inside ``moe_ffn``, are
+    logically replicated leaves like the rest; the dropless form's are
+    sharded (each rank passes its :func:`shard_experts`) and stay
+    unaveraged (:func:`_average_params`), while its replicated leaves
+    ride the same fused buckets.  The gradient comes from
     :func:`torch.autograd.grad`; the update is ``p - lr * g``."""
     _check_parallel(attn)
 
     def global_loss(p):
-        p = _average(comm_ep, _average(comm_sp, _average(comm_dp, p)))
+        p = _average_params(cfg, p, comm_dp, comm_sp, comm_ep)
         loss = lm_loss(cfg, p, tokens, comm_sp, attn, comm_ep=comm_ep)
         return _mean_over(comm_ep, _mean_over(comm_dp, loss))
 

@@ -52,9 +52,9 @@ from .flight import dump_postmortem, format_postmortem
 from .reconcile import (equivalent_tier_wire, equivalent_wire,
                         measured_wire_table, reconcile)
 from .metrics import (MetricsRegistry, StatsSourceRegistry, metrics_json,
-                      percentile, prometheus_text, register_collector,
-                      registry, reset_metrics, snapshot)
-from .trace import (CommTracer, current_tracer, push_label,
+                      percentile, prometheus_text, record_moe,
+                      register_collector, registry, reset_metrics, snapshot)
+from .trace import (CommTracer, current_tracer, moe_range, push_label,
                     spmd_collective_event, step_phase, trace)
 
 __all__ = [
@@ -68,6 +68,8 @@ __all__ = [
     "current_tracer",
     "push_label",
     "step_phase",
+    "moe_range",
+    "record_moe",
     "spmd_collective_event",
     "MetricsRegistry",
     "StatsSourceRegistry",

@@ -44,6 +44,7 @@ __all__ = [
     "prometheus_text",
     "reset_metrics",
     "percentile",
+    "record_moe",
 ]
 
 PROM_PREFIX = "mpi4torch_"
@@ -303,6 +304,28 @@ def metrics_json() -> str:
 
 def prometheus_text() -> str:
     return _registry.prometheus_text()
+
+
+def record_moe(layer: int, computed: int, sent: int,
+               load_max_over_mean: float) -> None:
+    """One rank's counts of one forward of a dropless MoE layer
+    (``parallel/moe.py``, while a tracer is installed), labelled by
+    layer: ``moe_assignments_total`` (token-expert assignments this
+    rank's experts computed), ``moe_assignments_sent_total`` (rows this
+    rank sent to the other ranks' experts) and the gauge
+    ``moe_expert_load_max_over_mean`` (the busiest expert's assignments
+    over the mean expert's, over every rank's tokens)."""
+    lab = f'{{layer="{int(layer)}"}}'
+    reg = registry()
+    reg.inc("moe_assignments_total" + lab, computed,
+            help="token-expert assignments computed by this process's "
+                 "experts")
+    reg.inc("moe_assignments_sent_total" + lab, sent,
+            help="assignment rows sent to another rank's experts")
+    reg.set_gauge("moe_expert_load_max_over_mean" + lab,
+                  load_max_over_mean,
+                  help="the busiest expert's assignments over the mean "
+                       "expert's, last forward")
 
 
 def reset_metrics() -> None:

@@ -65,6 +65,7 @@ __all__ = [
     "push_label",
     "current_label",
     "step_phase",
+    "moe_range",
     "current_phase",
 ]
 
@@ -202,6 +203,37 @@ class _StepPhase:
         tracer._add_span(StepSpan(world=self._key[0], rank=self._key[1],
                                   step=self._step, phase=self.phase,
                                   t_start=self._t0, t_end=t1))
+        return False
+
+
+def moe_range(stage: str):
+    """Context manager: the profiler range ``mpi4torch.moe.<stage>`` of
+    one stage of the dropless expert-parallel MoE layer (``route``,
+    ``dispatch``, ``experts``, ``combine``; ``parallel/moe.py``), open
+    only when :func:`step_phase` would be: a tracer installed and no
+    program being recorded.  Off, it costs one attribute read."""
+    return _MoeRange(stage)
+
+
+class _MoeRange:
+    __slots__ = ("name", "_rf")
+
+    def __init__(self, stage: str):
+        self.name = f"mpi4torch.moe.{stage}"
+        self._rf = None
+
+    def __enter__(self):
+        if _config.comm_tracer() is None or \
+                _config.program_stream() is not None:
+            return self
+        self._rf = profiler_range(self.name)
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+            self._rf = None
         return False
 
 

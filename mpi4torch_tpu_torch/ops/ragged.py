@@ -178,7 +178,7 @@ def _validated_scalar_count(opname: str, x, count):
     return capacity, count.clamp(0, capacity)
 
 
-def ragged_alltoall(comm, x, send_counts) -> Tuple:
+def ragged_alltoall(comm, x, send_counts, recv_counts=None) -> Tuple:
     """All-to-all with per-destination-varying segment sizes (the
     MPI_Alltoallv analogue).
 
@@ -189,17 +189,27 @@ def ragged_alltoall(comm, x, send_counts) -> Tuple:
     Returns ``(recv, recv_counts)``: ``recv[s]`` is the block rank ``s``
     sent here (``(size, capacity, *feat)``), with invalid slots zeroed;
     ``recv_counts[s]`` its valid length.  Differentiable in ``x``; padding
-    slots get zero gradient."""
+    slots get zero gradient.  A caller that already knows what every rank
+    sends here (the MoE dispatch, which exchanged its counts to size
+    ``capacity``) passes ``recv_counts``, and vouches that ``x``'s slots
+    past ``send_counts`` hold zeros and that its receivers read no slot
+    past ``recv_counts``: the counts' own exchange and the masking copy
+    are then left out, and the padding carries its zeros both ways."""
     size = comm.size
     capacity = _validated_rowblock("ragged_alltoall", x, size)
     send_counts = _validated_counts_vector("ragged_alltoall send_counts",
                                            send_counts, size, capacity,
                                            x.device)
-    xz = _masked(x, send_counts, capacity)
+    xz = x if recv_counts is not None else _masked(x, send_counts,
+                                                     capacity)
     # Gather sources along a fresh axis, keep my destination block:
     # (size, cap, *feat) -> my (1, size*cap, *feat), source-major.
     recv = comm.Alltoall(xz, gatheraxis=1, scatteraxis=0, numelem=1)
     recv = recv.reshape((size, capacity) + tuple(x.shape[2:]))
+    if recv_counts is not None:
+        return recv, _validated_counts_vector(
+            "ragged_alltoall recv_counts", recv_counts, size, capacity,
+            x.device)
     rc = comm.Alltoall(send_counts.reshape(size, 1), gatheraxis=1,
                        scatteraxis=0, numelem=1)
     return recv, rc.reshape(size)

@@ -50,6 +50,12 @@ def test_expert_parallel_moe_example(n):
 
 
 @pytest.mark.parametrize("n", [2, 4])
+def test_expert_parallel_moe_example_dropless_topk(n):
+    losses = moe_ex.run_topk(n, device="cpu")
+    assert len(losses) == moe_ex.N_STEPS and losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("n", [2, 4])
 def test_tensor_parallel_mlp_example(n):
     losses = tp_ex.run(n, device="cpu")
     assert len(losses) == tp_ex.N_STEPS and losses[-1] < losses[0]
